@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: counterpart of
-`alphatriangle_tpu/cli.py`'s `serve` subcommand.
+`alphatriangle_tpu/cli.py`'s `serve` and `train` subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
@@ -8,6 +8,16 @@
 Serves simulated sessions through `PolicyService` over the default
 board and net: an untrained net (seed 0) or a state dict written by
 `torch.save(flax_to_torch(variables), PATH)`. Prints one JSON report.
+
+    python -m alphatriangle_tpu_torch.cli train --fused-megastep
+        [--max-steps N] [--self-play-batch B] [--batch-size B]
+        [--buffer-capacity N] [--min-buffer N] [--rollout-chunk T]
+        [--fused-learner-steps K] [--seed S] [--device cuda]
+
+Trains the default board and net through `run_training` in fused
+megastep mode (the only loop mode ported yet; without the flag the
+command exits non-zero). Prints one JSON report: steps, losses, rows
+ingested, episodes and timings.
 """
 
 import argparse
@@ -69,6 +79,33 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0 if stats["sessions_served"] >= args.sessions else 1
 
 
+def cmd_train(args: argparse.Namespace) -> int:
+    from .config import TrainConfig
+    from .training import EXIT_CODES, run_training
+    from .training.setup import ONLY_MEGASTEP
+
+    if not args.fused_megastep:
+        print(f"train: {ONLY_MEGASTEP}", file=sys.stderr)
+        return 2
+    overrides = {"FUSED_MEGASTEP": True}
+    for flag, field in (
+        ("seed", "RANDOM_SEED"),
+        ("max_steps", "MAX_TRAINING_STEPS"),
+        ("self_play_batch", "SELF_PLAY_BATCH_SIZE"),
+        ("batch_size", "BATCH_SIZE"),
+        ("buffer_capacity", "BUFFER_CAPACITY"),
+        ("min_buffer", "MIN_BUFFER_SIZE_TO_TRAIN"),
+        ("rollout_chunk", "ROLLOUT_CHUNK_MOVES"),
+        ("fused_learner_steps", "FUSED_LEARNER_STEPS"),
+    ):
+        value = getattr(args, flag)
+        if value is not None:
+            overrides[field] = value
+    loop = run_training(TrainConfig(**overrides), device=args.device)
+    print(json.dumps(loop.report()))
+    return EXIT_CODES[loop.status]
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="alphatriangle_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -90,6 +127,26 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Weights from nn/convert.py saved with torch.save "
                        "(default: the untrained net of seed 0).")
     serve.set_defaults(fn=cmd_serve)
+
+    train = sub.add_parser(
+        "train",
+        help="Self-play training of the default board and net in fused megastep "
+        "mode: rollout chunk + ring ingest + PER draw + K learner steps per iteration.",
+    )
+    train.add_argument("--max-steps", type=int, default=None)
+    train.add_argument("--self-play-batch", type=int, default=None)
+    train.add_argument("--batch-size", type=int, default=None)
+    train.add_argument("--buffer-capacity", type=int, default=None)
+    train.add_argument("--min-buffer", type=int, default=None)
+    train.add_argument("--rollout-chunk", type=int, default=None)
+    train.add_argument("--fused-learner-steps", type=int, default=None, metavar="K",
+                       help="Learner steps per megastep.")
+    train.add_argument("--fused-megastep", action="store_true",
+                       help="Fused megastep loop (the only loop mode ported yet).")
+    train.add_argument("--seed", type=int, default=None, help="Random seed.")
+    train.add_argument("--device", default="cuda",
+                       help="Torch device (default cuda; 'cpu' runs the plain versions).")
+    train.set_defaults(fn=cmd_train)
     return parser
 
 

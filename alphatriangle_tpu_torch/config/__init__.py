@@ -3,6 +3,7 @@
 from .env_config import EnvConfig
 from .mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
 from .model_config import ModelConfig
+from .train_config import TrainConfig
 from .validation import (
     EXPLICIT_FEATURES_DIM,
     FEATURES_PER_SHAPE,
@@ -16,5 +17,6 @@ __all__ = [
     "FEATURES_PER_SHAPE",
     "MCTSConfig",
     "ModelConfig",
+    "TrainConfig",
     "expected_other_features_dim",
 ]

@@ -1,6 +1,11 @@
 """Batched wave-parallel PUCT search and its visit-count helpers."""
 
-from .helpers import policy_target_from_visits, root_actions, select_root_actions
+from .helpers import (
+    policy_target_from_visits,
+    root_actions,
+    select_action_from_visits,
+    select_root_actions,
+)
 from .search import BatchedMCTS, SearchOutput, Tree
 
 __all__ = [
@@ -9,5 +14,6 @@ __all__ = [
     "Tree",
     "policy_target_from_visits",
     "root_actions",
+    "select_action_from_visits",
     "select_root_actions",
 ]

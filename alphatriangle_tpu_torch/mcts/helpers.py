@@ -1,9 +1,11 @@
 """Visit-count post-processing: counterpart of
 `alphatriangle_tpu/mcts/helpers.py` (`select_root_actions`,
-`policy_target_from_visits`)."""
+`policy_target_from_visits`, `select_action_from_visits`)."""
 
 import numpy as np
 import torch
+
+from .. import rng
 
 
 def policy_target_from_visits(
@@ -31,3 +33,27 @@ def root_actions(output) -> torch.Tensor:
 def select_root_actions(output) -> np.ndarray:
     """`root_actions` as NumPy (one host fetch)."""
     return root_actions(output).cpu().numpy()
+
+
+def select_action_from_visits(
+    visit_counts: torch.Tensor, temperature, key: torch.Tensor
+) -> torch.Tensor:
+    """(B, A) visit counts -> (B,) int32 sampled actions.
+
+    T <= 1e-8 plays the greedy argmax (first maximum); T > 0 samples
+    proportionally to counts^(1/T) as the Gumbel-argmax of
+    log(counts) / T. Zero-count actions are never chosen, and a row
+    with no visits gives the sentinel -1 (callers clamp it: finished
+    games). `temperature` is a float or a (B,) tensor; `key` is one key
+    on the CPU, drawn through `rng.gumbel`.
+    """
+    counts = visit_counts.to(torch.float32)
+    temp = torch.as_tensor(temperature, dtype=torch.float32, device=counts.device)
+    temp = temp.expand(counts.shape[:-1])[..., None]
+    log_counts = torch.where(counts > 0, torch.log(counts), float("-inf"))
+    greedy = torch.argmax(log_counts, dim=-1)
+    gumbel = rng.gumbel(key, tuple(counts.shape), device=counts.device)
+    sampled = torch.argmax(log_counts / temp.clamp(min=1e-6) + gumbel, dim=-1)
+    chosen = torch.where(temp[..., 0] <= 1e-8, greedy, sampled)
+    any_visits = counts.sum(dim=-1) > 0
+    return torch.where(any_visits, chosen, -1).to(torch.int32)

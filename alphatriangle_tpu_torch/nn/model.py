@@ -245,7 +245,7 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = Dense(dim, dim, dtype)
         self.out = Dense(dim, dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
         b, t, _ = x.shape
         h, hd = self.heads, self.head_dim
 
@@ -258,14 +258,33 @@ class MultiHeadDotProductAttention(nn.Module):
         q = q / torch.tensor(math.sqrt(hd), dtype=q.dtype)
         logits = torch.matmul(q, k.transpose(-1, -2))
         weights = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        if dropout is not None:
+            # Flax broadcasts the attention-weight mask over batch and
+            # heads, and scales by 1/keep in the compute dtype.
+            rate, gen = dropout
+            keep = 1.0 - rate
+            mask = torch.rand((t, t), generator=gen, device=x.device) < keep
+            weights = weights * (mask.to(self.dtype) / torch.tensor(keep, dtype=self.dtype))
         y = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, h * hd)
         return self.out(y)
 
 
-class TransformerEncoderLayer(nn.Module):
-    """Pre-norm encoder layer (inference: dropout is the identity)."""
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+    """`flax.linen.Dropout` in train mode: keep each element with
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, dim, heads, mlp_dim, act, dtype):
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-norm encoder layer. In `train()` mode dropout of `dropout_rate`
+    applies to the attention weights and to the inputs of both residual
+    adds (and between the two MLP denses), as in the Flax layer, with
+    masks drawn from the generator the caller passes; in `eval()` mode
+    it is the identity."""
+
+    def __init__(self, dim, heads, mlp_dim, act, dtype, dropout_rate: float = 0.1):
         super().__init__()
         self.LayerNorm_0 = LayerNorm(dim, dtype)
         self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, heads, dtype)
@@ -273,11 +292,21 @@ class TransformerEncoderLayer(nn.Module):
         self.Dense_0 = Dense(dim, mlp_dim, dtype)
         self.Dense_1 = Dense(mlp_dim, dim, dtype)
         self.act = act
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        x = x + self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x))
-        y = self.Dense_1(self.act(self.Dense_0(self.LayerNorm_1(x))))
-        return x + y
+    def forward(self, x, generator: "torch.Generator | None" = None):
+        rate = self.dropout_rate if self.training else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError("train-mode dropout needs an explicit torch.Generator")
+
+        def drop(y):
+            return dropout(y, rate, generator) if rate > 0.0 else y
+
+        attn_drop = (rate, generator) if rate > 0.0 else None
+        y = self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x), dropout=attn_drop)
+        x = x + drop(y)
+        y = drop(self.act(self.Dense_0(self.LayerNorm_1(x))))
+        return x + drop(self.Dense_1(y))
 
 
 class MLPHead(nn.Module):
@@ -356,9 +385,14 @@ class AlphaTriangleNet(nn.Module):
             fan_in, cfg.VALUE_HEAD_DIMS, cfg.NUM_VALUE_ATOMS, cfg.NORM_TYPE, act, dtype
         )
 
-    def forward(self, grid: torch.Tensor, other: torch.Tensor):
+    def forward(
+        self, grid: torch.Tensor, other: torch.Tensor, generator: "torch.Generator | None" = None
+    ):
         """(B, C, H, W) grid + (B, F) extras -> (B, A) policy logits,
-        (B, NUM_VALUE_ATOMS) value logits, both float32."""
+        (B, NUM_VALUE_ATOMS) value logits, both float32. In `train()`
+        mode the transformer's dropout draws its masks from `generator`;
+        the norms have no batch statistics to update (the learner refuses
+        NORM_TYPE="batch")."""
         x = grid.to(self.dtype)
         for i in range(self.n_conv_blocks):
             x = getattr(self, f"ConvBlock_{i}")(x)
@@ -371,7 +405,7 @@ class AlphaTriangleNet(nn.Module):
             tokens = x.permute(0, 2, 3, 1).reshape(b, -1, d)  # NHWC token order
             tokens = tokens + self.positional
             for i in range(self.n_layers):
-                tokens = getattr(self, f"TransformerEncoderLayer_{i}")(tokens)
+                tokens = getattr(self, f"TransformerEncoderLayer_{i}")(tokens, generator)
             flat = self.LayerNorm_0(tokens).reshape(b, -1)
         else:
             flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)

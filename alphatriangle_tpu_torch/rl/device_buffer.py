@@ -1,0 +1,136 @@
+"""Device-resident experience replay: counterpart of
+`alphatriangle_tpu/rl/device_buffer.py` (`ring_scatter`,
+`DeviceReplayBuffer`) on CUDA tensors.
+
+The ring lives on the card: grid int8 (cells are exactly {-1, 0, 1}),
+everything else float32, plus one trash row at index `capacity` that
+absorbs the scatters of invalid rows. Ingest flattens a rollout chunk's
+masked experience blocks (still on the card), validates them and writes
+the valid ones at consecutive ring slots from the running cursor; only
+the row count reaches the host, which is all the SumTree mirror needs:
+rows occupy slots `[cursor, cursor + count) % capacity` in order and
+enter at the max-priority watermark.
+
+`ring_scatter` updates the storage tensors in place (nothing else holds
+the old ring, which the JAX version replaces functionally). Writes at
+distinct slots are deterministic on the card; the trash row takes many
+writes in no defined order, which is harmless because it is never
+sampled.
+"""
+
+import numpy as np
+import torch
+
+from ..config.train_config import TrainConfig
+from .buffer import ExperienceBuffer
+
+# Canonical field order of experience row blocks (the names the rollout
+# emits for its `mat` / `flush` outputs) and the ring column each fills.
+_BLOCK_FIELDS = (
+    ("grid", "grid"),
+    ("other", "other_features"),
+    ("policy", "policy_target"),
+    ("ret", "value_target"),
+    ("pw", "policy_weight"),
+)
+
+
+def ring_scatter(
+    storage: dict[str, torch.Tensor],
+    cursor: int,
+    blocks: tuple,
+    cap: int,
+):
+    """Flatten + validate + ring-scatter experience blocks, in place.
+
+    Each block holds tensors with arbitrary leading dims (the rollout's
+    (T, B) matured and (T, B, n) flushed outputs) plus a boolean `mask`
+    over them. Rows are written in block order, leading-dims-major.
+    A single ingest larger than the ring keeps only the newest `cap`
+    valid rows (`offsets >= count - cap`), so the kept slots are
+    distinct; the cursor still advances by the full count. Returns
+    (rows written (a 0-d int64 tensor on the ring's device), per-row
+    scatter slots, keep mask)."""
+
+    def flat(block, name):
+        lead = block["mask"].dim()
+        v = block[name]
+        return v.reshape((-1,) + tuple(v.shape[lead:]))
+
+    rows = {name: torch.cat([flat(b, name) for b in blocks]) for name, _ in _BLOCK_FIELDS}
+    mask = torch.cat([b["mask"].reshape(-1) for b in blocks])
+    valid = (
+        mask
+        & torch.isfinite(rows["grid"]).flatten(1).all(dim=1)
+        & torch.isfinite(rows["other"]).all(dim=1)
+        & torch.isfinite(rows["policy"]).all(dim=1)
+        & torch.isfinite(rows["ret"])
+        & ((rows["policy"].sum(dim=1) - 1.0).abs() < 1e-3)
+    )
+    offsets = torch.cumsum(valid.to(torch.int64), dim=0) - 1
+    count = valid.sum()
+    keep = valid & (offsets >= count - cap)
+    pos = torch.where(keep, (cursor + offsets) % cap, cap)
+    for name, column in _BLOCK_FIELDS:
+        dst = storage[column]
+        dst.index_put_((pos,), rows[name].to(dst.dtype))
+    return count, pos, keep
+
+
+class DeviceReplayBuffer(ExperienceBuffer):
+    """PER/uniform replay whose ring lives in the card's memory; the
+    host keeps the counters and the SumTree mirror (rl/buffer.py)."""
+
+    is_device = True
+
+    def __init__(
+        self,
+        config: TrainConfig,
+        grid_shape: tuple[int, int, int],
+        other_dim: int,
+        action_dim: int,
+        device,
+    ):
+        super().__init__(config)
+        cap = self.capacity
+        self.device = torch.device(device)
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self.storage: dict[str, torch.Tensor] = {
+            "grid": zeros(cap + 1, *grid_shape, dtype=torch.int8),
+            "other_features": zeros(cap + 1, other_dim),
+            "policy_target": zeros(cap + 1, action_dim),
+            "value_target": zeros(cap + 1),
+            "policy_weight": torch.ones(cap + 1, dtype=torch.float32, device=self.device),
+        }
+        # Ingests this ring ran outside the megastep (warm-up chunks).
+        self.dispatch_count = 0
+
+    def record_ingest(self, count: int, max_priority: "float | None" = None) -> np.ndarray:
+        """Mirror `count` rows written at the cursor: the SumTree gets
+        them at `max_priority` (the tree's watermark when None), then the
+        counters advance. Returns their slots."""
+        slots = (self._pos + np.arange(count)) % self.capacity
+        if self.tree is not None and count:
+            p = self.tree.max_priority if max_priority is None else max_priority
+            self.tree.update_batch(slots, np.full(count, p, dtype=np.float64))
+            self.tree.data_pointer = int((self._pos + count) % self.capacity)
+            self.tree.n_entries = min(self._size + count, self.capacity)
+        self._pos = int((self._pos + count) % self.capacity)
+        self._size = min(self._size + count, self.capacity)
+        return slots
+
+    def _ingest_blocks(self, blocks: tuple) -> tuple[int, np.ndarray]:
+        """Scatter blocks into the ring; returns (rows written, slots)."""
+        count_dev, _, _ = ring_scatter(self.storage, self._pos, blocks, self.capacity)
+        self.dispatch_count += 1
+        count = int(count_dev)  # the one blocking scalar fetch
+        return count, self.record_ingest(count)
+
+    def ingest_payload(self, payload: dict) -> int:
+        """Fold one rollout chunk's device-resident experience blocks
+        (`SelfPlayEngine.play_moves_device`) into the ring. Returns the
+        number of rows written."""
+        return self._ingest_blocks((payload["mat"], payload["flush"]))[0]

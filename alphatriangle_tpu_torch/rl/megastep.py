@@ -1,0 +1,213 @@
+"""Fused megastep, single device: counterpart of
+`alphatriangle_tpu/rl/megastep.py` (`MegastepRunner._sample_indices`,
+`_impl`, `_max_priority_watermark`, `sync_priorities_from_host`,
+`run_megastep`).
+
+One megastep is, on one device and with no host sync between stages:
+
+1. `selfplay.chunk`: a rollout chunk (`SelfPlayEngine._chunk`) searched
+   with the learner's live module in eval mode (no copy of the weights,
+   so no staleness to track);
+2. `ring.ingest`: `ring_scatter` of the chunk's experience blocks into
+   the device ring, and max-priority init of the fresh rows in the
+   device priority array (trash slot pinned to 0);
+3. `per.sample`: the stratified PER draw of K batches
+   (`ops.per_sample`, whose count is the hand-written kernel on the
+   card) with beta-annealed, max-normalised importance weights, or a
+   uniform draw without PER;
+4. `learner.steps`: K learner steps on batches gathered from the ring;
+5. `per.update`: the K steps' TD errors written back as priorities in
+   step order, duplicates within a step resolved last-write-wins.
+
+Each stage runs under a `torch.profiler.record_function` label of that
+name. The outputs (rows added, episode stats, trace, metrics, TD
+errors, sampled slots) reach the host in one copy at the end
+(`utils.transfer.fetch`), after which the host SumTree mirror replays
+the ingest at the same pre-megastep watermark and the TD updates in
+the same order. The search itself keeps the host syncs it already had.
+"""
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .. import rng
+from ..config.train_config import TrainConfig
+from ..ops.per_sample import per_sample
+from ..utils.transfer import fetch
+from .device_buffer import DeviceReplayBuffer, ring_scatter
+
+
+def last_write_slots(idx: torch.Tensor, trash: int) -> torch.Tensor:
+    """(B,) slots with every write that a later one in the row repeats
+    sent to `trash`, so an `index_put_` keeps exactly the last write of
+    each slot (the card gives repeated indices no defined winner)."""
+    b = idx.shape[0]
+    same = idx[:, None] == idx[None, :]
+    later = torch.ones((b, b), dtype=torch.bool, device=idx.device).triu(1)
+    overwritten = (same & later).any(dim=1)
+    return torch.where(overwritten, trash, idx)
+
+
+class MegastepRunner:
+    """Binds one (engine, trainer, device ring) triple; the training
+    loop's megastep mode drives it once per iteration."""
+
+    def __init__(self, engine, trainer, buffer: DeviceReplayBuffer, train_config: TrainConfig):
+        if not getattr(buffer, "is_device", False):
+            raise ValueError("MegastepRunner needs the device-resident replay ring")
+        precision = trainer.nn.model_config.INFERENCE_PRECISION
+        if precision != "float32":
+            raise ValueError(f"INFERENCE_PRECISION={precision!r} is not ported yet; use 'float32'")
+        if engine.net.model is not trainer.model:
+            raise ValueError("the rollout engine must search with the learner's module")
+        if not (engine.device == buffer.device == trainer.device):
+            raise ValueError(
+                f"engine ({engine.device}), ring ({buffer.device}) and learner "
+                f"({trainer.device}) must share one device"
+            )
+        self.engine = engine
+        self.trainer = trainer
+        self.buffer = buffer
+        self.config = train_config
+        self.device = buffer.device
+        self.batch_size = train_config.BATCH_SIZE
+        self.cap = buffer.capacity
+        self.use_per = train_config.USE_PER
+        self.per_alpha = float(train_config.PER_ALPHA)
+        self.per_epsilon = float(train_config.PER_EPSILON)
+        self.beta_initial = float(train_config.PER_BETA_INITIAL)
+        self.beta_final = float(train_config.PER_BETA_FINAL)
+        self.beta_anneal = float(train_config.PER_BETA_ANNEAL_STEPS or 1)
+        self.per_sample_backend = train_config.PER_SAMPLE_BACKEND
+        # Learner steps per megastep: LEARNER_STEPS_PER_ROLLOUT pins it.
+        self.steps_per_megastep = train_config.LEARNER_STEPS_PER_ROLLOUT or max(
+            1, train_config.FUSED_LEARNER_STEPS
+        )
+        # The device priority array, (cap + 1,) f32 with the trash slot
+        # at `cap` pinned to 0: the sampling truth inside a megastep.
+        # None until `sync_priorities_from_host` seeds it.
+        self._priorities: "torch.Tensor | None" = None
+        self.dispatch_count = 0  # megasteps run
+        self.last_idx: "np.ndarray | None" = None  # (K, B) slots of the last draw
+
+    # --- device stages -------------------------------------------------
+
+    def _beta(self, step: int) -> np.float32:
+        """Beta on the learner-step clock, in float32 as on the device."""
+        f32 = np.float32
+        frac = np.clip(f32(step) / f32(self.beta_anneal), f32(0), f32(1))
+        return f32(self.beta_initial) + frac * f32(self.beta_final - self.beta_initial)
+
+    def _sample_indices(self, priorities: torch.Tensor, size: torch.Tensor, k: int):
+        """(K, B) slots + IS weights, drawn on the device with one key
+        split off the learner's key."""
+        b = self.batch_size
+        keys = rng.split(self.trainer.state.rng)
+        self.trainer.state.rng, k_sample = keys[0], keys[1]
+        if self.use_per:
+            idx, probs = per_sample(priorities, self.cap, k, b, k_sample, mode=self.per_sample_backend)
+            beta = float(self._beta(self.trainer.state.step))
+            w = (size.to(torch.float32) * probs) ** (-beta)
+            weights = w / w.amax(dim=1, keepdim=True)
+        else:
+            u = rng.uniform(k_sample, (k, b), device=self.device)
+            idx = torch.floor(u * size.to(torch.float32)).long()
+            idx = torch.minimum(idx.clamp(min=0), (size - 1).clamp(min=0))
+            weights = torch.ones((k, b), dtype=torch.float32, device=self.device)
+        return idx, weights
+
+    def _impl(self, num_moves: int, k: int, max_priority: float) -> dict:
+        """The five stages; updates engine carry, ring, priorities and
+        learner in place and returns the outputs (still on the device)."""
+        engine, buf, trainer = self.engine, self.buffer, self.trainer
+        with record_function("selfplay.chunk"):
+            engine._carry, outs = engine._chunk(num_moves, engine._carry)
+        with record_function("ring.ingest"):
+            count, pos, keep = ring_scatter(
+                buf.storage, buf._pos, (outs.pop("mat"), outs.pop("flush")), self.cap
+            )
+            size = torch.clamp(buf._size + count, max=self.cap)
+            if self.use_per:
+                self._priorities.index_put_((pos,), torch.where(keep, max_priority, 0.0))
+                self._priorities[self.cap] = 0.0
+        with record_function("per.sample"):
+            idx, weights = self._sample_indices(self._priorities, size, k)
+        with record_function("learner.steps"):
+            metrics_k, td_k = trainer._train_steps_from_impl(buf.storage, idx, weights)
+        if self.use_per:
+            with record_function("per.update"):
+                for j in range(k):
+                    prio = (td_k[j].abs() + self.per_epsilon) ** self.per_alpha
+                    slots = last_write_slots(idx[j], self.cap)
+                    self._priorities.index_put_((slots,), prio.to(torch.float32))
+                self._priorities[self.cap] = 0.0
+        return {
+            "rows_added": count,
+            "episode": outs["episode"],
+            "trace": outs["trace"],
+            "sentinel_live": outs["sentinel_live"],
+            "metrics": metrics_k,
+            "td": td_k,
+            "idx": idx,
+        }
+
+    # --- host API ------------------------------------------------------
+
+    def _max_priority_watermark(self) -> float:
+        """The pre-megastep watermark fresh rows enter at; the host
+        mirror's reconciliation reuses the same value."""
+        tree = self.buffer.tree
+        return float(tree.max_priority) if tree is not None else 1.0
+
+    def sync_priorities_from_host(self) -> None:
+        """(Re)seed the device priority array from the host SumTree
+        mirror, after warm-up ingests or any other host-side write."""
+        p = np.zeros(self.cap + 1, np.float32)
+        tree = self.buffer.tree
+        if tree is not None:
+            p[: self.cap] = tree.tree[np.arange(self.cap) + tree._cap2]
+        self._priorities = torch.from_numpy(p).to(self.device)
+
+    @property
+    def priorities(self) -> "torch.Tensor | None":
+        return self._priorities
+
+    def run_megastep(self, num_moves: "int | None" = None, k: "int | None" = None):
+        """One megastep. Returns (per-step (metrics, TD errors) list, rows
+        ingested). Engine carry and episode stats, ring storage and
+        counters, the reconciled PER mirror and the learner all advance."""
+        t = int(num_moves or self.config.ROLLOUT_CHUNK_MOVES)
+        k = int(k or self.steps_per_megastep)
+        buf, engine, trainer = self.buffer, self.engine, self.trainer
+        if self._priorities is None:
+            self.sync_priorities_from_host()
+        max_p = self._max_priority_watermark()
+        start_step = trainer.state.step
+        out = self._impl(t, k, max_p)
+        self.dispatch_count += 1
+        host = fetch(out)  # the one transfer of the megastep
+
+        # --- host mirror reconciliation ---------------------------------
+        count = int(host["rows_added"])
+        if count > self.cap:
+            raise RuntimeError(
+                f"megastep ingested {count} rows into a {self.cap}-slot ring in one "
+                "scatter (shrink ROLLOUT_CHUNK_MOVES or grow BUFFER_CAPACITY)"
+            )
+        buf.record_ingest(count, max_priority=max_p)
+        if buf.tree is not None:
+            for j in range(k):
+                buf.update_priorities(host["idx"][j], host["td"][j])
+        self.last_idx = host["idx"]
+
+        # --- engine-side stats ------------------------------------------
+        engine.fold_chunk_stats(host)
+
+        # --- learner results --------------------------------------------
+        results = []
+        for i in range(k):
+            m = {key: float(v[i]) for key, v in host["metrics"].items()}
+            m["learning_rate"] = float(trainer.schedule(start_step + i + 1))
+            results.append((m, np.asarray(host["td"][i])))
+        return results, count

@@ -1,0 +1,349 @@
+"""Batched self-play: counterpart of `alphatriangle_tpu/rl/self_play.py`
+(`RolloutCarry`, `SelfPlayEngine`), the PUCT branch.
+
+One engine steps B games in lockstep on one device. A rollout chunk is
+`num_moves` moves of: features of every game, one batched
+`BatchedMCTS.search`, the policy target from the root visits, the
+maturing of the n-step window slot added n moves ago (bootstrapped with
+this search's root value), a temperature-scheduled action draw, one
+batched env step, the reward folded into every pending slot, the
+trailing flush of the windows of games that ended (or hit
+`MAX_EPISODE_MOVES`), and in-place resets of the finished games. Each
+move emits fixed-shape (B,) and (B, n) blocks with boolean masks and a
+small per-move `trace`; the chunk stacks them over its moves.
+
+The key schedule is the JAX engine's: `split(carry.rng, 5)` per move
+into (rng, search, select, reset, mode) keys, all single keys on the
+CPU, so the search and the draws replay the JAX package's streams.
+Gumbel root search, playout-cap randomization and subtree reuse are
+refused (the port's search refuses the first and the last). The chunk
+runs under `torch.no_grad()` with the net in eval mode; it fetches
+nothing until the caller asks (`play_chunk` fetches once).
+"""
+
+import logging
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import rng
+from ..config.mcts_config import MCTSConfig
+from ..config.train_config import TrainConfig
+from ..env.engine import EnvState, TriangleEnv
+from ..features.core import FeatureExtractor
+from ..mcts.helpers import policy_target_from_visits, select_action_from_visits
+from ..mcts.search import BatchedMCTS
+from ..utils.transfer import fetch
+from .types import SelfPlayResult
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class RolloutCarry:
+    """Rollout state carried across chunks (on the engine's device,
+    apart from the key and the move counter, which live on the host)."""
+
+    env: EnvState  # (B, ...) lockstep game states
+    rng: torch.Tensor  # (2,) CPU key
+    pend_grid: torch.Tensor  # (B, n, C, H, W) float32 pending features
+    pend_other: torch.Tensor  # (B, n, F) float32
+    pend_policy: torch.Tensor  # (B, n, A) float32 pending policy targets
+    pend_pweight: torch.Tensor  # (B, n) float32 policy-loss weight
+    pend_return: torch.Tensor  # (B, n) float32 discounted partial returns
+    pend_discount: torch.Tensor  # (B, n) float32 next-reward discounts
+    pend_active: torch.Tensor  # (B, n) bool slot occupancy
+    move_index: int  # global move counter
+
+
+def _stack(moves: list):
+    """Per-move output trees -> one tree stacked over the moves."""
+    first = moves[0]
+    if isinstance(first, dict):
+        return {k: _stack([m[k] for m in moves]) for k in first}
+    return torch.stack(moves)
+
+
+class SelfPlayEngine:
+    """B games played in lockstep, emitting n-step experiences."""
+
+    def __init__(
+        self,
+        env: TriangleEnv,
+        extractor: FeatureExtractor,
+        net,
+        mcts_config: MCTSConfig,
+        train_config: TrainConfig,
+        batch_size: "int | None" = None,
+        seed: int = 0,
+    ):
+        if mcts_config.fast_simulations is not None:
+            raise ValueError("playout cap randomization (fast_simulations) is not ported yet")
+        self.env = env
+        self.device = env.device
+        self.extractor = extractor
+        self.net = net
+        self.mcts = BatchedMCTS(env, extractor, net.model, mcts_config, net.support)
+        self.config = train_config
+        self.mcts_config = mcts_config
+        self.batch_size = batch_size or train_config.SELF_PLAY_BATCH_SIZE
+        self.n_step = train_config.N_STEP_RETURNS
+        self.gamma = train_config.GAMMA
+
+        b, n = self.batch_size, self.n_step
+        c = extractor.model_config.GRID_INPUT_CHANNELS
+        f = extractor.other_dim
+        a = env.action_dim
+        self._grid_shape = (c, env.rows, env.cols)
+        self._other_dim = f
+        self._action_dim = a
+
+        keys = rng.split(rng.PRNGKey(seed))
+        dev = self.device
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self._carry = RolloutCarry(
+            env=env.reset(rng.split(keys[1], b)),
+            rng=keys[0],
+            pend_grid=zeros(b, n, c, env.rows, env.cols),
+            pend_other=zeros(b, n, f),
+            pend_policy=zeros(b, n, a),
+            pend_pweight=torch.ones((b, n), dtype=torch.float32, device=dev),
+            pend_return=zeros(b, n),
+            pend_discount=torch.ones((b, n), dtype=torch.float32, device=dev),
+            pend_active=zeros(b, n, dtype=torch.bool),
+            move_index=0,
+        )
+        self._out: list = []
+        self._episode_scores: list[float] = []
+        self._episode_lengths: list[int] = []
+        self._episodes_played = 0
+        self._episodes_truncated = 0
+        self._total_simulations = 0
+        self.dispatch_count = 0  # chunks played through play_chunk
+        self.last_trace: "dict[str, np.ndarray] | None" = None
+
+    # --- one chunk on the device ------------------------------------------
+
+    def _temperatures(self, step_counts: torch.Tensor) -> torch.Tensor:
+        """Per-game move-indexed temperature."""
+        cfg = self.config
+        frac = torch.clamp(step_counts.to(torch.float32) / cfg.TEMPERATURE_ANNEAL_MOVES, max=1.0)
+        return cfg.TEMPERATURE_INITIAL + frac * (cfg.TEMPERATURE_FINAL - cfg.TEMPERATURE_INITIAL)
+
+    def _move_body(self, carry: RolloutCarry):
+        """One lockstep move of all B games. Updates the carry's window
+        tensors in place and returns (carry', this move's outputs)."""
+        n = self.n_step
+        w = carry.move_index % n
+        states = carry.env
+        keys = rng.split(carry.rng, 5)
+        new_rng, k_search, k_select, k_reset = keys[0], keys[1], keys[2], keys[3]
+
+        # 1-2. Features for replay + the batched search.
+        grids, others = self.extractor.extract(states)
+        out = self.mcts.search(states, k_search)
+        valid = self.env.valid_action_mask(states)
+        policy = policy_target_from_visits(out.visit_counts, valid)
+
+        # 3. Mature the slot added n moves ago, bootstrapped with this
+        # search's root value.
+        mat = {
+            "grid": carry.pend_grid[:, w].clone(),
+            "other": carry.pend_other[:, w].clone(),
+            "policy": carry.pend_policy[:, w].clone(),
+            "pw": carry.pend_pweight[:, w].clone(),
+            "ret": carry.pend_return[:, w] + carry.pend_discount[:, w] * out.root_value,
+            "mask": carry.pend_active[:, w].clone(),
+        }
+        pend_active = carry.pend_active
+        pend_active[:, w] = False
+
+        # 4. Temperature-scheduled action draw, one batched env step.
+        temps = self._temperatures(states.step_count)
+        actions = select_action_from_visits(out.visit_counts, temps, k_select)
+        # -1 (no root visits) only happens for finished games, where the
+        # step is a no-op; live-game sentinels are counted and reported.
+        sentinel_live = ((actions < 0) & ~states.done).sum(dtype=torch.int32)
+        actions = actions.clamp(min=0)
+        new_states, rewards, dones = self.env.step(states, actions)
+
+        # 5. This move's experience into window slot w.
+        carry.pend_grid[:, w] = grids
+        carry.pend_other[:, w] = others
+        carry.pend_policy[:, w] = policy
+        carry.pend_pweight[:, w] = 1.0
+        carry.pend_return[:, w] = 0.0
+        carry.pend_discount[:, w] = 1.0
+        pend_active[:, w] = True
+
+        # 6. Fold this move's reward into every pending experience.
+        pend_return = carry.pend_return + torch.where(
+            pend_active, carry.pend_discount * rewards[:, None], 0.0
+        )
+        pend_discount = torch.where(pend_active, carry.pend_discount * self.gamma, 1.0)
+
+        # 7. Trailing flush for finished (or move-capped) games.
+        step_counts = new_states.step_count
+        truncated = ~dones & (step_counts >= self.config.MAX_EPISODE_MOVES)
+        ending = dones | truncated
+        flush = {
+            "grid": carry.pend_grid.clone(),
+            "other": carry.pend_other.clone(),
+            "policy": carry.pend_policy.clone(),
+            "pw": carry.pend_pweight.clone(),
+            "ret": pend_return.clone(),  # the next move writes its slot in place
+            "mask": pend_active & ending[:, None],
+        }
+        pend_active = pend_active & ~ending[:, None]
+        episode = {
+            "ending": ending,
+            "truncated": truncated,
+            "score": new_states.score,
+            "length": step_counts,
+        }
+
+        # 8. Reset finished games in place; the batch never shrinks.
+        reset_states = self.env.reset_where_done(new_states.replace(done=ending), k_reset)
+        new_carry = RolloutCarry(
+            env=reset_states,
+            rng=new_rng,
+            pend_grid=carry.pend_grid,
+            pend_other=carry.pend_other,
+            pend_policy=carry.pend_policy,
+            pend_pweight=carry.pend_pweight,
+            pend_return=pend_return,
+            pend_discount=pend_discount,
+            pend_active=pend_active,
+            move_index=carry.move_index + 1,
+        )
+        outputs = {
+            "mat": mat,
+            "flush": flush,
+            "episode": episode,
+            "sentinel_live": sentinel_live,
+            "trace": {
+                "root_value": out.root_value,
+                "reward": rewards,
+                "ending": ending,
+                "wasted_slots": out.wasted_slots,
+            },
+        }
+        return new_carry, outputs
+
+    @torch.no_grad()
+    def _chunk(self, num_moves: int, carry: RolloutCarry):
+        """`num_moves` lockstep moves; returns (carry', outputs stacked
+        over the moves)."""
+        if isinstance(self.net.model, torch.nn.Module):
+            self.net.model.eval()
+        moves = []
+        for _ in range(num_moves):
+            carry, outputs = self._move_body(carry)
+            moves.append(outputs)
+        stacked = _stack(moves)
+        sims = self.mcts_config.max_simulations
+        stacked["trace"]["sims"] = torch.full((num_moves,), sims, dtype=torch.int32, device=self.device)
+        stacked["trace"]["is_full"] = torch.ones((num_moves,), dtype=torch.bool, device=self.device)
+        return carry, stacked
+
+    # --- host API ---------------------------------------------------------
+
+    def play_chunk(self, num_moves: "int | None" = None, fetch_experiences: bool = True):
+        """Advance every game `num_moves` moves. With
+        `fetch_experiences=False` the experience blocks stay on the
+        device and are returned as the payload for
+        `DeviceReplayBuffer.ingest_payload`; only the episode stats and
+        the trace are fetched (one copy). Returns that payload, or None."""
+        t = int(num_moves or self.config.ROLLOUT_CHUNK_MOVES)
+        self._carry, outputs = self._chunk(t, self._carry)
+        payload = None
+        if not fetch_experiences:
+            payload = {"mat": outputs.pop("mat"), "flush": outputs.pop("flush")}
+        host = fetch(outputs)
+        self.dispatch_count += 1
+        self.fold_chunk_stats(host)
+        if payload is not None:
+            return payload
+        for block in (host["mat"], host["flush"]):
+            m = block["mask"]
+            if m.any():
+                self._out.append(
+                    (
+                        block["grid"][m],
+                        block["other"][m],
+                        block["policy"][m],
+                        block["ret"][m].astype(np.float32),
+                        block["pw"][m].astype(np.float32),
+                    )
+                )
+        return None
+
+    def fold_chunk_stats(self, host: dict) -> None:
+        """The host tail of a chunk, over its fetched outputs: trace,
+        simulation counts, episode stats, the sentinel warning."""
+        self._total_simulations += int(host["trace"]["sims"].sum()) * self.batch_size
+        self.last_trace = host["trace"]
+        self._fold_episode_stats(host["episode"])
+        sentinels = int(host["sentinel_live"].sum())
+        if sentinels:
+            logger.warning(
+                "SelfPlay: %d zero-visit sentinel actions on LIVE games (clamped to action 0).",
+                sentinels,
+            )
+
+    def _fold_episode_stats(self, episode: dict) -> None:
+        """Accumulate finished-episode stats from one chunk's outputs."""
+        ending = episode["ending"]  # (T, B)
+        if ending.any():
+            self._episode_scores.extend(episode["score"][ending].astype(float).tolist())
+            self._episode_lengths.extend(episode["length"][ending].astype(int).tolist())
+            self._episodes_played += int(ending.sum())
+            self._episodes_truncated += int(episode["truncated"][ending].sum())
+
+    def play_moves(self, num_moves: int) -> SelfPlayResult:
+        """Advance all games `num_moves` moves and harvest experiences."""
+        self.play_chunk(num_moves)
+        return self.harvest()
+
+    def play_moves_device(self, num_moves: int) -> tuple[SelfPlayResult, dict]:
+        """Device-replay variant of `play_moves`: experiences stay on the
+        device. Returns (stats-only harvest, device payload)."""
+        payload = self.play_chunk(num_moves, fetch_experiences=False)
+        return self.harvest(), payload
+
+    def harvest(self) -> SelfPlayResult:
+        """Collect emitted experiences + episode stats since the last call."""
+        if self._out:
+            cols = [np.concatenate([o[i] for o in self._out]) for i in range(5)]
+        else:
+            c, h, w = self._grid_shape
+            cols = [
+                np.zeros((0, c, h, w), np.float32),
+                np.zeros((0, self._other_dim), np.float32),
+                np.zeros((0, self._action_dim), np.float32),
+                np.zeros((0,), np.float32),
+                np.zeros((0,), np.float32),
+            ]
+        result = SelfPlayResult(
+            grid=cols[0],
+            other_features=cols[1],
+            policy_target=cols[2],
+            value_target=cols[3],
+            policy_weight=cols[4],
+            episode_scores=self._episode_scores,
+            episode_lengths=self._episode_lengths,
+            num_episodes=self._episodes_played,
+            num_truncated=self._episodes_truncated,
+            total_simulations=self._total_simulations,
+        )
+        self._out = []
+        self._episode_scores = []
+        self._episode_lengths = []
+        self._episodes_played = 0
+        self._episodes_truncated = 0
+        self._total_simulations = 0
+        return result

@@ -1,0 +1,272 @@
+"""Learner: counterpart of `alphatriangle_tpu/rl/trainer.py` on one
+device (no mesh): LR schedules, the optimizer chain, the C51 target
+projection, the loss and the (fused) train steps.
+
+The learner trains the `NeuralNetwork`'s own module in place. The
+rollout reads the same module under `torch.no_grad()` in eval mode, so
+the weights it searches with are always the learner's newest (zero
+staleness, as the JAX megastep's in-program params). A step switches
+the module to train mode (transformer dropout on, masks from a
+`torch.Generator` seeded by the step's key) and back to eval mode, and
+leaves no autograd graph behind.
+
+The optimizer follows optax's chain as plain tensor functions:
+`clip_by_global_norm` (optax's formula, not `clip_grad_norm_`'s
+`+1e-6`), then `adamw` = scale_by_adam -> add_decayed_weights (every
+parameter, biases and norm scales included, by `WEIGHT_DECAY`; no
+torch default leaks in) -> scale by -schedule(count), with the schedule
+read at the pre-increment count. `Adam` and `SGD` fold the decay into
+the gradient first, as the JAX chains do. Schedules are evaluated on
+the host in float32, as optax evaluates them.
+"""
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from .. import rng
+from ..config.train_config import TrainConfig
+from ..utils.types import DenseBatch
+
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam / adamw defaults
+
+
+# --- schedule / optimizer ----------------------------------------------
+
+
+def make_lr_schedule(cfg: TrainConfig):
+    """count -> learning rate (float32 arithmetic, returned as float)."""
+    f32 = np.float32
+    init = f32(cfg.LEARNING_RATE)
+    if cfg.LR_SCHEDULER_TYPE == "CosineAnnealingLR":
+        t_max = cfg.LR_SCHEDULER_T_MAX or (cfg.MAX_TRAINING_STEPS or 100_000)
+        alpha = cfg.LR_SCHEDULER_ETA_MIN / cfg.LEARNING_RATE
+
+        def cosine(count: int) -> float:
+            c = f32(min(count, t_max))
+            decay = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(t_max)))
+            return float(init * (f32(1 - alpha) * decay + f32(alpha)))
+
+        return cosine
+    if cfg.LR_SCHEDULER_TYPE == "StepLR":
+        steps, gamma = cfg.LR_SCHEDULER_STEP_SIZE, f32(cfg.LR_SCHEDULER_GAMMA)
+
+        def step_lr(count: int) -> float:
+            if count <= 0:
+                return float(init)
+            return float(init * gamma ** np.floor(f32(count) / f32(steps)))
+
+        return step_lr
+    return lambda count: float(init)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """optax.global_norm: sqrt of the sum of every element squared."""
+    return torch.sqrt(torch.stack([(t * t).sum() for t in tensors]).sum())
+
+
+@dataclass
+class OptState:
+    """The optimizer's state: its step count and the Adam moments (one
+    tensor per parameter, in `model.parameters()` order)."""
+
+    count: int = 0
+    mu: list = field(default_factory=list)
+    nu: list = field(default_factory=list)
+
+
+class Optimizer:
+    """The optax chain of `make_optimizer` (alphatriangle_tpu/rl/trainer.py)."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.kind = cfg.OPTIMIZER_TYPE
+        self.schedule = make_lr_schedule(cfg)
+        self.weight_decay = cfg.WEIGHT_DECAY
+        self.clip = cfg.GRADIENT_CLIP_VALUE
+
+    def init(self, params) -> OptState:
+        if self.kind == "SGD":
+            return OptState()
+        return OptState(
+            mu=[torch.zeros_like(p) for p in params], nu=[torch.zeros_like(p) for p in params]
+        )
+
+    def update(self, grads, state: OptState, params):
+        """(grads, state, params) -> (updates, new state)."""
+        if self.clip is not None:
+            g_norm = global_norm(grads)
+            trigger = g_norm < self.clip
+            grads = [torch.where(trigger, g, (g / g_norm) * self.clip) for g in grads]
+        wd = self.weight_decay
+        if self.kind in ("Adam", "SGD"):
+            grads = [g + wd * p for g, p in zip(grads, params)]
+        mu, nu = state.mu, state.nu
+        if self.kind == "SGD":
+            updates = grads
+        else:
+            mu = [(1 - _B1) * g + _B1 * m for g, m in zip(grads, mu)]
+            nu = [(1 - _B2) * (g * g) + _B2 * v for g, v in zip(grads, nu)]
+            count_inc = np.float32(state.count + 1)
+            bc1 = float(np.float32(1) - np.float32(_B1) ** count_inc)
+            bc2 = float(np.float32(1) - np.float32(_B2) ** count_inc)
+            updates = [(m / bc1) / (torch.sqrt(v / bc2) + _EPS) for m, v in zip(mu, nu)]
+            if self.kind == "AdamW":
+                updates = [u + wd * p for u, p in zip(updates, params)]
+        step_size = -self.schedule(state.count)
+        updates = [step_size * u for u in updates]
+        return updates, OptState(count=state.count + 1, mu=mu, nu=nu)
+
+
+# --- C51 projection -----------------------------------------------------
+
+
+def project_to_support(
+    returns: torch.Tensor, num_atoms: int, v_min: float, v_max: float
+) -> torch.Tensor:
+    """(B,) scalar returns -> (B, num_atoms) two-hot target distribution."""
+    delta_z = (v_max - v_min) / (num_atoms - 1)
+    b = (returns.clamp(v_min, v_max) - v_min) / delta_z
+    lower = torch.floor(b).long()
+    upper = torch.ceil(b).long()
+    exact = lower == upper
+    w_lower = torch.where(exact, 1.0, upper.to(torch.float32) - b)
+    w_upper = torch.where(exact, 0.0, b - lower.to(torch.float32))
+    onehot_l = torch.nn.functional.one_hot(lower, num_atoms).to(torch.float32)
+    onehot_u = torch.nn.functional.one_hot(upper, num_atoms).to(torch.float32)
+    return onehot_l * w_lower[:, None] + onehot_u * w_upper[:, None]
+
+
+# --- train state / trainer ----------------------------------------------
+
+
+@dataclass
+class TrainState:
+    """The learner's host-side state; the parameters are the module's."""
+
+    opt_state: OptState
+    step: int  # learner steps taken
+    rng: torch.Tensor  # (2,) CPU key: one split per step and per PER draw
+
+
+def _generator(key: torch.Tensor, device) -> torch.Generator:
+    k0, k1 = (int(v) for v in key.tolist())
+    return torch.Generator(device=device).manual_seed((k0 << 32) | k1)
+
+
+class Trainer:
+    """Owns the learner state bound to one `NeuralNetwork`."""
+
+    def __init__(self, nn, train_config: TrainConfig):
+        if nn.model_config.NORM_TYPE == "batch":
+            raise ValueError(
+                "NORM_TYPE='batch' training (running-statistics updates) is not ported "
+                "yet; use 'group', 'layer' or 'none'"
+            )
+        self.nn = nn
+        self.config = train_config
+        self.model = nn.model
+        self.device = nn.device
+        self.params = list(self.model.parameters())
+        for p in self.params:
+            p.requires_grad_(True)
+        mc = nn.model_config
+        self.num_atoms = mc.NUM_VALUE_ATOMS
+        self.v_min, self.v_max = mc.VALUE_MIN, mc.VALUE_MAX
+        self.optimizer = Optimizer(train_config)
+        self.schedule = self.optimizer.schedule
+        self.state = TrainState(
+            opt_state=self.optimizer.init(self.params),
+            step=0,
+            rng=rng.PRNGKey(train_config.RANDOM_SEED),
+        )
+
+    # --- core -------------------------------------------------------------
+
+    def _loss_fn(self, batch: DenseBatch, generator: torch.Generator):
+        cfg = self.config
+        policy_logits, value_logits = self.model(
+            batch["grid"], batch["other_features"], generator=generator
+        )
+        log_policy = torch.log_softmax(policy_logits, dim=-1)
+        pw = batch["policy_weight"]
+        policy_ce = pw * -(batch["policy_target"] * log_policy).sum(dim=-1)
+        target = project_to_support(batch["value_target"], self.num_atoms, self.v_min, self.v_max)
+        value_ce = -(target * torch.log_softmax(value_logits, dim=-1)).sum(dim=-1)
+        entropy_rows = -(torch.exp(log_policy) * log_policy).sum(dim=-1)
+        entropy_term = (pw * entropy_rows).mean()
+        entropy_metric = (pw * entropy_rows).sum() / pw.sum().clamp(min=1.0)
+        w = batch["weights"]
+        per_row = cfg.POLICY_LOSS_WEIGHT * policy_ce + cfg.VALUE_LOSS_WEIGHT * value_ce
+        # The entropy regulariser is not IS-weighted (as in the reference).
+        total = (w * per_row).mean() - cfg.ENTROPY_BONUS_WEIGHT * entropy_term
+        aux = {
+            "total_loss": total,
+            "policy_loss": (w * policy_ce).mean(),
+            "value_loss": (w * value_ce).mean(),
+            "entropy": entropy_metric,
+            "td_errors": value_ce,
+        }
+        return total, aux
+
+    def _train_step_impl(self, batch: DenseBatch):
+        """One SGD step on the module; returns (metrics of 0-d device
+        tensors, per-row TD errors (B,))."""
+        state = self.state
+        keys = rng.split(state.rng)
+        self.model.train()
+        try:
+            with torch.enable_grad():
+                total, aux = self._loss_fn(batch, _generator(keys[1], self.device))
+                grads = torch.autograd.grad(total, self.params, allow_unused=True)
+            # A parameter the loss does not reach has a zero gradient (jax.grad's).
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
+        finally:
+            self.model.eval()
+        with torch.no_grad():
+            updates, opt_state = self.optimizer.update(grads, state.opt_state, self.params)
+            for p, u in zip(self.params, updates):
+                p.add_(u)
+            metrics = {
+                "total_loss": aux["total_loss"].detach(),
+                "policy_loss": aux["policy_loss"].detach(),
+                "value_loss": aux["value_loss"].detach(),
+                "entropy": aux["entropy"].detach(),
+                "grad_norm": global_norm(grads),
+                "update_norm": global_norm(updates),
+            }
+        self.state = TrainState(opt_state=opt_state, step=state.step + 1, rng=keys[0])
+        return metrics, aux["td_errors"].detach()
+
+    def _train_steps_impl(self, stacked: DenseBatch):
+        """K steps over the leading axis of `stacked`, in order; returns
+        (metrics of (K,) tensors, TD errors (K, B))."""
+        k = stacked["value_target"].shape[0]
+        outs = [self._train_step_impl({n: v[i] for n, v in stacked.items()}) for i in range(k)]
+        metrics = {name: torch.stack([m[name] for m, _ in outs]) for name in outs[0][0]}
+        return metrics, torch.stack([td for _, td in outs])
+
+    @staticmethod
+    def _stacked_rows_batch(rows: dict, weights: torch.Tensor) -> DenseBatch:
+        """(K, B, ...) ring rows -> the stacked batch; the int8 grid
+        casts back to float32 exactly."""
+        return {
+            "grid": rows["grid"].to(torch.float32),
+            "other_features": rows["other_features"],
+            "policy_target": rows["policy_target"],
+            "value_target": rows["value_target"],
+            "policy_weight": rows["policy_weight"],
+            "weights": weights,
+        }
+
+    def _train_steps_from_impl(self, storage: dict, idx: torch.Tensor, weights: torch.Tensor):
+        """K steps whose batches are gathered from the device ring at
+        (K, B) slots `idx`."""
+        rows = {name: v[idx] for name, v in storage.items()}
+        return self._train_steps_impl(self._stacked_rows_batch(rows, weights))
+
+    # --- host API ---------------------------------------------------------
+
+    @property
+    def global_step(self) -> int:
+        return self.state.step

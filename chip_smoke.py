@@ -10,12 +10,16 @@ which exits non-zero:
 1. Prints the card (`nvidia-smi` name and power limit), the torch and
    CUDA versions, and builds every kernel from `alphatriangle_tpu_torch/
    csrc/` (one `nvcc` per source, all started together).
-2. Kernels: at the flagship shapes of the serving path (B=64 slots,
-   N=65 node rows, A=360, W=32, D=8) each kernel must be bit-equal
-   (`torch.equal`) to its plain PyTorch version on the same card inputs,
-   the backup's inputs holding duplicate edges and inactive entries.
-   Times the kernel, its plain version and one library call with CUDA
-   events, and computes the least time the card could take.
+2. Kernels: at the flagship shapes of their paths each kernel must be
+   bit-equal (`torch.equal`) to its plain PyTorch version on the same
+   card inputs: the search's gather and backup at the serving path's
+   B=64 slots and the training path's B=512 lanes (N=65 node rows,
+   A=360, W=32, D=8; the backup's inputs holding duplicate edges and
+   inactive entries), and the PER count of the megastep
+   (250,000 priorities with zero runs and a zero trash slot, K=2 x
+   B=256 draws, some on segment edges). Times the kernel, its plain
+   version and one library call with CUDA events, and computes the least
+   time the card could take.
 3. Serve: the full-width default configuration (8x15 board, 3 slots,
    bf16 net of seed 0, 64 slots x 64 simulations, W=32, depth 8) through
    `run_simulated_load` -> `PolicyService.dispatch` for a few
@@ -23,9 +27,21 @@ which exits non-zero:
    its live lane, the search outputs must be finite, and the launch
    counters must show 16 `gather_rows` and 2 `backup_update` launches per
    dispatch.
-4. Reference: a small search on the card must give the visit counts of
+4. Train: the full-width default training configuration (512 lanes x
+   64 simulations, batch 256, a 250,000-slot ring, 5-step returns, PER,
+   AdamW with a cosine schedule) through `run_training` in fused
+   megastep mode, cut in depth only: 2-move chunks, 256 rows to start
+   training, K=2 learner steps per megastep, 4 megasteps. Losses must
+   be finite, the parameters must change, `per_sample` must launch once
+   per megastep and the search kernels 16 + 2 times per searched move,
+   and the device priorities, ring size and cursor must agree with the
+   host SumTree mirror. Then one more megastep runs under
+   `torch.profiler`.
+5. Reference: a small search on the card must give the visit counts of
    the same search on the CPU (plain versions), under a stub net whose
-   outputs are exact.
+   outputs are exact; and a tiny megastep (f32 net, TF32 off) must
+   ingest the same rows, draw the same slots and reach the same losses
+   on the card as on the CPU.
 
 Then one JSON line of kernel figures, the card line, `kernels: ...`, and
 as the last line `{"ok": true, "device": {...}}`.
@@ -41,6 +57,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SERVE_DISPATCHES = 8
 TIMED_LAUNCHES = 100
+# The train phase's cuts (depth only; every width is the default's).
+TRAIN_CHUNK_MOVES = 2
+TRAIN_MIN_BUFFER = 256
+TRAIN_K = 2
+TRAIN_MEGASTEPS = 4
 
 # Published HBM rates (NVIDIA data sheets), bytes/s, by card name.
 _HBM_RATES = (
@@ -111,17 +132,18 @@ def time_ms(fn, cycles_per_ms: float, iters: int = TIMED_LAUNCHES) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def kernel_phase(torch, dev, rate: float) -> dict:
+def search_kernels(torch, dev, rate: float, cycles: float, b: int) -> dict:
+    """The search's two kernels at B = `b` lanes (N=65, A=360, W=32,
+    D=8): bit-equality with the plain versions, then their times."""
     import importlib
 
     # The package re-exports the dispatchers under the modules' names.
     g = importlib.import_module("alphatriangle_tpu_torch.ops.gather_rows")
     mb = importlib.import_module("alphatriangle_tpu_torch.ops.mcts_backup")
 
-    b, n, a, w, d = 64, 65, 360, 32, 8
+    n, a, w, d = 65, 360, 32, 8
     k = 6 * a
     gen = torch.Generator(device=dev).manual_seed(0)
-    cycles = sleep_cycles_per_ms()
     report = {}
 
     # --- gather_rows ---
@@ -131,7 +153,7 @@ def kernel_phase(torch, dev, rate: float) -> dict:
     out_p = g.gather_rows_plain(stats, idx)
     torch.cuda.synchronize()
     if not torch.equal(out_k, out_p):
-        fail("gather_rows kernel differs from its plain version")
+        fail(f"gather_rows kernel differs from its plain version at B={b}")
     rows = torch.unique(torch.arange(b, device=dev)[:, None] * n + idx).numel()
     gather_bytes = rows * k * 4 + b * w * k * 4 + b * w * 8
     lib_idx = idx[..., None].expand(b, w, k)
@@ -186,7 +208,7 @@ def kernel_phase(torch, dev, rate: float) -> dict:
     torch.cuda.synchronize()
     for name, x, y in zip(("e_visits", "e_value", "children", "e_reward"), got, want):
         if not torch.equal(x, y):
-            fail(f"backup_update kernel differs from its plain version on {name}")
+            fail(f"backup_update kernel differs from its plain version on {name} at B={b}")
     err = max(float((x - y).abs().max()) for x, y in zip(got, want))
 
     bcol = torch.arange(b, device=dev)[:, None]
@@ -223,6 +245,60 @@ def kernel_phase(torch, dev, rate: float) -> dict:
         "bound_by": "bytes",
         "library_ms": time_ms(library_chain, cycles),
         "bytes": backup_bytes,
+    }
+    return report
+
+
+def kernel_phase(torch, dev, rate: float) -> dict:
+    """Every kernel at the shapes of the paths that run it: the search's
+    at the serving path's 64 lanes (the figures of the kernels line) and
+    at the training path's 512 lanes, the PER count at the megastep's."""
+    import importlib
+
+    cycles = sleep_cycles_per_ms()
+    report = search_kernels(torch, dev, rate, cycles, b=64)
+    for name, entry in search_kernels(torch, dev, rate, cycles, b=512).items():
+        report[name]["at_512_lanes"] = {
+            key: entry[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes")
+        }
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    # --- per_sample: the megastep's PER count at the flagship ---
+    ps = importlib.import_module("alphatriangle_tpu_torch.ops.per_sample")
+    cap, kq, bq = 250_000, TRAIN_K, 256
+    prio = torch.rand(cap + 1, generator=gen, device=dev) * 2.0
+    prio[40_000:65_000] = 0.0  # empty slots: a zero-priority run
+    prio[200_001:] = 0.0  # a ring not yet full; the trash slot at `cap` is 0
+    cum = torch.cumsum(prio[:cap], dim=0)
+    u = ps.stratum_draws(cum, kq, bq, torch.tensor([0, 11], dtype=torch.int64))
+    u[0, :4] = cum[torch.tensor([0, 39_999, 40_000, 65_000], device=dev)]  # on segment edges
+    u[-1, -1] = cum[-1]
+    got = ps.count_below_cuda(cum, u)
+    want = ps.count_below_plain(cum, u)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("per_sample kernel differs from its plain version")
+    # The function needs the cumsum read once, the draws read and the counts
+    # written: bytes bound it. The kernel's brute-force compares (one per
+    # draw and element) are work of its algorithm, not of the function.
+    ps_bytes = cap * 4 + 2 * kq * bq * 4
+    report["per_sample"] = {
+        "name": "per_sample",
+        "route": "cuda",
+        "source": "alphatriangle_tpu_torch/csrc/per_sample.cu",
+        "replaces": "alphatriangle_tpu/ops/per_sample.py:52",
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": time_ms(lambda: ps.count_below_cuda(cum, u), cycles),
+        "plain_ms": time_ms(lambda: ps.count_below_plain(cum, u), cycles, iters=20),
+        "bound_ms": ps_bytes / rate * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(lambda: torch.searchsorted(cum, u), cycles),
+        "bytes": ps_bytes,
+        "kernel_compares": kq * bq * cap,
+        # A binary search equals the count only on a nondecreasing cumsum,
+        # which the card's parallel scan does not promise: recorded, not held.
+        "cumsum_descents": int((cum[1:] < cum[:-1]).sum()),
+        "searchsorted_disagrees": int((torch.searchsorted(cum, u).int() != want).sum()),
     }
 
     # torch.argmax must return the first maximum on the card, as on the
@@ -327,7 +403,6 @@ def profile_dispatch(torch, service, dispatch_ms: float) -> dict:
     took the most, and each labelled stage's host and device time. The
     busy share divides the device time by the unprofiled dispatch time
     (the profiler slows the host, not the kernels)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from alphatriangle_tpu_torch import rng
@@ -343,14 +418,28 @@ def profile_dispatch(torch, service, dispatch_ms: float) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     if len(results) != service.sessions.slots:
         fail("the profiled dispatch did not serve every slot")
+    return read_profile(prof, STAGES, wall_ms, dispatch_ms)
+
+
+def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
+    """A profile's device time of kernels and copies, the kernels that
+    took the most, each labelled stage's host and device time, and the
+    ported kernels' time. The busy share divides the device time by the
+    unprofiled time `ref_ms` of the same work (the profiler slows the
+    host, not the kernels)."""
+    from torch.autograd import DeviceType
+
+    # Every `record_function` label also shows as a device range; only
+    # kernels and copies count as device time.
+    labels = set(STAGES) | set(TRAIN_STAGES)
     rows = [
         (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.key not in STAGES
+        if e.device_type == DeviceType.CUDA and e.key not in labels
         and e.self_device_time_total > 0
     ]
     rows.sort(key=lambda r: -r[1])
-    stages = {name: {"host_ms": 0.0, "device_ms": 0.0, "calls": 0} for name in STAGES}
+    stages = {name: {"host_ms": 0.0, "device_ms": 0.0, "calls": 0} for name in stage_names}
     for e in prof.events():
         if e.name in stages and e.device_type == DeviceType.CPU:
             st = stages[e.name]
@@ -365,17 +454,130 @@ def profile_dispatch(torch, service, dispatch_ms: float) -> dict:
             "ms": sum(ms for k, ms, _ in rows if f"{kname}_kernel" in k),
             "count": sum(c for k, _, c in rows if f"{kname}_kernel" in k),
         }
-        for kname in ("gather_rows", "backup_update")
+        for kname in ("gather_rows", "backup_update", "per_sample")
     }
     # A profiler that recorded no device activity measured nothing.
     return {
         "wall_ms": wall_ms,
         "device_ms": device_ms if rows else None,
-        "device_busy_share": device_ms / dispatch_ms if rows else None,
+        "device_busy_share": device_ms / ref_ms if rows else None,
         "device_launches": sum(r[2] for r in rows),
         "stages": stages,
         "ported": ported,
         "top": [{"name": k[:80], "ms": ms, "count": c} for k, ms, c in rows[:10]],
+    }
+
+
+# The megastep's stages; the search's own stages nest inside selfplay.chunk.
+TRAIN_STAGES = (
+    "selfplay.chunk", "search.init_tree", "search.descend", "search.expand", "search.evaluate",
+    "search.backup", "ring.ingest", "per.sample", "learner.steps", "per.update",
+)
+
+
+def train_phase(torch, dev, kernels) -> dict:
+    """The default training configuration, cut in depth only, through
+    `run_training` in megastep mode, with counted launches; then one
+    more megastep under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphatriangle_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+    from alphatriangle_tpu_torch.training import LoopStatus, run_training
+
+    cfg = TrainConfig(
+        FUSED_MEGASTEP=True,
+        RANDOM_SEED=0,
+        ROLLOUT_CHUNK_MOVES=TRAIN_CHUNK_MOVES,
+        MIN_BUFFER_SIZE_TO_TRAIN=TRAIN_MIN_BUFFER,
+        FUSED_LEARNER_STEPS=TRAIN_K,
+        MAX_TRAINING_STEPS=TRAIN_K * TRAIN_MEGASTEPS,
+    )
+    defaults = TrainConfig()
+    for name in ("SELF_PLAY_BATCH_SIZE", "BATCH_SIZE", "BUFFER_CAPACITY", "N_STEP_RETURNS", "USE_PER",
+                 "OPTIMIZER_TYPE", "LR_SCHEDULER_TYPE", "GRADIENT_CLIP_VALUE"):
+        if getattr(cfg, name) != getattr(defaults, name):
+            fail(f"the train phase cut a width: {name}")
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    loop = run_training(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    if loop.status is not LoopStatus.COMPLETED:
+        fail(f"training ended {loop.status.value}")
+    c = loop.c
+    mega = loop.timings["megastep_s"]
+    if loop.megastep_iterations != TRAIN_MEGASTEPS or len(mega) != TRAIN_MEGASTEPS:
+        fail(f"expected {TRAIN_MEGASTEPS} megasteps, ran {loop.megastep_iterations}")
+    if loop.global_step != TRAIN_K * TRAIN_MEGASTEPS:
+        fail(f"expected {TRAIN_K * TRAIN_MEGASTEPS} learner steps, took {loop.global_step}")
+    for m in loop.metrics:
+        for key in ("total_loss", "policy_loss", "value_loss", "entropy", "grad_norm"):
+            if not (m[key] == m[key] and abs(m[key]) < float("inf")):
+                fail(f"non-finite {key} at step {m['step']}")
+    fresh = NeuralNetwork(ModelConfig(), EnvConfig(), seed=cfg.RANDOM_SEED, device="cpu")
+    if all(
+        torch.equal(a.detach().cpu(), b)
+        for a, b in zip(c.net.model.parameters(), fresh.model.parameters())
+    ):
+        fail("training left the parameters unchanged")
+    moves = (loop.warmup_chunks + loop.megastep_iterations) * TRAIN_CHUNK_MOVES
+    want = {
+        "per_sample": loop.megastep_iterations,
+        "gather_rows": 16 * moves,
+        "backup_update": 2 * moves,
+    }
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name}: {launches[name]} launches in the train phase, want {n}")
+    buf, tree = c.buffer, c.buffer.tree
+    size = len(buf)
+    if (buf._size, buf._pos) != (tree.n_entries, tree.data_pointer):
+        fail("ring size or cursor disagrees with the SumTree mirror")
+    if size != min(loop.experiences_added, buf.capacity) or buf._pos != loop.experiences_added % buf.capacity:
+        fail("ring size or cursor disagrees with the rows ingested")
+    dev_p = c.megastep.priorities.cpu().numpy()
+    host_p = tree.tree[tree._cap2 : tree._cap2 + buf.capacity]
+    import numpy as np
+
+    if not np.allclose(dev_p[: buf.capacity], host_p, rtol=1e-4, atol=1e-6) or dev_p[-1] != 0.0:
+        fail("device priorities disagree with the host SumTree mirror")
+    sums = buf.storage["policy_target"][:size].sum(dim=1)
+    if not bool(((sums - 1.0).abs() < 1e-3).all()):
+        fail("a ring row's policy target is not a distribution")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # One more megastep under the profiler (outside the counted run).
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        c.megastep.run_megastep(TRAIN_CHUNK_MOVES, TRAIN_K)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    lanes = c.self_play.batch_size
+    warm = loop.timings["warmup_chunk_s"]
+    report = loop.report()
+    return {
+        "launches": launches,
+        "megasteps": loop.megastep_iterations,
+        "warmup_chunks": loop.warmup_chunks,
+        "searched_moves": moves,
+        "rows_ingested": loop.experiences_added,
+        "episodes": loop.episodes_played,
+        "losses": report["losses"],
+        "wall_s": wall_s,
+        "megastep_ms_first": mega[0] * 1e3,
+        "megastep_ms_p50": statistics.median(mega) * 1e3,
+        "megastep_ms": [t * 1e3 for t in mega],
+        "warmup_chunk_ms_p50": statistics.median(warm) * 1e3,
+        "rollout_moves_per_s": lanes * TRAIN_CHUNK_MOVES / statistics.median(warm),
+        "megastep_moves_per_s_p50": lanes * TRAIN_CHUNK_MOVES / statistics.median(mega),
+        "learner_steps_per_s_p50": TRAIN_K / statistics.median(mega),
+        "peak_mem_gb": peak_gb,
+        "profile": read_profile(prof, TRAIN_STAGES, prof_wall_ms, statistics.median(mega) * 1e3),
     }
 
 
@@ -436,6 +638,93 @@ def reference_phase(torch, dev) -> None:
         fail("search root values on the card differ from the CPU's")
 
 
+def reference_train_phase(torch, dev) -> dict:
+    """A tiny megastep (f32 net without the transformer, whose dropout
+    masks differ between the two devices' generators; TF32 off; no
+    Dirichlet noise, which draws from a device generator) from the same
+    seed on the CPU and on the card: the same rows, slots and draws; the
+    n-step returns within 1e-4 (root values of the net, summed in another
+    order), and losses and TD errors within 1e-3 relative."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch.config import (
+        AlphaTriangleMCTSConfig,
+        EnvConfig,
+        ModelConfig,
+        TrainConfig,
+        expected_other_features_dim,
+    )
+    from alphatriangle_tpu_torch.training import setup_training_components
+
+    env_cfg = EnvConfig(
+        ROWS=3, COLS=4, PLAYABLE_RANGE_PER_ROW=[(0, 4)] * 3, NUM_SHAPE_SLOTS=1,
+        MAX_SHAPE_TRIANGLES=3, LINE_MIN_LENGTH=3,
+    )
+    model_cfg = ModelConfig(
+        CONV_FILTERS=[8], CONV_KERNEL_SIZES=[3], CONV_STRIDES=[1], NUM_RESIDUAL_BLOCKS=0,
+        RESIDUAL_BLOCK_FILTERS=8, USE_TRANSFORMER=False, TRANSFORMER_LAYERS=0,
+        # Hidden widths of 64 keep GroupNorm at 8 features a group: a group
+        # of 2 nearly equal values normalises rounding, which differs by device.
+        FC_DIMS_SHARED=[64], POLICY_HEAD_DIMS=[64], VALUE_HEAD_DIMS=[64], NUM_VALUE_ATOMS=11,
+        OTHER_NN_INPUT_FEATURES_DIM=expected_other_features_dim(env_cfg), COMPUTE_DTYPE="float32",
+    )
+    mcts_cfg = AlphaTriangleMCTSConfig(
+        max_simulations=8, max_depth=4, mcts_batch_size=4, dirichlet_epsilon=0.0
+    )
+    cfg = TrainConfig(
+        FUSED_MEGASTEP=True, SELF_PLAY_BATCH_SIZE=4, ROLLOUT_CHUNK_MOVES=2, BATCH_SIZE=8,
+        BUFFER_CAPACITY=2000, MIN_BUFFER_SIZE_TO_TRAIN=16, N_STEP_RETURNS=2, MAX_EPISODE_MOVES=30,
+        RANDOM_SEED=5, FUSED_LEARNER_STEPS=2, MAX_TRAINING_STEPS=2,
+    )
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    sides = {}
+    try:
+        for device in ("cpu", dev):
+            c = setup_training_components(cfg, env_cfg, model_cfg, mcts_cfg, device=device)
+            counts = []
+            while len(c.buffer) < max(cfg.MIN_BUFFER_SIZE_TO_TRAIN, cfg.BATCH_SIZE):
+                _, payload = c.self_play.play_moves_device(cfg.ROLLOUT_CHUNK_MOVES)
+                counts.append(c.buffer.ingest_payload(payload))
+            c.megastep.sync_priorities_from_host()
+            results, added = c.megastep.run_megastep(cfg.ROLLOUT_CHUNK_MOVES, cfg.FUSED_LEARNER_STEPS)
+            size = len(c.buffer)
+            sides[str(device)] = {
+                "counts": counts + [added],
+                "ring": {k: v[:size].cpu().numpy() for k, v in c.buffer.storage.items()},
+                "idx": c.megastep.last_idx,
+                "losses": np.array([[m["total_loss"], m["value_loss"]] for m, _ in results]),
+                "td": np.stack([td for _, td in results]),
+            }
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    cpu, card = sides["cpu"], sides[str(dev)]
+    if cpu["counts"] != card["counts"]:
+        fail(f"rows ingested differ: CPU {cpu['counts']}, card {card['counts']}")
+    for name in ("grid", "policy_target", "policy_weight"):
+        if not np.array_equal(cpu["ring"][name], card["ring"][name]):
+            fail(f"ring column {name} differs between the card and the CPU")
+    ring_err = {
+        name: float(np.abs(cpu["ring"][name] - card["ring"][name]).max())
+        for name in ("other_features", "value_target")
+    }
+    for name, err in ring_err.items():
+        if not np.allclose(cpu["ring"][name], card["ring"][name], rtol=1e-4, atol=1e-4):
+            fail(f"ring column {name} differs between the card and the CPU by {err}")
+    if not np.array_equal(cpu["idx"], card["idx"]):
+        fail("the megastep's sampled slots differ between the card and the CPU")
+    loss_err = float(np.abs(cpu["losses"] - card["losses"]).max())
+    td_err = float(np.abs(cpu["td"] - card["td"]).max())
+    if not np.allclose(card["losses"], cpu["losses"], rtol=1e-3, atol=1e-5):
+        fail(f"losses differ between the card and the CPU by {loss_err}")
+    if not np.allclose(card["td"], cpu["td"], rtol=1e-3, atol=1e-5):
+        fail(f"TD errors differ between the card and the CPU by {td_err}")
+    return {
+        "rows": cpu["counts"], "loss_max_abs_err": loss_err, "td_max_abs_err": td_err,
+        "value_target_max_abs_err": ring_err["value_target"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -465,12 +754,24 @@ def main() -> int:
     rate = hbm_rate(kind)
     t0 = time.perf_counter()
     kreport = kernel_phase(torch, dev, rate)
+    say(
+        f"per_sample: the card's cumsum has {kreport['per_sample']['cumsum_descents']} descents; "
+        f"torch.searchsorted differs from the count on {kreport['per_sample']['searchsorted_disagrees']} "
+        f"of {TRAIN_K * 256} draws"
+    )
     for kr in kreport.values():
         say(
             f"kernel {kr['name']}: equal to plain; {kr['ms'] * 1e3:.1f} us "
             f"(plain {kr['plain_ms'] * 1e3:.1f} us, library {kr['library_ms'] * 1e3:.1f} us, "
             f"bound {kr['bound_ms'] * 1e3:.2f} us by {kr['bound_by']}) [{card}]"
         )
+        if "at_512_lanes" in kr:
+            at = kr["at_512_lanes"]
+            say(
+                f"kernel {kr['name']} at 512 lanes: equal to plain; {at['ms'] * 1e3:.1f} us "
+                f"(plain {at['plain_ms'] * 1e3:.1f} us, library {at['library_ms'] * 1e3:.1f} us, "
+                f"bound {at['bound_ms'] * 1e3:.2f} us by bytes) [{card}]"
+            )
     say(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -499,18 +800,70 @@ def main() -> int:
         say(f"  {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
     say(f"serve phase: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    treport = train_phase(torch, dev, KERNELS)
+    say(
+        f"train: {treport['megasteps']} megasteps after {treport['warmup_chunks']} warm-up chunks, "
+        f"{treport['searched_moves']} searched moves, {treport['rows_ingested']} rows, "
+        f"{treport['episodes']} episodes; megastep p50 {treport['megastep_ms_p50']:.1f} ms "
+        f"(first {treport['megastep_ms_first']:.1f} ms), warm-up chunk p50 "
+        f"{treport['warmup_chunk_ms_p50']:.1f} ms, rollout {treport['rollout_moves_per_s']:.1f} "
+        f"moves/s (warm-up chunks), {treport['megastep_moves_per_s_p50']:.1f} moves/s and "
+        f"{treport['learner_steps_per_s_p50']:.2f} learner steps/s (p50 megastep), peak "
+        f"{treport['peak_mem_gb']:.2f} GiB; launches {treport['launches']} [{card}]"
+    )
+    say(f"train losses: {json.dumps(treport['losses'])}")
+    prof = treport["profile"]
+    if prof["device_ms"] is None:
+        say(f"profiled megastep: wall {prof['wall_ms']:.1f} ms, device time not measured [{card}]")
+    else:
+        say(
+            f"profiled megastep: wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
+            f"in {prof['device_launches']} kernels and copies, device busy "
+            f"{prof['device_busy_share']:.1%} of the p50 megastep [{card}]"
+        )
+    for stage, st in prof["stages"].items():
+        say(f"  stage {stage}: host {st['host_ms']:.1f} ms, device {st['device_ms']:.1f} ms, "
+            f"{st['calls']} calls")
+    for kname, st in prof["ported"].items():
+        say(f"  ported kernel {kname}: device {st['ms']:.3f} ms in {st['count']} launches")
+    for row in prof["top"]:
+        say(f"  {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
+    say(f"train phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
+    rreport = reference_train_phase(torch, dev)
+    say(
+        f"reference: card megastep equals the CPU megastep (rows {rreport['rows']}, same slots; "
+        f"return err {rreport['value_target_max_abs_err']:.2e}, loss err "
+        f"{rreport['loss_max_abs_err']:.2e}, TD err {rreport['td_max_abs_err']:.2e})"
+    )
+    say(f"reference phase: {time.perf_counter() - t0:.1f} s")
 
     kernels_line = []
     for kname, kr in kreport.items():
         entry = {key: kr[key] for key in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms",
-        )}
-        entry["launches"] = sreport["launches"][kname]
+        ) + (("at_512_lanes",) if "at_512_lanes" in kr else ())}
+        by_path = {"serve": sreport["launches"][kname], "train": treport["launches"][kname]}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
+        # The search kernels run once per searched move (warm-up chunks
+        # and megasteps alike), the PER count once per megastep.
+        per = {"serve_dispatch": by_path["serve"] / sreport["dispatches"]}
+        if kname == "per_sample":
+            per["train_megastep"] = by_path["train"] / treport["megasteps"]
+        else:
+            per["train_searched_move"] = by_path["train"] / treport["searched_moves"]
+        entry["launches_per"] = per
         kernels_line.append(entry)
-    say(json.dumps({"kernels": kernels_line, "serve": sreport, "card": card}))
+    say(json.dumps({
+        "kernels": kernels_line, "serve": sreport, "train": treport, "reference": rreport,
+        "card": card,
+    }))
     say(card)
     say("kernels: " + ", ".join(KERNELS))
     say(json.dumps({

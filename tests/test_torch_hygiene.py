@@ -27,6 +27,11 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "
 print(len(names), leaked)
 assert not leaked, leaked
 assert "alphatriangle_tpu_torch.serving.service" in names and "alphatriangle_tpu_torch.cli" in names
+for slice_two in ("rl.megastep", "rl.self_play", "rl.trainer", "rl.device_buffer", "ops.per_sample",
+                  "training.loop", "training.runner", "utils.sumtree", "config.train_config"):
+    assert "alphatriangle_tpu_torch." + slice_two in names, slice_two
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic"))
+assert not leaked, leaked
 """
 
 
@@ -43,7 +48,9 @@ def test_no_source_names_jax():
         for line in path.read_text().splitlines():
             words = line.strip().split()
             if words[:1] in (["import"], ["from"]):
-                assert words[1].split(".")[0] not in ("jax", "flax", "alphatriangle_tpu"), (
+                assert words[1].split(".")[0] not in (
+                    "jax", "flax", "optax", "pydantic", "alphatriangle_tpu"
+                ), (
                     f"{path}: {line}"
                 )
 
@@ -89,3 +96,13 @@ def test_cli_serve_on_the_cpu(capsys):
     assert report["sessions_served"] == 3 and report["device"] == "cpu"
     assert 3 <= report["moves_served"] <= 6
     assert report["serve_dispatches"] == report["dispatches"] >= 2
+
+
+def test_training_needs_a_card_unless_told_cpu(no_card, capsys):
+    from alphatriangle_tpu_torch.config import TrainConfig
+    from alphatriangle_tpu_torch.training import run_training
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(TrainConfig(FUSED_MEGASTEP=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["train", "--fused-megastep", "--max-steps", "1"])

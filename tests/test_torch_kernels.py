@@ -5,16 +5,16 @@ and without JAX it runs alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
-Both kernels must be bit-equal (`torch.equal`) to their plain versions:
-the gather copies floats, and the backup adds each element's entries in
-the plain version's order.
+Every kernel must be bit-equal (`torch.equal`) to its plain version:
+the gather copies floats, the backup adds each element's entries in the
+plain version's order, and the PER count sums integers.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from alphatriangle_tpu_torch.ops import KERNELS, backup_update, gather_rows  # noqa: E402
+from alphatriangle_tpu_torch.ops import KERNELS, backup_update, count_below, gather_rows  # noqa: E402
 from alphatriangle_tpu_torch.ops.gather_rows import (  # noqa: E402
     gather_rows_cuda,
     gather_rows_plain,
@@ -22,6 +22,12 @@ from alphatriangle_tpu_torch.ops.gather_rows import (  # noqa: E402
 from alphatriangle_tpu_torch.ops.mcts_backup import (  # noqa: E402
     backup_update_cuda,
     backup_update_plain,
+)
+from alphatriangle_tpu_torch.ops.per_sample import (  # noqa: E402
+    count_below_cuda,
+    count_below_plain,
+    per_sample,
+    stratum_draws,
 )
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +123,68 @@ def test_backup_small_shapes_and_int32_indices(dev):
     torch.cuda.synchronize()
     for g, wnt in zip(got, want, strict=True):
         assert torch.equal(g, wnt)
+
+
+def _priorities(dev, cap: int, seed: int) -> torch.Tensor:
+    """(cap + 1,) priorities as the ring holds them: zero-priority runs
+    (empty slots), a zero trash slot at `cap`, the rest positive."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.rand(cap + 1, generator=gen, device=dev) * 2.0
+    p[cap // 3 : cap // 3 + cap // 10] = 0.0
+    p[-(cap // 7 + 1) :] = 0.0
+    p[cap] = 0.0
+    return p
+
+
+@pytest.mark.parametrize(
+    "cap,k,b", [(250_000, 2, 256), (250_000, 8, 256), (1, 1, 1), (2047, 3, 5), (2049, 1, 257)]
+)
+def test_per_sample_count_equals_plain(dev, cap, k, b):
+    p = _priorities(dev, cap, seed=cap + k)
+    cum = torch.cumsum(p[:cap], dim=0)
+    u = stratum_draws(cum, k, b, torch.tensor([0, cap + b], dtype=torch.int64))
+    u[0, 0] = cum[cap // 3]  # on the edge of a zero run
+    u[-1, -1] = cum[-1]  # the total: every element counts
+    before = KERNELS["per_sample"].launches
+    got = count_below(cum, u, mode="pallas")
+    torch.cuda.synchronize()
+    assert KERNELS["per_sample"].launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, count_below_plain(cum, u))
+
+
+def test_per_sample_count_is_exact_on_unsorted_input(dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cum = torch.randn(9000, generator=gen, device=dev)
+    cum[17], cum[4000] = float("nan"), float("inf")
+    u = torch.randn((3, 100), generator=gen, device=dev)
+    u[1, 2] = float("nan")
+    assert torch.equal(count_below_cuda(cum, u), count_below_plain(cum, u))
+
+
+def test_per_sample_draw_launches_once_and_skips_empty_slots(dev):
+    cap, k, b = 250_000, 2, 256
+    # Small-integer priorities: their prefix sums are exact, so the card's
+    # scan (whose float sums differ from run to run) gives the same cumsum
+    # twice.
+    p = (_priorities(dev, cap, seed=9) * 2).floor()
+    key = torch.tensor([3, 4], dtype=torch.int64)
+    before = KERNELS["per_sample"].launches
+    idx, probs = per_sample(p, cap, k, b, key, mode="xla")
+    torch.cuda.synchronize()
+    assert KERNELS["per_sample"].launches == before + 1
+    cum = torch.cumsum(p[:cap], dim=0)
+    want = count_below_plain(cum, stratum_draws(cum, k, b, key)).clamp(0, cap - 1).long()
+    assert torch.equal(idx, want)
+    assert bool((p[idx] > 0).all())
+    assert bool(torch.isfinite(probs).all())
+
+
+def test_per_sample_refuses_what_it_cannot_take(dev):
+    cum = torch.zeros(8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        count_below_cuda(cum.double(), torch.zeros((1, 2), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        count_below_cuda(cum, torch.zeros((4, 2), device=dev).t())
+    with pytest.raises(ValueError, match="unknown PER sample mode"):
+        count_below(cum, torch.zeros((1, 2), device=dev), mode="cuda")
