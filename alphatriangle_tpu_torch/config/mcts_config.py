@@ -31,12 +31,14 @@ class AlphaTriangleMCTSConfig(ConfigBase):
     wave_noise_scale: float = 0.25
     descent_gather: str = "einsum"
     backup_update: str = "xla"
-    # Subtree reuse, playout-cap randomization and Gumbel root search
-    # are carried for config compatibility; this slice's search is the
-    # fresh-root PUCT path and refuses the others (mcts/search.py).
+    # Subtree reuse across moves (mcts/search.py `promote`,
+    # ops/subtree_reuse.py); the budget defaults to max_simulations.
     tree_reuse: bool = False
     tree_reuse_backend: str = "xla"
     tree_reuse_budget: int | None = None
+    # Playout-cap randomization and Gumbel root search are carried for
+    # config compatibility; the port refuses them (rl/self_play.py,
+    # mcts/search.py).
     fast_simulations: int | None = None
     full_search_prob: float = 0.25
     pcr_record_fast_rows: bool = False

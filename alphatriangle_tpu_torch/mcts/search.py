@@ -1,7 +1,8 @@
-"""Batched wave-parallel PUCT search: counterpart of the fresh-root path
-of `alphatriangle_tpu/mcts/search.py` (`Tree`, `SearchOutput`,
-`_evaluate`, `_init_tree`, `_descend_wave`, `_wave`, `_run_waves`,
-`_output_from_tree`, `_search`).
+"""Batched wave-parallel PUCT search: counterpart of the PUCT path of
+`alphatriangle_tpu/mcts/search.py` (`Tree`, `CarriedTree`,
+`SearchOutput`, `_evaluate`, `_init_tree`, `_descend_wave`, `_wave`,
+`_run_waves`, `_output_from_tree`, `_search`, `_search_carried`,
+`promote`, `zero_carried`).
 
 A search over B games runs eagerly on one device. Tree statistics are
 edge-indexed (B, N, A) planes; simulations run in waves of W members:
@@ -22,9 +23,18 @@ The key schedule is the JAX package's: `split(rng, 3)` into (rng,
 noise, wave) keys, `fold_in(wave_rng, k)` per wave and `fold_in(.., d)`
 per descent level. The noise draws go through `rng.gumbel` and
 `rng.gamma` (looked up on the module at call time, so tests can
-substitute JAX's draws). Subtree reuse, Gumbel root search and the
-device stat-pack wait for later slices: a config asking for them is
-refused, and `SearchOutput.stats` stays None.
+substitute JAX's draws). Gumbel root search and the device stat-pack
+wait for later slices: a config asking for Gumbel is refused, and
+`SearchOutput.stats` stays None.
+
+Subtree reuse (`MCTSConfig.tree_reuse`) widens the node budget to
+`max_simulations + tree_reuse_budget + 1` rows. After a move,
+`promote` compacts the played child's subtree into the leading rows
+(`ops.subtree_promote`, whose row reorder is the hand-written kernel on
+the card); the next `_search_carried` merges those edge statistics
+under a fresh root evaluation and inserts its waves at a per-game base.
+The `CarriedTree` rides the caller's carry (the rollout carry, the
+service's lanes).
 
 Each stage of a wave runs under a `torch.profiler.record_function`
 label (`search.init_tree`, `search.descend`, `search.expand`,
@@ -43,9 +53,10 @@ from .. import rng
 from ..config.mcts_config import MCTSConfig
 from ..env.engine import EnvState, TriangleEnv
 from ..features.core import FeatureExtractor
-from ..ops import backup_update, gather_rows
+from ..ops import backup_update, gather_rows, subtree_promote
 from ..ops.gather_rows import MODES as GATHER_MODES
 from ..ops.mcts_backup import MODES as BACKUP_MODES
+from ..ops.subtree_reuse import MODES as REUSE_MODES
 
 
 @dataclass
@@ -61,6 +72,20 @@ class Tree:
     valid: torch.Tensor  # (B, N, A) f32 1.0 where the action is valid
     terminal: torch.Tensor  # (B, N) bool
     root_value0: torch.Tensor  # (B,) f32 network value of the root
+
+
+@dataclass
+class CarriedTree:
+    """A promoted search tree carried across moves (subtree reuse).
+
+    `tree` holds the chosen child's subtree in the leading rows (BFS
+    order, freed rows zeroed); `valid[b]` gates the merge (False: the
+    next search starts fresh); `base[b]` is the retained row count, the
+    next search's insertion base."""
+
+    tree: Tree
+    valid: torch.Tensor  # (B,) bool
+    base: torch.Tensor  # (B,) int64
 
 
 @dataclass
@@ -93,21 +118,27 @@ class BatchedMCTS:
         config: MCTSConfig,
         value_support: torch.Tensor,
     ):
-        if config.tree_reuse:
-            raise ValueError("tree_reuse is not ported yet; this search is fresh-root")
         if config.root_selection != "puct":
             raise ValueError("only root_selection='puct' is ported yet")
         if config.descent_gather not in GATHER_MODES:
             raise ValueError(f"unknown gather mode: {config.descent_gather!r}")
         if config.backup_update not in BACKUP_MODES:
             raise ValueError(f"unknown backup mode: {config.backup_update!r}")
+        if config.tree_reuse_backend not in REUSE_MODES:
+            raise ValueError(f"unknown tree reuse mode: {config.tree_reuse_backend!r}")
         self.env = env
         self.device = env.device
         self.extractor = extractor
         self.model = model
         self.config = config
         self.support = value_support.to(self.device)
-        self.num_nodes = config.max_simulations + 1
+        # Reuse keeps up to `reuse_slots` promoted rows (the subtree and
+        # its root) besides a full search's insertions.
+        if config.tree_reuse:
+            self.reuse_slots = (config.tree_reuse_budget or config.max_simulations) + 1
+        else:
+            self.reuse_slots = 1
+        self.num_nodes = config.max_simulations + self.reuse_slots
         self.action_dim = env.action_dim
         # Wave size: the largest divisor of max_simulations that is
         # <= mcts_batch_size, so waves tile the simulation budget.
@@ -234,9 +265,11 @@ class BatchedMCTS:
             "rec_active": rec_active,
         }
 
-    def _wave(self, batch: int, tree: Tree, wasted: torch.Tensor, base: int, wave_rng):
-        """One wave: W parallel simulations across all B trees. Updates
-        `tree` in place; returns (wasted, next base)."""
+    def _wave(self, batch: int, tree: Tree, wasted: torch.Tensor, base, wave_rng):
+        """One wave: W parallel simulations across all B trees. `base` is
+        the first insertion row, an int (fresh root) or a (B,) tensor
+        (reuse: each game retained its own row count). Updates `tree` in
+        place; returns (wasted, next base)."""
         cfg = self.config
         w, a, depth = self.wave_size, self.action_dim, cfg.max_depth
         dev = self.device
@@ -270,15 +303,22 @@ class BatchedMCTS:
             priors, values, valid = self._evaluate(new_states)
         leaf_values = torch.where(dones, zero, values.reshape(batch, w))
 
-        # Insert the wave's W node slots as one block at [base, base+W).
+        # Insert the wave's W node slots as one block at [base, base+W):
+        # a slice for a shared base, rows [base_b, base_b+W) per game else.
+        if isinstance(base, int):
+            at = (slice(None), slice(base, base + w))
+            slot_ids = (base + warange[None, :]).to(torch.float32)  # (1, W)
+        else:
+            slots = base[:, None] + warange[None, :]  # (B, W)
+            at = (bcol, slots)
+            slot_ids = slots.to(torch.float32)
         for name in tree.node_state.__dataclass_fields__:
             buf = getattr(tree.node_state, name)
             x = getattr(new_states, name)
-            buf[:, base : base + w] = x.reshape((batch, w) + tuple(x.shape[1:]))
-        tree.prior[:, base : base + w] = priors.reshape(batch, w, a)
-        tree.valid[:, base : base + w] = valid.reshape(batch, w, a).to(torch.float32)
-        tree.terminal[:, base : base + w] = dones
-        slot_ids = (base + warange[None, :]).to(torch.float32)  # (1, W)
+            buf[at] = x.reshape((batch, w) + tuple(x.shape[1:]))
+        tree.prior[at] = priors.reshape(batch, w, a)
+        tree.valid[at] = valid.reshape(batch, w, a).to(torch.float32)
+        tree.terminal[at] = dones
         live = is_new & is_canon
 
         # Suffix returns G_d = r_d + discount * G_{d+1}; the deepest
@@ -313,9 +353,10 @@ class BatchedMCTS:
         wasted = wasted + (w - live.sum(dim=1, dtype=torch.int32))
         return wasted, base + w
 
-    def _run_waves(self, batch: int, tree: Tree, wave_rng: torch.Tensor):
+    def _run_waves(self, batch: int, tree: Tree, wave_rng: torch.Tensor, base=1):
+        """`num_waves` waves from `tree`, the first inserting at `base`
+        (an int, or a (B,) tensor under reuse); returns the wasted slots."""
         wasted = torch.zeros((batch,), dtype=torch.int32, device=self.device)
-        base = 1
         for k in range(self.num_waves):
             wasted, base = self._wave(batch, tree, wasted, base, rng.fold_in(wave_rng, k))
         return wasted
@@ -346,3 +387,112 @@ class BatchedMCTS:
             tree = self._init_tree(root_states, noise_rng)
         wasted = self._run_waves(batch, tree, wave_rng)
         return self._output_from_tree(tree, wasted, batch)
+
+    # --- subtree reuse (MCTSConfig.tree_reuse; ops/subtree_reuse.py) ---
+
+    @torch.no_grad()
+    def _search_carried(self, root_states: EnvState, key: torch.Tensor, carried: CarriedTree):
+        """`search` seeded with a promoted tree where `carried.valid`.
+
+        Row 0 always comes from a fresh root evaluation (network value,
+        masked priors with Dirichlet noise, the current state, validity
+        and terminal), so reuse carries only edge statistics, child links
+        and interior priors and states. Lanes with `valid=False` run the
+        fresh-root search exactly. Returns `(output, final tree, reused)`,
+        `reused[b]` the root visits inherited from the carry."""
+        batch = root_states.done.shape[0]
+        keys = rng.split(key, 3)
+        noise_rng, wave_rng = keys[1], keys[2]
+        with record_function("search.init_tree"):
+            fresh = self._init_tree(root_states, noise_rng)
+            ct = carried.tree
+            ok = carried.valid
+
+            def merge(c, f, pin_root=False):
+                m = torch.where(ok.reshape((batch,) + (1,) * (c.dim() - 1)), c, f)
+                if pin_root:
+                    m[:, 0] = f[:, 0]
+                return m
+
+            tree = Tree(
+                node_state=EnvState(
+                    **{
+                        name: merge(
+                            getattr(ct.node_state, name), getattr(fresh.node_state, name), True
+                        )
+                        for name in fresh.node_state.__dataclass_fields__
+                    }
+                ),
+                e_visits=merge(ct.e_visits, fresh.e_visits),
+                e_value=merge(ct.e_value, fresh.e_value),
+                e_reward=merge(ct.e_reward, fresh.e_reward),
+                children=merge(ct.children, fresh.children),
+                prior=merge(ct.prior, fresh.prior, True),
+                valid=merge(ct.valid, fresh.valid, True),
+                terminal=merge(ct.terminal, fresh.terminal, True),
+                root_value0=fresh.root_value0,
+            )
+            zero = torch.zeros((), device=self.device)
+            reused = torch.where(ok, ct.e_visits[:, 0, :].sum(dim=-1), zero)
+            base0 = torch.where(ok, carried.base.clamp(min=1), 1).long()
+        wasted = self._run_waves(batch, tree, wave_rng, base0)
+        return self._output_from_tree(tree, wasted, batch), tree, reused
+
+    @torch.no_grad()
+    def promote(self, tree: Tree, actions: torch.Tensor) -> CarriedTree:
+        """Compact each game's chosen child's subtree into the leading
+        rows (`ops.subtree_promote`). `valid` is False where the chosen
+        child was never expanded; callers also clear lanes whose game
+        ended or changed hands."""
+        cfg = self.config
+        with record_function("search.promote"):
+            (
+                e_visits, e_value, e_reward, children, prior, valid,
+                terminal, state_index, promo_valid, retained,
+            ) = subtree_promote(
+                tree.e_visits, tree.e_value, tree.e_reward, tree.children, tree.prior,
+                tree.valid, tree.terminal, actions,
+                max_retained=self.reuse_slots, bfs_rounds=cfg.max_depth,
+                mode=cfg.tree_reuse_backend,
+            )
+            bcol = torch.arange(actions.shape[0], device=self.device)[:, None]
+            promoted = Tree(
+                node_state=tree.node_state.map(lambda x: x[bcol, state_index]),
+                e_visits=e_visits,
+                e_value=e_value,
+                e_reward=e_reward,
+                children=children,
+                prior=prior,
+                valid=valid,
+                terminal=terminal,
+                # The next `_search_carried` takes the root value afresh.
+                root_value0=torch.zeros_like(tree.root_value0),
+            )
+        return CarriedTree(tree=promoted, valid=promo_valid, base=retained.clamp(min=1).long())
+
+    def zero_carried(self, root_states: EnvState) -> CarriedTree:
+        """An all-invalid carry of the right shapes (the start of a
+        rollout or of a serving lane); `root_states` only gives shapes."""
+        batch = root_states.done.shape[0]
+        n, a, dev = self.num_nodes, self.action_dim, self.device
+
+        def zeros():
+            return torch.zeros((batch, n, a), dtype=torch.float32, device=dev)
+
+        return CarriedTree(
+            tree=Tree(
+                node_state=root_states.map(
+                    lambda x: x[:, None].expand((batch, n) + tuple(x.shape[1:])).clone()
+                ),
+                e_visits=zeros(),
+                e_value=zeros(),
+                e_reward=zeros(),
+                children=torch.full((batch, n, a), -1.0, dtype=torch.float32, device=dev),
+                prior=zeros(),
+                valid=zeros(),
+                terminal=torch.zeros((batch, n), dtype=torch.bool, device=dev),
+                root_value0=torch.zeros((batch,), dtype=torch.float32, device=dev),
+            ),
+            valid=torch.zeros((batch,), dtype=torch.bool, device=dev),
+            base=torch.ones((batch,), dtype=torch.int64, device=dev),
+        )

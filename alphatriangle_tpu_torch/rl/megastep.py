@@ -201,7 +201,7 @@ class MegastepRunner:
                 buf.update_priorities(host["idx"][j], host["td"][j])
         self.last_idx = host["idx"]
 
-        # --- engine-side stats ------------------------------------------
+        # --- engine-side stats: episodes, simulations, reused visits ----
         engine.fold_chunk_stats(host)
 
         # --- learner results --------------------------------------------

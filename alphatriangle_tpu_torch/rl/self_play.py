@@ -1,5 +1,6 @@
 """Batched self-play: counterpart of `alphatriangle_tpu/rl/self_play.py`
-(`RolloutCarry`, `SelfPlayEngine`), the PUCT branch.
+(`RolloutCarry`, `SelfPlayEngine`), the PUCT branch with and without
+subtree reuse.
 
 One engine steps B games in lockstep on one device. A rollout chunk is
 `num_moves` moves of: features of every game, one batched
@@ -15,10 +16,13 @@ small per-move `trace`; the chunk stacks them over its moves.
 The key schedule is the JAX engine's: `split(carry.rng, 5)` per move
 into (rng, search, select, reset, mode) keys, all single keys on the
 CPU, so the search and the draws replay the JAX package's streams.
-Gumbel root search, playout-cap randomization and subtree reuse are
-refused (the port's search refuses the first and the last). The chunk
-runs under `torch.no_grad()` with the net in eval mode; it fetches
-nothing until the caller asks (`play_chunk` fetches once).
+Gumbel root search and playout-cap randomization are refused (the
+port's search refuses the first). With `MCTSConfig.tree_reuse` the
+carry holds a `CarriedTree`: each move searches from it and promotes
+the played action's subtree for the next move (games that end start
+fresh), and the trace's `reused` counts the root visits inherited. The
+chunk runs under `torch.no_grad()` with the net in eval mode; it
+fetches nothing until the caller asks (`play_chunk` fetches once).
 """
 
 import logging
@@ -33,7 +37,7 @@ from ..config.train_config import TrainConfig
 from ..env.engine import EnvState, TriangleEnv
 from ..features.core import FeatureExtractor
 from ..mcts.helpers import policy_target_from_visits, select_action_from_visits
-from ..mcts.search import BatchedMCTS
+from ..mcts.search import BatchedMCTS, CarriedTree
 from ..utils.transfer import fetch
 from .types import SelfPlayResult
 
@@ -55,6 +59,7 @@ class RolloutCarry:
     pend_discount: torch.Tensor  # (B, n) float32 next-reward discounts
     pend_active: torch.Tensor  # (B, n) bool slot occupancy
     move_index: int  # global move counter
+    tree: "CarriedTree | None" = None  # promoted search tree (tree_reuse)
 
 
 def _stack(moves: list):
@@ -117,12 +122,16 @@ class SelfPlayEngine:
             pend_active=zeros(b, n, dtype=torch.bool),
             move_index=0,
         )
+        if mcts_config.tree_reuse:
+            # All-invalid: every lane's first move searches afresh.
+            self._carry.tree = self.mcts.zero_carried(self._carry.env)
         self._out: list = []
         self._episode_scores: list[float] = []
         self._episode_lengths: list[int] = []
         self._episodes_played = 0
         self._episodes_truncated = 0
         self._total_simulations = 0
+        self._total_reused_visits = 0  # root visits inherited through reuse
         self.dispatch_count = 0  # chunks played through play_chunk
         self.last_trace: "dict[str, np.ndarray] | None" = None
 
@@ -145,7 +154,12 @@ class SelfPlayEngine:
 
         # 1-2. Features for replay + the batched search.
         grids, others = self.extractor.extract(states)
-        out = self.mcts.search(states, k_search)
+        final_tree = reused = None
+        if carry.tree is not None:
+            # Subtree reuse: lanes with an invalid carry search afresh.
+            out, final_tree, reused = self.mcts._search_carried(states, k_search, carry.tree)
+        else:
+            out = self.mcts.search(states, k_search)
         valid = self.env.valid_action_mask(states)
         policy = policy_target_from_visits(out.visit_counts, valid)
 
@@ -208,6 +222,13 @@ class SelfPlayEngine:
 
         # 8. Reset finished games in place; the batch never shrinks.
         reset_states = self.env.reset_where_done(new_states.replace(done=ending), k_reset)
+
+        # 9. Promote the played action's subtree for the next move; lanes
+        # whose game ended start their next game fresh.
+        new_tree = carry.tree
+        if final_tree is not None:
+            new_tree = self.mcts.promote(final_tree, actions)
+            new_tree.valid = new_tree.valid & ~ending
         new_carry = RolloutCarry(
             env=reset_states,
             rng=new_rng,
@@ -219,6 +240,7 @@ class SelfPlayEngine:
             pend_discount=pend_discount,
             pend_active=pend_active,
             move_index=carry.move_index + 1,
+            tree=new_tree,
         )
         outputs = {
             "mat": mat,
@@ -230,6 +252,8 @@ class SelfPlayEngine:
                 "reward": rewards,
                 "ending": ending,
                 "wasted_slots": out.wasted_slots,
+                # Root visits inherited from the carried subtree (0 without reuse).
+                "reused": reused if reused is not None else torch.zeros_like(out.root_value),
             },
         }
         return new_carry, outputs
@@ -286,6 +310,7 @@ class SelfPlayEngine:
         """The host tail of a chunk, over its fetched outputs: trace,
         simulation counts, episode stats, the sentinel warning."""
         self._total_simulations += int(host["trace"]["sims"].sum()) * self.batch_size
+        self._total_reused_visits += int(host["trace"]["reused"].sum())
         self.last_trace = host["trace"]
         self._fold_episode_stats(host["episode"])
         sentinels = int(host["sentinel_live"].sum())
@@ -339,6 +364,7 @@ class SelfPlayEngine:
             num_episodes=self._episodes_played,
             num_truncated=self._episodes_truncated,
             total_simulations=self._total_simulations,
+            total_reused_visits=self._total_reused_visits,
         )
         self._out = []
         self._episode_scores = []
@@ -346,4 +372,5 @@ class SelfPlayEngine:
         self._episodes_played = 0
         self._episodes_truncated = 0
         self._total_simulations = 0
+        self._total_reused_visits = 0
         return result

@@ -28,6 +28,9 @@ class SelfPlayResult:
     num_episodes: int = 0
     num_truncated: int = 0
     total_simulations: int = 0
+    # Root visits inherited through subtree reuse (0 without it): the
+    # leaf evaluations the searches did not have to spend.
+    total_reused_visits: int = 0
 
     @property
     def num_experiences(self) -> int:

@@ -6,9 +6,18 @@ Many concurrent game sessions multiplex onto ONE batched
 dispatches; each dispatch serves every pending session with one search
 and one masked step, then fetches its results to the host in one
 transfer. `reload_weights` swaps the served net's weights between
-dispatches. The bucket ladder, subtree reuse, telemetry, the flight
-recorder, the compile cache, the trajectory emitter and the fault
-hooks wait for later slices.
+dispatches.
+
+With `MCTSConfig.tree_reuse` each lane carries its promoted search tree
+across dispatches on the device: a dispatch searches from the carried
+lanes the host still trusts (`_carry_ok`), then promotes the subtree of
+the action the masked step plays. A lane's carry is cleared when its
+session opens or closes, when its game ends, when it was not served
+(its promotion was for a move it never played) and on every weight
+reload (the carried statistics came from the old net).
+
+The bucket ladder, telemetry, the flight recorder, the compile cache,
+the trajectory emitter and the fault hooks wait for later slices.
 """
 
 import threading
@@ -21,6 +30,7 @@ from torch.profiler import record_function
 
 from .. import rng
 from ..mcts.helpers import root_actions
+from ..mcts.search import CarriedTree
 from .session import SessionSlots
 
 
@@ -68,10 +78,16 @@ class PolicyService:
         self.requests_total = 0
         self.episodes_done_total = 0
         self.simulations_total = 0
+        self.reused_visits_total = 0
         self.weight_reloads = 0
         self.batch_ms: list[float] = []  # per-dispatch wall time
-        # The last dispatch's search output (device tensors, no fetch).
+        # The last dispatch's search output and, under reuse, its (B,)
+        # inherited root visits (device tensors, no fetch).
         self.last_output = None
+        self.last_reused = None
+        self._tree_reuse = bool(mcts.config.tree_reuse)
+        self._carry_ok = np.zeros(slots, dtype=bool)
+        self._carried = mcts.zero_carried(self.sessions.states) if self._tree_reuse else None
 
     @property
     def max_slots(self) -> int:
@@ -84,16 +100,22 @@ class PolicyService:
         if reset_key is None:
             reset_key = rng.PRNGKey(0 if seed is None else seed)
         with self._lock:
-            return self.sessions.admit(reset_key)
+            s = self.sessions.admit(reset_key)
+            self._carry_ok[s.slot] = False
+            return s
 
     def open_sessions(self, reset_keys: torch.Tensor) -> list:
         with self._lock:
-            return self.sessions.admit_many(reset_keys)
+            admitted = self.sessions.admit_many(reset_keys)
+            for s in admitted:
+                self._carry_ok[s.slot] = False
+            return admitted
 
     def close_session(self, sid: int) -> dict:
         with self._lock:
             s = self.sessions.session(sid)
             s.pending_since = None
+            self._carry_ok[s.slot] = False
             summary = self.sessions.retire(sid)
             if sid in self._queue:
                 self._queue.remove(sid)
@@ -121,6 +143,7 @@ class PolicyService:
             if state_dict is not None:
                 self.net.set_weights(state_dict)
             self.weight_reloads += 1
+            self._carry_ok[:] = False
             return self.weight_reloads
 
     # --- the micro-batch dispatch ---------------------------------------
@@ -143,22 +166,34 @@ class PolicyService:
             t0 = self._clock()
             if key is None:
                 key = rng.fold_in(self._base_rng, self.dispatch_count)
-            out = self.mcts.search(self.sessions.states, key)
-            with record_function("serve.step"):
+            reused = None
+            if self._tree_reuse:
+                ok = torch.from_numpy(self._carry_ok).to(self.mcts.device)
+                c = self._carried
+                carried = CarriedTree(tree=c.tree, valid=c.valid & ok, base=c.base)
+                out, tree, reused = self.mcts._search_carried(self.sessions.states, key, carried)
+                # The promotion follows the action the masked step plays.
                 actions = root_actions(out)
+                self._carried = self.mcts.promote(tree, actions)
+            else:
+                out = self.mcts.search(self.sessions.states, key)
+                actions = root_actions(out)
+            with record_function("serve.step"):
                 rewards, dones = self.sessions.step(actions, mask)
             # The one host fetch of the dispatch: every result array.
             with record_function("serve.fetch"):
-                host = torch.stack(
-                    [
-                        actions.to(torch.float32),
-                        rewards,
-                        dones.to(torch.float32),
-                        self.sessions.states.score,
-                    ]
-                ).cpu().numpy()
+                rows = [
+                    actions.to(torch.float32),
+                    rewards,
+                    dones.to(torch.float32),
+                    self.sessions.states.score,
+                ]
+                if reused is not None:
+                    rows.append(reused)
+                host = torch.stack(rows).cpu().numpy()
             t1 = self._clock()
             self.last_output = out
+            self.last_reused = reused
             actions_np = host[0].astype(np.int64)
             rewards_np, dones_np, scores_np = host[1], host[2] > 0, host[3]
 
@@ -187,6 +222,12 @@ class PolicyService:
             self.dispatch_count += 1
             self.requests_total += len(results)
             self.simulations_total += self.sessions.slots * self.mcts.config.max_simulations
+            if reused is not None:
+                # Over the full slot array, as simulations_total.
+                self.reused_visits_total += int(host[4].sum())
+                # Only lanes this dispatch served and stepped, and whose
+                # game goes on, may reuse their tree next time.
+                self._carry_ok = mask & ~dones_np
             self.batch_ms.append(batch_ms)
             return results
 
@@ -204,4 +245,5 @@ class PolicyService:
             "serve_batch_ms_p50": _pct(self.batch_ms, 0.50),
             "serve_batch_ms_p95": _pct(self.batch_ms, 0.95),
             "serve_weight_reloads": self.weight_reloads,
+            "serve_reused_visits_total": self.reused_visits_total,
         }

@@ -41,6 +41,8 @@ class TrainingLoop:
         self.global_step = 0
         self.episodes_played = 0
         self.total_simulations = 0
+        # Root visits inherited through subtree reuse (0 without it).
+        self.total_reused_visits = 0
         self.experiences_added = 0
         self.warmup_chunks = 0
         self.megastep_iterations = 0
@@ -64,6 +66,7 @@ class TrainingLoop:
             added = self.c.buffer.ingest_payload(payload)
         self.episodes_played += result.num_episodes
         self.total_simulations += result.total_simulations
+        self.total_reused_visits += result.total_reused_visits
         self.episode_scores.extend(result.episode_scores)
         self.episode_lengths.extend(result.episode_lengths)
         self.experiences_added += added
@@ -158,6 +161,7 @@ class TrainingLoop:
             "buffer_size": len(self.c.buffer),
             "episodes": self.episodes_played,
             "simulations": self.total_simulations,
+            "reused_visits": self.total_reused_visits,
             "mean_episode_score": (
                 float(np.mean(self.episode_scores)) if self.episode_scores else None
             ),

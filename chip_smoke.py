@@ -15,9 +15,12 @@ which exits non-zero:
    card inputs: the search's gather and backup at the serving path's
    B=64 slots and the training path's B=512 lanes (N=65 node rows,
    A=360, W=32, D=8; the backup's inputs holding duplicate edges and
-   inactive entries), and the PER count of the megastep
+   inactive entries), the PER count of the megastep
    (250,000 priorities with zero runs and a zero trash slot, K=2 x
-   B=256 draws, some on segment edges). Times the kernel, its plain
+   B=256 draws, some on segment edges), and the promotion's row reorder
+   at B=64 and B=512 (N=129 node rows, A=360, a budget of 65 rows, 8 BFS
+   rounds; random forests built as a search builds them, with invalid
+   lanes and lanes cut at the budget). Times the kernel, its plain
    version and one library call with CUDA events, and computes the least
    time the card could take.
 3. Serve: the full-width default configuration (8x15 board, 3 slots,
@@ -37,11 +40,19 @@ which exits non-zero:
    and the device priorities, ring size and cursor must agree with the
    host SumTree mirror. Then one more megastep runs under
    `torch.profiler`.
-5. Reference: a small search on the card must give the visit counts of
+5. Serve with subtree reuse: phase 3 with `MCTSConfig(tree_reuse=True)`
+   (129 node rows). Besides phase 3's checks, one `subtree_promote`
+   launch per dispatch, live lanes' root visits equal to the budget plus
+   the inherited visits, and some visits inherited.
+6. Train with subtree reuse: phase 4 with `tree_reuse=True` under the
+   same cuts. Besides phase 4's checks, one `subtree_promote` launch per
+   searched move and some visits inherited.
+7. Reference: a small search on the card must give the visit counts of
    the same search on the CPU (plain versions), under a stub net whose
-   outputs are exact; and a tiny megastep (f32 net, TF32 off) must
-   ingest the same rows, draw the same slots and reach the same losses
-   on the card as on the CPU.
+   outputs are exact; three moves of carried search and promotion must
+   give the CPU's visit counts, inherited visits and carried planes; and
+   a tiny megastep (f32 net, TF32 off) must ingest the same rows, draw
+   the same slots and reach the same losses on the card as on the CPU.
 
 Then one JSON line of kernel figures, the card line, `kernels: ...`, and
 as the last line `{"ok": true, "device": {...}}`.
@@ -62,6 +73,17 @@ TRAIN_CHUNK_MOVES = 2
 TRAIN_MIN_BUFFER = 256
 TRAIN_K = 2
 TRAIN_MEGASTEPS = 4
+# The promotion's shapes on both reuse paths: the default search's 64 +
+# 65 node rows, its 65-row budget and its 8 BFS rounds (the depth).
+PROMOTE_N, PROMOTE_BUDGET, PROMOTE_ROUNDS = 129, 65, 8
+# Each path's kernel launches per dispatch (serve) or per searched move
+# (train); per_sample launches once per megastep of either train path.
+PER_STEP = {
+    "serve": {"gather_rows": 16, "backup_update": 2, "subtree_promote": 0},
+    "serve_reuse": {"gather_rows": 16, "backup_update": 2, "subtree_promote": 1},
+    "train": {"gather_rows": 16, "backup_update": 2, "subtree_promote": 0},
+    "train_reuse": {"gather_rows": 16, "backup_update": 2, "subtree_promote": 1},
+}
 
 # Published HBM rates (NVIDIA data sheets), bytes/s, by card name.
 _HBM_RATES = (
@@ -249,6 +271,97 @@ def search_kernels(torch, dev, rate: float, cycles: float, b: int) -> dict:
     return report
 
 
+def promote_operands(torch, dev, b: int, seed: int):
+    """The promotion's inputs as a search leaves them: six edge planes
+    around random forests (child ids increasing away from the root, one
+    parent edge per node, the node count differing by lane), the played
+    actions, and terminal flags. Every fourth lane plays an unexpanded
+    root action (an invalid promotion); in even lanes every node descends
+    from the played child, so their subtrees outgrow the budget."""
+    n, a = PROMOTE_N, 360
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lanes = torch.arange(b, device=dev)
+    children = torch.full((b, n, a), -1.0, device=dev)
+    children[:, 0, 0] = 1.0
+    count = torch.randint(n // 2, n + 1, (b,), generator=gen, device=dev)
+    count[0::2] = n
+    lo = (lanes % 2 == 0).long()
+    for j in range(2, n):
+        parent = lo + (torch.rand(b, generator=gen, device=dev) * (j - lo)).long()
+        act = torch.randint(0, a, (b,), generator=gen, device=dev)
+        put = (children[lanes, parent, act] < 0) & (j < count)
+        children[lanes[put], parent[put], act[put]] = float(j)
+    actions = torch.zeros(b, dtype=torch.int64, device=dev)
+    actions[1::4] = a - 1
+    children[1::4, 0, a - 1] = -1.0
+    planes = [
+        torch.randint(0, 9, (b, n, a), generator=gen, device=dev).float(),
+        torch.randn((b, n, a), generator=gen, device=dev),
+        torch.randn((b, n, a), generator=gen, device=dev),
+        children,
+        torch.rand((b, n, a), generator=gen, device=dev),
+        (torch.rand((b, n, a), generator=gen, device=dev) < 0.7).float(),
+    ]
+    terminal = torch.rand((b, n), generator=gen, device=dev) < 0.2
+    return planes, actions, terminal
+
+
+def promote_kernel(torch, dev, rate: float, cycles: float, b: int) -> dict:
+    """The promotion's row reorder at B = `b` lanes: bit-equality of the
+    kernel with the plain version on all six planes, then their times,
+    the library yardstick's and the plan's."""
+    import importlib
+
+    sr = importlib.import_module("alphatriangle_tpu_torch.ops.subtree_reuse")
+    planes, actions, _ = promote_operands(torch, dev, b, seed=b)
+    order, _, keep, new_children, valid, retained = sr.promotion_plan(
+        planes[3], actions, PROMOTE_BUDGET, PROMOTE_ROUNDS
+    )
+    if bool(valid[1::4].any()) or not bool(valid[0::4].all()):
+        fail(f"subtree_promote operands: the invalid lanes are not the planned ones at B={b}")
+    if not bool((retained[0::2] == PROMOTE_BUDGET).all()):
+        fail(f"subtree_promote operands: no lane was cut at the budget at B={b}")
+    ins = (*planes[:3], new_children, *planes[4:])
+    got = sr.reorder_planes_cuda(order, retained, ins)
+    want = sr.reorder_planes_plain(order, keep, ins)
+    torch.cuda.synchronize()
+    for q, (x, y) in enumerate(zip(got, want)):
+        if not torch.equal(x, y):
+            fail(f"subtree_promote kernel differs from its plain version on plane {q} at B={b}")
+    n, a = PROMOTE_N, planes[0].shape[-1]
+    # Kept rows of six planes read once, every row of six planes written
+    # once, the order and the row counts read.
+    kept = int(retained.sum())
+    promote_bytes = kept * 6 * a * 4 + b * n * 6 * a * 4 + b * n * 8 + b * 4
+    stacked = torch.stack(ins)  # (6, B, N, A): the library call's operand
+    idx6 = torch.where(keep, order, 0)[None, :, :, None].expand(6, b, n, a)
+    keep6 = keep[None, :, :, None]
+    fill6 = torch.tensor(sr.FILLS, device=dev)[:, None, None, None]
+    library = torch.where(keep6, torch.gather(stacked, 2, idx6), fill6)
+    if not torch.equal(library, torch.stack(want)):
+        fail(f"the library yardstick for subtree_promote is not the same function at B={b}")
+    return {
+        "name": "subtree_promote",
+        "route": "cuda",
+        "source": "alphatriangle_tpu_torch/csrc/subtree_promote.cu",
+        "replaces": "alphatriangle_tpu/ops/subtree_reuse.py:144",
+        "max_abs_err": max(float((x - y).abs().max()) for x, y in zip(got, want)),
+        "ms": time_ms(lambda: sr.reorder_planes_cuda(order, retained, ins), cycles),
+        "plain_ms": time_ms(lambda: sr.reorder_planes_plain(order, keep, ins), cycles),
+        "bound_ms": promote_bytes / rate * 1e3,
+        "bound_by": "bytes",
+        "library_ms": time_ms(
+            lambda: torch.where(keep6, torch.gather(stacked, 2, idx6), fill6), cycles
+        ),
+        "bytes": promote_bytes,
+        "retained_rows": kept,
+        "plan_ms": time_ms(
+            lambda: sr.promotion_plan(planes[3], actions, PROMOTE_BUDGET, PROMOTE_ROUNDS),
+            cycles, iters=20,
+        ),
+    }
+
+
 def kernel_phase(torch, dev, rate: float) -> dict:
     """Every kernel at the shapes of the paths that run it: the search's
     at the serving path's 64 lanes (the figures of the kernels line) and
@@ -301,6 +414,13 @@ def kernel_phase(torch, dev, rate: float) -> dict:
         "searchsorted_disagrees": int((torch.searchsorted(cum, u).int() != want).sum()),
     }
 
+    # --- subtree_promote: the promotion on both reuse paths ---
+    report["subtree_promote"] = promote_kernel(torch, dev, rate, cycles, b=64)
+    at = promote_kernel(torch, dev, rate, cycles, b=512)
+    report["subtree_promote"]["at_512_lanes"] = {
+        key: at[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes", "plan_ms")
+    }
+
     # torch.argmax must return the first maximum on the card, as on the
     # CPU and in jnp.argmax: the descent and the action rule rely on it.
     ties = torch.randint(0, 3, (256, 360), generator=gen, device=dev).float()
@@ -309,7 +429,10 @@ def kernel_phase(torch, dev, rate: float) -> dict:
     return report
 
 
-def serve_phase(torch, dev, kernels) -> dict:
+def serve_phase(torch, dev, kernels, reuse: bool = False) -> dict:
+    """The full-width serve default, with or without subtree reuse,
+    through `run_simulated_load` with counted launches; then one more
+    dispatch under the profiler."""
     from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
     from alphatriangle_tpu_torch.env import TriangleEnv
     from alphatriangle_tpu_torch.features import FeatureExtractor
@@ -319,15 +442,18 @@ def serve_phase(torch, dev, kernels) -> dict:
 
     slots, sims = 64, 64
     env_cfg, model_cfg = EnvConfig(), ModelConfig()
-    mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=sims)
+    mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=sims, tree_reuse=reuse)
     env = TriangleEnv(env_cfg, device=dev)
     extractor = FeatureExtractor(env, model_cfg)
     net = NeuralNetwork(model_cfg, env_cfg, seed=0, device=dev)
     mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
     if (mcts.wave_size, mcts.num_waves, mcts_cfg.max_depth) != (32, 2, 8):
         fail(f"unexpected search shape W={mcts.wave_size} waves={mcts.num_waves}")
+    if mcts.num_nodes != (PROMOTE_N if reuse else sims + 1):
+        fail(f"unexpected node budget N={mcts.num_nodes}")
     service = PolicyService(env, extractor, net, mcts, slots=slots, rng_seed=0)
     checked = {"dispatches": 0, "answered": 0}
+    torch.cuda.reset_peak_memory_stats()
     real_dispatch = service.dispatch
 
     def dispatch_checked(*args, **kwargs):
@@ -346,8 +472,10 @@ def serve_phase(torch, dev, kernels) -> dict:
         for name in ("visit_counts", "root_value", "root_prior"):
             if not bool(torch.isfinite(getattr(out, name)).all()):
                 fail(f"search output {name} is not finite")
-        if not bool((out.visit_counts.sum(dim=-1)[live] == sims).all()):
-            fail("a live lane's root visits do not sum to the simulation budget")
+        # Every simulation passes the root once; reuse adds the inherited visits.
+        inherited = service.last_reused if reuse else torch.zeros_like(out.root_value)
+        if not bool((out.visit_counts.sum(dim=-1)[live] == sims + inherited[live]).all()):
+            fail("a live lane's root visits are not the simulation budget plus the inherited ones")
         if not all(map(lambda r: abs(r["score"]) < 1e9 and abs(r["reward"]) < 1e9, results)):
             fail("non-finite served reward or score")
         checked["dispatches"] += 1
@@ -372,10 +500,12 @@ def serve_phase(torch, dev, kernels) -> dict:
         fail(f"expected {SERVE_DISPATCHES} dispatches, ran {n_disp}")
     if checked["answered"] != stats["moves_served"] or stats["moves_served"] == 0:
         fail("served move count disagrees with the answered requests")
-    per_dispatch = {"gather_rows": 16, "backup_update": 2}
-    for name, want in per_dispatch.items():
+    for name, want in PER_STEP["serve_reuse" if reuse else "serve"].items():
         if launches[name] != want * n_disp:
             fail(f"{name}: {launches[name]} launches in {n_disp} dispatches, want {want} each")
+    reused = service.reused_visits_total
+    if reuse and reused <= 0:
+        fail("the serve-reuse phase inherited no root visits")
     batch_s = sum(service.batch_ms) / 1e3
     report = {
         "launches": launches,
@@ -385,6 +515,10 @@ def serve_phase(torch, dev, kernels) -> dict:
         "dispatch_ms_first": service.batch_ms[0],
         "moves_per_s": stats["moves_served"] / batch_s,
         "leaf_evals_per_s": slots * sims * n_disp / batch_s,
+        # Inherited root visits count as evaluations the search was spared.
+        "leaf_evals_per_s_with_reused": (slots * sims * n_disp + reused) / batch_s,
+        "reused_visits": reused,
+        "reused_share": reused / (reused + service.simulations_total),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
     }
     report["profile"] = profile_dispatch(torch, service, report["dispatch_ms_p50"])
@@ -393,7 +527,7 @@ def serve_phase(torch, dev, kernels) -> dict:
 
 STAGES = (
     "search.init_tree", "search.descend", "search.expand", "search.evaluate",
-    "search.backup", "serve.step", "serve.fetch",
+    "search.backup", "search.promote", "serve.step", "serve.fetch",
 )
 
 
@@ -454,7 +588,7 @@ def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
             "ms": sum(ms for k, ms, _ in rows if f"{kname}_kernel" in k),
             "count": sum(c for k, _, c in rows if f"{kname}_kernel" in k),
         }
-        for kname in ("gather_rows", "backup_update", "per_sample")
+        for kname in ("gather_rows", "backup_update", "per_sample", "subtree_promote")
     }
     # A profiler that recorded no device activity measured nothing.
     return {
@@ -471,17 +605,22 @@ def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
 # The megastep's stages; the search's own stages nest inside selfplay.chunk.
 TRAIN_STAGES = (
     "selfplay.chunk", "search.init_tree", "search.descend", "search.expand", "search.evaluate",
-    "search.backup", "ring.ingest", "per.sample", "learner.steps", "per.update",
+    "search.backup", "search.promote", "ring.ingest", "per.sample", "learner.steps", "per.update",
 )
 
 
-def train_phase(torch, dev, kernels) -> dict:
-    """The default training configuration, cut in depth only, through
-    `run_training` in megastep mode, with counted launches; then one
-    more megastep under the profiler."""
+def train_phase(torch, dev, kernels, reuse: bool = False) -> dict:
+    """The default training configuration, with or without subtree
+    reuse, cut in depth only, through `run_training` in megastep mode,
+    with counted launches; then one more megastep under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from alphatriangle_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig
+    from alphatriangle_tpu_torch.config import (
+        AlphaTriangleMCTSConfig,
+        EnvConfig,
+        ModelConfig,
+        TrainConfig,
+    )
     from alphatriangle_tpu_torch.nn import NeuralNetwork
     from alphatriangle_tpu_torch.training import LoopStatus, run_training
 
@@ -502,7 +641,8 @@ def train_phase(torch, dev, kernels) -> dict:
     for kern in kernels.values():
         kern.launches = 0
     t0 = time.perf_counter()
-    loop = run_training(cfg, device=dev)
+    mcts_cfg = AlphaTriangleMCTSConfig(tree_reuse=reuse)
+    loop = run_training(cfg, mcts_config=mcts_cfg, device=dev)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
@@ -525,11 +665,11 @@ def train_phase(torch, dev, kernels) -> dict:
     ):
         fail("training left the parameters unchanged")
     moves = (loop.warmup_chunks + loop.megastep_iterations) * TRAIN_CHUNK_MOVES
-    want = {
-        "per_sample": loop.megastep_iterations,
-        "gather_rows": 16 * moves,
-        "backup_update": 2 * moves,
-    }
+    if c.self_play.mcts.num_nodes != (PROMOTE_N if reuse else mcts_cfg.max_simulations + 1):
+        fail(f"unexpected node budget N={c.self_play.mcts.num_nodes}")
+    want = {"per_sample": loop.megastep_iterations}
+    for name, per_move in PER_STEP["train_reuse" if reuse else "train"].items():
+        want[name] = per_move * moves
     for name, n in want.items():
         if launches[name] != n:
             fail(f"{name}: {launches[name]} launches in the train phase, want {n}")
@@ -539,6 +679,8 @@ def train_phase(torch, dev, kernels) -> dict:
         fail("ring size or cursor disagrees with the SumTree mirror")
     if size != min(loop.experiences_added, buf.capacity) or buf._pos != loop.experiences_added % buf.capacity:
         fail("ring size or cursor disagrees with the rows ingested")
+    if reuse and loop.total_reused_visits <= 0:
+        fail("the train-reuse phase inherited no root visits")
     dev_p = c.megastep.priorities.cpu().numpy()
     host_p = tree.tree[tree._cap2 : tree._cap2 + buf.capacity]
     import numpy as np
@@ -560,6 +702,8 @@ def train_phase(torch, dev, kernels) -> dict:
     lanes = c.self_play.batch_size
     warm = loop.timings["warmup_chunk_s"]
     report = loop.report()
+    sims = mcts_cfg.max_simulations
+    share = loop.total_reused_visits / (loop.total_reused_visits + loop.total_simulations)
     return {
         "launches": launches,
         "megasteps": loop.megastep_iterations,
@@ -576,6 +720,13 @@ def train_phase(torch, dev, kernels) -> dict:
         "rollout_moves_per_s": lanes * TRAIN_CHUNK_MOVES / statistics.median(warm),
         "megastep_moves_per_s_p50": lanes * TRAIN_CHUNK_MOVES / statistics.median(mega),
         "learner_steps_per_s_p50": TRAIN_K / statistics.median(mega),
+        "leaf_evals_per_s_p50": lanes * TRAIN_CHUNK_MOVES * sims / statistics.median(mega),
+        # The run's inherited share counted as evaluations the searches were spared.
+        "leaf_evals_per_s_p50_with_reused": (
+            lanes * TRAIN_CHUNK_MOVES * sims / statistics.median(mega) / (1.0 - share)
+        ),
+        "reused_visits": loop.total_reused_visits,
+        "reused_share": share,
         "peak_mem_gb": peak_gb,
         "profile": read_profile(prof, TRAIN_STAGES, prof_wall_ms, statistics.median(mega) * 1e3),
     }
@@ -636,6 +787,70 @@ def reference_phase(torch, dev) -> None:
         fail("search visit counts on the card differ from the CPU's")
     if not torch.allclose(outs["cpu"][1], outs[dev][1], atol=1e-5, rtol=1e-5):
         fail("search root values on the card differ from the CPU's")
+
+
+def reference_reuse_phase(torch, dev) -> dict:
+    """Three moves of carried search and promotion from the same roots on
+    the CPU (plain versions) and on the card (the kernels), under the
+    exact stub: the same visit counts, inherited visits, carried planes,
+    carry validity and bases; root values within 1e-5."""
+    from alphatriangle_tpu_torch import rng
+    from alphatriangle_tpu_torch.config import (
+        AlphaTriangleMCTSConfig,
+        EnvConfig,
+        ModelConfig,
+        expected_other_features_dim,
+    )
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS, root_actions
+    from alphatriangle_tpu_torch.nn.model import value_support
+
+    env_cfg = EnvConfig(
+        ROWS=3, COLS=4, PLAYABLE_RANGE_PER_ROW=[(0, 4)] * 3, NUM_SHAPE_SLOTS=1,
+        MAX_SHAPE_TRIANGLES=3, LINE_MIN_LENGTH=3,
+    )
+    model_cfg = ModelConfig(
+        OTHER_NN_INPUT_FEATURES_DIM=expected_other_features_dim(env_cfg), NUM_VALUE_ATOMS=11
+    )
+    mcts_cfg = AlphaTriangleMCTSConfig(
+        max_simulations=16, max_depth=5, mcts_batch_size=8, dirichlet_epsilon=0.0, tree_reuse=True
+    )
+    names = ("e_visits", "e_value", "e_reward", "children", "prior", "valid", "terminal")
+    sides = {}
+    for device in ("cpu", dev):
+        env = TriangleEnv(env_cfg, device=device)
+        mcts = BatchedMCTS(
+            env, FeatureExtractor(env, model_cfg), _ExactStub(11), mcts_cfg,
+            value_support(model_cfg),
+        )
+        states = env.reset(rng.split(rng.PRNGKey(6), 16))
+        carried = mcts.zero_carried(states)
+        moves = []
+        for move in range(3):
+            out, tree, reused = mcts._search_carried(states, rng.PRNGKey(20 + move), carried)
+            actions = root_actions(out)
+            carried = mcts.promote(tree, actions)
+            moves.append({
+                "visits": out.visit_counts.cpu(), "root_value": out.root_value.cpu(),
+                "reused": reused.cpu(), "carry_valid": carried.valid.cpu(),
+                "carry_base": carried.base.cpu(),
+                **{name: getattr(carried.tree, name).cpu() for name in names},
+            })
+            states, _, _ = env.step(states, actions)
+        sides[str(device)] = moves
+    for move, (cpu, card) in enumerate(zip(sides["cpu"], sides[str(dev)])):
+        for key, x in cpu.items():
+            if key == "root_value":
+                if not torch.allclose(x, card[key], atol=1e-5, rtol=1e-5):
+                    fail(f"carried search root values differ from the CPU's at move {move}")
+            elif not torch.equal(x, card[key]):
+                fail(f"carried search {key} differs between the card and the CPU at move {move}")
+    last = sides["cpu"][-1]
+    if float(sum(m["reused"].sum() for m in sides["cpu"])) <= 0:
+        fail("the carried reference search inherited no visits")
+    return {"moves": 3, "reused": [float(m["reused"].sum()) for m in sides["cpu"]],
+            "valid_lanes": int(last["carry_valid"].sum())}
 
 
 def reference_train_phase(torch, dev) -> dict:
@@ -725,6 +940,54 @@ def reference_train_phase(torch, dev) -> dict:
     }
 
 
+def say_profile(label: str, prof: dict, card: str) -> None:
+    if prof["device_ms"] is None:
+        say(f"profiled {label}: wall {prof['wall_ms']:.1f} ms, device time not measured [{card}]")
+    else:
+        say(
+            f"profiled {label}: wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} "
+            f"ms in {prof['device_launches']} kernels and copies, device busy "
+            f"{prof['device_busy_share']:.1%} of the p50 {label} [{card}]"
+        )
+    for stage, st in prof["stages"].items():
+        say(f"  stage {stage}: host {st['host_ms']:.1f} ms, device {st['device_ms']:.1f} ms, "
+            f"{st['calls']} calls")
+    for kname, st in prof["ported"].items():
+        say(f"  ported kernel {kname}: device {st['ms']:.3f} ms in {st['count']} launches")
+    for row in prof["top"]:
+        say(f"  {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
+
+
+def say_serve(label: str, r: dict, card: str) -> None:
+    say(
+        f"{label}: {r['dispatches']} dispatches, {r['moves_served']} moves; "
+        f"dispatch p50 {r['dispatch_ms_p50']:.1f} ms (first {r['dispatch_ms_first']:.1f} ms), "
+        f"{r['moves_per_s']:.1f} moves/s, {r['leaf_evals_per_s']:.0f} leaf evals/s "
+        f"({r['leaf_evals_per_s_with_reused']:.0f} with {r['reused_visits']} inherited visits, "
+        f"{r['reused_share']:.1%} of root visits), peak {r['peak_mem_gb']:.2f} GiB; "
+        f"launches {r['launches']} [{card}]"
+    )
+    say_profile("dispatch", r["profile"], card)
+
+
+def say_train(label: str, r: dict, card: str) -> None:
+    say(
+        f"{label}: {r['megasteps']} megasteps after {r['warmup_chunks']} warm-up chunks, "
+        f"{r['searched_moves']} searched moves, {r['rows_ingested']} rows, "
+        f"{r['episodes']} episodes; megastep p50 {r['megastep_ms_p50']:.1f} ms "
+        f"(first {r['megastep_ms_first']:.1f} ms), warm-up chunk p50 "
+        f"{r['warmup_chunk_ms_p50']:.1f} ms, rollout {r['rollout_moves_per_s']:.1f} "
+        f"moves/s (warm-up chunks), {r['megastep_moves_per_s_p50']:.1f} moves/s and "
+        f"{r['learner_steps_per_s_p50']:.2f} learner steps/s (p50 megastep), "
+        f"{r['leaf_evals_per_s_p50']:.0f} leaf evals/s "
+        f"({r['leaf_evals_per_s_p50_with_reused']:.0f} with {r['reused_visits']} inherited "
+        f"visits, {r['reused_share']:.1%} of root visits), "
+        f"peak {r['peak_mem_gb']:.2f} GiB; launches {r['launches']} [{card}]"
+    )
+    say(f"{label} losses: {json.dumps(r['losses'])}")
+    say_profile("megastep", r["profile"], card)
+
+
 def main() -> int:
     import torch
 
@@ -772,98 +1035,73 @@ def main() -> int:
                 f"(plain {at['plain_ms'] * 1e3:.1f} us, library {at['library_ms'] * 1e3:.1f} us, "
                 f"bound {at['bound_ms'] * 1e3:.2f} us by bytes) [{card}]"
             )
+    plan = kreport["subtree_promote"]
+    say(
+        f"subtree_promote plan (BFS rounds, sort, remap): {plan['plan_ms']:.3f} ms at 64 lanes, "
+        f"{plan['at_512_lanes']['plan_ms']:.3f} ms at 512 lanes [{card}]"
+    )
     say(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     sreport = serve_phase(torch, dev, KERNELS)
-    say(
-        f"serve: {sreport['dispatches']} dispatches, {sreport['moves_served']} moves; "
-        f"dispatch p50 {sreport['dispatch_ms_p50']:.1f} ms (first {sreport['dispatch_ms_first']:.1f} ms), "
-        f"{sreport['moves_per_s']:.1f} moves/s, {sreport['leaf_evals_per_s']:.0f} leaf evals/s, "
-        f"peak {sreport['peak_mem_gb']:.2f} GiB; launches {sreport['launches']} [{card}]"
-    )
-    prof = sreport["profile"]
-    if prof["device_ms"] is None:
-        say(f"profiled dispatch: wall {prof['wall_ms']:.1f} ms, device time not measured [{card}]")
-    else:
-        say(
-            f"profiled dispatch: wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} "
-            f"ms in {prof['device_launches']} kernels and copies, device busy "
-            f"{prof['device_busy_share']:.1%} of the p50 dispatch [{card}]"
-        )
-    for stage, st in prof["stages"].items():
-        say(f"  stage {stage}: host {st['host_ms']:.1f} ms, device {st['device_ms']:.1f} ms, "
-            f"{st['calls']} calls")
-    for kname, st in prof["ported"].items():
-        say(f"  ported kernel {kname}: device {st['ms']:.3f} ms in {st['count']} launches")
-    for row in prof["top"]:
-        say(f"  {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
+    say_serve("serve", sreport, card)
     say(f"serve phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     treport = train_phase(torch, dev, KERNELS)
-    say(
-        f"train: {treport['megasteps']} megasteps after {treport['warmup_chunks']} warm-up chunks, "
-        f"{treport['searched_moves']} searched moves, {treport['rows_ingested']} rows, "
-        f"{treport['episodes']} episodes; megastep p50 {treport['megastep_ms_p50']:.1f} ms "
-        f"(first {treport['megastep_ms_first']:.1f} ms), warm-up chunk p50 "
-        f"{treport['warmup_chunk_ms_p50']:.1f} ms, rollout {treport['rollout_moves_per_s']:.1f} "
-        f"moves/s (warm-up chunks), {treport['megastep_moves_per_s_p50']:.1f} moves/s and "
-        f"{treport['learner_steps_per_s_p50']:.2f} learner steps/s (p50 megastep), peak "
-        f"{treport['peak_mem_gb']:.2f} GiB; launches {treport['launches']} [{card}]"
-    )
-    say(f"train losses: {json.dumps(treport['losses'])}")
-    prof = treport["profile"]
-    if prof["device_ms"] is None:
-        say(f"profiled megastep: wall {prof['wall_ms']:.1f} ms, device time not measured [{card}]")
-    else:
-        say(
-            f"profiled megastep: wall {prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
-            f"in {prof['device_launches']} kernels and copies, device busy "
-            f"{prof['device_busy_share']:.1%} of the p50 megastep [{card}]"
-        )
-    for stage, st in prof["stages"].items():
-        say(f"  stage {stage}: host {st['host_ms']:.1f} ms, device {st['device_ms']:.1f} ms, "
-            f"{st['calls']} calls")
-    for kname, st in prof["ported"].items():
-        say(f"  ported kernel {kname}: device {st['ms']:.3f} ms in {st['count']} launches")
-    for row in prof["top"]:
-        say(f"  {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
+    say_train("train", treport, card)
     say(f"train phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    srreport = serve_phase(torch, dev, KERNELS, reuse=True)
+    say_serve("serve-reuse", srreport, card)
+    say(f"serve-reuse phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    trreport = train_phase(torch, dev, KERNELS, reuse=True)
+    say_train("train-reuse", trreport, card)
+    say(f"train-reuse phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
+    rureport = reference_reuse_phase(torch, dev)
+    say(
+        f"reference: card carried search equals the CPU's over {rureport['moves']} moves "
+        f"(inherited visits {rureport['reused']}, {rureport['valid_lanes']} lanes carried)"
+    )
     rreport = reference_train_phase(torch, dev)
     say(
         f"reference: card megastep equals the CPU megastep (rows {rreport['rows']}, same slots; "
         f"return err {rreport['value_target_max_abs_err']:.2e}, loss err "
         f"{rreport['loss_max_abs_err']:.2e}, TD err {rreport['td_max_abs_err']:.2e})"
     )
+    rreport["carried_search"] = rureport
     say(f"reference phase: {time.perf_counter() - t0:.1f} s")
 
+    paths = {"serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport}
     kernels_line = []
     for kname, kr in kreport.items():
         entry = {key: kr[key] for key in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms",
         ) + (("at_512_lanes",) if "at_512_lanes" in kr else ())}
-        by_path = {"serve": sreport["launches"][kname], "train": treport["launches"][kname]}
+        by_path = {path: rep["launches"][kname] for path, rep in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         # The search kernels run once per searched move (warm-up chunks
         # and megasteps alike), the PER count once per megastep.
-        per = {"serve_dispatch": by_path["serve"] / sreport["dispatches"]}
-        if kname == "per_sample":
-            per["train_megastep"] = by_path["train"] / treport["megasteps"]
-        else:
-            per["train_searched_move"] = by_path["train"] / treport["searched_moves"]
+        per = {}
+        for path, rep in paths.items():
+            if path.startswith("serve"):
+                per[f"{path}_dispatch"] = by_path[path] / rep["dispatches"]
+            elif kname == "per_sample":
+                per[f"{path}_megastep"] = by_path[path] / rep["megasteps"]
+            else:
+                per[f"{path}_searched_move"] = by_path[path] / rep["searched_moves"]
         entry["launches_per"] = per
         kernels_line.append(entry)
-    say(json.dumps({
-        "kernels": kernels_line, "serve": sreport, "train": treport, "reference": rreport,
-        "card": card,
-    }))
+    say(json.dumps({"kernels": kernels_line, **paths, "reference": rreport, "card": card}))
     say(card)
     say("kernels: " + ", ".join(KERNELS))
     say(json.dumps({

@@ -30,6 +30,7 @@ assert "alphatriangle_tpu_torch.serving.service" in names and "alphatriangle_tpu
 for slice_two in ("rl.megastep", "rl.self_play", "rl.trainer", "rl.device_buffer", "ops.per_sample",
                   "training.loop", "training.runner", "utils.sumtree", "config.train_config"):
     assert "alphatriangle_tpu_torch." + slice_two in names, slice_two
+assert "alphatriangle_tpu_torch.ops.subtree_reuse" in names
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic"))
 assert not leaked, leaked
 """

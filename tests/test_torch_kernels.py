@@ -6,15 +6,22 @@ and without JAX it runs alone:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Every kernel must be bit-equal (`torch.equal`) to its plain version:
-the gather copies floats, the backup adds each element's entries in the
-plain version's order, and the PER count sums integers.
+the gather and the promotion's row reorder copy floats, the backup adds
+each element's entries in the plain version's order, and the PER count
+sums integers.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from alphatriangle_tpu_torch.ops import KERNELS, backup_update, count_below, gather_rows  # noqa: E402
+from alphatriangle_tpu_torch.ops import (  # noqa: E402
+    KERNELS,
+    backup_update,
+    count_below,
+    gather_rows,
+    subtree_promote,
+)
 from alphatriangle_tpu_torch.ops.gather_rows import (  # noqa: E402
     gather_rows_cuda,
     gather_rows_plain,
@@ -28,6 +35,11 @@ from alphatriangle_tpu_torch.ops.per_sample import (  # noqa: E402
     count_below_plain,
     per_sample,
     stratum_draws,
+)
+from alphatriangle_tpu_torch.ops.subtree_reuse import (  # noqa: E402
+    promotion_plan,
+    reorder_planes_cuda,
+    reorder_planes_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -188,3 +200,79 @@ def test_per_sample_refuses_what_it_cannot_take(dev):
         count_below_cuda(cum, torch.zeros((4, 2), device=dev).t())
     with pytest.raises(ValueError, match="unknown PER sample mode"):
         count_below(cum, torch.zeros((1, 2), device=dev), mode="cuda")
+
+
+def _promote_inputs(dev, seed, b, n, a):
+    """Six edge planes around random forests built as a search builds
+    them (child ids increasing away from the root, one parent edge per
+    node), with invalid lanes (the chosen child unexpanded) and lanes
+    whose subtree outgrows the budget; and the played actions."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    barange = torch.arange(b, device=dev)
+    children = torch.full((b, n, a), -1.0, device=dev)
+    # Node 1 hangs under the root on action 0; in even lanes every later
+    # node descends from node 1 (a subtree of up to N - 1 rows).
+    children[:, 0, 0] = 1.0
+    for j in range(2, n):
+        lo = (barange % 2 == 0).long()
+        parent = lo + (torch.rand(b, generator=gen, device=dev) * (j - lo)).long()
+        act = torch.randint(0, a, (b,), generator=gen, device=dev)
+        free = children[barange, parent, act] < 0
+        children[barange[free], parent[free], act[free]] = float(j)
+    actions = torch.zeros(b, dtype=torch.int64, device=dev)
+    actions[1::4] = a - 1  # unexpanded at the root: invalid promotions
+    children[1::4, 0, a - 1] = -1.0
+    planes = [
+        torch.randint(0, 9, (b, n, a), generator=gen, device=dev).float(),
+        torch.randn((b, n, a), generator=gen, device=dev),
+        torch.randn((b, n, a), generator=gen, device=dev),
+        children,
+        torch.rand((b, n, a), generator=gen, device=dev),
+        (torch.rand((b, n, a), generator=gen, device=dev) < 0.7).float(),
+    ]
+    terminal = torch.rand((b, n), generator=gen, device=dev) < 0.2
+    return planes, terminal, actions
+
+
+@pytest.mark.parametrize("b", [64, 512])
+def test_promote_equals_plain(dev, b):
+    n, a, budget = 129, 360, 65
+    planes, terminal, actions = _promote_inputs(dev, b, b, n, a)
+    order, _, keep, new_children, valid, retained = promotion_plan(planes[3], actions, budget, 8)
+    assert not bool(valid[1::4].any()) and bool((retained == budget).any())
+    ins = (*planes[:3], new_children, *planes[4:])
+    before = KERNELS["subtree_promote"].launches
+    got = subtree_promote(*planes, terminal, actions, max_retained=budget, bfs_rounds=8, mode="xla")
+    torch.cuda.synchronize()
+    assert KERNELS["subtree_promote"].launches == before + 1
+    for g, w in zip(got[:6], reorder_planes_plain(order, keep, ins), strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 3), (5, 9, 40)])
+def test_promote_small_and_unaligned_shapes(dev, shape):
+    b, n, a = shape
+    planes, _, actions = _promote_inputs(dev, 7, b, n, a)
+    order, _, keep, new_children, _, retained = promotion_plan(planes[3], actions, n // 2, 4)
+    ins = [*planes[:3], new_children, *planes[4:]]
+    # A 4-byte offset: no float4 moves.
+    base = torch.randn(b * n * a + 1, device=dev)
+    ins[2] = base[1:].view(b, n, a).copy_(ins[2])
+    got = reorder_planes_cuda(order, retained, ins)
+    torch.cuda.synchronize()
+    for g, w in zip(got, reorder_planes_plain(order, keep, ins), strict=True):
+        assert torch.equal(g, w)
+
+
+def test_promote_refuses_what_it_cannot_take(dev):
+    planes, terminal, actions = _promote_inputs(dev, 3, 2, 8, 4)
+    order, _, _, _, _, retained = promotion_plan(planes[3], actions, 4, 4)
+    with pytest.raises(ValueError, match="float32"):
+        reorder_planes_cuda(order, retained, [p.double() for p in planes])
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = [p.transpose(1, 2).contiguous().transpose(1, 2) for p in planes]
+        reorder_planes_cuda(order, retained, strided)
+    with pytest.raises(ValueError, match="shape"):
+        reorder_planes_cuda(order[:, :4], retained, planes)
+    with pytest.raises(ValueError, match="unknown subtree_promote mode"):
+        subtree_promote(*planes, terminal, actions, max_retained=4, bfs_rounds=4, mode="cuda")

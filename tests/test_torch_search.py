@@ -127,10 +127,9 @@ class TestExactSearch:
         assert {k: v.launches for k, v in KERNELS.items()} == before
 
     def test_refuses_unported_search_modes(self, tiny_env_config):
-        for update in ({"tree_reuse": True}, {"root_selection": "gumbel"}):
-            cfg = AlphaTriangleMCTSConfig(max_simulations=8, **update)
-            with pytest.raises(ValueError):
-                _stub_world(tiny_env_config, cfg)
+        cfg = AlphaTriangleMCTSConfig(max_simulations=8, root_selection="gumbel")
+        with pytest.raises(ValueError, match="puct"):
+            _stub_world(tiny_env_config, cfg)
 
 
 class TestHelpers:

@@ -15,6 +15,7 @@ divisions by constants (eager JAX and the port agree exactly,
 `test_torch_env.py`).
 """
 
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -54,7 +55,6 @@ ULP_RTOL = 2.5e-7  # one float32 ulp: XLA's rewrite of a feature's divisions
 # engines compile its chunk program once.
 SHARED = (dict(N_STEP_RETURNS=2, MAX_EPISODE_MOVES=30, TEMPERATURE_ANNEAL_MOVES=4), 5,
           dict(max_simulations=8, max_depth=4, mcts_batch_size=4))
-_COMPILED: dict = {}  # configuration -> the first JAX engine built for it
 
 
 @pytest.fixture(autouse=True)
@@ -82,25 +82,35 @@ class TestSelectAction:
         np.testing.assert_array_equal(scalar.numpy(), np.asarray(jax_select(counts, 1.0, key)))
 
 
-def _engines(jenv_cfg, train_kw: dict, batch: int, mcts_kw: dict):
-    """(JAX engine, port engine) over the exact stub net. JAX engines of
-    one configuration share their compiled chunk programs."""
+@pytest.fixture(scope="module")
+def compiled() -> dict:
+    """Configuration -> the first JAX engine built for it, whose compiled
+    chunk programs later engines of that configuration share."""
+    return {}
+
+
+def _engines(jenv_cfg, train_kw: dict, batch: int, mcts_kw: dict, compiled=None):
+    """(JAX engine, port engine) over the exact stub net; with
+    `compiled=None` the port engine alone (JAX engine None). JAX engines
+    of one configuration share their compiled chunk programs."""
     model_cfg = small_model_config(jenv_cfg)
     mcts_cfg = AlphaTriangleMCTSConfig(**mcts_kw)
     jcfg = JaxTrainConfig(AUTO_RESUME_LATEST=False, RUN_NAME="sp", **train_kw)
     adim, atoms = jenv_cfg.action_dim, model_cfg.NUM_VALUE_ATOMS
     support = value_support(torch_cfg(model_cfg))
-    jenv = JaxEnv(jenv_cfg)
-    jnet = SimpleNamespace(
-        model=JaxExactStub(adim, atoms), support=jnp.asarray(support.numpy()), weights_version=3,
-        variables={},
-    )
-    key = repr((jenv_cfg, sorted(train_kw.items()), batch, sorted(mcts_kw.items())))
-    jeng = JaxEngine(
-        jenv, get_feature_extractor(jenv, model_cfg), jnet, mcts_cfg, jcfg, batch_size=batch, seed=9,
-        share_compiled=_COMPILED.get(key),
-    )
-    _COMPILED.setdefault(key, jeng)
+    jeng = None
+    if compiled is not None:
+        jenv = JaxEnv(jenv_cfg)
+        jnet = SimpleNamespace(
+            model=JaxExactStub(adim, atoms), support=jnp.asarray(support.numpy()),
+            weights_version=3, variables={},
+        )
+        key = repr((jenv_cfg, sorted(train_kw.items()), batch, sorted(mcts_kw.items())))
+        jeng = JaxEngine(
+            jenv, get_feature_extractor(jenv, model_cfg), jnet, mcts_cfg, jcfg, batch_size=batch,
+            seed=9, share_compiled=compiled.get(key),
+        )
+        compiled.setdefault(key, jeng)
     tenv = TriangleEnv(torch_cfg(jenv_cfg), device=CPU)
     tnet = SimpleNamespace(model=TorchExactStub(adim, atoms), support=support, weights_version=3)
     teng = SelfPlayEngine(
@@ -127,22 +137,34 @@ def _assert_tree(got, want, path=""):
         np.testing.assert_array_equal(got, want.astype(got.dtype), err_msg=path)
 
 
-class TestChunk:
-    @pytest.mark.parametrize(
-        "board,n,moves,cap",
-        [("tiny", 2, 6, 30), ("tiny", 3, 8, 4), ("flagship", 3, 4, 1000)],
-    )
-    def test_chunk_matches_jax(self, tiny_env_config, board, n, moves, cap):
-        from alphatriangle_tpu.config import EnvConfig
+CHUNK_CASES = [("tiny", 2, 6, 30), ("tiny", 3, 8, 4), ("flagship", 3, 4, 1000)]
 
-        jenv_cfg = tiny_env_config if board == "tiny" else EnvConfig()
-        batch = 5 if board == "tiny" else 3
-        jeng, teng = _engines(
-            jenv_cfg,
+
+@pytest.fixture(scope="module")
+def chunk_engines(tiny_env_config, compiled) -> dict:
+    """Each chunk case's (JAX engine, port engine). The JAX chunk
+    programs compile together, in threads (XLA compiles outside the GIL),
+    before the first case runs."""
+    from alphatriangle_tpu.config import EnvConfig
+
+    pairs = {}
+    for board, n, moves, cap in CHUNK_CASES:
+        pairs[(board, n, moves, cap)] = _engines(
+            tiny_env_config if board == "tiny" else EnvConfig(),
             dict(N_STEP_RETURNS=n, MAX_EPISODE_MOVES=cap, TEMPERATURE_ANNEAL_MOVES=4),
-            batch,
+            5 if board == "tiny" else 3,
             dict(max_simulations=8, max_depth=4, mcts_batch_size=4),
+            compiled,
         )
+    with ThreadPoolExecutor(len(pairs)) as pool:
+        assert all(pool.map(lambda case: pairs[case][0].warm_chunk(case[2]), pairs))
+    return pairs
+
+
+class TestChunk:
+    @pytest.mark.parametrize("board,n,moves,cap", CHUNK_CASES)
+    def test_chunk_matches_jax(self, chunk_engines, board, n, moves, cap):
+        jeng, teng = chunk_engines[(board, n, moves, cap)]
         jcarry, jout = jeng._chunk_fn(moves)({}, jeng._carry, jnp.int32(11))
         before = {k: v.launches for k, v in KERNELS.items()}
         tcarry, tout = teng._chunk(moves, teng._carry)
@@ -168,8 +190,8 @@ class TestChunk:
         np.testing.assert_array_equal(tcarry.rng.numpy(), np.asarray(jcarry.rng).astype(np.int64))
         assert tcarry.move_index == int(jcarry.move_index)
 
-    def test_harvest_matches_jax(self, tiny_env_config):
-        jeng, teng = _engines(tiny_env_config, *SHARED)
+    def test_harvest_matches_jax(self, tiny_env_config, compiled):
+        jeng, teng = _engines(tiny_env_config, *SHARED, compiled)
         for _ in range(2):
             want, got = jeng.play_moves(6), teng.play_moves(6)
             assert got.num_experiences == want.num_experiences > 0
