@@ -25,8 +25,9 @@ import torch
 from ._cuda import CudaKernel, check_cuda, stream_ptr
 
 MODES = ("xla", "pallas")
-# Shared memory a launch gets without opting in to more.
-_MAX_SHARED_BYTES = 48 * 1024
+# Entries (W * D, and W) a game's block stages, one a thread
+# (`kMaxEntries` in csrc/mcts_backup.cu).
+MAX_ENTRIES = 1024
 
 KERNEL = CudaKernel(
     "backup_update",
@@ -70,7 +71,8 @@ def backup_update_cuda(
     parents, actions, new_child, rewards,
     rec_node, rec_action, rec_active, returns,
 ):
-    """The update through the kernel, one block per game."""
+    """The update through the kernel, one block per game: each game's
+    entries grouped by element, each element folded once in order."""
     b, n, a = e_visits.shape
     w = parents.shape[1]
     d = rec_node.shape[-1]
@@ -85,7 +87,7 @@ def backup_update_cuda(
     rewards = rewards.to(torch.float32).contiguous()
     rec_node = rec_node.to(torch.int64).contiguous()
     rec_action = rec_action.to(torch.int64).contiguous()
-    rec_active = rec_active.to(torch.uint8).contiguous()
+    rec_active = rec_active.contiguous()
     returns = returns.to(torch.float32).contiguous()
     for name, t, dtype, shape in (
         ("parents", parents, torch.int64, (b, w)),
@@ -94,17 +96,21 @@ def backup_update_cuda(
         ("rewards", rewards, torch.float32, (b, w)),
         ("rec_node", rec_node, torch.int64, (b, w, d)),
         ("rec_action", rec_action, torch.int64, (b, w, d)),
-        ("rec_active", rec_active, torch.uint8, (b, w, d)),
+        ("rec_active", rec_active, torch.bool, (b, w, d)),
         ("returns", returns, torch.float32, (b, w, d)),
     ):
         check_cuda(f"backup_update {name}", t, dtype, shape)
     if n * a >= 2**31:
         raise ValueError("backup_update: N * A must fit in 31 bits")
-    if w * d * 12 + w * 4 > _MAX_SHARED_BYTES:  # backup_update_shared_bytes in the .cu
-        raise ValueError(f"backup_update: W * D = {w * d} entries exceed the shared staging")
+    if max(w * d, w) > MAX_ENTRIES:
+        raise ValueError(
+            f"backup_update: W * D = {w * d} entries (W = {w}) exceed the "
+            f"{MAX_ENTRIES} a block stages"
+        )
     KERNEL.launch(
         e_visits.data_ptr(), e_value.data_ptr(), children.data_ptr(), e_reward.data_ptr(),
         parents.data_ptr(), actions.data_ptr(), new_child.data_ptr(), rewards.data_ptr(),
+        # A bool is one byte, 0 or 1: the kernel reads the flags as uint8, uncopied.
         rec_node.data_ptr(), rec_action.data_ptr(), rec_active.data_ptr(), returns.data_ptr(),
         b, n, a, w, d, stream_ptr(e_visits),
     )

@@ -28,11 +28,14 @@ MODES = ("xla", "pallas")
 # Elements of the (K, B, chunk) compare block the plain count holds at once.
 _PLAIN_BLOCK = 1 << 24
 
+# Elements of `cum` per tile summary (`kTile` in csrc/per_sample.cu).
+TILE = 1024
+
 KERNEL = CudaKernel(
     "per_sample",
     "per_sample.cu",
     "count_below_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 )
 
 
@@ -49,16 +52,22 @@ def count_below_plain(cum: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 
 def count_below_cuda(cum: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """(n,) f32, (k, b) f32 on the card -> (k, b) int32 through the kernel."""
+    """(n,) f32, (k, b) f32 on the card -> (k, b) int32 through the kernel:
+    one summary per tile of `cum`, then one warp per draw (two grids, one
+    launch of this op). Every output is written, so it is not zeroed."""
     check_cuda("per_sample cum", cum, torch.float32)
     check_cuda("per_sample u", u, torch.float32)
     if cum.dim() != 1:
         raise ValueError(f"per_sample: cum must be 1-D, got {tuple(cum.shape)}")
     n, q = cum.shape[0], u.numel()
-    if n >= 2**31 or q > 65535 * 256:
-        raise ValueError(f"per_sample: {n} priorities x {q} draws exceed the launch grid")
-    out = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
-    KERNEL.launch(cum.data_ptr(), u.data_ptr(), out.data_ptr(), n, q, stream_ptr(cum))
+    if n >= 2**31 or q >= 2**31:
+        raise ValueError(f"per_sample: {n} priorities or {q} draws exceed 31-bit indices")
+    out = torch.empty(u.shape, dtype=torch.int32, device=u.device)
+    # Tile summaries (min, max, count, pad), 16 bytes each: scratch.
+    sums = torch.empty((-(-n // TILE), 4), dtype=torch.int32, device=u.device)
+    KERNEL.launch(
+        cum.data_ptr(), u.data_ptr(), out.data_ptr(), sums.data_ptr(), n, q, stream_ptr(cum)
+    )
     return out
 
 

@@ -22,7 +22,11 @@ which exits non-zero:
    rounds; random forests built as a search builds them, with invalid
    lanes and lanes cut at the budget). Times the kernel, its plain
    version and one library call with CUDA events, and computes the least
-   time the card could take.
+   time the card could take. Then the PER count and the backup on every
+   adversarial family of `alphatriangle_tpu_torch/ops/kernel_cases.py`
+   (the backup bit-equal, signs of zero included, at B=64 and B=512),
+   and each one's worst case timed: an unsorted cumsum, every backup
+   entry on one element.
 3. Serve: the full-width default configuration (8x15 board, 3 slots,
    bf16 net of seed 0, 64 slots x 64 simulations, W=32, depth 8) through
    `run_simulated_load` -> `PolicyService.dispatch` for a few
@@ -40,14 +44,18 @@ which exits non-zero:
    and the device priorities, ring size and cursor must agree with the
    host SumTree mirror. Then one more megastep runs under
    `torch.profiler`.
-5. Serve with subtree reuse: phase 3 with `MCTSConfig(tree_reuse=True)`
+   Phases 3 and 4 record the backup operands of their first dispatch and
+   first searched move (copied to the host) on the way.
+5. Real waves: the backup kernel on those recorded operands must be
+   bit-equal to its plain version; its time on them.
+6. Serve with subtree reuse: phase 3 with `MCTSConfig(tree_reuse=True)`
    (129 node rows). Besides phase 3's checks, one `subtree_promote`
    launch per dispatch, live lanes' root visits equal to the budget plus
    the inherited visits, and some visits inherited.
-6. Train with subtree reuse: phase 4 with `tree_reuse=True` under the
+7. Train with subtree reuse: phase 4 with `tree_reuse=True` under the
    same cuts. Besides phase 4's checks, one `subtree_promote` launch per
    searched move and some visits inherited.
-7. Reference: a small search on the card must give the visit counts of
+8. Reference: a small search on the card must give the visit counts of
    the same search on the CPU (plain versions), under a stub net whose
    outputs are exact; three moves of carried search and promotion must
    give the CPU's visit counts, inherited visits and carried planes; and
@@ -59,6 +67,7 @@ as the last line `{"ok": true, "device": {...}}`.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -84,6 +93,9 @@ PER_STEP = {
     "train": {"gather_rows": 16, "backup_update": 2, "subtree_promote": 0},
     "train_reuse": {"gather_rows": 16, "backup_update": 2, "subtree_promote": 1},
 }
+
+# The backup's four planes, in its argument order.
+PLANES = ("e_visits", "e_value", "children", "e_reward")
 
 # Published HBM rates (NVIDIA data sheets), bytes/s, by card name.
 _HBM_RATES = (
@@ -128,9 +140,12 @@ def time_ms(fn, cycles_per_ms: float, iters: int = TIMED_LAUNCHES) -> float:
     """Median per-call device time over `iters` calls, between CUDA
     events around each call. A sleep kernel queued first keeps the card
     busy while the host enqueues the timed calls, so the events time the
-    card's work rather than the host's launch rate. A call of more
-    launches than the card's queue holds (the plain backup) is timed at
-    the host's rate all the same."""
+    card's work rather than the host's launch rate: it lasts three times
+    the host's measured enqueue time, since a call the card reaches
+    before the host has enqueued all of it (per_sample's second grid)
+    would be timed with the host's gap inside. A call of more launches
+    than the card's queue holds (the plain backup) is timed at the
+    host's rate all the same."""
     import torch
 
     for _ in range(5):
@@ -145,7 +160,7 @@ def time_ms(fn, cycles_per_ms: float, iters: int = TIMED_LAUNCHES) -> float:
         (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         for _ in range(iters)
     ]
-    torch.cuda._sleep(int(cycles_per_ms * (1.5 * host_ms * iters + 1.0)))
+    torch.cuda._sleep(int(cycles_per_ms * (3.0 * host_ms * iters + 1.0)))
     for start, end in pairs:
         start.record()
         fn()
@@ -362,6 +377,141 @@ def promote_kernel(torch, dev, rate: float, cycles: float, b: int) -> dict:
     }
 
 
+def tiles_counted(torch, cum, u) -> int:
+    """Summed over the draws, the tiles of `cum` that the count kernel
+    cannot settle from their minimum and maximum (NaN left out)."""
+    from alphatriangle_tpu_torch.ops.per_sample import TILE
+
+    nan = torch.isnan(cum)
+    pad = (-cum.numel()) % TILE
+    inf = float("inf")
+    lo = torch.cat([torch.where(nan, inf, cum), cum.new_full((pad,), inf)])
+    hi = torch.cat([torch.where(nan, -inf, cum), cum.new_full((pad,), -inf)])
+    lo, hi = lo.view(-1, TILE).amin(dim=1), hi.view(-1, TILE).amax(dim=1)
+    v = u.reshape(-1, 1)
+    return int((~(hi < v) & (lo < v)).sum())
+
+
+def count_worst_case(torch, dev, ps, cycles: float) -> dict:
+    """The count at the flagship sizes on an unsorted `cum`: every tile
+    straddles every draw, so the kernel counts every element."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cum = torch.randn(250_000, generator=gen, device=dev)
+    u = torch.randn((TRAIN_K, 256), generator=gen, device=dev)
+    got, want = ps.count_below_cuda(cum, u), ps.count_below_plain(cum, u)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("per_sample kernel differs from its plain version on an unsorted cum")
+    return {
+        "input": "unsorted cum (normal), n = 250,000, K = 2, B = 256",
+        "ms": time_ms(lambda: ps.count_below_cuda(cum, u), cycles),
+        "tiles_counted_per_draw": tiles_counted(torch, cum, u) / u.numel(),
+    }
+
+
+def bits_equal(torch, x, y) -> bool:
+    """Bit for bit: torch.equal, and -0.0 apart from +0.0."""
+    return torch.equal(x, y) and torch.equal(torch.signbit(x), torch.signbit(y))
+
+
+def kernel_families(torch, dev, cycles: float) -> dict:
+    """The redesigned kernels on every adversarial family of
+    `ops/kernel_cases.py` (the backup at 64 and 512 lanes): bit-equal to
+    the plain versions. Then the backup's worst case, every entry on one
+    element, timed at both widths."""
+    import importlib
+
+    cases = importlib.import_module("alphatriangle_tpu_torch.ops.kernel_cases")
+    ps = importlib.import_module("alphatriangle_tpu_torch.ops.per_sample")
+    mb = importlib.import_module("alphatriangle_tpu_torch.ops.mcts_backup")
+    on = lambda arrays: [torch.from_numpy(x).to(dev) for x in arrays]  # noqa: E731
+    for name in cases.COUNT_CASES:
+        cum, u = on(cases.count_case(name, seed=1))
+        got, want = ps.count_below_cuda(cum, u), ps.count_below_plain(cum, u)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"per_sample kernel differs from its plain version on family {name}")
+    worst = {}
+    for b in (64, 512):
+        for name in cases.BACKUP_CASES:
+            planes, updates = cases.backup_case(name, b=b, n=65, a=360, seed=b)
+            planes, updates = on(planes), on(updates)
+            want = mb.backup_update_plain(*[p.clone() for p in planes], *updates)
+            got = mb.backup_update_cuda(*[p.clone() for p in planes], *updates)
+            torch.cuda.synchronize()
+            for plane, x, y in zip(PLANES, got, want):
+                if not bits_equal(torch, x, y):
+                    fail(f"backup_update kernel differs from its plain version on {plane}, "
+                         f"family {name}, B={b}")
+            if name == "one_element":
+                worst[b] = time_ms(lambda: mb.backup_update_cuda(*planes, *updates), cycles)
+    # The backup against the number of games (one block each; 132 SMs).
+    by_lanes = {}
+    for b in (64, 132, 264, 396, 512, 1024):
+        inputs = cases.backup_case("random", b, n=65, a=360, seed=b)
+        planes, updates = (on(x) for x in inputs)
+        by_lanes[b] = time_ms(lambda: mb.backup_update_cuda(*planes, *updates), cycles)
+    return {
+        "count_families": list(cases.COUNT_CASES),
+        "backup_families": list(cases.BACKUP_CASES),
+        "backup_worst_case": {
+            "input": "every entry and insertion on one element, W = 32, D = 8",
+            "ms": worst[64],
+            "ms_at_512_lanes": worst[512],
+        },
+        "backup_ms_by_lanes": by_lanes,
+        # One launch of a kernel that does nothing, timed the same way.
+        "empty_kernel_ms": time_ms(lambda: torch.cuda._sleep(0), cycles),
+    }
+
+
+def record_backups(calls: list, waves: int):
+    """Wrap the search's `backup_update` so that its next `waves` calls
+    are recorded (operands copied to the host before the in-place update,
+    so the path's device memory is not changed); returns the function
+    that restores it."""
+    from alphatriangle_tpu_torch.mcts import search as search_mod
+
+    real = search_mod.backup_update
+
+    def recorded(*args, **kwargs):
+        if len(calls) < waves:
+            calls.append([x.cpu() for x in args])
+        return real(*args, **kwargs)
+
+    search_mod.backup_update = recorded
+    return lambda: setattr(search_mod, "backup_update", real)
+
+
+def real_wave_phase(torch, cycles: float, recorded: dict) -> dict:
+    """The backup kernel on the operands of real waves (one serve
+    dispatch, one train move): bit-equal to the plain version, and its
+    time on them."""
+    import importlib
+
+    mb = importlib.import_module("alphatriangle_tpu_torch.ops.mcts_backup")
+    report = {}
+    for path, calls in recorded.items():
+        if not calls:
+            fail(f"no backup operands were recorded on the {path} path")
+        calls = [[x.to("cuda") for x in args] for args in calls]
+        for args in calls:
+            got = mb.backup_update_cuda(*[x.clone() for x in args])
+            want = mb.backup_update_plain(*[x.clone() for x in args])
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                if not bits_equal(torch, x, y):
+                    fail(f"backup_update kernel differs from plain on a {path} wave")
+        args = [x.clone() for x in calls[0]]
+        report[path] = {
+            "waves": len(calls),
+            "lanes": int(args[0].shape[0]),
+            "inactive_share": float((~torch.stack([c[10] for c in calls])).float().mean()),
+            "ms": time_ms(lambda: mb.backup_update_cuda(*args), cycles),
+        }
+    return report
+
+
 def kernel_phase(torch, dev, rate: float) -> dict:
     """Every kernel at the shapes of the paths that run it: the search's
     at the serving path's 64 lanes (the figures of the kernels line) and
@@ -407,12 +557,22 @@ def kernel_phase(torch, dev, rate: float) -> dict:
         "bound_by": "bytes",
         "library_ms": time_ms(lambda: torch.searchsorted(cum, u), cycles),
         "bytes": ps_bytes,
-        "kernel_compares": kq * bq * cap,
+        # The kernel's data-dependent work: tiles it counts element by
+        # element, per draw (the rest it settles from their summaries).
+        "tiles_counted_per_draw": tiles_counted(torch, cum, u) / u.numel(),
+        "worst_case": count_worst_case(torch, dev, ps, cycles),
         # A binary search equals the count only on a nondecreasing cumsum,
         # which the card's parallel scan does not promise: recorded, not held.
         "cumsum_descents": int((cum[1:] < cum[:-1]).sum()),
         "searchsorted_disagrees": int((torch.searchsorted(cum, u).int() != want).sum()),
     }
+
+    # --- the redesigned kernels on their adversarial families ---
+    families = kernel_families(torch, dev, cycles)
+    report["backup_update"]["worst_case"] = families["backup_worst_case"]
+    report["backup_update"]["ms_by_lanes"] = families["backup_ms_by_lanes"]
+    report["empty_kernel_ms"] = families["empty_kernel_ms"]
+    report["families"] = families
 
     # --- subtree_promote: the promotion on both reuse paths ---
     report["subtree_promote"] = promote_kernel(torch, dev, rate, cycles, b=64)
@@ -429,10 +589,12 @@ def kernel_phase(torch, dev, rate: float) -> dict:
     return report
 
 
-def serve_phase(torch, dev, kernels, reuse: bool = False) -> dict:
+def serve_phase(torch, dev, kernels, reuse: bool = False, record: list | None = None):
     """The full-width serve default, with or without subtree reuse,
     through `run_simulated_load` with counted launches; then one more
-    dispatch under the profiler."""
+    dispatch under the profiler. With `record`, the first dispatch's
+    backup operands are appended to it (copied to the host, so that dispatch's
+    time includes the copies)."""
     from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
     from alphatriangle_tpu_torch.env import TriangleEnv
     from alphatriangle_tpu_torch.features import FeatureExtractor
@@ -483,6 +645,8 @@ def serve_phase(torch, dev, kernels, reuse: bool = False) -> dict:
         return results
 
     service.dispatch = dispatch_checked
+    waves = PER_STEP["serve"]["backup_update"]
+    restore = record_backups(record, waves) if record is not None else None
     for kern in kernels.values():
         kern.launches = 0
     stats = run_simulated_load(
@@ -495,6 +659,8 @@ def serve_phase(torch, dev, kernels, reuse: bool = False) -> dict:
     )
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
+    if restore is not None:
+        restore()
     n_disp = stats["dispatches"]
     if n_disp != SERVE_DISPATCHES or checked["dispatches"] != n_disp:
         fail(f"expected {SERVE_DISPATCHES} dispatches, ran {n_disp}")
@@ -582,11 +748,12 @@ def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
             st["calls"] += 1
     device_ms = sum(r[1] for r in rows)
     # The ported kernels launch through ctypes, outside any torch op, so
-    # the stage labels do not see them; read them by kernel name.
+    # the stage labels do not see them; read them by kernel name (one op
+    # may run several grids: per_sample's summary and count kernels).
     ported = {
         kname: {
-            "ms": sum(ms for k, ms, _ in rows if f"{kname}_kernel" in k),
-            "count": sum(c for k, _, c in rows if f"{kname}_kernel" in k),
+            "ms": sum(ms for k, ms, _ in rows if re.search(rf"\b{kname}\w*_kernel\b", k)),
+            "count": sum(c for k, _, c in rows if re.search(rf"\b{kname}\w*_kernel\b", k)),
         }
         for kname in ("gather_rows", "backup_update", "per_sample", "subtree_promote")
     }
@@ -609,10 +776,12 @@ TRAIN_STAGES = (
 )
 
 
-def train_phase(torch, dev, kernels, reuse: bool = False) -> dict:
+def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = None):
     """The default training configuration, with or without subtree
     reuse, cut in depth only, through `run_training` in megastep mode,
-    with counted launches; then one more megastep under the profiler."""
+    with counted launches; then one more megastep under the profiler.
+    With `record`, the first searched move's backup operands are
+    appended to it (copied to the host, inside the first warm-up chunk)."""
     from torch.profiler import ProfilerActivity, profile
 
     from alphatriangle_tpu_torch.config import (
@@ -637,6 +806,8 @@ def train_phase(torch, dev, kernels, reuse: bool = False) -> dict:
                  "OPTIMIZER_TYPE", "LR_SCHEDULER_TYPE", "GRADIENT_CLIP_VALUE"):
         if getattr(cfg, name) != getattr(defaults, name):
             fail(f"the train phase cut a width: {name}")
+    waves = PER_STEP["train"]["backup_update"]
+    restore = record_backups(record, waves) if record is not None else None
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
         kern.launches = 0
@@ -646,6 +817,8 @@ def train_phase(torch, dev, kernels, reuse: bool = False) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
+    if restore is not None:
+        restore()
     if loop.status is not LoopStatus.COMPLETED:
         fail(f"training ended {loop.status.value}")
     c = loop.c
@@ -953,7 +1126,7 @@ def say_profile(label: str, prof: dict, card: str) -> None:
         say(f"  stage {stage}: host {st['host_ms']:.1f} ms, device {st['device_ms']:.1f} ms, "
             f"{st['calls']} calls")
     for kname, st in prof["ported"].items():
-        say(f"  ported kernel {kname}: device {st['ms']:.3f} ms in {st['count']} launches")
+        say(f"  ported kernel {kname}: device {st['ms']:.3f} ms in {st['count']} grids")
     for row in prof["top"]:
         say(f"  {row['ms']:8.3f} ms  x{row['count']:<5d} {row['name']}")
 
@@ -1017,10 +1190,19 @@ def main() -> int:
     rate = hbm_rate(kind)
     t0 = time.perf_counter()
     kreport = kernel_phase(torch, dev, rate)
+    families = kreport.pop("families")
+    empty_ms = kreport.pop("empty_kernel_ms")
+    say(
+        f"families: per_sample equal to plain on {', '.join(families['count_families'])}; "
+        f"backup_update bit-equal to plain at 64 and 512 lanes on "
+        f"{', '.join(families['backup_families'])}"
+    )
     say(
         f"per_sample: the card's cumsum has {kreport['per_sample']['cumsum_descents']} descents; "
         f"torch.searchsorted differs from the count on {kreport['per_sample']['searchsorted_disagrees']} "
-        f"of {TRAIN_K * 256} draws"
+        f"of {TRAIN_K * 256} draws; the kernel counted "
+        f"{kreport['per_sample']['tiles_counted_per_draw']:.2f} tiles element by element "
+        "per draw"
     )
     for kr in kreport.values():
         say(
@@ -1035,22 +1217,48 @@ def main() -> int:
                 f"(plain {at['plain_ms'] * 1e3:.1f} us, library {at['library_ms'] * 1e3:.1f} us, "
                 f"bound {at['bound_ms'] * 1e3:.2f} us by bytes) [{card}]"
             )
+        if "worst_case" in kr:
+            wc = kr["worst_case"]
+            at512 = ""
+            if "ms_at_512_lanes" in wc:
+                at512 = f", {wc['ms_at_512_lanes'] * 1e3:.1f} us at 512 lanes"
+            say(f"kernel {kr['name']} worst case ({wc['input']}): "
+                f"{wc['ms'] * 1e3:.1f} us{at512} [{card}]")
     plan = kreport["subtree_promote"]
     say(
         f"subtree_promote plan (BFS rounds, sort, remap): {plan['plan_ms']:.3f} ms at 64 lanes, "
         f"{plan['at_512_lanes']['plan_ms']:.3f} ms at 512 lanes [{card}]"
     )
+    by_lanes = ", ".join(
+        f"{ms * 1e3:.2f} us at {b}"
+        for b, ms in kreport["backup_update"]["ms_by_lanes"].items()
+    )
+    say(f"kernel backup_update against the games (family random): {by_lanes} [{card}]")
+    say(f"an empty kernel timed the same way: {empty_ms * 1e3:.2f} us [{card}]")
     say(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
+    recorded = {"serve": [], "train": []}
     t0 = time.perf_counter()
-    sreport = serve_phase(torch, dev, KERNELS)
+    sreport = serve_phase(torch, dev, KERNELS, record=recorded["serve"])
     say_serve("serve", sreport, card)
     say(f"serve phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    treport = train_phase(torch, dev, KERNELS)
+    treport = train_phase(torch, dev, KERNELS, record=recorded["train"])
     say_train("train", treport, card)
     say(f"train phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    wreport = real_wave_phase(torch, sleep_cycles_per_ms(), recorded)
+    del recorded
+    kreport["backup_update"]["real_waves"] = wreport
+    for path, r in wreport.items():
+        say(
+            f"kernel backup_update on {r['waves']} real {path} waves ({r['lanes']} lanes, "
+            f"{r['inactive_share']:.1%} of entries inactive): bit-equal to plain; "
+            f"{r['ms'] * 1e3:.1f} us [{card}]"
+        )
+    say(f"real-wave phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     srreport = serve_phase(torch, dev, KERNELS, reuse=True)
@@ -1085,7 +1293,10 @@ def main() -> int:
         entry = {key: kr[key] for key in (
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms",
-        ) + (("at_512_lanes",) if "at_512_lanes" in kr else ())}
+        ) + tuple(
+            key for key in ("at_512_lanes", "worst_case", "real_waves", "ms_by_lanes")
+            if key in kr
+        )}
         by_path = {path: rep["launches"][kname] for path, rep in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
@@ -1101,7 +1312,10 @@ def main() -> int:
                 per[f"{path}_searched_move"] = by_path[path] / rep["searched_moves"]
         entry["launches_per"] = per
         kernels_line.append(entry)
-    say(json.dumps({"kernels": kernels_line, **paths, "reference": rreport, "card": card}))
+    say(json.dumps({
+        "kernels": kernels_line, **paths, "reference": rreport, "empty_kernel_ms": empty_ms,
+        "card": card,
+    }))
     say(card)
     say("kernels: " + ", ".join(KERNELS))
     say(json.dumps({

@@ -7,8 +7,11 @@ and without JAX it runs alone:
 
 Every kernel must be bit-equal (`torch.equal`) to its plain version:
 the gather and the promotion's row reorder copy floats, the backup adds
-each element's entries in the plain version's order, and the PER count
-sums integers.
+each element's entries in the plain version's order (signs of zero
+compared too), and the PER count sums integers. The count and the
+backup also run on every adversarial family of
+`alphatriangle_tpu_torch/ops/kernel_cases.py` and the backup on the
+operands of real waves.
 """
 
 import pytest
@@ -22,9 +25,16 @@ from alphatriangle_tpu_torch.ops import (  # noqa: E402
     gather_rows,
     subtree_promote,
 )
+from alphatriangle_tpu_torch.ops import mcts_backup as backup_mod  # noqa: E402
 from alphatriangle_tpu_torch.ops.gather_rows import (  # noqa: E402
     gather_rows_cuda,
     gather_rows_plain,
+)
+from alphatriangle_tpu_torch.ops.kernel_cases import (  # noqa: E402
+    BACKUP_CASES,
+    COUNT_CASES,
+    backup_case,
+    count_case,
 )
 from alphatriangle_tpu_torch.ops.mcts_backup import (  # noqa: E402
     backup_update_cuda,
@@ -137,6 +147,94 @@ def test_backup_small_shapes_and_int32_indices(dev):
         assert torch.equal(g, wnt)
 
 
+def _on(dev, arrays):
+    return [torch.from_numpy(x).to(dev) for x in arrays]
+
+
+def _bits_equal(x, y) -> bool:
+    """Bit for bit: torch.equal, and -0.0 apart from +0.0."""
+    return torch.equal(x, y) and torch.equal(torch.signbit(x), torch.signbit(y))
+
+
+@pytest.mark.parametrize("case", sorted(BACKUP_CASES))
+@pytest.mark.parametrize("b", [16, 64])
+def test_backup_families_equal_plain(dev, case, b):
+    planes, updates = backup_case(case, b=b, n=65, a=360, seed=b)
+    planes, updates = _on(dev, planes), _on(dev, updates)
+    want = backup_update_plain(*[p.clone() for p in planes], *updates)
+    before = KERNELS["backup_update"].launches
+    got = backup_update(*planes, *updates)
+    torch.cuda.synchronize()
+    assert KERNELS["backup_update"].launches == before + 1
+    for name, g, wnt in zip(("e_visits", "e_value", "children", "e_reward"), got, want,
+                            strict=True):
+        assert _bits_equal(g, wnt), name
+
+
+def test_backup_real_wave_equals_plain(dev, monkeypatch):
+    """The operands of real waves, recorded from one full-width search of
+    8 games under a random net, through the kernel and the plain version."""
+    from alphatriangle_tpu_torch import rng
+    from alphatriangle_tpu_torch.config import (
+        AlphaTriangleMCTSConfig,
+        EnvConfig,
+        ModelConfig,
+    )
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.mcts import search as search_mod
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+
+    env, model_cfg = TriangleEnv(EnvConfig(), device=dev), ModelConfig()
+    net = NeuralNetwork(model_cfg, EnvConfig(), seed=0, device=dev)
+    mcts = BatchedMCTS(env, FeatureExtractor(env, model_cfg), net.model,
+                       AlphaTriangleMCTSConfig(max_simulations=64), net.support)
+    calls = []
+    real = search_mod.backup_update
+
+    def record(*args, **kwargs):
+        calls.append([x.clone() for x in args])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(search_mod, "backup_update", record)
+    mcts.search(env.reset(rng.split(rng.PRNGKey(1), 8)), rng.PRNGKey(2))
+    assert len(calls) == mcts.num_waves
+    for args in calls:
+        assert bool((~args[10]).any())  # the wave has inactive entries
+        got = backup_update_cuda(*[x.clone() for x in args])
+        want = backup_update_plain(*[x.clone() for x in args])
+        torch.cuda.synchronize()
+        for g, wnt in zip(got, want, strict=True):
+            assert _bits_equal(g, wnt)
+
+
+def test_backup_reads_rec_active_in_place(dev, monkeypatch):
+    planes, updates = _backup_inputs(dev, 4, b=2, n=9, a=7, w=8, d=3)
+    seen = []
+    monkeypatch.setattr(backup_mod.KERNEL, "launch", lambda *args: seen.append(args))
+    backup_update_cuda(*planes, *updates)
+    assert seen and seen[0][10] == updates[6].data_ptr()
+
+
+@pytest.mark.parametrize("w,d", [(32, 32), (64, 16), (1024, 1), (8, 0)])
+def test_backup_widest_staging_equals_plain(dev, w, d):
+    # 1024 entries a block (no room for the insertion warp; over 48 KB of
+    # shared memory), 1024 members, and a wave with no levels.
+    planes, updates = _backup_inputs(dev, w + d, b=3, n=9, a=7, w=w, d=d)
+    want = backup_update_plain(*[p.clone() for p in planes], *updates)
+    got = backup_update_cuda(*planes, *updates)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want, strict=True):
+        assert _bits_equal(g, wnt)
+
+
+def test_backup_refuses_what_it_cannot_take(dev):
+    planes, updates = _backup_inputs(dev, 5, b=1, n=9, a=7, w=64, d=17)
+    with pytest.raises(ValueError, match="entries"):
+        backup_update_cuda(*planes, *updates)
+
+
 def _priorities(dev, cap: int, seed: int) -> torch.Tensor:
     """(cap + 1,) priorities as the ring holds them: zero-priority runs
     (empty slots), a zero trash slot at `cap`, the rest positive."""
@@ -172,6 +270,23 @@ def test_per_sample_count_is_exact_on_unsorted_input(dev):
     u = torch.randn((3, 100), generator=gen, device=dev)
     u[1, 2] = float("nan")
     assert torch.equal(count_below_cuda(cum, u), count_below_plain(cum, u))
+
+
+@pytest.mark.parametrize("case", COUNT_CASES)
+def test_per_sample_families_equal_plain(dev, case):
+    cum, u = _on(dev, count_case(case, seed=7))
+    before = KERNELS["per_sample"].launches
+    got = count_below(cum, u)
+    torch.cuda.synchronize()
+    assert KERNELS["per_sample"].launches == before + 1
+    assert torch.equal(got, count_below_plain(cum, u))
+
+
+def test_per_sample_unaligned_cum_takes_the_scalar_path(dev):
+    cum, u = _on(dev, count_case("ragged_above", seed=8))
+    base = torch.empty(cum.numel() + 1, device=dev)
+    shifted = base[1:].copy_(cum)  # 4-byte offset: no 16-byte loads
+    assert torch.equal(count_below_cuda(shifted, u), count_below_plain(cum, u))
 
 
 def test_per_sample_draw_launches_once_and_skips_empty_slots(dev):

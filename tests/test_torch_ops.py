@@ -17,8 +17,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from alphatriangle_tpu.ops import backup_update as jax_backup  # noqa: E402
 from alphatriangle_tpu.ops import gather_rows as jax_gather  # noqa: E402
-from alphatriangle_tpu.ops.mcts_backup import backup_update_pallas  # noqa: E402
+from alphatriangle_tpu.ops.mcts_backup import (  # noqa: E402
+    backup_update_pallas,
+    backup_update_xla,
+)
 from alphatriangle_tpu_torch.ops import KERNELS, backup_update, gather_rows  # noqa: E402
+from alphatriangle_tpu_torch.ops.kernel_cases import BACKUP_CASES, backup_case  # noqa: E402
+from alphatriangle_tpu_torch.ops.mcts_backup import backup_update_plain  # noqa: E402
 
 
 def _t(x):
@@ -112,3 +117,47 @@ class TestBackupUpdate:
         planes, updates = _backup_inputs(0)
         with pytest.raises(ValueError, match="unknown backup"):
             backup_update(*[_t(p) for p in planes], *[_t(u) for u in updates], mode="x")
+
+
+def _torch(arrays, copy=True):
+    return [_t(x.copy() if copy else x) for x in arrays]
+
+
+def _bits(x):
+    """A float32 array's bit patterns: -0.0 and +0.0 differ."""
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32)).view(np.uint32)
+
+
+class TestBackupUpdateAdversarial:
+    """The families the card holds the redesigned kernel to
+    (`ops/kernel_cases.py`), at a small size, bit for bit."""
+
+    @pytest.mark.parametrize("case", sorted(BACKUP_CASES))
+    def test_plain_matches_xla_bits(self, case):
+        planes, updates = backup_case(case, b=3, n=9, a=7, seed=11, w=6, d=4)
+        want = backup_update_xla(*[jnp.asarray(x) for x in planes + updates])
+        got = backup_update_plain(*_torch(planes), *_torch(updates, copy=False))
+        for name, g, wnt in zip(("e_visits", "e_value", "children", "e_reward"), got, want,
+                                strict=True):
+            np.testing.assert_array_equal(_bits(g.numpy()), _bits(wnt), err_msg=name)
+
+    def test_negative_zero_case_turns_signs(self):
+        # Inactive entries add +0.0: an element of -0.0 that only they reach
+        # becomes +0.0, one that no entry reaches stays -0.0.
+        planes, updates = backup_case("negative_zero", b=3, n=9, a=7, seed=11)
+        visits = backup_update_plain(
+            *[_t(p.copy()) for p in planes], *[_t(u) for u in updates]
+        )[0].numpy()
+        flipped = np.signbit(planes[0]) & ~np.signbit(visits)
+        assert flipped.any() and np.signbit(visits).any()
+
+    # The interpreter unrolls W * (D + 1) updates: the families of few entries.
+    @pytest.mark.parametrize("case", ["int32", "one_element", "w8_d1"])
+    def test_plain_matches_pallas_without_negative_zero(self, case):
+        planes, updates = backup_case(case, b=3, n=9, a=7, seed=12, w=6, d=4)
+        assert not any(np.signbit(p[p == 0]).any() for p in planes)
+        want = backup_update_pallas(*map(jnp.asarray, planes + updates), interpret=True)
+        got = backup_update_plain(*_torch(planes), *_torch(updates, copy=False))
+        for name, g, wnt in zip(("e_visits", "e_value", "children", "e_reward"), got, want,
+                                strict=True):
+            np.testing.assert_array_equal(_bits(g.numpy()), _bits(wnt), err_msg=name)

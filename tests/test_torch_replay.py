@@ -29,6 +29,7 @@ from alphatriangle_tpu.rl.types import SelfPlayResult as JaxResult  # noqa: E402
 from alphatriangle_tpu.utils.sumtree import SumTree as JaxSumTree  # noqa: E402
 from alphatriangle_tpu_torch.config import TrainConfig  # noqa: E402
 from alphatriangle_tpu_torch.ops import KERNELS, count_below  # noqa: E402
+from alphatriangle_tpu_torch.ops.kernel_cases import COUNT_CASES, count_case  # noqa: E402
 from alphatriangle_tpu_torch.ops.per_sample import count_below_plain, per_sample  # noqa: E402
 from alphatriangle_tpu_torch.rl import DeviceReplayBuffer, SelfPlayResult, ring_scatter  # noqa: E402
 from alphatriangle_tpu_torch.rl.buffer import ExperienceBuffer  # noqa: E402
@@ -251,3 +252,19 @@ class TestPerSample:
         cum = torch.arange(4, dtype=torch.float32)
         with pytest.raises(ValueError, match="unknown PER sample mode"):
             count_below(cum, cum[None], mode="cuda")
+
+    @pytest.mark.parametrize("case", COUNT_CASES)
+    def test_count_on_adversarial_cases_equals_jax(self, case):
+        # The families the card holds the redesigned kernel to
+        # (`ops/kernel_cases.py`): the Pallas count on all, NaN and +-inf
+        # and unsorted input included; the binary search where `cum` is
+        # sorted and finite, as it then must agree.
+        cum, u = count_case(case, seed=3, n_large=5000)
+        ours = count_below_plain(torch.from_numpy(cum), torch.from_numpy(u)).numpy()
+        jcum, ju = jnp.asarray(cum), jnp.asarray(u)
+        np.testing.assert_array_equal(
+            ours, np.asarray(count_below_pallas(jcum, ju, interpret=True))
+        )
+        if case not in ("nan_inf", "unsorted"):
+            assert (np.diff(cum) >= 0).all()
+            np.testing.assert_array_equal(ours, np.asarray(count_below_xla(jcum, ju)))
