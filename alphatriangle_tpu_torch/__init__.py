@@ -1,4 +1,4 @@
-"""PyTorch + CUDA port of the alphatriangle_tpu policy-serving path.
+"""PyTorch + CUDA port of alphatriangle_tpu: policy serving and training.
 
 A package of its own beside `alphatriangle_tpu` (the JAX reference it
 is held against by the `tests/test_torch_*.py` parity tests). It

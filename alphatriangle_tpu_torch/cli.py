@@ -9,15 +9,18 @@ Serves simulated sessions through `PolicyService` over the default
 board and net: an untrained net (seed 0) or a state dict written by
 `torch.save(flax_to_torch(variables), PATH)`. Prints one JSON report.
 
-    python -m alphatriangle_tpu_torch.cli train --fused-megastep
-        [--max-steps N] [--self-play-batch B] [--batch-size B]
-        [--buffer-capacity N] [--min-buffer N] [--rollout-chunk T]
-        [--fused-learner-steps K] [--seed S] [--device cuda]
+    python -m alphatriangle_tpu_torch.cli train
+        [--async-rollouts [--workers N] [--replay-ratio R] | --fused-megastep]
+        [--device-replay {auto,on,off}] [--max-steps N] [--self-play-batch B]
+        [--batch-size B] [--buffer-capacity N] [--min-buffer N]
+        [--rollout-chunk T] [--fused-learner-steps K] [--seed S] [--device cuda]
 
-Trains the default board and net through `run_training` in fused
-megastep mode (the only loop mode ported yet; without the flag the
-command exits non-zero). Prints one JSON report: steps, losses, rows
-ingested, episodes and timings.
+Trains the default board and net through `run_training`: the
+synchronous loop without a mode flag, the overlapped loop (producer
+threads behind a replay-ratio gate) with `--async-rollouts`, the fused
+megastep with `--fused-megastep`. Prints one JSON report: steps, losses,
+rows ingested, episodes, weight syncs, the achieved replay ratio and
+timings.
 """
 
 import argparse
@@ -82,12 +85,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
 def cmd_train(args: argparse.Namespace) -> int:
     from .config import TrainConfig
     from .training import EXIT_CODES, run_training
-    from .training.setup import ONLY_MEGASTEP
 
-    if not args.fused_megastep:
-        print(f"train: {ONLY_MEGASTEP}", file=sys.stderr)
-        return 2
-    overrides = {"FUSED_MEGASTEP": True}
+    overrides = {}
+    if args.fused_megastep:
+        overrides["FUSED_MEGASTEP"] = True
+    if args.async_rollouts:
+        overrides["ASYNC_ROLLOUTS"] = True
     for flag, field in (
         ("seed", "RANDOM_SEED"),
         ("max_steps", "MAX_TRAINING_STEPS"),
@@ -97,6 +100,9 @@ def cmd_train(args: argparse.Namespace) -> int:
         ("min_buffer", "MIN_BUFFER_SIZE_TO_TRAIN"),
         ("rollout_chunk", "ROLLOUT_CHUNK_MOVES"),
         ("fused_learner_steps", "FUSED_LEARNER_STEPS"),
+        ("device_replay", "DEVICE_REPLAY"),
+        ("workers", "NUM_SELF_PLAY_WORKERS"),
+        ("replay_ratio", "REPLAY_RATIO"),
     ):
         value = getattr(args, flag)
         if value is not None:
@@ -130,8 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     train = sub.add_parser(
         "train",
-        help="Self-play training of the default board and net in fused megastep "
-        "mode: rollout chunk + ring ingest + PER draw + K learner steps per iteration.",
+        help="Self-play training of the default board and net: the synchronous loop "
+        "(rollout chunk, ring fold, learner steps per iteration) unless a mode flag is given.",
     )
     train.add_argument("--max-steps", type=int, default=None)
     train.add_argument("--self-play-batch", type=int, default=None)
@@ -140,9 +146,19 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--min-buffer", type=int, default=None)
     train.add_argument("--rollout-chunk", type=int, default=None)
     train.add_argument("--fused-learner-steps", type=int, default=None, metavar="K",
-                       help="Learner steps per megastep.")
+                       help="Learner steps per dispatched group (per megastep with "
+                       "--fused-megastep).")
+    train.add_argument("--async-rollouts", action="store_true",
+                       help="Overlapped loop: producer threads + replay-ratio-gated learner.")
+    train.add_argument("--device-replay", choices=["auto", "on", "off"], default=None,
+                       help="Replay ring on the card (auto: on a CUDA device) or the host.")
     train.add_argument("--fused-megastep", action="store_true",
-                       help="Fused megastep loop (the only loop mode ported yet).")
+                       help="Fused megastep loop: rollout chunk + ring ingest + PER draw + "
+                       "K learner steps per iteration.")
+    train.add_argument("--workers", type=int, default=None, metavar="N",
+                       help="Rollout streams in overlapped mode.")
+    train.add_argument("--replay-ratio", type=float, default=None,
+                       help="Overlapped mode: samples consumed per row produced.")
     train.add_argument("--seed", type=int, default=None, help="Random seed.")
     train.add_argument("--device", default="cuda",
                        help="Torch device (default cuda; 'cpu' runs the plain versions).")

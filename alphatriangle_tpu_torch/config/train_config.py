@@ -3,9 +3,9 @@
 same defaults and validators, so a JAX `model_dump()` loads unchanged.
 
 Which knobs the port runs is decided where they are read, not here:
-`training/setup.py::refuse_unported` raises for the loop modes the port
-does not have yet (the synchronous and overlapped loops, `ASYNC_ROLLOUTS`),
-so a dumped config of any mode still loads. `PER_SAMPLE_BACKEND` accepts
+`training/setup.py::refuse_unported` raises for what the port does not
+have yet (the checkpoint and buffer restores), so a dumped config of
+any mode still loads. `PER_SAMPLE_BACKEND` accepts
 the JAX mode strings; on a CUDA tensor the hand-written kernel runs
 whichever it names (ops/per_sample.py).
 """

@@ -1,17 +1,30 @@
 """Evaluation wrapper around `AlphaTriangleNet`: counterpart of
 `alphatriangle_tpu/nn/network.py`.
 
-The net is an `nn.Module` on one device, in eval mode; `set_weights`
-installs a state dict in place (the search and the service hold the
-same module, so they read new weights on their next call) and bumps
-`weights_version`.
+The net holds its weights as one `LiveWeights` (version, module, ready
+event), replaced whole: `set_weights` and `install` put a new module in
+place and bump `weights_version`; they never write into the module that
+is there. A rollout chunk reads `live` once at its start and searches
+with that module to its end, as a JAX chunk reads `net.variables` once
+when it is dispatched, so a sync from another thread never changes the
+weights under a running chunk. On the card, `ready` is an event after
+the copy that made the module: a chunk on another stream waits for it
+before reading the module (`rl/self_play.py`).
+
+Callers that hold the module itself (a `BatchedMCTS` built on
+`net.model`) pick up new weights by reading `net.model` again:
+`PolicyService.reload_weights` does.
 """
+
+import copy
+from dataclasses import dataclass
 
 import torch
 
 from ..config.env_config import EnvConfig
 from ..config.model_config import ModelConfig
 from ..device import resolve_device
+from ..utils.transfer import hand_off
 from .model import (
     AlphaTriangleNet,
     expected_value_from_logits,
@@ -22,6 +35,15 @@ from .model import (
 
 class NetworkEvaluationError(Exception):
     """Raised when network evaluation produces unusable outputs."""
+
+
+@dataclass(frozen=True)
+class LiveWeights:
+    """One installed set of weights: read whole, replaced whole."""
+
+    version: int
+    model: torch.nn.Module
+    ready: "torch.cuda.Event | None" = None  # after the copy that made `model`
 
 
 class NeuralNetwork:
@@ -45,9 +67,16 @@ class NeuralNetwork:
         init_parameters(model, seed)
         if state_dict is not None:
             model.load_state_dict(state_dict)
-        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.live = LiveWeights(0, model.to(self.device).eval().requires_grad_(False))
         self.support = value_support(model_config, self.device)
-        self.weights_version = 0
+
+    @property
+    def model(self) -> torch.nn.Module:
+        return self.live.model
+
+    @property
+    def weights_version(self) -> int:
+        return self.live.version
 
     @torch.no_grad()
     def evaluate_features(self, grid: torch.Tensor, other: torch.Tensor):
@@ -66,7 +95,17 @@ class NeuralNetwork:
         """The weights as a CPU state dict."""
         return {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()}
 
+    def install(self, model: torch.nn.Module) -> int:
+        """Serve `model` (which the caller no longer writes) from now on,
+        in eval mode without gradients; returns the bumped version. The
+        copy that made it must be queued on the current stream."""
+        model = model.eval().requires_grad_(False)
+        self.live = LiveWeights(self.live.version + 1, model, hand_off(self.device))
+        return self.live.version
+
     def set_weights(self, state_dict: dict) -> None:
-        """Install a state dict in place; bumps `weights_version`."""
-        self.model.load_state_dict(state_dict)
-        self.weights_version += 1
+        """Install a state dict in a fresh copy of the module; bumps
+        `weights_version`."""
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(state_dict)
+        self.install(model)

@@ -8,13 +8,15 @@ it. Nothing is built when a module is imported, and nothing falls back:
 a failed build or launch raises.
 
 `CudaKernel.launches` counts successful launches, so a run can show that
-its main path went through the kernel.
+its main path went through the kernel. Producer threads launch
+concurrently: the count and the first load are under a lock.
 """
 
 import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +54,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self._lock = threading.Lock()
         self._lib = None
         self._fn = None
         self._err = None
@@ -91,24 +94,29 @@ class CudaKernel:
 
     def load(self):
         """The launch function, building the library first if needed."""
-        if self._fn is None:
-            self.finish(self.start_build())
-            self._lib = ctypes.CDLL(str(self.library))
-            fn = getattr(self._lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            err = getattr(self._lib, f"{self.name}_error")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn, self._err = fn, err
+        with self._lock:
+            if self._fn is None:
+                self._load()
         return self._fn
+
+    def _load(self) -> None:
+        self.finish(self.start_build())
+        self._lib = ctypes.CDLL(str(self.library))
+        fn = getattr(self._lib, self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(self._lib, f"{self.name}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._fn, self._err = fn, err
 
     def launch(self, *args) -> None:
         """Launch on the given arguments; raise if the launch is refused."""
         rc = self.load()(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name} launch failed: {self._err(rc).decode()} ({rc})")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 def build_all(kernels) -> float:

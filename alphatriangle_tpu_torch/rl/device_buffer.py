@@ -16,13 +16,23 @@ the old ring, which the JAX version replaces functionally). Writes at
 distinct slots are deterministic on the card; the trash row takes many
 writes in no defined order, which is harmless because it is never
 sampled.
+
+Host rows enter the same way (`add_dense`: one upload, then the same
+scatter), and the synchronous and overlapped loops sample slots on the
+host SumTree (`sample`: indices and IS weights only) for the learner to
+gather on the card (`Trainer.train_steps_from`).
 """
+
+import logging
 
 import numpy as np
 import torch
 
 from ..config.train_config import TrainConfig
+from ..utils.transfer import upload
 from .buffer import ExperienceBuffer
+
+logger = logging.getLogger(__name__)
 
 # Canonical field order of experience row blocks (the names the rollout
 # emits for its `mat` / `flush` outputs) and the ring column each fills.
@@ -90,8 +100,9 @@ class DeviceReplayBuffer(ExperienceBuffer):
         other_dim: int,
         action_dim: int,
         device,
+        seed: "int | None" = None,
     ):
-        super().__init__(config)
+        super().__init__(config, seed=seed, action_dim=action_dim)
         cap = self.capacity
         self.device = torch.device(device)
 
@@ -105,7 +116,8 @@ class DeviceReplayBuffer(ExperienceBuffer):
             "value_target": zeros(cap + 1),
             "policy_weight": torch.ones(cap + 1, dtype=torch.float32, device=self.device),
         }
-        # Ingests this ring ran outside the megastep (warm-up chunks).
+        # Ingests this ring ran outside the megastep (rollout chunks and
+        # host adds).
         self.dispatch_count = 0
 
     def record_ingest(self, count: int, max_priority: "float | None" = None) -> np.ndarray:
@@ -134,3 +146,48 @@ class DeviceReplayBuffer(ExperienceBuffer):
         (`SelfPlayEngine.play_moves_device`) into the ring. Returns the
         number of rows written."""
         return self._ingest_blocks((payload["mat"], payload["flush"]))[0]
+
+    def add_dense(
+        self,
+        grid: np.ndarray,
+        other_features: np.ndarray,
+        policy_target: np.ndarray,
+        value_target: np.ndarray,
+        policy_weight: "np.ndarray | None" = None,
+    ) -> np.ndarray:
+        """Host rows into the ring: one upload, then the ingest's scatter.
+        Besides the host ring's finiteness check, the scatter drops rows
+        whose policy target is not a distribution. Returns their slots."""
+        grid = np.asarray(grid, dtype=np.float32)
+        k = grid.shape[0]
+        if k == 0:
+            return np.zeros(0, dtype=np.int64)
+        block = upload(
+            {
+                "grid": grid,
+                "other": np.asarray(other_features, dtype=np.float32),
+                "policy": np.asarray(policy_target, dtype=np.float32),
+                "ret": np.asarray(value_target, dtype=np.float32).reshape(-1),
+                "pw": (
+                    np.ones(k, np.float32)
+                    if policy_weight is None
+                    else np.asarray(policy_weight, dtype=np.float32).reshape(-1)
+                ),
+                "mask": np.ones(k, bool),
+            },
+            self.device,
+        )
+        count, slots = self._ingest_blocks((block,))
+        if count < k:
+            logger.warning("DeviceReplayBuffer: dropped %d invalid rows of %d on add.", k - count, k)
+        return slots.astype(np.int64)
+
+    def sample(self, batch_size: int, current_train_step: "int | None" = None) -> "dict | None":
+        """Slot indices and IS weights drawn on the host SumTree (no rows
+        move): {"indices", "weights"}, or None until ready. The learner
+        gathers the rows on the card."""
+        sampled = self._sample_indices(batch_size, current_train_step)
+        if sampled is None:
+            return None
+        slots, weights = sampled
+        return {"indices": slots.astype(np.int64), "weights": weights}

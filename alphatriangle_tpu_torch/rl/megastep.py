@@ -6,8 +6,8 @@
 One megastep is, on one device and with no host sync between stages:
 
 1. `selfplay.chunk`: a rollout chunk (`SelfPlayEngine._chunk`) searched
-   with the learner's live module in eval mode (no copy of the weights,
-   so no staleness to track);
+   with the learner's live module in eval mode (no copy of the weights:
+   episodes are tagged with the learner step, zero staleness);
 2. `ring.ingest`: `ring_scatter` of the chunk's experience blocks into
    the device ring, and max-priority init of the fresh rows in the
    device priority array (trash slot pinned to 0);
@@ -33,6 +33,7 @@ from torch.profiler import record_function
 
 from .. import rng
 from ..config.train_config import TrainConfig
+from ..nn.network import LiveWeights
 from ..ops.per_sample import per_sample
 from ..utils.transfer import fetch
 from .device_buffer import DeviceReplayBuffer, ring_scatter
@@ -122,7 +123,8 @@ class MegastepRunner:
         learner in place and returns the outputs (still on the device)."""
         engine, buf, trainer = self.engine, self.buffer, self.trainer
         with record_function("selfplay.chunk"):
-            engine._carry, outs = engine._chunk(num_moves, engine._carry)
+            live = LiveWeights(trainer.state.step, trainer.model)
+            engine._carry, outs = engine._chunk(num_moves, engine._carry, live)
         with record_function("ring.ingest"):
             count, pos, keep = ring_scatter(
                 buf.storage, buf._pos, (outs.pop("mat"), outs.pop("flush")), self.cap
@@ -203,6 +205,7 @@ class MegastepRunner:
 
         # --- engine-side stats: episodes, simulations, reused visits ----
         engine.fold_chunk_stats(host)
+        engine.note_weights_version(start_step)
 
         # --- learner results --------------------------------------------
         results = []

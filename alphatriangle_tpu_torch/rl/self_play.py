@@ -23,6 +23,17 @@ the played action's subtree for the next move (games that end start
 fresh), and the trace's `reused` counts the root visits inherited. The
 chunk runs under `torch.no_grad()` with the net in eval mode; it
 fetches nothing until the caller asks (`play_chunk` fetches once).
+
+Weights: a chunk reads the net's `LiveWeights` once, at its start
+(`nn/network.py`), and searches with that module and tags with that
+version to its end, whatever a sync installs meanwhile. Each lane's
+carry holds the version its current episode started under; a finished
+episode reports it (`SelfPlayResult.episode_start_versions`), and a
+harvest reports the oldest version any of its chunks played under
+(`trainer_step_at_episode_start`), as the JAX engine does. The megastep
+passes the learner's module and step instead. A chunk may run on a
+stream of its own (a producer thread's): it waits for the weights'
+`ready` event and marks their tensors as used on its stream.
 """
 
 import logging
@@ -38,7 +49,8 @@ from ..env.engine import EnvState, TriangleEnv
 from ..features.core import FeatureExtractor
 from ..mcts.helpers import policy_target_from_visits, select_action_from_visits
 from ..mcts.search import BatchedMCTS, CarriedTree
-from ..utils.transfer import fetch
+from ..nn.network import LiveWeights
+from ..utils.transfer import fetch, receive
 from .types import SelfPlayResult
 
 logger = logging.getLogger(__name__)
@@ -58,6 +70,7 @@ class RolloutCarry:
     pend_return: torch.Tensor  # (B, n) float32 discounted partial returns
     pend_discount: torch.Tensor  # (B, n) float32 next-reward discounts
     pend_active: torch.Tensor  # (B, n) bool slot occupancy
+    episode_start_version: torch.Tensor  # (B,) int32 weights version at episode start
     move_index: int  # global move counter
     tree: "CarriedTree | None" = None  # promoted search tree (tree_reuse)
 
@@ -120,14 +133,21 @@ class SelfPlayEngine:
             pend_return=zeros(b, n),
             pend_discount=torch.ones((b, n), dtype=torch.float32, device=dev),
             pend_active=zeros(b, n, dtype=torch.bool),
+            episode_start_version=torch.full(
+                (b,), net.live.version, dtype=torch.int32, device=dev
+            ),
             move_index=0,
         )
         if mcts_config.tree_reuse:
             # All-invalid: every lane's first move searches afresh.
             self._carry.tree = self.mcts.zero_carried(self._carry.env)
+        # Oldest weights version any chunk of the current harvest window
+        # played under (None: no chunk yet).
+        self._min_weights_version: "int | None" = None
         self._out: list = []
         self._episode_scores: list[float] = []
         self._episode_lengths: list[int] = []
+        self._episode_start_versions: list[int] = []
         self._episodes_played = 0
         self._episodes_truncated = 0
         self._total_simulations = 0
@@ -143,9 +163,10 @@ class SelfPlayEngine:
         frac = torch.clamp(step_counts.to(torch.float32) / cfg.TEMPERATURE_ANNEAL_MOVES, max=1.0)
         return cfg.TEMPERATURE_INITIAL + frac * (cfg.TEMPERATURE_FINAL - cfg.TEMPERATURE_INITIAL)
 
-    def _move_body(self, carry: RolloutCarry):
-        """One lockstep move of all B games. Updates the carry's window
-        tensors in place and returns (carry', this move's outputs)."""
+    def _move_body(self, carry: RolloutCarry, version: int):
+        """One lockstep move of all B games under weights `version`.
+        Updates the carry's window tensors in place and returns (carry',
+        this move's outputs)."""
         n = self.n_step
         w = carry.move_index % n
         states = carry.env
@@ -218,10 +239,12 @@ class SelfPlayEngine:
             "truncated": truncated,
             "score": new_states.score,
             "length": step_counts,
+            "start_version": carry.episode_start_version,
         }
 
         # 8. Reset finished games in place; the batch never shrinks.
         reset_states = self.env.reset_where_done(new_states.replace(done=ending), k_reset)
+        episode_start_version = torch.where(ending, version, carry.episode_start_version)
 
         # 9. Promote the played action's subtree for the next move; lanes
         # whose game ended start their next game fresh.
@@ -239,6 +262,7 @@ class SelfPlayEngine:
             pend_return=pend_return,
             pend_discount=pend_discount,
             pend_active=pend_active,
+            episode_start_version=episode_start_version,
             move_index=carry.move_index + 1,
             tree=new_tree,
         )
@@ -259,14 +283,18 @@ class SelfPlayEngine:
         return new_carry, outputs
 
     @torch.no_grad()
-    def _chunk(self, num_moves: int, carry: RolloutCarry):
-        """`num_moves` lockstep moves; returns (carry', outputs stacked
-        over the moves)."""
-        if isinstance(self.net.model, torch.nn.Module):
-            self.net.model.eval()
+    def _chunk(self, num_moves: int, carry: RolloutCarry, weights: "LiveWeights | None" = None):
+        """`num_moves` lockstep moves searched with `weights` (the net's
+        live weights when None, read once); returns (carry', outputs
+        stacked over the moves)."""
+        w = self.net.live if weights is None else weights
+        if isinstance(w.model, torch.nn.Module):
+            w.model.eval()
+            receive([*w.model.parameters(), *w.model.buffers()], w.ready)
+        self.mcts.model = w.model
         moves = []
         for _ in range(num_moves):
-            carry, outputs = self._move_body(carry)
+            carry, outputs = self._move_body(carry, w.version)
             moves.append(outputs)
         stacked = _stack(moves)
         sims = self.mcts_config.max_simulations
@@ -283,7 +311,9 @@ class SelfPlayEngine:
         `DeviceReplayBuffer.ingest_payload`; only the episode stats and
         the trace are fetched (one copy). Returns that payload, or None."""
         t = int(num_moves or self.config.ROLLOUT_CHUNK_MOVES)
-        self._carry, outputs = self._chunk(t, self._carry)
+        weights = self.net.live
+        self.note_weights_version(weights.version)
+        self._carry, outputs = self._chunk(t, self._carry, weights)
         payload = None
         if not fetch_experiences:
             payload = {"mat": outputs.pop("mat"), "flush": outputs.pop("flush")}
@@ -306,6 +336,11 @@ class SelfPlayEngine:
                 )
         return None
 
+    def note_weights_version(self, version: int) -> None:
+        """A chunk of the current harvest window plays under `version`."""
+        if self._min_weights_version is None or version < self._min_weights_version:
+            self._min_weights_version = version
+
     def fold_chunk_stats(self, host: dict) -> None:
         """The host tail of a chunk, over its fetched outputs: trace,
         simulation counts, episode stats, the sentinel warning."""
@@ -326,6 +361,9 @@ class SelfPlayEngine:
         if ending.any():
             self._episode_scores.extend(episode["score"][ending].astype(float).tolist())
             self._episode_lengths.extend(episode["length"][ending].astype(int).tolist())
+            self._episode_start_versions.extend(
+                episode["start_version"][ending].astype(int).tolist()
+            )
             self._episodes_played += int(ending.sum())
             self._episodes_truncated += int(episode["truncated"][ending].sum())
 
@@ -361,14 +399,22 @@ class SelfPlayEngine:
             policy_weight=cols[4],
             episode_scores=self._episode_scores,
             episode_lengths=self._episode_lengths,
+            episode_start_versions=self._episode_start_versions,
             num_episodes=self._episodes_played,
             num_truncated=self._episodes_truncated,
             total_simulations=self._total_simulations,
             total_reused_visits=self._total_reused_visits,
+            trainer_step_at_episode_start=(
+                self._min_weights_version
+                if self._min_weights_version is not None
+                else self.net.live.version
+            ),
         )
         self._out = []
         self._episode_scores = []
         self._episode_lengths = []
+        self._episode_start_versions = []
+        self._min_weights_version = None
         self._episodes_played = 0
         self._episodes_truncated = 0
         self._total_simulations = 0

@@ -1,14 +1,28 @@
 """Learner: counterpart of `alphatriangle_tpu/rl/trainer.py` on one
 device (no mesh): LR schedules, the optimizer chain, the C51 target
-projection, the loss and the (fused) train steps.
+projection, the loss, the (fused) train steps and the weight sync.
 
-The learner trains the `NeuralNetwork`'s own module in place. The
-rollout reads the same module under `torch.no_grad()` in eval mode, so
+Outside megastep mode the learner owns a copy of the `NeuralNetwork`'s
+module, made at construction (the JAX trainer copies the net's
+variables), and self-play searches with the net's own module, which
+`sync_to_network` replaces with a fresh copy of the learner's
+(`NeuralNetwork.install`) every `WORKER_UPDATE_FREQ_STEPS` steps. In
+megastep mode (`FUSED_MEGASTEP`) the learner trains the net's module in
+place and the rollout reads it under `torch.no_grad()` in eval mode, so
 the weights it searches with are always the learner's newest (zero
-staleness, as the JAX megastep's in-program params). A step switches
-the module to train mode (transformer dropout on, masks from a
-`torch.Generator` seeded by the step's key) and back to eval mode, and
-leaves no autograd graph behind.
+staleness, as the JAX megastep's in-program params); there is nothing to
+sync. A step switches the learner's module to train mode (transformer
+dropout on, masks from a `torch.Generator` seeded by the step's key) and
+back to eval mode, and leaves no autograd graph behind.
+
+The host API follows the JAX trainer's: `train_step` (a host batch, one
+upload, one fetch), `train_steps` (K steps, one upload and one fetch),
+`train_steps_from` (K steps gathered from the device ring at sampled
+slots) and their `_begin` / `train_steps_finish` halves, where begin
+queues the K steps' work on the card and returns a handle of device
+tensors and finish makes the group's one device-to-host copy. The step
+counter advances at begin, so the next group's sampling and LR read the
+post-group step while the group still runs.
 
 The optimizer follows optax's chain as plain tensor functions:
 `clip_by_global_norm` (optax's formula, not `clip_grad_norm_`'s
@@ -20,6 +34,8 @@ the gradient first, as the JAX chains do. Schedules are evaluated on
 the host in float32, as optax evaluates them.
 """
 
+import copy
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -27,6 +43,7 @@ import torch
 
 from .. import rng
 from ..config.train_config import TrainConfig
+from ..utils.transfer import fetch, upload
 from ..utils.types import DenseBatch
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8  # optax.adam / adamw defaults
@@ -165,7 +182,7 @@ class Trainer:
             )
         self.nn = nn
         self.config = train_config
-        self.model = nn.model
+        self.model = nn.model if train_config.FUSED_MEGASTEP else copy.deepcopy(nn.model)
         self.device = nn.device
         self.params = list(self.model.parameters())
         for p in self.params:
@@ -180,6 +197,11 @@ class Trainer:
             step=0,
             rng=rng.PRNGKey(train_config.RANDOM_SEED),
         )
+        # Learner dispatches (one per begun group) and the host seconds
+        # spent uploading batches and blocked in the groups' fetches.
+        self.dispatch_count = 0
+        self.transfer_h2d_seconds = 0.0
+        self.transfer_d2h_seconds = 0.0
 
     # --- core -------------------------------------------------------------
 
@@ -270,3 +292,95 @@ class Trainer:
     @property
     def global_step(self) -> int:
         return self.state.step
+
+    def get_current_lr(self) -> float:
+        """LR at the current step."""
+        return float(self.schedule(self.global_step))
+
+    def get_variables(self) -> dict[str, torch.Tensor]:
+        """The learner's current weights (its module's live tensors)."""
+        return self.model.state_dict()
+
+    def _upload(self, tree):
+        t0 = time.perf_counter()
+        out = upload(tree, self.device)
+        self.transfer_h2d_seconds += time.perf_counter() - t0
+        return out
+
+    def _begin(self, run, k: int) -> dict:
+        """Queue `run` (K steps on the card) and return its handle."""
+        start = self.state.step
+        metrics, td = run()
+        self.dispatch_count += 1
+        return {"k": k, "metrics": metrics, "td": td, "start_step": start}
+
+    def train_step(self, batch: dict):
+        """One step on a host batch. Returns (metrics, per-sample TD
+        errors), or None on an empty batch."""
+        if int(batch["value_target"].shape[0]) == 0:
+            return None
+        return self.train_steps_finish(self.train_steps_begin([batch]))[0]
+
+    def train_steps(self, batches: list) -> list:
+        """K steps on host batches, one upload and one fetch; the
+        per-step (metrics, TD errors) list, in order."""
+        handle = self.train_steps_begin(batches)
+        return [] if handle is None else self.train_steps_finish(handle)
+
+    def train_steps_begin(self, batches: list) -> "dict | None":
+        """Upload K host batches at once and queue their steps; None when
+        there is no batch or it is empty."""
+        if not batches:
+            return None
+        n = int(batches[0]["value_target"].shape[0])
+        if n == 0:
+            return None
+        batches = [
+            {"policy_weight": np.ones(n, dtype=np.float32), **b} for b in batches
+        ]
+        stacked = self._upload(
+            {key: np.stack([np.asarray(b[key]) for b in batches]) for key in batches[0]}
+        )
+        return self._begin(lambda: self._train_steps_impl(stacked), len(batches))
+
+    def train_steps_from(self, buffer, samples: list) -> list:
+        """K steps on rows the device ring holds at the sampled slots."""
+        handle = self.train_steps_from_begin(buffer, samples)
+        return [] if handle is None else self.train_steps_finish(handle)
+
+    def train_steps_from_begin(self, buffer, samples: list) -> "dict | None":
+        """Upload the K samples' (B,) slots and IS weights and queue the
+        K steps, gathering their rows from `buffer.storage` on the card."""
+        if not samples:
+            return None
+        dev = self._upload({
+            "idx": np.stack([np.asarray(s["indices"], dtype=np.int64) for s in samples]),
+            "weights": np.stack([np.asarray(s["weights"], dtype=np.float32) for s in samples]),
+        })
+        return self._begin(
+            lambda: self._train_steps_from_impl(buffer.storage, dev["idx"], dev["weights"]),
+            len(samples),
+        )
+
+    def train_steps_finish(self, handle: dict) -> list:
+        """The group's one device-to-host copy; the per-step (metrics with
+        the step's LR, TD errors) list, in order."""
+        t0 = time.perf_counter()
+        host = fetch({"metrics": handle["metrics"], "td": handle["td"]})
+        self.transfer_d2h_seconds += time.perf_counter() - t0
+        results = []
+        for i in range(handle["k"]):
+            m = {key: float(v[i]) for key, v in host["metrics"].items()}
+            m["learning_rate"] = float(self.schedule(handle["start_step"] + i + 1))
+            results.append((m, host["td"][i]))
+        return results
+
+    def sync_to_network(self) -> int:
+        """Install a device-side copy of the learner's module as the
+        net's weights; returns the bumped weights version. Chunks that
+        already read the net's weights keep theirs."""
+        if self.model is self.nn.model:
+            raise RuntimeError(
+                "the learner trains the net's own module (megastep mode): there is nothing to sync"
+            )
+        return self.nn.install(copy.deepcopy(self.model))

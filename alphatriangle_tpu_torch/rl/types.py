@@ -25,12 +25,18 @@ class SelfPlayResult:
     policy_weight: "np.ndarray | None" = None  # (N,) float32; None -> ones
     episode_scores: list = field(default_factory=list)
     episode_lengths: list = field(default_factory=list)
+    # Weights version each finished episode started under: the
+    # per-episode staleness tag.
+    episode_start_versions: list = field(default_factory=list)
     num_episodes: int = 0
     num_truncated: int = 0
     total_simulations: int = 0
     # Root visits inherited through subtree reuse (0 without it): the
     # leaf evaluations the searches did not have to spend.
     total_reused_visits: int = 0
+    # Oldest weights version the harvest's chunks played under: the
+    # window-level staleness tag.
+    trainer_step_at_episode_start: int = 0
 
     @property
     def num_experiences(self) -> int:

@@ -138,10 +138,14 @@ class PolicyService:
 
     def reload_weights(self, state_dict: "dict | None" = None) -> int:
         """Swap the served weights between dispatches (`None` records a
-        reload installed into the net externally). Returns the count."""
+        reload installed into the net externally). The search reads the
+        net's module from the next dispatch on. Returns the count."""
         with self._lock:
             if state_dict is not None:
                 self.net.set_weights(state_dict)
+            live = getattr(self.net, "live", None)  # stub nets hold no weights
+            if live is not None:
+                self.mcts.model = live.model
             self.weight_reloads += 1
             self._carry_ok[:] = False
             return self.weight_reloads

@@ -1,15 +1,16 @@
-"""Training in fused-megastep mode: components, setup, loop and runner."""
+"""Training: components, setup, the loop in its three modes, and the runner."""
 
 from .components import TrainingComponents
 from .loop import LoopStatus, TrainingLoop
 from .runner import EXIT_CODES, run_training
-from .setup import refuse_unported, setup_training_components
+from .setup import clamp_self_play_workers, refuse_unported, setup_training_components
 
 __all__ = [
     "EXIT_CODES",
     "LoopStatus",
     "TrainingComponents",
     "TrainingLoop",
+    "clamp_self_play_workers",
     "refuse_unported",
     "run_training",
     "setup_training_components",

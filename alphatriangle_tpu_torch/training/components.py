@@ -1,5 +1,5 @@
 """Component bundle: counterpart of `alphatriangle_tpu/training/components.py`,
-limited to what the single-device megastep loop builds."""
+limited to what the single-device loops build."""
 
 from dataclasses import dataclass
 
@@ -12,7 +12,7 @@ from ..config.train_config import TrainConfig
 from ..env.engine import TriangleEnv
 from ..features.core import FeatureExtractor
 from ..nn.network import NeuralNetwork
-from ..rl.device_buffer import DeviceReplayBuffer
+from ..rl.buffer import ExperienceBuffer
 from ..rl.megastep import MegastepRunner
 from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
@@ -20,15 +20,15 @@ from ..rl.trainer import Trainer
 
 @dataclass
 class TrainingComponents:
-    """Everything a megastep training run needs, on one device."""
+    """Everything a training run needs, on one device."""
 
     env: TriangleEnv
     extractor: FeatureExtractor
     net: NeuralNetwork
-    buffer: DeviceReplayBuffer
+    buffer: ExperienceBuffer  # the host ring, or DeviceReplayBuffer (is_device)
     trainer: Trainer
     self_play: SelfPlayEngine
-    megastep: MegastepRunner
+    megastep: "MegastepRunner | None"  # megastep mode only
 
     env_config: EnvConfig
     model_config: ModelConfig

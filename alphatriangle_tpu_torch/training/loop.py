@@ -1,25 +1,61 @@
-"""The training loop in fused-megastep mode: counterpart of
-`alphatriangle_tpu/training/loop.py` (`_process_rollout`, `_fold_result`,
-`_record_step`, `_learner_budget`, `_max_steps_reached`,
-`_megastep_ready`, `_run_megastep_mode`).
+"""The training loop: counterpart of `alphatriangle_tpu/training/loop.py`
+in its three modes, on one device.
 
-Warm-up plays rollout chunks into the device ring (no training) until
-the ring can produce a batch; then every iteration is one megastep
-(`rl/megastep.py`): a rollout chunk, the ring ingest, the PER draw and K
-learner steps, with one fetch at its end. The K of the last megastep
-shrinks to the remaining `MAX_TRAINING_STEPS` budget. Metrics stay in
-memory (`metrics`, `episode_scores`, `timings`); checkpoints,
-TensorBoard, telemetry and the stats collector wait for later slices.
+- **Synchronous** (the default): each iteration plays a rollout chunk of
+  every lane, folds the harvest into the replay ring (the host ring's
+  `add_dense`, or the device ring's ingest), then runs
+  `LEARNER_STEPS_PER_ROLLOUT or max(1, round(added / BATCH_SIZE))`
+  learner steps in groups of `FUSED_LEARNER_STEPS` (a short tail group
+  runs as single steps), each group sampled on the host SumTree.
+- **Overlapped** (`ASYNC_ROLLOUTS`): `NUM_SELF_PLAY_WORKERS` producer
+  threads (clamped per device) each drive their own engine into a
+  bounded queue; the main thread folds the harvests and runs the
+  learner behind the `REPLAY_RATIO` gate, pipelined one group ahead
+  when `PIPELINE_LEARNER`. A crashed stream respawns with exponential
+  backoff; once it has used up `PRODUCER_MAX_RESTARTS`, the run ends
+  with its error. Chunks are shortened to `ASYNC_CHUNK_SECONDS` from one
+  uncontended measurement taken before the producers start.
+- **Fused megastep** (`FUSED_MEGASTEP`): warm-up chunks into the device
+  ring until it can produce a batch, then one megastep per iteration
+  (`rl/megastep.py`): a rollout chunk, the ring ingest, the PER draw and
+  K learner steps with one fetch at the end; the K of the last megastep
+  shrinks to the remaining `MAX_TRAINING_STEPS` budget.
+
+Outside megastep mode self-play reads the net's weights, which the
+learner replaces every `WORKER_UPDATE_FREQ_STEPS` steps
+(`Trainer.sync_to_network`, one sync per group that crosses a
+multiple); the megastep's rollout reads the learner's own module, so it
+has no sync. Each harvest's staleness (the version clock less its
+episodes' mean start version) is kept.
+
+On the card each producer thread runs on a CUDA stream of its own; the
+main thread (ring ingest, learner, syncs) runs on the device's current
+stream. Hand-overs between them are ordered by events and keep their
+tensors alive on the receiving stream (`utils/transfer.py`): an engine's
+carry goes to its producer's stream at spawn, a producer's device
+payload to the ring ingest, and a sync's weights to the producers
+(`LiveWeights.ready`, waited for by the chunk that reads them).
+
+Metrics stay in memory (`metrics`, `episode_scores`, `staleness`,
+`timings`); checkpoints, TensorBoard, telemetry and the stats collector
+wait for later slices.
 """
 
+import contextlib
 import logging
+import queue
 import threading
 import time
+from collections import deque
 from enum import Enum
 
 import numpy as np
+import torch
 
+from ..rl.self_play import SelfPlayEngine
+from ..utils.transfer import hand_off, receive
 from .components import TrainingComponents
+from .setup import clamp_self_play_workers
 
 logger = logging.getLogger(__name__)
 
@@ -31,87 +67,279 @@ class LoopStatus(str, Enum):
 
 
 class TrainingLoop:
-    """Drives warm-up rollouts, then one megastep per iteration."""
+    """Drives produce -> buffer -> train -> sync in one of three modes."""
 
     def __init__(self, components: TrainingComponents):
         self.c = components
         self.cfg = components.train_config
         self.stop_event = threading.Event()
         self.status: "LoopStatus | None" = None
+        self.error: "BaseException | None" = None
+        self._device_replay = components.buffer.is_device
         self.global_step = 0
         self.episodes_played = 0
         self.total_simulations = 0
         # Root visits inherited through subtree reuse (0 without it).
         self.total_reused_visits = 0
+        self.lane_moves = 0  # moves played, summed over lanes and streams
+        self.weight_updates = 0
         self.experiences_added = 0
+        self._steps_this_run = 0
+        self._cadence_anchor = 0
+        self.iterations = 0
         self.warmup_chunks = 0
         self.megastep_iterations = 0
-        self.metrics: list[dict] = []  # one dict per learner step, with its "step"
+        # Overlapped mode: stream supervision, the pipelined learner's
+        # groups in flight (oldest first), the shared tuned chunk length.
+        self._producer_error: "BaseException | None" = None
+        self._producer_failures: "queue.Queue" = queue.Queue()
+        self._streams: dict[int, dict] = {}
+        self.producer_restarts = 0
+        self._inflight: deque = deque()
+        self._tune_lock = threading.Lock()
+        self._tuned_chunk_moves: "int | None" = None
+        self.harvests_by_stream: dict[int, int] = {}
+        self.queue_depths: list[int] = []
+        # Per learner step: its metrics, with its "step".
+        self.metrics: list[dict] = []
         self.episode_scores: list[float] = []
         self.episode_lengths: list[int] = []
-        self.timings: dict[str, list[float]] = {"warmup_chunk_s": [], "megastep_s": []}
+        self.staleness: list[float] = []  # per harvest with finished episodes
+        # Synchronous mode: rows folded and learner steps run per iteration.
+        self.rows_per_iteration: list[int] = []
+        self.steps_per_iteration: list[int] = []
+        # Host-clock seconds: per warm-up chunk and megastep; per
+        # iteration with its rollout and learner parts (synchronous
+        # mode); per chunk a producer played (overlapped mode, any
+        # stream; list.append is atomic).
+        self.timings: dict[str, list[float]] = {
+            "warmup_chunk_s": [], "megastep_s": [], "iteration_s": [], "rollout_s": [],
+            "learner_s": [], "producer_chunk_s": [],
+        }
+        self.run_s: "float | None" = None
+        if self.cfg.FUSED_LEARNER_STEPS > self.cfg.WORKER_UPDATE_FREQ_STEPS:
+            logger.warning(
+                "FUSED_LEARNER_STEPS=%d > WORKER_UPDATE_FREQ_STEPS=%d: weights can only "
+                "sync at group boundaries, so the effective sync cadence is the group size.",
+                self.cfg.FUSED_LEARNER_STEPS,
+                self.cfg.WORKER_UPDATE_FREQ_STEPS,
+            )
 
     # --- iteration pieces -----------------------------------------------
 
+    def _play_rollout(self, engine: SelfPlayEngine, moves: int) -> tuple:
+        """One rollout chunk on `engine`: (harvest, device payload or None)."""
+        if self._device_replay:
+            return engine.play_moves_device(moves)
+        return engine.play_moves(moves), None
+
     def _process_rollout(self) -> int:
-        """One warm-up chunk into the device ring; returns rows added."""
-        result, payload = self.c.self_play.play_moves_device(self.cfg.ROLLOUT_CHUNK_MOVES)
+        """One rollout chunk of the primary engine into the ring; returns
+        the rows added."""
+        result, payload = self._play_rollout(self.c.self_play, self.cfg.ROLLOUT_CHUNK_MOVES)
         return self._fold_result(result, payload=payload)
 
-    def _fold_result(self, result, payload=None, added=None) -> int:
-        """Fold one harvest's stats (and, in warm-up, its device payload)
-        into the ring and the counters. `added` is the megastep's count:
-        its rows were scattered in the megastep itself."""
-        if added is None:
-            added = self.c.buffer.ingest_payload(payload)
+    def _fold_result(
+        self, result, trace=None, payload=None, ready=None, stream=None, added=None
+    ) -> int:
+        """Fold one harvest into the ring and the counters. `payload` is
+        a device-resident experience block (the device ring ingests it
+        after `ready`, the producer's hand-off event); `added` is the
+        megastep's row count, whose rows it already scattered; otherwise
+        the harvest's rows go to `add_dense`."""
+        c = self.c
+        if added is not None:
+            pass
+        elif payload is not None:
+            receive(payload, ready)
+            added = c.buffer.ingest_payload(payload)
+        else:
+            c.buffer.add_dense(
+                result.grid,
+                result.other_features,
+                result.policy_target,
+                result.value_target,
+                policy_weight=result.policy_weight,
+            )
+            added = result.num_experiences
         self.episodes_played += result.num_episodes
         self.total_simulations += result.total_simulations
         self.total_reused_visits += result.total_reused_visits
         self.episode_scores.extend(result.episode_scores)
         self.episode_lengths.extend(result.episode_lengths)
+        if result.num_episodes:
+            clock = self._version_clock()
+            self.staleness.append(
+                clock - float(np.mean(result.episode_start_versions))
+                if result.episode_start_versions
+                else clock - result.trainer_step_at_episode_start
+            )
+        if trace is None:
+            trace = c.self_play.last_trace
+        if trace is not None:
+            self.lane_moves += int(np.asarray(trace["root_value"]).size)
+        if stream is not None:
+            self.harvests_by_stream[stream] = self.harvests_by_stream.get(stream, 0) + 1
         self.experiences_added += added
         return added
 
-    def _record_step(self, metrics: dict, step: int) -> None:
-        """Per-learner-step bookkeeping (the megastep runner already
-        reconciled the PER mirror)."""
+    def _version_clock(self) -> int:
+        """The clock staleness is measured on: the net's weights version,
+        or the learner step in megastep mode (whose episodes are tagged
+        with the live step)."""
+        if self.cfg.FUSED_MEGASTEP:
+            return self.c.trainer.global_step
+        return self.c.net.weights_version
+
+    def _record_step(self, metrics: dict, td_errors, indices, step: int) -> None:
+        """Per-learner-step bookkeeping: host priority update (None in
+        megastep mode, whose runner reconciled the PER mirror), counters
+        and the step's metrics."""
+        if indices is not None:
+            self.c.buffer.update_priorities(indices, td_errors)
         self.global_step = step
+        self._steps_this_run += 1
         record = dict(metrics, step=step)
         if self.cfg.USE_PER:
             record["per_beta"] = self.c.buffer.beta(step)
         self.metrics.append(record)
 
+    def _crossed(self, step: int, freq: int, last: "int | None") -> bool:
+        """Did `step` cross a `freq` multiple since `last`? (Steps may
+        advance by a whole group per call.)"""
+        anchor = last if last is not None else self._cadence_anchor
+        return step > 0 and step // freq > anchor // freq
+
+    def _maybe_sync_weights(self, prev_step: int) -> None:
+        """Install the learner's weights in the net when (prev_step,
+        global_step] crossed a WORKER_UPDATE_FREQ_STEPS multiple: once,
+        however many multiples the group crossed."""
+        if self._crossed(self.global_step, self.cfg.WORKER_UPDATE_FREQ_STEPS, prev_step):
+            self.c.trainer.sync_to_network()
+            self.weight_updates += 1
+
     def _learner_budget(self, allowed: int) -> int:
-        """Steps still allowed: `allowed` capped by MAX_TRAINING_STEPS."""
+        """Steps the learner may still dispatch: `allowed` capped by
+        MAX_TRAINING_STEPS, counting the steps in flight."""
         if self.cfg.MAX_TRAINING_STEPS is None:
             return allowed
-        return min(allowed, self.cfg.MAX_TRAINING_STEPS - self.global_step)
+        return min(
+            allowed, self.cfg.MAX_TRAINING_STEPS - self.global_step - self._inflight_steps()
+        )
 
     def _max_steps_reached(self) -> bool:
         max_steps = self.cfg.MAX_TRAINING_STEPS
         return max_steps is not None and self.global_step >= max_steps
 
-    def _megastep_ready(self, need: int) -> bool:
-        """Warm-up exit test: the ring can produce a training batch."""
-        return len(self.c.buffer) >= need
+    def _sample_group(self, group: int) -> list:
+        """Up to `group` batches sampled from the ring on the host, at the
+        learner's dispatch-time step (PER beta)."""
+        samples = []
+        for _ in range(group):
+            s = self.c.buffer.sample(
+                self.cfg.BATCH_SIZE, current_train_step=self.c.trainer.global_step
+            )
+            if s is None:
+                break
+            samples.append(s)
+        return samples
+
+    def _begin_groups(self, samples: list) -> list:
+        """Dispatch sampled batches: a full group of FUSED_LEARNER_STEPS
+        (> 1) as one, anything shorter as single steps. Returns the
+        (handle, samples) pairs dispatched."""
+        c = self.c
+        k = max(1, self.cfg.FUSED_LEARNER_STEPS)
+        parts = [samples] if len(samples) == k and k > 1 else [[s] for s in samples]
+        groups = []
+        for part in parts:
+            if self._device_replay:
+                handle = c.trainer.train_steps_from_begin(c.buffer, part)
+            else:
+                handle = c.trainer.train_steps_begin([s["batch"] for s in part])
+            if handle is None:
+                break
+            groups.append((handle, part))
+        return groups
+
+    def _run_training_steps(self, max_steps: int) -> int:
+        """Up to `max_steps` learner steps in groups of
+        FUSED_LEARNER_STEPS; priorities update and the weight-sync cadence
+        runs after each group. Returns the steps run."""
+        k = max(1, self.cfg.FUSED_LEARNER_STEPS)
+        ran = 0
+        while ran < max_steps and not self.stop_event.is_set():
+            budget = self._learner_budget(max_steps - ran)
+            if budget <= 0:
+                break
+            group = min(k, budget)
+            samples = self._sample_group(group)
+            if not samples:
+                break
+            prev_step = self.global_step
+            outs, used = [], []
+            for handle, part in self._begin_groups(samples):
+                outs.extend(self.c.trainer.train_steps_finish(handle))
+                used.extend(part)
+            if not outs:
+                break
+            for i, (s, (metrics, td_errors)) in enumerate(zip(used, outs)):
+                self._record_step(metrics, td_errors, s["indices"], prev_step + i + 1)
+            ran += len(outs)
+            self._maybe_sync_weights(prev_step)
+            if len(outs) < group:
+                break
+        return ran
 
     # --- main loop --------------------------------------------------------
 
     def run(self) -> LoopStatus:
         """Run until MAX_TRAINING_STEPS, a stop request or an error."""
         status = LoopStatus.COMPLETED
+        t0 = time.perf_counter()
         try:
-            self._run_megastep_mode()
+            if self.cfg.FUSED_MEGASTEP:
+                self._run_megastep_mode()
+            elif self.cfg.ASYNC_ROLLOUTS:
+                self._run_async()
+            else:
+                self._run_sync()
         except KeyboardInterrupt:
             logger.warning("Interrupted.")
             status = LoopStatus.STOPPED
-        except Exception:
+        except Exception as exc:
             logger.exception("Training loop error.")
+            self.error = exc
             status = LoopStatus.ERROR
         finally:
             self.stop_event.set()
+        self.run_s = time.perf_counter() - t0
         self.status = status
         return status
+
+    def _run_sync(self) -> None:
+        cfg = self.cfg
+        while not self.stop_event.is_set():
+            if self._max_steps_reached():
+                logger.info("Reached MAX_TRAINING_STEPS=%d.", cfg.MAX_TRAINING_STEPS)
+                break
+            t0 = time.perf_counter()
+            added = self._process_rollout()
+            t1 = time.perf_counter()
+            n_steps = cfg.LEARNER_STEPS_PER_ROLLOUT or max(1, round(added / cfg.BATCH_SIZE))
+            self.rows_per_iteration.append(added)
+            self.steps_per_iteration.append(self._run_training_steps(n_steps))
+            t2 = time.perf_counter()
+            self.iterations += 1
+            self.timings["rollout_s"].append(t1 - t0)
+            self.timings["learner_s"].append(t2 - t1)
+            self.timings["iteration_s"].append(t2 - t0)
+
+    # --- fused megastep ---------------------------------------------------
+
+    def _megastep_ready(self, need: int) -> bool:
+        """Warm-up exit test: the ring can produce a training batch."""
+        return len(self.c.buffer) >= need
 
     def _run_megastep_mode(self) -> None:
         cfg = self.cfg
@@ -137,43 +365,341 @@ class TrainingLoop:
             outs, added = runner.run_megastep(cfg.ROLLOUT_CHUNK_MOVES, k)
             self.timings["megastep_s"].append(time.perf_counter() - t0)
             self.megastep_iterations += 1
+            self.iterations += 1
             self._fold_result(self.c.self_play.harvest(), added=added)
-            for i, (metrics, _td) in enumerate(outs):
-                self._record_step(metrics, prev_step + i + 1)
+            for i, (metrics, td_errors) in enumerate(outs):
+                self._record_step(metrics, td_errors, None, prev_step + i + 1)
+
+    # --- overlapped producer/consumer -----------------------------------
+
+    def _producer_chunk_moves(self) -> int:
+        """Moves per producer chunk: the tuned length, or the configured."""
+        with self._tune_lock:
+            if self._tuned_chunk_moves is not None:
+                return self._tuned_chunk_moves
+        return self.cfg.ROLLOUT_CHUNK_MOVES
+
+    def _maybe_tune_chunk(self, moves: int, dt: float, warmed: bool) -> None:
+        """Shorten producer chunks to ASYNC_CHUNK_SECONDS from one clean
+        measurement: `moves` moves took `dt` seconds (not `warmed`: the
+        first chunk, which also pays the first-use costs, is not used).
+        The first measurement wins; the length is shared by all streams."""
+        target = self.cfg.ASYNC_CHUNK_SECONDS
+        if target is None or not warmed:
+            return
+        with self._tune_lock:
+            if self._tuned_chunk_moves is not None:
+                return
+            per_move = dt / max(moves, 1)
+            tuned = max(1, min(self.cfg.ROLLOUT_CHUNK_MOVES, round(target / per_move)))
+            if tuned != moves:
+                logger.info(
+                    "Async chunk auto-tune: %.2fs/%d moves measured (%.2fs/move) -> "
+                    "%d moves/dispatch for the %.1fs target.",
+                    dt, moves, per_move, tuned, target,
+                )
+            self._tuned_chunk_moves = tuned
+
+    def _stream_context(self, stream: int):
+        """The producer's CUDA stream as the current one (nothing off CUDA)."""
+        cuda_stream = self._streams[stream].get("cuda_stream")
+        return torch.cuda.stream(cuda_stream) if cuda_stream is not None else contextlib.nullcontext()
+
+    def _producer_loop(self, engine, out: "queue.Queue", stream: int, ready) -> None:
+        """Self-play producer: play chunks on this stream and enqueue
+        (harvest, trace, payload, hand-off event, stream). A crash is
+        reported to the supervisor (the main thread), unless the run is
+        already stopping."""
+        try:
+            with self._stream_context(stream):
+                receive(engine._carry, ready)  # the engine was built or last ran elsewhere
+                while not self.stop_event.is_set():
+                    t0 = time.perf_counter()
+                    result, payload = self._play_rollout(engine, self._producer_chunk_moves())
+                    self.timings["producer_chunk_s"].append(time.perf_counter() - t0)
+                    item = (result, engine.last_trace, payload, hand_off(engine.device), stream)
+                    while not self.stop_event.is_set():
+                        try:
+                            out.put(item, timeout=0.2)
+                            break
+                        except queue.Full:
+                            continue
+        except BaseException as exc:
+            if not self.stop_event.is_set():
+                self._producer_failures.put((stream, exc))
+
+    def _spawn_producer_thread(self, engine, harvests: "queue.Queue", stream: int) -> threading.Thread:
+        t = threading.Thread(
+            target=self._producer_loop,
+            args=(engine, harvests, stream, hand_off(engine.device)),
+            name=f"self-play-producer-{stream}",
+            daemon=True,
+        )
+        t.start()
+        return t
+
+    def _fresh_stream_engine(self, stream: int, attempt: int) -> SelfPlayEngine:
+        """A replacement engine for a crashed stream: a fresh carry and
+        key stream, the primary's env, extractor, net and batch size."""
+        primary = self.c.self_play
+        return SelfPlayEngine(
+            primary.env,
+            primary.extractor,
+            primary.net,
+            primary.mcts_config,
+            primary.config,
+            batch_size=primary.batch_size,
+            seed=self.cfg.RANDOM_SEED + 2000 + stream * 100 + attempt,
+        )
+
+    def _supervise_producers(self, harvests: "queue.Queue") -> None:
+        """Respawn crashed streams with exponential backoff; stop the run
+        with the stream's error once it used up PRODUCER_MAX_RESTARTS."""
+        now = time.monotonic()
+        while True:
+            try:
+                stream, exc = self._producer_failures.get_nowait()
+            except queue.Empty:
+                break
+            rec = self._streams[stream]
+            if rec["restarts"] >= self.cfg.PRODUCER_MAX_RESTARTS:
+                logger.error(
+                    "Producer stream %d crashed and exhausted its %d restarts; aborting run.",
+                    stream, self.cfg.PRODUCER_MAX_RESTARTS,
+                )
+                self._producer_error = exc
+                self.stop_event.set()
+                return
+            delay = self.cfg.PRODUCER_RESTART_BACKOFF_S * (2 ** rec["restarts"])
+            rec["restarts"] += 1
+            rec["retry_at"] = now + delay
+            logger.warning(
+                "Producer stream %d crashed (%s: %s); respawning in %.2fs (restart %d/%d).",
+                stream, type(exc).__name__, exc, delay, rec["restarts"],
+                self.cfg.PRODUCER_MAX_RESTARTS,
+            )
+        for stream, rec in self._streams.items():
+            if rec["retry_at"] is not None and now >= rec["retry_at"]:
+                rec["retry_at"] = None
+                rec["engine"] = self._fresh_stream_engine(stream, rec["restarts"])
+                rec["thread"] = self._spawn_producer_thread(rec["engine"], harvests, stream)
+                self.producer_restarts += 1
+
+    def _learner_steps_allowed(self) -> int:
+        """Replay-ratio gate: steps the learner may take now, REPLAY_RATIO
+        samples per row produced in this run, groups in flight counted as
+        taken."""
+        target = self.experiences_added * self.cfg.REPLAY_RATIO / self.cfg.BATCH_SIZE
+        return max(0, int(target) - self._steps_this_run - self._inflight_steps())
+
+    # --- pipelined learner (overlapped mode) ------------------------------
+
+    def _inflight_steps(self) -> int:
+        return sum(handle["k"] for handle, _ in self._inflight)
+
+    def _dispatch_learner_group(self, allowed: int) -> bool:
+        """Sample and dispatch one group without fetching its results;
+        True when a group went out."""
+        k = max(1, self.cfg.FUSED_LEARNER_STEPS)
+        group = min(k, self._learner_budget(allowed))
+        if group <= 0 or self.stop_event.is_set():
+            return False
+        samples = self._sample_group(group)
+        if not samples:
+            return False
+        groups = self._begin_groups(samples)
+        self._inflight.extend(groups)
+        return bool(groups)
+
+    def _finish_oldest_group(self) -> int:
+        """Fetch and record the oldest group in flight. A sync after it
+        installs the learner's current weights, which may already include
+        the next group: fresher than the step label, never older."""
+        handle, samples = self._inflight.popleft()
+        outs = self.c.trainer.train_steps_finish(handle)
+        prev_step = self.global_step
+        for i, (s, (metrics, td_errors)) in enumerate(zip(samples, outs)):
+            self._record_step(metrics, td_errors, s["indices"], prev_step + i + 1)
+        self._maybe_sync_weights(prev_step)
+        return len(outs)
+
+    def _drain_learner(self) -> int:
+        ran = 0
+        while self._inflight:
+            ran += self._finish_oldest_group()
+        return ran
+
+    def _pump_learner(self, allowed: int) -> int:
+        """One pipelined beat: dispatch group N+1, then fetch group N, so
+        one group runs on the card while the next is sampled."""
+        dispatched = self._dispatch_learner_group(allowed)
+        ran = 0
+        while len(self._inflight) >= 2:
+            ran += self._finish_oldest_group()
+        if self._inflight and not dispatched:
+            ran += self._finish_oldest_group()
+        return ran
+
+    def _make_rollout_streams(self) -> list:
+        """The primary engine plus NUM_SELF_PLAY_WORKERS - 1 more (own
+        carry and seed; the primary's env, extractor and net), clamped to
+        the device's budget."""
+        primary = self.c.self_play
+        streams = [primary]
+        for i in range(1, clamp_self_play_workers(self.cfg.NUM_SELF_PLAY_WORKERS, self.c.device)):
+            streams.append(
+                SelfPlayEngine(
+                    primary.env,
+                    primary.extractor,
+                    primary.net,
+                    primary.mcts_config,
+                    primary.config,
+                    seed=self.cfg.RANDOM_SEED + 1000 + i,
+                )
+            )
+        return streams
+
+    def _run_async(self) -> None:
+        cfg = self.cfg
+        harvests: "queue.Queue" = queue.Queue(maxsize=cfg.ROLLOUT_QUEUE_MAX)
+        if cfg.ASYNC_CHUNK_SECONDS is not None:
+            # Size the producers' chunks from an uncontended measurement,
+            # before any producer or learner work exists: chunk 1 pays the
+            # first-use costs, chunk 2 is timed (the play only; its fold
+            # comes after). Both harvests feed the ring.
+            self._process_rollout()
+            t0 = time.perf_counter()
+            result, payload = self._play_rollout(self.c.self_play, cfg.ROLLOUT_CHUNK_MOVES)
+            dt = time.perf_counter() - t0
+            self._fold_result(result, payload=payload)
+            self._maybe_tune_chunk(cfg.ROLLOUT_CHUNK_MOVES, dt, warmed=True)
+        cuda = self.c.device.type == "cuda"
+        for i, engine in enumerate(self._make_rollout_streams()):
+            rec = self._streams.setdefault(i, {"restarts": 0, "retry_at": None})
+            if cuda and "cuda_stream" not in rec:
+                rec["cuda_stream"] = torch.cuda.Stream(self.c.device)
+            rec["engine"] = engine
+            rec["thread"] = self._spawn_producer_thread(engine, harvests, i)
+        try:
+            while not self.stop_event.is_set():
+                if self._max_steps_reached():
+                    logger.info("Reached MAX_TRAINING_STEPS=%d.", cfg.MAX_TRAINING_STEPS)
+                    break
+                t0 = time.perf_counter()
+                self._supervise_producers(harvests)
+                # Drain everything available; block briefly only when
+                # there is no learner work either.
+                folded = 0
+                while True:
+                    try:
+                        self._fold_result(*harvests.get_nowait())
+                        folded += 1
+                    except queue.Empty:
+                        break
+                if (
+                    folded == 0
+                    and not self.stop_event.is_set()
+                    and (self._learner_steps_allowed() == 0 or not self.c.buffer.is_ready())
+                ):
+                    try:
+                        self._fold_result(*harvests.get(timeout=0.5))
+                        folded += 1
+                    except queue.Empty:
+                        pass
+                if cfg.PIPELINE_LEARNER:
+                    steps_ran = self._pump_learner(self._learner_steps_allowed())
+                else:
+                    steps_ran = self._run_training_steps(self._learner_steps_allowed())
+                if folded == 0 and steps_ran == 0:
+                    # Gate open but no batch yet: do not spin.
+                    time.sleep(0.05)
+                self.queue_depths.append(harvests.qsize())
+                self.iterations += 1
+                self.timings["iteration_s"].append(time.perf_counter() - t0)
+        finally:
+            self.stop_event.set()
+            # Land the groups still in flight so their steps are recorded.
+            try:
+                self._drain_learner()
+            except Exception:
+                logger.exception("Draining in-flight learner groups failed.")
+            for rec in self._streams.values():
+                rec["thread"].join(timeout=30.0)
+                if rec["thread"].is_alive():
+                    logger.warning("%s did not join within 30s.", rec["thread"].name)
+            # Fold what is still queued: it was played.
+            while True:
+                try:
+                    self._fold_result(*harvests.get_nowait())
+                except queue.Empty:
+                    break
+            if self._producer_error is not None:
+                raise self._producer_error
 
     # --- report -----------------------------------------------------------
 
     def report(self) -> dict:
         """One JSON-ready summary of the run."""
+        cfg = self.cfg
+        mode = "megastep" if cfg.FUSED_MEGASTEP else "async" if cfg.ASYNC_ROLLOUTS else "sync"
         losses = {
             key: [m[key] for m in self.metrics]
             for key in ("total_loss", "policy_loss", "value_loss", "entropy", "grad_norm")
         }
         mega = self.timings["megastep_s"]
-        moves = self.cfg.ROLLOUT_CHUNK_MOVES
+        iters = self.timings["iteration_s"]
+        moves = cfg.ROLLOUT_CHUNK_MOVES
+        run_s = self.run_s
         return {
             "status": None if self.status is None else self.status.value,
+            "error": None if self.error is None else repr(self.error),
+            "mode": mode,
             "device": str(self.c.device),
             "steps": self.global_step,
+            "iterations": self.iterations,
             "megasteps": self.megastep_iterations,
             "warmup_chunks": self.warmup_chunks,
             "rows_ingested": self.experiences_added,
             "buffer_size": len(self.c.buffer),
+            "replay_ring": "device" if self._device_replay else "host",
             "episodes": self.episodes_played,
             "simulations": self.total_simulations,
             "reused_visits": self.total_reused_visits,
+            "lane_moves": self.lane_moves,
+            "weight_updates": self.weight_updates,
+            "weights_version": self.c.net.weights_version,
+            # Samples consumed per row produced.
+            "replay_ratio": (
+                self._steps_this_run * cfg.BATCH_SIZE / self.experiences_added
+                if self.experiences_added else None
+            ),
+            "rows_per_iteration": self.rows_per_iteration,
+            "steps_per_iteration": self.steps_per_iteration,
+            "producer_restarts": self.producer_restarts,
+            "harvests_by_stream": self.harvests_by_stream,
+            "tuned_chunk_moves": self._tuned_chunk_moves,
+            "queue_depth_max": max(self.queue_depths) if self.queue_depths else None,
+            "staleness_mean": float(np.mean(self.staleness)) if self.staleness else None,
             "mean_episode_score": (
                 float(np.mean(self.episode_scores)) if self.episode_scores else None
             ),
             "losses": losses,
             "timings": {
+                "run_s": run_s,
                 "warmup_s": float(sum(self.timings["warmup_chunk_s"])),
+                "iteration_s_p50": float(np.median(iters)) if iters else None,
+                "producer_chunk_s_p50": (
+                    float(np.median(self.timings["producer_chunk_s"]))
+                    if self.timings["producer_chunk_s"] else None
+                ),
                 "megastep_s": mega,
                 "megastep_s_p50": float(np.median(mega)) if mega else None,
                 # Over the whole of the megasteps' time, learner steps included.
                 "megastep_moves_per_s": (
                     moves * len(mega) * self.c.self_play.batch_size / sum(mega) if mega else None
                 ),
-                "learner_steps_per_s": len(self.metrics) / sum(mega) if mega else None,
+                # Over the whole run's wall, every mode alike.
+                "learner_steps_per_s": self.global_step / run_s if run_s else None,
+                "lane_moves_per_s": self.lane_moves / run_s if run_s else None,
             },
         }

@@ -1,5 +1,7 @@
 """Top-level `run_training`: counterpart of
-`alphatriangle_tpu/training/runner.py::run_training`, in megastep mode.
+`alphatriangle_tpu/training/runner.py::run_training`, in every loop
+mode the config selects (synchronous unless `ASYNC_ROLLOUTS` or
+`FUSED_MEGASTEP`).
 
 Builds the components (`setup.py`) and runs the loop; returns the
 finished `TrainingLoop` (its `status`, `metrics` and `report()`), which

@@ -1,15 +1,20 @@
 """Component construction: counterpart of
-`alphatriangle_tpu/training/setup.py::setup_training_components`, for
-the one loop mode the port runs, the fused megastep on one device.
+`alphatriangle_tpu/training/setup.py` (`setup_training_components`,
+`clamp_self_play_workers`, `_make_buffer`) on one device.
 
 The port builds the env, the feature extractor, the net (on the given
-device, CUDA unless the caller names another), the learner, the device
-ring, the rollout engine and the megastep runner. Checkpoints, stats,
-telemetry and meshes wait for later slices; `refuse_unported` raises for
-a config that asks for a mode the port does not have.
+device, CUDA unless the caller names another), the learner, the replay
+ring, the rollout engine and, in megastep mode, the megastep runner.
+The learner shares the net's module only in megastep mode (rl/trainer.py).
+Checkpoints, stats, telemetry and meshes wait for later slices;
+`refuse_unported` raises for the restores, which wait for the
+checkpoint slice.
 """
 
 import logging
+import os
+
+import torch
 
 from ..config.env_config import EnvConfig
 from ..config.mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
@@ -20,6 +25,7 @@ from ..device import resolve_device
 from ..env.engine import TriangleEnv
 from ..features.core import FeatureExtractor
 from ..nn.network import NeuralNetwork
+from ..rl.buffer import ExperienceBuffer
 from ..rl.device_buffer import DeviceReplayBuffer
 from ..rl.megastep import MegastepRunner
 from ..rl.self_play import SelfPlayEngine
@@ -28,20 +34,62 @@ from .components import TrainingComponents
 
 logger = logging.getLogger(__name__)
 
-ONLY_MEGASTEP = (
-    "only the fused megastep loop is ported yet: set FUSED_MEGASTEP=True "
-    "(cli train --fused-megastep)"
-)
+# Rollout streams per card: each is a producer thread with its own
+# 512-lane engine and CUDA stream; past a few per card the streams and
+# the learner only queue behind one another.
+MAX_STREAMS_PER_DEVICE = 4
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise ValueError for a loop mode or feature the port lacks."""
-    if cfg.ASYNC_ROLLOUTS:
-        raise ValueError("ASYNC_ROLLOUTS (the overlapped loop) is not ported yet; " + ONLY_MEGASTEP)
-    if not cfg.FUSED_MEGASTEP:
-        raise ValueError(ONLY_MEGASTEP)
+    """Raise ValueError for a feature the port lacks."""
     if cfg.LOAD_CHECKPOINT_PATH or cfg.LOAD_BUFFER_PATH:
         raise ValueError("checkpoint and buffer restore are not ported yet")
+
+
+def clamp_self_play_workers(requested: int, device) -> int:
+    """Clamp the rollout-stream count to the host and device budget:
+    MAX_STREAMS_PER_DEVICE per card (producer threads there spend their
+    time waiting on the card, so cores do not bind); cores - 2 when the
+    "device" is the host CPU (the reference's rule for its CPU-bound
+    actors). Warns when it clamps."""
+    cores = os.cpu_count() or 1
+    if torch.device(device).type == "cpu":
+        cap = max(1, min(cores - 2 if cores > 2 else 1, MAX_STREAMS_PER_DEVICE))
+    else:
+        cap = MAX_STREAMS_PER_DEVICE
+    if requested > cap:
+        logger.warning(
+            "NUM_SELF_PLAY_WORKERS=%d exceeds this host's budget (%d cores, device %s); "
+            "clamping to %d streams.",
+            requested, cores, device, cap,
+        )
+        return cap
+    return requested
+
+
+def make_buffer(
+    train_config: TrainConfig, env_config: EnvConfig, model_config: ModelConfig, extractor, device
+) -> ExperienceBuffer:
+    """The replay ring's home per `DEVICE_REPLAY`: the device ring for
+    "on", for the megastep (whose ingest and sampling run on the card)
+    and for "auto" on a CUDA device; the host ring for "off" and for
+    "auto" on the CPU, where host and "device" memory are the same RAM."""
+    mode = train_config.DEVICE_REPLAY
+    want = (
+        mode == "on"
+        or (mode == "auto" and device.type != "cpu")
+        or train_config.FUSED_MEGASTEP
+    )
+    if not want:
+        return ExperienceBuffer(train_config, action_dim=env_config.action_dim)
+    logger.info("Device-resident replay ring: capacity %d on %s.", train_config.BUFFER_CAPACITY, device)
+    return DeviceReplayBuffer(
+        train_config,
+        grid_shape=(model_config.GRID_INPUT_CHANNELS, env_config.ROWS, env_config.COLS),
+        other_dim=extractor.other_dim,
+        action_dim=env_config.action_dim,
+        device=device,
+    )
 
 
 def setup_training_components(
@@ -65,24 +113,29 @@ def setup_training_components(
     extractor = FeatureExtractor(env, model_config)
     net = NeuralNetwork(model_config, env_config, seed=train_config.RANDOM_SEED, device=device)
     trainer = Trainer(net, train_config)
-    buffer = DeviceReplayBuffer(
-        train_config,
-        grid_shape=(model_config.GRID_INPUT_CHANNELS, env_config.ROWS, env_config.COLS),
-        other_dim=extractor.other_dim,
-        action_dim=env_config.action_dim,
-        device=device,
-    )
+    buffer = make_buffer(train_config, env_config, model_config, extractor, device)
     self_play = SelfPlayEngine(
         env, extractor, net, mcts_config, train_config, seed=train_config.RANDOM_SEED + 1
     )
-    megastep = MegastepRunner(self_play, trainer, buffer, train_config)
-    logger.info(
-        "Fused megastep mode on %s: %d lanes, %d moves + %d learner steps per megastep.",
-        device,
-        self_play.batch_size,
-        train_config.ROLLOUT_CHUNK_MOVES,
-        megastep.steps_per_megastep,
-    )
+    megastep = None
+    if train_config.FUSED_MEGASTEP:
+        megastep = MegastepRunner(self_play, trainer, buffer, train_config)
+        logger.info(
+            "Fused megastep mode on %s: %d lanes, %d moves + %d learner steps per megastep.",
+            device,
+            self_play.batch_size,
+            train_config.ROLLOUT_CHUNK_MOVES,
+            megastep.steps_per_megastep,
+        )
+    else:
+        logger.info(
+            "%s loop on %s: %d lanes, %d-move chunks, %s replay ring.",
+            "Overlapped" if train_config.ASYNC_ROLLOUTS else "Synchronous",
+            device,
+            self_play.batch_size,
+            train_config.ROLLOUT_CHUNK_MOVES,
+            "device" if buffer.is_device else "host",
+        )
     return TrainingComponents(
         env=env,
         extractor=extractor,

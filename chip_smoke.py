@@ -60,7 +60,34 @@ which exits non-zero:
    outputs are exact; three moves of carried search and promotion must
    give the CPU's visit counts, inherited visits and carried planes; and
    a tiny megastep (f32 net, TF32 off) must ingest the same rows, draw
-   the same slots and reach the same losses on the card as on the CPU.
+   the same slots and reach the same losses on the card as on the CPU;
+   so must a tiny synchronous iteration (3 learner steps and a weight
+   sync), which "auto" runs on the host ring on the CPU and on the
+   device ring on the card.
+
+Between phases 7 and 8, the synchronous and the overlapped loop at the
+train phase's widths and cuts, through `run_training`:
+
+- train-sync: the device ring (`DEVICE_REPLAY="auto"` on the card), 12
+  learner steps in single-step groups, a weight sync at step 10. Losses
+  must be finite, each iteration must take `max(1, round(rows / 256))`
+  steps once the ring can give a batch (within the budget), the search
+  kernels must launch 16 + 2 times per searched move and `per_sample`
+  never, the eval net's weights must differ from the learner's before the
+  sync and equal them bit for bit after it, every chunk must search with
+  one set of weights, and the ring must hold the rows ingested. Then one
+  more iteration runs under `torch.profiler`.
+- train-sync-host: the same with `DEVICE_REPLAY="off"`, 4 steps: the host
+  ring, batches uploaded.
+- train-async: `ASYNC_ROLLOUTS` with 2 producer streams, `REPLAY_RATIO`
+  1.0, a pipelined learner of fused pairs, a queue of 4, the default
+  2-second chunk target, the device ring, 16 steps. The run must
+  complete at step 16 with both streams' harvests folded, no producer
+  restart, a replay ratio of at most 1.0, at least one weight sync
+  (checked as above), one set of weights per chunk, and 16 + 2 search
+  launches per searched move over all streams. Then the same loop runs 8
+  more steps under the profiler: the card's busy share is the union of
+  every stream's kernel and copy intervals over the window's wall.
 
 Then one JSON line of kernel figures, the card line, `kernels: ...`, and
 as the last line `{"ok": true, "device": {...}}`.
@@ -71,6 +98,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -776,6 +804,23 @@ TRAIN_STAGES = (
 )
 
 
+def loop_config(**kw):
+    """The default `TrainConfig` with the train phases' depth cuts (2-move
+    chunks, 256 rows to start training) and `kw`; fails if a width was cut."""
+    from alphatriangle_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig(
+        RANDOM_SEED=0, ROLLOUT_CHUNK_MOVES=TRAIN_CHUNK_MOVES, MIN_BUFFER_SIZE_TO_TRAIN=TRAIN_MIN_BUFFER,
+        **kw,
+    )
+    defaults = TrainConfig()
+    for name in ("SELF_PLAY_BATCH_SIZE", "BATCH_SIZE", "BUFFER_CAPACITY", "N_STEP_RETURNS", "USE_PER",
+                 "OPTIMIZER_TYPE", "LR_SCHEDULER_TYPE", "GRADIENT_CLIP_VALUE"):
+        if getattr(cfg, name) != getattr(defaults, name):
+            fail(f"a train phase cut a width: {name}")
+    return cfg
+
+
 def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = None):
     """The default training configuration, with or without subtree
     reuse, cut in depth only, through `run_training` in megastep mode,
@@ -784,28 +829,13 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
     appended to it (copied to the host, inside the first warm-up chunk)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from alphatriangle_tpu_torch.config import (
-        AlphaTriangleMCTSConfig,
-        EnvConfig,
-        ModelConfig,
-        TrainConfig,
-    )
+    from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
     from alphatriangle_tpu_torch.nn import NeuralNetwork
     from alphatriangle_tpu_torch.training import LoopStatus, run_training
 
-    cfg = TrainConfig(
-        FUSED_MEGASTEP=True,
-        RANDOM_SEED=0,
-        ROLLOUT_CHUNK_MOVES=TRAIN_CHUNK_MOVES,
-        MIN_BUFFER_SIZE_TO_TRAIN=TRAIN_MIN_BUFFER,
-        FUSED_LEARNER_STEPS=TRAIN_K,
-        MAX_TRAINING_STEPS=TRAIN_K * TRAIN_MEGASTEPS,
+    cfg = loop_config(
+        FUSED_MEGASTEP=True, FUSED_LEARNER_STEPS=TRAIN_K, MAX_TRAINING_STEPS=TRAIN_K * TRAIN_MEGASTEPS
     )
-    defaults = TrainConfig()
-    for name in ("SELF_PLAY_BATCH_SIZE", "BATCH_SIZE", "BUFFER_CAPACITY", "N_STEP_RETURNS", "USE_PER",
-                 "OPTIMIZER_TYPE", "LR_SCHEDULER_TYPE", "GRADIENT_CLIP_VALUE"):
-        if getattr(cfg, name) != getattr(defaults, name):
-            fail(f"the train phase cut a width: {name}")
     waves = PER_STEP["train"]["backup_update"]
     restore = record_backups(record, waves) if record is not None else None
     torch.cuda.reset_peak_memory_stats()
@@ -903,6 +933,465 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
         "peak_mem_gb": peak_gb,
         "profile": read_profile(prof, TRAIN_STAGES, prof_wall_ms, statistics.median(mega) * 1e3),
     }
+
+
+# The synchronous and overlapped phases' depth cuts (their widths are the
+# defaults, as in the train phase).
+SYNC_STEPS, SYNC_HOST_STEPS, ASYNC_STEPS = 12, 4, 16
+# A further window of the overlapped loop, run under the profiler.
+ASYNC_PROFILED_STEPS = 8
+
+
+def watch_chunks():
+    """Record, for every rollout chunk on any thread, the weights it was
+    handed and the module and version each of its moves searched with.
+    Returns (records, restore)."""
+    from alphatriangle_tpu_torch.rl.self_play import SelfPlayEngine
+
+    real_chunk, real_body = SelfPlayEngine._chunk, SelfPlayEngine._move_body
+    records, lock, local = [], threading.Lock(), threading.local()
+
+    def chunk(self, num_moves, carry, weights=None):
+        local.moves = []
+        out = real_chunk(self, num_moves, carry, weights)
+        with lock:
+            records.append({"weights": weights, "moves": local.moves, "lanes": self.batch_size,
+                            "net_version_after": self.net.live.version})
+        return out
+
+    def body(self, carry, version):
+        local.moves.append((self.mcts.model, version))
+        return real_body(self, carry, version)
+
+    SelfPlayEngine._chunk, SelfPlayEngine._move_body = chunk, body
+
+    def restore():
+        SelfPlayEngine._chunk, SelfPlayEngine._move_body = real_chunk, real_body
+
+    return records, restore
+
+
+def check_chunks(records: list, label: str) -> dict:
+    """Every chunk searched all its moves with the module it was handed
+    and tagged them with that version."""
+    for rec in records:
+        w = rec["weights"]
+        if w is None or not all(m is w.model and v == w.version for m, v in rec["moves"]):
+            fail(f"{label}: a chunk read more than one set of weights")
+    return {
+        "chunks": len(records),
+        "searched_moves": sum(len(r["moves"]) for r in records),
+        "lane_moves": sum(len(r["moves"]) * r["lanes"] for r in records),
+        # Chunks during which a sync installed newer weights than they read.
+        "chunks_crossing_a_sync": sum(r["net_version_after"] != r["weights"].version for r in records),
+        "versions": sorted({r["weights"].version for r in records}),
+    }
+
+
+def watch_syncs(torch):
+    """Record, around every `Trainer.sync_to_network`, whether the net's
+    weights equal the learner's bit for bit before and after it."""
+    from alphatriangle_tpu_torch.rl.trainer import Trainer
+
+    real = Trainer.sync_to_network
+    records = []
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a.state_dict().values(), b.state_dict().values()))
+
+    def sync(self):
+        before = same(self.model, self.nn.model)
+        version = real(self)
+        records.append({"step": self.global_step, "version": version,
+                        "equal_before": before, "equal_after": same(self.model, self.nn.model)})
+        return version
+
+    Trainer.sync_to_network = sync
+    return records, lambda: setattr(Trainer, "sync_to_network", real)
+
+
+def check_syncs(syncs: list, loop, want: "int | None", label: str) -> None:
+    if len(syncs) != loop.weight_updates or (want is not None and len(syncs) != want):
+        fail(f"{label}: {len(syncs)} weight syncs, loop counted {loop.weight_updates}, want {want}")
+    for rec in syncs:
+        if rec["equal_before"] or not rec["equal_after"]:
+            fail(f"{label}: at step {rec['step']} the eval net did not differ from the learner "
+                 "before the sync and equal it after")
+
+
+def check_launches(launches: dict, moves: int, label: str) -> None:
+    """The search kernels 16 + 2 times per searched move; no PER count."""
+    want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample": 0,
+            "subtree_promote": 0}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{label}: {name} launched {launches[name]} times in {moves} searched moves, want {n}")
+
+
+def check_losses(loop, label: str) -> None:
+    for m in loop.metrics:
+        for key in ("total_loss", "policy_loss", "value_loss", "entropy", "grad_norm"):
+            if not (m[key] == m[key] and abs(m[key]) < float("inf")):
+                fail(f"{label}: non-finite {key} at step {m['step']}")
+
+
+def device_union(prof, labels) -> dict:
+    """Device time of a profile's kernels and copies on every stream: the
+    union of their intervals (the time the card was busy) and their sum
+    (above the union where streams ran at once)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.name not in labels and e.time_range.end > e.time_range.start
+    )
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return {"union_ms": union / 1e3, "sum_ms": sum(b - a for a, b in spans) / 1e3, "spans": len(spans)}
+
+
+def train_sync_phase(torch, dev, kernels, host_ring: bool = False) -> dict:
+    """The synchronous loop at the default widths through `run_training`:
+    the device ring ("auto" on the card), or with `host_ring` the host
+    ring and uploaded batches. Cut in depth only. With the device ring,
+    one more iteration runs under the profiler."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from alphatriangle_tpu_torch.training import LoopStatus, run_training
+
+    label = "train-sync-host" if host_ring else "train-sync"
+    steps = SYNC_HOST_STEPS if host_ring else SYNC_STEPS
+    cfg = loop_config(MAX_TRAINING_STEPS=steps, DEVICE_REPLAY="off" if host_ring else "auto")
+    chunks, restore_chunks = watch_chunks()
+    syncs, restore_syncs = watch_syncs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    try:
+        loop = run_training(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {name: kern.launches for name, kern in kernels.items()}
+    finally:
+        restore_chunks()
+        restore_syncs()
+    if loop.status is not LoopStatus.COMPLETED or loop.global_step != steps:
+        fail(f"{label}: ended {loop.status.value} at step {loop.global_step}, want {steps}")
+    c, buf, trainer = loop.c, loop.c.buffer, loop.c.trainer
+    if buf.is_device == host_ring:
+        fail(f"{label}: the replay ring is not where DEVICE_REPLAY={cfg.DEVICE_REPLAY!r} puts it")
+    if trainer.model is c.net.model:
+        fail(f"{label}: the learner trains the net's own module")
+    check_losses(loop, label)
+    # LEARNER_STEPS_PER_ROLLOUT unset: max(1, round(rows / batch)) steps an
+    # iteration once the ring can give a batch, within the step budget.
+    size = done = 0
+    need = max(cfg.MIN_BUFFER_SIZE_TO_TRAIN, cfg.BATCH_SIZE)
+    for added, ran in zip(loop.rows_per_iteration, loop.steps_per_iteration):
+        size = min(size + added, buf.capacity)
+        want = min(max(1, round(added / cfg.BATCH_SIZE)), steps - done) if size >= need else 0
+        if ran != want:
+            fail(f"{label}: {ran} learner steps after {added} rows, want {want}")
+        done += ran
+    seen = check_chunks(chunks, label)
+    if seen["searched_moves"] != loop.iterations * TRAIN_CHUNK_MOVES:
+        fail(f"{label}: {seen['searched_moves']} searched moves in {loop.iterations} iterations")
+    check_launches(launches, seen["searched_moves"], label)
+    check_syncs(syncs, loop, steps // cfg.WORKER_UPDATE_FREQ_STEPS, label)
+    if len(buf) != loop.experiences_added or (buf.tree.n_entries, buf.tree.data_pointer) != (
+        len(buf), buf._pos
+    ):
+        fail(f"{label}: ring size {len(buf)} is not the {loop.experiences_added} rows ingested")
+    if host_ring and trainer.transfer_h2d_seconds <= 0:
+        fail(f"{label}: no learner batch was uploaded")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    report = loop.report()
+    lanes = c.self_play.batch_size
+    it_s, roll_s, learn_s = (loop.timings[k] for k in ("iteration_s", "rollout_s", "learner_s"))
+    full = [t for t, n in zip(it_s, loop.steps_per_iteration) if n == max(loop.steps_per_iteration)]
+    per_step = [t / n for t, n in zip(learn_s, loop.steps_per_iteration) if n]
+    out = {
+        "launches": launches,
+        "iterations": loop.iterations,
+        "searched_moves": seen["searched_moves"],
+        "rows_per_iteration": loop.rows_per_iteration,
+        "steps_per_iteration": loop.steps_per_iteration,
+        "rows_ingested": loop.experiences_added,
+        "episodes": loop.episodes_played,
+        "losses": report["losses"],
+        "weight_updates": loop.weight_updates,
+        "syncs": syncs,
+        "replay_ratio": report["replay_ratio"],
+        "staleness_mean": report["staleness_mean"],
+        "wall_s": wall_s,
+        "run_s": loop.run_s,
+        "iteration_ms": [t * 1e3 for t in it_s],
+        # Iterations that ran the most learner steps: the steady state.
+        "iteration_ms_p50_full": statistics.median(full) * 1e3,
+        "steps_full": max(loop.steps_per_iteration),
+        "rollout_ms_p50": statistics.median(roll_s) * 1e3,
+        "learner_ms_per_step_p50": statistics.median(per_step) * 1e3,
+        "rollout_moves_per_s": lanes * TRAIN_CHUNK_MOVES / statistics.median(roll_s),
+        "lane_moves_per_s_run": report["timings"]["lane_moves_per_s"],
+        "learner_steps_per_s_run": report["timings"]["learner_steps_per_s"],
+        "learner_steps_per_s_full": max(loop.steps_per_iteration) / statistics.median(full),
+        "transfer_h2d_s": trainer.transfer_h2d_seconds,
+        "transfer_d2h_s": trainer.transfer_d2h_seconds,
+        "peak_mem_gb": peak_gb,
+    }
+    if host_ring:
+        return out
+
+    # One more iteration under the profiler, outside the counted run: a
+    # chunk, its fold, and the learner steps of the run's fullest
+    # iterations one by one (the busy share divides by their p50).
+    b, n = cfg.BATCH_SIZE, out["steps_full"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("selfplay.chunk"):
+            result, payload = c.self_play.play_moves_device(TRAIN_CHUNK_MOVES)
+        with record_function("ring.ingest"):
+            loop._fold_result(result, payload=payload)
+        for _ in range(n):
+            with record_function("per.sample"):
+                s = buf.sample(b, current_train_step=trainer.global_step)
+            with record_function("learner.steps"):
+                ((_, td),) = trainer.train_steps_from(buf, [s])
+            with record_function("per.update"):
+                buf.update_priorities(s["indices"], td)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    out["profile"] = read_profile(prof, TRAIN_STAGES, prof_wall_ms, out["iteration_ms_p50_full"])
+    out["profile"]["learner_steps"] = n
+    return out
+
+
+def train_async_phase(torch, dev, kernels) -> dict:
+    """The overlapped loop at the default widths through `run_training`:
+    two producer streams, the replay-ratio gate at 1.0, a pipelined
+    learner of fused pairs, the device ring. Cut in depth only. Then a
+    further window of the same loop runs under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphatriangle_tpu_torch.training import LoopStatus, run_training
+
+    label = "train-async"
+    cfg = loop_config(
+        ASYNC_ROLLOUTS=True, NUM_SELF_PLAY_WORKERS=2, REPLAY_RATIO=1.0, PIPELINE_LEARNER=True,
+        FUSED_LEARNER_STEPS=2, ROLLOUT_QUEUE_MAX=4, MAX_TRAINING_STEPS=ASYNC_STEPS,
+    )
+    if cfg.ASYNC_CHUNK_SECONDS != 2.0:
+        fail(f"{label}: ASYNC_CHUNK_SECONDS is not the default 2.0")
+    chunks, restore_chunks = watch_chunks()
+    syncs, restore_syncs = watch_syncs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    try:
+        loop = run_training(cfg, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        seen = check_chunks(chunks, label)
+    finally:
+        restore_chunks()
+        restore_syncs()
+    if loop.status is not LoopStatus.COMPLETED or loop.global_step != ASYNC_STEPS:
+        fail(f"{label}: ended {loop.status.value} at step {loop.global_step}, want {ASYNC_STEPS}"
+             f" ({loop.report()['error']})")
+    c, buf = loop.c, loop.c.buffer
+    if not buf.is_device:
+        fail(f"{label}: DEVICE_REPLAY='auto' did not give the device ring on the card")
+    check_losses(loop, label)
+    if sorted(loop.harvests_by_stream) != [0, 1] or min(loop.harvests_by_stream.values()) < 1:
+        fail(f"{label}: harvests by stream {loop.harvests_by_stream}, want both streams")
+    if loop.producer_restarts != 0:
+        fail(f"{label}: {loop.producer_restarts} producer restarts")
+    report = loop.report()
+    if report["replay_ratio"] > cfg.REPLAY_RATIO:
+        fail(f"{label}: replay ratio {report['replay_ratio']} above {cfg.REPLAY_RATIO}")
+    if loop.weight_updates < 1:
+        fail(f"{label}: no weight sync")
+    check_syncs(syncs, loop, None, label)
+    check_launches(launches, seen["searched_moves"], label)
+    if len(buf) != loop.experiences_added:
+        fail(f"{label}: ring size {len(buf)} is not the {loop.experiences_added} rows ingested")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    run_s = loop.run_s
+    out = {
+        "launches": launches,
+        "searched_moves": seen["searched_moves"],
+        "chunks": seen["chunks"],
+        "chunks_crossing_a_sync": seen["chunks_crossing_a_sync"],
+        "chunk_versions": seen["versions"],
+        "harvests_by_stream": loop.harvests_by_stream,
+        "rows_ingested": loop.experiences_added,
+        "steps": loop.global_step,
+        "losses": report["losses"],
+        "weight_updates": loop.weight_updates,
+        "syncs": syncs,
+        "replay_ratio": report["replay_ratio"],
+        "staleness_mean": report["staleness_mean"],
+        "tuned_chunk_moves": report["tuned_chunk_moves"],
+        "queue_depth_max": report["queue_depth_max"],
+        "queue_depth_mean": statistics.fmean(loop.queue_depths),
+        "iterations": loop.iterations,
+        "iteration_ms_p50": report["timings"]["iteration_s_p50"] * 1e3,
+        # A producer's chunk, played while the other stream and the
+        # learner share the card and the interpreter lock.
+        "producer_chunk_ms_p50": report["timings"]["producer_chunk_s_p50"] * 1e3,
+        "producer_chunks": len(loop.timings["producer_chunk_s"]),
+        "wall_s": wall_s,
+        "run_s": run_s,
+        # Over the whole run, the tuning chunks included; the moves of
+        # every chunk played (a chunk cut short by the stop is not folded).
+        "lane_moves_per_s_run": seen["lane_moves"] / run_s,
+        "learner_steps_per_s_run": loop.global_step / run_s,
+        "learner_dispatches": c.trainer.dispatch_count,
+        "peak_mem_gb": peak_gb,
+    }
+
+    # The same loop, continued for ASYNC_PROFILED_STEPS more steps under
+    # the profiler (chunk length as tuned; a fresh second stream).
+    loop.cfg = loop.cfg.model_copy(
+        {"MAX_TRAINING_STEPS": ASYNC_STEPS + ASYNC_PROFILED_STEPS, "ASYNC_CHUNK_SECONDS": None}
+    )
+    loop.stop_event.clear()
+    moves0, steps0 = loop.lane_moves, loop.global_step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop._run_async()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    if loop.global_step != ASYNC_STEPS + ASYNC_PROFILED_STEPS:
+        fail(f"{label}: the profiled window ended at step {loop.global_step}")
+    busy = device_union(prof, set(STAGES) | set(TRAIN_STAGES))
+    measured = busy["spans"] > 0  # a profiler that saw no device activity measured nothing
+    out["profile"] = {
+        "wall_ms": prof_wall_ms,
+        "steps": loop.global_step - steps0,
+        "lane_moves_folded": loop.lane_moves - moves0,
+        "device_ms": busy["union_ms"] if measured else None,
+        "device_kernel_ms_summed": busy["sum_ms"] if measured else None,
+        "device_spans": busy["spans"],
+        # The card is busy while any stream runs a kernel or copy.
+        "device_busy_share": busy["union_ms"] / prof_wall_ms if measured else None,
+        "streams_overlap": busy["sum_ms"] / busy["union_ms"] if measured else None,
+    }
+    return out
+
+
+def tiny_reference_configs():
+    """The reference phases' small world: a 3x4 board, an f32 net without
+    the transformer (whose dropout masks differ between the two devices'
+    generators), 8 simulations without Dirichlet noise (a device
+    generator's draw)."""
+    from alphatriangle_tpu_torch.config import (
+        AlphaTriangleMCTSConfig,
+        EnvConfig,
+        ModelConfig,
+        expected_other_features_dim,
+    )
+
+    env_cfg = EnvConfig(
+        ROWS=3, COLS=4, PLAYABLE_RANGE_PER_ROW=[(0, 4)] * 3, NUM_SHAPE_SLOTS=1,
+        MAX_SHAPE_TRIANGLES=3, LINE_MIN_LENGTH=3,
+    )
+    model_cfg = ModelConfig(
+        CONV_FILTERS=[8], CONV_KERNEL_SIZES=[3], CONV_STRIDES=[1], NUM_RESIDUAL_BLOCKS=0,
+        RESIDUAL_BLOCK_FILTERS=8, USE_TRANSFORMER=False, TRANSFORMER_LAYERS=0,
+        # Hidden widths of 64 keep GroupNorm at 8 features a group: a group
+        # of 2 nearly equal values normalises rounding, which differs by device.
+        FC_DIMS_SHARED=[64], POLICY_HEAD_DIMS=[64], VALUE_HEAD_DIMS=[64], NUM_VALUE_ATOMS=11,
+        OTHER_NN_INPUT_FEATURES_DIM=expected_other_features_dim(env_cfg), COMPUTE_DTYPE="float32",
+    )
+    mcts_cfg = AlphaTriangleMCTSConfig(
+        max_simulations=8, max_depth=4, mcts_batch_size=4, dirichlet_epsilon=0.0
+    )
+    return env_cfg, model_cfg, mcts_cfg
+
+
+def reference_sync_phase(torch, dev) -> dict:
+    """One tiny synchronous iteration (3 learner steps, a sync after the
+    second) from the same seed on the CPU (plain versions, the host ring
+    that "auto" gives there) and on the card (the kernels, the device
+    ring): the same rows ingested, the same sampled slots, losses within
+    the reference megastep's tolerances (1e-3 relative)."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch.config import TrainConfig
+    from alphatriangle_tpu_torch.training import TrainingLoop, setup_training_components
+
+    env_cfg, model_cfg, mcts_cfg = tiny_reference_configs()
+    cfg = TrainConfig(
+        SELF_PLAY_BATCH_SIZE=4, ROLLOUT_CHUNK_MOVES=2, BATCH_SIZE=8, BUFFER_CAPACITY=2000,
+        MIN_BUFFER_SIZE_TO_TRAIN=16, N_STEP_RETURNS=2, MAX_EPISODE_MOVES=30, RANDOM_SEED=5,
+        LEARNER_STEPS_PER_ROLLOUT=3, WORKER_UPDATE_FREQ_STEPS=2, MAX_TRAINING_STEPS=3,
+    )
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    sides = {}
+    try:
+        for device in ("cpu", dev):
+            c = setup_training_components(cfg, env_cfg, model_cfg, mcts_cfg, device=device)
+            loop = TrainingLoop(c)
+            drawn, real_sample = [], c.buffer.sample
+
+            def sample(*args, _real=real_sample, _drawn=drawn, **kwargs):
+                s = _real(*args, **kwargs)
+                _drawn.append(None if s is None else s["indices"])
+                return s
+
+            c.buffer.sample = sample
+            counts = []
+            while len(c.buffer) < cfg.MIN_BUFFER_SIZE_TO_TRAIN:
+                counts.append(loop._process_rollout())
+            counts.append(loop._process_rollout())
+            ran = loop._run_training_steps(cfg.LEARNER_STEPS_PER_ROLLOUT)
+            size = len(c.buffer)
+            if c.buffer.is_device:
+                ring = {k: v[:size].cpu().numpy() for k, v in c.buffer.storage.items()}
+            else:
+                ring = {k: v[:size].copy() for k, v in c.buffer._storage.items()}
+            sides[str(device)] = {
+                "ring_kind": "device" if c.buffer.is_device else "host",
+                "counts": counts, "ran": ran, "ring": ring, "idx": drawn,
+                "syncs": loop.weight_updates,
+                "losses": np.array([[m["total_loss"], m["value_loss"]] for m in loop.metrics]),
+            }
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    cpu, card = sides["cpu"], sides[str(dev)]
+    if (cpu["ring_kind"], card["ring_kind"]) != ("host", "device"):
+        fail("reference sync: DEVICE_REPLAY='auto' did not give the host ring on the CPU "
+             "and the device ring on the card")
+    if cpu["counts"] != card["counts"]:
+        fail(f"reference sync: rows ingested differ: CPU {cpu['counts']}, card {card['counts']}")
+    if not (cpu["ran"] == card["ran"] == 3 and cpu["syncs"] == card["syncs"] == 1):
+        fail("reference sync: the iteration did not run 3 steps and one sync on both devices")
+    for name in ("grid", "policy_target", "policy_weight"):
+        if not np.array_equal(cpu["ring"][name].astype(np.float32), card["ring"][name].astype(np.float32)):
+            fail(f"reference sync: ring column {name} differs between the card and the CPU")
+    for name in ("other_features", "value_target"):
+        if not np.allclose(cpu["ring"][name], card["ring"][name], rtol=1e-4, atol=1e-4):
+            fail(f"reference sync: ring column {name} differs between the card and the CPU")
+    if len(cpu["idx"]) != len(card["idx"]) or not all(
+        np.array_equal(a, b) for a, b in zip(cpu["idx"], card["idx"])
+    ):
+        fail("reference sync: the sampled slots differ between the card and the CPU")
+    loss_err = float(np.abs(cpu["losses"] - card["losses"]).max())
+    if not np.allclose(card["losses"], cpu["losses"], rtol=1e-3, atol=1e-5):
+        fail(f"reference sync: losses differ between the card and the CPU by {loss_err}")
+    return {"rows": cpu["counts"], "steps": cpu["ran"], "draws": len(cpu["idx"]),
+            "loss_max_abs_err": loss_err}
 
 
 class _ExactStub:
@@ -1035,30 +1524,10 @@ def reference_train_phase(torch, dev) -> dict:
     order), and losses and TD errors within 1e-3 relative."""
     import numpy as np
 
-    from alphatriangle_tpu_torch.config import (
-        AlphaTriangleMCTSConfig,
-        EnvConfig,
-        ModelConfig,
-        TrainConfig,
-        expected_other_features_dim,
-    )
+    from alphatriangle_tpu_torch.config import TrainConfig
     from alphatriangle_tpu_torch.training import setup_training_components
 
-    env_cfg = EnvConfig(
-        ROWS=3, COLS=4, PLAYABLE_RANGE_PER_ROW=[(0, 4)] * 3, NUM_SHAPE_SLOTS=1,
-        MAX_SHAPE_TRIANGLES=3, LINE_MIN_LENGTH=3,
-    )
-    model_cfg = ModelConfig(
-        CONV_FILTERS=[8], CONV_KERNEL_SIZES=[3], CONV_STRIDES=[1], NUM_RESIDUAL_BLOCKS=0,
-        RESIDUAL_BLOCK_FILTERS=8, USE_TRANSFORMER=False, TRANSFORMER_LAYERS=0,
-        # Hidden widths of 64 keep GroupNorm at 8 features a group: a group
-        # of 2 nearly equal values normalises rounding, which differs by device.
-        FC_DIMS_SHARED=[64], POLICY_HEAD_DIMS=[64], VALUE_HEAD_DIMS=[64], NUM_VALUE_ATOMS=11,
-        OTHER_NN_INPUT_FEATURES_DIM=expected_other_features_dim(env_cfg), COMPUTE_DTYPE="float32",
-    )
-    mcts_cfg = AlphaTriangleMCTSConfig(
-        max_simulations=8, max_depth=4, mcts_batch_size=4, dirichlet_epsilon=0.0
-    )
+    env_cfg, model_cfg, mcts_cfg = tiny_reference_configs()
     cfg = TrainConfig(
         FUSED_MEGASTEP=True, SELF_PLAY_BATCH_SIZE=4, ROLLOUT_CHUNK_MOVES=2, BATCH_SIZE=8,
         BUFFER_CAPACITY=2000, MIN_BUFFER_SIZE_TO_TRAIN=16, N_STEP_RETURNS=2, MAX_EPISODE_MOVES=30,
@@ -1159,6 +1628,51 @@ def say_train(label: str, r: dict, card: str) -> None:
     )
     say(f"{label} losses: {json.dumps(r['losses'])}")
     say_profile("megastep", r["profile"], card)
+
+
+def say_loop(label: str, r: dict, card: str) -> None:
+    say(
+        f"{label}: {r['iterations']} iterations, {r['searched_moves']} searched moves, rows "
+        f"{r['rows_per_iteration']}, learner steps {r['steps_per_iteration']}, "
+        f"{r['episodes']} episodes, {r['weight_updates']} weight syncs (differ before, equal "
+        f"after), replay ratio {r['replay_ratio']:.3f}; iteration p50 "
+        f"{r['iteration_ms_p50_full']:.1f} ms at {r['steps_full']} steps, rollout p50 "
+        f"{r['rollout_ms_p50']:.1f} ms ({r['rollout_moves_per_s']:.1f} moves/s), learner "
+        f"{r['learner_ms_per_step_p50']:.1f} ms/step p50, {r['learner_steps_per_s_full']:.2f} "
+        f"learner steps/s at {r['steps_full']} steps an iteration, over the run "
+        f"{r['learner_steps_per_s_run']:.2f} learner steps/s and {r['lane_moves_per_s_run']:.1f} "
+        f"moves/s ({r['run_s']:.1f} s); upload {r['transfer_h2d_s'] * 1e3:.1f} ms, fetch "
+        f"{r['transfer_d2h_s'] * 1e3:.1f} ms; peak {r['peak_mem_gb']:.2f} GiB; launches "
+        f"{r['launches']} [{card}]"
+    )
+    say(f"{label} losses: {json.dumps(r['losses'])}")
+
+
+def say_async(r: dict, card: str) -> None:
+    p = r["profile"]
+    say(
+        f"train-async: {r['steps']} steps, {r['chunks']} chunks ({r['searched_moves']} searched "
+        f"moves, harvests by stream {r['harvests_by_stream']}, {r['chunks_crossing_a_sync']} "
+        f"chunks crossing a sync, versions {r['chunk_versions']}), {r['rows_ingested']} rows, "
+        f"replay ratio {r['replay_ratio']:.3f}, {r['weight_updates']} weight syncs, chunk "
+        f"{r['tuned_chunk_moves']} moves (tuned), queue depth max {r['queue_depth_max']} mean "
+        f"{r['queue_depth_mean']:.2f}, staleness {r['staleness_mean']}, producer chunk p50 "
+        f"{r['producer_chunk_ms_p50']:.1f} ms over {r['producer_chunks']}; over the run "
+        f"{r['learner_steps_per_s_run']:.2f} learner steps/s and {r['lane_moves_per_s_run']:.1f} "
+        f"moves/s ({r['run_s']:.1f} s); peak {r['peak_mem_gb']:.2f} GiB; launches "
+        f"{r['launches']} [{card}]"
+    )
+    say(f"train-async losses: {json.dumps(r['losses'])}")
+    window = (f"profiled async window: {p['steps']} steps, {p['lane_moves_folded']} moves folded "
+              f"in {p['wall_ms']:.1f} ms")
+    if p["device_ms"] is None:
+        say(f"{window}; device time not measured [{card}]")
+    else:
+        say(
+            f"{window}; device busy {p['device_ms']:.1f} ms ({p['device_busy_share']:.1%} of the "
+            f"wall, {p['device_spans']} kernels and copies; summed over streams "
+            f"{p['device_kernel_ms_summed']:.1f} ms, overlap {p['streams_overlap']:.2f}x) [{card}]"
+        )
 
 
 def main() -> int:
@@ -1271,6 +1785,22 @@ def main() -> int:
     say(f"train-reuse phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    syreport = train_sync_phase(torch, dev, KERNELS)
+    say_loop("train-sync", syreport, card)
+    say_profile("sync iteration", syreport["profile"], card)
+    say(f"train-sync phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    shreport = train_sync_phase(torch, dev, KERNELS, host_ring=True)
+    say_loop("train-sync-host", shreport, card)
+    say(f"train-sync-host phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    asreport = train_async_phase(torch, dev, KERNELS)
+    say_async(asreport, card)
+    say(f"train-async phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
     rureport = reference_reuse_phase(torch, dev)
@@ -1285,9 +1815,19 @@ def main() -> int:
         f"{rreport['loss_max_abs_err']:.2e}, TD err {rreport['td_max_abs_err']:.2e})"
     )
     rreport["carried_search"] = rureport
+    ryreport = reference_sync_phase(torch, dev)
+    say(
+        f"reference: card synchronous iteration equals the CPU's (rows {ryreport['rows']}, "
+        f"{ryreport['steps']} steps, the same {ryreport['draws']} draws of slots; loss err "
+        f"{ryreport['loss_max_abs_err']:.2e})"
+    )
+    rreport["sync_iteration"] = ryreport
     say(f"reference phase: {time.perf_counter() - t0:.1f} s")
 
-    paths = {"serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport}
+    paths = {
+        "serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport,
+        "train_sync": syreport, "train_sync_host": shreport, "train_async": asreport,
+    }
     kernels_line = []
     for kname, kr in kreport.items():
         entry = {key: kr[key] for key in (
@@ -1301,12 +1841,12 @@ def main() -> int:
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         # The search kernels run once per searched move (warm-up chunks
-        # and megasteps alike), the PER count once per megastep.
+        # and megasteps alike, every loop), the PER count once per megastep.
         per = {}
         for path, rep in paths.items():
             if path.startswith("serve"):
                 per[f"{path}_dispatch"] = by_path[path] / rep["dispatches"]
-            elif kname == "per_sample":
+            elif kname == "per_sample" and "megasteps" in rep:
                 per[f"{path}_megastep"] = by_path[path] / rep["megasteps"]
             else:
                 per[f"{path}_searched_move"] = by_path[path] / rep["searched_moves"]

@@ -52,6 +52,7 @@ from torch_parity import (  # noqa: E402
     TorchExactStub,
     inject_jax_noise,
     small_model_config,
+    stub_net,
     to_torch_state,
     torch_cfg,
     torch_key,
@@ -270,7 +271,7 @@ def reuse_engines(tiny_env_config):
         jenv, get_feature_extractor(jenv, model_cfg), jnet, mcts_cfg, jcfg, batch_size=5, seed=9,
     )
     tenv = TriangleEnv(torch_cfg(tiny_env_config), device=CPU)
-    tnet = SimpleNamespace(model=TorchExactStub(adim, atoms), support=support, weights_version=3)
+    tnet = stub_net(TorchExactStub(adim, atoms), support)
     teng = SelfPlayEngine(
         tenv, FeatureExtractor(tenv, torch_cfg(model_cfg)), tnet, torch_cfg(mcts_cfg),
         torch_cfg(jcfg), batch_size=5, seed=9,

@@ -35,6 +35,7 @@ from alphatriangle_tpu.rl.self_play import SelfPlayEngine as JaxEngine  # noqa: 
 from alphatriangle_tpu_torch.env import TriangleEnv  # noqa: E402
 from alphatriangle_tpu_torch.features import FeatureExtractor  # noqa: E402
 from alphatriangle_tpu_torch.mcts import select_action_from_visits  # noqa: E402
+from alphatriangle_tpu_torch.nn.network import LiveWeights  # noqa: E402
 from alphatriangle_tpu_torch.nn.model import value_support  # noqa: E402
 from alphatriangle_tpu_torch.ops import KERNELS  # noqa: E402
 from alphatriangle_tpu_torch.rl import SelfPlayEngine  # noqa: E402
@@ -44,6 +45,7 @@ from torch_parity import (  # noqa: E402
     TorchExactStub,
     inject_jax_noise,
     small_model_config,
+    stub_net,
     to_torch_state,
     torch_cfg,
     torch_key,
@@ -112,7 +114,7 @@ def _engines(jenv_cfg, train_kw: dict, batch: int, mcts_kw: dict, compiled=None)
         )
         compiled.setdefault(key, jeng)
     tenv = TriangleEnv(torch_cfg(jenv_cfg), device=CPU)
-    tnet = SimpleNamespace(model=TorchExactStub(adim, atoms), support=support, weights_version=3)
+    tnet = stub_net(TorchExactStub(adim, atoms), support)
     teng = SelfPlayEngine(
         tenv, FeatureExtractor(tenv, torch_cfg(model_cfg)), tnet, torch_cfg(mcts_cfg),
         torch_cfg(jcfg), batch_size=batch, seed=9,
@@ -167,14 +169,13 @@ class TestChunk:
         jeng, teng = chunk_engines[(board, n, moves, cap)]
         jcarry, jout = jeng._chunk_fn(moves)({}, jeng._carry, jnp.int32(11))
         before = {k: v.launches for k, v in KERNELS.items()}
-        tcarry, tout = teng._chunk(moves, teng._carry)
+        tcarry, tout = teng._chunk(moves, teng._carry, LiveWeights(11, teng.net.model))
         assert {k: v.launches for k, v in KERNELS.items()} == before  # CPU: plain versions
         jout = jax.device_get(jout)
         jout["trace"] = {k: jout["trace"][k] for k in tout["trace"]}
         jout.pop("device_stats", None)
-        # The port tracks no weights version: the learner's module is the
-        # rollout's, so there is no staleness to tag episodes with.
-        jout["episode"].pop("start_version")
+        # Episodes carry the version they started under: the engine's
+        # initial one (3), or this chunk's (11) for those it reset.
         _assert_tree(tout, jout)
         assert bool(jout["episode"]["ending"].any()) or board == "flagship"
         # The carries agree too: games, windows and the key.
@@ -188,6 +189,9 @@ class TestChunk:
             tcarry.pend_return.numpy(), np.asarray(jcarry.pend_return), atol=SUM_ATOL
         )
         np.testing.assert_array_equal(tcarry.rng.numpy(), np.asarray(jcarry.rng).astype(np.int64))
+        np.testing.assert_array_equal(
+            tcarry.episode_start_version.numpy(), np.asarray(jcarry.episode_start_version)
+        )
         assert tcarry.move_index == int(jcarry.move_index)
 
     def test_harvest_matches_jax(self, tiny_env_config, compiled):
@@ -201,7 +205,7 @@ class TestChunk:
             np.testing.assert_allclose(got.value_target, want.value_target, atol=SUM_ATOL)
             for name in (
                 "episode_scores", "episode_lengths", "num_episodes", "num_truncated",
-                "total_simulations",
+                "total_simulations", "episode_start_versions", "trainer_step_at_episode_start",
             ):
                 assert getattr(got, name) == getattr(want, name), name
         for name in ("root_value", "reward", "ending", "wasted_slots", "sims"):

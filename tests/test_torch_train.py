@@ -1,9 +1,11 @@
 """The PyTorch port's training entry points on the CPU: the megastep
 loop (`training/loop.py`) through `TrainingLoop` and `run_training`, and
-`cli train`. These hold the port to its own contracts (counters, the
-K of the tail megastep, device priorities against the host mirror,
-refusals of the loop modes it lacks); `test_torch_megastep.py` holds a
-megastep against the JAX package."""
+`cli train` in all three loop modes. These hold the port to its own
+contracts (counters, the K of the tail megastep, device priorities
+against the host mirror, the refusal of restores);
+`test_torch_megastep.py` holds a megastep against the JAX package, and
+`test_torch_sync_loop.py` / `test_torch_async_loop.py` the other two
+loops."""
 
 import json
 
@@ -51,9 +53,11 @@ class TestTrainEntryPoints:
         assert report["steps"] == 5 and report["status"] == "completed"
 
     def test_unported_modes_are_refused(self):
-        for kw in ({"FUSED_MEGASTEP": False}, {"ASYNC_ROLLOUTS": True}):
-            with pytest.raises(ValueError, match="fused megastep"):
-                run_training(TrainConfig(**kw), device=CPU)
+        # Every loop mode runs; the restores wait for the checkpoint slice.
+        for kw in ({"LOAD_CHECKPOINT_PATH": "ckpt"}, {"LOAD_BUFFER_PATH": "buffer"}):
+            for mode in ({}, {"ASYNC_ROLLOUTS": True}, {"FUSED_MEGASTEP": True}):
+                with pytest.raises(ValueError, match="restore are not ported"):
+                    run_training(TrainConfig(**kw, **mode), device=CPU)
 
     def test_cli_train_on_the_cpu(self, capsys):
         rc = cli.main([
@@ -68,6 +72,24 @@ class TestTrainEntryPoints:
         assert report["rows_ingested"] >= 4 and report["device"] == "cpu"
         assert all(np.isfinite(report["losses"]["total_loss"]))
 
-    def test_cli_train_needs_the_megastep_flag(self, capsys):
-        assert cli.main(["train", "--device", "cpu"]) != 0
-        assert "only the fused megastep loop is ported yet" in capsys.readouterr().err
+    @pytest.mark.parametrize("mode", [[], ["--async-rollouts", "--workers", "2"]])
+    def test_cli_train_runs_the_other_loops(self, capsys, mode):
+        """Without a mode flag `train` runs the synchronous loop; with
+        --async-rollouts, the overlapped loop. Both fold into the host
+        ring on the CPU ("auto") and end at --max-steps."""
+        rc = cli.main([
+            "train", "--device", "cpu", *mode, "--max-steps", "3", "--self-play-batch", "2",
+            "--batch-size", "4", "--min-buffer", "4", "--buffer-capacity", "64",
+            "--rollout-chunk", "4", "--seed", "1", "--replay-ratio", "2.0",
+        ])
+        report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0 and report["status"] == "completed"
+        assert report["mode"] == ("async" if mode else "sync")
+        assert report["replay_ring"] == "host" and report["megasteps"] == 0
+        assert report["steps"] == 3 and report["rows_ingested"] == report["buffer_size"] >= 4
+        assert all(np.isfinite(report["losses"]["total_loss"]))
+        if mode:
+            assert report["replay_ratio"] <= 2.0 and report["producer_restarts"] == 0
+            assert set(report["harvests_by_stream"]) <= {"0", "1"}
+        else:
+            assert sum(report["steps_per_iteration"]) == 3

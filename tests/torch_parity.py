@@ -2,6 +2,8 @@
 states, keys and weights between the JAX package and its PyTorch port,
 a small model of the port's own, and an exact stub net for both."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ from alphatriangle_tpu.config import ModelConfig, expected_other_features_dim
 from alphatriangle_tpu_torch import config as tcfg
 from alphatriangle_tpu_torch.env.engine import EnvState
 from alphatriangle_tpu_torch.nn import flax_to_torch
+from alphatriangle_tpu_torch.nn.network import LiveWeights
 
 CPU = "cpu"
 
@@ -107,6 +110,51 @@ class TorchExactStub:
         onehot = torch.nn.functional.one_hot(_stub_atom(count, self.atoms), self.atoms) > 0
         value = torch.where(onehot, 0.0, float("-inf"))
         return torch.zeros((grid.shape[0], self.action_dim)), value
+
+
+def dense_rows(
+    seed: int, n: int, grid_shape, other_dim: int, action_dim: int,
+    nonfinite: bool = False, not_a_policy: bool = False,
+) -> dict:
+    """`add_dense` keyword arguments of `n` random rows (NumPy); with
+    `nonfinite`, one row holds an inf and one a NaN; with `not_a_policy`,
+    one policy row does not sum to 1."""
+    pick = np.random.default_rng(seed)
+    policy = pick.random((n, action_dim)).astype(np.float32) ** 3
+    policy /= policy.sum(-1, keepdims=True)
+    rows = {
+        "grid": pick.integers(-1, 2, (n, *grid_shape)).astype(np.float32),
+        "other_features": pick.random((n, other_dim)).astype(np.float32),
+        "policy_target": policy,
+        "value_target": (pick.normal(size=n) * 4).astype(np.float32),
+        "policy_weight": (pick.random(n) < 0.8).astype(np.float32),
+    }
+    if nonfinite:
+        rows["value_target"][1] = np.inf
+        rows["other_features"][n // 2, 0] = np.nan
+    if not_a_policy:
+        rows["policy_target"][n - 1] *= 2.0
+    return rows
+
+
+def assert_params_close(model, jax_params, lr: float, steps: int) -> None:
+    """A torch module's parameters against a Flax params tree after
+    `steps` Adam steps of learning rate `lr` from the same start: within
+    1e-3 of lr per step, apart from at most 1% of entries whose gradient
+    was rounding-sized (Adam moves those by ~lr in either sign)."""
+    want = flax_to_torch({"params": jax.tree_util.tree_map(np.asarray, jax_params)})
+    for name, p in model.named_parameters():
+        diff = np.abs(p.detach().numpy() - want[name].numpy())
+        assert (diff > 1e-3 * lr * steps).mean() <= 0.01, (name, diff.max())
+        assert diff.max() <= 2 * lr * steps, (name, diff.max())
+
+
+def stub_net(model, support, version: int = 3) -> SimpleNamespace:
+    """A stand-in for the port's `NeuralNetwork` around a stub model:
+    the weights a chunk reads (`live`) at weights version `version`."""
+    return SimpleNamespace(
+        model=model, support=support, weights_version=version, live=LiveWeights(version, model)
+    )
 
 
 def inject_jax_noise(monkeypatch) -> None:
