@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: counterpart of
-`alphatriangle_tpu/cli.py`'s `serve` and `train` subcommands.
+`alphatriangle_tpu/cli.py`'s `serve`, `train` and `eval` subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
@@ -14,13 +14,32 @@ board and net: an untrained net (seed 0) or a state dict written by
         [--device-replay {auto,on,off}] [--max-steps N] [--self-play-batch B]
         [--batch-size B] [--buffer-capacity N] [--min-buffer N]
         [--rollout-chunk T] [--fused-learner-steps K] [--seed S] [--device cuda]
+        [--run-name NAME] [--root-dir DIR] [--no-auto-resume]
+        [--load-checkpoint STEP_DIR] [--load-buffer NPZ]
+        [--checkpoint-freq N] [--keep-checkpoints K]
 
 Trains the default board and net through `run_training`: the
 synchronous loop without a mode flag, the overlapped loop (producer
 threads behind a replay-ratio gate) with `--async-rollouts`, the fused
-megastep with `--fused-megastep`. Prints one JSON report: steps, losses,
-rows ingested, episodes, weight syncs, the achieved replay ratio and
-timings.
+megastep with `--fused-megastep`. The run lives in
+`<root>/AlphaTriangleTPUTorch/runs/<run>` (root `./.alphatriangle_data`
+unless `--root-dir`), checkpoints every `--checkpoint-freq` steps and
+at the end, and resumes the newest checkpointed run under the root
+unless `--no-auto-resume`. SIGTERM saves, spills and exits 114. Prints
+one JSON report: steps, losses, rows ingested, episodes, weight syncs,
+the achieved replay ratio, timings, the save and restore times and the
+kernel launches.
+
+    python -m alphatriangle_tpu_torch.cli eval [--checkpoint STEP_DIR |
+        --run-name NAME] [--vs-checkpoint STEP_DIR | --vs-run NAME]
+        [--root-dir DIR] [--games 64] [--sims 64] [--max-moves 200]
+        [--seed 0] [--device cuda]
+
+Arena evaluation: greedy search from a checkpoint (a step directory, or
+a run's newest) on the run's own configs, played as paired games through
+`PolicyService`, against a uniform-random baseline on the same hands,
+and head to head against a second checkpoint when one is named. Prints
+the JAX report's keys, plus the dispatch times and kernel launches.
 """
 
 import argparse
@@ -83,7 +102,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
 
 def cmd_train(args: argparse.Namespace) -> int:
-    from .config import TrainConfig
+    from .config import PersistenceConfig, TrainConfig
     from .training import EXIT_CODES, run_training
 
     overrides = {}
@@ -107,9 +126,162 @@ def cmd_train(args: argparse.Namespace) -> int:
         value = getattr(args, flag)
         if value is not None:
             overrides[field] = value
-    loop = run_training(TrainConfig(**overrides), device=args.device)
-    print(json.dumps(loop.report()))
+    if args.run_name is not None:
+        overrides["RUN_NAME"] = args.run_name
+    if args.checkpoint_freq is not None:
+        overrides["CHECKPOINT_SAVE_FREQ_STEPS"] = args.checkpoint_freq
+    if args.no_auto_resume:
+        overrides["AUTO_RESUME_LATEST"] = False
+    if args.load_checkpoint is not None:
+        overrides["LOAD_CHECKPOINT_PATH"] = args.load_checkpoint
+    if args.load_buffer is not None:
+        overrides["LOAD_BUFFER_PATH"] = args.load_buffer
+    train_cfg = TrainConfig(**overrides)
+    persistence = {"RUN_NAME": train_cfg.RUN_NAME}
+    if args.root_dir is not None:
+        persistence["ROOT_DATA_DIR"] = args.root_dir
+    if args.keep_checkpoints is not None:
+        persistence["KEEP_LAST_CHECKPOINTS"] = args.keep_checkpoints
+    loop = run_training(
+        train_cfg, persistence_config=PersistenceConfig(**persistence), device=args.device
+    )
+    print(json.dumps({**loop.report(), "kernel_launches": _kernel_launches()}))
     return EXIT_CODES[loop.status]
+
+
+def _kernel_launches() -> dict:
+    from .ops import KERNELS
+
+    return {name: kern.launches for name, kern in KERNELS.items()}
+
+
+def cmd_eval(args: argparse.Namespace) -> int:
+    """Greedy search from a checkpoint against uniform-random play on the
+    same paired hands, and head to head against a second checkpoint."""
+    from pathlib import Path
+
+    from .arena import play, play_service, random_policy
+    from .config import AlphaTriangleMCTSConfig, PersistenceConfig, TrainConfig
+    from .config.run_configs import load_run_configs, load_run_configs_or_default
+    from .device import resolve_device
+    from .env import TriangleEnv
+    from .features import FeatureExtractor
+    from .mcts import BatchedMCTS
+    from .nn import NeuralNetwork
+    from .rl import Trainer
+    from .serving import PolicyService
+    from .stats import CheckpointManager
+
+    device = resolve_device(args.device)
+
+    def persistence(run_name: str) -> PersistenceConfig:
+        kw = {"RUN_NAME": run_name}
+        if args.root_dir:
+            kw["ROOT_DATA_DIR"] = args.root_dir
+        return PersistenceConfig(**kw)
+
+    def config_dir(checkpoint, run_name) -> Path:
+        # A step directory sits at <run>/checkpoints/step_NNNNNNNN.
+        if run_name:
+            return persistence(run_name).get_run_base_dir()
+        if checkpoint:
+            return Path(checkpoint).resolve().parent.parent
+        return Path("/nonexistent")
+
+    env_cfg, model_cfg = load_run_configs_or_default(config_dir(args.checkpoint, args.run_name))
+    mcts_cfg = AlphaTriangleMCTSConfig(
+        max_simulations=args.sims, root_selection="gumbel" if args.gumbel else "puct"
+    )
+    env = TriangleEnv(env_cfg, device=device)
+
+    def restore_net(checkpoint, run_name, net_model_cfg):
+        """A fresh net, restored from a step directory or a run's newest
+        checkpoint when one is named; (net, source label)."""
+        net = NeuralNetwork(net_model_cfg, env_cfg, seed=0, device=device)
+        label = "untrained"
+        if checkpoint or run_name:
+            trainer = Trainer(net, TrainConfig(RUN_NAME=run_name or "eval"))
+            mgr = CheckpointManager(persistence(run_name or "eval"), device=device, create_dirs=False)
+            loaded = mgr.restore_path(checkpoint) if checkpoint else mgr.restore()
+            if loaded.train_state is None:
+                print("No checkpoint found; evaluating the untrained net.", file=sys.stderr)
+            else:
+                trainer.set_state(loaded.train_state)
+                trainer.sync_to_network()
+                label = f"step {loaded.global_step}"
+                if run_name and not checkpoint:
+                    label = f"{run_name} {label}"
+        return net, label
+
+    def serve_play(net, net_model_cfg):
+        extractor = FeatureExtractor(env, net_model_cfg)
+        mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+        service = PolicyService(env, extractor, net, mcts, slots=args.games)
+        t0 = time.perf_counter()
+        scores, lengths, done = play_service(service, args.games, args.max_moves, args.seed)
+        return scores, lengths, done, time.perf_counter() - t0, service.serve_stats()
+
+    net, source = restore_net(args.checkpoint, args.run_name, model_cfg)
+    print(
+        f"Evaluating {source} net: {args.games} games, {args.sims} sims/move, device {device}...",
+        file=sys.stderr,
+    )
+    scores, lengths, done, wall_s, stats = serve_play(net, model_cfg)
+    r_scores, _, _ = play(
+        env, random_policy(env, args.seed), args.games, args.max_moves, args.seed
+    )
+    # Both sides start from the same reset keys and see the same hands:
+    # the comparison is paired.
+    diffs = scores - r_scores
+    report = {
+        "source": source,
+        "games": args.games,
+        "sims": args.sims,
+        "mcts_mean_score": round(float(scores.mean()), 2),
+        "mcts_max_score": round(float(scores.max()), 2),
+        "mcts_mean_length": round(float(lengths.mean()), 1),
+        "finished_fraction": round(float(done.mean()), 3),
+        "random_mean_score": round(float(r_scores.mean()), 2),
+        "score_vs_random": round(float(scores.mean() / max(r_scores.mean(), 1e-9)), 3),
+        "paired_mean_diff": round(float(diffs.mean()), 3),
+        "paired_win_rate": round(float((diffs > 0).mean() + 0.5 * (diffs == 0).mean()), 3),
+    }
+    if args.vs_checkpoint or args.vs_run:
+        model_cfg_b = model_cfg
+        loaded_b = load_run_configs(config_dir(args.vs_checkpoint, args.vs_run))
+        if loaded_b:
+            if loaded_b["env"] != env_cfg:
+                raise SystemExit(
+                    "Head-to-head needs both runs on the same env config; the --vs side "
+                    "trained on a different board."
+                )
+            model_cfg_b = loaded_b["model"]
+        net_b, source_b = restore_net(args.vs_checkpoint, args.vs_run, model_cfg_b)
+        b_scores, _, _, _, _ = serve_play(net_b, model_cfg_b)
+        h2h = scores - b_scores
+        report.update(
+            {
+                "vs_source": source_b,
+                "vs_mean_score": round(float(b_scores.mean()), 2),
+                "h2h_paired_mean_diff": round(float(h2h.mean()), 3),
+                "h2h_win_rate": round(float((h2h > 0).mean() + 0.5 * (h2h == 0).mean()), 3),
+            }
+        )
+    report.update(
+        {
+            "device": str(device),
+            "max_moves": args.max_moves,
+            "mcts_scores": scores.tolist(),
+            "random_scores": r_scores.tolist(),
+            "mcts_wall_s": wall_s,
+            "games_per_s": args.games / wall_s,
+            "dispatches": stats["serve_dispatches"],
+            "dispatch_ms_p50": stats["serve_batch_ms_p50"],
+            "kernel_launches": _kernel_launches(),
+        }
+    )
+    print(json.dumps(report))
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -162,7 +334,43 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--seed", type=int, default=None, help="Random seed.")
     train.add_argument("--device", default="cuda",
                        help="Torch device (default cuda; 'cpu' runs the plain versions).")
+    train.add_argument("--run-name", default=None, help="Run directory name.")
+    train.add_argument("--root-dir", default=None,
+                       help="Runs root directory (default ./.alphatriangle_data).")
+    train.add_argument("--no-auto-resume", action="store_true",
+                       help="Start fresh instead of resuming the latest run.")
+    train.add_argument("--load-checkpoint", default=None, metavar="PATH",
+                       help="Restore this step directory (checkpoints/step_NNNNNNNN).")
+    train.add_argument("--load-buffer", default=None, metavar="PATH",
+                       help="Restore the replay ring from this buffer spill (.npz).")
+    train.add_argument("--checkpoint-freq", type=int, default=None, metavar="N",
+                       help="Save every N learner steps (CHECKPOINT_SAVE_FREQ_STEPS).")
+    train.add_argument("--keep-checkpoints", type=int, default=None, metavar="K",
+                       help="Retain the newest K checkpoints (KEEP_LAST_CHECKPOINTS; 0 keeps all).")
     train.set_defaults(fn=cmd_train)
+
+    ev = sub.add_parser(
+        "eval",
+        help="Arena evaluation: greedy search from a checkpoint against uniform-random play "
+        "on paired hands, or head to head against a second checkpoint.",
+    )
+    ev.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="A step directory (checkpoints/step_NNNNNNNN).")
+    ev.add_argument("--run-name", default=None, help="Evaluate this run's newest checkpoint.")
+    ev.add_argument("--vs-checkpoint", default=None, metavar="PATH",
+                    help="Head-to-head opponent: a step directory.")
+    ev.add_argument("--vs-run", default=None,
+                    help="Head-to-head opponent: the newest checkpoint of this run.")
+    ev.add_argument("--root-dir", default=None)
+    ev.add_argument("--games", type=int, default=64)
+    ev.add_argument("--sims", type=int, default=64)
+    ev.add_argument("--max-moves", type=int, default=200)
+    ev.add_argument("--seed", type=int, default=0)
+    ev.add_argument("--gumbel", action="store_true",
+                    help="Gumbel root search (not ported yet: refused).")
+    ev.add_argument("--device", default="cuda",
+                    help="Torch device (default cuda; 'cpu' runs the plain versions).")
+    ev.set_defaults(fn=cmd_eval)
     return parser
 
 

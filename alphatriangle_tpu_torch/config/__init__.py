@@ -3,6 +3,7 @@
 from .env_config import EnvConfig
 from .mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
 from .model_config import ModelConfig
+from .persistence_config import PersistenceConfig
 from .train_config import TrainConfig
 from .validation import (
     EXPLICIT_FEATURES_DIM,
@@ -17,6 +18,7 @@ __all__ = [
     "FEATURES_PER_SHAPE",
     "MCTSConfig",
     "ModelConfig",
+    "PersistenceConfig",
     "TrainConfig",
     "expected_other_features_dim",
 ]

@@ -2,12 +2,14 @@
 `alphatriangle_tpu/config/train_config.py`, field for field, with the
 same defaults and validators, so a JAX `model_dump()` loads unchanged.
 
-Which knobs the port runs is decided where they are read, not here:
-`training/setup.py::refuse_unported` raises for what the port does not
-have yet (the checkpoint and buffer restores), so a dumped config of
-any mode still loads. `PER_SAMPLE_BACKEND` accepts
-the JAX mode strings; on a CUDA tensor the hand-written kernel runs
-whichever it names (ops/per_sample.py).
+Every loop mode (synchronous, overlapped, fused megastep) runs, and so
+do the checkpoint knobs: `AUTO_RESUME_LATEST`, `LOAD_CHECKPOINT_PATH`
+and `LOAD_BUFFER_PATH` are read by `training/runner.py`,
+`CHECKPOINT_SAVE_FREQ_STEPS` by the loop. What the port lacks is refused
+where it is read (`NORM_TYPE="batch"` training by the learner, Gumbel
+root search by the search), so a dumped config of any mode still loads.
+`PER_SAMPLE_BACKEND` accepts the JAX mode strings; on a CUDA tensor the
+hand-written kernel runs whichever it names (ops/per_sample.py).
 """
 
 import time
@@ -38,7 +40,8 @@ class TrainConfig(ConfigBase):
     MAX_EPISODE_MOVES: int = 1000
     LEARNER_STEPS_PER_ROLLOUT: int | None = None
 
-    # --- Overlapped (async) orchestration: not ported yet ---
+    # --- Overlapped (async) orchestration: producer threads behind a
+    # replay-ratio gate (training/loop.py) ---
     ASYNC_ROLLOUTS: bool = False
     REPLAY_RATIO: float = 1.0
     ROLLOUT_QUEUE_MAX: int = 4

@@ -11,6 +11,14 @@ submodules carry the Flax names. Per leaf:
   `bias` (H, hd) -> (H*hd,); `out` `kernel` (H, hd, D) -> (D, H*hd);
 - norm `scale`/`bias` -> `weight`/`bias`; BatchNorm `batch_stats`
   `mean`/`var` -> `running_mean`/`running_var`.
+
+`train_state_from_flax(params, mu, nu, count, step, rng)` carries a JAX
+learner across, not only its net: the Adam moments `mu` and `nu` are
+elementwise in their parameter, so each moves through its parameter's
+map, and the result is `rl/trainer.py::Trainer.get_state`'s snapshot
+(the form `stats/persistence.py` writes). The moments and count sit in
+the `ScaleByAdamState` of the JAX optimizer chain
+(`alphatriangle_tpu/rl/trainer.py::make_optimizer`).
 """
 
 from collections.abc import Mapping
@@ -55,12 +63,35 @@ def _param_leaf(path: tuple, value: np.ndarray) -> tuple[str, np.ndarray]:
 
 def flax_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     """Nested numpy Flax variables -> `AlphaTriangleNet` state dict."""
-    state = {}
-    for path, value in _flatten(variables.get("params", {})).items():
-        name, arr = _param_leaf(path, value)
-        state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+    state = _param_tensors(variables.get("params", {}))
     stats_names = {"mean": "running_mean", "var": "running_var"}
     for path, value in _flatten(variables.get("batch_stats", {})).items():
         name = stats_names[path[-1]]
         state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(value))
     return state
+
+
+def _param_tensors(tree: Mapping) -> dict[str, torch.Tensor]:
+    out = {}
+    for path, value in _flatten(tree).items():
+        name, arr = _param_leaf(path, value)
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def train_state_from_flax(params: Mapping, mu: Mapping, nu: Mapping, count, step, rng) -> dict:
+    """A JAX learner's state (numpy Flax trees of the parameters and the
+    two Adam moments, the optimizer count, the step and the threefry
+    key) as `Trainer.get_state`'s snapshot: {"params", "opt_state":
+    {"count", "mu", "nu"}, "step", "rng"}, CPU tensors keyed by the
+    port's parameter names."""
+    return {
+        "params": _param_tensors(params),
+        "opt_state": {
+            "count": int(np.asarray(count)),
+            "mu": _param_tensors(mu),
+            "nu": _param_tensors(nu),
+        },
+        "step": int(np.asarray(step)),
+        "rng": torch.from_numpy(np.asarray(rng).astype(np.int64).reshape(2)),
+    }

@@ -12,11 +12,13 @@ as `(|td| + eps)^alpha`.
 
 `DeviceReplayBuffer` (rl/device_buffer.py) inherits the counters, the
 PER knobs, the SumTree and the slot sampling, and keeps its ring on the
-card. Snapshot persistence waits for the checkpoint slice.
+card. `get_state` / `set_state` snapshot the ring for a checkpoint's
+buffer spill (stats/persistence.py), PER priorities included, in the
+JAX buffer's snapshot format.
 """
 
 import logging
-from typing import TypedDict
+from typing import Any, TypedDict
 
 import numpy as np
 
@@ -215,3 +217,81 @@ class ExperienceBuffer:
         td = np.where(np.isfinite(td), td, 0.0)
         priorities = (np.abs(td) + self.per_epsilon) ** self.alpha
         self.tree.update_batch(indices, priorities)
+
+    # --- persistence ------------------------------------------------------
+
+    def get_state(self) -> dict[str, Any]:
+        """Snapshot for a buffer spill: cursor, size, the `size` rows of
+        every column in slot order, and their SumTree priorities."""
+        state: dict[str, Any] = {
+            "pos": self._pos,
+            "size": self._size,
+            "storage": None,
+            "priorities": None,
+        }
+        if self._storage is not None:
+            state["storage"] = {
+                k: v[: self._size].copy() if self._size < self.capacity else v.copy()
+                for k, v in self._storage.items()
+            }
+        if self.tree is not None and self._size > 0:
+            leaves = np.arange(self._size) + self.tree._cap2
+            state["priorities"] = self.tree.tree[leaves].copy()
+        return state
+
+    def set_state(self, state: dict[str, Any]) -> None:
+        """Restore a `get_state` snapshot, this package's or the JAX
+        buffer's (its capacity may differ; contents are clipped to fit).
+
+        Snapshot rows are in slot order; a wrapped ring's oldest row sits
+        at the old write position, not slot 0. They are restored in
+        chronological order (oldest at slot 0, the cursor after the
+        newest), so later writes overwrite oldest first whatever the
+        capacity, and clipping keeps the newest rows."""
+        storage = state.get("storage")
+        if storage is None:
+            return
+        old_size = int(state["size"])
+        old_pos = int(state["pos"])
+        # Slot -> chronological order (a no-op for an unwrapped ring,
+        # whose cursor equals its size).
+        order = np.roll(np.arange(old_size), -(old_pos % max(old_size, 1)))
+        n = min(old_size, self.capacity)
+        order = order[-n:]  # keep the newest on a shrink
+        self._ensure_storage(
+            storage["grid"][:1],
+            storage["other_features"][:1],
+            storage["policy_target"][:1],
+        )
+        # Columns added after a snapshot was written restore to an
+        # explicit default; anything else missing is corruption.
+        restore_defaults = {"policy_weight": 1.0}
+        for k in self._storage:
+            if k in storage:
+                self._storage[k][:n] = storage[k][order]
+            elif k in restore_defaults:
+                self._storage[k][:n] = restore_defaults[k]
+            else:
+                raise KeyError(
+                    f"Buffer snapshot is missing column {k!r} and no restore default is "
+                    "defined for it."
+                )
+        self._size = n
+        self._pos = n % self.capacity
+        if self.tree is not None:
+            prios = state.get("priorities")
+            if prios is None:
+                prios = np.ones(n, dtype=np.float64)
+            else:
+                prios = np.asarray(prios, dtype=np.float64)[order]
+            # Every leaf is written: slots >= n are zeroed, or a smaller
+            # snapshot restored over a fuller tree would leave stale
+            # priorities in the total.
+            full = np.zeros(self.capacity, dtype=np.float64)
+            full[:n] = prios[:n]
+            self.tree.update_batch(np.arange(self.capacity), full)
+            self.tree.data_pointer = self._pos
+            self.tree.n_entries = n
+            # update_batch only ratchets the watermark up; the restored
+            # rows' maximum replaces the pre-restore ring's.
+            self.tree._max_priority_seen = float(max(1.0, full[:n].max(initial=0.0)))

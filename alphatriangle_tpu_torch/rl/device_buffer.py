@@ -21,15 +21,21 @@ Host rows enter the same way (`add_dense`: one upload, then the same
 scatter), and the synchronous and overlapped loops sample slots on the
 host SumTree (`sample`: indices and IS weights only) for the learner to
 gather on the card (`Trainer.train_steps_from`).
+
+`get_state` / `set_state` give the host ring's snapshot (one bulk copy of
+the `size` rows to the host; the host ring and SumTree rebuilt by the
+parent, then one upload of the restored rows into the ring, trash row
+zero), so a spill moves between the two rings and the JAX package's.
 """
 
 import logging
+from typing import Any
 
 import numpy as np
 import torch
 
 from ..config.train_config import TrainConfig
-from ..utils.transfer import upload
+from ..utils.transfer import fetch, upload
 from .buffer import ExperienceBuffer
 
 logger = logging.getLogger(__name__)
@@ -191,3 +197,40 @@ class DeviceReplayBuffer(ExperienceBuffer):
             return None
         slots, weights = sampled
         return {"indices": slots.astype(np.int64), "weights": weights}
+
+    # --- persistence ------------------------------------------------------
+
+    def get_state(self) -> dict[str, Any]:
+        """The host ring's snapshot: the `size` rows of every column in one
+        bulk device-to-host copy, and their SumTree priorities."""
+        state: dict[str, Any] = {
+            "pos": self._pos,
+            "size": self._size,
+            "storage": None,
+            "priorities": None,
+        }
+        if self._size > 0:
+            state["storage"] = fetch({k: v[: self._size] for k, v in self.storage.items()})
+        if self.tree is not None and self._size > 0:
+            leaves = np.arange(self._size) + self.tree._cap2
+            state["priorities"] = self.tree.tree[leaves].copy()
+        return state
+
+    def set_state(self, state: dict[str, Any]) -> None:
+        """Restore a snapshot of either ring (or the JAX package's): the
+        parent rebuilds the host ring and SumTree, then one upload takes
+        the restored rows and, below capacity, one row of the empty
+        ring's defaults, which fills the slots past them on the card; the
+        trash row stays zero. The upload grows with the rows, not with
+        the capacity."""
+        super().set_state(state)
+        if self._storage is None:
+            return
+        cap, n = self.capacity, self._size
+        rows = upload({k: v[: min(n + 1, cap)] for k, v in self._storage.items()}, self.device)
+        for k, dst in self.storage.items():
+            dst[:n].copy_(rows[k][:n])
+            if n < cap:
+                dst[n:cap].copy_(rows[k][n])
+            dst[cap].zero_()
+        self._storage = None  # the card's ring is the truth

@@ -164,7 +164,8 @@ class MegastepRunner:
 
     def sync_priorities_from_host(self) -> None:
         """(Re)seed the device priority array from the host SumTree
-        mirror, after warm-up ingests or any other host-side write."""
+        mirror, after warm-up ingests, a restored ring or any other
+        host-side write (float32 of the float64 leaves, trash slot 0)."""
         p = np.zeros(self.cap + 1, np.float32)
         tree = self.buffer.tree
         if tree is not None:

@@ -32,6 +32,13 @@ torch default leaks in) -> scale by -schedule(count), with the schedule
 read at the pre-increment count. `Adam` and `SGD` fold the decay into
 the gradient first, as the JAX chains do. Schedules are evaluated on
 the host in float32, as optax evaluates them.
+
+`get_state` / `set_state` carry the learner across a checkpoint: the
+module's parameters, the optimizer's `count`, `mu` and `nu` (keyed by
+parameter name), the step and the CPU key, as CPU tensors, which is what
+`stats/persistence.py` writes (`nn/convert.py::train_state_from_flax`
+builds the same from a JAX learner). `set_state` copies into the
+learner's tensors and keeps none of the caller's.
 """
 
 import copy
@@ -374,6 +381,61 @@ class Trainer:
             m["learning_rate"] = float(self.schedule(handle["start_step"] + i + 1))
             results.append((m, host["td"][i]))
         return results
+
+    def get_state(self) -> dict:
+        """The learner's state as CPU copies (nothing aliases the live
+        tensors, which the next step updates in place): {"params",
+        "opt_state": {"count", "mu", "nu"}, "step", "rng"}, the tensors
+        keyed by parameter name."""
+        names = [name for name, _ in self.model.named_parameters()]
+        opt = self.state.opt_state
+
+        def host(tensors) -> dict:
+            return {n: t.detach().cpu().clone() for n, t in zip(names, tensors)}
+
+        return {
+            "params": host(self.params),
+            "opt_state": {"count": int(opt.count), "mu": host(opt.mu), "nu": host(opt.nu)},
+            "step": int(self.state.step),
+            "rng": self.state.rng.detach().cpu().clone(),
+        }
+
+    def set_state(self, state: dict) -> None:
+        """Install a `get_state` snapshot: the parameters are copied into
+        the module in place (the net's own in megastep mode; otherwise
+        `sync_to_network` hands them to self-play), the moments into
+        fresh tensors on the learner's device. Raises when a name or a
+        shape differs from this learner's."""
+        names = [name for name, _ in self.model.named_parameters()]
+        opt = state["opt_state"]
+        for part, tree in (("params", state["params"]), ("mu", opt["mu"]), ("nu", opt["nu"])):
+            if part != "params" and not tree and self.optimizer.kind == "SGD":
+                continue
+            if set(tree) != set(names):
+                raise ValueError(
+                    f"{part} names differ from the learner's: "
+                    f"{sorted(set(tree) ^ set(names))[:4]}"
+                )
+            for name, p in zip(names, self.params):
+                if tuple(tree[name].shape) != tuple(p.shape):
+                    raise ValueError(
+                        f"{part}[{name}] has shape {tuple(tree[name].shape)}, "
+                        f"the learner's {tuple(p.shape)}"
+                    )
+
+        def device(tree) -> list:
+            if not tree:
+                return []
+            return [tree[n].to(self.device, p.dtype, copy=True) for n, p in zip(names, self.params)]
+
+        with torch.no_grad():
+            for name, p in zip(names, self.params):
+                p.copy_(state["params"][name])
+        self.state = TrainState(
+            opt_state=OptState(count=int(opt["count"]), mu=device(opt["mu"]), nu=device(opt["nu"])),
+            step=int(state["step"]),
+            rng=torch.as_tensor(state["rng"], dtype=torch.int64).clone().cpu(),
+        )
 
     def sync_to_network(self) -> int:
         """Install a device-side copy of the learner's module as the

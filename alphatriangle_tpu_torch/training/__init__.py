@@ -3,7 +3,7 @@
 from .components import TrainingComponents
 from .loop import LoopStatus, TrainingLoop
 from .runner import EXIT_CODES, run_training
-from .setup import clamp_self_play_workers, refuse_unported, setup_training_components
+from .setup import clamp_self_play_workers, setup_training_components
 
 __all__ = [
     "EXIT_CODES",
@@ -11,7 +11,6 @@ __all__ = [
     "TrainingComponents",
     "TrainingLoop",
     "clamp_self_play_workers",
-    "refuse_unported",
     "run_training",
     "setup_training_components",
 ]

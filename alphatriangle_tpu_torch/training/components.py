@@ -1,5 +1,6 @@
 """Component bundle: counterpart of `alphatriangle_tpu/training/components.py`,
-limited to what the single-device loops build."""
+limited to what the single-device loops build: no stats collector,
+telemetry or mesh."""
 
 from dataclasses import dataclass
 
@@ -8,6 +9,7 @@ import torch
 from ..config.env_config import EnvConfig
 from ..config.mcts_config import MCTSConfig
 from ..config.model_config import ModelConfig
+from ..config.persistence_config import PersistenceConfig
 from ..config.train_config import TrainConfig
 from ..env.engine import TriangleEnv
 from ..features.core import FeatureExtractor
@@ -16,6 +18,7 @@ from ..rl.buffer import ExperienceBuffer
 from ..rl.megastep import MegastepRunner
 from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
+from ..stats.persistence import CheckpointManager
 
 
 @dataclass
@@ -29,9 +32,11 @@ class TrainingComponents:
     trainer: Trainer
     self_play: SelfPlayEngine
     megastep: "MegastepRunner | None"  # megastep mode only
+    checkpoints: CheckpointManager
 
     env_config: EnvConfig
     model_config: ModelConfig
     train_config: TrainConfig
     mcts_config: MCTSConfig
+    persistence_config: PersistenceConfig
     device: torch.device

@@ -36,13 +36,28 @@ carry goes to its producer's stream at spawn, a producer's device
 payload to the ring ingest, and a sync's weights to the producers
 (`LiveWeights.ready`, waited for by the chunk that reads them).
 
+Checkpoints follow the JAX loop: at every group boundary of every mode
+(after a learner group in the synchronous loop and the unpipelined
+overlapped loop, after each megastep, and in the pipelined overlapped
+loop once the groups in flight are drained, so the saved parameters
+and the step label agree) the loop saves the learner state when the
+step crossed a `CHECKPOINT_SAVE_FREQ_STEPS` multiple and spills the
+ring when it crossed a `BUFFER_SAVE_FREQ_STEPS` one, counted from the
+step the run started or resumed at. `run`'s `finally` forces both. A
+preemption (`request_preempt`, which the runner's SIGTERM handler
+calls) stops the loop at its next beat; after the forced save it writes
+`preempt_report.json` into the run directory and the status is
+`PREEMPTED`, whose exit code is `PREEMPT_EXIT_CODE`.
+
 Metrics stay in memory (`metrics`, `episode_scores`, `staleness`,
-`timings`); checkpoints, TensorBoard, telemetry and the stats collector
-wait for later slices.
+`timings`); TensorBoard, telemetry and the stats collector wait for
+later slices.
 """
 
 import contextlib
+import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -60,10 +75,19 @@ from .setup import clamp_self_play_workers
 logger = logging.getLogger(__name__)
 
 
+# The preemption contract (alphatriangle_tpu/telemetry/flight.py): after
+# SIGTERM the loop saves, spills and writes this report, and the process
+# exits with this code, outside the shell's and the signals' ranges, so
+# a supervisor tells a survivable preemption from a crash.
+PREEMPT_REPORT_FILENAME = "preempt_report.json"
+PREEMPT_EXIT_CODE = 114
+
+
 class LoopStatus(str, Enum):
     COMPLETED = "completed"
     STOPPED = "stopped"
     ERROR = "error"
+    PREEMPTED = "preempted"  # SIGTERM absorbed: emergency save and spill ran
 
 
 class TrainingLoop:
@@ -73,6 +97,7 @@ class TrainingLoop:
         self.c = components
         self.cfg = components.train_config
         self.stop_event = threading.Event()
+        self._preempt_requested = False
         self.status: "LoopStatus | None" = None
         self.error: "BaseException | None" = None
         self._device_replay = components.buffer.is_device
@@ -85,7 +110,14 @@ class TrainingLoop:
         self.weight_updates = 0
         self.experiences_added = 0
         self._steps_this_run = 0
+        # Checkpoint cadences count from the step the run started or
+        # resumed at (`set_initial_state`).
         self._cadence_anchor = 0
+        self._last_saved_step: "int | None" = None
+        self._last_buffer_saved_step: "int | None" = None
+        self.resumed_step: "int | None" = None
+        self.restore_s: "float | None" = None  # the runner's restore, host seconds
+        self.restored_rows: "int | None" = None  # the ring's rows after it
         self.iterations = 0
         self.warmup_chunks = 0
         self.megastep_iterations = 0
@@ -124,6 +156,46 @@ class TrainingLoop:
                 self.cfg.FUSED_LEARNER_STEPS,
                 self.cfg.WORKER_UPDATE_FREQ_STEPS,
             )
+
+    # --- preemption and resume ------------------------------------------
+
+    def request_preempt(self) -> None:
+        """Stop for a preemption (SIGTERM): every mode checks `stop_event`
+        each beat, so the loop falls through to `run`'s forced save and
+        spill, then reports PREEMPTED. Safe in a signal handler (a flag
+        and an Event.set)."""
+        self._preempt_requested = True
+        self.stop_event.set()
+
+    def _write_preempt_report(self) -> None:
+        """`preempt_report.json` in the run directory (tmp + os.replace),
+        written after the emergency save, so `checkpointed_step` is the
+        step a restart resumes from. A failed write is logged: the exit
+        code still tells the preemption."""
+        path = self.c.persistence_config.get_run_base_dir() / PREEMPT_REPORT_FILENAME
+        report = {
+            "kind": "preempt",
+            "time": time.time(),
+            "pid": os.getpid(),
+            "step": self.global_step,
+            "checkpointed_step": self._last_saved_step,
+            "exit_code": PREEMPT_EXIT_CODE,
+        }
+        try:
+            tmp = path.with_name(path.name + ".tmp")
+            tmp.write_text(json.dumps(report, indent=2))
+            os.replace(tmp, path)
+        except OSError:
+            logger.exception("Could not write %s", path)
+
+    def set_initial_state(self, global_step: int, episodes_played: int, total_simulations: int) -> None:
+        """Install a restored run's counters; the save cadences count on
+        from `global_step`."""
+        self.global_step = global_step
+        self.episodes_played = episodes_played
+        self.total_simulations = total_simulations
+        self._cadence_anchor = global_step
+        self.resumed_step = global_step
 
     # --- iteration pieces -----------------------------------------------
 
@@ -210,6 +282,48 @@ class TrainingLoop:
         anchor = last if last is not None else self._cadence_anchor
         return step > 0 and step // freq > anchor // freq
 
+    def _ckpt_save_due(self, force: bool = False) -> bool:
+        return force or self._crossed(
+            self.global_step, self.cfg.CHECKPOINT_SAVE_FREQ_STEPS, self._last_saved_step
+        )
+
+    def _buffer_save_due(self, force: bool = False) -> bool:
+        persistence = self.c.persistence_config
+        return persistence.SAVE_BUFFER and (
+            force
+            or self._crossed(
+                self.global_step, persistence.BUFFER_SAVE_FREQ_STEPS, self._last_buffer_saved_step
+            )
+        )
+
+    def _checkpoint_due(self) -> bool:
+        """Either save cadence pending? The pipelined learner drains its
+        groups in flight first whenever this holds."""
+        return self._ckpt_save_due() or self._buffer_save_due()
+
+    def _maybe_checkpoint(self, force: bool = False) -> None:
+        """Save the learner state and spill the ring when their cadences
+        are due (`force`: both, the learner state unless this step is
+        saved already)."""
+        c = self.c
+        step = self.global_step
+        if self._ckpt_save_due(force) and self._last_saved_step != step:
+            self._last_saved_step = step
+            c.checkpoints.save(
+                step,
+                c.trainer.get_state(),
+                counters={
+                    "episodes_played": self.episodes_played,
+                    "total_simulations": self.total_simulations,
+                    "weight_updates": self.weight_updates,
+                },
+            )
+        # On force, always spill: harvests folded after a cadence spill
+        # at this same step (the overlapped loop's shutdown) are kept.
+        if self._buffer_save_due(force) and (force or self._last_buffer_saved_step != step):
+            self._last_buffer_saved_step = step
+            c.checkpoints.save_buffer(step, c.buffer)
+
     def _maybe_sync_weights(self, prev_step: int) -> None:
         """Install the learner's weights in the net when (prev_step,
         global_step] crossed a WORKER_UPDATE_FREQ_STEPS multiple: once,
@@ -287,6 +401,7 @@ class TrainingLoop:
                 self._record_step(metrics, td_errors, s["indices"], prev_step + i + 1)
             ran += len(outs)
             self._maybe_sync_weights(prev_step)
+            self._maybe_checkpoint()
             if len(outs) < group:
                 break
         return ran
@@ -313,6 +428,20 @@ class TrainingLoop:
             status = LoopStatus.ERROR
         finally:
             self.stop_event.set()
+            try:
+                self._maybe_checkpoint(force=True)
+            except Exception as exc:
+                logger.exception("Final save failed.")
+                self.error = self.error or exc
+                status = LoopStatus.ERROR
+            if self._preempt_requested:
+                if status is not LoopStatus.ERROR:
+                    status = LoopStatus.PREEMPTED
+                self._write_preempt_report()
+                logger.warning(
+                    "Preempted at step %d (emergency checkpoint at step %s); exiting for restart.",
+                    self.global_step, self._last_saved_step,
+                )
         self.run_s = time.perf_counter() - t0
         self.status = status
         return status
@@ -350,8 +479,9 @@ class TrainingLoop:
             self._process_rollout()
             self.timings["warmup_chunk_s"].append(time.perf_counter() - t0)
             self.warmup_chunks += 1
-        # Device priorities pick up everything the warm-up wrote into the
-        # host mirror.
+        # Device priorities pick up everything the warm-up, and a restore
+        # before it, wrote into the host mirror: the first megastep's PER
+        # draw reads the restored priorities.
         runner.sync_priorities_from_host()
         while not self.stop_event.is_set():
             if self._max_steps_reached():
@@ -369,6 +499,7 @@ class TrainingLoop:
             self._fold_result(self.c.self_play.harvest(), added=added)
             for i, (metrics, td_errors) in enumerate(outs):
                 self._record_step(metrics, td_errors, None, prev_step + i + 1)
+            self._maybe_checkpoint()
 
     # --- overlapped producer/consumer -----------------------------------
 
@@ -531,13 +662,18 @@ class TrainingLoop:
 
     def _pump_learner(self, allowed: int) -> int:
         """One pipelined beat: dispatch group N+1, then fetch group N, so
-        one group runs on the card while the next is sampled."""
+        one group runs on the card while the next is sampled. A due save
+        drains the groups in flight first, so the saved parameters and
+        the step label agree."""
         dispatched = self._dispatch_learner_group(allowed)
         ran = 0
         while len(self._inflight) >= 2:
             ran += self._finish_oldest_group()
         if self._inflight and not dispatched:
             ran += self._finish_oldest_group()
+        if ran and self._checkpoint_due():
+            ran += self._drain_learner()
+            self._maybe_checkpoint()
         return ran
 
     def _make_rollout_streams(self) -> list:
@@ -650,10 +786,18 @@ class TrainingLoop:
         iters = self.timings["iteration_s"]
         moves = cfg.ROLLOUT_CHUNK_MOVES
         run_s = self.run_s
+        ckpt = self.c.checkpoints.timings
         return {
             "status": None if self.status is None else self.status.value,
             "error": None if self.error is None else repr(self.error),
             "mode": mode,
+            "run_name": self.c.persistence_config.RUN_NAME,
+            "run_dir": str(self.c.persistence_config.get_run_base_dir()),
+            "resumed_step": self.resumed_step,
+            "restore_s": self.restore_s,
+            "restored_rows": self.restored_rows,
+            "checkpointed_step": self._last_saved_step,
+            "buffer_saved_step": self._last_buffer_saved_step,
             "device": str(self.c.device),
             "steps": self.global_step,
             "iterations": self.iterations,
@@ -701,5 +845,8 @@ class TrainingLoop:
                 # Over the whole run's wall, every mode alike.
                 "learner_steps_per_s": self.global_step / run_s if run_s else None,
                 "lane_moves_per_s": self.lane_moves / run_s if run_s else None,
+                "first_iteration_s": iters[0] if iters else (mega[0] if mega else None),
             },
+            # Host seconds of each save, spill and restore; bytes of each spill.
+            "checkpoints": {k: list(v) for k, v in ckpt.items()},
         }

@@ -4,11 +4,12 @@
 
 The port builds the env, the feature extractor, the net (on the given
 device, CUDA unless the caller names another), the learner, the replay
-ring, the rollout engine and, in megastep mode, the megastep runner.
-The learner shares the net's module only in megastep mode (rl/trainer.py).
-Checkpoints, stats, telemetry and meshes wait for later slices;
-`refuse_unported` raises for the restores, which wait for the
-checkpoint slice.
+ring, the rollout engine, in megastep mode the megastep runner, and the
+run's `CheckpointManager`, which makes the run directory and writes its
+`configs.json`. The device is resolved before anything touches the
+disk, so a CUDA request without a card makes no directory. The learner
+shares the net's module only in megastep mode (rl/trainer.py). The stats
+collector, TensorBoard, telemetry and meshes wait for later slices.
 """
 
 import logging
@@ -19,6 +20,7 @@ import torch
 from ..config.env_config import EnvConfig
 from ..config.mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
 from ..config.model_config import ModelConfig
+from ..config.persistence_config import PersistenceConfig
 from ..config.train_config import TrainConfig
 from ..config.validation import expected_other_features_dim
 from ..device import resolve_device
@@ -30,6 +32,7 @@ from ..rl.device_buffer import DeviceReplayBuffer
 from ..rl.megastep import MegastepRunner
 from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
+from ..stats.persistence import CheckpointManager
 from .components import TrainingComponents
 
 logger = logging.getLogger(__name__)
@@ -38,12 +41,6 @@ logger = logging.getLogger(__name__)
 # 512-lane engine and CUDA stream; past a few per card the streams and
 # the learner only queue behind one another.
 MAX_STREAMS_PER_DEVICE = 4
-
-
-def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise ValueError for a feature the port lacks."""
-    if cfg.LOAD_CHECKPOINT_PATH or cfg.LOAD_BUFFER_PATH:
-        raise ValueError("checkpoint and buffer restore are not ported yet")
 
 
 def clamp_self_play_workers(requested: int, device) -> int:
@@ -97,16 +94,18 @@ def setup_training_components(
     env_config: "EnvConfig | None" = None,
     model_config: "ModelConfig | None" = None,
     mcts_config: "MCTSConfig | None" = None,
+    persistence_config: "PersistenceConfig | None" = None,
     device=None,
 ) -> TrainingComponents:
-    """Validate configs and build every training component on `device`."""
+    """Validate configs and build every training component on `device`;
+    the run directory is `persistence_config`'s (default: run
+    `RUN_NAME` under `./.alphatriangle_data`)."""
     train_config = train_config or TrainConfig()
     env_config = env_config or EnvConfig()
     model_config = model_config or ModelConfig(
         OTHER_NN_INPUT_FEATURES_DIM=expected_other_features_dim(env_config)
     )
     mcts_config = mcts_config or AlphaTriangleMCTSConfig()
-    refuse_unported(train_config)
     device = resolve_device(device)
 
     env = TriangleEnv(env_config, device=device)
@@ -136,6 +135,17 @@ def setup_training_components(
             train_config.ROLLOUT_CHUNK_MOVES,
             "device" if buffer.is_device else "host",
         )
+    persistence_config = persistence_config or PersistenceConfig(RUN_NAME=train_config.RUN_NAME)
+    checkpoints = CheckpointManager(persistence_config, device=device)
+    checkpoints.save_configs(
+        {
+            "env": env_config,
+            "model": model_config,
+            "train": train_config,
+            "mcts": mcts_config,
+            "persistence": persistence_config,
+        }
+    )
     return TrainingComponents(
         env=env,
         extractor=extractor,
@@ -144,9 +154,11 @@ def setup_training_components(
         trainer=trainer,
         self_play=self_play,
         megastep=megastep,
+        checkpoints=checkpoints,
         env_config=env_config,
         model_config=model_config,
         train_config=train_config,
         mcts_config=mcts_config,
+        persistence_config=persistence_config,
         device=device,
     )

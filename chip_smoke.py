@@ -89,20 +89,59 @@ train phase's widths and cuts, through `run_training`:
   more steps under the profiler: the card's busy share is the union of
   every stream's kernel and copy intervals over the window's wall.
 
+Then the checkpoint paths, at the default widths and the train-sync
+phase's depth cuts:
+
+- preempt-resume: `python -m alphatriangle_tpu_torch.cli train` (the
+  synchronous loop, the device ring) with a checkpoint every 4 of 12
+  steps, SIGTERM once step 4 is committed. It must exit 114 and leave
+  `preempt_report.json`, a committed checkpoint and a spill at the step
+  it stopped at. The same command under another run name must
+  auto-resume that run from that step with the spill's rows and reach
+  step 12 (exit 0). The search kernels 16 + 2 times per searched move
+  over both processes (each process counts its own).
+- megastep-resume: `run_training` in megastep mode, checkpoints every 2
+  steps to step 4, then a run of another name auto-resumes it for 2
+  megasteps. The learner installed before the first resumed megastep
+  must equal the file bit for bit (parameters, moments, count, step,
+  key), which also loads on the CPU bit-equal; the device priorities the
+  first resumed megastep draws from must be the float32 of the restored
+  SumTree leaves; `per_sample` once per resumed megastep.
+- ring round trip: the device ring at all 250,000 slots (the resumed
+  ring's rows and priorities repeated, the cursor wrapped), timed
+  through `get_state`, the spill, `restore_buffer_path` and `set_state`;
+  the restored ring and SumTree must equal it bit for bit, oldest row
+  first.
+- eval: `python -m alphatriangle_tpu_torch.cli eval` against the
+  preempted run's checkpoint, 64 games x 64 simulations, cut at 32
+  moves. The JAX report's keys, the restored step named, the random
+  side equal to the same baseline played on the CPU, 16 + 2 search
+  launches per dispatch.
+
+Every run directory lives under one temporary directory, removed at the
+end, and every train phase starts its run fresh.
+
 Then one JSON line of kernel figures, the card line, `kernels: ...`, and
 as the last line `{"ok": true, "device": {...}}`.
 """
 
 import json
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# Every run directory of every phase lives under this one temporary root
+# (made in `main`, removed at its end): no phase resumes another's run
+# and nothing is written into the checkout.
+RUN_ROOT: "Path | None" = None
 SERVE_DISPATCHES = 8
 TIMED_LAUNCHES = 100
 # The train phase's cuts (depth only; every width is the default's).
@@ -804,11 +843,20 @@ TRAIN_STAGES = (
 )
 
 
+def run_dir(name: str):
+    """A run directory of its own under RUN_ROOT."""
+    from alphatriangle_tpu_torch.config import PersistenceConfig
+
+    return PersistenceConfig(ROOT_DATA_DIR=str(RUN_ROOT / name), RUN_NAME=name)
+
+
 def loop_config(**kw):
     """The default `TrainConfig` with the train phases' depth cuts (2-move
-    chunks, 256 rows to start training) and `kw`; fails if a width was cut."""
+    chunks, 256 rows to start training), no auto-resume (each phase's run
+    starts fresh in its own directory), and `kw`; fails if a width was cut."""
     from alphatriangle_tpu_torch.config import TrainConfig
 
+    kw = {"AUTO_RESUME_LATEST": False, **kw}
     cfg = TrainConfig(
         RANDOM_SEED=0, ROLLOUT_CHUNK_MOVES=TRAIN_CHUNK_MOVES, MIN_BUFFER_SIZE_TO_TRAIN=TRAIN_MIN_BUFFER,
         **kw,
@@ -843,7 +891,10 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
         kern.launches = 0
     t0 = time.perf_counter()
     mcts_cfg = AlphaTriangleMCTSConfig(tree_reuse=reuse)
-    loop = run_training(cfg, mcts_config=mcts_cfg, device=dev)
+    loop = run_training(
+        cfg, mcts_config=mcts_cfg, persistence_config=run_dir("train-reuse" if reuse else "train"),
+        device=dev,
+    )
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
@@ -1072,7 +1123,7 @@ def train_sync_phase(torch, dev, kernels, host_ring: bool = False) -> dict:
         kern.launches = 0
     t0 = time.perf_counter()
     try:
-        loop = run_training(cfg, device=dev)
+        loop = run_training(cfg, persistence_config=run_dir(label), device=dev)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = {name: kern.launches for name, kern in kernels.items()}
@@ -1195,7 +1246,7 @@ def train_async_phase(torch, dev, kernels) -> dict:
         kern.launches = 0
     t0 = time.perf_counter()
     try:
-        loop = run_training(cfg, device=dev)
+        loop = run_training(cfg, persistence_config=run_dir(label), device=dev)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = {name: kern.launches for name, kern in kernels.items()}
@@ -1341,7 +1392,11 @@ def reference_sync_phase(torch, dev) -> dict:
     sides = {}
     try:
         for device in ("cpu", dev):
-            c = setup_training_components(cfg, env_cfg, model_cfg, mcts_cfg, device=device)
+            c = setup_training_components(
+                cfg, env_cfg, model_cfg, mcts_cfg,
+                persistence_config=run_dir(f"reference-sync-{torch.device(device).type}"),
+                device=device,
+            )
             loop = TrainingLoop(c)
             drawn, real_sample = [], c.buffer.sample
 
@@ -1538,7 +1593,11 @@ def reference_train_phase(torch, dev) -> dict:
     sides = {}
     try:
         for device in ("cpu", dev):
-            c = setup_training_components(cfg, env_cfg, model_cfg, mcts_cfg, device=device)
+            c = setup_training_components(
+                cfg, env_cfg, model_cfg, mcts_cfg,
+                persistence_config=run_dir(f"reference-train-{torch.device(device).type}"),
+                device=device,
+            )
             counts = []
             while len(c.buffer) < max(cfg.MIN_BUFFER_SIZE_TO_TRAIN, cfg.BATCH_SIZE):
                 _, payload = c.self_play.play_moves_device(cfg.ROLLOUT_CHUNK_MOVES)
@@ -1579,6 +1638,407 @@ def reference_train_phase(torch, dev) -> dict:
     return {
         "rows": cpu["counts"], "loss_max_abs_err": loss_err, "td_max_abs_err": td_err,
         "value_target_max_abs_err": ring_err["value_target"],
+    }
+
+
+# The checkpoint phases' depth cuts (widths are the defaults): the
+# train-sync phase's 2-move chunks and 256 rows to start training; the
+# preempted run checkpoints every 4 steps of 12; the megastep run every 2
+# steps of 4, then resumes for 2 more megasteps; eval plays 64 games of up
+# to 32 moves (the serve default's 64 slots x 64 simulations).
+PREEMPT_FREQ, PREEMPT_STEPS = 4, 12
+MEGA_RESUME_FREQ, MEGA_RESUME_STEPS = 2, 4
+EVAL_GAMES, EVAL_SIMS, EVAL_MAX_MOVES = 64, 64, 32
+# `cli eval`'s report keys, the JAX package's (alphatriangle_tpu/cli.py cmd_eval).
+EVAL_KEYS = (
+    "source", "games", "sims", "mcts_mean_score", "mcts_max_score", "mcts_mean_length",
+    "finished_fraction", "random_mean_score", "score_vs_random", "paired_mean_diff",
+    "paired_win_rate",
+)
+LOSS_KEYS = ("total_loss", "policy_loss", "value_loss", "entropy", "grad_norm")
+
+
+def run_cli(args: list, label: str, timeout: float, on_start=None) -> tuple:
+    """`python -m alphatriangle_tpu_torch.cli <args>` in a process of its
+    own, as a user runs it, its output in files under RUN_ROOT;
+    `on_start(proc)` runs while it does. Returns (exit code, the JSON
+    report on its last line). The process never outlives the call."""
+    out_path, err_path = RUN_ROOT / f"{label}.out", RUN_ROOT / f"{label}.err"
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "alphatriangle_tpu_torch.cli", *args],
+            cwd=ROOT, stdout=out, stderr=err, text=True,
+        )
+        try:
+            if on_start is not None:
+                on_start(proc)
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = out_path.read_text().strip().splitlines()
+    try:
+        return rc, json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"{label}: exit {rc} without a JSON report; stderr: {err_path.read_text()[-3000:]}")
+
+
+def check_report_losses(report: dict, label: str) -> None:
+    for key in LOSS_KEYS:
+        for v in report["losses"][key]:
+            if not (v == v and abs(v) < float("inf")):
+                fail(f"{label}: non-finite {key}")
+
+
+def state_equal(torch, a: dict, b: dict) -> bool:
+    """Two `Trainer.get_state()` snapshots equal bit for bit (on the CPU)."""
+    if (a["step"], a["opt_state"]["count"]) != (b["step"], b["opt_state"]["count"]):
+        return False
+    if not torch.equal(a["rng"].cpu(), b["rng"].cpu()):
+        return False
+    for part in ("mu", "nu", "params"):
+        x = a["params"] if part == "params" else a["opt_state"][part]
+        y = b["params"] if part == "params" else b["opt_state"][part]
+        if set(x) != set(y) or not all(torch.equal(x[n].cpu(), y[n].cpu()) for n in x):
+            return False
+    return True
+
+
+def preempt_resume_phase(torch) -> dict:
+    """`cli train` (the synchronous loop, the device ring) at the default
+    widths, SIGTERM once its first checkpoint is committed: exit 114, a
+    preempt report, a committed checkpoint and a spill at the step it
+    stopped at. Then the same command under another run name auto-resumes
+    that run from that step, with the spill's rows, to the last step."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch.config import TrainConfig
+
+    label = "preempt-resume"
+    torch.cuda.empty_cache()  # the card's memory for the two processes this phase starts
+    root = RUN_ROOT / label
+    run = root / "AlphaTriangleTPUTorch" / "runs" / "ckpt"
+    common = [
+        "train", "--device", "cuda", "--root-dir", str(root), "--checkpoint-freq", str(PREEMPT_FREQ),
+        "--max-steps", str(PREEMPT_STEPS), "--rollout-chunk", str(TRAIN_CHUNK_MOVES),
+        "--min-buffer", str(TRAIN_MIN_BUFFER),
+    ]
+    marker = run / "checkpoints" / f"step_{PREEMPT_FREQ:08d}.commit"
+    signalled = {}
+
+    def preempt(proc):
+        deadline = time.monotonic() + 600
+        while not marker.exists():
+            if proc.poll() is not None or time.monotonic() > deadline:
+                return
+            time.sleep(0.05)
+        signalled["at"] = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+
+    t0 = time.perf_counter()
+    rc, first = run_cli([*common, "--run-name", "ckpt"], "preempt-train", 900, preempt)
+    first_s = time.perf_counter() - t0
+    if "at" not in signalled:
+        fail(f"{label}: the run ended (exit {rc}) before step {PREEMPT_FREQ} was committed")
+    stop_s = time.perf_counter() - signalled["at"]
+    if rc != 114 or first["status"] != "preempted":
+        fail(f"{label}: SIGTERM gave exit {rc}, status {first['status']}, want 114, preempted")
+    step = first["checkpointed_step"]
+    report = json.loads((run / "preempt_report.json").read_text())
+    if not (report["checkpointed_step"] == step == first["steps"] == first["buffer_saved_step"]
+            and step >= PREEMPT_FREQ and report["exit_code"] == 114 and report["kind"] == "preempt"):
+        fail(f"{label}: preempt report {report} against the run's report at step {first['steps']}")
+    spill = run / "buffers" / f"buffer_{step:08d}.npz"
+    if not (run / "checkpoints" / f"step_{step:08d}.commit").is_file() or not spill.is_file():
+        fail(f"{label}: no committed checkpoint and spill at step {step}")
+    with np.load(spill) as data:
+        spill_rows = int(data["size"])
+    t0 = time.perf_counter()
+    rc, second = run_cli([*common, "--run-name", "other"], "resume-train", 900)
+    second_s = time.perf_counter() - t0
+    if rc != 0 or second["status"] != "completed":
+        fail(f"{label}: the resumed run gave exit {rc}, status {second['status']}")
+    if (second["run_name"], second["resumed_step"], second["restored_rows"]) != ("ckpt", step, spill_rows):
+        fail(f"{label}: resumed run {second['run_name']} at step {second['resumed_step']} with "
+             f"{second['restored_rows']} rows, want ckpt at {step} with the spill's {spill_rows}")
+    if second["steps"] != PREEMPT_STEPS or second["checkpointed_step"] != PREEMPT_STEPS:
+        fail(f"{label}: the resumed run ended at step {second['steps']}")
+    if (root / "AlphaTriangleTPUTorch" / "runs" / "other" / "checkpoints").exists():
+        fail(f"{label}: the resumed run wrote a run of its own")
+    for r in (first, second):
+        check_report_losses(r, label)
+        if r["replay_ring"] != "device" or r["mode"] != "sync":
+            fail(f"{label}: not the synchronous loop on the device ring")
+    lanes = TrainConfig().SELF_PLAY_BATCH_SIZE
+    launches = {
+        k: first["kernel_launches"][k] + second["kernel_launches"][k] for k in first["kernel_launches"]
+    }
+    moves = (first["lane_moves"] + second["lane_moves"]) // lanes
+    check_launches(launches, moves, label)
+    ck1, ck2 = first["checkpoints"], second["checkpoints"]
+    return {
+        "launches": launches,
+        "searched_moves": moves,
+        "preempted_at_step": step,
+        "spill_rows": spill_rows,
+        "first_run_s": first_s,
+        "sigterm_to_exit_s": stop_s,
+        "resumed_run_s": second_s,
+        "save_ms": [t * 1e3 for t in ck1["save_s"]],
+        "spill_ms": [t * 1e3 for t in ck1["spill_s"]],
+        "spill_bytes": ck1["spill_bytes"],
+        "restore_state_ms": ck2["restore_state_s"][0] * 1e3,
+        "restore_ring_ms": ck2["restore_buffer_s"][0] * 1e3,
+        "restore_ms": second["restore_s"] * 1e3,
+        "first_resumed_iteration_ms": second["timings"]["first_iteration_s"] * 1e3,
+        "resumed_iteration_ms_p50": second["timings"]["iteration_s_p50"] * 1e3,
+        "resumed_save_ms": [t * 1e3 for t in ck2["save_s"]],
+        "steps_per_iteration": [first["steps_per_iteration"], second["steps_per_iteration"]],
+        "losses": [first["losses"], second["losses"]],
+    }
+
+
+def megastep_resume_phase(torch, dev, kernels) -> tuple:
+    """The default widths through `run_training` in megastep mode with a
+    checkpoint every 2 steps to step 4; then a run of another name
+    auto-resumes it for 2 more megasteps. The learner installed before the
+    first resumed megastep must equal the file bit for bit, the device
+    priorities it draws from the float32 of the restored SumTree leaves,
+    and the resumed megasteps must launch `per_sample` once each and the
+    search kernels 16 + 2 times per searched move. The file also loads on
+    the CPU, bit-equal. Returns (figures, the resumed ring)."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch.config import PersistenceConfig
+    from alphatriangle_tpu_torch.rl.megastep import MegastepRunner
+    from alphatriangle_tpu_torch.stats import CheckpointManager
+    from alphatriangle_tpu_torch.stats.persistence import load_spill
+    from alphatriangle_tpu_torch.training import LoopStatus, TrainingLoop, run_training
+
+    label = "megastep-resume"
+    steps = MEGA_RESUME_STEPS
+    kw = dict(FUSED_MEGASTEP=True, FUSED_LEARNER_STEPS=TRAIN_K, CHECKPOINT_SAVE_FREQ_STEPS=MEGA_RESUME_FREQ)
+    p1 = run_dir(label)
+    first = run_training(
+        loop_config(RUN_NAME=p1.RUN_NAME, MAX_TRAINING_STEPS=steps, **kw), persistence_config=p1,
+        device=dev,
+    )
+    if first.status is not LoopStatus.COMPLETED or first.global_step != steps:
+        fail(f"{label}: the first run ended {first.status.value} at step {first.global_step}")
+    mgr = first.c.checkpoints
+    if mgr.valid_steps() != list(range(MEGA_RESUME_FREQ, steps + 1, MEGA_RESUME_FREQ)):
+        fail(f"{label}: checkpoints at {mgr.valid_steps()}")
+    on_card = mgr.restore(step=steps).train_state
+    on_cpu = CheckpointManager(p1, device="cpu", create_dirs=False).restore(step=steps).train_state
+    if on_card["params"] and next(iter(on_card["params"].values())).device.type != "cuda":
+        fail(f"{label}: the restore did not land on the card")
+    if not state_equal(torch, on_card, on_cpu):
+        fail(f"{label}: the checkpoint loaded on the CPU differs from the card's")
+    spill = load_spill(p1.get_buffer_dir() / f"buffer_{steps:08d}.npz")
+
+    seen = {}
+    real_run, real_megastep = TrainingLoop.run, MegastepRunner.run_megastep
+
+    def run(loop):
+        buf = loop.c.buffer
+        seen["state"] = loop.c.trainer.get_state()
+        seen["rows"] = len(buf)
+        seen["leaves"] = buf.tree.tree[buf.tree._cap2 :][: buf.capacity].copy()
+        return real_run(loop)
+
+    def run_megastep(runner, *args, **kwargs):
+        if "priorities" not in seen:
+            seen["priorities"] = runner.priorities.cpu().clone().numpy()
+        return real_megastep(runner, *args, **kwargs)
+
+    TrainingLoop.run, MegastepRunner.run_megastep = run, run_megastep
+    p2 = PersistenceConfig(ROOT_DATA_DIR=p1.ROOT_DATA_DIR, RUN_NAME="resumed")
+    for kern in kernels.values():
+        kern.launches = 0
+    try:
+        second = run_training(
+            loop_config(
+                RUN_NAME="resumed", AUTO_RESUME_LATEST=True, MAX_TRAINING_STEPS=steps + 2 * TRAIN_K, **kw
+            ),
+            persistence_config=p2, device=dev,
+        )
+        torch.cuda.synchronize()
+        launches = {name: kern.launches for name, kern in kernels.items()}
+    finally:
+        TrainingLoop.run, MegastepRunner.run_megastep = real_run, real_megastep
+    if second.status is not LoopStatus.COMPLETED or second.global_step != steps + 2 * TRAIN_K:
+        fail(f"{label}: the resumed run ended {second.status.value} at step {second.global_step}")
+    if (second.c.persistence_config.RUN_NAME, second.resumed_step) != (p1.RUN_NAME, steps):
+        fail(f"{label}: resumed {second.c.persistence_config.RUN_NAME} at {second.resumed_step}")
+    if not state_equal(torch, seen["state"], on_card):
+        fail(f"{label}: the restored learner differs from the checkpoint file")
+    rows = spill["size"]
+    if seen["rows"] != rows or not np.array_equal(seen["leaves"][:rows], spill["priorities"]):
+        fail(f"{label}: the restored ring or SumTree differs from the spill")
+    prio, leaves = seen["priorities"], seen["leaves"]
+    if not (np.array_equal(prio[:-1], leaves.astype(np.float32)) and prio[-1] == 0):
+        fail(f"{label}: the first resumed megastep's priorities are not the restored SumTree's")
+    if second.warmup_chunks != 0 or second.megastep_iterations != 2:
+        fail(f"{label}: {second.warmup_chunks} warm-up chunks and {second.megastep_iterations} megasteps")
+    moves = second.megastep_iterations * TRAIN_CHUNK_MOVES
+    want = {"per_sample": second.megastep_iterations, "gather_rows": 16 * moves,
+            "backup_update": 2 * moves, "subtree_promote": 0}
+    if launches != want:
+        fail(f"{label}: launches {launches}, want {want}")
+    if second.c.checkpoints.latest_step() != second.global_step:
+        fail(f"{label}: the resumed run's last checkpoint is not at its last step")
+    check_losses(first, label)
+    check_losses(second, label)
+    ck1, ck2 = first.c.checkpoints.timings, second.c.checkpoints.timings
+    out = {
+        "launches": launches,
+        "megasteps": second.megastep_iterations,
+        "searched_moves": moves,
+        "restored_rows": seen["rows"],
+        "save_ms": [t * 1e3 for t in ck1["save_s"]],
+        "spill_ms": [t * 1e3 for t in ck1["spill_s"]],
+        "spill_bytes": ck1["spill_bytes"],
+        "restore_state_ms": ck2["restore_state_s"][0] * 1e3,
+        "restore_ring_ms": ck2["restore_buffer_s"][0] * 1e3,
+        "restore_ms": second.restore_s * 1e3,
+        "first_resumed_megastep_ms": second.timings["megastep_s"][0] * 1e3,
+        "resumed_megastep_ms": [t * 1e3 for t in second.timings["megastep_s"]],
+        "losses": [first.report()["losses"], second.report()["losses"]],
+    }
+    return out, second.c.buffer
+
+
+def ring_round_trip_phase(torch, dev, src) -> dict:
+    """The device ring at its full 250,000 slots, the rows and priorities
+    of `src` (a train phase's ring) repeated, its cursor wrapped: timed
+    `get_state`, `save_buffer` (the spill), `restore_buffer_path` into a
+    fresh ring, and `set_state`; the restored ring and SumTree equal the
+    source in chronological order bit for bit, and a second round trip
+    of the restored ring is the identity."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch.config import TrainConfig
+    from alphatriangle_tpu_torch.rl import DeviceReplayBuffer
+    from alphatriangle_tpu_torch.stats import CheckpointManager
+
+    label = "ring-round-trip"
+    cfg = TrainConfig(RANDOM_SEED=0)
+    cap, n, wrap = cfg.BUFFER_CAPACITY, len(src), 12_345
+    shape = dict(
+        grid_shape=tuple(src.storage["grid"].shape[1:]), other_dim=src.storage["other_features"].shape[1],
+        action_dim=src.storage["policy_target"].shape[1],
+    )
+
+    def ring():
+        return DeviceReplayBuffer(cfg, **shape, device=dev)
+
+    full = ring()
+    rows = torch.arange(cap, device=dev) % n
+    for name, col in full.storage.items():
+        col[:cap] = src.storage[name][rows]
+    full.record_ingest(cap)
+    full.record_ingest(wrap)  # the cursor past slot 0: a wrapped ring
+    src_leaves = src.tree.tree[src.tree._cap2 :][:n]
+    full.tree.update_batch(np.arange(cap), src_leaves[np.arange(cap) % n])
+    torch.cuda.synchronize()
+    mgr = CheckpointManager(run_dir(label), device=dev)
+    t0 = time.perf_counter()
+    state = full.get_state()
+    get_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    path = mgr.save_buffer(0, full)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    restored = ring()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.restore_buffer_path(restored, path)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    again = ring()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again.set_state(restored.get_state())
+    torch.cuda.synchronize()
+    round_trip_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ring().set_state(state)
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    order = np.roll(np.arange(cap), -full._pos)  # oldest first
+    idx = torch.from_numpy(order).to(dev)
+    for name, col in full.storage.items():
+        if not torch.equal(restored.storage[name][:cap], col[:cap][idx]) or restored.storage[name][cap].any():
+            fail(f"{label}: restored column {name} differs from the ring it was spilled from")
+        if not torch.equal(again.storage[name], restored.storage[name]):
+            fail(f"{label}: a second round trip changed column {name}")
+    leaves = full.tree.tree[full.tree._cap2 :][:cap]
+    if not np.array_equal(restored.tree.tree[restored.tree._cap2 :][:cap], leaves[order]):
+        fail(f"{label}: restored SumTree leaves differ")
+    if not np.array_equal(again.tree.tree, restored.tree.tree):
+        fail(f"{label}: a second round trip changed the SumTree")
+    if (len(restored), restored._pos, len(full), full._pos) != (cap, 0, cap, wrap):
+        fail(f"{label}: ring counters after the restore")
+    row_bytes = sum(col[0].numel() * col.element_size() for col in full.storage.values())
+    return {
+        "rows": cap,
+        "source_rows": n,
+        "row_bytes": row_bytes,
+        "spill_bytes": path.stat().st_size,
+        "get_state_ms": get_ms,
+        "save_buffer_ms": save_ms,
+        "restore_buffer_path_ms": restore_ms,
+        "set_state_ms": set_ms,
+        "get_set_round_trip_ms": round_trip_ms,
+    }
+
+
+def eval_phase(torch) -> dict:
+    """`cli eval` on the card against the preempt-resume run's checkpoint:
+    64 paired games through `PolicyService` (64 slots x 64 simulations),
+    cut at 32 moves. The report carries the JAX report's keys and names the
+    restored step; its random side equals the same baseline played on the
+    CPU; the search kernels launch 16 + 2 times per dispatch."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch.arena import play, random_policy
+    from alphatriangle_tpu_torch.config import EnvConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+
+    label = "eval"
+    rc, report = run_cli(
+        ["eval", "--run-name", "ckpt", "--root-dir", str(RUN_ROOT / "preempt-resume"), "--games",
+         str(EVAL_GAMES), "--sims", str(EVAL_SIMS), "--max-moves", str(EVAL_MAX_MOVES), "--device",
+         "cuda"],
+        label, 600,
+    )
+    if rc != 0:
+        fail(f"{label}: exit {rc}")
+    missing = [k for k in EVAL_KEYS if k not in report]
+    if missing:
+        fail(f"{label}: report lacks {missing}")
+    if report["source"] != f"ckpt step {PREEMPT_STEPS}":
+        fail(f"{label}: evaluated {report['source']!r}, want the run's step {PREEMPT_STEPS}")
+    if not 0.0 <= report["finished_fraction"] <= 1.0 or report["games"] != EVAL_GAMES:
+        fail(f"{label}: finished fraction {report['finished_fraction']} of {report['games']} games")
+    scores = np.asarray(report["mcts_scores"])
+    if scores.shape != (EVAL_GAMES,) or not np.isfinite(scores).all():
+        fail(f"{label}: search scores {scores}")
+    env = TriangleEnv(EnvConfig(), device="cpu")
+    cpu_random, _, _ = play(env, random_policy(env, 0), EVAL_GAMES, EVAL_MAX_MOVES, 0)
+    if report["random_scores"] != cpu_random.tolist():
+        fail(f"{label}: the card run's random baseline differs from the CPU's")
+    n = report["dispatches"]
+    want = {"gather_rows": 16 * n, "backup_update": 2 * n, "per_sample": 0, "subtree_promote": 0}
+    if report["kernel_launches"] != want or not 0 < n <= EVAL_MAX_MOVES:
+        fail(f"{label}: launches {report['kernel_launches']} in {n} dispatches, want {want}")
+    return {
+        "launches": report["kernel_launches"],
+        "dispatches": n,
+        "games_per_s": report["games_per_s"],
+        "dispatch_ms_p50": report["dispatch_ms_p50"],
+        "mcts_wall_s": report["mcts_wall_s"],
+        "report": {k: report[k] for k in EVAL_KEYS},
     }
 
 
@@ -1683,6 +2143,15 @@ def main() -> int:
     if not (ROOT / "alphatriangle_tpu_torch" / "csrc").is_dir():
         fail(f"the port's sources are not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    global RUN_ROOT
+    RUN_ROOT = Path(tempfile.mkdtemp(prefix="chip_smoke_runs_"))
+    try:
+        return run_phases(torch)
+    finally:
+        shutil.rmtree(RUN_ROOT, ignore_errors=True)
+
+
+def run_phases(torch) -> int:
     from alphatriangle_tpu_torch.ops import KERNELS
     from alphatriangle_tpu_torch.ops._cuda import build_all
 
@@ -1801,6 +2270,57 @@ def main() -> int:
     say(f"train-async phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    prreport = preempt_resume_phase(torch)
+    say(
+        f"preempt-resume: SIGTERM after step {PREEMPT_FREQ} was committed -> exit 114 at step "
+        f"{prreport['preempted_at_step']} ({prreport['sigterm_to_exit_s']:.1f} s from the signal); "
+        f"saves {', '.join(f'{t:.1f}' for t in prreport['save_ms'])} ms, spills "
+        f"{', '.join(f'{t:.1f}' for t in prreport['spill_ms'])} ms of {prreport['spill_bytes']} "
+        f"bytes; resumed in run ckpt at step {prreport['preempted_at_step']} with the spill's "
+        f"{prreport['spill_rows']} rows: restore {prreport['restore_ms']:.1f} ms (state "
+        f"{prreport['restore_state_ms']:.1f} ms, ring {prreport['restore_ring_ms']:.1f} ms), first "
+        f"resumed iteration {prreport['first_resumed_iteration_ms']:.1f} ms (p50 "
+        f"{prreport['resumed_iteration_ms_p50']:.1f} ms), to step {PREEMPT_STEPS}; launches "
+        f"{prreport['launches']} [{card}]"
+    )
+    say(f"preempt-resume phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    mrreport, resumed_ring = megastep_resume_phase(torch, dev, KERNELS)
+    say(
+        f"megastep-resume: checkpoints every {MEGA_RESUME_FREQ} steps to {MEGA_RESUME_STEPS} (saves "
+        f"{', '.join(f'{t:.1f}' for t in mrreport['save_ms'])} ms, spill "
+        f"{', '.join(f'{t:.1f}' for t in mrreport['spill_ms'])} ms of {mrreport['spill_bytes']} "
+        f"bytes), the file bit-equal on the card and the CPU; resumed learner bit-equal to the "
+        f"file, first megastep's priorities the restored SumTree's ({mrreport['restored_rows']} "
+        f"rows); restore {mrreport['restore_ms']:.1f} ms (state {mrreport['restore_state_ms']:.1f} "
+        f"ms, ring {mrreport['restore_ring_ms']:.1f} ms), first resumed megastep "
+        f"{mrreport['first_resumed_megastep_ms']:.1f} ms; launches {mrreport['launches']} [{card}]"
+    )
+    rtreport = ring_round_trip_phase(torch, dev, resumed_ring)
+    del resumed_ring
+    say(
+        f"ring round trip: {rtreport['rows']} rows of {rtreport['row_bytes']} bytes ("
+        f"{rtreport['source_rows']} harvested rows repeated), bit-equal after the restore; "
+        f"get_state {rtreport['get_state_ms']:.1f} ms, save_buffer {rtreport['save_buffer_ms']:.1f} "
+        f"ms ({rtreport['spill_bytes']} bytes), restore_buffer_path "
+        f"{rtreport['restore_buffer_path_ms']:.1f} ms, set_state {rtreport['set_state_ms']:.1f} ms "
+        f"[{card}]"
+    )
+    say(f"megastep-resume and ring phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    evreport = eval_phase(torch)
+    say(
+        f"eval: {EVAL_GAMES} games x {EVAL_SIMS} sims, up to {EVAL_MAX_MOVES} moves, of "
+        f"{evreport['report']['source']}: {evreport['games_per_s']:.2f} games/s, "
+        f"{evreport['dispatches']} dispatches, p50 {evreport['dispatch_ms_p50']:.1f} ms; random "
+        f"side equal to the CPU's; {json.dumps(evreport['report'])}; launches "
+        f"{evreport['launches']} [{card}]"
+    )
+    say(f"eval phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
     rureport = reference_reuse_phase(torch, dev)
@@ -1827,6 +2347,7 @@ def main() -> int:
     paths = {
         "serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport,
         "train_sync": syreport, "train_sync_host": shreport, "train_async": asreport,
+        "preempt_resume": prreport, "megastep_resume": mrreport, "eval": evreport,
     }
     kernels_line = []
     for kname, kr in kreport.items():
@@ -1844,7 +2365,7 @@ def main() -> int:
         # and megasteps alike, every loop), the PER count once per megastep.
         per = {}
         for path, rep in paths.items():
-            if path.startswith("serve"):
+            if "dispatches" in rep:
                 per[f"{path}_dispatch"] = by_path[path] / rep["dispatches"]
             elif kname == "per_sample" and "megasteps" in rep:
                 per[f"{path}_megastep"] = by_path[path] / rep["megasteps"]
@@ -1853,7 +2374,8 @@ def main() -> int:
         entry["launches_per"] = per
         kernels_line.append(entry)
     say(json.dumps({
-        "kernels": kernels_line, **paths, "reference": rreport, "empty_kernel_ms": empty_ms,
+        "kernels": kernels_line, **paths, "ring_round_trip": rtreport, "reference": rreport,
+        "empty_kernel_ms": empty_ms,
         "card": card,
     }))
     say(card)

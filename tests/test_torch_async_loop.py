@@ -29,10 +29,10 @@ from alphatriangle_tpu_torch.training import (  # noqa: E402
     setup_training_components,
 )
 from alphatriangle_tpu_torch.training import setup as setup_mod  # noqa: E402
-from torch_parity import CPU, torch_cfg  # noqa: E402
+from torch_parity import CPU, run_root, torch_cfg  # noqa: E402
 
 
-def _loop(env_cfg, model_cfg, mcts_cfg, **kw) -> TrainingLoop:
+def _loop(root, env_cfg, model_cfg, mcts_cfg, **kw) -> TrainingLoop:
     """The JAX async tests' tiny run (tests/test_training_loop.py)."""
     base = dict(
         RUN_NAME="async", AUTO_RESUME_LATEST=False, MAX_TRAINING_STEPS=8, SELF_PLAY_BATCH_SIZE=4,
@@ -43,14 +43,14 @@ def _loop(env_cfg, model_cfg, mcts_cfg, **kw) -> TrainingLoop:
     base.update(kw)
     c = setup_training_components(
         TrainConfig(**base), torch_cfg(env_cfg), torch_cfg(model_cfg), torch_cfg(mcts_cfg),
-        device=CPU,
+        persistence_config=run_root(root), device=CPU,
     )
     return TrainingLoop(c)
 
 
 @pytest.fixture
-def tiny(tiny_env_config, tiny_model_config, tiny_mcts_config):
-    return lambda **kw: _loop(tiny_env_config, tiny_model_config, tiny_mcts_config, **kw)
+def tiny(tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config):
+    return lambda **kw: _loop(tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config, **kw)
 
 
 def _producers_alive() -> bool:

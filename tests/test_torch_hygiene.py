@@ -31,6 +31,8 @@ for slice_two in ("rl.megastep", "rl.self_play", "rl.trainer", "rl.device_buffer
                   "training.loop", "training.runner", "utils.sumtree", "config.train_config"):
     assert "alphatriangle_tpu_torch." + slice_two in names, slice_two
 assert "alphatriangle_tpu_torch.ops.subtree_reuse" in names
+for slice_six in ("stats.persistence", "arena", "config.persistence_config", "config.run_configs"):
+    assert "alphatriangle_tpu_torch." + slice_six in names, slice_six
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic"))
 assert not leaked, leaked
 """
@@ -99,11 +101,19 @@ def test_cli_serve_on_the_cpu(capsys):
     assert report["serve_dispatches"] == report["dispatches"] >= 2
 
 
-def test_training_needs_a_card_unless_told_cpu(no_card, capsys):
-    from alphatriangle_tpu_torch.config import TrainConfig
+def test_training_needs_a_card_unless_told_cpu(no_card, capsys, tmp_path):
+    """Without a card, `train` and `eval` stop before anything touches
+    the disk."""
+    from alphatriangle_tpu_torch.config import PersistenceConfig, TrainConfig
     from alphatriangle_tpu_torch.training import run_training
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        run_training(TrainConfig(FUSED_MEGASTEP=True))
+        run_training(
+            TrainConfig(FUSED_MEGASTEP=True),
+            persistence_config=PersistenceConfig(ROOT_DATA_DIR=str(tmp_path)),
+        )
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        cli.main(["train", "--fused-megastep", "--max-steps", "1"])
+        cli.main(["train", "--fused-megastep", "--max-steps", "1", "--root-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["eval", "--games", "1", "--root-dir", str(tmp_path)])
+    assert list(tmp_path.iterdir()) == []

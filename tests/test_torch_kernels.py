@@ -11,7 +11,9 @@ each element's entries in the plain version's order (signs of zero
 compared too), and the PER count sums integers. The count and the
 backup also run on every adversarial family of
 `alphatriangle_tpu_torch/ops/kernel_cases.py` and the backup on the
-operands of real waves.
+operands of real waves. One more card test is not a kernel's: the
+device ring's snapshot (`get_state` / `set_state`, the checkpoint
+spill) round-trips its rows and priorities bit for bit on the card.
 """
 
 import pytest
@@ -391,3 +393,49 @@ def test_promote_refuses_what_it_cannot_take(dev):
         reorder_planes_cuda(order[:, :4], retained, planes)
     with pytest.raises(ValueError, match="unknown subtree_promote mode"):
         subtree_promote(*planes, terminal, actions, max_retained=4, bfs_rounds=4, mode="cuda")
+
+
+def test_device_ring_state_round_trip(dev, tmp_path):
+    """A wrapped device ring on the card, spilled and restored into a
+    fresh one: every row, the trash row (zero), the SumTree leaves and
+    the next draws are bit-equal."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch.config import PersistenceConfig, TrainConfig
+    from alphatriangle_tpu_torch.rl import DeviceReplayBuffer
+    from alphatriangle_tpu_torch.stats import CheckpointManager
+
+    cfg = TrainConfig(BUFFER_CAPACITY=300, BATCH_SIZE=32, MIN_BUFFER_SIZE_TO_TRAIN=32, RANDOM_SEED=3)
+
+    def ring():
+        return DeviceReplayBuffer(cfg, grid_shape=(1, 8, 15), other_dim=30, action_dim=360, device=dev)
+
+    pick = np.random.default_rng(0)
+    policy = pick.random((420, 360)).astype(np.float32)
+    policy /= policy.sum(-1, keepdims=True)
+    src = ring()
+    src.add_dense(
+        pick.integers(-1, 2, (420, 1, 8, 15)).astype(np.float32),
+        pick.random((420, 30)).astype(np.float32), policy,
+        pick.normal(size=420).astype(np.float32),
+    )
+    src.update_priorities(np.arange(300), pick.random(300) * 3)
+    mgr = CheckpointManager(PersistenceConfig(ROOT_DATA_DIR=str(tmp_path)), device=dev)
+    spill = mgr.save_buffer(7, src)
+    dst = ring()
+    assert mgr.restore_buffer_path(dst, spill)
+    order = np.roll(np.arange(300), -src._pos)  # restored oldest first
+    idx = torch.from_numpy(order).to(dev)
+    for name, col in src.storage.items():
+        assert torch.equal(dst.storage[name][:300], col[idx]), name
+        assert not dst.storage[name][300].any()
+    leaves = src.tree.tree[src.tree._cap2 :][:300]
+    np.testing.assert_array_equal(dst.tree.tree[dst.tree._cap2 :][:300], leaves[order])
+    again = ring()
+    again.set_state(dst.get_state())
+    for name, col in dst.storage.items():
+        assert torch.equal(again.storage[name], col), name
+    np.testing.assert_array_equal(again.tree.tree, dst.tree.tree)
+    a, b = again.sample(32, current_train_step=1), dst.sample(32, current_train_step=1)
+    np.testing.assert_array_equal(a["indices"], b["indices"])
+    np.testing.assert_array_equal(a["weights"], b["weights"])

@@ -36,7 +36,13 @@ from alphatriangle_tpu.rl.trainer import Trainer as JaxTrainer  # noqa: E402
 from alphatriangle_tpu_torch.ops import KERNELS  # noqa: E402
 from alphatriangle_tpu_torch.rl.megastep import last_write_slots  # noqa: E402
 from alphatriangle_tpu_torch.training import setup_training_components  # noqa: E402
-from torch_parity import CPU, converted_state_dict, inject_jax_noise, torch_cfg  # noqa: E402
+from torch_parity import (  # noqa: E402
+    CPU,
+    converted_state_dict,
+    inject_jax_noise,
+    run_root,
+    torch_cfg,
+)
 
 SUM_ATOL = 1e-5
 LOSS_RTOL = 1e-4
@@ -101,14 +107,16 @@ def _warm_up(engine, ring, tc):
 
 
 class TestMegastep:
-    def test_one_megastep_matches_jax(self, tiny_env_config, tiny_model_config, tiny_mcts_config):
+    def test_one_megastep_matches_jax(
+        self, tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config
+    ):
         jtc = make_cfg()
         jeng, jtrainer, jring, jrunner, jnet, jouts = _jax_side(
             tiny_env_config, tiny_model_config, tiny_mcts_config, jtc
         )
         c = setup_training_components(
             torch_cfg(jtc), torch_cfg(tiny_env_config), torch_cfg(tiny_model_config),
-            torch_cfg(tiny_mcts_config), device=CPU,
+            torch_cfg(tiny_mcts_config), persistence_config=run_root(tmp_path), device=CPU,
         )
         c.net.model.load_state_dict(converted_state_dict(jnet))
 

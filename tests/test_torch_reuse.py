@@ -51,6 +51,7 @@ from torch_parity import (  # noqa: E402
     JaxExactStub,
     TorchExactStub,
     inject_jax_noise,
+    run_root,
     small_model_config,
     stub_net,
     to_torch_state,
@@ -361,12 +362,13 @@ class TestServingReuse:
 
 class TestTrainingReuse:
     def test_megastep_loop_reuses_visits(
-        self, tiny_env_config, tiny_model_config, tiny_mcts_config
+        self, tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config
     ):
         mcts_cfg = tiny_mcts_config.model_copy(update={"tree_reuse": True})
         c = setup_training_components(
             torch_cfg(make_cfg(MAX_TRAINING_STEPS=4)), torch_cfg(tiny_env_config),
-            torch_cfg(tiny_model_config), torch_cfg(mcts_cfg), device=CPU,
+            torch_cfg(tiny_model_config), torch_cfg(mcts_cfg),
+            persistence_config=run_root(tmp_path), device=CPU,
         )
         assert c.self_play.mcts.num_nodes == 2 * mcts_cfg.max_simulations + 1
         loop = TrainingLoop(c)

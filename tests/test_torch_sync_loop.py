@@ -46,6 +46,7 @@ from torch_parity import (  # noqa: E402
     converted_state_dict,
     dense_rows,
     inject_jax_noise,
+    run_root,
     small_model_config,
     torch_cfg,
 )
@@ -245,18 +246,19 @@ class TestLearnerHostApi:
         assert_params_close(tt.model, jt.state.params, lr=1e-3, steps=4)
 
 
-def _components(env_cfg, model_cfg, mcts_cfg, **train_kw):
+def _components(root, env_cfg, model_cfg, mcts_cfg, **train_kw):
     tc = torch_cfg(_ring_cfg(**train_kw))
     return setup_training_components(
-        tc, torch_cfg(env_cfg), torch_cfg(model_cfg), torch_cfg(mcts_cfg), device=CPU
+        tc, torch_cfg(env_cfg), torch_cfg(model_cfg), torch_cfg(mcts_cfg),
+        persistence_config=run_root(root), device=CPU,
     )
 
 
 class TestWeightSync:
     def test_sync_installs_a_copy_and_chunks_keep_theirs(
-        self, tiny_env_config, tiny_model_config, tiny_mcts_config
+        self, tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config
     ):
-        c = _components(tiny_env_config, tiny_model_config, tiny_mcts_config, BATCH_SIZE=4)
+        c = _components(tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config, BATCH_SIZE=4)
         net, trainer = c.net, c.trainer
         assert trainer.model is not net.model  # the learner owns a copy
         assert not any(
@@ -283,12 +285,13 @@ class TestWeightSync:
         )
 
     def test_a_running_chunk_reads_one_set_of_weights(
-        self, tiny_env_config, tiny_model_config, tiny_mcts_config
+        self, tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config
     ):
         """A sync lands between two moves of a chunk: the chunk goes on
         searching with the module it captured, and its episodes are
         tagged with the version they started under."""
         c = _components(
+            tmp_path,
             tiny_env_config, tiny_model_config, tiny_mcts_config,
             SELF_PLAY_BATCH_SIZE=3, MAX_EPISODE_MOVES=2,
         )
@@ -313,9 +316,11 @@ class TestWeightSync:
         assert set(result.episode_start_versions) == {0, 1}
 
     def test_megastep_shares_the_module_and_has_nothing_to_sync(
-        self, tiny_env_config, tiny_model_config, tiny_mcts_config
+        self, tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config
     ):
-        c = _components(tiny_env_config, tiny_model_config, tiny_mcts_config, FUSED_MEGASTEP=True)
+        c = _components(
+            tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config, FUSED_MEGASTEP=True
+        )
         assert c.trainer.model is c.net.model
         with pytest.raises(RuntimeError, match="nothing to sync"):
             c.trainer.sync_to_network()
@@ -334,7 +339,7 @@ def _loop_cfg() -> JaxTrainConfig:
 
 class TestSyncIteration:
     def test_iterations_match_jax(
-        self, monkeypatch, tiny_env_config, tiny_model_config, tiny_mcts_config
+        self, monkeypatch, tmp_path, tiny_env_config, tiny_model_config, tiny_mcts_config
     ):
         """Two synchronous iterations (the first leaves the ring short of
         MIN_BUFFER_SIZE_TO_TRAIN; the second trains two single steps and
@@ -352,7 +357,7 @@ class TestSyncIteration:
         )
         c = setup_training_components(
             torch_cfg(jtc), torch_cfg(tiny_env_config), torch_cfg(tiny_model_config),
-            torch_cfg(tiny_mcts_config), device=CPU,
+            torch_cfg(tiny_mcts_config), persistence_config=run_root(tmp_path), device=CPU,
         )
         assert not c.buffer.is_device  # "auto" on the CPU: the host ring
         state = converted_state_dict(jnet)

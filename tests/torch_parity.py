@@ -11,6 +11,7 @@ import torch
 
 from alphatriangle_tpu.config import ModelConfig, expected_other_features_dim
 from alphatriangle_tpu_torch import config as tcfg
+from alphatriangle_tpu_torch.config import PersistenceConfig
 from alphatriangle_tpu_torch.env.engine import EnvState
 from alphatriangle_tpu_torch.nn import flax_to_torch
 from alphatriangle_tpu_torch.nn.network import LiveWeights
@@ -22,6 +23,12 @@ def torch_cfg(jax_cfg):
     """The port's counterpart of a JAX config, loaded from its dump."""
     cls = getattr(tcfg, type(jax_cfg).__name__)
     return cls(**jax_cfg.model_dump())
+
+
+def run_root(tmp_path, run: str = "run") -> PersistenceConfig:
+    """A run directory of the port under `tmp_path`, so a test that builds
+    training components writes nothing into the checkout."""
+    return PersistenceConfig(ROOT_DATA_DIR=str(tmp_path), RUN_NAME=run)
 
 
 def to_torch_state(jstate) -> EnvState:
