@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from . import rng
-from .mcts.helpers import root_actions
 from .serving.session import SessionSlots
 
 TERMINATION_CHECK_EVERY = 8
@@ -115,12 +114,13 @@ def random_policy(env, seed: int) -> Callable:
 
 
 def greedy_mcts_policy(net, mcts) -> Callable:
-    """Deterministic play from a search: the visit-count argmax. Reads
-    the net's installed weights at every call, so one policy serves any
-    number of weight restores (as `PolicyService.reload_weights`)."""
+    """Deterministic play from a search: its `root_actions` (the
+    visit-count argmax, or a Gumbel search's own selection). Reads the net's
+    installed weights at every call, so one policy serves any number of
+    weight restores (as `PolicyService.reload_weights`)."""
 
     def policy(states, move):
         mcts.model = net.model
-        return root_actions(mcts.search(states, rng.PRNGKey(7000 + move)))
+        return mcts.root_actions(mcts.search(states, rng.PRNGKey(7000 + move)))
 
     return policy

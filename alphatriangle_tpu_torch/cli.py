@@ -3,13 +3,16 @@
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
-        [--state-dict PATH]
+        [--state-dict PATH] [--gumbel]
 
 Serves simulated sessions through `PolicyService` over the default
 board and net: an untrained net (seed 0) or a state dict written by
-`torch.save(flax_to_torch(variables), PATH)`. Prints one JSON report.
+`torch.save(flax_to_torch(variables), PATH)`; `--gumbel` searches with
+`GumbelMCTS(exploit=True)` and serves its selected actions. Prints one
+JSON report.
 
-    python -m alphatriangle_tpu_torch.cli train
+    python -m alphatriangle_tpu_torch.cli train [--preset N|PATH] [--dry-setup]
+        [--gumbel] [--fast-sims S [--full-search-prob P]] [--no-tensorboard]
         [--async-rollouts [--workers N] [--replay-ratio R] | --fused-megastep]
         [--device-replay {auto,on,off}] [--max-steps N] [--self-play-batch B]
         [--batch-size B] [--buffer-capacity N] [--min-buffer N]
@@ -18,10 +21,17 @@ board and net: an untrained net (seed 0) or a state dict written by
         [--load-checkpoint STEP_DIR] [--load-buffer NPZ]
         [--checkpoint-freq N] [--keep-checkpoints K]
 
-Trains the default board and net through `run_training`: the
-synchronous loop without a mode flag, the overlapped loop (producer
-threads behind a replay-ratio gate) with `--async-rollouts`, the fused
-megastep with `--fused-megastep`. The run lives in
+Trains the default board and net, or a BASELINE preset's (`--preset
+1..5`, `config/presets.py`, or a `tuned_preset.json`; the flags given
+override its values), through `run_training`: the synchronous loop
+without a mode flag, the overlapped loop (producer threads behind a
+replay-ratio gate) with `--async-rollouts`, the fused megastep with
+`--fused-megastep`. `--gumbel` selects the Gumbel root search,
+`--fast-sims` playout-cap randomization. The device is `--device`, else
+the CPU where the config's `DEVICE` is "cpu" (preset 1, the CPU smoke),
+else CUDA. `--dry-setup` builds every component and exits 0. Metrics go
+to `live_metrics.jsonl` in the run directory and, unless
+`--no-tensorboard`, to TensorBoard where it is installed. The run lives in
 `<root>/AlphaTriangleTPUTorch/runs/<run>` (root `./.alphatriangle_data`
 unless `--root-dir`), checkpoints every `--checkpoint-freq` steps and
 at the end, and resumes the newest checkpointed run under the root
@@ -33,9 +43,10 @@ kernel launches.
     python -m alphatriangle_tpu_torch.cli eval [--checkpoint STEP_DIR |
         --run-name NAME] [--vs-checkpoint STEP_DIR | --vs-run NAME]
         [--root-dir DIR] [--games 64] [--sims 64] [--max-moves 200]
-        [--seed 0] [--device cuda]
+        [--seed 0] [--device cuda] [--gumbel]
 
-Arena evaluation: greedy search from a checkpoint (a step directory, or
+Arena evaluation (`--gumbel`: a `GumbelMCTS(exploit=True)` search and
+its selected actions): greedy search from a checkpoint (a step directory, or
 a run's newest) on the run's own configs, played as paired games through
 `PolicyService`, against a uniform-random baseline on the same hands,
 and head to head against a second checkpoint when one is named. Prints
@@ -55,7 +66,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from .device import resolve_device
     from .env import TriangleEnv
     from .features import FeatureExtractor
-    from .mcts import BatchedMCTS
+    from .mcts import BatchedMCTS, GumbelMCTS
     from .nn import NeuralNetwork
     from .serving import PolicyService, run_simulated_load
 
@@ -73,11 +84,14 @@ def cmd_serve(args: argparse.Namespace) -> int:
         state_dict = torch.load(args.state_dict, map_location="cpu", weights_only=True)
         source = args.state_dict
     net = NeuralNetwork(model_cfg, env_cfg, seed=0, state_dict=state_dict, device=device)
-    mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+    if args.gumbel:
+        mcts = GumbelMCTS(env, extractor, net.model, mcts_cfg, net.support, exploit=True)
+    else:
+        mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
     service = PolicyService(env, extractor, net, mcts, slots=args.slots, rng_seed=args.seed)
     say(
         f"serve: {source} net, board {env_cfg.ROWS}x{env_cfg.COLS}, {args.slots} slots, "
-        f"{args.sims} sims/move, device {device}"
+        f"{args.sims} sims/move{', gumbel' if args.gumbel else ''}, device {device}"
     )
     t0 = time.perf_counter()
     stats = run_simulated_load(
@@ -93,6 +107,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         "device": str(device),
         "slots": args.slots,
         "sims": args.sims,
+        "gumbel": args.gumbel,
         "wall_seconds": time.perf_counter() - t0,
         **stats,
         **service.serve_stats(),
@@ -101,9 +116,23 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0 if stats["sessions_served"] >= args.sessions else 1
 
 
+def merge_train_overrides(base_config, overrides: dict):
+    """CLI overrides on top of a preset's TrainConfig, rebuilt through the
+    constructor so the validators run; a new horizon drops the derived
+    schedule lengths so they derive afresh."""
+    from .config import TrainConfig
+
+    base = base_config.model_dump()
+    if "MAX_TRAINING_STEPS" in overrides:
+        base.pop("LR_SCHEDULER_T_MAX", None)
+        base.pop("PER_BETA_ANNEAL_STEPS", None)
+    base.update(overrides)
+    return TrainConfig(**base)
+
+
 def cmd_train(args: argparse.Namespace) -> int:
-    from .config import PersistenceConfig, TrainConfig
-    from .training import EXIT_CODES, run_training
+    from .config import AlphaTriangleMCTSConfig, PersistenceConfig, TrainConfig
+    from .training import EXIT_CODES, run_training, setup_training_components
 
     overrides = {}
     if args.fused_megastep:
@@ -136,16 +165,78 @@ def cmd_train(args: argparse.Namespace) -> int:
         overrides["LOAD_CHECKPOINT_PATH"] = args.load_checkpoint
     if args.load_buffer is not None:
         overrides["LOAD_BUFFER_PATH"] = args.load_buffer
-    train_cfg = TrainConfig(**overrides)
+    configs = {"env_config": None, "model_config": None, "mcts_config": None}
+    preset = None
+    if args.preset is not None:
+        preset = str(args.preset)
+        if preset.isdigit():
+            from .config import baseline_preset
+
+            bundle = baseline_preset(int(preset), run_name=args.run_name)
+        else:
+            from .config import load_tuned_preset
+
+            try:
+                bundle = load_tuned_preset(preset)
+            except ValueError as exc:
+                raise SystemExit(f"--preset: {exc}") from exc
+            # The JAX package ledgers a `tune_outcome` record after a tuned
+            # run; that record waits for the port's telemetry plane.
+        configs = {
+            "env_config": bundle["env"],
+            "model_config": bundle["model"],
+            "mcts_config": bundle["mcts"],
+        }
+        train_cfg = merge_train_overrides(bundle["train"], overrides)
+    else:
+        train_cfg = TrainConfig(**overrides)
+    if args.fast_sims is not None or args.full_search_prob is not None or args.gumbel:
+        mcts = configs["mcts_config"]
+        mcts_kw = mcts.model_dump() if mcts is not None else {}
+        if args.fast_sims is not None:
+            mcts_kw["fast_simulations"] = args.fast_sims
+        if args.full_search_prob is not None:
+            mcts_kw["full_search_prob"] = args.full_search_prob
+        if args.gumbel:
+            mcts_kw["root_selection"] = "gumbel"
+        if args.full_search_prob is not None and mcts_kw.get("fast_simulations") is None:
+            raise SystemExit(
+                "--full-search-prob has no effect without --fast-sims "
+                "(playout cap randomization stays disabled)."
+            )
+        configs["mcts_config"] = AlphaTriangleMCTSConfig(**mcts_kw)
+    # An explicit --device wins; otherwise a config pinned to the CPU
+    # (preset 1, the CPU smoke) runs there, and anything else on CUDA.
+    device = args.device
+    if device is None:
+        device = "cpu" if train_cfg.DEVICE == "cpu" else "cuda"
     persistence = {"RUN_NAME": train_cfg.RUN_NAME}
     if args.root_dir is not None:
         persistence["ROOT_DATA_DIR"] = args.root_dir
     if args.keep_checkpoints is not None:
         persistence["KEEP_LAST_CHECKPOINTS"] = args.keep_checkpoints
+    persistence_config = PersistenceConfig(**persistence)
+    if args.dry_setup:
+        c = setup_training_components(
+            train_cfg, persistence_config=persistence_config, device=device,
+            use_tensorboard=not args.no_tensorboard, **configs,
+        )
+        c.stats.close()
+        print(json.dumps({
+            "dry_setup": True,
+            "preset": preset,
+            "run_dir": str(persistence_config.get_run_base_dir()),
+            "device": str(c.device),
+            "lanes": c.self_play.batch_size,
+            "parameters": sum(p.numel() for p in c.net.model.parameters()),
+            "stats_writers": c.stats.writers,
+        }))
+        return 0
     loop = run_training(
-        train_cfg, persistence_config=PersistenceConfig(**persistence), device=args.device
+        train_cfg, persistence_config=persistence_config, device=device,
+        use_tensorboard=not args.no_tensorboard, **configs,
     )
-    print(json.dumps({**loop.report(), "kernel_launches": _kernel_launches()}))
+    print(json.dumps({**loop.report(), "preset": preset, "kernel_launches": _kernel_launches()}))
     return EXIT_CODES[loop.status]
 
 
@@ -166,7 +257,7 @@ def cmd_eval(args: argparse.Namespace) -> int:
     from .device import resolve_device
     from .env import TriangleEnv
     from .features import FeatureExtractor
-    from .mcts import BatchedMCTS
+    from .mcts import BatchedMCTS, GumbelMCTS
     from .nn import NeuralNetwork
     from .rl import Trainer
     from .serving import PolicyService
@@ -189,9 +280,7 @@ def cmd_eval(args: argparse.Namespace) -> int:
         return Path("/nonexistent")
 
     env_cfg, model_cfg = load_run_configs_or_default(config_dir(args.checkpoint, args.run_name))
-    mcts_cfg = AlphaTriangleMCTSConfig(
-        max_simulations=args.sims, root_selection="gumbel" if args.gumbel else "puct"
-    )
+    mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=args.sims)
     env = TriangleEnv(env_cfg, device=device)
 
     def restore_net(checkpoint, run_name, net_model_cfg):
@@ -215,7 +304,11 @@ def cmd_eval(args: argparse.Namespace) -> int:
 
     def serve_play(net, net_model_cfg):
         extractor = FeatureExtractor(env, net_model_cfg)
-        mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+        if args.gumbel:
+            # Exploit mode: the deterministic argmax of logits + sigma(q).
+            mcts = GumbelMCTS(env, extractor, net.model, mcts_cfg, net.support, exploit=True)
+        else:
+            mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
         service = PolicyService(env, extractor, net, mcts, slots=args.games)
         t0 = time.perf_counter()
         scores, lengths, done = play_service(service, args.games, args.max_moves, args.seed)
@@ -237,6 +330,7 @@ def cmd_eval(args: argparse.Namespace) -> int:
         "source": source,
         "games": args.games,
         "sims": args.sims,
+        "gumbel": args.gumbel,
         "mcts_mean_score": round(float(scores.mean()), 2),
         "mcts_max_score": round(float(scores.max()), 2),
         "mcts_mean_length": round(float(lengths.mean()), 1),
@@ -304,6 +398,8 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--state-dict", default=None, metavar="PATH",
                        help="Weights from nn/convert.py saved with torch.save "
                        "(default: the untrained net of seed 0).")
+    serve.add_argument("--gumbel", action="store_true",
+                       help="Gumbel root search in exploit mode; serve its selected actions.")
     serve.set_defaults(fn=cmd_serve)
 
     train = sub.add_parser(
@@ -311,6 +407,21 @@ def build_parser() -> argparse.ArgumentParser:
         help="Self-play training of the default board and net: the synchronous loop "
         "(rollout chunk, ring fold, learner steps per iteration) unless a mode flag is given.",
     )
+    train.add_argument("--preset", default=None, metavar="N|PATH",
+                       help="BASELINE config 1..5 (config/presets.py) or a tuned_preset.json; "
+                       "the flags below override its values.")
+    train.add_argument("--dry-setup", action="store_true",
+                       help="Build every training component, then exit 0 without training.")
+    train.add_argument("--gumbel", action="store_true",
+                       help="Gumbel root search with sequential halving instead of PUCT.")
+    train.add_argument("--fast-sims", type=int, default=None, metavar="S",
+                       help="Playout cap randomization: fast searches of S simulations, "
+                       "which train no policy.")
+    train.add_argument("--full-search-prob", type=float, default=None, metavar="P",
+                       help="Probability of a full search per move under --fast-sims "
+                       "(default 0.25).")
+    train.add_argument("--no-tensorboard", action="store_true",
+                       help="No TensorBoard writer (live_metrics.jsonl is always written).")
     train.add_argument("--max-steps", type=int, default=None)
     train.add_argument("--self-play-batch", type=int, default=None)
     train.add_argument("--batch-size", type=int, default=None)
@@ -332,8 +443,9 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--replay-ratio", type=float, default=None,
                        help="Overlapped mode: samples consumed per row produced.")
     train.add_argument("--seed", type=int, default=None, help="Random seed.")
-    train.add_argument("--device", default="cuda",
-                       help="Torch device (default cuda; 'cpu' runs the plain versions).")
+    train.add_argument("--device", default=None,
+                       help="Torch device (default: cpu where the config's DEVICE is 'cpu', "
+                       "as preset 1's, else cuda; 'cpu' runs the plain versions).")
     train.add_argument("--run-name", default=None, help="Run directory name.")
     train.add_argument("--root-dir", default=None,
                        help="Runs root directory (default ./.alphatriangle_data).")
@@ -367,7 +479,7 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--max-moves", type=int, default=200)
     ev.add_argument("--seed", type=int, default=0)
     ev.add_argument("--gumbel", action="store_true",
-                    help="Gumbel root search (not ported yet: refused).")
+                    help="Gumbel root search in exploit mode; play its selected actions.")
     ev.add_argument("--device", default="cuda",
                     help="Torch device (default cuda; 'cpu' runs the plain versions).")
     ev.set_defaults(fn=cmd_eval)

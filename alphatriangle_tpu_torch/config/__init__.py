@@ -2,8 +2,15 @@
 
 from .env_config import EnvConfig
 from .mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
+from .mesh_config import MeshConfig
 from .model_config import ModelConfig
 from .persistence_config import PersistenceConfig
+from .presets import (
+    TUNED_PRESET_SCHEMA,
+    baseline_preset,
+    geometry_preset,
+    load_tuned_preset,
+)
 from .train_config import TrainConfig
 from .validation import (
     EXPLICIT_FEATURES_DIM,
@@ -17,8 +24,13 @@ __all__ = [
     "EnvConfig",
     "FEATURES_PER_SHAPE",
     "MCTSConfig",
+    "MeshConfig",
     "ModelConfig",
     "PersistenceConfig",
+    "TUNED_PRESET_SCHEMA",
     "TrainConfig",
+    "baseline_preset",
     "expected_other_features_dim",
+    "geometry_preset",
+    "load_tuned_preset",
 ]

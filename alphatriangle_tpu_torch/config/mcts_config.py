@@ -16,7 +16,7 @@ from ._base import ConfigBase, check_range
 
 @dataclass
 class AlphaTriangleMCTSConfig(ConfigBase):
-    """PUCT search hyperparameters."""
+    """Search hyperparameters: PUCT or Gumbel root, playout caps."""
 
     max_simulations: int = 64
     max_depth: int = 8
@@ -36,12 +36,15 @@ class AlphaTriangleMCTSConfig(ConfigBase):
     tree_reuse: bool = False
     tree_reuse_backend: str = "xla"
     tree_reuse_budget: int | None = None
-    # Playout-cap randomization and Gumbel root search are carried for
-    # config compatibility; the port refuses them (rl/self_play.py,
-    # mcts/search.py).
+    # Playout-cap randomization (rl/self_play.py): a move runs the full
+    # search with probability full_search_prob, else a search of
+    # fast_simulations; fast rows train nothing unless
+    # pcr_record_fast_rows.
     fast_simulations: int | None = None
     full_search_prob: float = 0.25
     pcr_record_fast_rows: bool = False
+    # "gumbel": sequential-halving root over gumbel_m candidates
+    # (mcts/gumbel.py).
     root_selection: str = "puct"
     gumbel_m: int = 16
     gumbel_c_visit: float = 50.0

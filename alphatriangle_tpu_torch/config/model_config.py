@@ -41,7 +41,8 @@ class ModelConfig(ConfigBase):
     OTHER_NN_INPUT_FEATURES_DIM: int = 30
     COMPUTE_DTYPE: str = "bfloat16"
     PARAM_DTYPE: str = "float32"
-    # Kept so a dumped JAX config loads; the port runs no rematerialization.
+    # Recompute the residual and transformer blocks in the backward pass
+    # instead of storing their activations (torch.utils.checkpoint).
     REMAT: bool = False
     INFERENCE_PRECISION: str = "float32"
 

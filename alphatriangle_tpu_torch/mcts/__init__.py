@@ -1,4 +1,4 @@
-"""Batched wave-parallel PUCT search and its visit-count helpers."""
+"""Batched wave-parallel search (PUCT or Gumbel root) and its helpers."""
 
 from .helpers import (
     policy_target_from_visits,
@@ -6,10 +6,12 @@ from .helpers import (
     select_action_from_visits,
     select_root_actions,
 )
+from .gumbel import GumbelMCTS
 from .search import BatchedMCTS, SearchOutput, Tree
 
 __all__ = [
     "BatchedMCTS",
+    "GumbelMCTS",
     "SearchOutput",
     "Tree",
     "policy_target_from_visits",

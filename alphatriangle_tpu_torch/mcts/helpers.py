@@ -1,4 +1,4 @@
-"""Visit-count post-processing: counterpart of
+"""Root-action and policy-target helpers: counterpart of
 `alphatriangle_tpu/mcts/helpers.py` (`select_root_actions`,
 `policy_target_from_visits`, `select_action_from_visits`)."""
 
@@ -20,19 +20,23 @@ def policy_target_from_visits(
     return torch.where(total > 0, counts / total.clamp(min=1e-9), fallback)
 
 
-def root_actions(output) -> torch.Tensor:
-    """(B,) int64 exploitation actions on the search's device: the
+def root_actions(output, use_gumbel: bool = False) -> torch.Tensor:
+    """(B,) int64 exploitation actions on the search's device. PUCT: the
     visit-count argmax (first maximum), 0 for rows with no visits
-    (finished games, which the engine freezes)."""
+    (finished games, which the engine freezes). Gumbel: the search's
+    own `selected_action`, its -1 sentinel clamped to 0. The one action
+    rule of serving, the arena and `cli eval`."""
+    if use_gumbel:
+        return output.selected_action.clamp(min=0).to(torch.int64)
     counts = output.visit_counts
     return torch.where(
         counts.sum(dim=-1) > 0, counts.argmax(dim=-1), torch.zeros_like(counts[:, 0], dtype=torch.int64)
     )
 
 
-def select_root_actions(output) -> np.ndarray:
+def select_root_actions(output, use_gumbel: bool = False) -> np.ndarray:
     """`root_actions` as NumPy (one host fetch)."""
-    return root_actions(output).cpu().numpy()
+    return root_actions(output, use_gumbel).cpu().numpy()
 
 
 def select_action_from_visits(

@@ -23,9 +23,10 @@ The key schedule is the JAX package's: `split(rng, 3)` into (rng,
 noise, wave) keys, `fold_in(wave_rng, k)` per wave and `fold_in(.., d)`
 per descent level. The noise draws go through `rng.gumbel` and
 `rng.gamma` (looked up on the module at call time, so tests can
-substitute JAX's draws). Gumbel root search and the device stat-pack
-wait for later slices: a config asking for Gumbel is refused, and
-`SearchOutput.stats` stays None.
+substitute JAX's draws). A wave may force each member's depth-0 action
+(`root_action`), which the Gumbel root search (mcts/gumbel.py,
+`GumbelMCTS`) uses to spread a wave over its candidates. The device
+stat-pack waits for a later slice: `SearchOutput.stats` stays None.
 
 Subtree reuse (`MCTSConfig.tree_reuse`) widens the node budget to
 `max_simulations + tree_reuse_budget + 1` rows. After a move,
@@ -50,6 +51,7 @@ import torch
 from torch.profiler import record_function
 
 from .. import rng
+from . import helpers
 from ..config.mcts_config import MCTSConfig
 from ..env.engine import EnvState, TriangleEnv
 from ..features.core import FeatureExtractor
@@ -118,8 +120,6 @@ class BatchedMCTS:
         config: MCTSConfig,
         value_support: torch.Tensor,
     ):
-        if config.root_selection != "puct":
-            raise ValueError("only root_selection='puct' is ported yet")
         if config.descent_gather not in GATHER_MODES:
             raise ValueError(f"unknown gather mode: {config.descent_gather!r}")
         if config.backup_update not in BACKUP_MODES:
@@ -209,9 +209,14 @@ class BatchedMCTS:
             root_value0=root_value,
         )
 
-    def _descend_wave(self, tree: Tree, wave_rng: torch.Tensor, batch: int) -> dict:
+    def _descend_wave(
+        self, tree: Tree, wave_rng: torch.Tensor, batch: int, root_action=None
+    ) -> dict:
         """W parallel recorded descents per tree: final (parent, action,
-        existing child) and the recorded path for the backup."""
+        existing child) and the recorded path for the backup.
+        `root_action` (B, W), when given, forces each member's depth-0
+        action where it is >= 0; -1 leaves the member to PUCT, and
+        deeper levels always select by PUCT."""
         cfg = self.config
         w, a, depth = self.wave_size, self.action_dim, cfg.max_depth
         dev = self.device
@@ -242,6 +247,8 @@ class BatchedMCTS:
                     level_key, (batch, w, a), device=dev
                 )
             act = torch.argmax(scores, dim=-1)  # first maximum, as jnp.argmax
+            if d == 0 and root_action is not None:
+                act = torch.where(root_action >= 0, root_action, act)
             child = child_r.gather(-1, act[..., None])[..., 0].to(torch.int64)
             r_edge = reward_r.gather(-1, act[..., None])[..., 0]
             term = tree.terminal.gather(1, node)
@@ -265,11 +272,12 @@ class BatchedMCTS:
             "rec_active": rec_active,
         }
 
-    def _wave(self, batch: int, tree: Tree, wasted: torch.Tensor, base, wave_rng):
+    def _wave(self, batch: int, tree: Tree, wasted: torch.Tensor, base, wave_rng, root_action=None):
         """One wave: W parallel simulations across all B trees. `base` is
         the first insertion row, an int (fresh root) or a (B,) tensor
-        (reuse: each game retained its own row count). Updates `tree` in
-        place; returns (wasted, next base)."""
+        (reuse: each game retained its own row count); `root_action` as
+        in `_descend_wave`. Updates `tree` in place; returns (wasted,
+        next base)."""
         cfg = self.config
         w, a, depth = self.wave_size, self.action_dim, cfg.max_depth
         dev = self.device
@@ -278,7 +286,7 @@ class BatchedMCTS:
         bcol = torch.arange(batch, device=dev)[:, None]
 
         with record_function("search.descend"):
-            d = self._descend_wave(tree, wave_rng, batch)
+            d = self._descend_wave(tree, wave_rng, batch, root_action)
         parents, actions, existing = d["parents"], d["actions"], d["existing"]
         is_new = existing < 0
 
@@ -375,6 +383,11 @@ class BatchedMCTS:
             selected_action=torch.full((batch,), -1, dtype=torch.int32, device=self.device),
             improved_policy=torch.zeros_like(visit_counts),
         )
+
+    def root_actions(self, output: SearchOutput) -> torch.Tensor:
+        """The played action of each root (serving, the arena): the
+        visit-count argmax."""
+        return helpers.root_actions(output)
 
     @torch.no_grad()
     def search(self, root_states: EnvState, key: torch.Tensor) -> SearchOutput:

@@ -19,7 +19,17 @@ for leaf. What the Flax model does and this one repeats:
 - Under `COMPUTE_DTYPE="bfloat16"` every conv, dense and attention
   product runs in bf16 on f32 parameters cast per call; the norm
   statistics stay f32 and each head's output Dense runs in f32.
-- Attention scales the query by 1/sqrt(head_dim) before the product.
+- Attention scales the query by 1/sqrt(head_dim) before the product,
+  and runs in slices of the batch that hold at most `SCORE_BUDGET`
+  scores: a search's leaf batch at preset 5 (32,768 sequences of 252
+  tokens, 4 heads) would otherwise hold 8.3e9 scores three times over
+  (bf16 logits, their f32 copy and the f32 softmax: 83 GB). Rows are
+  independent, so the slices change no value.
+- `ModelConfig.REMAT` recomputes each residual block and transformer
+  layer in the backward pass (`torch.utils.checkpoint`, as `nn.remat`
+  in the JAX model) when the net trains with gradients; a layer's
+  dropout masks are drawn again from the same generator state, so the
+  gradients equal those without it.
 - Plain matmuls and convolutions (`torch.nn.functional`), as the JAX
   package left them to XLA: none of this is a hand-written kernel.
 """
@@ -30,11 +40,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config.model_config import ModelConfig
 
 _NORM_EPS = 1e-6
 _BATCH_NORM_EPS = 1e-5  # flax.linen.BatchNorm's default
+# Attention scores (sequences x heads x tokens x tokens) one slice of the
+# batch may hold: 2 GB of bf16 logits, whose f32 copy and softmax add 8.
+# The default board's leaf batch (16,384 x 4 x 120 x 120) fits in one.
+SCORE_BUDGET = 1 << 30
 
 _ACTIVATIONS = {
     "ReLU": F.relu,
@@ -256,17 +271,25 @@ class MultiHeadDotProductAttention(nn.Module):
         k = split(self.key(x))
         v = split(self.value(x))
         q = q / torch.tensor(math.sqrt(hd), dtype=q.dtype)
-        logits = torch.matmul(q, k.transpose(-1, -2))
-        weights = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+        scale = None
         if dropout is not None:
             # Flax broadcasts the attention-weight mask over batch and
             # heads, and scales by 1/keep in the compute dtype.
             rate, gen = dropout
             keep = 1.0 - rate
             mask = torch.rand((t, t), generator=gen, device=x.device) < keep
-            weights = weights * (mask.to(self.dtype) / torch.tensor(keep, dtype=self.dtype))
-        y = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, h * hd)
-        return self.out(y)
+            scale = mask.to(self.dtype) / torch.tensor(keep, dtype=self.dtype)
+        rows = max(1, SCORE_BUDGET // (h * t * t))
+        ys = []
+        for s in range(0, b, rows):
+            logits = torch.matmul(q[s : s + rows], k[s : s + rows].transpose(-1, -2))
+            weights = torch.softmax(logits.float(), dim=-1).to(self.dtype)
+            del logits
+            if scale is not None:
+                weights = weights * scale
+            ys.append(torch.matmul(weights, v[s : s + rows]))
+        y = ys[0] if len(ys) == 1 else torch.cat(ys)
+        return self.out(y.transpose(1, 2).reshape(b, t, h * hd))
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
@@ -393,11 +416,13 @@ class AlphaTriangleNet(nn.Module):
         mode the transformer's dropout draws its masks from `generator`;
         the norms have no batch statistics to update (the learner refuses
         NORM_TYPE="batch")."""
+        remat = self.config.REMAT and self.training and torch.is_grad_enabled()
         x = grid.to(self.dtype)
         for i in range(self.n_conv_blocks):
             x = getattr(self, f"ConvBlock_{i}")(x)
         for i in range(self.n_res):
-            x = getattr(self, f"ResidualBlock_{i}")(x)
+            block = getattr(self, f"ResidualBlock_{i}")
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         if self.use_transformer:
             if self.project:
                 x = self.Conv_0(x)
@@ -405,7 +430,8 @@ class AlphaTriangleNet(nn.Module):
             tokens = x.permute(0, 2, 3, 1).reshape(b, -1, d)  # NHWC token order
             tokens = tokens + self.positional
             for i in range(self.n_layers):
-                tokens = getattr(self, f"TransformerEncoderLayer_{i}")(tokens, generator)
+                layer = getattr(self, f"TransformerEncoderLayer_{i}")
+                tokens = _remat_layer(layer, tokens, generator) if remat else layer(tokens, generator)
             flat = self.LayerNorm_0(tokens).reshape(b, -1)
         else:
             flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
@@ -415,6 +441,29 @@ class AlphaTriangleNet(nn.Module):
         policy = self.MLPHead_0(shared)
         value = self.MLPHead_1(shared)
         return policy.float(), value.float()
+
+
+def _remat_layer(layer: nn.Module, tokens: torch.Tensor, generator) -> torch.Tensor:
+    """`layer(tokens, generator)` under `torch.utils.checkpoint`. The
+    recomputation draws the layer's dropout masks from a copy of the
+    generator's state at the call, so they repeat the forward's; the
+    generator itself ends where the forward left it."""
+    if generator is None:
+        return checkpoint(layer, tokens, None, use_reentrant=False)
+    start = generator.get_state()
+    end = []
+
+    def run(x):
+        gen = torch.Generator(device=generator.device)
+        gen.set_state(start)
+        y = layer(x, gen)
+        if not end:
+            end.append(gen.get_state())
+        return y
+
+    out = checkpoint(run, tokens, use_reentrant=False)
+    generator.set_state(end[0])
+    return out
 
 
 def init_parameters(model: nn.Module, seed: int) -> None:

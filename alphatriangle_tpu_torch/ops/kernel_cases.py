@@ -1,5 +1,5 @@
-"""Adversarial inputs of the PER count and the backup, built with numpy
-from a seed.
+"""Adversarial inputs of the PER count and the backup, and the search
+shapes of every path, built with numpy from a seed.
 
 The CPU tests hold the plain versions to the JAX package on these
 families, and the card tests and `chip_smoke.py` hold the CUDA kernels
@@ -15,7 +15,15 @@ Backup families (`backup_case`): the four (B, N, A) planes and the
 eight update operands of one wave: shared edges and inactive entries
 on a few rows, every entry and insertion on one element, planes of -0.0
 under inactive entries, W = 48 and W = 8 with D = 1 and D = 8, int32
-indices.
+indices, and a Gumbel wave (`gumbel_roots`: every member's depth-0
+entry forced onto one of four root candidates, members of an
+unexpanded candidate inserting under the root).
+
+Search shapes (`SEARCH_SHAPES`, `gather_case`): the (B, N, A, W, D) of
+the gather and the backup on the paths beyond the default search:
+playout-cap fast searches (N = 17, W = 16), presets 2 and 4 (N = 201
+and 401, W = 25) and preset 5's board (B = 1024, A = 756). The CPU
+tests take them at a small B.
 """
 
 import numpy as np
@@ -36,7 +44,26 @@ BACKUP_CASES = {
     "w8_d8": (8, 8),
     "w8_d1": (8, 1),
     "int32": (None, None),
+    "gumbel_roots": (None, None),
 }
+# (B, N, A, W, D) of a search on each new path: the node budget is the
+# simulations + 1, W the largest divisor of the simulations <= 32.
+SEARCH_SHAPES = {
+    "fast": (512, 17, 360, 16, 8),  # preset 3's fast searches of 16
+    "preset2": (128, 201, 360, 25, 8),  # 200 simulations
+    "preset4": (512, 401, 360, 25, 8),  # 400 simulations
+    "preset5": (1024, 65, 756, 32, 8),  # the 12x21 board, 3 slots
+}
+
+
+def gather_case(b: int, n: int, k: int, w: int, seed: int = 0):
+    """(stats (B, N, K) f32, idx (B, W) int64) of one descent level; the
+    first member of each game reads row N - 1, the last row 0."""
+    pick = np.random.default_rng(seed)
+    stats = pick.standard_normal((b, n, k), dtype=np.float32)
+    idx = pick.integers(0, n, (b, w))
+    idx[:, 0], idx[:, -1] = n - 1, 0
+    return stats, idx.astype(np.int64)
 
 
 def _draws(pick, cum: np.ndarray, fixed, k: int, b: int) -> np.ndarray:
@@ -116,7 +143,8 @@ def backup_case(name: str, b: int, n: int, a: int, seed: int = 0, w: int = 32, d
     rows, acts = min(4, n), min(6, a)
     parents = pick.integers(0, rows, (b, w))
     actions = pick.integers(0, acts, (b, w))
-    parents[:, 1::4], actions[:, 1::4] = parents[:, 0::4], actions[:, 0::4]  # shared edges
+    shared = len(range(1, w, 4))  # shared edges: member 4i + 1 repeats member 4i
+    parents[:, 1::4], actions[:, 1::4] = parents[:, 0::4][:, :shared], actions[:, 0::4][:, :shared]
     new_child = np.where(pick.random((b, w)) < 0.5, pick.integers(1, n, (b, w)), -1)
     rewards = pick.standard_normal((b, w), dtype=np.float32)
     active = pick.random((b, w, d)) < 0.7
@@ -139,6 +167,17 @@ def backup_case(name: str, b: int, n: int, a: int, seed: int = 0, w: int = 32, d
         active = pick.random((b, w, d)) < 0.5
         keep = active | (pick.random((b, w, d)) < 0.5)
         node, action = np.where(keep, node, -1), np.where(keep, action, -1)
+    elif name == "gumbel_roots":
+        # Member j's depth-0 action is forced to candidate j % 4; paths of
+        # 1..D levels; a member whose path ends at the root inserts under
+        # it, on its candidate's edge.
+        roots = pick.choice(a, min(4, a), replace=False)[np.arange(w) % min(4, a)]
+        length = pick.integers(1, d + 1, (b, w))
+        active = np.arange(d)[None, None, :] < length[:, :, None]
+        node[:, :, 0], action[:, :, 0] = 0, roots[None, :]
+        at_root = length == 1
+        parents = np.where(at_root, 0, parents)
+        actions = np.where(at_root, roots[None, :], actions)
     if name != "negative_zero":
         node, action = np.where(active, node, -1), np.where(active, action, -1)
     index = np.int32 if name == "int32" else np.int64

@@ -1,6 +1,6 @@
 """Batched self-play: counterpart of `alphatriangle_tpu/rl/self_play.py`
-(`RolloutCarry`, `SelfPlayEngine`), the PUCT branch with and without
-subtree reuse.
+(`RolloutCarry`, `SelfPlayEngine`): PUCT or Gumbel root search, with
+playout-cap randomization or subtree reuse.
 
 One engine steps B games in lockstep on one device. A rollout chunk is
 `num_moves` moves of: features of every game, one batched
@@ -16,8 +16,17 @@ small per-move `trace`; the chunk stacks them over its moves.
 The key schedule is the JAX engine's: `split(carry.rng, 5)` per move
 into (rng, search, select, reset, mode) keys, all single keys on the
 CPU, so the search and the draws replay the JAX package's streams.
-Gumbel root search and playout-cap randomization are refused (the
-port's search refuses the first). With `MCTSConfig.tree_reuse` the
+
+Under `root_selection="gumbel"` the search is `GumbelMCTS`: the move
+plays its `selected_action` and its policy target is the completed-Q
+`improved_policy`. Playout-cap randomization (`fast_simulations`,
+KataGo arXiv:1902.10565 §3.1) draws once per move, on the host from the
+mode key, whether all lanes run the full search (probability
+`full_search_prob`) or a second engine of `fast_simulations` with no
+root noise (Gumbel: `exploit=True`; PUCT: temperature 0). A fast move's
+rows carry policy weight 0 and, unless `pcr_record_fast_rows`, never
+mature or flush into the ring. The trace's `sims` and `is_full` record
+each move's choice. With `MCTSConfig.tree_reuse` the
 carry holds a `CarriedTree`: each move searches from it and promotes
 the played action's subtree for the next move (games that end start
 fresh), and the trace's `reused` counts the root visits inherited. The
@@ -48,6 +57,7 @@ from ..config.train_config import TrainConfig
 from ..env.engine import EnvState, TriangleEnv
 from ..features.core import FeatureExtractor
 from ..mcts.helpers import policy_target_from_visits, select_action_from_visits
+from ..mcts.gumbel import GumbelMCTS
 from ..mcts.search import BatchedMCTS, CarriedTree
 from ..nn.network import LiveWeights
 from ..utils.transfer import fetch, receive
@@ -96,13 +106,28 @@ class SelfPlayEngine:
         batch_size: "int | None" = None,
         seed: int = 0,
     ):
-        if mcts_config.fast_simulations is not None:
-            raise ValueError("playout cap randomization (fast_simulations) is not ported yet")
         self.env = env
         self.device = env.device
         self.extractor = extractor
         self.net = net
-        self.mcts = BatchedMCTS(env, extractor, net.model, mcts_config, net.support)
+        self.use_gumbel = mcts_config.root_selection == "gumbel"
+        search_cls = GumbelMCTS if self.use_gumbel else BatchedMCTS
+        self.mcts = search_cls(env, extractor, net.model, mcts_config, net.support)
+        # Playout cap randomization: a second, cheap search for the moves
+        # that train no policy, with no root noise.
+        self.mcts_fast: "BatchedMCTS | None" = None
+        if mcts_config.fast_simulations is not None:
+            fast_cfg = mcts_config.model_copy(
+                update={
+                    "max_simulations": mcts_config.fast_simulations,
+                    "fast_simulations": None,
+                    "dirichlet_epsilon": 0.0,
+                }
+            )
+            fast_kw = {"exploit": True} if self.use_gumbel else {}
+            self.mcts_fast = search_cls(env, extractor, net.model, fast_cfg, net.support, **fast_kw)
+        # Fast moves' rows are dropped unless pcr_record_fast_rows.
+        self._drop_fast_rows = self.mcts_fast is not None and not mcts_config.pcr_record_fast_rows
         self.config = train_config
         self.mcts_config = mcts_config
         self.batch_size = batch_size or train_config.SELF_PLAY_BATCH_SIZE
@@ -171,35 +196,56 @@ class SelfPlayEngine:
         w = carry.move_index % n
         states = carry.env
         keys = rng.split(carry.rng, 5)
-        new_rng, k_search, k_select, k_reset = keys[0], keys[1], keys[2], keys[3]
+        new_rng, k_search, k_select, k_reset, k_mode = keys[0], keys[1], keys[2], keys[3], keys[4]
+        cfg = self.mcts_config
 
-        # 1-2. Features for replay + the batched search.
+        # 1-2. Features for replay + the batched search: under playout
+        # cap randomization one host draw per move (not per game) picks
+        # the full or the fast search for every lane.
         grids, others = self.extractor.extract(states)
         final_tree = reused = None
+        is_full = True
         if carry.tree is not None:
             # Subtree reuse: lanes with an invalid carry search afresh.
             out, final_tree, reused = self.mcts._search_carried(states, k_search, carry.tree)
-        else:
+        elif self.mcts_fast is None:
             out = self.mcts.search(states, k_search)
-        valid = self.env.valid_action_mask(states)
-        policy = policy_target_from_visits(out.visit_counts, valid)
+        else:
+            is_full = rng.bernoulli(k_mode, cfg.full_search_prob)
+            out = (self.mcts if is_full else self.mcts_fast).search(states, k_search)
+        sims = cfg.max_simulations if is_full else cfg.fast_simulations
+        if self.use_gumbel:
+            policy = out.improved_policy
+        else:
+            policy = policy_target_from_visits(out.visit_counts, self.env.valid_action_mask(states))
+        pweight = 1.0 if is_full else 0.0
 
         # 3. Mature the slot added n moves ago, bootstrapped with this
-        # search's root value.
+        # search's root value; fast moves' slots are dropped.
+        mat_mask = carry.pend_active[:, w].clone()
+        if self._drop_fast_rows:
+            mat_mask &= carry.pend_pweight[:, w] > 0.5
         mat = {
             "grid": carry.pend_grid[:, w].clone(),
             "other": carry.pend_other[:, w].clone(),
             "policy": carry.pend_policy[:, w].clone(),
             "pw": carry.pend_pweight[:, w].clone(),
             "ret": carry.pend_return[:, w] + carry.pend_discount[:, w] * out.root_value,
-            "mask": carry.pend_active[:, w].clone(),
+            "mask": mat_mask,
         }
         pend_active = carry.pend_active
         pend_active[:, w] = False
 
-        # 4. Temperature-scheduled action draw, one batched env step.
-        temps = self._temperatures(states.step_count)
-        actions = select_action_from_visits(out.visit_counts, temps, k_select)
+        # 4. The action and one batched env step. PUCT: a temperature-
+        # scheduled draw from the visits (greedy on fast moves); Gumbel:
+        # the search's own selection.
+        if self.use_gumbel:
+            actions = out.selected_action
+        else:
+            temps = self._temperatures(states.step_count)
+            if not is_full:
+                temps = torch.zeros_like(temps)
+            actions = select_action_from_visits(out.visit_counts, temps, k_select)
         # -1 (no root visits) only happens for finished games, where the
         # step is a no-op; live-game sentinels are counted and reported.
         sentinel_live = ((actions < 0) & ~states.done).sum(dtype=torch.int32)
@@ -210,7 +256,7 @@ class SelfPlayEngine:
         carry.pend_grid[:, w] = grids
         carry.pend_other[:, w] = others
         carry.pend_policy[:, w] = policy
-        carry.pend_pweight[:, w] = 1.0
+        carry.pend_pweight[:, w] = pweight
         carry.pend_return[:, w] = 0.0
         carry.pend_discount[:, w] = 1.0
         pend_active[:, w] = True
@@ -225,13 +271,16 @@ class SelfPlayEngine:
         step_counts = new_states.step_count
         truncated = ~dones & (step_counts >= self.config.MAX_EPISODE_MOVES)
         ending = dones | truncated
+        flush_mask = pend_active & ending[:, None]
+        if self._drop_fast_rows:
+            flush_mask &= carry.pend_pweight > 0.5
         flush = {
             "grid": carry.pend_grid.clone(),
             "other": carry.pend_other.clone(),
             "policy": carry.pend_policy.clone(),
             "pw": carry.pend_pweight.clone(),
             "ret": pend_return.clone(),  # the next move writes its slot in place
-            "mask": pend_active & ending[:, None],
+            "mask": flush_mask,
         }
         pend_active = pend_active & ~ending[:, None]
         episode = {
@@ -279,6 +328,9 @@ class SelfPlayEngine:
                 # Root visits inherited from the carried subtree (0 without reuse).
                 "reused": reused if reused is not None else torch.zeros_like(out.root_value),
             },
+            # Host values: the simulations this move ran and whether it
+            # was a full (policy-training) search; `_chunk` stacks them.
+            "mode": (sims, is_full),
         }
         return new_carry, outputs
 
@@ -292,14 +344,17 @@ class SelfPlayEngine:
             w.model.eval()
             receive([*w.model.parameters(), *w.model.buffers()], w.ready)
         self.mcts.model = w.model
+        if self.mcts_fast is not None:
+            self.mcts_fast.model = w.model
         moves = []
         for _ in range(num_moves):
             carry, outputs = self._move_body(carry, w.version)
             moves.append(outputs)
+        modes = [m.pop("mode") for m in moves]
         stacked = _stack(moves)
-        sims = self.mcts_config.max_simulations
-        stacked["trace"]["sims"] = torch.full((num_moves,), sims, dtype=torch.int32, device=self.device)
-        stacked["trace"]["is_full"] = torch.ones((num_moves,), dtype=torch.bool, device=self.device)
+        dev = self.device
+        stacked["trace"]["sims"] = torch.tensor([m[0] for m in modes], dtype=torch.int32, device=dev)
+        stacked["trace"]["is_full"] = torch.tensor([m[1] for m in modes], dtype=torch.bool, device=dev)
         return carry, stacked
 
     # --- host API ---------------------------------------------------------

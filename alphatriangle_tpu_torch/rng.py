@@ -3,7 +3,7 @@
 Bit-exact with JAX's default threefry2x32 PRNG under
 `jax_threefry_partitionable=True` (the JAX 0.9 default; spec:
 `jax/_src/prng.py` and `jax/_src/random.py`) for `PRNGKey`, `split`,
-`fold_in`, `bits`, `randint` and `uniform`. The engine draws its hands
+`fold_in`, `bits`, `randint`, `uniform` and `bernoulli`. The engine draws its hands
 from these, so a game replays the JAX package's game move for move.
 
 Keys are `(..., 2)` int64 tensors holding uint32 values: PyTorch has no
@@ -144,6 +144,14 @@ def uniform(
     # which a float64 multiply-add reproduces for these 24-bit operands.
     out = (f.double() * float(hi - lo) + float(lo)).to(torch.float32)
     return torch.clamp(out, min=float(lo))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: tuple = (), device=None):
+    """`jax.random.bernoulli`: `uniform(key, shape) < float32(p)`. With
+    `shape=()` and a key on the CPU it is a Python bool, drawn on the
+    host (the playout cap's per-move full/fast choice)."""
+    draw = uniform(key, shape, device=device) < float(np.float32(p))
+    return bool(draw) if draw.dim() == 0 else draw
 
 
 def gumbel(key: torch.Tensor, shape: tuple, device=None) -> torch.Tensor:

@@ -16,6 +16,10 @@ session opens or closes, when its game ends, when it was not served
 (its promotion was for a move it never played) and on every weight
 reload (the carried statistics came from the old net).
 
+Each served action is the search's own choice (`mcts.root_actions`):
+the visit argmax, or a `GumbelMCTS`'s (usually `exploit=True`)
+`selected_action`.
+
 The bucket ladder, telemetry, the flight recorder, the compile cache,
 the trajectory emitter and the fault hooks wait for later slices.
 """
@@ -29,7 +33,6 @@ import torch
 from torch.profiler import record_function
 
 from .. import rng
-from ..mcts.helpers import root_actions
 from ..mcts.search import CarriedTree
 from .session import SessionSlots
 
@@ -177,11 +180,11 @@ class PolicyService:
                 carried = CarriedTree(tree=c.tree, valid=c.valid & ok, base=c.base)
                 out, tree, reused = self.mcts._search_carried(self.sessions.states, key, carried)
                 # The promotion follows the action the masked step plays.
-                actions = root_actions(out)
+                actions = self.mcts.root_actions(out)
                 self._carried = self.mcts.promote(tree, actions)
             else:
                 out = self.mcts.search(self.sessions.states, key)
-                actions = root_actions(out)
+                actions = self.mcts.root_actions(out)
             with record_function("serve.step"):
                 rewards, dones = self.sessions.step(actions, mask)
             # The one host fetch of the dispatch: every result array.

@@ -1,6 +1,5 @@
 """Component bundle: counterpart of `alphatriangle_tpu/training/components.py`,
-limited to what the single-device loops build: no stats collector,
-telemetry or mesh."""
+limited to what the single-device loops build: no telemetry or mesh."""
 
 from dataclasses import dataclass
 
@@ -18,6 +17,7 @@ from ..rl.buffer import ExperienceBuffer
 from ..rl.megastep import MegastepRunner
 from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
+from ..stats.collector import StatsCollector
 from ..stats.persistence import CheckpointManager
 
 
@@ -33,6 +33,7 @@ class TrainingComponents:
     self_play: SelfPlayEngine
     megastep: "MegastepRunner | None"  # megastep mode only
     checkpoints: CheckpointManager
+    stats: StatsCollector
 
     env_config: EnvConfig
     model_config: ModelConfig

@@ -49,9 +49,16 @@ calls) stops the loop at its next beat; after the forced save it writes
 `preempt_report.json` into the run directory and the status is
 `PREEMPTED`, whose exit code is `PREEMPT_EXIT_CODE`.
 
-Metrics stay in memory (`metrics`, `episode_scores`, `staleness`,
-`timings`); TensorBoard, telemetry and the stats collector wait for
-later slices.
+Metrics: every harvest and learner step sends the JAX loop's events,
+under its names and steps, to the run's `StatsCollector`
+(`components.stats`): `Buffer/Size`, `SelfPlay/*` (with
+`SelfPlay/Full_Search_Fraction` under playout-cap randomization),
+`Progress/*`, `Loss/*`, `LearningRate`, `PER/Beta` and the overlapped
+loop's `System/*` gauges. The collector ticks once per iteration (each
+warm-up chunk, megastep, synchronous or overlapped iteration) and once
+more at the end. The per-step metrics also stay in memory (`metrics`,
+which `report()` reads), as do `episode_scores`, `staleness` and
+`timings`. Telemetry waits for a later slice.
 """
 
 import contextlib
@@ -68,6 +75,7 @@ import numpy as np
 import torch
 
 from ..rl.self_play import SelfPlayEngine
+from ..stats.events import RawMetricEvent
 from ..utils.transfer import hand_off, receive
 from .components import TrainingComponents
 from .setup import clamp_self_play_workers
@@ -239,6 +247,11 @@ class TrainingLoop:
         self.total_reused_visits += result.total_reused_visits
         self.episode_scores.extend(result.episode_scores)
         self.episode_lengths.extend(result.episode_lengths)
+        step = self.global_step
+        events = [
+            RawMetricEvent("Buffer/Size", len(c.buffer), step),
+            RawMetricEvent("SelfPlay/Experiences_Per_Chunk", added, step),
+        ]
         if result.num_episodes:
             clock = self._version_clock()
             self.staleness.append(
@@ -246,10 +259,37 @@ class TrainingLoop:
                 if result.episode_start_versions
                 else clock - result.trainer_step_at_episode_start
             )
+            events += [
+                RawMetricEvent("SelfPlay/Episode_Score", float(np.mean(result.episode_scores)), step),
+                RawMetricEvent("SelfPlay/Episode_Length", float(np.mean(result.episode_lengths)), step),
+                RawMetricEvent("Progress/Episodes_Played", self.episodes_played, step),
+                RawMetricEvent(
+                    "SelfPlay/Truncated_Fraction", result.num_truncated / result.num_episodes, step
+                ),
+                RawMetricEvent("SelfPlay/Staleness_Steps", self.staleness[-1], step),
+            ]
         if trace is None:
             trace = c.self_play.last_trace
         if trace is not None:
             self.lane_moves += int(np.asarray(trace["root_value"]).size)
+            events += [
+                # Per move, over the simulations that move ran.
+                RawMetricEvent(
+                    "SelfPlay/Wasted_Slot_Fraction",
+                    float(np.mean(trace["wasted_slots"] / np.maximum(trace["sims"][:, None], 1))),
+                    step,
+                ),
+                RawMetricEvent("SelfPlay/Step_Reward", float(np.mean(trace["reward"])), step),
+                RawMetricEvent("SelfPlay/Root_Value", float(np.mean(trace["root_value"])), step),
+            ]
+            if c.self_play.mcts_fast is not None:
+                # The achieved full-search rate (target: full_search_prob).
+                events.append(
+                    RawMetricEvent(
+                        "SelfPlay/Full_Search_Fraction", float(np.mean(trace["is_full"])), step
+                    )
+                )
+        c.stats.log_batch_events(events)
         if stream is not None:
             self.harvests_by_stream[stream] = self.harvests_by_stream.get(stream, 0) + 1
         self.experiences_added += added
@@ -266,14 +306,27 @@ class TrainingLoop:
     def _record_step(self, metrics: dict, td_errors, indices, step: int) -> None:
         """Per-learner-step bookkeeping: host priority update (None in
         megastep mode, whose runner reconciled the PER mirror), counters
-        and the step's metrics."""
+        and the step's metrics and events. `step` is the step this result
+        belongs to: within a group the learner's counter is already at
+        the group's end, so each event carries its own x-value."""
+        c = self.c
         if indices is not None:
-            self.c.buffer.update_priorities(indices, td_errors)
+            c.buffer.update_priorities(indices, td_errors)
         self.global_step = step
         self._steps_this_run += 1
         record = dict(metrics, step=step)
+        events = [
+            RawMetricEvent(f"Loss/{key}", val, step) for key, val in metrics.items() if key.endswith("loss")
+        ]
+        events += [
+            RawMetricEvent("LearningRate", metrics["learning_rate"], step),
+            RawMetricEvent("Loss/Entropy", metrics["entropy"], step),
+            RawMetricEvent("Loss/Grad_Norm", metrics["grad_norm"], step),
+        ]
         if self.cfg.USE_PER:
-            record["per_beta"] = self.c.buffer.beta(step)
+            record["per_beta"] = c.buffer.beta(step)
+            events.append(RawMetricEvent("PER/Beta", record["per_beta"], step))
+        c.stats.log_batch_events(events)
         self.metrics.append(record)
 
     def _crossed(self, step: int, freq: int, last: "int | None") -> bool:
@@ -331,6 +384,9 @@ class TrainingLoop:
         if self._crossed(self.global_step, self.cfg.WORKER_UPDATE_FREQ_STEPS, prev_step):
             self.c.trainer.sync_to_network()
             self.weight_updates += 1
+            self.c.stats.log_scalar(
+                "Progress/Weight_Updates_Total", self.weight_updates, self.global_step
+            )
 
     def _learner_budget(self, allowed: int) -> int:
         """Steps the learner may still dispatch: `allowed` capped by
@@ -430,6 +486,7 @@ class TrainingLoop:
             self.stop_event.set()
             try:
                 self._maybe_checkpoint(force=True)
+                self.c.stats.force_process_and_log(self.global_step)
             except Exception as exc:
                 logger.exception("Final save failed.")
                 self.error = self.error or exc
@@ -463,6 +520,7 @@ class TrainingLoop:
             self.timings["rollout_s"].append(t1 - t0)
             self.timings["learner_s"].append(t2 - t1)
             self.timings["iteration_s"].append(t2 - t0)
+            self.c.stats.process_and_log(self.global_step)
 
     # --- fused megastep ---------------------------------------------------
 
@@ -479,6 +537,7 @@ class TrainingLoop:
             self._process_rollout()
             self.timings["warmup_chunk_s"].append(time.perf_counter() - t0)
             self.warmup_chunks += 1
+            self.c.stats.process_and_log(self.global_step)
         # Device priorities pick up everything the warm-up, and a restore
         # before it, wrote into the host mirror: the first megastep's PER
         # draw reads the restored priorities.
@@ -500,6 +559,7 @@ class TrainingLoop:
             for i, (metrics, td_errors) in enumerate(outs):
                 self._record_step(metrics, td_errors, None, prev_step + i + 1)
             self._maybe_checkpoint()
+            self.c.stats.process_and_log(self.global_step)
 
     # --- overlapped producer/consumer -----------------------------------
 
@@ -615,6 +675,9 @@ class TrainingLoop:
                 rec["engine"] = self._fresh_stream_engine(stream, rec["restarts"])
                 rec["thread"] = self._spawn_producer_thread(rec["engine"], harvests, stream)
                 self.producer_restarts += 1
+                self.c.stats.log_scalar(
+                    "System/Producer_Restarts", self.producer_restarts, self.global_step
+                )
 
     def _learner_steps_allowed(self) -> int:
         """Replay-ratio gate: steps the learner may take now, REPLAY_RATIO
@@ -750,8 +813,17 @@ class TrainingLoop:
                     # Gate open but no batch yet: do not spin.
                     time.sleep(0.05)
                 self.queue_depths.append(harvests.qsize())
+                stats = self.c.stats
+                stats.log_scalar("System/Rollout_Queue_Depth", self.queue_depths[-1], self.global_step)
+                if self.experiences_added:
+                    stats.log_scalar(
+                        "System/Replay_Ratio_Actual",
+                        self._steps_this_run * cfg.BATCH_SIZE / self.experiences_added,
+                        self.global_step,
+                    )
                 self.iterations += 1
                 self.timings["iteration_s"].append(time.perf_counter() - t0)
+                stats.process_and_log(self.global_step)
         finally:
             self.stop_event.set()
             # Land the groups still in flight so their steps are recorded.
@@ -849,4 +921,9 @@ class TrainingLoop:
             },
             # Host seconds of each save, spill and restore; bytes of each spill.
             "checkpoints": {k: list(v) for k, v in ckpt.items()},
+            # The stats collector's writers and live file.
+            "stats_writers": self.c.stats.writers,
+            "live_metrics": (
+                None if self.c.stats.live_path is None else str(self.c.stats.live_path)
+            ),
         }

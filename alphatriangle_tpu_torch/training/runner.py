@@ -10,7 +10,8 @@ counters and the replay ring (`LOAD_CHECKPOINT_PATH`, else the run's
 newest valid checkpoint and the spill at or before it; then
 `LOAD_BUFFER_PATH`), installs a SIGTERM handler that preempts the loop
 (main thread only), and runs the loop, which saves on its cadences and
-once more at the end. Returns the finished `TrainingLoop` (its
+once more at the end. The stats collector is closed on every way out
+(its last events flushed). Returns the finished `TrainingLoop` (its
 `status`, `metrics` and `report()`); `EXIT_CODES` maps the status to a
 process exit code, 114 for a preemption. A config the port cannot run
 raises ValueError from setup, before anything is built. A restore that
@@ -115,10 +116,12 @@ def run_training(
     mcts_config: "MCTSConfig | None" = None,
     persistence_config: "PersistenceConfig | None" = None,
     device=None,
+    use_tensorboard: bool = False,
 ) -> TrainingLoop:
     """Run (or resume) a training session on `device` (CUDA unless
     named), in the run directory `persistence_config` names (default:
-    `TrainConfig.RUN_NAME` under `./.alphatriangle_data`)."""
+    `TrainConfig.RUN_NAME` under `./.alphatriangle_data`);
+    `use_tensorboard` as in `setup_training_components`."""
     train_config = train_config or TrainConfig()
     persistence_config = persistence_config or PersistenceConfig(RUN_NAME=train_config.RUN_NAME)
     train_config, persistence_config = _resolve_auto_resume(train_config, persistence_config)
@@ -129,24 +132,28 @@ def run_training(
         mcts_config=mcts_config,
         persistence_config=persistence_config,
         device=device,
+        use_tensorboard=use_tensorboard,
     )
     loop = TrainingLoop(components)
-    t0 = time.perf_counter()
     try:
-        _restore(loop)
-    except Exception as exc:
-        logger.exception(
-            "State restore failed for run '%s'; aborting rather than writing a fresh model "
-            "into its run directory.",
-            persistence_config.RUN_NAME,
-        )
-        loop.error, loop.status = exc, LoopStatus.ERROR
-        return loop
-    loop.restore_s = time.perf_counter() - t0
-    undo = _install_preempt_handler(loop)
-    try:
-        status = loop.run()
+        t0 = time.perf_counter()
+        try:
+            _restore(loop)
+        except Exception as exc:
+            logger.exception(
+                "State restore failed for run '%s'; aborting rather than writing a fresh model "
+                "into its run directory.",
+                persistence_config.RUN_NAME,
+            )
+            loop.error, loop.status = exc, LoopStatus.ERROR
+            return loop
+        loop.restore_s = time.perf_counter() - t0
+        undo = _install_preempt_handler(loop)
+        try:
+            status = loop.run()
+        finally:
+            undo()
     finally:
-        undo()
+        components.stats.close()
     logger.info("Training finished: %s", status.value)
     return loop

@@ -4,12 +4,14 @@
 
 The port builds the env, the feature extractor, the net (on the given
 device, CUDA unless the caller names another), the learner, the replay
-ring, the rollout engine, in megastep mode the megastep runner, and the
+ring, the rollout engine, in megastep mode the megastep runner, the
 run's `CheckpointManager`, which makes the run directory and writes its
-`configs.json`. The device is resolved before anything touches the
-disk, so a CUDA request without a card makes no directory. The learner
-shares the net's module only in megastep mode (rl/trainer.py). The stats
-collector, TensorBoard, telemetry and meshes wait for later slices.
+`configs.json`, and the `StatsCollector` (`live_metrics.jsonl`, and
+TensorBoard with `use_tensorboard` where it imports), which records the
+configs. The device is resolved before anything touches the disk, so a
+CUDA request without a card makes no directory. The learner shares the
+net's module only in megastep mode (rl/trainer.py). Telemetry and meshes
+wait for later slices.
 """
 
 import logging
@@ -32,6 +34,7 @@ from ..rl.device_buffer import DeviceReplayBuffer
 from ..rl.megastep import MegastepRunner
 from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
+from ..stats.collector import StatsCollector
 from ..stats.persistence import CheckpointManager
 from .components import TrainingComponents
 
@@ -96,10 +99,13 @@ def setup_training_components(
     mcts_config: "MCTSConfig | None" = None,
     persistence_config: "PersistenceConfig | None" = None,
     device=None,
+    use_tensorboard: bool = False,
 ) -> TrainingComponents:
     """Validate configs and build every training component on `device`;
     the run directory is `persistence_config`'s (default: run
-    `RUN_NAME` under `./.alphatriangle_data`)."""
+    `RUN_NAME` under `./.alphatriangle_data`). `use_tensorboard` adds
+    the TensorBoard writer to the stats collector (`cli train` asks
+    for it unless --no-tensorboard)."""
     train_config = train_config or TrainConfig()
     env_config = env_config or EnvConfig()
     model_config = model_config or ModelConfig(
@@ -137,15 +143,16 @@ def setup_training_components(
         )
     persistence_config = persistence_config or PersistenceConfig(RUN_NAME=train_config.RUN_NAME)
     checkpoints = CheckpointManager(persistence_config, device=device)
-    checkpoints.save_configs(
-        {
-            "env": env_config,
-            "model": model_config,
-            "train": train_config,
-            "mcts": mcts_config,
-            "persistence": persistence_config,
-        }
-    )
+    all_configs = {
+        "env": env_config,
+        "model": model_config,
+        "train": train_config,
+        "mcts": mcts_config,
+        "persistence": persistence_config,
+    }
+    checkpoints.save_configs(all_configs)
+    stats = StatsCollector(persistence_config, use_tensorboard=use_tensorboard)
+    stats.log_params(all_configs)
     return TrainingComponents(
         env=env,
         extractor=extractor,
@@ -155,6 +162,7 @@ def setup_training_components(
         self_play=self_play,
         megastep=megastep,
         checkpoints=checkpoints,
+        stats=stats,
         env_config=env_config,
         model_config=model_config,
         train_config=train_config,

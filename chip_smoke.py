@@ -118,6 +118,40 @@ phase's depth cuts:
   side equal to the same baseline played on the CPU, 16 + 2 search
   launches per dispatch.
 
+Then the paths of the Gumbel root search, playout-cap randomization and
+the presets, each at its preset's full width and cut in depth only:
+
+- kernels at the new search shapes (`kernel_cases.SEARCH_SHAPES`: fast
+  searches N=17/W=16, presets 2 and 4 N=201/401 W=25, preset 5 B=1024
+  A=756): the gather and the backup (the Gumbel wave family and the
+  random one) bit-equal to their plain versions, each timed against its
+  bytes bound; after train-preset3, the backup on the recorded operands
+  of its first full (Gumbel) and first fast wave, bit-equal.
+- train-preset3: `cli train --preset 3` (512 lanes, Gumbel roots of 64
+  simulations, fast searches of 16 at p = 0.25, the 4-layer
+  transformer, batch 256, the 250,000-slot ring) in its synchronous loop
+  to 4 learner steps, timed with no synchronisation added: 16 + 2
+  launches per full move and 8 + 1 per fast one over the run, the
+  Full_Search_Fraction ticks matching the moves, a live_metrics.jsonl
+  line per tick. Then chunks of the same engine with every move timed
+  between synchronisations (the full and fast move times, each move's
+  launches) and one iteration profiled. train-preset3-megastep: the
+  same with --fused-megastep (K = 2), one megastep profiled.
+  train-preset3-async: the same with --async-rollouts (the preset's one
+  producer stream), no restart, the replay ratio within its gate.
+- eval-gumbel: `cli eval --gumbel` of the preempted run's checkpoint
+  (the eval phase's checks). serve-gumbel: the serve default through
+  `GumbelMCTS(exploit=True)`, every served action the search's
+  selection, 16 + 2 launches per dispatch, one dispatch profiled.
+- train-preset2/4/5: `cli train --preset N` in the synchronous loop
+  until one learner step: 8 gathers and a backup per wave (8, 16 and 2
+  waves a move); the iteration time and the peak memory.
+- attention memory: preset 5's leaf evaluation (1024 x 32 leaves of 252
+  tokens) in attention slices and, as before this slice, whole (an
+  out-of-memory error there is the measurement).
+- references: a Gumbel search (explore and exploit) and four moves of a
+  playout-cap Gumbel chunk on the card equal to the CPU's.
+
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
 
@@ -656,26 +690,35 @@ def kernel_phase(torch, dev, rate: float) -> dict:
     return report
 
 
-def serve_phase(torch, dev, kernels, reuse: bool = False, record: list | None = None):
-    """The full-width serve default, with or without subtree reuse,
-    through `run_simulated_load` with counted launches; then one more
-    dispatch under the profiler. With `record`, the first dispatch's
-    backup operands are appended to it (copied to the host, so that dispatch's
+def serve_phase(
+    torch, dev, kernels, reuse: bool = False, record: list | None = None, gumbel: bool = False
+):
+    """The full-width serve default, with or without subtree reuse, or
+    with `gumbel` as `cli serve --gumbel` runs it (a Gumbel root search
+    in exploit mode, its selected actions served), through
+    `run_simulated_load` with counted launches; then one more dispatch
+    under the profiler. With `record`, the first dispatch's backup
+    operands are appended to it (copied to the host, so that dispatch's
     time includes the copies)."""
     from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
     from alphatriangle_tpu_torch.env import TriangleEnv
     from alphatriangle_tpu_torch.features import FeatureExtractor
-    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS, GumbelMCTS
     from alphatriangle_tpu_torch.nn import NeuralNetwork
     from alphatriangle_tpu_torch.serving import PolicyService, run_simulated_load
 
     slots, sims = 64, 64
     env_cfg, model_cfg = EnvConfig(), ModelConfig()
-    mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=sims, tree_reuse=reuse)
+    mcts_cfg = AlphaTriangleMCTSConfig(
+        max_simulations=sims, tree_reuse=reuse, root_selection="gumbel" if gumbel else "puct"
+    )
     env = TriangleEnv(env_cfg, device=dev)
     extractor = FeatureExtractor(env, model_cfg)
     net = NeuralNetwork(model_cfg, env_cfg, seed=0, device=dev)
-    mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+    if gumbel:
+        mcts = GumbelMCTS(env, extractor, net.model, mcts_cfg, net.support, exploit=True)
+    else:
+        mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
     if (mcts.wave_size, mcts.num_waves, mcts_cfg.max_depth) != (32, 2, 8):
         fail(f"unexpected search shape W={mcts.wave_size} waves={mcts.num_waves}")
     if mcts.num_nodes != (PROMOTE_N if reuse else sims + 1):
@@ -698,6 +741,10 @@ def serve_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
                 fail(f"served action {r['action']} is not valid for lane {r['slot']}")
         out = service.last_output
         live = ~done.to(dev)
+        if gumbel:
+            picked = out.selected_action.clamp(min=0).cpu()
+            if any(r["action"] != int(picked[r["slot"]]) for r in results):
+                fail("a served action is not the Gumbel search's selection")
         for name in ("visit_counts", "root_value", "root_prior"):
             if not bool(torch.isfinite(getattr(out, name)).all()):
                 fail(f"search output {name} is not finite")
@@ -1109,8 +1156,6 @@ def train_sync_phase(torch, dev, kernels, host_ring: bool = False) -> dict:
     the device ring ("auto" on the card), or with `host_ring` the host
     ring and uploaded batches. Cut in depth only. With the device ring,
     one more iteration runs under the profiler."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from alphatriangle_tpu_torch.training import LoopStatus, run_training
 
     label = "train-sync-host" if host_ring else "train-sync"
@@ -1198,29 +1243,37 @@ def train_sync_phase(torch, dev, kernels, host_ring: bool = False) -> dict:
     if host_ring:
         return out
 
-    # One more iteration under the profiler, outside the counted run: a
-    # chunk, its fold, and the learner steps of the run's fullest
-    # iterations one by one (the busy share divides by their p50).
-    b, n = cfg.BATCH_SIZE, out["steps_full"]
+    out["profile"] = profile_sync_iteration(torch, loop, out["steps_full"], out["iteration_ms_p50_full"])
+    return out
+
+
+def profile_sync_iteration(torch, loop, steps: int, ref_ms: float) -> dict:
+    """One more synchronous iteration on the device ring under the
+    profiler, outside the counted run: a chunk, its fold, and `steps`
+    learner steps one by one (the run's fullest iterations' count; the
+    busy share divides by their p50, `ref_ms`)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    c, buf, trainer = loop.c, loop.c.buffer, loop.c.trainer
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with record_function("selfplay.chunk"):
-            result, payload = c.self_play.play_moves_device(TRAIN_CHUNK_MOVES)
+            result, payload = c.self_play.play_moves_device(loop.cfg.ROLLOUT_CHUNK_MOVES)
         with record_function("ring.ingest"):
             loop._fold_result(result, payload=payload)
-        for _ in range(n):
+        for _ in range(steps):
             with record_function("per.sample"):
-                s = buf.sample(b, current_train_step=trainer.global_step)
+                s = buf.sample(loop.cfg.BATCH_SIZE, current_train_step=trainer.global_step)
             with record_function("learner.steps"):
                 ((_, td),) = trainer.train_steps_from(buf, [s])
             with record_function("per.update"):
                 buf.update_priorities(s["indices"], td)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    out["profile"] = read_profile(prof, TRAIN_STAGES, prof_wall_ms, out["iteration_ms_p50_full"])
-    out["profile"]["learner_steps"] = n
-    return out
+    report = read_profile(prof, TRAIN_STAGES, prof_wall_ms, ref_ms)
+    report["learner_steps"] = steps
+    return report
 
 
 def train_async_phase(torch, dev, kernels) -> dict:
@@ -1422,6 +1475,7 @@ def reference_sync_phase(torch, dev) -> dict:
                 "syncs": loop.weight_updates,
                 "losses": np.array([[m["total_loss"], m["value_loss"]] for m in loop.metrics]),
             }
+            c.stats.close()  # its last events, while the run directory exists
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     cpu, card = sides["cpu"], sides[str(dev)]
@@ -1993,27 +2047,28 @@ def ring_round_trip_phase(torch, dev, src) -> dict:
     }
 
 
-def eval_phase(torch) -> dict:
+def eval_phase(torch, gumbel: bool = False) -> dict:
     """`cli eval` on the card against the preempt-resume run's checkpoint:
     64 paired games through `PolicyService` (64 slots x 64 simulations),
-    cut at 32 moves. The report carries the JAX report's keys and names the
-    restored step; its random side equals the same baseline played on the
-    CPU; the search kernels launch 16 + 2 times per dispatch."""
+    cut at 32 moves; with `gumbel`, `cli eval --gumbel` (the Gumbel search
+    in exploit mode). The report carries the JAX report's keys and names
+    the restored step; its random side equals the same baseline played on
+    the CPU; the search kernels launch 16 + 2 times per dispatch."""
     import numpy as np
 
     from alphatriangle_tpu_torch.arena import play, random_policy
     from alphatriangle_tpu_torch.config import EnvConfig
     from alphatriangle_tpu_torch.env import TriangleEnv
 
-    label = "eval"
+    label = "eval-gumbel" if gumbel else "eval"
     rc, report = run_cli(
         ["eval", "--run-name", "ckpt", "--root-dir", str(RUN_ROOT / "preempt-resume"), "--games",
          str(EVAL_GAMES), "--sims", str(EVAL_SIMS), "--max-moves", str(EVAL_MAX_MOVES), "--device",
-         "cuda"],
+         "cuda"] + (["--gumbel"] if gumbel else []),
         label, 600,
     )
-    if rc != 0:
-        fail(f"{label}: exit {rc}")
+    if rc != 0 or report.get("gumbel") is not gumbel:
+        fail(f"{label}: exit {rc}, gumbel {report.get('gumbel')}")
     missing = [k for k in EVAL_KEYS if k not in report]
     if missing:
         fail(f"{label}: report lacks {missing}")
@@ -2040,6 +2095,567 @@ def eval_phase(torch) -> dict:
         "mcts_wall_s": report["mcts_wall_s"],
         "report": {k: report[k] for k in EVAL_KEYS},
     }
+
+
+# --- slice 7: Gumbel root search, playout caps, the presets --------------
+
+# Preset 3's cuts in both loops (depth only): 2-move chunks, 256 rows to
+# start training, 4 learner steps in groups of 2.
+P3_STEPS, P3_K = 4, 2
+# Presets 2, 4 and 5 (the synchronous loop at each preset's widths): the
+# moves of the one chunk that gives the ring a batch (rows mature after
+# the 5-step window), and one learner step.
+PRESET_CHUNKS = {2: 8, 4: 6, 5: 6}
+
+
+def search_waves(sims: int, wave: int = 32) -> int:
+    """Waves of a search of `sims` simulations: W is the largest divisor
+    of `sims` at most `wave`."""
+    w = min(wave, sims)
+    while sims % w:
+        w -= 1
+    return sims // w
+
+
+def record_waves_by_width(store: dict, names: dict):
+    """Record the first backup of each wave width W in `names` (W ->
+    label) into `store[label]` (operands copied to the host); returns the
+    function that restores the search's backup."""
+    from alphatriangle_tpu_torch.mcts import search as search_mod
+
+    real = search_mod.backup_update
+
+    def recorded(*args, **kwargs):
+        label = names.get(int(args[4].shape[1]))
+        if label is not None and not store.get(label):
+            store[label] = [[x.cpu() for x in args]]
+        return real(*args, **kwargs)
+
+    search_mod.backup_update = recorded
+    return lambda: setattr(search_mod, "backup_update", real)
+
+
+def search_shape_phase(torch, dev, rate: float, cycles: float) -> dict:
+    """The gather and the backup at the search shapes of the paths this
+    slice adds (`kernel_cases.SEARCH_SHAPES`: fast searches, presets 2, 4
+    and 5): bit-equal to their plain versions (the backup on the Gumbel
+    wave family and the random one), then each kernel's time against the
+    least time its bytes need."""
+    import importlib
+
+    from alphatriangle_tpu_torch.ops.kernel_cases import SEARCH_SHAPES, backup_case, gather_case
+
+    g = importlib.import_module("alphatriangle_tpu_torch.ops.gather_rows")
+    mb = importlib.import_module("alphatriangle_tpu_torch.ops.mcts_backup")
+    report = {"gather_rows": {}, "backup_update": {}}
+    for name, (b, n, a, w, d) in SEARCH_SHAPES.items():
+        k = 6 * a
+        stats, idx = (torch.from_numpy(x).to(dev) for x in gather_case(b, n, k, w, seed=n))
+        got = g.gather_rows_cuda(stats, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, g.gather_rows_plain(stats, idx)):
+            fail(f"gather_rows kernel differs from its plain version at the {name} shape")
+        rows = torch.unique(torch.arange(b, device=dev)[:, None] * n + idx).numel()
+        gbytes = rows * k * 4 + b * w * k * 4 + b * w * 8
+        report["gather_rows"][name] = {
+            "shape": {"B": b, "N": n, "K": k, "W": w},
+            "ms": time_ms(lambda: g.gather_rows_cuda(stats, idx), cycles),
+            "bound_ms": gbytes / rate * 1e3,
+            "bound_by": "bytes",
+        }
+        del stats, idx, got
+        for case in ("gumbel_roots", "random"):
+            planes, updates = backup_case(case, b=b, n=n, a=a, seed=n, w=w, d=d)
+            planes = [torch.from_numpy(x).to(dev) for x in planes]
+            updates = [torch.from_numpy(x).to(dev) for x in updates]
+            want = mb.backup_update_plain(*[p.clone() for p in planes], *updates)
+            got = mb.backup_update_cuda(*[p.clone() for p in planes], *updates)
+            torch.cuda.synchronize()
+            for plane, x, y in zip(PLANES, got, want):
+                if not bits_equal(torch, x, y):
+                    fail(f"backup_update kernel differs from plain on {plane} ({case}, {name})")
+            if case != "gumbel_roots":
+                continue
+            parents, actions, _, _, rec_node, rec_action, rec_active, _ = updates
+            bcol = torch.arange(b, device=dev)[:, None]
+            ins = torch.unique(bcol * n * a + parents * a + actions).numel()
+            bk = torch.unique(
+                bcol[..., None] * n * a + rec_node.clamp(min=0) * a + rec_action.clamp(min=0)
+            ).numel()
+            bbytes = ins * 12 + bk * 16 + b * w * (8 + 8 + 4 + 4) + b * w * d * (8 + 8 + 1 + 4)
+            report["backup_update"][name] = {
+                "shape": {"B": b, "N": n, "A": a, "W": w, "D": d, "W*D": w * d},
+                "family": case,
+                "ms": time_ms(lambda: mb.backup_update_cuda(*planes, *updates), cycles),
+                "bound_ms": bbytes / rate * 1e3,
+                "bound_by": "bytes",
+            }
+        del planes, updates, want, got
+        torch.cuda.empty_cache()
+    return report
+
+
+def watched_moves(torch, kernels):
+    """Time every move between synchronisations, with its kernel launches
+    and its full/fast choice (a list of dicts, filled as moves run);
+    returns (moves, restore)."""
+    from alphatriangle_tpu_torch.rl.self_play import SelfPlayEngine
+
+    moves, real_body = [], SelfPlayEngine._move_body
+
+    def body(self, carry, version):
+        torch.cuda.synchronize()
+        before = {name: kern.launches for name, kern in kernels.items()}
+        t0 = time.perf_counter()
+        new_carry, out = real_body(self, carry, version)
+        torch.cuda.synchronize()
+        sims, is_full = out["mode"]
+        moves.append({
+            "ms": (time.perf_counter() - t0) * 1e3, "sims": sims, "is_full": is_full,
+            "launches": {name: kern.launches - before[name] for name, kern in kernels.items()},
+        })
+        return new_carry, out
+
+    SelfPlayEngine._move_body = body
+    return moves, lambda: setattr(SelfPlayEngine, "_move_body", real_body)
+
+
+def train_cli(torch, kernels, label: str, args: list) -> dict:
+    """`cli train <args>` in this process, as `python -m ... cli train`
+    runs it (its JSON report read from its standard output), in a run
+    directory of its own, with counted launches and the peak device
+    memory. The `TrainingLoop` it ran is kept (through the training
+    package's `run_training`, which the command looks up when it runs),
+    and every move played is noted, full or fast, without a
+    synchronisation (`played`: the moves of chunks a stopping producer
+    never hands over too)."""
+    import contextlib
+    import io
+
+    from alphatriangle_tpu_torch import cli, training
+    from alphatriangle_tpu_torch.rl.self_play import SelfPlayEngine
+
+    loops, played = [], []
+    real_run, real_body = training.run_training, SelfPlayEngine._move_body
+
+    def run_training(*a, **kw):
+        loops.append(real_run(*a, **kw))
+        return loops[-1]
+
+    def body(self, carry, version):
+        new_carry, out = real_body(self, carry, version)
+        played.append(bool(out["mode"][1]))
+        return new_carry, out
+
+    training.run_training = run_training
+    SelfPlayEngine._move_body = body
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([
+                "train", "--device", "cuda", "--root-dir", str(RUN_ROOT / label), "--run-name",
+                label, "--no-auto-resume", *args,
+            ])
+        torch.cuda.synchronize()
+    finally:
+        training.run_training = real_run
+        SelfPlayEngine._move_body = real_body
+    wall_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or report["status"] != "completed" or len(loops) != 1:
+        fail(f"{label}: exit {rc}, status {report['status']}, error {report['error']}")
+    check_report_losses(report, label)
+    return {
+        "report": report, "loop": loops[0], "launches": launches, "played": played,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall_s,
+    }
+
+
+def check_search_launches(launches: dict, full: int, fast: int, waves: tuple, label: str) -> None:
+    """8 gathers (one per descent level) and one backup per wave, for
+    `full` moves of `waves[0]` waves and `fast` moves of `waves[1]`."""
+    n = full * waves[0] + fast * waves[1]
+    for name, want in (("gather_rows", 8 * n), ("backup_update", n), ("subtree_promote", 0)):
+        if launches[name] != want:
+            fail(f"{label}: {launches[name]} {name} launches for {full} full and {fast} fast "
+                 f"moves, want {want}")
+
+
+def train_preset3_phase(torch, dev, kernels, mode: str, record: "dict | None" = None) -> dict:
+    """`cli train --preset 3` at full width (512 lanes, Gumbel roots of 64
+    simulations, fast searches of 16 at p = 0.25, the 4-layer
+    transformer, batch 256, the 250,000-slot ring), cut in depth only,
+    in the preset's synchronous loop (`mode` "sync"), with
+    --fused-megastep ("megastep") or with --async-rollouts ("async").
+    Launches must be 16 + 2 per full move and 8 + 1 per fast one. The
+    counted run is timed as it runs, with no synchronisation added. Then
+    the synchronous mode times chunks of the same engine with every move
+    between synchronisations (the full and the fast move times, the
+    launches of each move; with `record`, the first full and fast waves'
+    backup operands are kept) and profiles one iteration; the megastep
+    mode profiles one megastep."""
+    from alphatriangle_tpu_torch.config import baseline_preset
+
+    label = {"sync": "train-preset3", "megastep": "train-preset3-megastep",
+             "async": "train-preset3-async"}[mode]
+    args = ["--preset", "3", "--rollout-chunk", str(TRAIN_CHUNK_MOVES), "--min-buffer",
+            str(TRAIN_MIN_BUFFER), "--max-steps", str(P3_STEPS), "--fused-learner-steps", str(P3_K)]
+    args += {"sync": [], "megastep": ["--fused-megastep"], "async": ["--async-rollouts"]}[mode]
+    run = train_cli(torch, kernels, label, args)
+    loop, report, launches = run["loop"], run["report"], run["launches"]
+    c = loop.c
+    want = baseline_preset(3)
+    mcts, fast = c.self_play.mcts, c.self_play.mcts_fast
+    if (c.self_play.batch_size, c.train_config.BATCH_SIZE, c.train_config.BUFFER_CAPACITY) != (
+        want["train"].SELF_PLAY_BATCH_SIZE, want["train"].BATCH_SIZE, want["train"].BUFFER_CAPACITY
+    ) or c.model_config != want["model"] or not c.self_play.use_gumbel:
+        fail(f"{label}: the run is not at preset 3's widths")
+    if (mcts.num_waves, fast.num_waves, fast.exploit, fast.config.max_simulations) != (2, 1, True, 16):
+        fail(f"{label}: unexpected searches (waves {mcts.num_waves}/{fast.num_waves})")
+    if loop.global_step != P3_STEPS or report["mode"] != mode:
+        fail(f"{label}: {loop.global_step} learner steps in mode {report['mode']}, want {P3_STEPS}")
+    searched, full = len(run["played"]), sum(run["played"])
+    check_search_launches(launches, full, searched - full, (2, 1), label)
+    if launches["per_sample"] != (loop.megastep_iterations if mode == "megastep" else 0):
+        fail(f"{label}: {launches['per_sample']} per_sample launches")
+    series = c.stats.get_series("SelfPlay/Full_Search_Fraction")
+    if not series or not all(0.0 <= f <= 1.0 for _, f in series):
+        fail(f"{label}: Full_Search_Fraction ticks {series}")
+    live = Path(report["live_metrics"]).read_text().splitlines()
+    if mode == "async":
+        ticks = loop.iterations
+        if loop.producer_restarts != 0 or report["replay_ratio"] > c.train_config.REPLAY_RATIO:
+            fail(f"{label}: {loop.producer_restarts} restarts, replay ratio {report['replay_ratio']}")
+        if c.stats.latest("System/Rollout_Queue_Depth") is None:
+            fail(f"{label}: no System/Rollout_Queue_Depth tick")
+    else:
+        # One tick per chunk, each the fraction of its moves searched in full.
+        ticks = (loop.warmup_chunks + loop.megastep_iterations) if mode == "megastep" else loop.iterations
+        if searched != ticks * TRAIN_CHUNK_MOVES or len(series) != ticks or round(
+            sum(f for _, f in series) * TRAIN_CHUNK_MOVES
+        ) != full:
+            fail(f"{label}: {searched} moves ({full} full) against {len(series)} ticks {series}")
+    if not ticks <= len(live) <= ticks + 1:
+        fail(f"{label}: {len(live)} live_metrics lines for {ticks} ticks")
+    lanes = c.self_play.batch_size
+    out = {
+        "launches": launches,
+        "searched_moves": searched,
+        "full_moves": full,
+        "fast_moves": searched - full,
+        "full_search_fraction": full / searched,
+        "full_search_fraction_series": [f for _, f in series],
+        "rows_ingested": loop.experiences_added,
+        "episodes": loop.episodes_played,
+        "losses": report["losses"],
+        "steps": loop.global_step,
+        "wall_s": run["wall_s"],
+        "run_s": loop.run_s,
+        "peak_mem_gb": run["peak_mem_gb"],
+        "live_metrics_lines": len(live),
+        "stats_writers": report["stats_writers"],
+        "learner_steps_per_s_run": report["timings"]["learner_steps_per_s"],
+    }
+    if mode == "async":
+        out.update({
+            "iterations": loop.iterations,
+            "harvests_by_stream": loop.harvests_by_stream,
+            "tuned_chunk_moves": report["tuned_chunk_moves"],
+            "replay_ratio": report["replay_ratio"],
+            "queue_depth_max": report["queue_depth_max"],
+            "producer_chunk_ms_p50": report["timings"]["producer_chunk_s_p50"] * 1e3,
+            # Every move the producer played, over the run's wall.
+            "moves_per_s_run": lanes * searched / loop.run_s,
+        })
+        return out
+    if mode == "megastep":
+        mega, warm = loop.timings["megastep_s"], loop.timings["warmup_chunk_s"]
+        out.update({
+            "megasteps": loop.megastep_iterations,
+            "warmup_chunks": loop.warmup_chunks,
+            "megastep_ms": [t * 1e3 for t in mega],
+            "megastep_ms_p50": statistics.median(mega) * 1e3,
+            "warmup_chunk_ms_p50": statistics.median(warm) * 1e3,
+            "rollout_moves_per_s": lanes * TRAIN_CHUNK_MOVES / statistics.median(warm),
+            "megastep_moves_per_s_p50": lanes * TRAIN_CHUNK_MOVES / statistics.median(mega),
+            "learner_steps_per_s_p50": P3_K / statistics.median(mega),
+        })
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            c.megastep.run_megastep(TRAIN_CHUNK_MOVES, P3_K)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        out["profile"] = read_profile(prof, TRAIN_STAGES, prof_wall_ms, out["megastep_ms_p50"])
+        out["profile"]["moves_full"] = [bool(x) for x in c.self_play.last_trace["is_full"]]
+        return out
+    it_s, roll_s = loop.timings["iteration_s"], loop.timings["rollout_s"]
+    steps_full = max(loop.steps_per_iteration)
+    full_its = [t for t, n in zip(it_s, loop.steps_per_iteration) if n == steps_full]
+    out.update({
+        "iterations": loop.iterations,
+        "rows_per_iteration": loop.rows_per_iteration,
+        "steps_per_iteration": loop.steps_per_iteration,
+        "iteration_ms_p50_full": statistics.median(full_its) * 1e3,
+        "rollout_ms_p50": statistics.median(roll_s) * 1e3,
+        "rollout_moves_per_s": lanes * TRAIN_CHUNK_MOVES / statistics.median(roll_s),
+    })
+    # The watched pass: chunks of the same engine, outside the counted
+    # run, until two moves of each kind were timed (at most 8 chunks).
+    moves, restore = watched_moves(torch, kernels)
+    restore_rec = record_waves_by_width(record, {32: "gumbel", 16: "fast"}) if record is not None else None
+    try:
+        for _ in range(8):
+            c.self_play.play_moves_device(TRAIN_CHUNK_MOVES)
+            n_full = sum(m["is_full"] for m in moves)
+            if min(n_full, len(moves) - n_full) >= 2:
+                break
+    finally:
+        restore()
+        if restore_rec is not None:
+            restore_rec()
+    for m in moves:
+        per = (16, 2) if m["is_full"] else (8, 1)
+        if (m["launches"]["gather_rows"], m["launches"]["backup_update"]) != per:
+            fail(f"{label}: a {'full' if m['is_full'] else 'fast'} move launched {m['launches']}")
+    full_ms = [m["ms"] for m in moves if m["is_full"]]
+    fast_ms = [m["ms"] for m in moves if not m["is_full"]]
+    out.update({
+        # Each move between synchronisations, in the watched pass.
+        "full_move_ms_p50": statistics.median(full_ms) if full_ms else None,
+        "fast_move_ms_p50": statistics.median(fast_ms) if fast_ms else None,
+        "full_move_ms": full_ms,
+        "fast_move_ms": fast_ms,
+        "launches_per_full_move": {"gather_rows": 16, "backup_update": 2},
+        "launches_per_fast_move": {"gather_rows": 8, "backup_update": 1},
+    })
+    out["profile"] = profile_sync_iteration(torch, loop, steps_full, out["iteration_ms_p50_full"])
+    out["profile"]["moves_full"] = [bool(x) for x in c.self_play.last_trace["is_full"]]
+    return out
+
+
+def train_preset_phase(torch, kernels, n: int) -> dict:
+    """`cli train --preset N` (N = 2, 4, 5) at the preset's widths in its
+    synchronous loop, cut in depth: chunks of `PRESET_CHUNKS[n]` moves
+    (one gives the ring a batch at these widths) and one learner step.
+    8 gathers and one backup per wave. The figures are the last
+    iteration's, the one with the learner step."""
+    from alphatriangle_tpu_torch.config import baseline_preset
+
+    label = f"train-preset{n}"
+    chunk = PRESET_CHUNKS[n]
+    run = train_cli(torch, kernels, label, [
+        "--preset", str(n), "--rollout-chunk", str(chunk), "--min-buffer", str(TRAIN_MIN_BUFFER),
+        "--max-steps", "1",
+    ])
+    loop, launches = run["loop"], run["launches"]
+    c, want = loop.c, baseline_preset(n)
+    if (c.self_play.batch_size, c.env_config, c.model_config, c.mcts_config.max_simulations) != (
+        want["train"].SELF_PLAY_BATCH_SIZE, want["env"], want["model"], want["mcts"].max_simulations
+    ):
+        fail(f"{label}: the run is not at preset {n}'s widths")
+    waves = search_waves(want["mcts"].max_simulations)
+    if c.self_play.mcts.num_waves != waves or loop.global_step != 1:
+        fail(f"{label}: {loop.iterations} iterations, {loop.global_step} steps, "
+             f"{c.self_play.mcts.num_waves} waves")
+    searched = loop.iterations * chunk
+    check_search_launches(launches, searched, 0, (waves, 0), label)
+    it_s, roll_s, learn_s = (loop.timings[k] for k in ("iteration_s", "rollout_s", "learner_s"))
+    lanes = c.self_play.batch_size
+    return {
+        "launches": launches,
+        "searched_moves": searched,
+        "lanes": lanes,
+        "sims": c.mcts_config.max_simulations,
+        "waves": waves,
+        "board": [c.env_config.ROWS, c.env_config.COLS],
+        "transformer_layers": c.model_config.TRANSFORMER_LAYERS if c.model_config.USE_TRANSFORMER else 0,
+        "remat": c.model_config.REMAT,
+        "rows_ingested": loop.experiences_added,
+        "losses": run["report"]["losses"],
+        "iterations": loop.iterations,
+        "iteration_ms": it_s[-1] * 1e3,
+        "rollout_ms": roll_s[-1] * 1e3,
+        "learner_ms": learn_s[-1] * 1e3,
+        "rollout_moves_per_s": lanes * chunk / roll_s[-1],
+        "leaf_evals_per_s": lanes * chunk * c.mcts_config.max_simulations / roll_s[-1],
+        "wall_s": run["wall_s"],
+        "peak_mem_gb": run["peak_mem_gb"],
+    }
+
+
+def attention_memory_phase(torch, dev) -> dict:
+    """Preset 5's leaf evaluation at full width: one forward of its net
+    (12x21 board, 8 transformer layers, bf16) over 1024 lanes x 32 wave
+    members, with the attention in slices of the batch (`SCORE_BUDGET`)
+    and, as before this slice, the whole batch at once. Peak device
+    memory of each above what was allocated before it; an out-of-memory
+    error of the whole batch is the measurement, not a failure."""
+    import importlib
+
+    from alphatriangle_tpu_torch.config import baseline_preset
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+
+    model_mod = importlib.import_module("alphatriangle_tpu_torch.nn.model")
+    bundle = baseline_preset(5)
+    env_cfg, model_cfg = bundle["env"], bundle["model"]
+    net = NeuralNetwork(model_cfg, env_cfg, seed=0, device=dev)
+    leaves = bundle["train"].SELF_PLAY_BATCH_SIZE * 32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grid = torch.randint(-1, 2, (leaves, model_cfg.GRID_INPUT_CHANNELS, env_cfg.ROWS, env_cfg.COLS),
+                         generator=gen, device=dev).float()
+    other = torch.rand((leaves, model_cfg.OTHER_NN_INPUT_FEATURES_DIM), generator=gen, device=dev)
+    budget = model_mod.SCORE_BUDGET
+    report = {"leaves": leaves, "tokens": env_cfg.ROWS * env_cfg.COLS,
+              "heads": model_cfg.TRANSFORMER_HEADS, "score_budget": budget}
+    sliced = None
+    for name, limit in (("sliced", budget), ("whole", 1 << 62)):
+        model_mod.SCORE_BUDGET = limit
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                policy, value = net.model(grid, other)
+            torch.cuda.synchronize()
+            report[name] = {
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                "slices": -(-leaves // max(1, limit // (model_cfg.TRANSFORMER_HEADS * report["tokens"] ** 2))),
+            }
+            if name == "sliced":
+                if not (bool(torch.isfinite(policy).all()) and bool(torch.isfinite(value).all())):
+                    fail("preset 5's leaf evaluation is not finite")
+                sliced = (policy.cpu(), value.cpu())
+                del policy, value
+                # The same forward once more under the profiler: its kernels.
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    with torch.no_grad():
+                        policy, value = net.model(grid, other)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t1) * 1e3
+                report[name]["profile"] = read_profile(prof, (), wall_ms, report[name]["ms"])
+            else:
+                report[name]["max_abs_diff_vs_sliced"] = max(
+                    float((policy.cpu() - sliced[0]).abs().max()),
+                    float((value.cpu() - sliced[1]).abs().max()),
+                )
+            del policy, value
+        except torch.cuda.OutOfMemoryError as exc:
+            report[name] = {"out_of_memory": True,
+                            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                            "error": str(exc).splitlines()[0][:200]}
+        finally:
+            model_mod.SCORE_BUDGET = budget
+    torch.cuda.empty_cache()
+    return report
+
+
+def reference_gumbel_phase(torch, dev) -> dict:
+    """One Gumbel search of 16 simulations in 2 halving waves, explore and
+    exploit, from the same roots on the CPU and on the card under the
+    exact stub: the same selected actions and visit counts; improved
+    policies within 1e-6."""
+    from alphatriangle_tpu_torch import rng
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import GumbelMCTS
+    from alphatriangle_tpu_torch.nn.model import value_support
+
+    env_cfg, model_cfg, base = tiny_reference_configs()
+    mcts_cfg = base.model_copy(update={"max_simulations": 16, "mcts_batch_size": 8,
+                                       "root_selection": "gumbel", "gumbel_m": 4})
+    report = {}
+    for exploit in (False, True):
+        outs = {}
+        for device in ("cpu", dev):
+            env = TriangleEnv(env_cfg, device=device)
+            mcts = GumbelMCTS(env, FeatureExtractor(env, model_cfg), _ExactStub(11), mcts_cfg,
+                              value_support(model_cfg), exploit=exploit)
+            out = mcts.search(env.reset(rng.split(rng.PRNGKey(8), 16)), rng.PRNGKey(9))
+            outs[str(device)] = {k: getattr(out, k).cpu() for k in (
+                "selected_action", "visit_counts", "improved_policy")}
+        cpu, card = outs["cpu"], outs[str(dev)]
+        label = "exploit" if exploit else "explore"
+        for key in ("selected_action", "visit_counts"):
+            if not torch.equal(cpu[key], card[key]):
+                fail(f"Gumbel search ({label}) {key} on the card differs from the CPU's")
+        err = float((cpu["improved_policy"] - card["improved_policy"]).abs().max())
+        if err > 1e-6:
+            fail(f"Gumbel search ({label}) improved policy differs by {err:.2e}")
+        report[label] = {"improved_policy_max_abs_err": err,
+                         "selected": cpu["selected_action"].tolist()}
+    return report
+
+
+def reference_pcr_phase(torch, dev) -> dict:
+    """Four moves of a chunk with Gumbel roots and playout-cap
+    randomization (8 simulations, fast searches of 4 at p = 0.5) from the
+    same carry on the CPU and on the card under the exact stub: the same
+    `is_full` sequence, simulations, actions' rows, masks and policy
+    weights; improved policies within 1e-6, returns and root values
+    within 1e-5, features within one float32 ulp."""
+    from types import SimpleNamespace
+
+    from alphatriangle_tpu_torch.config import TrainConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.nn.model import value_support
+    from alphatriangle_tpu_torch.nn.network import LiveWeights
+    from alphatriangle_tpu_torch.rl import SelfPlayEngine
+    from alphatriangle_tpu_torch.utils.transfer import fetch
+
+    env_cfg, model_cfg, base = tiny_reference_configs()
+    mcts_cfg = base.model_copy(update={"root_selection": "gumbel", "fast_simulations": 4,
+                                       "full_search_prob": 0.5})
+    train_cfg = TrainConfig(RUN_NAME="ref", N_STEP_RETURNS=2, MAX_EPISODE_MOVES=30,
+                            SELF_PLAY_BATCH_SIZE=8)
+    sides = {}
+    for device in ("cpu", dev):
+        env = TriangleEnv(env_cfg, device=device)
+        stub = _ExactStub(11)
+        support = value_support(model_cfg, device=device)
+        net = SimpleNamespace(model=stub, support=support, weights_version=0,
+                              live=LiveWeights(0, stub))
+        engine = SelfPlayEngine(env, FeatureExtractor(env, model_cfg), net, mcts_cfg, train_cfg,
+                                seed=3)
+        _, out = engine._chunk(4, engine._carry, LiveWeights(0, stub))
+        sides[str(device)] = fetch(out)
+    cpu, card = sides["cpu"], sides[str(dev)]
+    import numpy as np
+
+    def compare(a, b, path):
+        if isinstance(a, dict):
+            for key in a:
+                compare(a[key], b[key], f"{path}/{key}")
+            return
+        if path.endswith("/policy"):
+            ok = np.allclose(a, b, rtol=0, atol=1e-6)
+        elif path.endswith(("/ret", "/root_value")):
+            ok = np.allclose(a, b, rtol=0, atol=1e-5)
+        elif path.endswith("/other"):
+            ok = np.allclose(a, b, rtol=2.5e-7, atol=0)
+        else:
+            ok = np.array_equal(a, b)
+        if not ok:
+            fail(f"the playout-cap chunk's {path} on the card differs from the CPU's")
+
+    compare(cpu, card, "")
+    return {"is_full": cpu["trace"]["is_full"].tolist(), "sims": cpu["trace"]["sims"].tolist(),
+            "rows": int(cpu["mat"]["mask"].sum() + cpu["flush"]["mask"].sum())}
 
 
 def say_profile(label: str, prof: dict, card: str) -> None:
@@ -2135,6 +2751,37 @@ def say_async(r: dict, card: str) -> None:
         )
 
 
+def say_preset3(label: str, r: dict, card: str) -> None:
+    if "producer_chunk_ms_p50" in r:
+        loop = (f"{r['iterations']} loop iterations, harvests {r['harvests_by_stream']}, chunk "
+                f"{r['tuned_chunk_moves']} moves, producer chunk p50 "
+                f"{r['producer_chunk_ms_p50']:.1f} ms, {r['moves_per_s_run']:.1f} moves/s and "
+                f"{r['learner_steps_per_s_run']:.2f} learner steps/s over the run, replay ratio "
+                f"{r['replay_ratio']:.3f}, queue depth max {r['queue_depth_max']}")
+    elif "megasteps" in r:
+        loop = (f"{r['megasteps']} megasteps after {r['warmup_chunks']} warm-up chunks; megastep "
+                f"p50 {r['megastep_ms_p50']:.1f} ms, {r['megastep_moves_per_s_p50']:.1f} moves/s "
+                f"and {r['learner_steps_per_s_p50']:.2f} learner steps/s (p50 megastep), rollout "
+                f"{r['rollout_moves_per_s']:.1f} moves/s (warm-up chunks)")
+    else:
+        loop = (f"{r['iterations']} iterations, rows {r['rows_per_iteration']}, learner steps "
+                f"{r['steps_per_iteration']}; iteration p50 {r['iteration_ms_p50_full']:.1f} ms, "
+                f"rollout {r['rollout_moves_per_s']:.1f} moves/s, "
+                f"{r['learner_steps_per_s_run']:.2f} learner steps/s over the run; watched pass "
+                f"(every move synchronised): full move p50 {r['full_move_ms_p50']} ms, fast move "
+                f"p50 {r['fast_move_ms_p50']} ms")
+    say(
+        f"{label}: {r['searched_moves']} searched moves ({r['full_moves']} full of 64 sims, "
+        f"{r['fast_moves']} fast of 16: Full_Search_Fraction {r['full_search_fraction']:.3f}), "
+        f"{r['rows_ingested']} rows, {r['steps']} steps; {loop}; peak {r['peak_mem_gb']:.2f} GiB; "
+        f"{r['live_metrics_lines']} live_metrics lines, writers {r['stats_writers']}; launches "
+        f"{r['launches']} [{card}]"
+    )
+    say(f"{label} losses: {json.dumps(r['losses'])}")
+    if "profile" in r:
+        say_profile("megastep" if "megasteps" in r else "sync iteration", r["profile"], card)
+
+
 def main() -> int:
     import torch
 
@@ -2218,9 +2865,17 @@ def run_phases(torch) -> int:
     )
     say(f"kernel backup_update against the games (family random): {by_lanes} [{card}]")
     say(f"an empty kernel timed the same way: {empty_ms * 1e3:.2f} us [{card}]")
+    shapes = search_shape_phase(torch, dev, rate, sleep_cycles_per_ms())
+    for kname, by_shape in shapes.items():
+        kreport[kname]["search_shapes"] = by_shape
+        for shape, r in by_shape.items():
+            say(
+                f"kernel {kname} at the {shape} shape {r['shape']}: bit-equal to plain; "
+                f"{r['ms'] * 1e3:.1f} us (bound {r['bound_ms'] * 1e3:.2f} us by bytes) [{card}]"
+            )
     say(f"kernel phase: {time.perf_counter() - t0:.1f} s")
 
-    recorded = {"serve": [], "train": []}
+    recorded = {"serve": [], "train": [], "gumbel": [], "fast": []}
     t0 = time.perf_counter()
     sreport = serve_phase(torch, dev, KERNELS, record=recorded["serve"])
     say_serve("serve", sreport, card)
@@ -2230,6 +2885,11 @@ def run_phases(torch) -> int:
     treport = train_phase(torch, dev, KERNELS, record=recorded["train"])
     say_train("train", treport, card)
     say(f"train phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    p3report = train_preset3_phase(torch, dev, KERNELS, "sync", record=recorded)
+    say_preset3("train-preset3", p3report, card)
+    say(f"train-preset3 phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     wreport = real_wave_phase(torch, sleep_cycles_per_ms(), recorded)
@@ -2321,6 +2981,58 @@ def run_phases(torch) -> int:
     say(f"eval phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    egreport = eval_phase(torch, gumbel=True)
+    say(
+        f"eval-gumbel: {EVAL_GAMES} games x {EVAL_SIMS} sims of {egreport['report']['source']} "
+        f"through GumbelMCTS(exploit=True): {egreport['games_per_s']:.2f} games/s, "
+        f"{egreport['dispatches']} dispatches, p50 {egreport['dispatch_ms_p50']:.1f} ms; "
+        f"{json.dumps(egreport['report'])}; launches {egreport['launches']} [{card}]"
+    )
+    say(f"eval-gumbel phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sgreport = serve_phase(torch, dev, KERNELS, gumbel=True)
+    say_serve("serve-gumbel", sgreport, card)
+    say(f"serve-gumbel phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    p3mreport = train_preset3_phase(torch, dev, KERNELS, "megastep")
+    say_preset3("train-preset3-megastep", p3mreport, card)
+    say(f"train-preset3-megastep phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    p3areport = train_preset3_phase(torch, dev, KERNELS, "async")
+    say_preset3("train-preset3-async", p3areport, card)
+    say(f"train-preset3-async phase: {time.perf_counter() - t0:.1f} s")
+
+    preset_reports = {}
+    for n in sorted(PRESET_CHUNKS):
+        t0 = time.perf_counter()
+        r = preset_reports[n] = train_preset_phase(torch, KERNELS, n)
+        say(
+            f"train-preset{n}: {r['lanes']} lanes x {r['sims']} sims ({r['waves']} waves), board "
+            f"{r['board'][0]}x{r['board'][1]}, {r['transformer_layers']} transformer layers"
+            f"{' (REMAT)' if r['remat'] else ''}: one iteration of {r['searched_moves']} moves "
+            f"and 1 learner step {r['iteration_ms']:.1f} ms (rollout {r['rollout_ms']:.1f} ms, "
+            f"{r['rollout_moves_per_s']:.1f} moves/s; learner {r['learner_ms']:.1f} ms), peak "
+            f"{r['peak_mem_gb']:.2f} GiB; launches {r['launches']} [{card}]"
+        )
+        say(f"train-preset{n} phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    amreport = attention_memory_phase(torch, dev)
+    for name in ("sliced", "whole"):
+        r = amreport[name]
+        what = "out of memory" if r.get("out_of_memory") else f"{r['ms']:.1f} ms"
+        say(
+            f"preset 5 leaf evaluation ({amreport['leaves']} leaves x {amreport['tokens']} tokens, "
+            f"attention {name}): {what}, peak {r['peak_gb']:.2f} GiB above the inputs [{card}]"
+        )
+        if "profile" in r:
+            say_profile("preset 5 leaf evaluation", r["profile"], card)
+    say(f"attention-memory phase: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
     rureport = reference_reuse_phase(torch, dev)
@@ -2342,12 +3054,28 @@ def run_phases(torch) -> int:
         f"{ryreport['loss_max_abs_err']:.2e})"
     )
     rreport["sync_iteration"] = ryreport
+    rgreport = reference_gumbel_phase(torch, dev)
+    say(
+        "reference: card Gumbel search equals the CPU's, explore and exploit (improved policy "
+        f"err {rgreport['explore']['improved_policy_max_abs_err']:.2e} / "
+        f"{rgreport['exploit']['improved_policy_max_abs_err']:.2e})"
+    )
+    rreport["gumbel_search"] = rgreport
+    rpreport = reference_pcr_phase(torch, dev)
+    say(
+        f"reference: card playout-cap Gumbel chunk equals the CPU's (is_full {rpreport['is_full']}, "
+        f"sims {rpreport['sims']}, {rpreport['rows']} rows)"
+    )
+    rreport["pcr_chunk"] = rpreport
     say(f"reference phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {
         "serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport,
         "train_sync": syreport, "train_sync_host": shreport, "train_async": asreport,
         "preempt_resume": prreport, "megastep_resume": mrreport, "eval": evreport,
+        "train_preset3": p3report, "eval_gumbel": egreport, "serve_gumbel": sgreport,
+        "train_preset3_megastep": p3mreport, "train_preset3_async": p3areport,
+        **{f"train_preset{n}": r for n, r in preset_reports.items()},
     }
     kernels_line = []
     for kname, kr in kreport.items():
@@ -2355,7 +3083,7 @@ def run_phases(torch) -> int:
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms",
         ) + tuple(
-            key for key in ("at_512_lanes", "worst_case", "real_waves", "ms_by_lanes")
+            key for key in ("at_512_lanes", "worst_case", "real_waves", "ms_by_lanes", "search_shapes")
             if key in kr
         )}
         by_path = {path: rep["launches"][kname] for path, rep in paths.items()}
@@ -2375,7 +3103,7 @@ def run_phases(torch) -> int:
         kernels_line.append(entry)
     say(json.dumps({
         "kernels": kernels_line, **paths, "ring_round_trip": rtreport, "reference": rreport,
-        "empty_kernel_ms": empty_ms,
+        "attention_memory": amreport, "empty_kernel_ms": empty_ms,
         "card": card,
     }))
     say(card)

@@ -237,5 +237,9 @@ def test_cli_eval_on_a_port_checkpoint(
     alone = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert alone["source"] == "step 2" and not H2H_KEYS & set(alone)
     assert alone["random_scores"] == report["random_scores"]  # the same hands
-    with pytest.raises(ValueError, match="puct"):
-        cli.main([*args, "--run-name", "a", "--gumbel"])
+    # --gumbel: the Gumbel search in exploit mode plays its own selections.
+    assert cli.main([*args, "--run-name", "a", "--gumbel"]) == 0
+    gumbel = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert gumbel["gumbel"] and not report["gumbel"] and gumbel["source"] == "a step 2"
+    assert JAX_REPORT_KEYS <= set(gumbel) and gumbel["random_scores"] == report["random_scores"]
+    assert gumbel["dispatches"] <= 6 and np.isfinite(gumbel["mcts_scores"]).all()

@@ -533,7 +533,7 @@ def test_cli_train_exits_114_on_sigterm(tmp_path):
             "--max-steps", "1000", "--self-play-batch", "2", "--batch-size", "4",
             "--min-buffer", "4", "--buffer-capacity", "64", "--rollout-chunk", "4",
             "--seed", "1", "--root-dir", str(tmp_path), "--run-name", "ckpt",
-            "--checkpoint-freq", "2",
+            "--checkpoint-freq", "2", "--no-tensorboard",
         ],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )

@@ -33,7 +33,12 @@ for slice_two in ("rl.megastep", "rl.self_play", "rl.trainer", "rl.device_buffer
 assert "alphatriangle_tpu_torch.ops.subtree_reuse" in names
 for slice_six in ("stats.persistence", "arena", "config.persistence_config", "config.run_configs"):
     assert "alphatriangle_tpu_torch." + slice_six in names, slice_six
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic"))
+for slice_seven in ("mcts.gumbel", "config.presets", "config.mesh_config", "stats.collector",
+                    "stats.events"):
+    assert "alphatriangle_tpu_torch." + slice_seven in names, slice_seven
+leaked = sorted(
+    m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic", "tensorboard", "tensorflow")
+)
 assert not leaked, leaked
 """
 

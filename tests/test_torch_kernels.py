@@ -10,8 +10,10 @@ the gather and the promotion's row reorder copy floats, the backup adds
 each element's entries in the plain version's order (signs of zero
 compared too), and the PER count sums integers. The count and the
 backup also run on every adversarial family of
-`alphatriangle_tpu_torch/ops/kernel_cases.py` and the backup on the
-operands of real waves. One more card test is not a kernel's: the
+`alphatriangle_tpu_torch/ops/kernel_cases.py`, the gather and the backup
+at the search shapes of the fast, preset 2, 4 and 5 paths, and the
+backup on the operands of real waves (PUCT, Gumbel and fast
+searches). One more card test is not a kernel's: the
 device ring's snapshot (`get_state` / `set_state`, the checkpoint
 spill) round-trips its rows and priorities bit for bit on the card.
 """
@@ -35,8 +37,10 @@ from alphatriangle_tpu_torch.ops.gather_rows import (  # noqa: E402
 from alphatriangle_tpu_torch.ops.kernel_cases import (  # noqa: E402
     BACKUP_CASES,
     COUNT_CASES,
+    SEARCH_SHAPES,
     backup_case,
     count_case,
+    gather_case,
 )
 from alphatriangle_tpu_torch.ops.mcts_backup import (  # noqa: E402
     backup_update_cuda,
@@ -70,6 +74,17 @@ def test_gather_equals_plain(dev, k):
     b, n, w = 64, 65, 32
     stats = torch.randn((b, n, k), generator=gen, device=dev)
     idx = torch.randint(0, n, (b, w), generator=gen, device=dev)
+    before = KERNELS["gather_rows"].launches
+    out = gather_rows(stats, idx, mode="einsum")
+    torch.cuda.synchronize()
+    assert KERNELS["gather_rows"].launches == before + 1
+    assert torch.equal(out, gather_rows_plain(stats, idx))
+
+
+@pytest.mark.parametrize("shape", sorted(SEARCH_SHAPES))
+def test_gather_search_shapes_equal_plain(dev, shape):
+    b, n, a, w, _ = SEARCH_SHAPES[shape]
+    stats, idx = (torch.from_numpy(x).to(dev) for x in gather_case(b, n, 6 * a, w, seed=n))
     before = KERNELS["gather_rows"].launches
     out = gather_rows(stats, idx, mode="einsum")
     torch.cuda.synchronize()
@@ -204,6 +219,56 @@ def test_backup_real_wave_equals_plain(dev, monkeypatch):
     assert len(calls) == mcts.num_waves
     for args in calls:
         assert bool((~args[10]).any())  # the wave has inactive entries
+        got = backup_update_cuda(*[x.clone() for x in args])
+        want = backup_update_plain(*[x.clone() for x in args])
+        torch.cuda.synchronize()
+        for g, wnt in zip(got, want, strict=True):
+            assert _bits_equal(g, wnt)
+
+
+@pytest.mark.parametrize("case", ["gumbel_roots", "random"])
+@pytest.mark.parametrize("shape", sorted(SEARCH_SHAPES))
+def test_backup_search_shapes_equal_plain(dev, shape, case):
+    b, n, a, w, d = SEARCH_SHAPES[shape]
+    planes, updates = backup_case(case, b=b, n=n, a=a, seed=n, w=w, d=d)
+    planes, updates = _on(dev, planes), _on(dev, updates)
+    want = backup_update_plain(*[p.clone() for p in planes], *updates)
+    got = backup_update(*planes, *updates)
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want, strict=True):
+        assert _bits_equal(g, wnt)
+
+
+@pytest.mark.parametrize("search", ["gumbel", "fast"])
+def test_backup_real_gumbel_and_fast_waves_equal_plain(dev, monkeypatch, search):
+    """The operands of a Gumbel search's waves (forced roots) and of a
+    playout-cap fast search's (16 simulations, exploit), 8 games under a
+    random net, through the kernel and the plain version."""
+    from alphatriangle_tpu_torch import rng
+    from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import GumbelMCTS
+    from alphatriangle_tpu_torch.mcts import search as search_mod
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+
+    env, model_cfg = TriangleEnv(EnvConfig(), device=dev), ModelConfig()
+    net = NeuralNetwork(model_cfg, EnvConfig(), seed=0, device=dev)
+    sims = 64 if search == "gumbel" else 16
+    mcts = GumbelMCTS(env, FeatureExtractor(env, model_cfg), net.model,
+                      AlphaTriangleMCTSConfig(max_simulations=sims, root_selection="gumbel"),
+                      net.support, exploit=search == "fast")
+    calls = []
+    real = search_mod.backup_update
+
+    def record(*args, **kwargs):
+        calls.append([x.clone() for x in args])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(search_mod, "backup_update", record)
+    mcts.search(env.reset(rng.split(rng.PRNGKey(1), 8)), rng.PRNGKey(2))
+    assert len(calls) == mcts.num_waves
+    for args in calls:
         got = backup_update_cuda(*[x.clone() for x in args])
         want = backup_update_plain(*[x.clone() for x in args])
         torch.cuda.synchronize()

@@ -22,7 +22,12 @@ from alphatriangle_tpu.ops.mcts_backup import (  # noqa: E402
     backup_update_xla,
 )
 from alphatriangle_tpu_torch.ops import KERNELS, backup_update, gather_rows  # noqa: E402
-from alphatriangle_tpu_torch.ops.kernel_cases import BACKUP_CASES, backup_case  # noqa: E402
+from alphatriangle_tpu_torch.ops.kernel_cases import (  # noqa: E402
+    BACKUP_CASES,
+    SEARCH_SHAPES,
+    backup_case,
+    gather_case,
+)
 from alphatriangle_tpu_torch.ops.mcts_backup import backup_update_plain  # noqa: E402
 
 
@@ -41,6 +46,15 @@ class TestGatherRows:
         want = np.asarray(jax_gather(jnp.asarray(stats), jnp.asarray(idx), mode))
         got = gather_rows(_t(stats), _t(idx).long(), mode=mode)
         np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("mode", ["einsum", "pallas", "take"])
+    @pytest.mark.parametrize("shape", sorted(SEARCH_SHAPES))
+    def test_plain_matches_jax_at_the_search_shapes(self, mode, shape):
+        """The fast-search, preset 2, 4 and 5 rows (N, 6A, W) at B = 2."""
+        _, n, a, w, _ = SEARCH_SHAPES[shape]
+        stats, idx = gather_case(2, n, 6 * a, w, seed=n)
+        want = np.asarray(jax_gather(jnp.asarray(stats), jnp.asarray(idx.astype(np.int32)), mode))
+        np.testing.assert_array_equal(gather_rows(_t(stats), _t(idx), mode=mode).numpy(), want)
 
     def test_unknown_mode_raises(self):
         with pytest.raises(ValueError, match="unknown gather"):
@@ -135,6 +149,17 @@ class TestBackupUpdateAdversarial:
     @pytest.mark.parametrize("case", sorted(BACKUP_CASES))
     def test_plain_matches_xla_bits(self, case):
         planes, updates = backup_case(case, b=3, n=9, a=7, seed=11, w=6, d=4)
+        want = backup_update_xla(*[jnp.asarray(x) for x in planes + updates])
+        got = backup_update_plain(*_torch(planes), *_torch(updates, copy=False))
+        for name, g, wnt in zip(("e_visits", "e_value", "children", "e_reward"), got, want,
+                                strict=True):
+            np.testing.assert_array_equal(_bits(g.numpy()), _bits(wnt), err_msg=name)
+
+    @pytest.mark.parametrize("shape", sorted(SEARCH_SHAPES))
+    def test_plain_matches_xla_at_the_search_shapes(self, shape):
+        """The Gumbel wave family at each new path's (N, A, W, D), B = 2."""
+        _, n, a, w, d = SEARCH_SHAPES[shape]
+        planes, updates = backup_case("gumbel_roots", b=2, n=n, a=a, seed=n, w=w, d=d)
         want = backup_update_xla(*[jnp.asarray(x) for x in planes + updates])
         got = backup_update_plain(*_torch(planes), *_torch(updates, copy=False))
         for name, g, wnt in zip(("e_visits", "e_value", "children", "e_reward"), got, want,

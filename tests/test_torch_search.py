@@ -126,11 +126,6 @@ class TestExactSearch:
         tm.search(to_torch_state(_roots(jenv, 3, seed=2)), rng.PRNGKey(1))
         assert {k: v.launches for k, v in KERNELS.items()} == before
 
-    def test_refuses_unported_search_modes(self, tiny_env_config):
-        cfg = AlphaTriangleMCTSConfig(max_simulations=8, root_selection="gumbel")
-        with pytest.raises(ValueError, match="puct"):
-            _stub_world(tiny_env_config, cfg)
-
 
 class TestHelpers:
     def test_root_actions_and_targets_match_jax(self):

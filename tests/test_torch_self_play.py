@@ -220,10 +220,3 @@ class TestChunk:
         assert result.num_experiences == 0
         assert payload["mat"]["mask"].shape == (4, 3)
         assert payload["flush"]["mask"].shape == (4, 3, 2)
-
-    def test_refuses_playout_cap_randomization(self, tiny_env_config):
-        with pytest.raises(ValueError, match="playout cap"):
-            _engines(
-                tiny_env_config, {}, 2,
-                dict(max_simulations=8, fast_simulations=2),
-            )

@@ -79,7 +79,7 @@ class TestTrainEntryPoints:
             "train", "--device", "cpu", "--max-steps", "2", "--self-play-batch", "2",
             "--batch-size", "4", "--min-buffer", "4", "--buffer-capacity", "64",
             "--root-dir", str(tmp_path), "--run-name", "refused", "--no-auto-resume",
-            "--load-checkpoint", str(tmp_path / "nope"),
+            "--load-checkpoint", str(tmp_path / "nope"), "--no-tensorboard",
         ])
         report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert rc == 1 and report["status"] == "error" and report["steps"] == 0
@@ -128,7 +128,7 @@ class TestTrainEntryPoints:
             "train", "--device", "cpu", "--fused-megastep", "--max-steps", "2",
             "--self-play-batch", "2", "--batch-size", "4", "--min-buffer", "4",
             "--buffer-capacity", "64", "--rollout-chunk", "7", "--fused-learner-steps", "2",
-            "--seed", "1", "--root-dir", str(tmp_path),
+            "--seed", "1", "--root-dir", str(tmp_path), "--no-tensorboard",
         ])
         report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert rc == 0
@@ -145,7 +145,7 @@ class TestTrainEntryPoints:
             "train", "--device", "cpu", *mode, "--max-steps", "3", "--self-play-batch", "2",
             "--batch-size", "4", "--min-buffer", "4", "--buffer-capacity", "64",
             "--rollout-chunk", "4", "--seed", "1", "--replay-ratio", "2.0",
-            "--root-dir", str(tmp_path),
+            "--root-dir", str(tmp_path), "--no-tensorboard",
         ])
         report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert rc == 0 and report["status"] == "completed"
