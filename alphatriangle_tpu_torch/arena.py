@@ -17,6 +17,10 @@ request queue and dispatch, with `greedy_mcts_policy`'s keys, and gives
 the same games: a session plays the same game whatever the other lanes
 hold (serving/session.py).
 
+Both play under the net's `INFERENCE_PRECISION`, as the JAX tests
+play with cast variables: `greedy_mcts_policy` through the net's
+per-version copy, `play_service` through the service's.
+
 Termination is checked every `TERMINATION_CHECK_EVERY` moves, not every
 move (each check is a host fetch); stepping finished lanes is a frozen
 no-op, so the results are the same at any interval.
@@ -116,11 +120,13 @@ def random_policy(env, seed: int) -> Callable:
 def greedy_mcts_policy(net, mcts) -> Callable:
     """Deterministic play from a search: its `root_actions` (the
     visit-count argmax, or a Gumbel search's own selection). Reads the net's
-    installed weights at every call, so one policy serves any number of
-    weight restores (as `PolicyService.reload_weights`)."""
+    installed weights at every call, at the run's inference precision
+    (`NeuralNetwork.inference_model`, one cast per weights version), so one
+    policy serves any number of weight restores (as
+    `PolicyService.reload_weights`)."""
 
     def policy(states, move):
-        mcts.model = net.model
+        mcts.model = net.inference_model()
         return mcts.root_actions(mcts.search(states, rng.PRNGKey(7000 + move)))
 
     return policy

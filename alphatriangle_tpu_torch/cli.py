@@ -3,13 +3,20 @@
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
-        [--state-dict PATH] [--gumbel]
+        [--state-dict PATH] [--gumbel] [--run-name NAME | --checkpoint STEP_DIR]
+        [--root-dir DIR] [--reload-every N] [--duration SECONDS]
 
-Serves simulated sessions through `PolicyService` over the default
-board and net: an untrained net (seed 0) or a state dict written by
-`torch.save(flax_to_torch(variables), PATH)`; `--gumbel` searches with
-`GumbelMCTS(exploit=True)` and serves its selected actions. Prints one
-JSON report.
+Serves simulated sessions through `PolicyService`: the default board and
+net (an untrained net of seed 0, or a state dict written by
+`torch.save(flax_to_torch(variables), PATH)`), or with `--run-name` /
+`--checkpoint` a run's own `configs.json` (its board, net, NORM_TYPE and
+INFERENCE_PRECISION) and its newest or the named checkpoint, restored
+as `cli eval` restores it. With `--run-name`, every `--reload-every`
+dispatches the run's newest committed checkpoint is polled and a new
+step hot-swapped in. `--duration` serves waves of `--sessions` until
+the budget elapses. `--gumbel` searches with `GumbelMCTS(exploit=True)`
+and serves its selected actions. Prints one JSON report, the precision
+and the reloaded steps included.
 
     python -m alphatriangle_tpu_torch.cli train [--preset N|PATH] [--dry-setup]
         [--gumbel] [--fast-sims S [--full-search-prob P]] [--no-tensorboard]
@@ -47,7 +54,8 @@ kernel launches.
 
 Arena evaluation (`--gumbel`: a `GumbelMCTS(exploit=True)` search and
 its selected actions): greedy search from a checkpoint (a step directory, or
-a run's newest) on the run's own configs, played as paired games through
+a run's newest) on the run's own configs (its NORM_TYPE and
+INFERENCE_PRECISION included), played as paired games through
 `PolicyService`, against a uniform-random baseline on the same hands,
 and head to head against a second checkpoint when one is named. Prints
 the JAX report's keys, plus the dispatch times and kernel launches.
@@ -60,21 +68,38 @@ import time
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
+    from pathlib import Path
+
     import torch
 
-    from .config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
+    from .config import AlphaTriangleMCTSConfig, PersistenceConfig, TrainConfig
+    from .config.run_configs import load_run_configs_or_default
     from .device import resolve_device
     from .env import TriangleEnv
     from .features import FeatureExtractor
     from .mcts import BatchedMCTS, GumbelMCTS
     from .nn import NeuralNetwork
+    from .rl import Trainer
     from .serving import PolicyService, run_simulated_load
+    from .stats import CheckpointManager
 
     def say(msg: str) -> None:
         print(msg, file=sys.stderr, flush=True)
 
     device = resolve_device(args.device)
-    env_cfg, model_cfg = EnvConfig(), ModelConfig()
+    persistence = PersistenceConfig(
+        RUN_NAME=args.run_name or "serve",
+        **({"ROOT_DATA_DIR": args.root_dir} if args.root_dir else {}),
+    )
+    # The served run's own configs.json (as `cli eval` resolves it), else
+    # the defaults.
+    if args.run_name:
+        cfg_dir = persistence.get_run_base_dir()
+    elif args.checkpoint:
+        cfg_dir = Path(args.checkpoint).resolve().parent.parent
+    else:
+        cfg_dir = Path("/nonexistent")
+    env_cfg, model_cfg = load_run_configs_or_default(cfg_dir)
     mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=args.sims)
     env = TriangleEnv(env_cfg, device=device)
     extractor = FeatureExtractor(env, model_cfg)
@@ -84,6 +109,17 @@ def cmd_serve(args: argparse.Namespace) -> int:
         state_dict = torch.load(args.state_dict, map_location="cpu", weights_only=True)
         source = args.state_dict
     net = NeuralNetwork(model_cfg, env_cfg, seed=0, state_dict=state_dict, device=device)
+    trainer = mgr = None
+    if args.checkpoint or args.run_name:
+        trainer = Trainer(net, TrainConfig(RUN_NAME=persistence.RUN_NAME))
+        mgr = CheckpointManager(persistence, device=device, create_dirs=False)
+        loaded = mgr.restore_path(args.checkpoint) if args.checkpoint else mgr.restore()
+        if loaded.train_state is None:
+            say("serve: no checkpoint found; serving the untrained net")
+        else:
+            trainer.set_state(loaded.train_state)
+            trainer.sync_to_network()
+            source = f"step {loaded.global_step}"
     if args.gumbel:
         mcts = GumbelMCTS(env, extractor, net.model, mcts_cfg, net.support, exploit=True)
     else:
@@ -91,29 +127,69 @@ def cmd_serve(args: argparse.Namespace) -> int:
     service = PolicyService(env, extractor, net, mcts, slots=args.slots, rng_seed=args.seed)
     say(
         f"serve: {source} net, board {env_cfg.ROWS}x{env_cfg.COLS}, {args.slots} slots, "
-        f"{args.sims} sims/move{', gumbel' if args.gumbel else ''}, device {device}"
+        f"{args.sims} sims/move{', gumbel' if args.gumbel else ''}, "
+        f"{model_cfg.INFERENCE_PRECISION} weights, device {device}"
     )
+
+    # Hot reload: every --reload-every dispatches, poll the run's newest
+    # committed checkpoint; a new step is restored and swapped in
+    # between dispatches.
+    served_step = {"step": mgr.latest_step() if mgr else None, "reloaded": []}
+
+    def reload_hook(svc, dispatches: int) -> None:
+        if mgr is None or not args.run_name or args.reload_every <= 0:
+            return
+        if dispatches % args.reload_every:
+            return
+        latest = mgr.latest_step()
+        if latest is None or latest == served_step["step"]:
+            return
+        loaded = mgr.restore()
+        if loaded.train_state is None:
+            return
+        trainer.set_state(loaded.train_state)
+        trainer.sync_to_network()
+        svc.reload_weights()
+        served_step["step"] = latest
+        served_step["reloaded"].append(latest)
+        say(f"serve: hot-reloaded weights at checkpoint step {latest}")
+
     t0 = time.perf_counter()
-    stats = run_simulated_load(
-        service,
-        total_sessions=args.sessions,
-        concurrency=args.slots,
-        max_moves=args.max_moves,
-        seed=args.seed,
-        progress=say,
-    )
+    deadline = None if args.duration is None else time.monotonic() + args.duration
+    waves = []
+    while True:
+        waves.append(run_simulated_load(
+            service,
+            total_sessions=args.sessions,
+            concurrency=args.slots,
+            max_moves=args.max_moves,
+            seed=args.seed + len(waves),
+            reload_hook=reload_hook,
+            progress=say,
+        ))
+        if deadline is None or time.monotonic() >= deadline:
+            break
+    stats = waves[-1]
     report = {
         "source": source,
+        "run_name": args.run_name,
         "device": str(device),
         "slots": args.slots,
         "sims": args.sims,
         "gumbel": args.gumbel,
+        "inference_precision": model_cfg.INFERENCE_PRECISION,
+        "norm_type": model_cfg.NORM_TYPE,
+        "waves": len(waves),
+        "reloaded_steps": served_step["reloaded"],
         "wall_seconds": time.perf_counter() - t0,
         **stats,
+        "sessions_served": sum(w["sessions_served"] for w in waves),
+        "moves_served": sum(w["moves_served"] for w in waves),
         **service.serve_stats(),
+        "kernel_launches": _kernel_launches(),
     }
     print(json.dumps(report))
-    return 0 if stats["sessions_served"] >= args.sessions else 1
+    return 0 if report["sessions_served"] >= args.sessions * len(waves) else 1
 
 
 def merge_train_overrides(base_config, overrides: dict):
@@ -339,6 +415,8 @@ def cmd_eval(args: argparse.Namespace) -> int:
         "score_vs_random": round(float(scores.mean() / max(r_scores.mean(), 1e-9)), 3),
         "paired_mean_diff": round(float(diffs.mean()), 3),
         "paired_win_rate": round(float((diffs > 0).mean() + 0.5 * (diffs == 0).mean()), 3),
+        "inference_precision": model_cfg.INFERENCE_PRECISION,
+        "norm_type": model_cfg.NORM_TYPE,
     }
     if args.vs_checkpoint or args.vs_run:
         model_cfg_b = model_cfg
@@ -400,6 +478,19 @@ def build_parser() -> argparse.ArgumentParser:
                        "(default: the untrained net of seed 0).")
     serve.add_argument("--gumbel", action="store_true",
                        help="Gumbel root search in exploit mode; serve its selected actions.")
+    serve.add_argument("--run-name", default=None,
+                       help="Serve this run's newest checkpoint on its own configs.json "
+                       "(board, net, NORM_TYPE, INFERENCE_PRECISION).")
+    serve.add_argument("--checkpoint", default=None, metavar="PATH",
+                       help="Serve this step directory (checkpoints/step_NNNNNNNN).")
+    serve.add_argument("--root-dir", default=None,
+                       help="Runs root directory (default ./.alphatriangle_data).")
+    serve.add_argument("--reload-every", type=int, default=32, metavar="DISPATCHES",
+                       help="Poll the run's checkpoints for a hot weight reload every N "
+                       "dispatches (0 disables; needs --run-name).")
+    serve.add_argument("--duration", type=float, default=None, metavar="SECONDS",
+                       help="Serve waves of --sessions sessions until this wall budget "
+                       "elapses (default: one wave).")
     serve.set_defaults(fn=cmd_serve)
 
     train = sub.add_parser(

@@ -11,7 +11,9 @@
 Lanes are the reference's worker counts 1/8/32/32/64 times 16.
 `MeshConfig(DP_SIZE=-1)` resolves to the devices present: one card in
 the port. `cli train --preset N` selects a preset, or a
-`tuned_preset.json` written by the JAX package's autotuner.
+`tuned_preset.json` written by the JAX package's autotuner (or by hand:
+its model config is how a user sets NORM_TYPE and INFERENCE_PRECISION,
+which reach the run's configs.json unchanged).
 """
 
 import json

@@ -5,8 +5,10 @@ Every run writes its config set to `runs/<run>/configs.json`
 (`stats/persistence.py::CheckpointManager.save_configs`) under the JAX
 dump's keys (`env`, `model`, `train`, `mcts`, `persistence`), each the
 config's `model_dump()`, so either package reads the other's. `cli eval`
-rebuilds the board and net a checkpoint was trained with from it,
-instead of assuming the defaults.
+and `cli serve --run-name` rebuild the board and net a checkpoint was
+trained with from it, instead of assuming the defaults; the model's
+NORM_TYPE and INFERENCE_PRECISION come through unchanged, so a run is
+served and evaluated at its own precision.
 """
 
 import json

@@ -55,6 +55,7 @@ from . import helpers
 from ..config.mcts_config import MCTSConfig
 from ..env.engine import EnvState, TriangleEnv
 from ..features.core import FeatureExtractor
+from ..nn import precision
 from ..ops import backup_update, gather_rows, subtree_promote
 from ..ops.gather_rows import MODES as GATHER_MODES
 from ..ops.mcts_backup import MODES as BACKUP_MODES
@@ -109,7 +110,9 @@ class BatchedMCTS:
 
     `model(grid, other) -> (policy_logits, value_logits)` is any callable
     on the env's device (the `AlphaTriangleNet` of a `NeuralNetwork`,
-    or a stub in tests); `value_support` is the C51 atom support.
+    or a stub in tests) or a reduced-precision `nn.precision.InferenceNet`,
+    which `_evaluate` runs through `precision.apply`; `value_support` is
+    the C51 atom support.
     """
 
     def __init__(
@@ -155,7 +158,9 @@ class BatchedMCTS:
         valid (M,A)). Priors are masked to valid actions and
         renormalised, uniform over valid where the mass vanishes."""
         grids, others = self.extractor.extract(states)
-        policy_logits, value_logits = self.model(grids, others)
+        # The choke point of the inference precision policy: an int8
+        # copy dequantizes here, once per evaluation (nn/precision.py).
+        policy_logits, value_logits = precision.apply(self.model, grids, others)
         valid = self.env.valid_action_mask(states)
         neg_inf = torch.tensor(float("-inf"), device=self.device)
         zero = torch.zeros((), device=self.device)

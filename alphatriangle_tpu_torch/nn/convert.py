@@ -12,13 +12,21 @@ submodules carry the Flax names. Per leaf:
 - norm `scale`/`bias` -> `weight`/`bias`; BatchNorm `batch_stats`
   `mean`/`var` -> `running_mean`/`running_var`.
 
-`train_state_from_flax(params, mu, nu, count, step, rng)` carries a JAX
-learner across, not only its net: the Adam moments `mu` and `nu` are
-elementwise in their parameter, so each moves through its parameter's
-map, and the result is `rl/trainer.py::Trainer.get_state`'s snapshot
-(the form `stats/persistence.py` writes). The moments and count sit in
-the `ScaleByAdamState` of the JAX optimizer chain
+`train_state_from_flax(params, mu, nu, count, step, rng, batch_stats)`
+carries a JAX learner across, not only its net: the Adam moments `mu`
+and `nu` are elementwise in their parameter, so each moves through its
+parameter's map, the running statistics of a batch-norm net map as in
+`flax_to_torch`, and the result is `rl/trainer.py::Trainer.get_state`'s
+snapshot (the form `stats/persistence.py` writes). The moments and
+count sit in the `ScaleByAdamState` of the JAX optimizer chain
 (`alphatriangle_tpu/rl/trainer.py::make_optimizer`).
+
+`flax_inference_to_torch(variables)` takes a variables tree the JAX
+precision policy made (`cast_params_for_inference`: bf16 leaves, or
+int8 `{"q", "scale"}` marker dicts) and returns the port's leaf form of
+the same policy (`nn/precision.py`), dtypes kept: a marker's `q` and
+`scale` each move through their kernel's map, so the scale lands on the
+port's channel axis.
 """
 
 from collections.abc import Mapping
@@ -29,15 +37,29 @@ import torch
 _ATTN_IN = ("query", "key", "value")
 
 
-def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
+def _is_marker(value) -> bool:
+    return isinstance(value, Mapping) and set(value) == {"q", "scale"}
+
+
+def _flatten(tree: Mapping, prefix: tuple = (), keep_dtype: bool = False) -> dict:
     out = {}
     for name, value in tree.items():
         path = prefix + (name,)
-        if isinstance(value, Mapping):
-            out.update(_flatten(value, path))
+        if isinstance(value, Mapping) and not (keep_dtype and _is_marker(value)):
+            out.update(_flatten(value, path, keep_dtype))
+        elif keep_dtype:
+            out[path] = value
         else:
             out[path] = np.array(value, dtype=np.float32)  # a writable copy
     return out
+
+
+def _tensor(value: np.ndarray) -> torch.Tensor:
+    """A numpy array (bfloat16 included, through its bits) as a tensor."""
+    value = np.ascontiguousarray(value)
+    if value.dtype.name == "bfloat16":
+        return torch.from_numpy(value.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(value.copy())
 
 
 def _param_leaf(path: tuple, value: np.ndarray) -> tuple[str, np.ndarray]:
@@ -79,13 +101,36 @@ def _param_tensors(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def train_state_from_flax(params: Mapping, mu: Mapping, nu: Mapping, count, step, rng) -> dict:
+def flax_inference_to_torch(variables: Mapping) -> dict:
+    """A JAX cast or quantized variables tree -> the port's leaf form:
+    a state dict of bf16 (or f32) tensors and `{"q", "scale"}` dicts."""
+    out = {}
+    for path, value in _flatten(variables.get("params", {}), keep_dtype=True).items():
+        if _is_marker(value):
+            name, q = _param_leaf(path, np.asarray(value["q"]))
+            _, scale = _param_leaf(path, np.asarray(value["scale"]))
+            out[".".join(path[:-1] + (name,))] = {"q": _tensor(q), "scale": _tensor(scale)}
+        else:
+            name, arr = _param_leaf(path, np.asarray(value))
+            out[".".join(path[:-1] + (name,))] = _tensor(arr)
+    stats_names = {"mean": "running_mean", "var": "running_var"}
+    for path, value in _flatten(variables.get("batch_stats", {}), keep_dtype=True).items():
+        out[".".join(path[:-1] + (stats_names[path[-1]],))] = _tensor(np.asarray(value))
+    return out
+
+
+def train_state_from_flax(
+    params: Mapping, mu: Mapping, nu: Mapping, count, step, rng, batch_stats: "Mapping | None" = None
+) -> dict:
     """A JAX learner's state (numpy Flax trees of the parameters and the
-    two Adam moments, the optimizer count, the step and the threefry
-    key) as `Trainer.get_state`'s snapshot: {"params", "opt_state":
-    {"count", "mu", "nu"}, "step", "rng"}, CPU tensors keyed by the
-    port's parameter names."""
+    two Adam moments, the optimizer count, the step, the threefry key
+    and, for a batch-norm net, the running statistics) as
+    `Trainer.get_state`'s snapshot: {"params", "batch_stats",
+    "opt_state": {"count", "mu", "nu"}, "step", "rng"}, CPU tensors
+    keyed by the port's parameter and buffer names."""
+    stats = flax_to_torch({"batch_stats": batch_stats or {}})
     return {
+        "batch_stats": stats,
         "params": _param_tensors(params),
         "opt_state": {
             "count": int(np.asarray(count)),

@@ -15,7 +15,9 @@ for leaf. What the Flax model does and this one repeats:
   Flax layout.
 - Norms use eps 1e-6 (GroupNorm, LayerNorm) with the fast variance
   E[x^2] - E[x]^2 in float32; GroupNorm's group count is
-  `_group_count(channels)`.
+  `_group_count(channels)`. BatchNorm (eps 1e-5, momentum 0.99) is
+  `flax.linen.BatchNorm`: batch statistics and a running-statistics
+  update in `train()` mode, the running statistics in `eval()` mode.
 - Under `COMPUTE_DTYPE="bfloat16"` every conv, dense and attention
   product runs in bf16 on f32 parameters cast per call; the norm
   statistics stay f32 and each head's output Dense runs in f32.
@@ -171,7 +173,22 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """`flax.linen.BatchNorm` in inference mode (running statistics)."""
+    """`flax.linen.BatchNorm` (momentum 0.99, eps 1e-5) over the channel
+    dim 1 (NCHW) or the last dim (2-D input).
+
+    In `train()` mode it normalises with the batch's statistics over
+    (N, H, W) or (N,), in f32 by the fast variance, and moves the
+    running statistics to `0.99 * running + 0.01 * batch` with the
+    biased variance, once per forward: not when `update_stats` is off,
+    which the residual blocks' recomputation under REMAT sets (Flax's
+    `nn.remat` updates once). In `eval()` mode it reads the running
+    statistics. The arithmetic follows Flax's `_normalize` in its
+    operands' dtypes: f32 statistics promote the compute-dtype input to
+    f32, and with bf16 statistics, scale and bias (the inference copy of
+    `nn/precision.py`) the whole norm runs in bf16.
+    """
+
+    momentum = 0.99
 
     def __init__(self, features: int, dtype):
         super().__init__()
@@ -180,13 +197,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.dtype = dtype
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1) if x.dim() == 4 else (-1,)
-        y = (x.float() - self.running_mean.reshape(shape)) * (
-            torch.rsqrt(self.running_var.reshape(shape) + _BATCH_NORM_EPS)
-            * self.weight.reshape(shape)
-        ) + self.bias.reshape(shape)
+        if self.training:
+            mean, var = _fast_stats(x, (0, 2, 3) if x.dim() == 4 else (0,))
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.detach().reshape(-1))
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var.detach().reshape(-1))
+        else:
+            mean, var = self.running_mean.reshape(shape), self.running_var.reshape(shape)
+        y = x - mean
+        # rsqrt in f32, rounded to the statistics' dtype, as XLA computes
+        # a bf16 rsqrt (torch's own bf16 rsqrt differs in the last bit).
+        mul = torch.rsqrt((var + _BATCH_NORM_EPS).float()).to(var.dtype) * self.weight.reshape(shape)
+        y = y * mul + self.bias.reshape(shape)
         return y.to(self.dtype)
 
 
@@ -413,16 +441,16 @@ class AlphaTriangleNet(nn.Module):
     ):
         """(B, C, H, W) grid + (B, F) extras -> (B, A) policy logits,
         (B, NUM_VALUE_ATOMS) value logits, both float32. In `train()`
-        mode the transformer's dropout draws its masks from `generator`;
-        the norms have no batch statistics to update (the learner refuses
-        NORM_TYPE="batch")."""
+        mode the transformer's dropout draws its masks from `generator`,
+        and batch norms normalise with the batch's statistics and update
+        their running ones (once per forward, under REMAT too)."""
         remat = self.config.REMAT and self.training and torch.is_grad_enabled()
         x = grid.to(self.dtype)
         for i in range(self.n_conv_blocks):
             x = getattr(self, f"ConvBlock_{i}")(x)
         for i in range(self.n_res):
             block = getattr(self, f"ResidualBlock_{i}")
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+            x = _remat_block(block, x) if remat else block(x)
         if self.use_transformer:
             if self.project:
                 x = self.Conv_0(x)
@@ -441,6 +469,27 @@ class AlphaTriangleNet(nn.Module):
         policy = self.MLPHead_0(shared)
         value = self.MLPHead_1(shared)
         return policy.float(), value.float()
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` under `torch.utils.checkpoint`, with its batch norms'
+    running-statistics update off in the backward pass's recomputation,
+    so the statistics move once per forward, as under Flax's `nn.remat`."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    calls = []
+
+    def run(y):
+        again = bool(calls)
+        calls.append(True)
+        for m in norms:
+            m.update_stats = not again
+        try:
+            return block(y)
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def _remat_layer(layer: nn.Module, tokens: torch.Tensor, generator) -> torch.Tensor:

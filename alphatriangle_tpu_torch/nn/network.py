@@ -14,9 +14,18 @@ before reading the module (`rl/self_play.py`).
 Callers that hold the module itself (a `BatchedMCTS` built on
 `net.model`) pick up new weights by reading `net.model` again:
 `PolicyService.reload_weights` does.
+
+Beside the live weights the net keeps their inference copy
+(`inference_model`, `nn/precision.py`): the live module itself under
+float32; under bfloat16 or int8 one `InferenceNet` per installed
+version, cast on the net's device on the first caller's stream, under a
+lock so that two producer threads never cast one version twice. Every
+engine of a loop shares the net, so every stream reads that one copy,
+after waiting for its `ready` event.
 """
 
 import copy
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -24,7 +33,8 @@ import torch
 from ..config.env_config import EnvConfig
 from ..config.model_config import ModelConfig
 from ..device import resolve_device
-from ..utils.transfer import hand_off
+from ..utils.transfer import hand_off, receive
+from . import precision
 from .model import (
     AlphaTriangleNet,
     expected_value_from_logits,
@@ -69,6 +79,8 @@ class NeuralNetwork:
             model.load_state_dict(state_dict)
         self.live = LiveWeights(0, model.to(self.device).eval().requires_grad_(False))
         self.support = value_support(model_config, self.device)
+        self._cast: "tuple[int, precision.InferenceNet] | None" = None  # (version, copy)
+        self._cast_lock = threading.Lock()
 
     @property
     def model(self) -> torch.nn.Module:
@@ -78,11 +90,38 @@ class NeuralNetwork:
     def weights_version(self) -> int:
         return self.live.version
 
+    def inference_model(self, live: "LiveWeights | None" = None):
+        """The weights `live` (default: the installed ones) as the
+        inference paths read them: the module under float32, else the
+        version's memoized `InferenceNet` (its `ready` set after the
+        cast)."""
+        live = self.live if live is None else live
+        if precision.inference_dtype(self.model_config) == torch.float32:
+            return live.model
+        with self._cast_lock:
+            if self._cast is not None and self._cast[0] == live.version:
+                return self._cast[1]
+            receive([*live.model.parameters(), *live.model.buffers()], live.ready)
+            cast = precision.InferenceNet(live.model, self.model_config)
+            cast.ready = hand_off(self.device)
+            self._cast = (live.version, cast)
+            return cast
+
+    def forget_inference_model(self) -> None:
+        """Drop the memoized copy: the megastep trains the installed
+        module in place without a new version, so a later chunk must
+        cast it afresh."""
+        with self._cast_lock:
+            self._cast = None
+
     @torch.no_grad()
-    def evaluate_features(self, grid: torch.Tensor, other: torch.Tensor):
+    def evaluate_features(self, grid: torch.Tensor, other: torch.Tensor, model=None):
         """(B,C,H,W) + (B,F) -> (policy_probs (B,A), values (B,)) on
-        the net's device; raises on non-finite output."""
-        logits, value_logits = self.model(grid.to(self.device), other.to(self.device))
+        the net's device, from the installed module or `model` (an
+        `inference_model()`, dequantized here when int8); raises on
+        non-finite output."""
+        model = self.model if model is None else model
+        logits, value_logits = precision.apply(model, grid.to(self.device), other.to(self.device))
         probs = torch.softmax(logits, dim=-1)
         values = expected_value_from_logits(value_logits, self.support)
         if not bool(torch.isfinite(logits).all()):

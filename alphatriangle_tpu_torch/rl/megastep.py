@@ -6,8 +6,13 @@
 One megastep is, on one device and with no host sync between stages:
 
 1. `selfplay.chunk`: a rollout chunk (`SelfPlayEngine._chunk`) searched
-   with the learner's live module in eval mode (no copy of the weights:
-   episodes are tagged with the learner step, zero staleness);
+   with the learner's live module in eval mode, its batch norms on their
+   running statistics (no copy of the weights under float32: episodes
+   are tagged with the learner step, zero staleness). Under a reduced
+   `INFERENCE_PRECISION` the chunk reads an `InferenceNet` cast from that
+   module once per megastep (`selfplay.cast`), as the JAX megastep casts
+   inside its program; the K learner steps keep training the float32
+   module and its running statistics;
 2. `ring.ingest`: `ring_scatter` of the chunk's experience blocks into
    the device ring, and max-priority init of the fresh rows in the
    device priority array (trash slot pinned to 0);
@@ -33,6 +38,7 @@ from torch.profiler import record_function
 
 from .. import rng
 from ..config.train_config import TrainConfig
+from ..nn import precision
 from ..nn.network import LiveWeights
 from ..ops.per_sample import per_sample
 from ..utils.transfer import fetch
@@ -57,9 +63,6 @@ class MegastepRunner:
     def __init__(self, engine, trainer, buffer: DeviceReplayBuffer, train_config: TrainConfig):
         if not getattr(buffer, "is_device", False):
             raise ValueError("MegastepRunner needs the device-resident replay ring")
-        precision = trainer.nn.model_config.INFERENCE_PRECISION
-        if precision != "float32":
-            raise ValueError(f"INFERENCE_PRECISION={precision!r} is not ported yet; use 'float32'")
         if engine.net.model is not trainer.model:
             raise ValueError("the rollout engine must search with the learner's module")
         if not (engine.device == buffer.device == trainer.device):
@@ -90,6 +93,8 @@ class MegastepRunner:
         # None until `sync_priorities_from_host` seeds it.
         self._priorities: "torch.Tensor | None" = None
         self.dispatch_count = 0  # megasteps run
+        self.model_config = trainer.nn.model_config
+        self.reduced = precision.inference_dtype(self.model_config) != torch.float32
         self.last_idx: "np.ndarray | None" = None  # (K, B) slots of the last draw
 
     # --- device stages -------------------------------------------------
@@ -122,8 +127,12 @@ class MegastepRunner:
         """The five stages; updates engine carry, ring, priorities and
         learner in place and returns the outputs (still on the device)."""
         engine, buf, trainer = self.engine, self.buffer, self.trainer
+        model = trainer.model
+        if self.reduced:
+            with record_function("selfplay.cast"):
+                model = precision.InferenceNet(trainer.model, self.model_config)
         with record_function("selfplay.chunk"):
-            live = LiveWeights(trainer.state.step, trainer.model)
+            live = LiveWeights(trainer.state.step, model)
             engine._carry, outs = engine._chunk(num_moves, engine._carry, live)
         with record_function("ring.ingest"):
             count, pos, keep = ring_scatter(
@@ -189,6 +198,7 @@ class MegastepRunner:
         start_step = trainer.state.step
         out = self._impl(t, k, max_p)
         self.dispatch_count += 1
+        engine.net.forget_inference_model()  # the module moved in place
         host = fetch(out)  # the one transfer of the megastep
 
         # --- host mirror reconciliation ---------------------------------

@@ -43,6 +43,14 @@ harvest reports the oldest version any of its chunks played under
 passes the learner's module and step instead. A chunk may run on a
 stream of its own (a producer thread's): it waits for the weights'
 `ready` event and marks their tensors as used on its stream.
+
+Precision: a chunk searches with the weights at
+`ModelConfig.INFERENCE_PRECISION` (`_inference_variables`, as the JAX
+engine's): the module itself under float32, else the net's one
+`InferenceNet` of that weights version (`NeuralNetwork.inference_model`),
+cast once on the card and shared by every stream of the loop; a chunk on
+another stream waits for the copy's `ready` event. The megastep passes
+its own copy, cast from the learner's module once per megastep.
 """
 
 import logging
@@ -60,6 +68,7 @@ from ..mcts.helpers import policy_target_from_visits, select_action_from_visits
 from ..mcts.gumbel import GumbelMCTS
 from ..mcts.search import BatchedMCTS, CarriedTree
 from ..nn.network import LiveWeights
+from ..nn.precision import InferenceNet
 from ..utils.transfer import fetch, receive
 from .types import SelfPlayResult
 
@@ -334,15 +343,25 @@ class SelfPlayEngine:
         }
         return new_carry, outputs
 
+    def _inference_variables(self, live: LiveWeights) -> LiveWeights:
+        """`live` as a chunk searches with it: itself under float32, else
+        the same version and the net's memoized `InferenceNet` of it."""
+        model = self.net.inference_model(live)
+        if model is live.model:
+            return live
+        return LiveWeights(live.version, model, model.ready)
+
     @torch.no_grad()
     def _chunk(self, num_moves: int, carry: RolloutCarry, weights: "LiveWeights | None" = None):
         """`num_moves` lockstep moves searched with `weights` (the net's
-        live weights when None, read once); returns (carry', outputs
-        stacked over the moves)."""
-        w = self.net.live if weights is None else weights
+        live weights at the inference precision when None, read once);
+        returns (carry', outputs stacked over the moves)."""
+        w = self._inference_variables(self.net.live) if weights is None else weights
         if isinstance(w.model, torch.nn.Module):
             w.model.eval()
             receive([*w.model.parameters(), *w.model.buffers()], w.ready)
+        elif isinstance(w.model, InferenceNet):
+            receive(w.model.tensors(), w.ready)
         self.mcts.model = w.model
         if self.mcts_fast is not None:
             self.mcts_fast.model = w.model
@@ -366,7 +385,7 @@ class SelfPlayEngine:
         `DeviceReplayBuffer.ingest_payload`; only the episode stats and
         the trace are fetched (one copy). Returns that payload, or None."""
         t = int(num_moves or self.config.ROLLOUT_CHUNK_MOVES)
-        weights = self.net.live
+        weights = self._inference_variables(self.net.live)
         self.note_weights_version(weights.version)
         self._carry, outputs = self._chunk(t, self._carry, weights)
         payload = None

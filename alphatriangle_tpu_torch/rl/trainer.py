@@ -34,11 +34,14 @@ the gradient first, as the JAX chains do. Schedules are evaluated on
 the host in float32, as optax evaluates them.
 
 `get_state` / `set_state` carry the learner across a checkpoint: the
-module's parameters, the optimizer's `count`, `mu` and `nu` (keyed by
+module's parameters and running statistics (`batch_stats`, empty but
+for a batch-norm net), the optimizer's `count`, `mu` and `nu` (keyed by
 parameter name), the step and the CPU key, as CPU tensors, which is what
 `stats/persistence.py` writes (`nn/convert.py::train_state_from_flax`
 builds the same from a JAX learner). `set_state` copies into the
-learner's tensors and keeps none of the caller's.
+learner's tensors and keeps none of the caller's; a snapshot without
+`batch_stats` (written before they were carried) loads into a net that
+has none.
 """
 
 import copy
@@ -182,11 +185,6 @@ class Trainer:
     """Owns the learner state bound to one `NeuralNetwork`."""
 
     def __init__(self, nn, train_config: TrainConfig):
-        if nn.model_config.NORM_TYPE == "batch":
-            raise ValueError(
-                "NORM_TYPE='batch' training (running-statistics updates) is not ported "
-                "yet; use 'group', 'layer' or 'none'"
-            )
         self.nn = nn
         self.config = train_config
         self.model = nn.model if train_config.FUSED_MEGASTEP else copy.deepcopy(nn.model)
@@ -382,11 +380,18 @@ class Trainer:
             results.append((m, host["td"][i]))
         return results
 
+    def _stats_buffers(self) -> dict:
+        """The module's running statistics by name (batch norms only)."""
+        return {
+            n: b for n, b in self.model.named_buffers()
+            if n.rsplit(".", 1)[-1] in ("running_mean", "running_var")
+        }
+
     def get_state(self) -> dict:
         """The learner's state as CPU copies (nothing aliases the live
         tensors, which the next step updates in place): {"params",
-        "opt_state": {"count", "mu", "nu"}, "step", "rng"}, the tensors
-        keyed by parameter name."""
+        "batch_stats", "opt_state": {"count", "mu", "nu"}, "step",
+        "rng"}, the tensors keyed by parameter or buffer name."""
         names = [name for name, _ in self.model.named_parameters()]
         opt = self.state.opt_state
 
@@ -395,28 +400,37 @@ class Trainer:
 
         return {
             "params": host(self.params),
+            "batch_stats": {n: t.detach().cpu().clone() for n, t in self._stats_buffers().items()},
             "opt_state": {"count": int(opt.count), "mu": host(opt.mu), "nu": host(opt.nu)},
             "step": int(self.state.step),
             "rng": self.state.rng.detach().cpu().clone(),
         }
 
     def set_state(self, state: dict) -> None:
-        """Install a `get_state` snapshot: the parameters are copied into
-        the module in place (the net's own in megastep mode; otherwise
-        `sync_to_network` hands them to self-play), the moments into
-        fresh tensors on the learner's device. Raises when a name or a
-        shape differs from this learner's."""
+        """Install a `get_state` snapshot: the parameters and running
+        statistics are copied into the module in place (the net's own in
+        megastep mode; otherwise `sync_to_network` hands them to
+        self-play), the moments into fresh tensors on the learner's
+        device. Raises when a name or a shape differs from this
+        learner's."""
         names = [name for name, _ in self.model.named_parameters()]
+        buffers = self._stats_buffers()
         opt = state["opt_state"]
-        for part, tree in (("params", state["params"]), ("mu", opt["mu"]), ("nu", opt["nu"])):
-            if part != "params" and not tree and self.optimizer.kind == "SGD":
+        stats = state.get("batch_stats", {})
+        for part, tree, want in (
+            ("params", state["params"], dict(zip(names, self.params))),
+            ("batch_stats", stats, buffers),
+            ("mu", opt["mu"], dict(zip(names, self.params))),
+            ("nu", opt["nu"], dict(zip(names, self.params))),
+        ):
+            if part in ("mu", "nu") and not tree and self.optimizer.kind == "SGD":
                 continue
-            if set(tree) != set(names):
+            if set(tree) != set(want):
                 raise ValueError(
                     f"{part} names differ from the learner's: "
-                    f"{sorted(set(tree) ^ set(names))[:4]}"
+                    f"{sorted(set(tree) ^ set(want))[:4]}"
                 )
-            for name, p in zip(names, self.params):
+            for name, p in want.items():
                 if tuple(tree[name].shape) != tuple(p.shape):
                     raise ValueError(
                         f"{part}[{name}] has shape {tuple(tree[name].shape)}, "
@@ -431,6 +445,8 @@ class Trainer:
         with torch.no_grad():
             for name, p in zip(names, self.params):
                 p.copy_(state["params"][name])
+            for name, b in buffers.items():
+                b.copy_(stats[name])
         self.state = TrainState(
             opt_state=OptState(count=int(opt["count"]), mu=device(opt["mu"]), nu=device(opt["nu"])),
             step=int(state["step"]),
@@ -438,9 +454,10 @@ class Trainer:
         )
 
     def sync_to_network(self) -> int:
-        """Install a device-side copy of the learner's module as the
-        net's weights; returns the bumped weights version. Chunks that
-        already read the net's weights keep theirs."""
+        """Install a device-side copy of the learner's module (its
+        running statistics included) as the net's weights; returns the
+        bumped weights version. Chunks that already read the net's
+        weights keep theirs."""
         if self.model is self.nn.model:
             raise RuntimeError(
                 "the learner trains the net's own module (megastep mode): there is nothing to sync"

@@ -20,6 +20,13 @@ Each served action is the search's own choice (`mcts.root_actions`):
 the visit argmax, or a `GumbelMCTS`'s (usually `exploit=True`)
 `selected_action`.
 
+Under a reduced `INFERENCE_PRECISION` the search reads the net's
+weights through `_serve_variables`: an `InferenceNet` (bf16, or int8
+dequantized at each evaluation) cast once per (weights version, reload
+count) and kept for the dispatches that follow, cast again after
+`reload_weights` (`nn/precision.py`). Under float32 the search reads
+the net's module itself.
+
 The bucket ladder, telemetry, the flight recorder, the compile cache,
 the trajectory emitter and the fault hooks wait for later slices.
 """
@@ -34,6 +41,7 @@ from torch.profiler import record_function
 
 from .. import rng
 from ..mcts.search import CarriedTree
+from ..nn import precision
 from .session import SessionSlots
 
 
@@ -63,11 +71,6 @@ class PolicyService:
         pad_seed: int = 0,
         clock=time.monotonic,
     ):
-        precision = extractor.model_config.INFERENCE_PRECISION
-        if precision != "float32":
-            raise ValueError(
-                f"INFERENCE_PRECISION={precision!r} is not ported yet; serve at 'float32'"
-            )
         self.env = env
         self.extractor = extractor
         self.net = net
@@ -91,6 +94,9 @@ class PolicyService:
         self._tree_reuse = bool(mcts.config.tree_reuse)
         self._carry_ok = np.zeros(slots, dtype=bool)
         self._carried = mcts.zero_carried(self.sessions.states) if self._tree_reuse else None
+        self._reduced = precision.inference_dtype(extractor.model_config) != torch.float32
+        # (weights version, reload count) -> the InferenceNet the search reads.
+        self._cast_variables: "tuple[tuple, precision.InferenceNet] | None" = None
 
     @property
     def max_slots(self) -> int:
@@ -153,6 +159,18 @@ class PolicyService:
             self._carry_ok[:] = False
             return self.weight_reloads
 
+    def _serve_variables(self):
+        """The weights the dispatch's search reads: the net's module
+        under float32; else its `InferenceNet`, memoized per (weights
+        version, reload count), so a reload casts again."""
+        if not self._reduced:
+            return self.net.model
+        key = (self.net.weights_version, self.weight_reloads)
+        if self._cast_variables is None or self._cast_variables[0] != key:
+            cast = precision.InferenceNet(self.net.model, self.extractor.model_config)
+            self._cast_variables = (key, cast)
+        return self._cast_variables[1]
+
     # --- the micro-batch dispatch ---------------------------------------
 
     def dispatch(self, key: "torch.Tensor | None" = None) -> list[dict]:
@@ -174,6 +192,8 @@ class PolicyService:
             if key is None:
                 key = rng.fold_in(self._base_rng, self.dispatch_count)
             reused = None
+            if self._reduced:
+                self.mcts.model = self._serve_variables()
             if self._tree_reuse:
                 ok = torch.from_numpy(self._carry_ok).to(self.mcts.device)
                 c = self._carried

@@ -5,8 +5,11 @@
 A run directory (`config/persistence_config.py`) holds, per saved step:
 
 - `checkpoints/step_NNNNNNNN/train_state.pt`: `Trainer.get_state()`'s
-  snapshot (CPU tensors) written by `torch.save` to a tmp name in the
-  step directory, then `os.replace`d;
+  snapshot (CPU tensors: parameters, a batch-norm net's running
+  statistics under `batch_stats`, the Adam state, step and key) written
+  by `torch.save` to a tmp name in the step directory, then
+  `os.replace`d; a snapshot written before `batch_stats` was carried
+  loads into a net that has none;
 - `checkpoints/step_NNNNNNNN.meta.json`: `global_step` and the loop's
   counters (tmp + `os.replace`);
 - `checkpoints/step_NNNNNNNN.commit`: written only once the tree and the

@@ -34,7 +34,11 @@ stream. Hand-overs between them are ordered by events and keep their
 tensors alive on the receiving stream (`utils/transfer.py`): an engine's
 carry goes to its producer's stream at spawn, a producer's device
 payload to the ring ingest, and a sync's weights to the producers
-(`LiveWeights.ready`, waited for by the chunk that reads them).
+(`LiveWeights.ready`, waited for by the chunk that reads them). Under a
+reduced `INFERENCE_PRECISION` every producer's chunk reads the net's one
+cast copy of the version it plays (`NeuralNetwork.inference_model`,
+cast by the first producer to need it, its `ready` event waited for by
+the others); the learner, pipelined or not, trains the f32 module.
 
 Checkpoints follow the JAX loop: at every group boundary of every mode
 (after a learner group in the synchronous loop and the unpipelined

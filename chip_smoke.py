@@ -152,6 +152,37 @@ the presets, each at its preset's full width and cut in depth only:
 - references: a Gumbel search (explore and exploit) and four moves of a
   playout-cap Gumbel chunk on the card equal to the CPU's.
 
+Then slice eight's paths, at the default widths (`EnvConfig()`,
+`ModelConfig()` with bf16 compute, 512 lanes, batch 256, the 250,000-slot
+ring; the train phases' depth cuts, 4 learner steps in groups of 2),
+NORM_TYPE and INFERENCE_PRECISION set by a tuned-preset artifact through
+`cli train --preset PATH`:
+
+- train-bn-bf16-megastep (`--fused-megastep`, batch norm, bf16): every
+  chunk searches with a bf16 `InferenceNet`, one cast per megastep, 16 +
+  2 launches per searched move and one `per_sample` per megastep, every
+  running statistic moved and finite; the cast timed alone and one
+  megastep profiled. train-bn-int8-sync (the synchronous loop, batch
+  norm, int8) and train-int8-async (one producer stream, int8): one cast
+  per weights version the chunks read, one iteration (or a window of 2
+  steps) profiled for the busy share.
+- eval-bn-int8: `cli eval` of the int8 batch-norm run (the eval phase's
+  checks). serve-run: `cli serve --run-name` of that run at 64 slots x
+  64 simulations; a newer checkpoint committed once the server restored
+  its own must be hot-reloaded (`--reload-every 2`).
+- serve-precision: the serve default at float32, bfloat16 and int8 in
+  this process on the same weights and sessions, their dispatches
+  interleaved round by round: dispatch p50, moves/s,
+  `search.evaluate` on the card per dispatch, the bytes the search reads
+  its weights from, the int8 dequantization's launches per evaluation
+  (one kernel per row-length group, counted in a profile) and its time,
+  bit-equal to the leaf-by-leaf form on the card.
+- reference: the default net's int8 `q` / `scale` and dequantized
+  weights on the card equal the CPU's bit for bit; a batch-norm learner
+  step within 1e-5 (losses) and 1e-4 (running statistics) of the CPU's;
+  bf16 and int8 searches within the bf16 tolerances of
+  `tests/torch_parity.py`.
+
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
 
@@ -885,7 +916,7 @@ def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
 
 # The megastep's stages; the search's own stages nest inside selfplay.chunk.
 TRAIN_STAGES = (
-    "selfplay.chunk", "search.init_tree", "search.descend", "search.expand", "search.evaluate",
+    "selfplay.cast", "selfplay.chunk", "search.init_tree", "search.descend", "search.expand", "search.evaluate",
     "search.backup", "search.promote", "ring.ingest", "per.sample", "learner.steps", "per.update",
 )
 
@@ -2047,22 +2078,26 @@ def ring_round_trip_phase(torch, dev, src) -> dict:
     }
 
 
-def eval_phase(torch, gumbel: bool = False) -> dict:
-    """`cli eval` on the card against the preempt-resume run's checkpoint:
-    64 paired games through `PolicyService` (64 slots x 64 simulations),
-    cut at 32 moves; with `gumbel`, `cli eval --gumbel` (the Gumbel search
-    in exploit mode). The report carries the JAX report's keys and names
-    the restored step; its random side equals the same baseline played on
-    the CPU; the search kernels launch 16 + 2 times per dispatch."""
+def eval_phase(
+    torch, gumbel: bool = False, run: str = "ckpt", root: str = "preempt-resume",
+    step: int = PREEMPT_STEPS, label: "str | None" = None, precision: str = "float32",
+) -> dict:
+    """`cli eval` on the card against a run's newest checkpoint (the
+    preempt-resume run's by default): 64 paired games through
+    `PolicyService` (64 slots x 64 simulations), cut at 32 moves; with
+    `gumbel`, `cli eval --gumbel` (the Gumbel search in exploit mode).
+    The report carries the JAX report's keys and names the restored step;
+    its random side equals the same baseline played on the CPU; the
+    search kernels launch 16 + 2 times per dispatch."""
     import numpy as np
 
     from alphatriangle_tpu_torch.arena import play, random_policy
     from alphatriangle_tpu_torch.config import EnvConfig
     from alphatriangle_tpu_torch.env import TriangleEnv
 
-    label = "eval-gumbel" if gumbel else "eval"
+    label = label or ("eval-gumbel" if gumbel else "eval")
     rc, report = run_cli(
-        ["eval", "--run-name", "ckpt", "--root-dir", str(RUN_ROOT / "preempt-resume"), "--games",
+        ["eval", "--run-name", run, "--root-dir", str(RUN_ROOT / root), "--games",
          str(EVAL_GAMES), "--sims", str(EVAL_SIMS), "--max-moves", str(EVAL_MAX_MOVES), "--device",
          "cuda"] + (["--gumbel"] if gumbel else []),
         label, 600,
@@ -2072,8 +2107,9 @@ def eval_phase(torch, gumbel: bool = False) -> dict:
     missing = [k for k in EVAL_KEYS if k not in report]
     if missing:
         fail(f"{label}: report lacks {missing}")
-    if report["source"] != f"ckpt step {PREEMPT_STEPS}":
-        fail(f"{label}: evaluated {report['source']!r}, want the run's step {PREEMPT_STEPS}")
+    if report["source"] != f"{run} step {step}" or report["inference_precision"] != precision:
+        fail(f"{label}: evaluated {report['source']!r} at {report['inference_precision']}, want "
+             f"the run's step {step} at {precision}")
     if not 0.0 <= report["finished_fraction"] <= 1.0 or report["games"] != EVAL_GAMES:
         fail(f"{label}: finished fraction {report['finished_fraction']} of {report['games']} games")
     scores = np.asarray(report["mcts_scores"])
@@ -2658,6 +2694,470 @@ def reference_pcr_phase(torch, dev) -> dict:
             "rows": int(cpu["mat"]["mask"].sum() + cpu["flush"]["mask"].sum())}
 
 
+# --- slice 8: batch-norm training, inference precision, serve/eval of a run --
+
+# The precision phases' cuts (depth only, widths the defaults): 2-move
+# chunks, 256 rows to start training, 4 learner steps in groups of 2.
+PREC_STEPS, PREC_K = 4, 2
+# tests/torch_parity.py's bf16 tolerances (a bf16 forward against another).
+BF16_PROB_ATOL, BF16_VALUE_ATOL, BF16_VALUE_RTOL = 0.05, 0.2, 0.1
+# tests/test_torch_learner.py's tolerances of one learner step.
+LEARNER_LOSS_RTOL, LEARNER_MOMENT_RTOL = 1e-5, 1e-4
+
+
+def precision_preset(label: str, norm: str, precision: str) -> str:
+    """A tuned-preset artifact (schema `alphatriangle.tuned_preset.v1`) of
+    the default board, net, search and TrainConfig with NORM_TYPE and
+    INFERENCE_PRECISION set, as a user sets them for `cli train --preset
+    PATH`; returns its path."""
+    from alphatriangle_tpu_torch.config import (
+        AlphaTriangleMCTSConfig,
+        EnvConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from alphatriangle_tpu_torch.config.presets import TUNED_PRESET_SCHEMA
+
+    train = TrainConfig(RANDOM_SEED=0)
+    if (train.SELF_PLAY_BATCH_SIZE, train.BATCH_SIZE, train.BUFFER_CAPACITY) != (512, 256, 250_000):
+        fail("the default TrainConfig is not at 512 lanes, batch 256 and 250,000 slots")
+    path = RUN_ROOT / f"{label}.tuned_preset.json"
+    path.write_text(json.dumps({
+        "schema": TUNED_PRESET_SCHEMA,
+        "description": f"default widths, NORM_TYPE={norm}, INFERENCE_PRECISION={precision}",
+        "configs": {
+            "env": EnvConfig().model_dump(),
+            "model": ModelConfig(NORM_TYPE=norm, INFERENCE_PRECISION=precision).model_dump(),
+            "train": train.model_dump(),
+            "mcts": AlphaTriangleMCTSConfig().model_dump(),
+        },
+    }))
+    return str(path)
+
+
+def running_stats(model) -> dict:
+    return {n: b.detach().clone() for n, b in model.named_buffers() if ".running_" in n}
+
+
+def train_precision_phase(torch, dev, kernels, label: str, norm: str, precision: str, mode: str) -> dict:
+    """`cli train --preset PATH` at the default widths with NORM_TYPE and
+    INFERENCE_PRECISION from the artifact, cut in depth only, in the fused
+    megastep ("megastep"), the synchronous loop ("sync") or the
+    overlapped loop with one producer stream ("async"). Every chunk must
+    search with an `InferenceNet` of the run's precision, cast once per
+    weights version across the streams (once per megastep in the
+    megastep), the search kernels 16 + 2 times per searched move and
+    `per_sample` once per megastep; a batch-norm run's running
+    statistics must move and stay finite. Then one megastep, iteration
+    or window of the overlapped loop under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphatriangle_tpu_torch.nn import precision as prec
+    from alphatriangle_tpu_torch.rl.megastep import MegastepRunner
+
+    path = precision_preset(label, norm, precision)
+    args = ["--preset", path, "--rollout-chunk", str(TRAIN_CHUNK_MOVES), "--min-buffer",
+            str(TRAIN_MIN_BUFFER), "--max-steps", str(PREC_STEPS), "--fused-learner-steps", str(PREC_K),
+            "--no-tensorboard"]
+    args += {"megastep": ["--fused-megastep"], "sync": [], "async": ["--async-rollouts", "--workers", "1"]}[mode]
+    chunks, restore_chunks = watch_chunks()
+    mega_casts, real_mega = [], MegastepRunner.run_megastep
+
+    def run_megastep(self, *a, **kw):
+        before = prec.InferenceNet.casts
+        out = real_mega(self, *a, **kw)
+        mega_casts.append(prec.InferenceNet.casts - before)
+        return out
+
+    MegastepRunner.run_megastep = run_megastep
+    casts0 = prec.InferenceNet.casts
+    try:
+        run = train_cli(torch, kernels, label, args)
+        casts = prec.InferenceNet.casts - casts0
+        seen = check_chunks(chunks, label)
+    finally:
+        restore_chunks()
+        MegastepRunner.run_megastep = real_mega
+    loop, report, launches = run["loop"], run["report"], run["launches"]
+    c = loop.c
+    artifact = json.loads(Path(path).read_text())["configs"]
+    def as_json(cfg):
+        return json.loads(json.dumps(cfg.model_dump()))
+
+    if as_json(c.model_config) != artifact["model"] or as_json(c.env_config) != artifact["env"]:
+        fail(f"{label}: the run's net or board is not the artifact's")
+    widths = ("SELF_PLAY_BATCH_SIZE", "BATCH_SIZE", "BUFFER_CAPACITY")
+    if any(getattr(c.train_config, w) != artifact["train"][w] for w in widths):
+        fail(f"{label}: the run is not at the artifact's widths")
+    if loop.global_step != PREC_STEPS or report["mode"] != mode:
+        fail(f"{label}: {loop.global_step} steps in mode {report['mode']}")
+    searched = len(run["played"])
+    check_search_launches(launches, searched, 0, (2, 1), label)
+    megasteps = loop.megastep_iterations if mode == "megastep" else 0
+    if launches["per_sample"] != megasteps:
+        fail(f"{label}: {launches['per_sample']} per_sample launches in {megasteps} megasteps")
+    for rec in chunks:
+        model = rec["weights"].model
+        if not isinstance(model, prec.InferenceNet) or model.precision != precision:
+            fail(f"{label}: a chunk searched with {type(model).__name__}, not a {precision} copy")
+    versions = seen["versions"]
+    if mode == "megastep":
+        # Warm-up chunks read the net's copy of version 0; each megastep casts its own.
+        if mega_casts != [1] * loop.megastep_iterations or casts != loop.megastep_iterations + 1:
+            fail(f"{label}: casts {casts}, per megastep {mega_casts}")
+    elif casts != len(versions):
+        fail(f"{label}: {casts} casts for the {len(versions)} weights versions chunks read")
+    stats = running_stats(c.trainer.model)
+    if norm == "batch":
+        if not stats or not all(bool(torch.isfinite(v).all()) for v in stats.values()):
+            fail(f"{label}: running statistics missing or not finite")
+        moved = [n for n, v in stats.items()
+                 if not torch.equal(v, torch.zeros_like(v) if n.endswith("mean") else torch.ones_like(v))]
+        if len(moved) != len(stats):
+            fail(f"{label}: {len(stats) - len(moved)} running statistics never moved")
+    elif stats:
+        fail(f"{label}: a {norm}-norm net holds running statistics")
+    lanes = c.self_play.batch_size
+    out = {
+        "launches": launches, "searched_moves": searched, "casts": casts,
+        "chunk_versions": versions, "steps": loop.global_step, "losses": report["losses"],
+        "rows_ingested": loop.experiences_added, "peak_mem_gb": run["peak_mem_gb"],
+        "wall_s": run["wall_s"], "run_s": loop.run_s,
+        "running_stats": len(stats),
+    }
+    if mode == "megastep":
+        mega = loop.timings["megastep_s"]
+        out.update({
+            "megasteps": loop.megastep_iterations, "megastep_casts": mega_casts,
+            "megastep_ms": [t * 1e3 for t in mega], "megastep_ms_p50": statistics.median(mega) * 1e3,
+            "megastep_moves_per_s_p50": lanes * TRAIN_CHUNK_MOVES / statistics.median(mega),
+        })
+        # The cast alone, between synchronisations, on the trained module.
+        cast_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prec.InferenceNet(c.trainer.model, c.model_config)
+            torch.cuda.synchronize()
+            cast_ms.append((time.perf_counter() - t0) * 1e3)
+        out["cast_ms_p50"] = statistics.median(cast_ms)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            c.megastep.run_megastep(TRAIN_CHUNK_MOVES, PREC_K)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        out["profile"] = read_profile(prof, TRAIN_STAGES, prof_wall_ms, out["megastep_ms_p50"])
+        return out
+    if mode == "sync":
+        it_s, roll_s = loop.timings["iteration_s"], loop.timings["rollout_s"]
+        steps_full = max(loop.steps_per_iteration)
+        full_its = [t for t, n in zip(it_s, loop.steps_per_iteration) if n == steps_full]
+        out.update({
+            "iterations": loop.iterations, "steps_per_iteration": loop.steps_per_iteration,
+            "iteration_ms_p50_full": statistics.median(full_its) * 1e3,
+            "rollout_ms_p50": statistics.median(roll_s) * 1e3,
+            "rollout_moves_per_s": lanes * TRAIN_CHUNK_MOVES / statistics.median(roll_s),
+        })
+        out["profile"] = profile_sync_iteration(torch, loop, steps_full, out["iteration_ms_p50_full"])
+        return out
+    if loop.producer_restarts or report["replay_ratio"] > c.train_config.REPLAY_RATIO:
+        fail(f"{label}: {loop.producer_restarts} restarts, replay ratio {report['replay_ratio']}")
+    out.update({
+        "iterations": loop.iterations, "harvests_by_stream": loop.harvests_by_stream,
+        "iteration_ms_p50": report["timings"]["iteration_s_p50"] * 1e3,
+        "producer_chunk_ms_p50": report["timings"]["producer_chunk_s_p50"] * 1e3,
+        "lane_moves_per_s_run": seen["lane_moves"] / loop.run_s,
+        "replay_ratio": report["replay_ratio"],
+    })
+    # Two more steps of the same loop under the profiler: the busy share.
+    loop.cfg = loop.cfg.model_copy(
+        {"MAX_TRAINING_STEPS": PREC_STEPS + PREC_K, "ASYNC_CHUNK_SECONDS": None}
+    )
+    loop.stop_event.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop._run_async()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = device_union(prof, set(STAGES) | set(TRAIN_STAGES))
+    measured = busy["spans"] > 0
+    out["profile"] = {
+        "wall_ms": prof_wall_ms, "steps": loop.global_step - PREC_STEPS,
+        "device_ms": busy["union_ms"] if measured else None,
+        "device_busy_share": busy["union_ms"] / prof_wall_ms if measured else None,
+    }
+    return out
+
+
+def serve_run_phase(torch, run: str) -> dict:
+    """`cli serve --run-name` of a trained run (its configs.json and
+    newest checkpoint), 64 slots x 64 simulations, 128 sessions of up to
+    8 moves; once the server has restored its checkpoint a newer one is
+    committed into the run, and `--reload-every 2` must swap it in. The
+    report must name the run's precision and norm, and the search kernels
+    launch 16 + 2 times per dispatch."""
+    from alphatriangle_tpu_torch.config import PersistenceConfig
+    from alphatriangle_tpu_torch.stats import CheckpointManager
+
+    label = f"serve-run-{run}"
+    mgr = CheckpointManager(
+        PersistenceConfig(ROOT_DATA_DIR=str(RUN_ROOT / run), RUN_NAME=run), device="cpu",
+        create_dirs=False,
+    )
+    first = mgr.latest_step()
+    if first is None:
+        fail(f"{label}: the run has no checkpoint")
+    newer = first + 1
+    err_path = RUN_ROOT / f"{label}.err"
+
+    def commit_while_serving(proc):
+        deadline = time.monotonic() + 300
+        while "serve: step" not in (err_path.read_text() if err_path.exists() else ""):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                return
+            time.sleep(0.05)
+        mgr.save(newer, mgr.restore().train_state)
+
+    rc, report = run_cli(
+        ["serve", "--run-name", run, "--root-dir", str(RUN_ROOT / run), "--slots", "64", "--sims", "64",
+         "--sessions", "128", "--max-moves", "8", "--reload-every", "2", "--device", "cuda"],
+        label, 600, on_start=commit_while_serving,
+    )
+    if rc != 0 or report["source"] != f"step {first}":
+        fail(f"{label}: exit {rc}, served {report.get('source')!r}, want step {first}")
+    if report["reloaded_steps"] != [newer] or report["serve_weight_reloads"] != 1:
+        fail(f"{label}: reloaded {report['reloaded_steps']}, want [{newer}]")
+    artifact = json.loads((mgr.config.get_run_base_dir() / "configs.json").read_text())["model"]
+    if (report["inference_precision"], report["norm_type"]) != (
+        artifact["INFERENCE_PRECISION"], artifact["NORM_TYPE"]
+    ):
+        fail(f"{label}: served {report['norm_type']}/{report['inference_precision']}, not the run's")
+    n = report["serve_dispatches"]
+    want = {"gather_rows": 16 * n, "backup_update": 2 * n, "per_sample": 0, "subtree_promote": 0}
+    if report["kernel_launches"] != want:
+        fail(f"{label}: launches {report['kernel_launches']} in {n} dispatches, want {want}")
+    return {
+        "launches": report["kernel_launches"], "dispatches": n,
+        "inference_precision": report["inference_precision"], "norm_type": report["norm_type"],
+        "served_step": first, "reloaded_steps": report["reloaded_steps"],
+        "dispatch_ms_p50": report["serve_batch_ms_p50"], "moves_per_s": report["moves_per_sec"],
+        "sessions_served": report["sessions_served"],
+    }
+
+
+def serve_precision_phase(torch, dev, kernels, cycles: float) -> dict:
+    """The serve default (64 slots x 64 simulations) at float32, bfloat16
+    and int8 in this process, on the same weights (the bf16 net of seed
+    0) and the same 64 sessions: `SERVE_DISPATCHES` rounds, each one
+    dispatch of every service in a rotating order (the host's pace drifts
+    within a call, so the three are timed side by side), 16 + 2 launches
+    per dispatch; then one more dispatch of each under the profiler
+    (`search.evaluate`'s device time), the bytes the search reads its
+    weights from (float32: the module's parameters and buffers; otherwise
+    the `InferenceNet`, and the JAX count of the leaf form), and for int8
+    the dequantization's launches per evaluation (the kernel launches in
+    a profile of one call, which must be one per row-length group) and
+    its time, and its result bit-equal to the leaf-by-leaf form."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphatriangle_tpu_torch import rng
+    from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.nn import NeuralNetwork, precision as prec
+    from alphatriangle_tpu_torch.serving import PolicyService
+
+    names = ("float32", "bfloat16", "int8")
+    env_cfg = EnvConfig()
+    state = NeuralNetwork(ModelConfig(), env_cfg, seed=0, device="cpu").get_weights()
+    services, launches, casts0 = {}, {}, prec.InferenceNet.casts
+    for name in names:
+        model_cfg = ModelConfig(INFERENCE_PRECISION=name)
+        env = TriangleEnv(env_cfg, device=dev)
+        extractor = FeatureExtractor(env, model_cfg)
+        net = NeuralNetwork(model_cfg, env_cfg, state_dict=state, device=dev)
+        mcts = BatchedMCTS(env, extractor, net.model, AlphaTriangleMCTSConfig(max_simulations=64), net.support)
+        services[name] = PolicyService(env, extractor, net, mcts, slots=64, rng_seed=0)
+        services[name].open_sessions(rng.split(rng.PRNGKey(11), 64))
+        launches[name] = {k: 0 for k in kernels}
+    moves = {name: 0 for name in names}
+    for round_ in range(SERVE_DISPATCHES):
+        for i in range(len(names)):
+            name = names[(round_ + i) % len(names)]
+            service = services[name]
+            for s in service.sessions.live_sessions():
+                service.request_move(s.sid)
+            before = {k: kern.launches for k, kern in kernels.items()}
+            results = service.dispatch()
+            torch.cuda.synchronize()
+            for k, kern in kernels.items():
+                launches[name][k] += kern.launches - before[k]
+            moves[name] += len(results)
+            for r in results:  # a finished game's lane takes a fresh session
+                if r["done"]:
+                    service.close_session(r["sid"])
+                    service.open_session(seed=1000 * round_ + r["slot"])
+    out = {}
+    for name in names:
+        service = services[name]
+        net, model = service.net, service.mcts.model
+        n = service.dispatch_count
+        for kname, per in PER_STEP["serve"].items():
+            if launches[name][kname] != per * n:
+                fail(f"serve-{name}: {kname} launched {launches[name][kname]} times in {n} dispatches")
+        if name == "float32":
+            if model is not net.model:
+                fail("serve-float32: the search did not read the module itself")
+            resident = sum(t.numel() * t.element_size() for t in net.model.state_dict().values())
+            leaf_bytes = resident
+        else:
+            if not isinstance(model, prec.InferenceNet) or model.precision != name:
+                fail(f"serve-{name}: the search did not read a {name} copy")
+            resident = model.nbytes()
+            leaf_bytes = prec.quantized_param_bytes(
+                prec.cast_params_for_inference(net.model.state_dict(), net.model_config)
+            )
+        for field in ("visit_counts", "root_value", "root_prior"):
+            if not bool(torch.isfinite(getattr(service.last_output, field)).all()):
+                fail(f"serve-{name}: search output {field} is not finite")
+        batch_s = sum(service.batch_ms) / 1e3
+        out[name] = {
+            "launches": launches[name], "dispatches": n,
+            "dispatch_ms_p50": statistics.median(service.batch_ms),
+            "dispatch_ms": list(service.batch_ms),
+            "moves_per_s": moves[name] / batch_s,
+            "resident_weight_bytes": resident, "leaf_form_bytes": leaf_bytes,
+        }
+    # One weights version each: one cast for bf16 and one for int8.
+    if prec.InferenceNet.casts != casts0 + 2:
+        fail(f"serve-precision: {prec.InferenceNet.casts - casts0} casts, want 2")
+    for name in names:
+        r = out[name]
+        service = services[name]
+        for s in list(service.sessions.live_sessions()):
+            service.close_session(s.sid)
+        r["profile"] = profile_dispatch(torch, service, r["dispatch_ms_p50"])
+        evaluate = r["profile"]["stages"]["search.evaluate"]
+        r["evaluate_device_ms_per_dispatch"] = evaluate["device_ms"]
+    groups = services["int8"].mcts.model.params
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prec.dequantize_params(groups)
+        torch.cuda.synchronize()
+    # Kernel launches as the runtime saw them (the profiler may file a
+    # window's first kernel under its buffer request).
+    launched = sum(
+        e.count for e in prof.key_averages() if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+    )
+    if launched != groups.launches:
+        fail(f"serve-int8: a dequantization launched {launched} kernels, want {groups.launches}")
+    out["int8"]["dequant_launches_per_evaluation"] = launched
+    out["int8"]["dequant_us_per_evaluation"] = time_ms(lambda: prec.dequantize_params(groups), cycles) * 1e3
+    net = services["int8"].net
+    leaves = prec.cast_params_for_inference(net.model.state_dict(), net.model_config)
+    by_leaf, packed = prec.dequantize_params(leaves), prec.dequantize_params(groups)
+    if any(not torch.equal(by_leaf[k], packed[k]) for k in by_leaf):
+        fail("serve-int8: the grouped dequantization differs from the leaf-by-leaf one")
+    return out
+
+
+def reference_precision_phase(torch, dev) -> dict:
+    """Small, card against CPU: (1) the default net's int8 `q` / `scale`
+    and their dequantization bit for bit; (2) one batch-norm learner step
+    (f32 net, TF32 off): losses and TD errors within 1e-5 relative and
+    running statistics within 1e-4 (`tests/test_torch_learner.py`'s
+    LOSS_RTOL and MOMENT_RTOL); (3) a search under bf16 and under int8
+    weights: root priors and values within the bf16 tolerances."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch import rng
+    from alphatriangle_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.nn import NeuralNetwork, precision as prec
+    from alphatriangle_tpu_torch.rl import Trainer
+
+    # (1) int8 leaves and their dequantization.
+    cfg = ModelConfig(INFERENCE_PRECISION="int8")
+    state = NeuralNetwork(ModelConfig(), EnvConfig(), seed=0, device="cpu").model.state_dict()
+    cpu_leaves = prec.cast_params_for_inference(state, cfg)
+    card_leaves = prec.cast_params_for_inference({k: v.to(dev) for k, v in state.items()}, cfg)
+    quantized = 0
+    for name, want in cpu_leaves.items():
+        got = card_leaves[name]
+        if prec.is_quantized_leaf(want):
+            quantized += 1
+            if not (torch.equal(got["q"].cpu(), want["q"]) and torch.equal(got["scale"].cpu(), want["scale"])):
+                fail(f"reference precision: int8 leaf {name} differs between the card and the CPU")
+        elif not torch.equal(got.cpu(), want):
+            fail(f"reference precision: bf16 leaf {name} differs between the card and the CPU")
+    cpu_deq = prec.QuantizedGroups(cpu_leaves).dequantize()
+    card_deq = prec.QuantizedGroups(card_leaves).dequantize()
+    if any(not torch.equal(card_deq[k].cpu(), v) for k, v in cpu_deq.items()):
+        fail("reference precision: the dequantized weights differ between the card and the CPU")
+
+    # (2) a batch-norm learner step.
+    env_cfg, model_cfg, mcts_cfg = tiny_reference_configs()
+    bn_cfg = model_cfg.model_copy(update={"NORM_TYPE": "batch"})
+    pick = np.random.default_rng(3)
+    n, adim = 16, env_cfg.action_dim
+    policy = pick.random((n, adim)).astype(np.float32) ** 3
+    batch = {
+        "grid": pick.integers(-1, 2, (n, 1, env_cfg.ROWS, env_cfg.COLS)).astype(np.float32),
+        "other_features": pick.random((n, bn_cfg.OTHER_NN_INPUT_FEATURES_DIM)).astype(np.float32),
+        "policy_target": policy / policy.sum(-1, keepdims=True),
+        "value_target": (pick.normal(size=n) * 6).astype(np.float32),
+        "weights": pick.uniform(0.2, 1.0, n).astype(np.float32),
+        "policy_weight": np.ones(n, np.float32),
+    }
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    sides = {}
+    try:
+        for device in ("cpu", dev):
+            trainer = Trainer(
+                NeuralNetwork(bn_cfg, env_cfg, seed=3, device=device),
+                TrainConfig(BATCH_SIZE=n, RANDOM_SEED=7, MAX_TRAINING_STEPS=10),
+            )
+            ((m, td),) = trainer.train_steps([batch])
+            sides[str(device)] = (m, np.asarray(td), {k: v.cpu() for k, v in running_stats(trainer.model).items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    (cm, ctd, cstats), (gm, gtd, gstats) = sides["cpu"], sides[str(dev)]
+    loss_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-12) for k in LOSS_KEYS)
+    if loss_err > LEARNER_LOSS_RTOL or not np.allclose(gtd, ctd, rtol=LEARNER_LOSS_RTOL, atol=1e-6):
+        fail(f"reference precision: the batch-norm step's losses differ by {loss_err:.2e} relative")
+    stats_err = max(float((gstats[k] - v).abs().max()) for k, v in cstats.items())
+    if not all(torch.allclose(gstats[k], v, rtol=LEARNER_MOMENT_RTOL, atol=1e-6) for k, v in cstats.items()):
+        fail(f"reference precision: running statistics differ by {stats_err:.2e}")
+
+    # (3) searches under reduced weights: the root evaluation and the search's values.
+    search = {}
+    net_cpu = NeuralNetwork(model_cfg, env_cfg, seed=3, device="cpu")
+    for name in ("bfloat16", "int8"):
+        cfg_p = model_cfg.model_copy(update={"INFERENCE_PRECISION": name})
+        outs = {}
+        for device in ("cpu", dev):
+            env = TriangleEnv(env_cfg, device=device)
+            net = NeuralNetwork(cfg_p, env_cfg, state_dict=net_cpu.get_weights(), device=device)
+            mcts = BatchedMCTS(env, FeatureExtractor(env, cfg_p), net.inference_model(), mcts_cfg, net.support)
+            out = mcts.search(env.reset(rng.split(rng.PRNGKey(4), 16)), rng.PRNGKey(5))
+            outs[device] = (out.root_prior.cpu(), out.root_value.cpu())
+        (cp, cv), (gp, gv) = outs["cpu"], outs[dev]
+        prior_err, value_err = float((gp - cp).abs().max()), float((gv - cv).abs().max())
+        if prior_err > BF16_PROB_ATOL or not torch.allclose(gv, cv, atol=BF16_VALUE_ATOL, rtol=BF16_VALUE_RTOL):
+            fail(f"reference precision: {name} search differs (priors {prior_err:.2e}, values {value_err:.2e})")
+        search[name] = {"root_prior_max_abs_err": prior_err, "root_value_max_abs_err": value_err}
+    return {
+        "int8_leaves": quantized, "bn_step_loss_max_rel_err": loss_err,
+        "bn_running_stats_max_abs_err": stats_err, "search": search,
+    }
+
+
 def say_profile(label: str, prof: dict, card: str) -> None:
     if prof["device_ms"] is None:
         say(f"profiled {label}: wall {prof['wall_ms']:.1f} ms, device time not measured [{card}]")
@@ -3033,6 +3533,83 @@ def run_phases(torch) -> int:
     say(f"attention-memory phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    pbreport = train_precision_phase(
+        torch, dev, KERNELS, "train-bn-bf16-megastep", "batch", "bfloat16", "megastep"
+    )
+    t_prec = time.perf_counter()
+    say(f"train-bn-bf16-megastep phase: {t_prec - t0:.1f} s")
+    say(
+        f"train-bn-bf16-megastep: {pbreport['megasteps']} megasteps, p50 "
+        f"{pbreport['megastep_ms_p50']:.1f} ms ({pbreport['megastep_moves_per_s_p50']:.1f} moves/s), "
+        f"casts per megastep {pbreport['megastep_casts']}, one cast {pbreport['cast_ms_p50']:.2f} ms "
+        f"(in the profiled megastep: host {pbreport['profile']['stages']['selfplay.cast']['host_ms']:.2f} "
+        f"ms, device {pbreport['profile']['stages']['selfplay.cast']['device_ms']:.2f} ms), "
+        f"{pbreport['running_stats']} running statistics moved and finite, peak "
+        f"{pbreport['peak_mem_gb']:.2f} GiB; launches {pbreport['launches']} [{card}]"
+    )
+    say_profile("bn-bf16 megastep", pbreport["profile"], card)
+    t_prec = time.perf_counter()
+    pireport = train_precision_phase(torch, dev, KERNELS, "train-bn-int8-sync", "batch", "int8", "sync")
+    say(f"train-bn-int8-sync phase: {time.perf_counter() - t_prec:.1f} s")
+    say(
+        f"train-bn-int8-sync: {pireport['iterations']} iterations {pireport['steps_per_iteration']}, "
+        f"p50 at the fullest {pireport['iteration_ms_p50_full']:.1f} ms, rollout "
+        f"{pireport['rollout_moves_per_s']:.1f} moves/s, {pireport['casts']} casts for versions "
+        f"{pireport['chunk_versions']}, busy {pireport['profile']['device_busy_share']:.1%} of a "
+        f"profiled iteration, peak {pireport['peak_mem_gb']:.2f} GiB; launches {pireport['launches']} "
+        f"[{card}]"
+    )
+    say_profile("bn-int8 sync iteration", pireport["profile"], card)
+    t_prec = time.perf_counter()
+    pareport = train_precision_phase(torch, dev, KERNELS, "train-int8-async", "group", "int8", "async")
+    say(f"train-int8-async phase: {time.perf_counter() - t_prec:.1f} s")
+    say(
+        f"train-int8-async: 1 producer stream, {pareport['iterations']} iterations, p50 "
+        f"{pareport['iteration_ms_p50']:.1f} ms, producer chunk p50 "
+        f"{pareport['producer_chunk_ms_p50']:.1f} ms, {pareport['lane_moves_per_s_run']:.1f} moves/s "
+        f"over the run, {pareport['casts']} casts for versions {pareport['chunk_versions']}, busy "
+        f"{pareport['profile']['device_busy_share']:.1%} of a profiled window of "
+        f"{pareport['profile']['steps']} steps; launches {pareport['launches']} [{card}]"
+    )
+    t_prec = time.perf_counter()
+    ebreport = eval_phase(
+        torch, run="train-bn-int8-sync", root="train-bn-int8-sync", step=PREC_STEPS,
+        label="eval-bn-int8", precision="int8",
+    )
+    say(
+        f"eval-bn-int8: {EVAL_GAMES} games x {EVAL_SIMS} sims of {ebreport['report']['source']} "
+        f"(batch norm, int8): {ebreport['games_per_s']:.2f} games/s, {ebreport['dispatches']} "
+        f"dispatches, p50 {ebreport['dispatch_ms_p50']:.1f} ms; launches {ebreport['launches']} [{card}]"
+    )
+    say(f"eval-bn-int8 phase: {time.perf_counter() - t_prec:.1f} s")
+    t_prec = time.perf_counter()
+    srreport_run = serve_run_phase(torch, "train-bn-int8-sync")
+    say(f"serve-run phase: {time.perf_counter() - t_prec:.1f} s")
+    say(
+        f"serve --run-name train-bn-int8-sync: {srreport_run['inference_precision']} "
+        f"{srreport_run['norm_type']}-norm weights of step {srreport_run['served_step']}, hot-reloaded "
+        f"{srreport_run['reloaded_steps']}; {srreport_run['dispatches']} dispatches, p50 "
+        f"{srreport_run['dispatch_ms_p50']:.1f} ms, {srreport_run['moves_per_s']:.1f} moves/s; "
+        f"launches {srreport_run['launches']} [{card}]"
+    )
+    t_prec = time.perf_counter()
+    spreport = serve_precision_phase(torch, dev, KERNELS, sleep_cycles_per_ms())
+    say(f"serve-precision phase: {time.perf_counter() - t_prec:.1f} s")
+    for name, r in spreport.items():
+        extra = ""
+        if name == "int8":
+            extra = (f"; dequantization {r['dequant_launches_per_evaluation']} launches, "
+                     f"{r['dequant_us_per_evaluation']:.1f} us per evaluation")
+        say(
+            f"serve-{name}: dispatch p50 {r['dispatch_ms_p50']:.1f} ms (interleaved with the other "
+            f"precisions), {r['moves_per_s']:.1f} moves/s, search.evaluate "
+            f"{r['evaluate_device_ms_per_dispatch']:.2f} ms on the card a dispatch, busy "
+            f"{r['profile']['device_busy_share']:.1%}, weights read from {r['resident_weight_bytes']} "
+            f"bytes (leaf form {r['leaf_form_bytes']}){extra} [{card}]"
+        )
+    say(f"precision phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
     rureport = reference_reuse_phase(torch, dev)
@@ -3067,6 +3644,16 @@ def run_phases(torch) -> int:
         f"sims {rpreport['sims']}, {rpreport['rows']} rows)"
     )
     rreport["pcr_chunk"] = rpreport
+    rqreport = reference_precision_phase(torch, dev)
+    say(
+        f"reference: the card's int8 q/scale ({rqreport['int8_leaves']} leaves) and dequantization "
+        f"equal the CPU's bit for bit; a batch-norm learner step within "
+        f"{rqreport['bn_step_loss_max_rel_err']:.2e} relative (running statistics "
+        f"{rqreport['bn_running_stats_max_abs_err']:.2e}); bf16 / int8 searches within "
+        f"{rqreport['search']['bfloat16']['root_prior_max_abs_err']:.2e} / "
+        f"{rqreport['search']['int8']['root_prior_max_abs_err']:.2e} on the root priors"
+    )
+    rreport["precision"] = rqreport
     say(f"reference phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {
@@ -3076,6 +3663,9 @@ def run_phases(torch) -> int:
         "train_preset3": p3report, "eval_gumbel": egreport, "serve_gumbel": sgreport,
         "train_preset3_megastep": p3mreport, "train_preset3_async": p3areport,
         **{f"train_preset{n}": r for n, r in preset_reports.items()},
+        "train_bn_bf16_megastep": pbreport, "train_bn_int8_sync": pireport,
+        "train_int8_async": pareport, "eval_bn_int8": ebreport, "serve_run_int8": srreport_run,
+        **{f"serve_{name}": r for name, r in spreport.items()},
     }
     kernels_line = []
     for kname, kr in kreport.items():

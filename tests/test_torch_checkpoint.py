@@ -441,7 +441,9 @@ def jax_train_state(jstate) -> dict:
     """`train_state_from_flax` of a JAX TrainState."""
     host = jax.tree_util.tree_map(np.asarray, jstate)
     adam = _adam_state(host.opt_state)
-    return train_state_from_flax(host.params, adam.mu, adam.nu, adam.count, host.step, host.rng)
+    return train_state_from_flax(
+        host.params, adam.mu, adam.nu, adam.count, host.step, host.rng, batch_stats=host.batch_stats
+    )
 
 
 def test_train_state_from_flax_continues_the_jax_learner(tmp_path, tiny_env_config):

@@ -34,7 +34,16 @@ from alphatriangle_tpu.rl.trainer import project_to_support as jax_project  # no
 from alphatriangle_tpu_torch.nn import NeuralNetwork, flax_to_torch  # noqa: E402
 from alphatriangle_tpu_torch.nn.model import TransformerEncoderLayer, dropout  # noqa: E402
 from alphatriangle_tpu_torch.rl import Trainer, make_lr_schedule, project_to_support  # noqa: E402
-from torch_parity import CPU, converted_state_dict, small_model_config, torch_cfg  # noqa: E402
+from torch_parity import (  # noqa: E402
+    CPU,
+    ROUNDING_RMS,
+    assert_params_close,
+    converted_state_dict,
+    jax_adam_moments,
+    rounding_sized,
+    small_model_config,
+    torch_cfg,
+)
 
 LOSS_RTOL = 1e-5
 MOMENT_RTOL = 1e-4
@@ -92,20 +101,29 @@ def _assert_params(trainer: Trainer, jparams, lr: float, steps: int):
         assert diff.max() <= 2 * lr * steps, (name, diff.max())
 
 
-def _assert_moments(trainer: Trainer, jopt_state):
-    adam = next(s for s in jax.tree_util.tree_leaves(
-        jopt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState)
-    ) if isinstance(s, optax.ScaleByAdamState))
+def _assert_moments(trainer: Trainer, jopt_state, rounding=None):
+    """The Adam moments within MOMENT_RTOL; at the entries `rounding`
+    marks (`torch_parity.rounding_sized`), rounding-sized on both sides."""
+    mu, nu, count = jax_adam_moments(jopt_state)
     names = [n for n, _ in trainer.model.named_parameters()]
-    for which, ours in (("mu", trainer.state.opt_state.mu), ("nu", trainer.state.opt_state.nu)):
-        ref = _named(getattr(adam, which))
+    for which, ours, ref in (
+        ("mu", trainer.state.opt_state.mu, mu), ("nu", trainer.state.opt_state.nu, nu)
+    ):
+        size = np.abs if which == "mu" else np.sqrt  # in gradient units
+        top = max(float(size(v.numpy()).max()) for v in ref.values())
         for name, got in zip(names, ours):
-            r = ref[name].numpy()
+            g, r = got.numpy(), ref[name].numpy()
+            if rounding is not None:
+                noise = rounding[name]
+                assert (size(g[noise]) <= 2 * ROUNDING_RMS * top).all(), (which, name)
+                g, r = g[~noise], r[~noise]
+                if not r.size:
+                    continue
             np.testing.assert_allclose(
-                got.numpy(), r, rtol=MOMENT_RTOL, atol=1e-5 * np.abs(r).max() + 1e-30,
+                g, r, rtol=MOMENT_RTOL, atol=1e-5 * np.abs(r).max() + 1e-30,
                 err_msg=f"{which} {name}",
             )
-    assert trainer.state.opt_state.count == int(adam.count)
+    assert trainer.state.opt_state.count == count
 
 
 class TestPieces:
@@ -130,11 +148,47 @@ class TestPieces:
         for count in (0, 1, 5, 7, 13, 14, 49, 50, 80):
             np.testing.assert_allclose(ours(count), float(ref(count)), rtol=1e-6)
 
-    def test_refuses_batch_norm(self, tiny_env_config):
-        model_cfg = torch_cfg(small_model_config(tiny_env_config, NORM_TYPE="batch"))
-        net = NeuralNetwork(model_cfg, torch_cfg(tiny_env_config), device=CPU)
-        with pytest.raises(ValueError, match="NORM_TYPE='batch'"):
-            Trainer(net, torch_cfg(_train_cfg()))
+    def test_batch_norm_step_matches_jax(self, tiny_env_config):
+        """One learner step of a batch-norm net: the JAX step's metrics,
+        TD errors, parameters and moments, and its running statistics
+        (moved once, by the batch's mean and biased variance) within the
+        moments' tolerance. The biases a batch norm follows have
+        rounding-sized gradients (`torch_parity.rounding_sized`): Adam
+        moves each of their entries by up to lr in either sign, so those
+        entries and their share of the update norm are held to that
+        bound only."""
+        jt, tt, model_cfg = _pair(tiny_env_config, NORM_TYPE="batch")
+        batch = _batch(tiny_env_config, model_cfg, 16, seed=2)
+        jstate, jmetrics, jtd = jax.jit(jt._train_step_impl)(
+            jt.state, {k: jnp.asarray(v) for k, v in batch.items()}
+        )
+        metrics, td = tt._train_step_impl({k: torch.from_numpy(v) for k, v in batch.items()})
+        rounding = rounding_sized(jax_adam_moments(jstate.opt_state)[1])
+        # Every conv and dense bias a batch norm follows, whole.
+        assert {n for n, m in rounding.items() if m.all()} == {
+            n for n, _ in tt.model.named_parameters()
+            if n.endswith(".bias") and "Conv_" in n or n.endswith("Dense_0.bias")
+        }
+        for key, ref in jmetrics.items():
+            if key != "update_norm":
+                np.testing.assert_allclose(float(metrics[key]), float(ref), rtol=LOSS_RTOL, err_msg=key)
+        lr = 1e-3
+        entries = sum(int(m.sum()) for m in rounding.values())
+        assert abs(float(metrics["update_norm"]) ** 2 - float(jmetrics["update_norm"]) ** 2) <= (
+            entries * lr**2
+        )
+        np.testing.assert_allclose(td.numpy(), np.asarray(jtd), rtol=LOSS_RTOL)
+        assert_params_close(tt.model, jstate.params, lr, 1, rounding=rounding)
+        _assert_moments(tt, jstate.opt_state, rounding=rounding)
+        want = flax_to_torch({"batch_stats": jax.tree_util.tree_map(np.asarray, jstate.batch_stats)})
+        buffers = dict(tt.model.named_buffers())
+        assert len(want) == 2 * 7 and set(want) <= set(buffers)
+        for name, ref in want.items():
+            start = torch.zeros_like(ref) if name.endswith("mean") else torch.ones_like(ref)
+            assert not torch.equal(buffers[name], start), name
+            np.testing.assert_allclose(
+                buffers[name].numpy(), ref.numpy(), rtol=MOMENT_RTOL, atol=1e-6, err_msg=name
+            )
 
 
 class TestSteps:

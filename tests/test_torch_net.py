@@ -41,11 +41,17 @@ from alphatriangle_tpu_torch.nn import (  # noqa: E402
     flax_to_torch,
     value_support,
 )
-from torch_parity import CPU, converted_state_dict, small_model_config, torch_cfg  # noqa: E402
+from torch_parity import (  # noqa: E402
+    BF16_PROB_ATOL,
+    BF16_VALUE_ATOL,
+    BF16_VALUE_RTOL,
+    CPU,
+    converted_state_dict,
+    small_model_config,
+    torch_cfg,
+)
 
 F32_TOL = 1e-5
-BF16_PROB_ATOL = 0.05
-BF16_VALUE_ATOL, BF16_VALUE_RTOL = 0.2, 0.1
 
 
 def _played_states(jenv, batch: int, moves: int, seed: int):

@@ -60,10 +60,10 @@ def _jax_noise(monkeypatch):
 SLOTS = 4
 
 
-def _service_pair(jenv_cfg, mcts_cfg, net: str):
+def _service_pair(jenv_cfg, mcts_cfg, net: str, **model_kw):
     """A JAX and a port PolicyService over the same net: the exact stub
     or the small real net with converted weights."""
-    model_cfg = small_model_config(jenv_cfg)
+    model_cfg = small_model_config(jenv_cfg, **model_kw)
     jenv = JaxEnv(jenv_cfg)
     jfe = get_feature_extractor(jenv, model_cfg)
     tenv = TriangleEnv(torch_cfg(jenv_cfg), device=CPU)
@@ -183,14 +183,31 @@ class TestService:
         assert res["sid"] == s.sid and res["latency_ms"] >= res["queue_wait_ms"] >= 0
         assert tsvc.serve_stats()["serve_dispatches"] == 1
 
-    def test_refuses_unported_inference_precision(self, tiny_env_config, tiny_mcts_config):
-        _, tsvc, _ = _service_pair(tiny_env_config, tiny_mcts_config, "stub")
-        extractor = tsvc.extractor
-        extractor.model_config = extractor.model_config.model_copy(
-            {"INFERENCE_PRECISION": "int8"}
+    def test_int8_dispatches_match_jax(self, tiny_env_config, tiny_mcts_config):
+        """Both services under INFERENCE_PRECISION="int8": each searches
+        with its own int8 copy of the same weights (float32 compute, so
+        the two forwards read the same dequantized weights) and serves
+        the JAX service's root priors and values within `NET_ATOL`."""
+        jsvc, tsvc, jouts = _service_pair(
+            tiny_env_config, tiny_mcts_config, "real", INFERENCE_PRECISION="int8"
         )
-        with pytest.raises(ValueError, match="INFERENCE_PRECISION"):
-            PolicyService(tsvc.env, extractor, tsvc.net, tsvc.mcts, slots=2)
+        jsess, tsess = _open_same_sessions(jsvc, tsvc, 3)
+        for _ in range(3):
+            for js, ts in zip(jsess, tsess, strict=True):
+                if not js.done:
+                    jsvc.request_move(js.sid)
+                    tsvc.request_move(ts.sid)
+            jres, tres = jsvc.dispatch(), tsvc.dispatch()
+            assert len(tres) == len(jres) > 0
+            jout, tout = jouts[-1], tsvc.last_output
+            np.testing.assert_allclose(
+                tout.root_prior.numpy(), np.asarray(jout.root_prior), rtol=0, atol=NET_ATOL
+            )
+            np.testing.assert_allclose(
+                tout.root_value.numpy(), np.asarray(jout.root_value), rtol=0, atol=NET_ATOL
+            )
+        assert tsvc.mcts.model is tsvc._serve_variables()
+        assert tsvc.mcts.model.precision == "int8"
 
     def test_loadgen_serves_every_session(self, tiny_env_config, tiny_mcts_config):
         _, tsvc, _ = _service_pair(tiny_env_config, tiny_mcts_config, "stub")
