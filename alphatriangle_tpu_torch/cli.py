@@ -1,7 +1,8 @@
 """Command line of the PyTorch port: counterpart of
-`alphatriangle_tpu/cli.py`'s `serve`, `train` and `eval` subcommands.
+`alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval` and `league`
+subcommands.
 
-    python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--sims 64]
+    python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--buckets CSV] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
         [--state-dict PATH] [--gumbel] [--run-name NAME | --checkpoint STEP_DIR]
         [--root-dir DIR] [--reload-every N] [--duration SECONDS]
@@ -15,8 +16,11 @@ as `cli eval` restores it. With `--run-name`, every `--reload-every`
 dispatches the run's newest committed checkpoint is polled and a new
 step hot-swapped in. `--duration` serves waves of `--sessions` until
 the budget elapses. `--gumbel` searches with `GumbelMCTS(exploit=True)`
-and serves its selected actions. Prints one JSON report, the precision
-and the reloaded steps included.
+and serves its selected actions. `--buckets 16,32,64` serves on a rung
+ladder (`serving/buckets.py`): every rung is warmed first, the load
+keeps up to the top rung's count of sessions live, and the service
+walks between rungs with it. Prints one JSON report, the precision, the
+ladder's rungs and switches and the reloaded steps included.
 
     python -m alphatriangle_tpu_torch.cli train [--preset N|PATH] [--dry-setup]
         [--gumbel] [--fast-sims S [--full-search-prob P]] [--no-tensorboard]
@@ -59,6 +63,20 @@ INFERENCE_PRECISION included), played as paired games through
 `PolicyService`, against a uniform-random baseline on the same hands,
 and head to head against a second checkpoint when one is named. Prints
 the JAX report's keys, plus the dispatch times and kernel launches.
+
+    python -m alphatriangle_tpu_torch.cli league --pool-from RUN [--run-name NAME]
+        [--root-dir DIR] [--steps N] [--mix RATIO] [--slots B] [--games G] [--sims S]
+        [--max-moves N] [--reload-every STEPS] [--staleness-window RELOADS]
+        [--promotion-games N] [--promotion-win-rate R] [--exploration-floor F]
+        [--seed S] [--self-play-batch B] [--batch-size B] [--buffer-capacity N]
+        [--min-buffer N] [--rollout-chunk T] [--checkpoint-freq N]
+        [--device-replay {auto,on,off}] [--device cuda]
+
+The experience flywheel (`league/flywheel.py`): the synchronous loop,
+whose iterations play a league round at the --mix rate, against a pool
+seeded from --pool-from's checkpoints, on that run's board and net.
+Prints the JAX report's keys (`ledger` is null: the port keeps no
+metrics ledger yet), the loop's report and each round's record.
 """
 
 import argparse
@@ -124,12 +142,21 @@ def cmd_serve(args: argparse.Namespace) -> int:
         mcts = GumbelMCTS(env, extractor, net.model, mcts_cfg, net.support, exploit=True)
     else:
         mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
-    service = PolicyService(env, extractor, net, mcts, slots=args.slots, rng_seed=args.seed)
+    service = PolicyService(
+        env, extractor, net, mcts, slots=args.slots, rng_seed=args.seed, ladder=args.buckets
+    )
+    ladder_note = f", ladder {','.join(map(str, service.ladder.rungs))}" if args.buckets else ""
     say(
-        f"serve: {source} net, board {env_cfg.ROWS}x{env_cfg.COLS}, {args.slots} slots, "
-        f"{args.sims} sims/move{', gumbel' if args.gumbel else ''}, "
+        f"serve: {source} net, board {env_cfg.ROWS}x{env_cfg.COLS}, {args.slots} slots"
+        f"{ladder_note}, {args.sims} sims/move{', gumbel' if args.gumbel else ''}, "
         f"{model_cfg.INFERENCE_PRECISION} weights, device {device}"
     )
+    if args.buckets:
+        # Every rung, before the load: a switch mid-stream then costs the
+        # migration, not a cold width.
+        t_warm = time.perf_counter()
+        service.warm()
+        say(f"serve: warmed rungs {list(service.ladder.rungs)} ({time.perf_counter() - t_warm:.1f}s)")
 
     # Hot reload: every --reload-every dispatches, poll the run's newest
     # committed checkpoint; a new step is restored and swapped in
@@ -161,7 +188,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
         waves.append(run_simulated_load(
             service,
             total_sessions=args.sessions,
-            concurrency=args.slots,
+            # Under a ladder, demand up to the top rung walks it up.
+            concurrency=service.max_slots if args.buckets else args.slots,
             max_moves=args.max_moves,
             seed=args.seed + len(waves),
             reload_hook=reload_hook,
@@ -175,6 +203,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
         "run_name": args.run_name,
         "device": str(device),
         "slots": args.slots,
+        "buckets": list(service.ladder.rungs),
+        "rung_switches": service.rung_switches,
         "sims": args.sims,
         "gumbel": args.gumbel,
         "inference_precision": model_cfg.INFERENCE_PRECISION,
@@ -456,6 +486,99 @@ def cmd_eval(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_league(args: argparse.Namespace) -> int:
+    """The experience flywheel: the learner trains while a `PolicyService`
+    plays matchmade games against a pool of past checkpoints, the live
+    side's served games flowing into the replay ring beside self-play at
+    --mix. The pool is seeded from --pool-from's checkpoints and grows
+    by the run's own promotions; board and net come from that run's
+    configs.json, so its checkpoints load."""
+    from .config import AlphaTriangleMCTSConfig, LeagueConfig, PersistenceConfig, TrainConfig
+    from .config.run_configs import load_run_configs_or_default
+    from .league import LEAGUE_FILENAME, LIVE_ID, LeaguePool
+    from .league.flywheel import run_flywheel
+    from .training import EXIT_CODES
+
+    def persistence_for(run_name: str) -> PersistenceConfig:
+        kw = {"RUN_NAME": run_name}
+        if args.root_dir:
+            kw["ROOT_DATA_DIR"] = args.root_dir
+        return PersistenceConfig(**kw)
+
+    # Auto-resume would point RUN_NAME at the newest checkpointed run,
+    # usually the --pool-from source, and train into it.
+    overrides: dict = {"AUTO_RESUME_LATEST": False}
+    for flag, field in (
+        ("run_name", "RUN_NAME"),
+        ("seed", "RANDOM_SEED"),
+        ("steps", "MAX_TRAINING_STEPS"),
+        ("self_play_batch", "SELF_PLAY_BATCH_SIZE"),
+        ("batch_size", "BATCH_SIZE"),
+        ("buffer_capacity", "BUFFER_CAPACITY"),
+        ("min_buffer", "MIN_BUFFER_SIZE_TO_TRAIN"),
+        ("rollout_chunk", "ROLLOUT_CHUNK_MOVES"),
+        ("checkpoint_freq", "CHECKPOINT_SAVE_FREQ_STEPS"),
+        ("device_replay", "DEVICE_REPLAY"),
+        ("max_moves", "MAX_EPISODE_MOVES"),
+    ):
+        value = getattr(args, flag)
+        if value is not None:
+            overrides[field] = value
+    train_config = TrainConfig(**overrides)
+    league_kw: dict = {}
+    for flag, field in (
+        ("slots", "LEAGUE_SLOTS"),
+        ("games", "GAMES_PER_ROUND"),
+        ("mix", "LEAGUE_MIX_RATIO"),
+        ("max_moves", "MAX_GAME_MOVES"),
+        ("reload_every", "RELOAD_EVERY_STEPS"),
+        ("staleness_window", "STALENESS_WINDOW"),
+        ("promotion_games", "PROMOTION_MIN_GAMES"),
+        ("promotion_win_rate", "PROMOTION_WIN_RATE"),
+        ("exploration_floor", "EXPLORATION_FLOOR"),
+    ):
+        value = getattr(args, flag)
+        if value is not None:
+            league_kw[field] = value
+    league_config = LeagueConfig(**league_kw)
+    env_config, model_config = load_run_configs_or_default(
+        persistence_for(args.pool_from).get_run_base_dir()
+    )
+    mcts_config = AlphaTriangleMCTSConfig(max_simulations=args.sims) if args.sims is not None else None
+    persistence_config = persistence_for(train_config.RUN_NAME)
+    loop = run_flywheel(
+        train_config=train_config,
+        league_config=league_config,
+        env_config=env_config,
+        model_config=model_config,
+        mcts_config=mcts_config,
+        persistence_config=persistence_config,
+        pool_from=args.pool_from,
+        device=args.device,
+    )
+    code = 1 if loop is None else EXIT_CODES[loop.status]
+    run_dir = persistence_config.get_run_base_dir()
+    pool = LeaguePool(run_dir / LEAGUE_FILENAME)
+    report = {
+        "run": train_config.RUN_NAME,
+        "pool_from": args.pool_from,
+        "exit": code,
+        "pool_size": len(pool),
+        "promotions": pool.promotions,
+        "live_elo": round(pool.rating(LIVE_ID), 2),
+        "ratings": {m: round(pool.rating(m), 2) for m in pool.member_ids()},
+        "league_jsonl": str(run_dir / LEAGUE_FILENAME),
+        # The port has no metrics ledger yet (its telemetry slice).
+        "ledger": None,
+    }
+    if loop is not None:
+        report.update(loop.report())
+        report["league_records"] = loop.round_records
+    report["kernel_launches"] = _kernel_launches()
+    print(json.dumps(report))
+    return code
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="alphatriangle_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -466,6 +589,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     serve.add_argument("--slots", type=int, default=64, metavar="B",
                        help="Concurrent session slots = the search batch (default 64).")
+    serve.add_argument("--buckets", default=None, metavar="RUNGS",
+                       help="Serve-shape ladder as a CSV rung list (e.g. 16,64,256; "
+                       "serving/buckets.py). The service walks between rungs with sustained "
+                       "load; every rung is warmed before the load. Default: one rung at --slots.")
     serve.add_argument("--sims", type=int, default=64)
     serve.add_argument("--sessions", type=int, default=96, metavar="N",
                        help="Simulated sessions to serve end to end.")
@@ -574,6 +701,50 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--device", default="cuda",
                     help="Torch device (default cuda; 'cpu' runs the plain versions).")
     ev.set_defaults(fn=cmd_eval)
+
+    league = sub.add_parser(
+        "league",
+        help="Experience flywheel: the learner plus matchmade league games through a "
+        "PolicyService in one process, the served games flowing into the replay ring beside "
+        "self-play.",
+    )
+    league.add_argument("--pool-from", required=True, metavar="RUN",
+                        help="Seed the opponent pool from this run's checkpoints (its configs.json "
+                        "also gives the board and net).")
+    league.add_argument("--run-name", default=None)
+    league.add_argument("--root-dir", default=None,
+                        help="Runs root directory (default ./.alphatriangle_data).")
+    league.add_argument("--steps", type=int, default=None, metavar="N",
+                        help="MAX_TRAINING_STEPS for the learner.")
+    league.add_argument("--mix", type=float, default=None, metavar="RATIO",
+                        help="Fraction of iterations that play a league round instead of a "
+                        "self-play chunk (default 0.25).")
+    league.add_argument("--slots", type=int, default=None, metavar="B",
+                        help="League service session slots.")
+    league.add_argument("--games", type=int, default=None, metavar="G",
+                        help="Games per side per matchmade pairing.")
+    league.add_argument("--sims", type=int, default=None)
+    league.add_argument("--max-moves", type=int, default=None)
+    league.add_argument("--reload-every", type=int, default=None, metavar="STEPS",
+                        help="Broadcast the learner's weights to the league service every N "
+                        "learner steps (default 8).")
+    league.add_argument("--staleness-window", type=int, default=None, metavar="RELOADS",
+                        help="Drop harvested rows more than this many reloads behind "
+                        "(default 4; negative disables).")
+    league.add_argument("--promotion-games", type=int, default=None)
+    league.add_argument("--promotion-win-rate", type=float, default=None)
+    league.add_argument("--exploration-floor", type=float, default=None)
+    league.add_argument("--seed", type=int, default=None)
+    league.add_argument("--self-play-batch", type=int, default=None)
+    league.add_argument("--batch-size", type=int, default=None)
+    league.add_argument("--buffer-capacity", type=int, default=None)
+    league.add_argument("--min-buffer", type=int, default=None)
+    league.add_argument("--rollout-chunk", type=int, default=None)
+    league.add_argument("--checkpoint-freq", type=int, default=None)
+    league.add_argument("--device-replay", default=None, choices=["auto", "on", "off"])
+    league.add_argument("--device", default="cuda",
+                        help="Torch device (default cuda; 'cpu' runs the plain versions).")
+    league.set_defaults(fn=cmd_league)
     return parser
 
 

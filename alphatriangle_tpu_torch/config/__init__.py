@@ -1,6 +1,7 @@
 """Config package: dataclass counterparts of the JAX package's configs."""
 
 from .env_config import EnvConfig
+from .league_config import LeagueConfig
 from .mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
 from .mesh_config import MeshConfig
 from .model_config import ModelConfig
@@ -23,6 +24,7 @@ __all__ = [
     "EXPLICIT_FEATURES_DIM",
     "EnvConfig",
     "FEATURES_PER_SHAPE",
+    "LeagueConfig",
     "MCTSConfig",
     "MeshConfig",
     "ModelConfig",

@@ -37,6 +37,9 @@ class SelfPlayResult:
     # Oldest weights version the harvest's chunks played under: the
     # window-level staleness tag.
     trainer_step_at_episode_start: int = 0
+    # Free-form harvest context: a league harvest carries its source and
+    # each row's weights version (`row_versions`, league/emitter.py).
+    context: dict = field(default_factory=dict)
 
     @property
     def num_experiences(self) -> int:

@@ -36,6 +36,8 @@ def run_simulated_load(
     `max_dispatches` bounds the run (live sessions are then closed).
     Returns the run's summary stats.
     """
+    # Bounded by the most sessions the service can ever hold (its ladder's
+    # top rung): demand above the current width is what walks it up.
     concurrency = min(concurrency or service.sessions.slots, service.max_slots)
     if concurrency < 1:
         raise ValueError("concurrency must be >= 1")

@@ -1,5 +1,5 @@
 """Continuous-batching policy service over the lockstep wave search:
-counterpart of `alphatriangle_tpu/serving/service.py` on a single rung.
+counterpart of `alphatriangle_tpu/serving/service.py`.
 
 Many concurrent game sessions multiplex onto ONE batched
 `BatchedMCTS.search` over the full slot array. Requests queue between
@@ -8,13 +8,28 @@ and one masked step, then fetches its results to the host in one
 transfer. `reload_weights` swaps the served net's weights between
 dispatches.
 
+With a `ladder` (`serving/buckets.py`) the slot array's width walks
+between rungs, between dispatches: up one rung when the fill of the
+last `sustain` dispatches averages at or above `HIGH_WATER`, or at once
+when an admission would not fit the current width but fits a higher
+rung; down one when it averages at or below `LOW_WATER` and the live
+sessions fit the lower rung. A switch migrates the live sessions
+lowest-old-slot-first (`SessionSlots.migrate`), drops every carried
+tree and clears the walk window. The search has no per-width program,
+so a rung is warm (`warm_rung`) once one search at its width has run on
+the card: cuBLAS / cuDNN have chosen their algorithms for that batch
+and the caching allocator holds its blocks, and the first dispatch
+after a switch costs the migration, not a cold start. The dispatch keys
+do not depend on the rung. Without a ladder the service keeps one rung.
+
 With `MCTSConfig.tree_reuse` each lane carries its promoted search tree
 across dispatches on the device: a dispatch searches from the carried
 lanes the host still trusts (`_carry_ok`), then promotes the subtree of
 the action the masked step plays. A lane's carry is cleared when its
 session opens or closes, when its game ends, when it was not served
-(its promotion was for a move it never played) and on every weight
-reload (the carried statistics came from the old net).
+(its promotion was for a move it never played), on every weight reload
+(the carried statistics came from the old net) and, for every lane, at
+a rung switch.
 
 Each served action is the search's own choice (`mcts.root_actions`):
 the visit argmax, or a `GumbelMCTS`'s (usually `exploit=True`)
@@ -27,10 +42,16 @@ count) and kept for the dispatches that follow, cast again after
 `reload_weights` (`nn/precision.py`). Under float32 the search reads
 the net's module itself.
 
-The bucket ladder, telemetry, the flight recorder, the compile cache,
-the trajectory emitter and the fault hooks wait for later slices.
+`emitter` (None by default) is the league's trajectory sink
+(`league/emitter.py`): when set, each dispatch hands it the pre-step
+states, the search output and the served sessions, and each closed
+session its summary; a failing emitter is logged and serving goes on.
+
+Telemetry, the flight recorder and the fault hooks wait for later
+slices.
 """
 
+import logging
 import threading
 import time
 from collections import deque
@@ -42,7 +63,15 @@ from torch.profiler import record_function
 from .. import rng
 from ..mcts.search import CarriedTree
 from ..nn import precision
+from .buckets import BucketLadder
 from .session import SessionSlots
+
+logger = logging.getLogger(__name__)
+
+# The ladder's walk thresholds on the window's mean fill (the JAX
+# service's defaults).
+HIGH_WATER = 0.85
+LOW_WATER = 0.25
 
 
 def _pct(values: list, q: float) -> "float | None":
@@ -57,7 +86,8 @@ class PolicyService:
 
     Any thread may open/close sessions and enqueue move requests
     (lock-guarded); one caller drives `dispatch()` in a loop. Admission
-    beyond the slot count raises: back-pressure belongs to the caller.
+    beyond the top rung's slot count raises: back-pressure belongs to
+    the caller.
     """
 
     def __init__(
@@ -70,12 +100,25 @@ class PolicyService:
         rng_seed: int = 0,
         pad_seed: int = 0,
         clock=time.monotonic,
+        ladder=None,
+        sustain: int = 3,
     ):
         self.env = env
         self.extractor = extractor
         self.net = net
         self.mcts = mcts
+        self.emitter = None
         self._clock = clock
+        # `slots` is the starting rung and always a rung.
+        self.ladder = BucketLadder.single(slots) if ladder is None else BucketLadder.from_spec(
+            ladder, base=slots
+        )
+        self.sustain = max(1, int(sustain))
+        self.rung_switches = 0
+        # The fills of the last `sustain` dispatches: the walk's window.
+        self._ladder_fill: deque[float] = deque(maxlen=self.sustain)
+        self._last_fill: "float | None" = None
+        self._pad_seed = int(pad_seed)
         self.sessions = SessionSlots(env, slots, pad_seed=pad_seed)
         self._base_rng = rng.PRNGKey(rng_seed)
         self._lock = threading.RLock()
@@ -100,21 +143,101 @@ class PolicyService:
 
     @property
     def max_slots(self) -> int:
-        return self.sessions.slots
+        """The most sessions the service can ever hold: the top rung."""
+        return self.ladder.max_rung
+
+    # --- warm start -------------------------------------------------------
+
+    def warm(self) -> None:
+        """Warm every rung of the ladder (`warm_rung`)."""
+        for rung in self.ladder.rungs:
+            self.warm_rung(rung)
+
+    def warm_rung(self, rung: int) -> None:
+        """One search (and, under reuse, one promotion) over a padding
+        array of `rung` frozen lanes, its outputs dropped: the width's
+        library choices and allocator blocks are then in place. Touches
+        no session, counter or carried tree."""
+        rung = int(rung)
+        if rung not in self.ladder:
+            raise ValueError(f"rung {rung} is not on the ladder {self.ladder.rungs}")
+        states = SessionSlots(self.env, rung, pad_seed=self._pad_seed).states
+        key = rng.PRNGKey(0)
+        with self._lock:
+            if self._reduced:
+                self.mcts.model = self._serve_variables()
+            if self._tree_reuse:
+                out, tree, _ = self.mcts._search_carried(states, key, self.mcts.zero_carried(states))
+                self.mcts.promote(tree, self.mcts.root_actions(out))
+            else:
+                self.mcts.root_actions(self.mcts.search(states, key))
+        if states.done.is_cuda:
+            torch.cuda.synchronize(states.done.device)
+
+    # --- the bucket ladder --------------------------------------------------
+
+    def _switch_rung(self, new_rung: int, reason: str) -> None:
+        """Move to the `new_rung`-lane array between dispatches: migrate
+        the live sessions, drop every carried tree (`_carry_ok` all
+        False, fresh zero trees at the new width) and clear the walk
+        window. Caller holds the lock."""
+        old = self.sessions.slots
+        if new_rung == old:
+            return
+        self.sessions = self.sessions.migrate(new_rung, pad_seed=self._pad_seed)
+        self._carry_ok = np.zeros(new_rung, dtype=bool)
+        if self._tree_reuse:
+            self._carried = self.mcts.zero_carried(self.sessions.states)
+        self._ladder_fill.clear()
+        self.rung_switches += 1
+        logger.info(
+            "serve: rung switch b%d -> b%d (%s; live=%d queue=%d)",
+            old, new_rung, reason, self.sessions.live_count, self.queue_depth,
+        )
+
+    def _maybe_walk(self) -> None:
+        """The windowed walk, between dispatches (caller holds the lock):
+        up when the window's mean fill is at or above `HIGH_WATER`, down
+        when it is at or below `LOW_WATER` and the live sessions fit the
+        lower rung."""
+        if len(self._ladder_fill) < self.sustain:
+            return
+        fill = sum(self._ladder_fill) / len(self._ladder_fill)
+        rung = self.sessions.slots
+        if fill >= HIGH_WATER and rung < self.ladder.max_rung:
+            self._switch_rung(self.ladder.up(rung), f"fill {fill:.2f} >= high-water")
+        elif fill <= LOW_WATER and rung > self.ladder.min_rung:
+            lower = self.ladder.down(rung)
+            if self.sessions.live_count <= lower:
+                self._switch_rung(lower, f"fill {fill:.2f} <= low-water")
+
+    def _grow_for(self, needed: int) -> None:
+        """Walk up before an admission that overflows the current width
+        but fits a higher rung (caller holds the lock)."""
+        demand = self.sessions.live_count + int(needed)
+        if self.sessions.free_count >= needed or demand > self.ladder.max_rung:
+            return
+        target = self.ladder.rung_for(demand)
+        if target > self.sessions.slots:
+            self._switch_rung(target, f"admission demand {demand}")
 
     # --- session lifecycle --------------------------------------------
 
     def open_session(self, reset_key: "torch.Tensor | None" = None, seed: "int | None" = None):
-        """Admit one session (fresh game); raises when every slot is taken."""
+        """Admit one session (fresh game), walking the ladder up when the
+        current width is full; raises when every slot of the top rung is
+        taken."""
         if reset_key is None:
             reset_key = rng.PRNGKey(0 if seed is None else seed)
         with self._lock:
+            self._grow_for(1)
             s = self.sessions.admit(reset_key)
             self._carry_ok[s.slot] = False
             return s
 
     def open_sessions(self, reset_keys: torch.Tensor) -> list:
         with self._lock:
+            self._grow_for(int(reset_keys.shape[0]))
             admitted = self.sessions.admit_many(reset_keys)
             for s in admitted:
                 self._carry_ok[s.slot] = False
@@ -128,6 +251,11 @@ class PolicyService:
             summary = self.sessions.retire(sid)
             if sid in self._queue:
                 self._queue.remove(sid)
+            if self.emitter is not None:
+                try:
+                    self.emitter.on_session_close(sid, summary)
+                except Exception:
+                    logger.exception("trajectory emitter failed closing session %d", sid)
             return summary
 
     def request_move(self, sid: int) -> None:
@@ -205,6 +333,8 @@ class PolicyService:
             else:
                 out = self.mcts.search(self.sessions.states, key)
                 actions = self.mcts.root_actions(out)
+            # The positions the search ran on (step installs new tensors).
+            pre_states = self.sessions.states
             with record_function("serve.step"):
                 rewards, dones = self.sessions.step(actions, mask)
             # The one host fetch of the dispatch: every result array.
@@ -223,6 +353,16 @@ class PolicyService:
             self.last_reused = reused
             actions_np = host[0].astype(np.int64)
             rewards_np, dones_np, scores_np = host[1], host[2] > 0, host[3]
+            if self.emitter is not None:
+                try:
+                    self.emitter.on_dispatch(
+                        pre_states, out, served, rewards_np, dones_np, self.weight_reloads
+                    )
+                except Exception:
+                    logger.exception(
+                        "trajectory emitter failed on dispatch %d; serving continues",
+                        self.dispatch_count,
+                    )
 
             batch_ms = (t1 - t0) * 1e3
             results = []
@@ -256,13 +396,22 @@ class PolicyService:
                 # game goes on, may reuse their tree next time.
                 self._carry_ok = mask & ~dones_np
             self.batch_ms.append(batch_ms)
+            fill = len(results) / self.sessions.slots
+            self._last_fill = fill
+            self._ladder_fill.append(fill)
+            # This dispatch ran at the old width; the next may run at the new.
+            self._maybe_walk()
             return results
 
     def serve_stats(self) -> dict:
-        """Occupancy and per-dispatch wall-time percentiles."""
+        """Occupancy, the current rung and per-dispatch wall-time
+        percentiles."""
         snap = self.sessions.snapshot()
         return {
             "serve_slots": snap["slots"],
+            "serve_bucket": snap["slots"],
+            "serve_fill": None if self._last_fill is None else round(self._last_fill, 4),
+            "serve_rung_switches": self.rung_switches,
             "serve_sessions": snap["live"],
             "serve_sessions_admitted": snap["admitted_total"],
             "serve_sessions_retired": snap["retired_total"],

@@ -1,6 +1,6 @@
 """Game-session slot array: counterpart of
 `alphatriangle_tpu/serving/session.py` (`SessionSlots` admit, retire,
-masked step, `host_results`).
+masked step, `migrate`, `host_results`).
 
 A fixed array of B device-resident game slots; sessions are admitted
 into the lowest free slots and retired out of them between dispatches,
@@ -124,6 +124,40 @@ class SessionSlots:
         self._free.append(s.slot)
         self.retired_total += 1
         return s.summary()
+
+    # --- rung migration (the service's bucket ladder) ------------------
+
+    def migrate(self, new_slots: int, pad_seed: int = 0) -> "SessionSlots":
+        """A new array of `new_slots` lanes carrying every live session
+        over: its pad lanes are those of a fresh `SessionSlots(env,
+        new_slots, pad_seed)`, and the live sessions are re-packed
+        lowest-old-slot-first into lanes 0..live-1, so relative lane
+        order holds across any sequence of switches. Each state tensor
+        moves in one index-select and one copy on the device. The same
+        Session objects, sids, pending requests, admitted / retired
+        totals and sid counter carry over (a migration is not an
+        admission). Raises when the live sessions do not fit."""
+        new_slots = int(new_slots)
+        live = sorted(self._sessions.values(), key=lambda s: s.slot)
+        if len(live) > new_slots:
+            raise RuntimeError(f"migrate({new_slots}): {len(live)} live sessions do not fit")
+        target = SessionSlots(self.env, new_slots, pad_seed=pad_seed)
+        if live:
+            old_idx = torch.tensor([s.slot for s in live], dtype=torch.int64, device=self.env.device)
+            for name in self.states.__dataclass_fields__:
+                getattr(target.states, name)[: len(live)] = getattr(self.states, name).index_select(
+                    0, old_idx
+                )
+        target._sessions = self._sessions
+        target._by_slot = {}
+        target._free = list(range(len(live), new_slots))
+        for i, s in enumerate(live):
+            s.slot = i
+            target._by_slot[i] = s
+        target._sid_counter = self._sid_counter
+        target.admitted_total = self.admitted_total
+        target.retired_total = self.retired_total
+        return target
 
     # --- the lockstep step --------------------------------------------
 

@@ -183,6 +183,34 @@ NORM_TYPE and INFERENCE_PRECISION set by a tuned-preset artifact through
   bf16 and int8 searches within the bf16 tolerances of
   `tests/torch_parity.py`.
 
+Then slice nine's paths, at the serve default's widths (`EnvConfig()`,
+`ModelConfig()`, 64 simulations) and the train phases' depth cuts:
+
+- serve-ladder: `PolicyService(slots=16, ladder="16,32,64", sustain=2)`,
+  every rung warmed (one search at its width), then a storm of 160
+  sessions of 8 moves at concurrency 64 through `run_simulated_load`.
+  Every session served, at least two switches, the rung up to 64 and
+  down again on the drain, 16 + 2 launches in every dispatch at
+  whatever rung, the `_build/` listing and the loaded libraries
+  unchanged after the warm-up, every served action valid. Per rung:
+  dispatch p50, the first dispatch after a switch, the migration's ms
+  (synchronised). Then a tracked session plays the same game solo as in
+  a churning crowd with the same switch (16 -> 32) after the same
+  dispatch.
+- serve-ladder-reuse: the same storm with `tree_reuse=True`: every
+  carried tree dropped at each switch (`_carry_ok` all False, empty
+  trees at the new width), one `subtree_promote` launch per dispatch,
+  and the reorder of the first promotion at 32 lanes (its operands
+  recorded on the way) bit-equal to its plain version.
+- league: `cli train` (the synchronous loop, 4 steps, a checkpoint every
+  2) writes a pool of two checkpoints; `cli league --pool-from` it with
+  `--steps 4 --mix 1.0 --slots 8 --games 4 --max-moves 24
+  --promotion-games 1 --promotion-win-rate 0.0`. Exit 0, a pool of at
+  least 2, a round and a promotion, every round's rows ingested equal to
+  the live side's moves less the stale ones, `league.jsonl` replayed to
+  the report's ratings, 16 + 2 launches per league dispatch; rounds/s,
+  ingested moves/s and the league service's dispatch p50.
+
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
 
@@ -3158,6 +3186,429 @@ def reference_precision_phase(torch, dev) -> dict:
     }
 
 
+# --- slice 9: the serving bucket ladder and the league flywheel ----------
+
+LADDER, LADDER_BASE, LADDER_SUSTAIN = "16,32,64", 16, 2
+LADDER_SESSIONS, LADDER_CONCURRENCY, LADDER_MAX_MOVES = 160, 64, 8
+# The league phase: a pool of two checkpoints written by `cli train`,
+# then `cli league` against it (depth cuts only: 4 learner steps).
+LEAGUE_POOL_STEPS, LEAGUE_POOL_FREQ = 4, 2
+LEAGUE_STEPS, LEAGUE_SLOTS, LEAGUE_GAMES, LEAGUE_MAX_MOVES = 4, 8, 4, 24
+
+
+def build_listing() -> tuple:
+    """The kernel libraries on disk and the ones loaded in this process."""
+    from alphatriangle_tpu_torch.ops import KERNELS
+    from alphatriangle_tpu_torch.ops._cuda import BUILD_DIR
+
+    return (
+        sorted(p.name for p in BUILD_DIR.iterdir()),
+        {name: id(kern._lib) for name, kern in KERNELS.items()},
+    )
+
+
+def ladder_service(torch, dev, reuse: bool = False, ladder: str = LADDER):
+    """The serve default (`EnvConfig()`, `ModelConfig()`, seed 0, 64
+    simulations) on a rung ladder starting at its lowest rung."""
+    from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+    from alphatriangle_tpu_torch.serving import PolicyService
+
+    env_cfg, model_cfg = EnvConfig(), ModelConfig()
+    mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=64, tree_reuse=reuse)
+    env = TriangleEnv(env_cfg, device=dev)
+    extractor = FeatureExtractor(env, model_cfg)
+    net = NeuralNetwork(model_cfg, env_cfg, seed=0, device=dev)
+    mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+    base = int(ladder.split(",")[0])
+    return PolicyService(
+        env, extractor, net, mcts, slots=base, rng_seed=0, ladder=ladder, sustain=LADDER_SUSTAIN
+    )
+
+
+def record_promotions(store: dict, lanes: int):
+    """Wrap the search's `subtree_promote` so that the operands of its
+    first call at `lanes` lanes are kept (device copies, taken before the
+    call); returns the function that restores it."""
+    from alphatriangle_tpu_torch.mcts import search as search_mod
+
+    real = search_mod.subtree_promote
+
+    def recorded(*args, **kwargs):
+        if "args" not in store and args[0].shape[0] == lanes:
+            store["args"] = [x.clone() if hasattr(x, "clone") else x for x in args]
+            store["kwargs"] = dict(kwargs)
+        return real(*args, **kwargs)
+
+    search_mod.subtree_promote = recorded
+    return lambda: setattr(search_mod, "subtree_promote", real)
+
+
+def record_search_kernels(store: dict, lanes: tuple):
+    """Wrap the search's `gather_rows` and `backup_update` so that the
+    operands of each one's first call at each lane count in `lanes` are
+    kept in `store[(name, lanes)]` (device copies taken before the call,
+    so the in-place backup keeps its inputs); returns the function that
+    restores both."""
+    from alphatriangle_tpu_torch.mcts import search as search_mod
+
+    real = {name: getattr(search_mod, name) for name in ("gather_rows", "backup_update")}
+
+    def wrap(name):
+        def recorded(*args, **kwargs):
+            key = (name, int(args[0].shape[0]))
+            if key[1] in lanes and key not in store:
+                store[key] = [x.clone() for x in args]
+            return real[name](*args, **kwargs)
+
+        return recorded
+
+    for name in real:
+        setattr(search_mod, name, wrap(name))
+    return lambda: [setattr(search_mod, name, fn) for name, fn in real.items()]
+
+
+def hold_search_kernels(torch, store: dict, lanes: tuple, label: str) -> dict:
+    """Each recorded call of `record_search_kernels` through the kernel and
+    its plain version: bit-equal (`bits_equal`) at every lane count in
+    `lanes`, else the phase fails. Returns the shapes held per lane count."""
+    import importlib
+
+    g = importlib.import_module("alphatriangle_tpu_torch.ops.gather_rows")
+    mb = importlib.import_module("alphatriangle_tpu_torch.ops.mcts_backup")
+    held = {}
+    for b in lanes:
+        for name in ("gather_rows", "backup_update"):
+            if (name, b) not in store:
+                fail(f"{label}: no {name} call was recorded at {b} lanes")
+        stats, node = store[("gather_rows", b)]
+        got, want = g.gather_rows_cuda(stats, node), g.gather_rows_plain(stats, node)
+        torch.cuda.synchronize()
+        if not bits_equal(torch, got, want):
+            fail(f"{label}: gather_rows kernel differs from its plain version at {b} lanes")
+        args = store[("backup_update", b)]
+        got = mb.backup_update_cuda(*[x.clone() for x in args])
+        want = mb.backup_update_plain(*[x.clone() for x in args])
+        torch.cuda.synchronize()
+        for plane, x, y in zip(PLANES, got, want):
+            if not bits_equal(torch, x, y):
+                fail(f"{label}: backup_update kernel differs from its plain version on {plane} "
+                     f"at {b} lanes")
+        planes = args[0].shape
+        held[b] = {
+            "gather_rows": {"B": b, "N": int(stats.shape[1]), "K": int(stats.shape[2]),
+                            "W": int(node.shape[1])},
+            "backup_update": {"B": b, "N": int(planes[1]), "A": int(planes[2]),
+                              "W": int(args[4].shape[1]), "D": int(args[8].shape[2])},
+        }
+    return held
+
+
+def drive_tracked(torch, service, dispatches: int, churn: bool, switch: tuple) -> tuple:
+    """`tests/test_torch_ladder.py::drive_session` on the card: one tracked
+    session in lane 0 with fixed dispatch keys, with or without a churning
+    crowd, `switch=(i, rung)` forcing a rung switch after dispatch i.
+    Returns its (actions, scores)."""
+    from alphatriangle_tpu_torch import rng
+
+    tracked = service.open_session(rng.PRNGKey(42))
+    if tracked.slot != 0:
+        fail("serve-ladder: the tracked session is not in lane 0")
+    if churn:
+        for o in service.open_sessions(rng.split(rng.PRNGKey(7), 12)):
+            service.request_move(o.sid)
+    actions, scores = [], []
+    for i in range(dispatches):
+        service.request_move(tracked.sid)
+        results = service.dispatch(rng.PRNGKey(100 + i))
+        mine = next(r for r in results if r["sid"] == tracked.sid)
+        actions.append(mine["action"])
+        scores.append(mine["score"])
+        if churn:
+            for r in results:
+                if r["sid"] == tracked.sid:
+                    continue
+                if r["done"] or i % 2:
+                    service.close_session(r["sid"])
+                else:
+                    service.request_move(r["sid"])
+            n_fresh = min(6, service.sessions.free_count - 1)
+            if n_fresh > 0:
+                for o in service.open_sessions(rng.split(rng.PRNGKey(1007 + i), n_fresh)):
+                    service.request_move(o.sid)
+        if i == switch[0]:
+            service._switch_rung(switch[1], "forced")
+        if mine["done"]:
+            break
+    return actions, scores
+
+
+def serve_ladder_phase(torch, dev, kernels, reuse: bool = False) -> dict:
+    """`PolicyService(slots=16, ladder="16,32,64", sustain=2)` at the serve
+    default's widths: every rung warmed, then a storm of 160 sessions at
+    concurrency 64 with 8 moves each through `run_simulated_load`. Every
+    session served, the ladder walked up to 64 and back down on the drain,
+    16 + 2 launches (+ 1 promotion under reuse) in every dispatch at
+    whatever rung, no kernel library built or loaded after the warm-up,
+    every carried tree dropped at each switch. Under reuse, the promotion's
+    reorder at 32 lanes (recorded from the storm) is bit-equal to its plain
+    version. Without reuse, a tracked session plays the same game solo as in
+    a churning crowd switched at the same dispatch."""
+    import importlib
+
+    label = "serve-ladder-reuse" if reuse else "serve-ladder"
+    service = ladder_service(torch, dev, reuse)
+    warm_ms = {}
+    for rung in service.ladder.rungs:
+        t0 = time.perf_counter()
+        service.warm_rung(rung)
+        warm_ms[rung] = (time.perf_counter() - t0) * 1e3
+    listing = build_listing()
+    per_dispatch, switches = [], []
+    real_dispatch, real_switch = service.dispatch, service._switch_rung
+
+    def dispatch(*args, **kwargs):
+        rung = service.sessions.slots
+        before = {name: kern.launches for name, kern in kernels.items()}
+        states = service.sessions.states
+        valid = service.env.valid_action_mask(states).cpu()
+        done = states.done.cpu()
+        t0 = time.perf_counter()
+        results = real_dispatch(*args, **kwargs)
+        ms = (time.perf_counter() - t0) * 1e3
+        for r in results:
+            if done[r["slot"]] or not valid[r["slot"], r["action"]]:
+                fail(f"{label}: served action {r['action']} is not valid for lane {r['slot']}")
+        if not bool(torch.isfinite(service.last_output.root_value).all()):
+            fail(f"{label}: non-finite root values at rung {rung}")
+        delta = {name: kern.launches - before[name] for name, kern in kernels.items()}
+        want = {"gather_rows": 16, "backup_update": 2, "per_sample": 0, "subtree_promote": int(reuse)}
+        if delta != want:
+            fail(f"{label}: a dispatch at rung {rung} launched {delta}, want {want}")
+        per_dispatch.append({"rung": rung, "ms": ms, "served": len(results),
+                             "after_switch": bool(switches) and switches[-1]["dispatch"] == service.dispatch_count - 1})
+        return results
+
+    def switch(new_rung, reason):
+        old = service.sessions.slots
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_switch(new_rung, reason)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if service._carry_ok.shape != (new_rung,) or service._carry_ok.any():
+            fail(f"{label}: carried trees survived the switch {old} -> {new_rung}")
+        if reuse and (service._carried.valid.shape[0] != new_rung or bool(service._carried.valid.any())):
+            fail(f"{label}: the carried trees at {new_rung} lanes are not empty")
+        switches.append({"dispatch": service.dispatch_count, "from": old, "to": new_rung, "ms": ms})
+
+    service.dispatch, service._switch_rung = dispatch, switch
+    promoted, searched = {}, {}
+    restore = record_promotions(promoted, 32) if reuse else None
+    restore_search = record_search_kernels(searched, service.ladder.rungs)
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    from alphatriangle_tpu_torch.serving import run_simulated_load
+
+    t0 = time.perf_counter()
+    stats = run_simulated_load(
+        service, total_sessions=LADDER_SESSIONS, concurrency=LADDER_CONCURRENCY,
+        max_moves=LADDER_MAX_MOVES, seed=0,
+    )
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    restore_search()
+    if restore is not None:
+        restore()
+    rungs = [d["rung"] for d in per_dispatch]
+    if stats["sessions_served"] != LADDER_SESSIONS:
+        fail(f"{label}: {stats['sessions_served']} of {LADDER_SESSIONS} sessions served")
+    if service.rung_switches < 2 or max(rungs) != 64 or service.sessions.slots >= 64:
+        fail(f"{label}: the ladder did not walk up to 64 and back down ({service.rung_switches} "
+             f"switches, rungs {rungs}, ending at {service.sessions.slots})")
+    if build_listing() != listing:
+        fail(f"{label}: a kernel library was built or loaded after the warm-up")
+    if not len(per_dispatch) == stats["dispatches"] == service.dispatch_count:
+        fail(f"{label}: {len(per_dispatch)} dispatches seen, {stats['dispatches']} run")
+    report = {
+        "launches": launches,
+        "dispatches": stats["dispatches"],
+        "moves_served": stats["moves_served"],
+        "sessions_served": stats["sessions_served"],
+        "moves_per_s": stats["moves_served"] / wall_s,
+        "wall_s": wall_s,
+        "rung_switches": service.rung_switches,
+        "rungs": rungs,
+        "switches": switches,
+        "warm_ms": warm_ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "by_rung": {
+            rung: {
+                "dispatches": sum(1 for d in per_dispatch if d["rung"] == rung),
+                "dispatch_ms_p50": statistics.median([d["ms"] for d in per_dispatch if d["rung"] == rung]),
+                "first_after_switch_ms": [d["ms"] for d in per_dispatch if d["rung"] == rung and d["after_switch"]],
+                "migration_ms": [s["ms"] for s in switches if s["to"] == rung],
+            }
+            for rung in sorted(set(rungs))
+        },
+        "kernels_held_bit_equal": hold_search_kernels(torch, searched, service.ladder.rungs, label),
+    }
+    if reuse:
+        if "args" not in promoted:
+            fail(f"{label}: no promotion ran at 32 lanes")
+        sr = importlib.import_module("alphatriangle_tpu_torch.ops.subtree_reuse")
+        args, kw = promoted["args"], promoted["kwargs"]
+        e_visits, e_value, e_reward, children, prior, valid_p, _terminal, actions = args[:8]
+        order, _, keep, new_children, _, retained = sr.promotion_plan(
+            children, actions, kw["max_retained"], kw["bfs_rounds"]
+        )
+        planes = (e_visits, e_value, e_reward, new_children, prior, valid_p)
+        got = sr.reorder_planes_cuda(order, retained, planes)
+        want = sr.reorder_planes_plain(order, keep, planes)
+        torch.cuda.synchronize()
+        if not all(bits_equal(torch, x, y) for x, y in zip(got, want)):
+            fail(f"{label}: the promotion's reorder differs from its plain version at 32 lanes")
+        report["promote_at_32_lanes"] = {
+            "bit_equal": True, "retained_rows": int(retained.sum()),
+            "max_abs_err": max(float((x - y).abs().max()) for x, y in zip(got, want)),
+        }
+    else:
+        solo = drive_tracked(torch, ladder_service(torch, dev, ladder="16,32"), 10, False, (2, 32))
+        crowd = drive_tracked(torch, ladder_service(torch, dev, ladder="16,32"), 10, True, (2, 32))
+        if solo != crowd:
+            fail(f"{label}: the tracked session played another game in the crowd: {solo} vs {crowd}")
+        if len(solo[0]) < 4:
+            fail(f"{label}: the tracked game ended before it ran at the new width")
+        report["lane_isolation_moves"] = len(solo[0])
+    return report
+
+
+def league_width_kernels(torch, dev) -> dict:
+    """The gather and the backup at the league service's widths: an
+    in-process service of `LEAGUE_SLOTS` lanes at the league run's configs
+    (`EnvConfig()`, `ModelConfig()`, 64 simulations) serves one move of a
+    full slot array; the operands of its first gather and backup are held
+    bit-equal to their plain versions."""
+    from alphatriangle_tpu_torch import rng
+
+    service = ladder_service(torch, dev, ladder=str(LEAGUE_SLOTS))
+    searched = {}
+    restore = record_search_kernels(searched, (LEAGUE_SLOTS,))
+    try:
+        for s in service.open_sessions(rng.split(rng.PRNGKey(11), LEAGUE_SLOTS)):
+            service.request_move(s.sid)
+        if len(service.dispatch(rng.PRNGKey(12))) != LEAGUE_SLOTS:
+            fail(f"league: the {LEAGUE_SLOTS}-lane service did not serve every lane")
+    finally:
+        restore()
+    return hold_search_kernels(torch, searched, (LEAGUE_SLOTS,), "league")
+
+
+def league_phase(torch, dev) -> dict:
+    """`cli train` (the synchronous loop at the default widths and the train
+    phases' depth cuts) writes a pool of two checkpoints; `cli league
+    --pool-from` it at mix 1.0 with a permissive promotion gate. Exit 0, a
+    pool of at least 2, a round and a promotion, every round's rows the live
+    side's moves less the stale ones, `league.jsonl` replayed to the
+    report's ratings, 16 + 2 launches per league dispatch (the league
+    process's own counts: with mix 1.0 every search is a league dispatch)."""
+    from alphatriangle_tpu_torch.league import LIVE_ID, LeaguePool
+
+    label = "league"
+    held = league_width_kernels(torch, dev)
+    torch.cuda.empty_cache()  # the card's memory for the two processes this phase starts
+    root = str(RUN_ROOT / label)
+    t0 = time.perf_counter()
+    rc, pool_report = run_cli([
+        "train", "--device", "cuda", "--root-dir", root, "--run-name", "league-pool",
+        "--no-auto-resume", "--no-tensorboard", "--max-steps", str(LEAGUE_POOL_STEPS),
+        "--checkpoint-freq", str(LEAGUE_POOL_FREQ), "--rollout-chunk", str(TRAIN_CHUNK_MOVES),
+        "--min-buffer", str(TRAIN_MIN_BUFFER),
+    ], "league-pool", 600)
+    pool_s = time.perf_counter() - t0
+    if rc != 0 or pool_report["steps"] != LEAGUE_POOL_STEPS:
+        fail(f"{label}: the pool run exited {rc} at step {pool_report.get('steps')}")
+    pool_moves = sum(1 for _ in pool_report["rows_per_iteration"]) * TRAIN_CHUNK_MOVES
+    check_launches(pool_report["kernel_launches"], pool_moves, "league-pool")
+    t0 = time.perf_counter()
+    rc, report = run_cli([
+        "league", "--device", "cuda", "--root-dir", root, "--pool-from", "league-pool",
+        "--run-name", "league", "--steps", str(LEAGUE_STEPS), "--mix", "1.0",
+        "--slots", str(LEAGUE_SLOTS), "--games", str(LEAGUE_GAMES), "--max-moves", str(LEAGUE_MAX_MOVES),
+        "--promotion-games", "1", "--promotion-win-rate", "0.0", "--min-buffer", str(TRAIN_MIN_BUFFER),
+    ], "league", 900)
+    league_s = time.perf_counter() - t0
+    if rc != 0 or report["exit"] != 0 or report["status"] != "completed":
+        fail(f"{label}: exit {rc}, status {report.get('status')}, error {report.get('error')}")
+    if report["pool_size"] < 2 or report["league_rounds"] < 1 or report["promotions"] < 1:
+        fail(f"{label}: pool {report['pool_size']}, rounds {report['league_rounds']}, "
+             f"promotions {report['promotions']}")
+    if report["steps"] != LEAGUE_STEPS:
+        fail(f"{label}: stopped at step {report['steps']}")
+    for r in report["league_records"]:
+        if r["moves_ingested"] != r["live_moves"] - r["stale_dropped"]:
+            fail(f"{label}: round {r['round']} ingested {r['moves_ingested']} rows of "
+                 f"{r['live_moves']} live moves less {r['stale_dropped']} stale")
+    pool = LeaguePool(report["league_jsonl"])
+    if {m: round(pool.rating(m), 2) for m in pool.member_ids()} != report["ratings"] or round(
+        pool.rating(LIVE_ID), 2
+    ) != report["live_elo"]:
+        fail(f"{label}: league.jsonl does not replay to the report's ratings")
+    launches = report["kernel_launches"]
+    dispatches = report["league_dispatches"]
+    want = {"gather_rows": 16 * dispatches, "backup_update": 2 * dispatches, "per_sample": 0,
+            "subtree_promote": 0}
+    if launches != want or dispatches == 0:
+        fail(f"{label}: launches {launches} in {dispatches} league dispatches, want {want}")
+    return {
+        "launches": launches,
+        "dispatches": dispatches,
+        "pool_launches": pool_report["kernel_launches"],
+        "pool_s": pool_s,
+        "league_s": league_s,
+        "rounds": report["league_rounds"],
+        "rounds_per_s": report["league_rounds_per_s"],
+        "ingested_moves": report["league_moves_ingested"],
+        "ingested_moves_per_s": report["league_ingested_moves_per_s"],
+        "stale_dropped": report["stale_dropped"],
+        "dispatch_ms_p50": report["league_dispatch_ms_p50"],
+        "round_s": report["league_round_s"],
+        "pool_size": report["pool_size"],
+        "promotions": report["promotions"],
+        "ratings": report["ratings"],
+        "steps": report["steps"],
+        "iteration_s_p50": report["timings"]["iteration_s_p50"],
+        "kernels_held_bit_equal": held,
+    }
+
+
+def say_ladder(label: str, r: dict, card: str) -> None:
+    by_rung = "; ".join(
+        f"b{rung}: {v['dispatches']} dispatches, p50 {v['dispatch_ms_p50']:.1f} ms, first after a "
+        f"switch {', '.join(f'{x:.1f}' for x in v['first_after_switch_ms']) or '-'} ms, migration "
+        f"{', '.join(f'{x:.2f}' for x in v['migration_ms']) or '-'} ms"
+        for rung, v in r["by_rung"].items()
+    )
+    extra = ""
+    if "promote_at_32_lanes" in r:
+        extra = f"; the reorder at 32 lanes bit-equal ({r['promote_at_32_lanes']['retained_rows']} rows kept)"
+    held = ", ".join(f"b{rung}" for rung in r["kernels_held_bit_equal"])
+    extra = f"; gather_rows and backup_update bit-equal to plain at {held}{extra}"
+    if "lane_isolation_moves" in r:
+        extra += f"; a tracked game of {r['lane_isolation_moves']} moves equal solo and in a crowd across a switch"
+    say(
+        f"{label}: {r['sessions_served']} sessions, {r['moves_served']} moves in {r['dispatches']} "
+        f"dispatches ({r['moves_per_s']:.1f} moves/s), {r['rung_switches']} switches, warm "
+        f"{', '.join(f'b{k} {v:.0f} ms' for k, v in r['warm_ms'].items())}; {by_rung}{extra}; "
+        f"launches {r['launches']} [{card}]"
+    )
+
+
 def say_profile(label: str, prof: dict, card: str) -> None:
     if prof["device_ms"] is None:
         say(f"profiled {label}: wall {prof['wall_ms']:.1f} ms, device time not measured [{card}]")
@@ -3610,6 +4061,30 @@ def run_phases(torch) -> int:
     say(f"precision phases: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    slreport = serve_ladder_phase(torch, dev, KERNELS)
+    say_ladder("serve-ladder", slreport, card)
+    say(f"serve-ladder phase: {time.perf_counter() - t0:.1f} s")
+    t_lad = time.perf_counter()
+    slrreport = serve_ladder_phase(torch, dev, KERNELS, reuse=True)
+    say_ladder("serve-ladder-reuse", slrreport, card)
+    say(f"serve-ladder-reuse phase: {time.perf_counter() - t_lad:.1f} s")
+    t_lad = time.perf_counter()
+    lgreport = league_phase(torch, dev)
+    say(
+        f"league: pool of {lgreport['pool_size']} after {lgreport['promotions']} promotion(s), "
+        f"{lgreport['rounds']} rounds to step {lgreport['steps']} ({lgreport['rounds_per_s']:.3f} "
+        f"rounds/s, {lgreport['ingested_moves']} moves ingested at "
+        f"{lgreport['ingested_moves_per_s']:.1f} moves/s, {lgreport['stale_dropped']} stale), league "
+        f"dispatch p50 {lgreport['dispatch_ms_p50']:.1f} ms over {lgreport['dispatches']} dispatches, "
+        f"ratings {lgreport['ratings']}; pool run {lgreport['pool_s']:.1f} s, league run "
+        f"{lgreport['league_s']:.1f} s; gather_rows and backup_update bit-equal to plain at "
+        f"{', '.join(f'b{b}' for b in lgreport['kernels_held_bit_equal'])} in process; launches "
+        f"{lgreport['launches']} [{card}]"
+    )
+    say(f"league phase: {time.perf_counter() - t_lad:.1f} s")
+    say(f"slice-nine phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
     rureport = reference_reuse_phase(torch, dev)
@@ -3666,6 +4141,7 @@ def run_phases(torch) -> int:
         "train_bn_bf16_megastep": pbreport, "train_bn_int8_sync": pireport,
         "train_int8_async": pareport, "eval_bn_int8": ebreport, "serve_run_int8": srreport_run,
         **{f"serve_{name}": r for name, r in spreport.items()},
+        "serve_ladder": slreport, "serve_ladder_reuse": slrreport, "league": lgreport,
     }
     kernels_line = []
     for kname, kr in kreport.items():

@@ -52,6 +52,7 @@ from alphatriangle_tpu_torch.nn import NeuralNetwork  # noqa: E402
 from alphatriangle_tpu_torch.serving import PolicyService  # noqa: E402
 from alphatriangle_tpu_torch.training import LoopStatus, run_training  # noqa: E402
 from test_torch_resume import _cfg as run_cfg  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,

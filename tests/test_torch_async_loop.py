@@ -29,6 +29,7 @@ from alphatriangle_tpu_torch.training import (  # noqa: E402
     setup_training_components,
 )
 from alphatriangle_tpu_torch.training import setup as setup_mod  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import CPU, run_root, torch_cfg  # noqa: E402
 
 

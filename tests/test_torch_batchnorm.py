@@ -43,6 +43,7 @@ from alphatriangle_tpu_torch.training import setup_training_components  # noqa: 
 from test_torch_checkpoint import jax_train_state  # noqa: E402
 from test_torch_learner import _assert_moments, _batch, _pair, _train_cfg  # noqa: E402
 from test_torch_megastep import _jax_side, _warm_up, make_cfg  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     assert_params_close,

@@ -55,6 +55,7 @@ from alphatriangle_tpu_torch.rl import DeviceReplayBuffer, Trainer  # noqa: E402
 from alphatriangle_tpu_torch.rl.buffer import ExperienceBuffer  # noqa: E402
 from alphatriangle_tpu_torch.stats import CheckpointManager  # noqa: E402
 from alphatriangle_tpu_torch.training import LoopStatus, TrainingLoop, setup_training_components  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     assert_params_close,

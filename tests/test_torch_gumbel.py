@@ -31,6 +31,7 @@ from alphatriangle_tpu_torch.env import TriangleEnv  # noqa: E402
 from alphatriangle_tpu_torch.features import FeatureExtractor  # noqa: E402
 from alphatriangle_tpu_torch.mcts import BatchedMCTS, GumbelMCTS, select_root_actions  # noqa: E402
 from alphatriangle_tpu_torch.nn.model import value_support  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,

@@ -34,6 +34,7 @@ from alphatriangle_tpu.rl.trainer import project_to_support as jax_project  # no
 from alphatriangle_tpu_torch.nn import NeuralNetwork, flax_to_torch  # noqa: E402
 from alphatriangle_tpu_torch.nn.model import TransformerEncoderLayer, dropout  # noqa: E402
 from alphatriangle_tpu_torch.rl import Trainer, make_lr_schedule, project_to_support  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     ROUNDING_RMS,

@@ -36,6 +36,7 @@ from alphatriangle_tpu.rl.trainer import Trainer as JaxTrainer  # noqa: E402
 from alphatriangle_tpu_torch.ops import KERNELS  # noqa: E402
 from alphatriangle_tpu_torch.rl.megastep import last_write_slots  # noqa: E402
 from alphatriangle_tpu_torch.training import setup_training_components  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     converted_state_dict,

@@ -41,6 +41,7 @@ from alphatriangle_tpu_torch.nn import (  # noqa: E402
     flax_to_torch,
     value_support,
 )
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     BF16_PROB_ATOL,
     BF16_VALUE_ATOL,

@@ -37,6 +37,7 @@ from alphatriangle_tpu_torch.nn.model import value_support  # noqa: E402
 from alphatriangle_tpu_torch.nn.network import LiveWeights  # noqa: E402
 from alphatriangle_tpu_torch.serving import PolicyService  # noqa: E402
 from test_torch_self_play import _assert_tree, _engines  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,

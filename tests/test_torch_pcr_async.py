@@ -37,6 +37,7 @@ from alphatriangle_tpu.training.loop import TrainingLoop as JaxLoop  # noqa: E40
 from alphatriangle_tpu.training.setup import setup_training_components as jax_setup  # noqa: E402
 from alphatriangle_tpu_torch import cli  # noqa: E402
 from alphatriangle_tpu_torch.training import LoopStatus, TrainingLoop, setup_training_components  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     converted_state_dict,

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 from alphatriangle_tpu.config import AlphaTriangleMCTSConfig  # noqa: E402
 from alphatriangle_tpu_torch.training import setup_training_components  # noqa: E402
 from test_torch_megastep import LOSS_RTOL, SUM_ATOL, _jax_side, _warm_up, make_cfg  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import CPU, converted_state_dict, inject_jax_noise, run_root, torch_cfg  # noqa: E402
 
 

@@ -43,6 +43,7 @@ from alphatriangle_tpu_torch.nn import NeuralNetwork, flax_inference_to_torch  #
 from alphatriangle_tpu_torch.nn import precision  # noqa: E402
 from alphatriangle_tpu_torch.nn.model import BatchNorm  # noqa: E402
 from alphatriangle_tpu_torch.serving import PolicyService  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     BF16_PROB_ATOL,
     BF16_VALUE_ATOL,

@@ -43,6 +43,7 @@ from alphatriangle_tpu_torch.training import (  # noqa: E402
 )
 from test_torch_pcr_async import _record  # noqa: E402
 from test_torch_sync_loop import LOSS_RTOL, _loop_cfg  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     converted_state_dict,

@@ -20,6 +20,7 @@ from alphatriangle_tpu.config import TrainConfig as JaxTrainConfig  # noqa: E402
 from alphatriangle_tpu_torch.nn import NeuralNetwork  # noqa: E402
 from alphatriangle_tpu_torch.nn import model as model_mod  # noqa: E402
 from alphatriangle_tpu_torch.rl import Trainer  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import CPU, dense_rows, small_model_config, torch_cfg  # noqa: E402
 
 

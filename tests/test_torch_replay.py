@@ -34,6 +34,7 @@ from alphatriangle_tpu_torch.ops.per_sample import count_below_plain, per_sample
 from alphatriangle_tpu_torch.rl import DeviceReplayBuffer, SelfPlayResult, ring_scatter  # noqa: E402
 from alphatriangle_tpu_torch.rl.buffer import ExperienceBuffer  # noqa: E402
 from alphatriangle_tpu_torch.utils.sumtree import SumTree  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import CPU, torch_cfg, torch_key  # noqa: E402
 
 GRID, OTHER, ACTIONS = (1, 3, 4), 5, 12

@@ -50,6 +50,7 @@ from alphatriangle_tpu_torch.training import (  # noqa: E402
 )
 from alphatriangle_tpu_torch.training.runner import _restore  # noqa: E402
 from test_torch_checkpoint import _assert_state_equal, jax_train_state  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import CPU, dense_rows, inject_jax_noise, run_root, torch_cfg  # noqa: E402
 
 LOSS_RTOL = 1e-4

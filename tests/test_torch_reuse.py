@@ -46,6 +46,7 @@ from alphatriangle_tpu_torch.rl import SelfPlayEngine  # noqa: E402
 from alphatriangle_tpu_torch.serving import PolicyService  # noqa: E402
 from alphatriangle_tpu_torch.training import TrainingLoop, setup_training_components  # noqa: E402
 from test_torch_megastep import make_cfg  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,

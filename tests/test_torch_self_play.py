@@ -39,6 +39,7 @@ from alphatriangle_tpu_torch.nn.network import LiveWeights  # noqa: E402
 from alphatriangle_tpu_torch.nn.model import value_support  # noqa: E402
 from alphatriangle_tpu_torch.ops import KERNELS  # noqa: E402
 from alphatriangle_tpu_torch.rl import SelfPlayEngine  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,

@@ -22,6 +22,7 @@ from alphatriangle_tpu_torch.config import PersistenceConfig, TrainConfig  # noq
 from alphatriangle_tpu_torch.nn import NeuralNetwork, precision  # noqa: E402
 from alphatriangle_tpu_torch.rl import Trainer  # noqa: E402
 from alphatriangle_tpu_torch.stats import CheckpointManager  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import CPU, small_model_config, torch_cfg  # noqa: E402
 
 RUN = "served"

@@ -37,6 +37,7 @@ from alphatriangle_tpu_torch.serving import (  # noqa: E402
     SessionSlots,
     run_simulated_load,
 )
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,

@@ -30,6 +30,7 @@ from alphatriangle_tpu.training.setup import setup_training_components as jax_se
 from alphatriangle_tpu_torch.stats import RawMetricEvent, StatsCollector  # noqa: E402
 from alphatriangle_tpu_torch.stats import collector as collector_mod  # noqa: E402
 from alphatriangle_tpu_torch.training import TrainingLoop, setup_training_components  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     converted_state_dict,

@@ -40,6 +40,7 @@ from alphatriangle_tpu_torch.training import (  # noqa: E402
     setup_training_components,
 )
 from alphatriangle_tpu_torch.utils.sumtree import SumTree  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     assert_params_close,

@@ -27,6 +27,7 @@ from alphatriangle_tpu_torch.training import (  # noqa: E402
 from test_torch_megastep import make_cfg  # noqa: E402
 from test_torch_resume import MODES  # noqa: E402
 from test_torch_resume import _cfg as resume_cfg  # noqa: E402
+from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import CPU, run_root, torch_cfg  # noqa: E402
 
 

@@ -7,8 +7,10 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from alphatriangle_tpu import compile_cache
 from alphatriangle_tpu.config import ModelConfig, expected_other_features_dim
 from alphatriangle_tpu_torch import config as tcfg
 from alphatriangle_tpu_torch.config import PersistenceConfig
@@ -25,6 +27,26 @@ CPU = "cpu"
 # bits of mantissa, and the frameworks round at other places).
 BF16_PROB_ATOL = 0.05
 BF16_VALUE_ATOL, BF16_VALUE_RTOL = 0.2, 0.1
+
+
+@pytest.fixture(autouse=True)
+def plain_jax_programs(monkeypatch):
+    """Run the JAX references of a test through plain `jax.jit`, with a
+    process cache of its own that is disabled, restored after the test.
+
+    With the suite's 8 virtual CPU devices, an executable that
+    `jax.experimental.serialize_executable.deserialize_and_load` reloads
+    expects one shard per device, and its first call with single-device
+    arguments raises "Expected args to execute_sharded_on_local_devices
+    to have 8 shards". The JAX package's `CompileCache` serializes every
+    program it compiles into one directory per process and reloads it
+    the next time a new engine, trainer or service of the same configs
+    asks for the same program. So a parity test failed whenever an
+    earlier test in its worker process (`tests/test_torch_stats.py`,
+    for one) had compiled a program of the same configs, and passed
+    when it ran first. Imported into a test module, this autouse
+    fixture applies to each of its tests."""
+    monkeypatch.setattr(compile_cache, "_global_cache", compile_cache.CompileCache(enabled=False))
 
 
 def torch_cfg(jax_cfg):
