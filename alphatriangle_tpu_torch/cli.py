@@ -75,19 +75,36 @@ the JAX report's keys, plus the dispatch times and kernel launches.
 The experience flywheel (`league/flywheel.py`): the synchronous loop,
 whose iterations play a league round at the --mix rate, against a pool
 seeded from --pool-from's checkpoints, on that run's board and net.
-Prints the JAX report's keys (`ledger` is null: the port keeps no
+Prints the JAX report's keys (`ledger` is null: the league run keeps no
 metrics ledger yet), the loop's report and each round's record.
+
+    python -m alphatriangle_tpu_torch.cli fleet [--replicas 2] [--slots 8]
+        [--buckets CSV] [--sims 4] [--requests 32] [--concurrency 8]
+        [--max-moves 12] [--device cuda] [--state-dict PATH] [--smoke]
+        [--chaos-kill-after N] [--reload-after N] [routing, recovery and
+        replica deadline flags: the JAX `cli fleet`'s]
+
+The serve fleet (`serving/fleet.py`): N `PolicyService` replica
+subprocesses on the card behind a least-queue-depth router with
+health-gated admission, retry onto another replica, optional hedging
+and bounded-queue shedding; a supervisor classifies each replica death
+and respawns it (a serve wedge onto the ladder's lower rung). Every
+decision lands in the run's `fleet.jsonl`. This parent imports neither
+torch nor numpy: the card lives in the replicas, which get `--device`
+and `--state-dict`; a `configs.json` in the run directory gives the
+board and net. Drives a storm of episode requests, writes `fleet.prom`
+and prints one JSON report (the JAX report's keys); `--smoke` exits 1
+unless every request was completed or shed.
 """
 
 import argparse
 import json
 import sys
 import time
+from pathlib import Path
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
-    from pathlib import Path
-
     import torch
 
     from .config import AlphaTriangleMCTSConfig, PersistenceConfig, TrainConfig
@@ -215,7 +232,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         **stats,
         "sessions_served": sum(w["sessions_served"] for w in waves),
         "moves_served": sum(w["moves_served"] for w in waves),
-        **service.serve_stats(),
+        **service.serve_stats(drain=False),
         "kernel_launches": _kernel_launches(),
     }
     print(json.dumps(report))
@@ -355,8 +372,6 @@ def _kernel_launches() -> dict:
 def cmd_eval(args: argparse.Namespace) -> int:
     """Greedy search from a checkpoint against uniform-random play on the
     same paired hands, and head to head against a second checkpoint."""
-    from pathlib import Path
-
     from .arena import play, play_service, random_policy
     from .config import AlphaTriangleMCTSConfig, PersistenceConfig, TrainConfig
     from .config.run_configs import load_run_configs, load_run_configs_or_default
@@ -418,7 +433,7 @@ def cmd_eval(args: argparse.Namespace) -> int:
         service = PolicyService(env, extractor, net, mcts, slots=args.games)
         t0 = time.perf_counter()
         scores, lengths, done = play_service(service, args.games, args.max_moves, args.seed)
-        return scores, lengths, done, time.perf_counter() - t0, service.serve_stats()
+        return scores, lengths, done, time.perf_counter() - t0, service.serve_stats(drain=False)
 
     net, source = restore_net(args.checkpoint, args.run_name, model_cfg)
     print(
@@ -577,6 +592,144 @@ def cmd_league(args: argparse.Namespace) -> int:
     report["kernel_launches"] = _kernel_launches()
     print(json.dumps(report))
     return code
+
+
+def cmd_fleet(args: argparse.Namespace) -> int:
+    """The serve fleet: replica subprocesses behind the router, supervised
+    respawn, a storm of episode requests, the SLO report. Imports neither
+    torch nor numpy."""
+    import threading
+
+    from .config import PersistenceConfig
+    from .serving.fleet import FleetSupervisor, run_fleet_load
+    from .supervise.policy import RecoveryPolicy
+    from .telemetry.ledger import read_ledger
+    from .telemetry.perf import summarize_fleet
+    from .telemetry.slo import FLEET_PROM_FILENAME, evaluate_slos, write_fleet_prometheus
+
+    run_dir = PersistenceConfig(
+        RUN_NAME=args.run_name, **({"ROOT_DATA_DIR": args.root_dir} if args.root_dir else {})
+    ).get_run_base_dir()
+    run_dir.mkdir(parents=True, exist_ok=True)
+
+    def policy_factory() -> RecoveryPolicy:
+        return RecoveryPolicy(
+            max_restarts=args.max_restarts,
+            circuit_breaker_deaths=args.circuit_breaker,
+            backoff_base_s=args.backoff_base,
+            backoff_max_s=args.backoff_max,
+            quarantine_after=args.quarantine_after,
+        )
+
+    replica_extra = [
+        "--health-interval", str(args.replica_health_interval),
+        "--dispatch-min-deadline", str(args.replica_dispatch_min_deadline),
+        "--dispatch-first-deadline", str(args.replica_dispatch_first_deadline),
+        "--dispatch-watchdog-poll", str(args.replica_watchdog_poll),
+        "--tick-every", str(args.tick_every),
+        "--device", args.device,
+    ]
+    if args.buckets:
+        # The replicas' micro-batchers walk the same rungs as quarantine.
+        replica_extra += ["--buckets", args.buckets]
+    if args.state_dict:
+        replica_extra += ["--state-dict", str(Path(args.state_dict).resolve())]
+    fleet = FleetSupervisor(
+        run_dir,
+        replicas=args.replicas,
+        slots=args.slots,
+        sims=args.sims,
+        seed=args.seed,
+        configs_dir=run_dir,
+        ladder=args.buckets,
+        replica_extra_argv=replica_extra,
+        policy_factory=policy_factory,
+        probe_deadline_s=args.probe_deadline,
+        poll_s=args.poll,
+        spawn_timeout_s=args.spawn_timeout,
+    )
+    router = fleet.build_router(
+        timeout_s=args.timeout,
+        retries=args.retries,
+        backoff_base_s=args.route_backoff_base,
+        backoff_max_s=args.route_backoff_max,
+        hedge_after_s=args.hedge_after,
+        max_inflight=args.max_queue,
+    )
+
+    chaos_lock = threading.Lock()
+    state = {"killed": False, "reload": None}
+
+    def on_complete(n: int) -> None:
+        with chaos_lock:
+            kill_now = args.chaos_kill_after > 0 and not state["killed"] and n >= args.chaos_kill_after
+            if kill_now:
+                state["killed"] = True
+            reload_now = args.reload_after > 0 and state["reload"] is None and n >= args.reload_after
+            if reload_now:
+                state["reload"] = threading.Thread(
+                    target=fleet.rolling_reload, name="fleet-reload", daemon=True
+                )
+        if kill_now:
+            victim = fleet.kill_replica()
+            print(f"fleet: chaos-killed {victim}", file=sys.stderr)
+        if reload_now:
+            state["reload"].start()
+
+    print(
+        f"fleet: {args.replicas} replicas x {args.slots} slots on {args.device}, "
+        f"{args.requests} requests, run dir {run_dir}",
+        file=sys.stderr,
+    )
+    try:
+        fleet.start()
+        storm = run_fleet_load(
+            router,
+            fleet,
+            requests=args.requests,
+            concurrency=args.concurrency,
+            max_moves=args.max_moves,
+            seed=args.seed,
+            timeout_s=args.timeout,
+            on_complete=on_complete,
+        )
+        if state["reload"] is not None:
+            state["reload"].join(timeout=180.0)
+        # Let pending respawn chains land on fleet.jsonl before the
+        # report reads it.
+        deadline = time.monotonic() + args.settle
+        while time.monotonic() < deadline:
+            if all(h.name in fleet.gaveup or h.routable for h in fleet.handles):
+                break
+            time.sleep(0.2)
+    finally:
+        fleet.stop()
+
+    report = {
+        "schema": "alphatriangle.fleet.v1",
+        "run": args.run_name,
+        "replicas": args.replicas,
+        "slots": args.slots,
+        **storm,
+        "fleet": fleet.summary(),
+        "ledger": str(run_dir / "fleet.jsonl"),
+    }
+    slo_report = evaluate_slos(run_dir)
+    write_fleet_prometheus(
+        run_dir / FLEET_PROM_FILENAME,
+        summarize_fleet(read_ledger(run_dir / "fleet.jsonl")),
+        slo_report,
+        run_name=args.run_name,
+    )
+    report["slo"] = slo_report["status"]
+    print(json.dumps(report))
+    if args.smoke:
+        accounted = (
+            storm["completed"] + storm["shed"] == storm["terminal"]
+            and storm["terminal"] == storm["requests"]
+        )
+        return 0 if storm["lost"] == 0 and storm["completed"] > 0 and accounted else 1
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -745,6 +898,81 @@ def build_parser() -> argparse.ArgumentParser:
     league.add_argument("--device", default="cuda",
                         help="Torch device (default cuda; 'cpu' runs the plain versions).")
     league.set_defaults(fn=cmd_league)
+
+    fleet = sub.add_parser(
+        "fleet",
+        help="Serve fleet: N PolicyService replica subprocesses behind a health-gated "
+        "least-queue-depth router with retry/hedge/shed, verdict-driven replica restarts and "
+        "a crash-safe fleet.jsonl decision ledger. The parent imports no torch.",
+    )
+    fleet.add_argument("--run-name", default="fleet",
+                       help="Fleet run dir name (replica run dirs nest inside; a configs.json "
+                       "there supplies the board/net).")
+    fleet.add_argument("--root-dir", default=None,
+                       help="Runs root directory (default ./.alphatriangle_data).")
+    fleet.add_argument("--replicas", type=int, default=2, metavar="N")
+    fleet.add_argument("--slots", type=int, default=8, metavar="B",
+                       help="Session slots per replica (a quarantined replica respawns onto "
+                       "the next ladder rung down).")
+    fleet.add_argument("--buckets", default=None, metavar="RUNGS",
+                       help="Serve-shape ladder as a CSV rung list shared by every replica's "
+                       "micro-batcher and the quarantine walk-down. Default: the halving "
+                       "ladder under --slots.")
+    fleet.add_argument("--sims", type=int, default=4)
+    fleet.add_argument("--seed", type=int, default=0)
+    fleet.add_argument("--device", default="cuda",
+                       help="Every replica's torch device (default cuda; 'cpu' runs the plain "
+                       "versions).")
+    fleet.add_argument("--state-dict", default=None, metavar="PATH",
+                       help="Weights every replica serves, from nn/convert.py saved with "
+                       "torch.save (default: the untrained net of seed 0).")
+    fleet.add_argument("--requests", type=int, default=32, metavar="N",
+                       help="Episode requests in the storm.")
+    fleet.add_argument("--concurrency", type=int, default=8)
+    fleet.add_argument("--max-moves", type=int, default=12)
+    fleet.add_argument("--timeout", type=float, default=30.0, metavar="SECONDS",
+                       help="Per-attempt request timeout (a timed-out attempt retries on a "
+                       "different replica).")
+    fleet.add_argument("--retries", type=int, default=2,
+                       help="Retry budget per request after the first attempt.")
+    fleet.add_argument("--route-backoff-base", type=float, default=0.1, metavar="SECONDS")
+    fleet.add_argument("--route-backoff-max", type=float, default=2.0, metavar="SECONDS")
+    fleet.add_argument("--hedge-after", type=float, default=None, metavar="SECONDS",
+                       help="Hedge a straggling request onto a second replica after this "
+                       "long; first result wins (default: off).")
+    fleet.add_argument("--max-queue", type=int, default=64, metavar="N",
+                       help="Bounded admission: in-flight requests past this are shed with "
+                       "rejection code 'queue-full'.")
+    fleet.add_argument("--probe-deadline", type=float, default=10.0, metavar="SECONDS",
+                       help="Heartbeat staleness deadline for the routability probe.")
+    fleet.add_argument("--poll", type=float, default=0.25, metavar="SECONDS",
+                       help="Fleet monitor poll cadence (deaths, probes, respawns).")
+    fleet.add_argument("--spawn-timeout", type=float, default=300.0, metavar="SECONDS",
+                       help="Budget for a replica to warm and report ready.")
+    fleet.add_argument("--settle", type=float, default=30.0, metavar="SECONDS",
+                       help="Post-storm wait for pending respawn/readmit chains to land on "
+                       "fleet.jsonl.")
+    fleet.add_argument("--max-restarts", type=int, default=8)
+    fleet.add_argument("--circuit-breaker", type=int, default=3)
+    fleet.add_argument("--backoff-base", type=float, default=5.0, metavar="SECONDS",
+                       help="Replica restart backoff base (RecoveryPolicy).")
+    fleet.add_argument("--backoff-max", type=float, default=300.0, metavar="SECONDS")
+    fleet.add_argument("--quarantine-after", type=int, default=2, metavar="N",
+                       help="Wedges on the serve family before the replica respawns onto "
+                       "the lower rung (SERVE_SLOTS__scale).")
+    fleet.add_argument("--tick-every", type=int, default=8)
+    fleet.add_argument("--replica-health-interval", type=float, default=1.0)
+    fleet.add_argument("--replica-dispatch-min-deadline", type=float, default=60.0)
+    fleet.add_argument("--replica-dispatch-first-deadline", type=float, default=900.0)
+    fleet.add_argument("--replica-watchdog-poll", type=float, default=5.0)
+    fleet.add_argument("--chaos-kill-after", type=int, default=0, metavar="N",
+                       help="SIGKILL one replica after N terminal requests (0 = off).")
+    fleet.add_argument("--reload-after", type=int, default=0, metavar="N",
+                       help="Start a rolling weight reload after N terminal requests "
+                       "(0 = off).")
+    fleet.add_argument("--smoke", action="store_true",
+                       help="Exit 1 unless every request was completed or shed.")
+    fleet.set_defaults(fn=cmd_fleet)
     return parser
 
 

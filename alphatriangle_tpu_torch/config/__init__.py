@@ -12,6 +12,7 @@ from .presets import (
     geometry_preset,
     load_tuned_preset,
 )
+from .telemetry_config import TelemetryConfig
 from .train_config import TrainConfig
 from .validation import (
     EXPLICIT_FEATURES_DIM,
@@ -30,6 +31,7 @@ __all__ = [
     "ModelConfig",
     "PersistenceConfig",
     "TUNED_PRESET_SCHEMA",
+    "TelemetryConfig",
     "TrainConfig",
     "baseline_preset",
     "expected_other_features_dim",

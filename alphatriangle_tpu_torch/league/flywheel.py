@@ -227,7 +227,7 @@ class FlywheelLoop(TrainingLoop):
             "league_rounds_per_s": len(rounds) / sum(rounds) if rounds else None,
             "league_ingested_moves_per_s": self.league_moves_ingested / sum(rounds) if rounds else None,
             "league_dispatches": self.service.dispatch_count,
-            "league_dispatch_ms_p50": self.service.serve_stats()["serve_batch_ms_p50"],
+            "league_dispatch_ms_p50": self.service.serve_stats(drain=False)["serve_batch_ms_p50"],
         }
 
 

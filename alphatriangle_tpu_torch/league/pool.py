@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..telemetry.ledger import iter_jsonl_records
+
 logger = logging.getLogger(__name__)
 
 LEAGUE_FILENAME = "league.jsonl"
@@ -33,28 +35,6 @@ LEAGUE_FILENAME = "league.jsonl"
 LIVE_ID = "live"
 
 INITIAL_ELO = 0.0
-
-
-def iter_jsonl_records(path: "Path | str", kinds: "set[str] | None" = None):
-    """Yield the dict records of one JSONL file, skipping torn or junk
-    lines (the JAX package's `telemetry/ledger.py::iter_jsonl_records`)."""
-    try:
-        with Path(path).open("r", errors="replace") as f:
-            for line in f:
-                line = line.strip()
-                if not line:
-                    continue
-                try:
-                    rec = json.loads(line)
-                except json.JSONDecodeError:
-                    continue  # a torn write or a junk byte
-                if not isinstance(rec, dict):
-                    continue
-                if kinds is not None and rec.get("kind") not in kinds:
-                    continue
-                yield rec
-    except OSError:
-        return
 
 
 def pairwise_win_fraction(scores_a, scores_b, paired: bool = False) -> float:

@@ -10,6 +10,9 @@ a failed build or launch raises.
 `CudaKernel.launches` counts successful launches, so a run can show that
 its main path went through the kernel. Producer threads launch
 concurrently: the count and the first load are under a lock.
+`CudaKernel.builds` counts the `nvcc` runs of this process and `loaded`
+says whether its library is loaded: a serve replica reports both, and a
+weight reload must change neither.
 """
 
 import ctypes
@@ -54,6 +57,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.builds = 0
         self._lock = threading.Lock()
         self._lib = None
         self._fn = None
@@ -91,6 +95,11 @@ class CudaKernel:
                 f"nvcc failed for {self.source.name} (exit {rc}):\n{self.log.read_text()}"
             )
         os.replace(proc.tmp, self.library)
+        self.builds += 1
+
+    @property
+    def loaded(self) -> bool:
+        return self._fn is not None
 
     def load(self):
         """The launch function, building the library first if needed."""

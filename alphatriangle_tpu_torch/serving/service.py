@@ -47,11 +47,20 @@ the net's module itself.
 states, the search output and the served sessions, and each closed
 session its summary; a failing emitter is logged and serving goes on.
 
-Telemetry, the flight recorder and the fault hooks wait for later
-slices.
+`serve_stats(drain)` reports occupancy and the current tick window's
+request count, rate, batch fill and the percentiles of batch wall,
+queue wait and move latency; a drain starts a new window. With a
+`telemetry` (`telemetry.RunTelemetry`, built by `build_serve_telemetry`)
+`tick()` drains the window into one `kind: "util"` ledger record and
+the heartbeat, and each dispatch is bracketed in the flight ring as
+`serve/b<slots>`: the intent before the search, the seal after the one
+host fetch, so a wedge names the program and the `trace_ids` it was
+serving. Inside the bracket, before the search, sits the env-gated
+`serve-dispatch` fault site (`supervise/faults.py`).
 """
 
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -63,6 +72,7 @@ from torch.profiler import record_function
 from .. import rng
 from ..mcts.search import CarriedTree
 from ..nn import precision
+from ..telemetry.flight import flight_span
 from .buckets import BucketLadder
 from .session import SessionSlots
 
@@ -72,6 +82,12 @@ logger = logging.getLogger(__name__)
 # service's defaults).
 HIGH_WATER = 0.85
 LOW_WATER = 0.25
+
+
+def serve_program_name(slots: int) -> str:
+    """The flight-ring name of the serve dispatch at one width:
+    `serve/b<B>`, the JAX package's spelling."""
+    return f"serve/b{int(slots)}"
 
 
 def _pct(values: list, q: float) -> "float | None":
@@ -102,11 +118,15 @@ class PolicyService:
         clock=time.monotonic,
         ladder=None,
         sustain: int = 3,
+        telemetry=None,
     ):
         self.env = env
         self.extractor = extractor
         self.net = net
         self.mcts = mcts
+        self.telemetry = telemetry
+        # The run's flight recorder; None without telemetry.
+        self.flight = getattr(telemetry, "flight", None)
         self.emitter = None
         self._clock = clock
         # `slots` is the starting rung and always a rung.
@@ -117,19 +137,28 @@ class PolicyService:
         self.rung_switches = 0
         # The fills of the last `sustain` dispatches: the walk's window.
         self._ladder_fill: deque[float] = deque(maxlen=self.sustain)
-        self._last_fill: "float | None" = None
         self._pad_seed = int(pad_seed)
         self.sessions = SessionSlots(env, slots, pad_seed=pad_seed)
         self._base_rng = rng.PRNGKey(rng_seed)
         self._lock = threading.RLock()
         self._queue: deque[int] = deque()  # sids with a pending request
+        # sid -> the trace fields of the request driving that session,
+        # named by the dispatch bracket and the session's results.
+        self._session_trace: dict[int, dict] = {}
         self.dispatch_count = 0
         self.requests_total = 0
         self.episodes_done_total = 0
         self.simulations_total = 0
         self.reused_visits_total = 0
         self.weight_reloads = 0
-        self.batch_ms: list[float] = []  # per-dispatch wall time
+        self.batch_ms: list[float] = []  # per-dispatch wall time, whole run
+        # The tick window (`serve_stats(drain=True)` starts a new one).
+        self._win_wait_ms: list[float] = []
+        self._win_lat_ms: list[float] = []
+        self._win_batch_ms: list[float] = []
+        self._win_fill: list[float] = []
+        self._win_requests = 0
+        self._last_tick_t = clock()
         # The last dispatch's search output and, under reuse, its (B,)
         # inherited root visits (device tensors, no fetch).
         self.last_output = None
@@ -243,10 +272,21 @@ class PolicyService:
                 self._carry_ok[s.slot] = False
             return admitted
 
+    def set_session_trace(self, sid: int, fields: "dict | None") -> None:
+        """Attach (or clear) the trace fields of the request driving
+        session `sid`: the dispatch bracket names them, and the
+        session's results carry its `trace_id`."""
+        with self._lock:
+            if fields:
+                self._session_trace[sid] = dict(fields)
+            else:
+                self._session_trace.pop(sid, None)
+
     def close_session(self, sid: int) -> dict:
         with self._lock:
             s = self.sessions.session(sid)
             s.pending_since = None
+            self._session_trace.pop(sid, None)
             self._carry_ok[s.slot] = False
             summary = self.sessions.retire(sid)
             if sid in self._queue:
@@ -301,6 +341,42 @@ class PolicyService:
 
     # --- the micro-batch dispatch ---------------------------------------
 
+    def _search_step(self, mask: np.ndarray, key: torch.Tensor):
+        """One search over the slot array, the masked step, and the one
+        host fetch of every result array (caller holds the lock).
+        Returns (search output, reused root visits or None, the
+        pre-step states, the fetched host rows: actions, rewards, dones,
+        scores and the reused visits)."""
+        reused = None
+        if self._reduced:
+            self.mcts.model = self._serve_variables()
+        if self._tree_reuse:
+            ok = torch.from_numpy(self._carry_ok).to(self.mcts.device)
+            c = self._carried
+            carried = CarriedTree(tree=c.tree, valid=c.valid & ok, base=c.base)
+            out, tree, reused = self.mcts._search_carried(self.sessions.states, key, carried)
+            # The promotion follows the action the masked step plays.
+            actions = self.mcts.root_actions(out)
+            self._carried = self.mcts.promote(tree, actions)
+        else:
+            out = self.mcts.search(self.sessions.states, key)
+            actions = self.mcts.root_actions(out)
+        # The positions the search ran on (step installs new tensors).
+        pre_states = self.sessions.states
+        with record_function("serve.step"):
+            rewards, dones = self.sessions.step(actions, mask)
+        with record_function("serve.fetch"):
+            rows = [
+                actions.to(torch.float32),
+                rewards,
+                dones.to(torch.float32),
+                self.sessions.states.score,
+            ]
+            if reused is not None:
+                rows.append(reused)
+            host = torch.stack(rows).cpu().numpy()
+        return out, reused, pre_states, host
+
     def dispatch(self, key: "torch.Tensor | None" = None) -> list[dict]:
         """Serve every pending request in ONE batched search + step.
 
@@ -319,35 +395,23 @@ class PolicyService:
             t0 = self._clock()
             if key is None:
                 key = rng.fold_in(self._base_rng, self.dispatch_count)
-            reused = None
-            if self._reduced:
-                self.mcts.model = self._serve_variables()
-            if self._tree_reuse:
-                ok = torch.from_numpy(self._carry_ok).to(self.mcts.device)
-                c = self._carried
-                carried = CarriedTree(tree=c.tree, valid=c.valid & ok, base=c.base)
-                out, tree, reused = self.mcts._search_carried(self.sessions.states, key, carried)
-                # The promotion follows the action the masked step plays.
-                actions = self.mcts.root_actions(out)
-                self._carried = self.mcts.promote(tree, actions)
-            else:
-                out = self.mcts.search(self.sessions.states, key)
-                actions = self.mcts.root_actions(out)
-            # The positions the search ran on (step installs new tensors).
-            pre_states = self.sessions.states
-            with record_function("serve.step"):
-                rewards, dones = self.sessions.step(actions, mask)
-            # The one host fetch of the dispatch: every result array.
-            with record_function("serve.fetch"):
-                rows = [
-                    actions.to(torch.float32),
-                    rewards,
-                    dones.to(torch.float32),
-                    self.sessions.states.score,
-                ]
-                if reused is not None:
-                    rows.append(reused)
-                host = torch.stack(rows).cpu().numpy()
+            # The trace_ids this dispatch serves, deduplicated in order.
+            wave_trace_ids = list(dict.fromkeys(
+                tid for s in served
+                for tid in [self._session_trace.get(s.sid, {}).get("trace_id")] if tid
+            ))
+            # The seal follows the one host fetch: the bracket's wall is
+            # the kernels', not their launches'.
+            with flight_span(
+                self.flight, "serve", serve_program_name(self.sessions.slots),
+                avals=f"b{len(served)}",
+                trace={"trace_ids": wave_trace_ids} if wave_trace_ids else None,
+            ):
+                if os.environ.get("ALPHATRIANGLE_FAULTS"):
+                    from ..supervise.faults import fault_point
+
+                    fault_point("serve-dispatch", self.dispatch_count)
+                out, reused, pre_states, host = self._search_step(mask, key)
             t1 = self._clock()
             self.last_output = out
             self.last_reused = reused
@@ -367,25 +431,31 @@ class PolicyService:
             batch_ms = (t1 - t0) * 1e3
             results = []
             for s in served:
+                wait_ms = (t0 - s.pending_since) * 1e3
+                lat_ms = (t1 - s.pending_since) * 1e3
+                s.pending_since = None
                 done = bool(dones_np[s.slot])
                 if done and not s.done:
                     s.done = True
                     self.episodes_done_total += 1
                 s.score = float(scores_np[s.slot])
-                results.append(
-                    {
-                        "sid": s.sid,
-                        "slot": s.slot,
-                        "move": s.moves,
-                        "action": int(actions_np[s.slot]),
-                        "reward": float(rewards_np[s.slot]),
-                        "done": done,
-                        "score": s.score,
-                        "queue_wait_ms": (t0 - s.pending_since) * 1e3,
-                        "latency_ms": (t1 - s.pending_since) * 1e3,
-                    }
-                )
-                s.pending_since = None
+                result = {
+                    "sid": s.sid,
+                    "slot": s.slot,
+                    "move": s.moves,
+                    "action": int(actions_np[s.slot]),
+                    "reward": float(rewards_np[s.slot]),
+                    "done": done,
+                    "score": s.score,
+                    "queue_wait_ms": wait_ms,
+                    "latency_ms": lat_ms,
+                }
+                trace_id = self._session_trace.get(s.sid, {}).get("trace_id")
+                if trace_id:
+                    result["trace_id"] = trace_id
+                results.append(result)
+                self._win_wait_ms.append(wait_ms)
+                self._win_lat_ms.append(lat_ms)
             self.dispatch_count += 1
             self.requests_total += len(results)
             self.simulations_total += self.sessions.slots * self.mcts.config.max_simulations
@@ -396,30 +466,103 @@ class PolicyService:
                 # game goes on, may reuse their tree next time.
                 self._carry_ok = mask & ~dones_np
             self.batch_ms.append(batch_ms)
+            self._win_requests += len(results)
+            self._win_batch_ms.append(batch_ms)
             fill = len(results) / self.sessions.slots
-            self._last_fill = fill
+            self._win_fill.append(fill)
             self._ladder_fill.append(fill)
             # This dispatch ran at the old width; the next may run at the new.
             self._maybe_walk()
+            if self.telemetry is not None:
+                self.telemetry.on_rollout(
+                    experiences=len(results), episodes=sum(1 for r in results if r["done"])
+                )
             return results
 
-    def serve_stats(self) -> dict:
-        """Occupancy, the current rung and per-dispatch wall-time
-        percentiles."""
-        snap = self.sessions.snapshot()
-        return {
-            "serve_slots": snap["slots"],
-            "serve_bucket": snap["slots"],
-            "serve_fill": None if self._last_fill is None else round(self._last_fill, 4),
-            "serve_rung_switches": self.rung_switches,
-            "serve_sessions": snap["live"],
-            "serve_sessions_admitted": snap["admitted_total"],
-            "serve_sessions_retired": snap["retired_total"],
-            "serve_queue_depth": self.queue_depth,
-            "serve_requests_total": self.requests_total,
-            "serve_dispatches": self.dispatch_count,
-            "serve_batch_ms_p50": _pct(self.batch_ms, 0.50),
-            "serve_batch_ms_p95": _pct(self.batch_ms, 0.95),
-            "serve_weight_reloads": self.weight_reloads,
-            "serve_reused_visits_total": self.reused_visits_total,
-        }
+    def serve_stats(self, drain: bool = True) -> dict:
+        """The `serve_*` fields of one tick: occupancy and this window's
+        request count, rate, fill and percentiles (the JAX service's
+        keys, plus `serve_dispatches` and `serve_reused_visits_total`).
+        `drain` starts a new
+        window. Read and reset under the service lock, which a dispatch
+        holds while it appends, so a drain loses no request."""
+        with self._lock:
+            now = self._clock()
+            dt = max(1e-9, now - self._last_tick_t)
+            snap = self.sessions.snapshot()
+            stats = {
+                "serve_slots": snap["slots"],
+                "serve_bucket": snap["slots"],
+                "serve_fill": round(float(self._win_fill[-1]), 4) if self._win_fill else None,
+                "serve_rung_switches": self.rung_switches,
+                "serve_sessions": snap["live"],
+                "serve_sessions_admitted": snap["admitted_total"],
+                "serve_sessions_retired": snap["retired_total"],
+                "serve_queue_depth": self.queue_depth,
+                "serve_requests_total": self.requests_total,
+                "serve_dispatches": self.dispatch_count,
+                "serve_window_requests": self._win_requests,
+                "serve_requests_per_sec": round(self._win_requests / dt, 2),
+                "serve_batch_fill": (
+                    round(float(np.mean(self._win_fill)), 4) if self._win_fill else None
+                ),
+                "serve_batch_ms_p50": _pct(self._win_batch_ms, 0.50),
+                "serve_batch_ms_p95": _pct(self._win_batch_ms, 0.95),
+                "serve_queue_wait_ms_p50": _pct(self._win_wait_ms, 0.50),
+                "serve_queue_wait_ms_p95": _pct(self._win_wait_ms, 0.95),
+                "serve_move_latency_ms_p50": _pct(self._win_lat_ms, 0.50),
+                "serve_move_latency_ms_p95": _pct(self._win_lat_ms, 0.95),
+                "serve_weight_reloads": self.weight_reloads,
+                "serve_reused_visits_total": self.reused_visits_total,
+            }
+            if drain:
+                self._win_wait_ms = []
+                self._win_lat_ms = []
+                self._win_batch_ms = []
+                self._win_fill = []
+                self._win_requests = 0
+                self._last_tick_t = now
+            return stats
+
+    def tick(self) -> "dict | None":
+        """One telemetry tick: drain the window into a `kind: "util"`
+        ledger record (the `serve_*` fields ride in it) and write the
+        heartbeat. Returns the record; None without telemetry or on the
+        meter's baseline tick."""
+        if self.telemetry is None:
+            return None
+        stats = self.serve_stats(drain=True)
+        record = self.telemetry.on_util_tick(
+            step=self.dispatch_count,
+            episodes=self.episodes_done_total,
+            experiences=self.requests_total,
+            simulations=self.simulations_total,
+            reused_visits=self.reused_visits_total,
+            buffer_size=self.queue_depth,
+            dispatch_wall_s=getattr(self.flight, "sealed_wall_seconds", None),
+            extra={k: v for k, v in stats.items() if v is not None},
+        )
+        self.telemetry.on_tick(self.dispatch_count, buffer_size=self.queue_depth)
+        return record
+
+
+def build_serve_telemetry(
+    run_dir, run_name: str, env_config, model_config, telemetry_config=None, device=None
+):
+    """A `RunTelemetry` for a serve run: heartbeat, watchdogs, ledger and
+    flight ring, with a meter whose FLOPs are the serve path's (network
+    forwards only). `device_kind` is the card's name, "cpu" on the CPU."""
+    from ..device import resolve_device
+    from ..telemetry import RunTelemetry
+    from ..telemetry.perf import UtilizationMeter
+    from ..utils.flops import forward_flops
+
+    device = resolve_device(device)
+    kind = torch.cuda.get_device_name(device) if device.type == "cuda" else device.type
+    meter = UtilizationMeter(
+        forward_flops=forward_flops(model_config, env_config, env_config.action_dim),
+        train_step_flops=0,
+        device_kind=kind,
+        buffer_capacity=0,
+    )
+    return RunTelemetry(telemetry_config, run_dir=run_dir, run_name=run_name, perf=meter)

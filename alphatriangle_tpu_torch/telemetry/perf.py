@@ -1,0 +1,379 @@
+"""Live utilization accounting and the fleet summary: counterpart of
+`alphatriangle_tpu/telemetry/perf.py`'s `UtilizationMeter`,
+`_percentile` and `summarize_fleet`.
+
+- `UtilizationMeter` folds a run's cumulative counters (served
+  requests, simulations, dispatch wall) into one derived `kind: "util"`
+  record per tick: moves/s, sims/s, achieved TFLOP/s from the analytic
+  forward FLOPs (`utils/flops.py`), the card's memory, the chip's idle
+  share of the tick window; the serve run's `serve_*` SLO fields ride
+  in `extra`.
+- `summarize_fleet` folds a fleet run's `kind: "fleet"` events into its
+  lifecycle, routing and storm figures (`fleet.prom`, the report).
+
+Stdlib only: the fleet parent imports this without torch.
+"""
+
+import logging
+import time
+
+from ..utils.flops import peak_bf16_tflops_info
+
+logger = logging.getLogger(__name__)
+
+
+class UtilizationMeter:
+    """Folds cumulative run counters into per-tick utilization records.
+
+    Counters arrive cumulative (the loop's own `episodes_played`-style
+    totals) so a missed tick never loses work — the next tick's delta
+    absorbs it. The first tick establishes the baseline and yields no
+    record.
+    """
+
+    def __init__(
+        self,
+        forward_flops: int = 0,
+        train_step_flops: int = 0,
+        device_kind: str = "",
+        buffer_capacity: int = 0,
+        mesh_devices: int = 1,
+        clock=time.monotonic,
+    ) -> None:
+        self.forward_flops = int(forward_flops)
+        self.train_step_flops = int(train_step_flops)
+        self.device_kind = device_kind
+        self.buffer_capacity = int(buffer_capacity)
+        # Width of the mesh the dispatch counters run over. The gauge
+        # contract is MESH-LEVEL: one dispatch = one host-side program
+        # launch, regardless of how many devices execute it (a dp=8
+        # megastep iteration is still 1 dispatch, not 8) — so this is
+        # recorded beside the gauge, never multiplied into it.
+        self.mesh_devices = max(1, int(mesh_devices))
+        peak, source = peak_bf16_tflops_info(device_kind)
+        self.peak_tflops = peak
+        self.peak_source = source
+        self._clock = clock
+        self._prev: "dict | None" = None
+        # Run-wide high-water of observed bytes_in_use: the backstop
+        # peak where a device reports no peak_bytes_in_use.
+        self._mem_high_water = 0
+
+    def device_info(self) -> dict:
+        """Static device facts for `health.json` / summaries."""
+        return {
+            "device_kind": self.device_kind,
+            "peak_bf16_tflops": self.peak_tflops,
+            "peak_source": self.peak_source,
+            "mesh_devices": self.mesh_devices,
+        }
+
+    def tick(
+        self,
+        step: int,
+        episodes: int = 0,
+        experiences: int = 0,
+        simulations: int = 0,
+        reused_visits: int = 0,
+        buffer_size: int = 0,
+        transfer_h2d_s: float = 0.0,
+        transfer_d2h_s: float = 0.0,
+        compile_hits: int = 0,
+        compile_misses: int = 0,
+        device_memory: "list | None" = None,
+        dispatches: int = 0,
+        iterations: int = 0,
+        dispatch_wall_s: "float | None" = None,
+        extra: "dict | None" = None,
+    ) -> "dict | None":
+        """One derived utilization record, or None (first/zero-width tick).
+
+        `extra`: caller-owned fields merged verbatim into the record —
+        the policy service rides its per-window `serve_*` SLO fields
+        (queue wait / move latency percentiles, occupancy) into the
+        ledger this way (serving/service.py).
+
+        `dispatch_wall_s`: cumulative sealed dispatch wall from the
+        run's flight recorder (`FlightRecorder.sealed_wall_seconds`).
+        When supplied on consecutive ticks, the record carries
+        `chip_idle_fraction` — the fraction of the tick window with no
+        dispatch in flight. The name is the JAX package's; on the port it
+        is not the card's idle share. A bracket opens before the host
+        launches a search and seals after its one synchronising fetch, so
+        the launches count as busy: a launch-bound serve dispatch leaves
+        the card idle most of its wall and still reads near 0 under load.
+        Records of callers that never pass it carry no such field.
+
+        `compile_hits` / `compile_misses` are the JAX package's compile
+        cache counts; the port has no compile cache and leaves them 0."""
+        now = self._clock()
+        # Memory accounting folds on EVERY tick (including the baseline
+        # tick that yields no rate record) so the high-water mark never
+        # misses a sample.
+        mem = self._fold_memory(device_memory)
+        cur = {
+            "step": step,
+            "episodes": episodes,
+            "experiences": experiences,
+            "simulations": simulations,
+            "reused_visits": reused_visits,
+            "transfer_h2d_s": transfer_h2d_s,
+            "transfer_d2h_s": transfer_d2h_s,
+            "dispatches": dispatches,
+            "iterations": iterations,
+        }
+        if isinstance(dispatch_wall_s, (int, float)):
+            cur["dispatch_wall_s"] = float(dispatch_wall_s)
+        prev, self._prev = self._prev, {"t": now, **cur}
+        if prev is None:
+            return None
+        dt = now - prev["t"]
+        if dt <= 0:
+            return None
+        # The dispatch-wall counter may appear mid-run (flight recorder
+        # attached late); a delta only exists once BOTH ticks carry it.
+        d = {
+            k: cur[k] - prev[k] for k in cur if k in prev
+        }
+        chip_idle = None
+        if "dispatch_wall_s" in d:
+            busy = max(0.0, d["dispatch_wall_s"])
+            chip_idle = max(0.0, min(1.0, 1.0 - busy / dt))
+        steps_s = max(0.0, d["step"]) / dt
+        moves_s = max(0.0, d["experiences"]) / dt
+        sims_s = max(0.0, d["simulations"]) / dt
+        # Leaf-equivalent effort: fresh simulations plus visits carried
+        # across moves by subtree reuse (MCTSConfig.tree_reuse). With
+        # reuse off the delta is 0 and leaf-evals/s == sims/s exactly.
+        reused_s = max(0.0, d["reused_visits"]) / dt
+        leaf_s = sims_s + reused_s
+        # Achieved model FLOP/s: learner steps x analytic step FLOPs +
+        # self-play net evals (one per simulation leaf + ~one root eval
+        # per move; experiences/s approximates moves x lanes).
+        learner_fs = steps_s * self.train_step_flops
+        sp_fs = (sims_s + moves_s) * self.forward_flops
+        tflops = (learner_fs + sp_fs) / 1e12
+        mfu = (
+            tflops / self.peak_tflops
+            if self.peak_tflops and tflops > 0
+            else None
+        )
+        total_compiles = compile_hits + compile_misses
+        record = {
+            **(mem or {}),
+            "kind": "util",
+            "step": step,
+            "time": time.time(),
+            "window_s": round(dt, 3),
+            "learner_steps_per_sec": round(steps_s, 4),
+            "step_time_ms": (
+                round(1000.0 / steps_s, 3) if steps_s > 0 else None
+            ),
+            "moves_per_sec": round(moves_s, 2),
+            "games_per_hour": round(
+                max(0.0, d["episodes"]) * 3600.0 / dt, 2
+            ),
+            "sims_per_sec": round(sims_s, 1),
+            "leaf_evals_per_sec": round(leaf_s, 1),
+            "mcts_reused_visit_fraction": (
+                round(reused_s / leaf_s, 4) if leaf_s > 0 else None
+            ),
+            # 6+8 decimals: a test-sized net on CPU runs ~1e-6 TFLOP/s
+            # and must not round its MFU down to an ambiguous 0.0.
+            "tflops_per_sec": round(tflops, 6),
+            "mfu": round(mfu, 8) if mfu is not None else None,
+            "device_kind": self.device_kind,
+            "peak_bf16_tflops": self.peak_tflops,
+            "peak_source": self.peak_source,
+            "buffer_size": buffer_size,
+            "buffer_fill": (
+                round(buffer_size / self.buffer_capacity, 4)
+                if self.buffer_capacity
+                else None
+            ),
+            "transfer_h2d_ms": round(
+                max(0.0, d["transfer_h2d_s"]) * 1000.0, 2
+            ),
+            "transfer_d2h_ms": round(
+                max(0.0, d["transfer_d2h_s"]) * 1000.0, 2
+            ),
+            "compile_cache_hits": compile_hits,
+            "compile_cache_misses": compile_misses,
+            "compile_cache_hit_rate": (
+                round(compile_hits / total_compiles, 4)
+                if total_compiles
+                else None
+            ),
+            # Mesh-level program dispatches per loop iteration: the
+            # host-round-trip gauge the fused megastep exists to
+            # collapse to 1.0 (sync runs ~3: rollout + ingest + learner
+            # group). Counters tick once per host launch, NOT once per
+            # device execution — a dp-sharded megastep iteration is one
+            # dispatch whether the mesh has 1 device or 8; mesh_devices
+            # carries the width for readers that want per-device
+            # executions (gauge x mesh_devices).
+            "dispatches_per_iteration": (
+                round(
+                    max(0, d["dispatches"]) / d["iterations"], 3
+                )
+                if d["iterations"] > 0
+                else None
+            ),
+            "mesh_devices": self.mesh_devices,
+        }
+        if chip_idle is not None:
+            # The window's sealed-dispatch wall over the window, only
+            # when the counter was supplied.
+            record["chip_idle_fraction"] = round(chip_idle, 6)
+        if extra:
+            record.update(extra)
+        return record
+
+    def _fold_memory(self, device_memory: "list | None") -> "dict | None":
+        """Device-memory totals for one tick + the run-wide high-water
+        update. None when the backend reports
+        nothing (the record then simply carries no mem_* fields)."""
+        totals = summarize_device_memory(device_memory)
+        if totals is None:
+            return None
+        in_use = totals["bytes_in_use"]
+        self._mem_high_water = max(self._mem_high_water, in_use)
+        peak = max(self._mem_high_water, totals["peak_bytes_in_use"])
+        limit = totals["bytes_limit"]
+        out = {
+            "mem_bytes_in_use": in_use,
+            "mem_peak_bytes_in_use": peak,
+            "mem_bytes_limit": limit,
+            "mem_utilization": (
+                round(in_use / limit, 6) if limit else None
+            ),
+            "mem_devices": [
+                {
+                    k: d.get(k)
+                    for k in (
+                        "device",
+                        "kind",
+                        "bytes_in_use",
+                        "peak_bytes_in_use",
+                        "bytes_limit",
+                    )
+                }
+                for d in device_memory
+                if isinstance(d, dict)
+            ],
+        }
+        return out
+
+
+def summarize_device_memory(device_memory) -> "dict | None":
+    """Fold `health.device_memory_stats()` rows into run totals:
+    summed in-use/peak, summed limit (None when no device reports one).
+    """
+    if not device_memory:
+        return None
+    in_use = 0
+    peak = 0
+    limits = []
+    for d in device_memory:
+        if not isinstance(d, dict):
+            continue
+        u = d.get("bytes_in_use")
+        if isinstance(u, (int, float)):
+            in_use += int(u)
+        p = d.get("peak_bytes_in_use")
+        peak += int(p) if isinstance(p, (int, float)) else (
+            int(u) if isinstance(u, (int, float)) else 0
+        )
+        lim = d.get("bytes_limit")
+        if isinstance(lim, (int, float)) and lim > 0:
+            limits.append(int(lim))
+    return {
+        "bytes_in_use": in_use,
+        "peak_bytes_in_use": peak,
+        "bytes_limit": sum(limits) if limits else None,
+    }
+
+
+def _percentile(values: list, q: float) -> "float | None":
+    """Nearest-rank percentile; None for an empty list (no numpy: this
+    runs in the fleet parent)."""
+    vals = sorted(v for v in values if isinstance(v, (int, float)))
+    if not vals:
+        return None
+    idx = min(len(vals) - 1, max(0, round(q * (len(vals) - 1))))
+    return float(vals[idx])
+
+
+def summarize_fleet(records: list) -> "dict | None":
+    """Fold a fleet run's `kind:"fleet"` events (serving/fleet.py,
+    fleet.jsonl) into the fleet block of the `cli perf` summary:
+    lifecycle counts (deaths -> respawns -> readmissions), routing
+    decisions (sheds / retries / hedge wins), rolling-reload recompile
+    total, and the last storm's throughput + latency SLOs. None when
+    the run never ran a fleet (no fleet events), so the block and the
+    compare rows only appear where the fleet ran."""
+    events = [
+        r for r in records if isinstance(r, dict) and r.get("kind") == "fleet"
+    ]
+    if not events:
+        return None
+
+    def count(*names: str) -> int:
+        return sum(1 for r in events if r.get("event") in names)
+
+    out = {
+        "fleet_events": len(events),
+        "fleet_deaths": count("death"),
+        "fleet_respawns": count("respawn"),
+        "fleet_evictions": count("evict"),
+        "fleet_readmissions": count("readmit"),
+        "fleet_sheds": count("shed"),
+        # Rejection codes kept distinct (serving/router.py REJECT_*):
+        # queue-full is admission back-pressure, no-healthy-replica is
+        # a fleet outage, retries-exhausted is a replica sickness —
+        # one folded shed total hides which one is burning the budget.
+        "fleet_shed_queue_full": sum(
+            1
+            for r in events
+            if r.get("event") == "shed"
+            and r.get("rejection") == "queue-full"
+        ),
+        "fleet_shed_no_healthy": sum(
+            1
+            for r in events
+            if r.get("event") == "shed"
+            and r.get("rejection") == "no-healthy-replica"
+        ),
+        "fleet_shed_retries_exhausted": count("exhausted"),
+        "fleet_retries": count("retry"),
+        "fleet_hedges": count("hedge"),
+        "fleet_hedge_wins": count("hedge-win"),
+        "fleet_reload_recompiles": sum(
+            r.get("recompiles", 0)
+            for r in events
+            if r.get("event") == "replica-reloaded"
+            and isinstance(r.get("recompiles"), int)
+        ),
+    }
+    stop = [r for r in events if r.get("event") == "fleet-stop"]
+    if stop:
+        out["fleet_gaveup"] = stop[-1].get("gaveup")
+    storms = [r for r in events if r.get("event") == "storm-summary"]
+    if storms:
+        storm = storms[-1]
+        out.update(
+            {
+                "fleet_requests": storm.get("requests"),
+                "fleet_completed": storm.get("completed"),
+                "fleet_shed_requests": storm.get("shed"),
+                "fleet_lost": storm.get("lost"),
+                "fleet_requests_per_sec": storm.get("requests_per_sec"),
+                "fleet_move_latency_ms_p50": storm.get(
+                    "move_latency_ms_p50"
+                ),
+                "fleet_move_latency_ms_p95": storm.get(
+                    "move_latency_ms_p95"
+                ),
+            }
+        )
+    return out

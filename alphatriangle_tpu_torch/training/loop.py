@@ -66,7 +66,6 @@ which `report()` reads), as do `episode_scores`, `staleness` and
 """
 
 import contextlib
-import json
 import logging
 import os
 import queue
@@ -80,19 +79,12 @@ import torch
 
 from ..rl.self_play import SelfPlayEngine
 from ..stats.events import RawMetricEvent
+from ..telemetry.flight import PREEMPT_EXIT_CODE, PREEMPT_REPORT_FILENAME, write_preempt_report
 from ..utils.transfer import hand_off, receive
 from .components import TrainingComponents
 from .setup import clamp_self_play_workers
 
 logger = logging.getLogger(__name__)
-
-
-# The preemption contract (alphatriangle_tpu/telemetry/flight.py): after
-# SIGTERM the loop saves, spills and writes this report, and the process
-# exits with this code, outside the shell's and the signals' ranges, so
-# a supervisor tells a survivable preemption from a crash.
-PREEMPT_REPORT_FILENAME = "preempt_report.json"
-PREEMPT_EXIT_CODE = 114
 
 
 class LoopStatus(str, Enum):
@@ -184,21 +176,17 @@ class TrainingLoop:
         written after the emergency save, so `checkpointed_step` is the
         step a restart resumes from. A failed write is logged: the exit
         code still tells the preemption."""
-        path = self.c.persistence_config.get_run_base_dir() / PREEMPT_REPORT_FILENAME
-        report = {
-            "kind": "preempt",
-            "time": time.time(),
-            "pid": os.getpid(),
-            "step": self.global_step,
-            "checkpointed_step": self._last_saved_step,
-            "exit_code": PREEMPT_EXIT_CODE,
-        }
-        try:
-            tmp = path.with_name(path.name + ".tmp")
-            tmp.write_text(json.dumps(report, indent=2))
-            os.replace(tmp, path)
-        except OSError:
-            logger.exception("Could not write %s", path)
+        write_preempt_report(
+            self.c.persistence_config.get_run_base_dir() / PREEMPT_REPORT_FILENAME,
+            {
+                "kind": "preempt",
+                "time": time.time(),
+                "pid": os.getpid(),
+                "step": self.global_step,
+                "checkpointed_step": self._last_saved_step,
+                "exit_code": PREEMPT_EXIT_CODE,
+            },
+        )
 
     def set_initial_state(self, global_step: int, episodes_played: int, total_simulations: int) -> None:
         """Install a restored run's counters; the save cadences count on

@@ -211,6 +211,32 @@ Then slice nine's paths, at the serve default's widths (`EnvConfig()`,
   the report's ratings, 16 + 2 launches per league dispatch; rounds/s,
   ingested moves/s and the league service's dispatch p50.
 
+Then slice ten's serving fleet, at the serve default's widths (no
+configs.json, 64 simulations):
+
+- fleet (a): `python -m alphatriangle_tpu_torch.cli fleet --smoke --device
+  cuda` in a process whose imports of torch, numpy and JAX raise: 2
+  replica subprocesses on the card at 16 slots on the ladder 4/8/16, a
+  storm of 64 episode requests of up to 8 moves at concurrency 16, a
+  rolling reload once 8 ended, a `hang-serve` fault at the 3rd dispatch
+  of one replica (10 s dispatch deadline, watchdog poll 0.5 s, one
+  strike to quarantine), a SIGKILL once 60 ended. Exit 0, nothing lost,
+  every request completed or shed; on `fleet.jsonl` the hung replica's
+  death with 113, its dispatch-hung verdict naming `serve/b16`,
+  its respawn at 8 slots, its ready line and its re-admission in that
+  order, the chaos kill's death and respawn, the reload's replies with
+  0 recompiles (a replica that died during the round excepted), every
+  ready line on this card with its warm-up searches run; `fleet.prom`
+  and an SLO status. Move latency p50 / p95, requests/s, deaths,
+  respawns, re-admissions, each death to its re-admission, each spawn
+  to its ready line, each replica's dispatch p50 (its flight seals).
+- fleet (b): in this process, a `ReplicaServer` of the serve default at
+  16 and then at 8 slots, each fed a pipe of episode requests filling its
+  slots: 16 `gather_rows` and 2 `backup_update` launches per dispatch and
+  nothing else, the first gather and backup at each width bit-equal to
+  their plain versions. Its launches and dispatches are the fleet path's
+  in the kernels line.
+
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
 
@@ -219,6 +245,7 @@ as the last line `{"ok": true, "device": {...}}`.
 """
 
 import json
+import os
 import re
 import shutil
 import signal
@@ -1761,7 +1788,7 @@ def reference_train_phase(torch, dev) -> dict:
 # to 32 moves (the serve default's 64 slots x 64 simulations).
 PREEMPT_FREQ, PREEMPT_STEPS = 4, 12
 MEGA_RESUME_FREQ, MEGA_RESUME_STEPS = 2, 4
-EVAL_GAMES, EVAL_SIMS, EVAL_MAX_MOVES = 64, 64, 32
+EVAL_GAMES, EVAL_SIMS, EVAL_MAX_MOVES = 64, 64, 16
 # `cli eval`'s report keys, the JAX package's (alphatriangle_tpu/cli.py cmd_eval).
 EVAL_KEYS = (
     "source", "games", "sims", "mcts_mean_score", "mcts_max_score", "mcts_mean_length",
@@ -3587,6 +3614,322 @@ def league_phase(torch, dev) -> dict:
     }
 
 
+# --- slice 10: the serving fleet -------------------------------------------
+
+# `cli fleet` at the serve default's widths (`EnvConfig()`, `ModelConfig()`,
+# no configs.json, 64 simulations): 2 replicas on the ladder 4/8/16 from 16.
+FLEET_REPLICAS, FLEET_SLOTS, FLEET_BUCKETS, FLEET_SIMS = 2, 16, "4,8,16", 64
+FLEET_REQUESTS, FLEET_CONCURRENCY, FLEET_MAX_MOVES = 64, 16, 8
+# The chaos schedule: one `hang-serve` at the 3rd dispatch of the first
+# replica to reach it (before the ladder's window of 3 dispatches can
+# walk it off 16 slots), holding the ~8 requests routed to it until its
+# watchdog exits 113 ten seconds on; a rolling reload once 8 requests
+# ended (the hung replica's drain fails when it dies); a SIGKILL once 60
+# ended, which those held requests keep after the 113 exit.
+FLEET_RELOAD_AFTER, FLEET_HANG_AT, FLEET_KILL_AFTER = 8, 2, 60
+# The in-process replica: episodes of 8 moves filling each rung of the
+# fleet's ladder in turn (16, 8, 4): every width a replica may serve at.
+FLEET_INPROC_WIDTHS = tuple(sorted((int(b) for b in FLEET_BUCKETS.split(",")), reverse=True))
+# A guard that makes the fleet parent's imports of torch, numpy or JAX
+# raise: the parent must run on the standard library.
+_NO_TORCH_PARENT = (
+    "import builtins, sys\n"
+    "_real = builtins.__import__\n"
+    "def _guard(name, *a, **k):\n"
+    "    if name.split('.')[0] in ('torch', 'numpy', 'jax'):\n"
+    "        raise ImportError('the fleet parent imported ' + name)\n"
+    "    return _real(name, *a, **k)\n"
+    "builtins.__import__ = _guard\n"
+    "from alphatriangle_tpu_torch.cli import main\n"
+)
+
+
+def fleet_events(path: Path) -> list:
+    from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
+
+    return [e for e in read_ledger(path) if e.get("kind") == "fleet"]
+
+
+def check_fleet_chain(events: list, kind: str, label: str) -> dict:
+    """The chain `cli fleet`'s chaos leaves on fleet.jsonl, in order: the
+    hung replica's death with 113 and a dispatch-hung verdict naming its
+    serve program, its respawn onto 8 slots, its ready line, its
+    re-admission; a chaos kill, its death and its respawn; the rolling
+    reload's replies with no recompile; every ready line on the card.
+    Returns the chain's figures."""
+    names = [e["event"] for e in events]
+    wedge = next((i for i, e in enumerate(events) if e["event"] == "death" and e.get("rc") == 113), None)
+    if wedge is None:
+        fail(f"{label}: no death with exit 113 on fleet.jsonl: "
+             f"{[(e.get('replica'), e.get('rc'), e.get('verdict')) for e in events if e['event'] == 'death']}")
+    death = events[wedge]
+    victim = death["replica"]
+    if death.get("verdict") != "dispatch-hung" or death.get("family") != "serve" or death.get(
+        "program"
+    ) != f"serve/b{FLEET_SLOTS}":
+        fail(f"{label}: the 113 death reads {death.get('verdict')} / {death.get('program')}")
+    # In order, with other events (a chaos kill of the warming respawn,
+    # say) allowed between: respawn at 8 slots -> ready -> re-admission.
+    mine = [e for e in events[wedge + 1:] if e.get("replica") == victim]
+    steps, found = ("respawn", "replica-ready", "readmit"), []
+    for e in mine:
+        if len(found) < len(steps) and e["event"] == steps[len(found)]:
+            found.append(e)
+    if len(found) < len(steps):
+        fail(f"{label}: after its 113 death {victim} went {[e['event'] for e in mine]}, "
+             "not respawn -> ready -> readmit")
+    respawn, ready, readmit = found
+    if respawn.get("slots") != 8 or ready.get("slots") != 8:
+        fail(f"{label}: the quarantined respawn serves {respawn.get('slots')} slots, want 8")
+    kill = next((i for i, e in enumerate(events) if e["event"] == "chaos-kill"), None)
+    if kill is None:
+        fail(f"{label}: no chaos-kill on fleet.jsonl")
+    killed = events[kill]["replica"]
+    after = [e["event"] for e in events[kill:] if e.get("replica") == killed]
+    if "death" not in after or "respawn" not in after[after.index("death"):]:
+        fail(f"{label}: the chaos-killed {killed} went {after}, not death -> respawn")
+    reloaded = [e for e in events if e["event"] == "replica-reloaded"]
+    if not reloaded or any(e.get("recompiles") != 0 for e in reloaded):
+        fail(f"{label}: rolling reload replies {[(e['replica'], e.get('recompiles')) for e in reloaded]}")
+    start = names.index("reload-start")
+    for e in events:
+        if e["event"] == "reload-failed" and not any(
+            d["event"] == "death" and d.get("replica") == e["replica"] for d in events[start:]
+        ):
+            fail(f"{label}: the live replica {e['replica']} failed its reload: {e.get('error')}")
+    if "reload-done" not in names:
+        fail(f"{label}: the rolling reload never completed")
+    for e in events:
+        if e["event"] == "replica-ready" and (e.get("device") != kind or e.get("warm_aot") is not True):
+            fail(f"{label}: {e['replica']} reported ready on {e.get('device')} (warm {e.get('warm_aot')})")
+    return {
+        "wedged_replica": victim, "wedged_program": death["program"],
+        "wedge_to_readmit_s": readmit["time"] - death["time"],
+        "killed_replica": killed, "replicas_reloaded": [e["replica"] for e in reloaded],
+    }
+
+
+def fleet_figures(events: list, run_dir: Path) -> dict:
+    """Seconds from each spawn to its ready line and from each death to the
+    re-admission that follows it, and each replica's dispatch p50 per serve
+    program (its flight ring's sealed walls of `serve/b<slots>`, every
+    incarnation), with the count of seals behind each."""
+    from alphatriangle_tpu_torch.telemetry.flight import read_flight
+
+    spawn_to_ready, death_to_readmit = [], []
+    for i, e in enumerate(events):
+        later = [x for x in events[i + 1:] if x.get("replica") == e.get("replica")]
+        if e["event"] in ("spawn", "respawn"):
+            ready = next((x for x in later if x["event"] == "replica-ready"), None)
+            if ready is not None:
+                spawn_to_ready.append({"replica": e["replica"], "event": e["event"], "slots": e["slots"],
+                                       "s": ready["time"] - e["time"]})
+        if e["event"] == "death":
+            readmit = next((x for x in later if x["event"] == "readmit"), None)
+            death_to_readmit.append({"replica": e["replica"], "rc": e.get("rc"),
+                                     "s": None if readmit is None else readmit["time"] - e["time"]})
+    dispatch_ms_p50 = {}
+    for rdir in sorted(run_dir.glob("replica_*")):
+        walls = {}
+        for r in read_flight(rdir / "flight.jsonl"):
+            if r.get("phase") == "seal" and r.get("family") == "serve" and r.get("ok", True):
+                walls.setdefault(r["program"], []).append(r["wall_s"] * 1e3)
+        dispatch_ms_p50[rdir.name[len("replica_"):]] = {
+            program: {"p50": statistics.median(w), "n": len(w)}
+            for program, w in sorted(walls.items(), key=lambda kv: -int(kv[0].split("/b")[-1]))
+        }
+    return {"spawn_to_ready": spawn_to_ready, "death_to_readmit": death_to_readmit,
+            "replica_dispatch_ms_p50": dispatch_ms_p50}
+
+
+def fleet_cli_part(torch, kind: str) -> dict:
+    """(a) `cli fleet --smoke --device cuda` in a process whose imports of
+    torch, numpy and JAX raise, its replicas on the card, with the chaos
+    schedule above. Exit 0, nothing lost, every request completed or shed,
+    the chain on fleet.jsonl, fleet.prom and an SLO status."""
+    label = "fleet"
+    torch.cuda.empty_cache()  # the card's memory for the replicas
+    root = RUN_ROOT / label
+    argv = [
+        "fleet", "--smoke", "--device", "cuda", "--root-dir", str(root), "--run-name", label,
+        "--replicas", str(FLEET_REPLICAS), "--slots", str(FLEET_SLOTS), "--buckets", FLEET_BUCKETS,
+        "--sims", str(FLEET_SIMS), "--requests", str(FLEET_REQUESTS),
+        "--concurrency", str(FLEET_CONCURRENCY), "--max-moves", str(FLEET_MAX_MOVES),
+        "--reload-after", str(FLEET_RELOAD_AFTER), "--chaos-kill-after", str(FLEET_KILL_AFTER),
+        "--replica-dispatch-min-deadline", "10", "--replica-dispatch-first-deadline", "300",
+        "--replica-watchdog-poll", "0.5", "--backoff-base", "0.5", "--quarantine-after", "1",
+        "--settle", "120",
+    ]
+    env = {**os.environ, "ALPHATRIANGLE_FAULTS": f"hang-serve@after={FLEET_HANG_AT}",
+           "ALPHATRIANGLE_FAULT_STATE_DIR": str(root / "faults")}
+    out_path, err_path = RUN_ROOT / f"{label}.out", RUN_ROOT / f"{label}.err"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _NO_TORCH_PARENT + f"sys.exit(main({argv!r}))"],
+            cwd=ROOT, stdout=out, stderr=err, text=True, env=env,
+        )
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall_s = time.perf_counter() - t0
+    lines = out_path.read_text().strip().splitlines()
+    try:
+        report = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"{label}: exit {rc} without a JSON report; stderr: {err_path.read_text()[-3000:]}")
+    if rc != 0:
+        fail(f"{label}: exit {rc}; stderr: {err_path.read_text()[-3000:]}")
+    if report["lost"] != 0 or not (
+        report["completed"] + report["shed"] == report["terminal"] == report["requests"] == FLEET_REQUESTS
+    ):
+        fail(f"{label}: lost {report['lost']}, completed {report['completed']} + shed {report['shed']} "
+             f"of {report['terminal']} terminal, {report['requests']} requests")
+    run_dir = Path(report["ledger"]).parent
+    events = fleet_events(run_dir / "fleet.jsonl")
+    chain = check_fleet_chain(events, kind, label)
+    if not (run_dir / "fleet.prom").exists() or report.get("slo") not in ("ok", "burning", "no-data"):
+        fail(f"{label}: fleet.prom missing or no SLO status ({report.get('slo')})")
+    if not (root / "faults" / "hang-serve.fired").exists():
+        fail(f"{label}: the hang-serve fault never fired")
+    return {"report": report, "chain": chain, "wall_s": wall_s, **fleet_figures(events, run_dir)}
+
+
+def fleet_inproc_part(torch, dev, kernels) -> dict:
+    """(b) In this process on the card: a `ReplicaServer` of the serve
+    default at each rung of the fleet's ladder (16, 8, 4 slots), each fed
+    a pipe of episode requests that fill its slots. 16 gathers and 2
+    backups per dispatch, no PER count, no reorder; the first gather and
+    backup at each width bit-equal to their plain versions."""
+    import io
+
+    from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, EnvConfig, ModelConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+    from alphatriangle_tpu_torch.serving import PolicyService, build_serve_telemetry
+    from alphatriangle_tpu_torch.serving.replica import ReplicaServer
+
+    label = "fleet-inproc"
+    env_cfg, model_cfg = EnvConfig(), ModelConfig()
+    env = TriangleEnv(env_cfg, device=dev)
+    extractor = FeatureExtractor(env, model_cfg)
+    net = NeuralNetwork(model_cfg, env_cfg, seed=0, device=dev)
+    mcts = BatchedMCTS(env, extractor, net.model, AlphaTriangleMCTSConfig(max_simulations=FLEET_SIMS),
+                       net.support)
+    servers = []
+    for width in FLEET_INPROC_WIDTHS:
+        telemetry = build_serve_telemetry(RUN_ROOT / f"{label}-b{width}", f"b{width}", env_cfg,
+                                          model_cfg, device=dev)
+        service = PolicyService(env, extractor, net, mcts, slots=width, rng_seed=width,
+                                telemetry=telemetry)
+        service.warm()
+        servers.append((width, service, telemetry))
+    torch.cuda.synchronize()
+    searched = {}
+    restore = record_search_kernels(searched, FLEET_INPROC_WIDTHS)
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    replies, dispatches = {}, 0
+    try:
+        for width, service, telemetry in servers:
+            out = io.StringIO()
+            server = ReplicaServer(service, telemetry, tick_every=4, out=out)
+            read_fd, write_fd = os.pipe()
+            stdin, pipe = os.fdopen(read_fd), os.fdopen(write_fd, "w", buffering=1)
+            worker = threading.Thread(target=server.serve_forever, args=(0.5, stdin), daemon=True)
+            worker.start()
+            for i in range(width):
+                pipe.write(json.dumps({"id": i, "kind": "episode", "seed": 100 * width + i,
+                                       "max_moves": FLEET_MAX_MOVES}) + "\n")
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline and len(out.getvalue().splitlines()) < width:
+                time.sleep(0.05)
+            pipe.write(json.dumps({"id": width, "kind": "shutdown"}) + "\n")
+            pipe.close()
+            worker.join(timeout=30)
+            stdin.close()
+            telemetry.close(step=service.dispatch_count)
+            got = [json.loads(line) for line in out.getvalue().splitlines()]
+            episodes = [r for r in got if r.get("kind") == "episode"]
+            if len(episodes) != width or not all(r["ok"] and r["moves"] >= 1 for r in episodes):
+                fail(f"{label}: at {width} slots the replies were {got[:4]}...")
+            replies[width] = episodes
+            dispatches += service.dispatch_count
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    want = {"gather_rows": 16 * dispatches, "backup_update": 2 * dispatches, "per_sample": 0,
+            "subtree_promote": 0}
+    if launches != want or dispatches == 0:
+        fail(f"{label}: launches {launches} in {dispatches} dispatches, want {want}")
+    moves = sum(r["moves"] for eps in replies.values() for r in eps)
+    return {
+        "launches": launches,
+        "dispatches": dispatches,
+        "dispatches_by_width": {w: s.dispatch_count for w, s, _ in servers},
+        "moves_served": moves,
+        "moves_per_s": moves / wall_s,
+        "move_latency_ms_p50": statistics.median(
+            v for eps in replies.values() for r in eps for v in r["lat_ms"]),
+        "kernels_held_bit_equal": hold_search_kernels(torch, searched, FLEET_INPROC_WIDTHS, label),
+    }
+
+
+def fleet_phase(torch, dev, kernels, kind: str) -> dict:
+    """The serving fleet: (a) `cli fleet` as a user runs it, (b) a replica
+    server in this process, whose launches and dispatches are the path's."""
+    t0 = time.perf_counter()
+    cli_part = fleet_cli_part(torch, kind)
+    inproc = fleet_inproc_part(torch, dev, kernels)
+    return {**inproc, "cli": cli_part, "phase_s": time.perf_counter() - t0}
+
+
+def say_fleet(r: dict, card: str) -> None:
+    rep, chain, cli_part = r["cli"]["report"], r["cli"]["chain"], r["cli"]
+    say(
+        f"fleet: {rep['replicas']} replicas x {rep['slots']} slots (ladder {FLEET_BUCKETS}), "
+        f"{rep['requests']} requests x up to {FLEET_MAX_MOVES} moves at concurrency "
+        f"{FLEET_CONCURRENCY}: {rep['completed']} completed, {rep['shed']} shed "
+        f"{rep['shed_by_code']}, 0 lost, {rep['retried_requests']} retried; move latency p50 "
+        f"{rep['move_latency_ms_p50']:.1f} ms, p95 {rep['move_latency_ms_p95']:.1f} ms, "
+        f"{rep['requests_per_sec']:.2f} requests/s over the storm's {rep['elapsed_s']:.1f} s; "
+        f"deaths {rep['fleet']['deaths']}, respawns {rep['fleet']['respawns']}, re-admissions "
+        f"{rep['fleet']['readmissions']}, reload recompiles {rep['fleet']['reload_recompiles']}; "
+        f"SLO {rep['slo']} [{card}]"
+    )
+    say(
+        f"fleet chain: {chain['wedged_replica']} hung in {chain['wedged_program']} -> exit 113 -> "
+        f"dispatch-hung -> respawn at 8 slots -> ready -> readmit in {chain['wedge_to_readmit_s']:.1f} "
+        f"s; chaos-killed {chain['killed_replica']} -> death -> respawn; reloaded "
+        f"{chain['replicas_reloaded']} with 0 recompiles"
+    )
+    say("fleet death to re-admission: " + ", ".join(
+        f"{d['replica']} rc {d['rc']} {'-' if d['s'] is None else format(d['s'], '.1f') + ' s'}"
+        for d in cli_part["death_to_readmit"]))
+    say("fleet spawn to ready: " + ", ".join(
+        f"{x['replica']} {x['event']} b{x['slots']} {x['s']:.1f} s" for x in cli_part["spawn_to_ready"]))
+    say("fleet replica dispatch p50: " + "; ".join(
+        f"{name} " + (", ".join(f"{program} {v['p50']:.1f} ms ({v['n']} seals)"
+                                for program, v in by_program.items()) or "-")
+        for name, by_program in cli_part["replica_dispatch_ms_p50"].items()) + f" [{card}]")
+    held = ", ".join(f"b{w}" for w in r["kernels_held_bit_equal"])
+    say(
+        f"fleet in-process replica: {r['dispatches']} dispatches {r['dispatches_by_width']}, "
+        f"{r['moves_served']} moves, {r['moves_per_s']:.1f} moves/s, move latency p50 "
+        f"{r['move_latency_ms_p50']:.1f} ms; gather_rows and backup_update bit-equal to plain at "
+        f"{held}; launches {r['launches']} [{card}]"
+    )
+    say(f"fleet cli part: {cli_part['wall_s']:.1f} s; fleet phase: {r['phase_s']:.1f} s")
+
+
 def say_ladder(label: str, r: dict, card: str) -> None:
     by_rung = "; ".join(
         f"b{rung}: {v['dispatches']} dispatches, p50 {v['dispatch_ms_p50']:.1f} ms, first after a "
@@ -4084,6 +4427,9 @@ def run_phases(torch) -> int:
     say(f"league phase: {time.perf_counter() - t_lad:.1f} s")
     say(f"slice-nine phases: {time.perf_counter() - t0:.1f} s")
 
+    flreport = fleet_phase(torch, dev, KERNELS, kind)
+    say_fleet(flreport, card)
+
     t0 = time.perf_counter()
     reference_phase(torch, dev)
     say("reference: card search equals the CPU search on a small input")
@@ -4142,6 +4488,7 @@ def run_phases(torch) -> int:
         "train_int8_async": pareport, "eval_bn_int8": ebreport, "serve_run_int8": srreport_run,
         **{f"serve_{name}": r for name, r in spreport.items()},
         "serve_ladder": slreport, "serve_ladder_reuse": slrreport, "league": lgreport,
+        "fleet": flreport,
     }
     kernels_line = []
     for kname, kr in kreport.items():

@@ -36,6 +36,12 @@ for slice_six in ("stats.persistence", "arena", "config.persistence_config", "co
 for slice_seven in ("mcts.gumbel", "config.presets", "config.mesh_config", "stats.collector",
                     "stats.events"):
     assert "alphatriangle_tpu_torch." + slice_seven in names, slice_seven
+for slice_ten in ("telemetry", "telemetry.ledger", "telemetry.tracectx", "telemetry.tracer",
+                  "telemetry.flight", "telemetry.health", "telemetry.perf", "telemetry.slo",
+                  "supervise", "supervise.faults", "supervise.policy", "supervise.supervisor",
+                  "serving.router", "serving.replica", "serving.fleet", "config.telemetry_config",
+                  "utils.flops"):
+    assert "alphatriangle_tpu_torch." + slice_ten in names, slice_ten
 leaked = sorted(
     m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic", "tensorboard", "tensorflow")
 )
