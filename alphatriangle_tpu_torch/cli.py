@@ -1,6 +1,6 @@
 """Command line of the PyTorch port: counterpart of
-`alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval` and `league`
-subcommands.
+`alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval`, `league`, `fleet`,
+`health` and `perf` subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--buckets CSV] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
@@ -26,11 +26,12 @@ ladder's rungs and switches and the reloaded steps included.
         [--gumbel] [--fast-sims S [--full-search-prob P]] [--no-tensorboard]
         [--async-rollouts [--workers N] [--replay-ratio R] | --fused-megastep]
         [--device-replay {auto,on,off}] [--max-steps N] [--self-play-batch B]
-        [--batch-size B] [--buffer-capacity N] [--min-buffer N]
+        [--batch-size B] [--buffer-capacity N] [--min-buffer N] [--no-per]
         [--rollout-chunk T] [--fused-learner-steps K] [--seed S] [--device cuda]
         [--run-name NAME] [--root-dir DIR] [--no-auto-resume]
         [--load-checkpoint STEP_DIR] [--load-buffer NPZ]
         [--checkpoint-freq N] [--keep-checkpoints K]
+        [--no-telemetry] [--watchdog-deadline SECONDS] [--log-level LEVEL]
 
 Trains the default board and net, or a BASELINE preset's (`--preset
 1..5`, `config/presets.py`, or a `tuned_preset.json`; the flags given
@@ -46,10 +47,17 @@ to `live_metrics.jsonl` in the run directory and, unless
 `<root>/AlphaTriangleTPUTorch/runs/<run>` (root `./.alphatriangle_data`
 unless `--root-dir`), checkpoints every `--checkpoint-freq` steps and
 at the end, and resumes the newest checkpointed run under the root
-unless `--no-auto-resume`. SIGTERM saves, spills and exits 114. Prints
-one JSON report: steps, losses, rows ingested, episodes, weight syncs,
-the achieved replay ratio, timings, the save and restore times and the
-kernel launches.
+unless `--no-auto-resume`. SIGTERM saves, spills and exits 114. The run
+directory also gets the run's telemetry unless `--no-telemetry`: the
+`health.json` heartbeat (stall deadline `--watchdog-deadline`), the
+`metrics.jsonl` ledger (every metrics tick and one `kind:"util"` record
+an iteration, with the MFU against the card's bf16 peak), the
+`flight.jsonl` ring of every dispatch, and the anomaly screen of every
+learner step. `--no-per` samples the ring uniformly. A completed run of
+a tuned preset ledgers a `tune_outcome` record. Prints one JSON report:
+steps, losses, rows ingested, episodes, weight syncs, the achieved
+replay ratio, timings, the save and restore times and the kernel
+launches.
 
     python -m alphatriangle_tpu_torch.cli eval [--checkpoint STEP_DIR |
         --run-name NAME] [--vs-checkpoint STEP_DIR | --vs-run NAME]
@@ -70,13 +78,14 @@ the JAX report's keys, plus the dispatch times and kernel launches.
         [--promotion-games N] [--promotion-win-rate R] [--exploration-floor F]
         [--seed S] [--self-play-batch B] [--batch-size B] [--buffer-capacity N]
         [--min-buffer N] [--rollout-chunk T] [--checkpoint-freq N]
-        [--device-replay {auto,on,off}] [--device cuda]
+        [--device-replay {auto,on,off}] [--device cuda] [--no-telemetry]
 
 The experience flywheel (`league/flywheel.py`): the synchronous loop,
 whose iterations play a league round at the --mix rate, against a pool
-seeded from --pool-from's checkpoints, on that run's board and net.
-Prints the JAX report's keys (`ledger` is null: the league run keeps no
-metrics ledger yet), the loop's report and each round's record.
+seeded from --pool-from's checkpoints, on that run's board and net,
+with a training run's telemetry and one `kind:"league"` ledger record a
+round. Prints the JAX report's keys (`ledger`: the run's
+`metrics.jsonl`), the loop's report and each round's record.
 
     python -m alphatriangle_tpu_torch.cli fleet [--replicas 2] [--slots 8]
         [--buckets CSV] [--sims 4] [--requests 32] [--concurrency 8]
@@ -95,6 +104,28 @@ and `--state-dict`; a `configs.json` in the run directory gives the
 board and net. Drives a storm of episode requests, writes `fleet.prom`
 and prints one JSON report (the JAX report's keys); `--smoke` exits 1
 unless every request was completed or shed.
+
+    python -m alphatriangle_tpu_torch.cli health [RUN] [--root-dir DIR]
+        [--deadline SECONDS] [--probe]
+
+A run's `health.json` with a staleness verdict: LIVE or STALLED, the
+heartbeat's age, the learner step, episodes and rows, the buffer, the
+stalls and the card's memory. Exit 0 live, 1 stalled or stale, 2 no
+heartbeat. `--probe` prints one JSON line instead, exit 3 for a dispatch
+past its deadline (the fleet's admission probe). RUN defaults to the
+newest run under the root.
+
+    python -m alphatriangle_tpu_torch.cli perf [RUN|DIR|metrics.jsonl]
+        [--root-dir DIR] [--window N] [--json]
+
+A summary of a run's metrics ledger: step time p50 / p95, learner
+steps/s, games/h, moves/s, sims/s, the MFU against the device's bf16
+peak, transfers, dispatches per iteration, memory, the throughput trend
+and, from the flight ring, each program's dispatch p50 / p95; the
+league's line for a league run. `--window` keeps the newest N util
+records. Exit 0, or 2 without a ledger or util records.
+
+`health` and `perf` import neither torch nor numpy: they read files.
 """
 
 import argparse
@@ -288,8 +319,21 @@ def cmd_train(args: argparse.Namespace) -> int:
         overrides["LOAD_CHECKPOINT_PATH"] = args.load_checkpoint
     if args.load_buffer is not None:
         overrides["LOAD_BUFFER_PATH"] = args.load_buffer
+    if args.no_per:
+        overrides["USE_PER"] = False
+    telemetry_config = None
+    if args.no_telemetry or args.watchdog_deadline is not None:
+        from .config import TelemetryConfig
+
+        t_kw: dict = {}
+        if args.no_telemetry:
+            t_kw["ENABLED"] = False
+        if args.watchdog_deadline is not None:
+            t_kw["WATCHDOG_DEADLINE_S"] = args.watchdog_deadline
+        telemetry_config = TelemetryConfig(**t_kw)
     configs = {"env_config": None, "model_config": None, "mcts_config": None}
     preset = None
+    tuned_payload = None
     if args.preset is not None:
         preset = str(args.preset)
         if preset.isdigit():
@@ -303,8 +347,7 @@ def cmd_train(args: argparse.Namespace) -> int:
                 bundle = load_tuned_preset(preset)
             except ValueError as exc:
                 raise SystemExit(f"--preset: {exc}") from exc
-            # The JAX package ledgers a `tune_outcome` record after a tuned
-            # run; that record waits for the port's telemetry plane.
+            tuned_payload = bundle.get("tuned")
         configs = {
             "env_config": bundle["env"],
             "model_config": bundle["model"],
@@ -342,7 +385,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.dry_setup:
         c = setup_training_components(
             train_cfg, persistence_config=persistence_config, device=device,
-            use_tensorboard=not args.no_tensorboard, **configs,
+            use_tensorboard=not args.no_tensorboard, telemetry_config=telemetry_config, **configs,
         )
         c.stats.close()
         print(json.dumps({
@@ -357,10 +400,22 @@ def cmd_train(args: argparse.Namespace) -> int:
         return 0
     loop = run_training(
         train_cfg, persistence_config=persistence_config, device=device,
-        use_tensorboard=not args.no_tensorboard, **configs,
+        use_tensorboard=not args.no_tensorboard, telemetry_config=telemetry_config,
+        log_level=args.log_level, **configs,
     )
-    print(json.dumps({**loop.report(), "preset": preset, "kernel_launches": _kernel_launches()}))
-    return EXIT_CODES[loop.status]
+    rc = EXIT_CODES[loop.status]
+    tune_outcome = None
+    if rc == 0 and tuned_payload is not None:
+        # The tuner's prediction beside what the run observed, in the
+        # run's ledger (the record `cli tune --calibrate` reads).
+        from .autotune import ledger_tune_outcome
+
+        tune_outcome = ledger_tune_outcome(loop.c.persistence_config.get_run_base_dir(), tuned_payload)
+    print(json.dumps({
+        **loop.report(), "preset": preset, "tune_outcome": tune_outcome,
+        "kernel_launches": _kernel_launches(),
+    }))
+    return rc
 
 
 def _kernel_launches() -> dict:
@@ -560,6 +615,11 @@ def cmd_league(args: argparse.Namespace) -> int:
         persistence_for(args.pool_from).get_run_base_dir()
     )
     mcts_config = AlphaTriangleMCTSConfig(max_simulations=args.sims) if args.sims is not None else None
+    telemetry_config = None
+    if args.no_telemetry:
+        from .config import TelemetryConfig
+
+        telemetry_config = TelemetryConfig(ENABLED=False)
     persistence_config = persistence_for(train_config.RUN_NAME)
     loop = run_flywheel(
         train_config=train_config,
@@ -570,6 +630,7 @@ def cmd_league(args: argparse.Namespace) -> int:
         persistence_config=persistence_config,
         pool_from=args.pool_from,
         device=args.device,
+        telemetry_config=telemetry_config,
     )
     code = 1 if loop is None else EXIT_CODES[loop.status]
     run_dir = persistence_config.get_run_base_dir()
@@ -583,8 +644,7 @@ def cmd_league(args: argparse.Namespace) -> int:
         "live_elo": round(pool.rating(LIVE_ID), 2),
         "ratings": {m: round(pool.rating(m), 2) for m in pool.member_ids()},
         "league_jsonl": str(run_dir / LEAGUE_FILENAME),
-        # The port has no metrics ledger yet (its telemetry slice).
-        "ledger": None,
+        "ledger": str(run_dir / "metrics.jsonl"),
     }
     if loop is not None:
         report.update(loop.report())
@@ -732,6 +792,209 @@ def cmd_fleet(args: argparse.Namespace) -> int:
     return 0
 
 
+def _resolve_run_dir(run_name: "str | None", root_dir: "str | None") -> "Path | None":
+    """The run directory of a run name under the runs root; the newest
+    (by modification time) when the name is omitted."""
+    from .config import PersistenceConfig
+
+    persistence = PersistenceConfig(
+        RUN_NAME=run_name or "latest", **({"ROOT_DATA_DIR": root_dir} if root_dir else {})
+    )
+    if run_name:
+        return persistence.get_run_base_dir()
+    runs_root = persistence.get_runs_root_dir()
+
+    def mtime(p: Path) -> float:
+        try:
+            return p.stat().st_mtime
+        except OSError:  # removed between the listing and the stat
+            return 0.0
+
+    try:
+        candidates = [p for p in runs_root.iterdir() if p.is_dir()]
+    except OSError:
+        candidates = []
+    if not candidates:
+        print(f"no runs under {runs_root}", file=sys.stderr)
+        return None
+    return max(candidates, key=mtime)
+
+
+def cmd_health(args: argparse.Namespace) -> int:
+    """A run's heartbeat with a staleness verdict. Exit 0 live, 1
+    stalled or stale, 2 no heartbeat; `--probe`: one JSON line and the
+    probe's code (3: a dispatch past its deadline)."""
+    from .telemetry.health import health_verdict, probe_run, read_health
+
+    run_dir = _resolve_run_dir(args.run, args.root_dir)
+    if run_dir is None:
+        return 2
+    if args.probe:
+        result = probe_run(run_dir, deadline_s=args.deadline)
+        print(json.dumps(result))
+        return int(result["code"])
+    path = run_dir / "health.json"
+    payload = read_health(path)
+    if payload is None:
+        print(f"no readable heartbeat at {path}", file=sys.stderr)
+        return 2
+    ok, age, reason = health_verdict(payload, deadline_s=args.deadline)
+    print(f"run {payload.get('run') or run_dir.name}: {'LIVE' if ok else 'STALLED'} ({reason})")
+    print(
+        f"  heartbeat    {age:,.0f}s ago (pid {payload.get('pid')}, "
+        f"uptime {payload.get('uptime_s', 0):,.0f}s)"
+    )
+    learner_age = payload.get("learner_age_s")
+    rollout_age = payload.get("rollout_age_s")
+    print(
+        f"  learner      step {payload.get('learner_step', 0):,}"
+        + (
+            f", last step {learner_age:,.0f}s before the heartbeat"
+            if learner_age is not None
+            else " (no step yet)"
+        )
+    )
+    print(
+        f"  self-play    {payload.get('episodes_played', 0):,} episodes, "
+        f"{payload.get('experiences_added', 0):,} experiences"
+        + (f", last harvest {rollout_age:,.0f}s before the heartbeat" if rollout_age is not None else "")
+    )
+    print(
+        f"  buffer       {payload.get('buffer_size', 0):,} | stalls "
+        f"{payload.get('stall_count', 0)} | deadline {payload.get('watchdog_deadline_s')}s"
+    )
+    for mem in payload.get("device_memory") or []:
+        in_use = mem.get("bytes_in_use") or 0
+        limit = mem.get("bytes_limit") or 0
+        peak = mem.get("peak_bytes_in_use") or 0
+        pct = f" ({100.0 * in_use / limit:.0f}%)" if limit else ""
+        print(
+            f"  device {mem.get('device')} [{mem.get('kind')}]  {in_use / 2**30:.2f} GiB in use"
+            + (f", peak {peak / 2**30:.2f} GiB" if peak else "")
+            + (f" / {limit / 2**30:.2f} GiB{pct}" if limit else "")
+        )
+    return 0 if ok else 1
+
+
+def _fmt_cell(value, spec: str = ",.2f", scale: float = 1.0, unit: str = "") -> str:
+    if not isinstance(value, (int, float)):
+        return "—"
+    return f"{value * scale:{spec}}{unit}"
+
+
+def cmd_perf(args: argparse.Namespace) -> int:
+    """A run's ledger summarized: step time, MFU, throughput and its
+    trend, each program's dispatch walls, the league. Exit 0, or 2 when
+    the ledger is missing or holds no util records."""
+    from .telemetry.flight import FLIGHT_FILENAME, read_flight, summarize_flight
+    from .telemetry.ledger import read_ledger, resolve_ledger_path
+    from .telemetry.perf import summarize_league, summarize_utilization
+
+    target = Path(args.run) if args.run else None
+    if target is not None and target.exists():
+        ledger = resolve_ledger_path(target)
+    else:
+        run_dir = _resolve_run_dir(args.run, args.root_dir)
+        if run_dir is None:
+            return 2
+        ledger = resolve_ledger_path(run_dir)
+    if ledger is None:
+        print(f"no metrics ledger at {args.run or 'the newest run'}", file=sys.stderr)
+        return 2
+    records = read_ledger(ledger)
+    summary = summarize_utilization(records, window=args.window)
+    if summary is None:
+        print(
+            f"{ledger}: no utilization records (the run predates the ledger, or telemetry "
+            "was disabled)",
+            file=sys.stderr,
+        )
+        return 2
+    programs = summarize_flight(read_flight(ledger.parent / FLIGHT_FILENAME))
+    if programs:
+        summary["programs"] = programs
+    league = summarize_league([r for r in records if r.get("kind") == "league"])
+    if league is not None:
+        summary.update(league)
+    if args.json:
+        summary["source"] = str(ledger)
+        print(json.dumps(summary))
+        return 0
+    peak = summary.get("peak_bf16_tflops")
+    print(f"perf {ledger}")
+    print(
+        f"  window       {summary['ticks']} tick(s) ({summary['ticks_total']} on record),"
+        f" steps {summary.get('first_step')}→{summary.get('last_step')},"
+        f" {_fmt_cell(summary.get('wall_seconds'), ',.0f', 1, 's')} wall"
+    )
+    print(
+        f"  device       {summary.get('device_kind') or '?'}"
+        f"   peak bf16 {_fmt_cell(peak, ',.0f', 1, ' TFLOP/s') if peak else 'unknown'}"
+        + (f" [{summary.get('peak_source')}]" if summary.get("peak_source") else "")
+    )
+    print(
+        f"  learner      {_fmt_cell(summary.get('learner_steps_per_sec'))} steps/s"
+        f"   step p50 {_fmt_cell(summary.get('step_time_ms_p50'), ',.1f', 1, 'ms')}"
+        f"   p95 {_fmt_cell(summary.get('step_time_ms_p95'), ',.1f', 1, 'ms')}"
+    )
+    print(
+        f"  self-play    {_fmt_cell(summary.get('games_per_hour'), ',.1f')} games/h"
+        f"   {_fmt_cell(summary.get('moves_per_sec'), ',.1f')} moves/s"
+        f"   {_fmt_cell(summary.get('sims_per_sec'), ',.0f')} sims/s"
+    )
+    print(
+        f"  utilization  MFU {_fmt_cell(summary.get('mfu'), ',.2f', 100.0, '%')}"
+        f" (max {_fmt_cell(summary.get('mfu_max'), ',.2f', 100.0, '%')})"
+        f"   {_fmt_cell(summary.get('tflops_per_sec'))} TFLOP/s"
+    )
+    print(
+        f"  transfers    h2d {_fmt_cell(summary.get('transfer_h2d_ms'), ',.1f', 1, 'ms')}"
+        f"   d2h {_fmt_cell(summary.get('transfer_d2h_ms'), ',.1f', 1, 'ms')}"
+        f"   buffer fill {_fmt_cell(summary.get('buffer_fill_last'), ',.2f', 100.0, '%')}"
+        f"   dispatch/iter {_fmt_cell(summary.get('dispatches_per_iteration'), ',.1f')}"
+    )
+    if summary.get("mem_peak_bytes_in_use") is not None:
+        print(
+            f"  memory       peak {_fmt_cell(summary.get('mem_peak_bytes_in_use'), ',.2f', 2**-30, ' GiB')}"
+            f"   in use {_fmt_cell(summary.get('mem_bytes_in_use_last'), ',.2f', 2**-30, ' GiB')}"
+            f"   limit {_fmt_cell(summary.get('mem_bytes_limit'), ',.2f', 2**-30, ' GiB')}"
+        )
+    if summary.get("chip_idle_fraction") is not None:
+        # The share of the ticks with no dispatch in flight: a dispatch
+        # is in flight from its launches to its fetch, so not the card's
+        # idle share.
+        print(
+            f"  in flight    none {_fmt_cell(summary.get('chip_idle_fraction'), ',.1f', 100.0, '%')}"
+            f" of the ticks (max {_fmt_cell(summary.get('chip_idle_fraction_max'), ',.1f', 100.0, '%')})"
+        )
+    if league is not None:
+        print(
+            f"  league       pool {_fmt_cell(summary.get('league_pool_size'), ',.0f')}"
+            f"   rounds {_fmt_cell(summary.get('league_rounds'), ',.0f')}"
+            f"   ingest {_fmt_cell(summary.get('league_ingested_moves_per_sec'), ',.1f')} moves/s"
+            f" ({_fmt_cell(summary.get('league_moves_ingested'), ',.0f')} total)"
+            f"   staleness {_fmt_cell(summary.get('league_mean_staleness'), ',.1f')}"
+            f"   stale dropped {_fmt_cell(summary.get('league_stale_dropped'), ',.0f')}"
+            f"   promotions {_fmt_cell(summary.get('league_promotions'), ',.0f')}"
+            f"   live elo {_fmt_cell(summary.get('league_live_elo'), ',.1f')}"
+        )
+    if programs:
+        width = max(max(len(p["program"]) for p in programs), 7)
+        print(f"  {'program':<{width}}  {'count':>6}  {'p50':>9}  {'p95':>9}  {'total':>9}  err")
+        for p in programs:
+            print(
+                f"  {p['program']:<{width}}  {p['count']:>6}"
+                f"  {_fmt_cell(p['wall_s_p50'], ',.1f', 1e3, 'ms'):>9}"
+                f"  {_fmt_cell(p['wall_s_p95'], ',.1f', 1e3, 'ms'):>9}"
+                f"  {_fmt_cell(p['wall_s_total'], ',.1f', 1, 's'):>9}  {p['errors']}"
+            )
+    print(
+        f"  trend        {_fmt_cell(summary.get('throughput_trend'), '+,.1f', 100.0, '%')} "
+        "(2nd-half vs 1st-half throughput)"
+    )
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="alphatriangle_tpu_torch.cli")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -830,6 +1093,15 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Save every N learner steps (CHECKPOINT_SAVE_FREQ_STEPS).")
     train.add_argument("--keep-checkpoints", type=int, default=None, metavar="K",
                        help="Retain the newest K checkpoints (KEEP_LAST_CHECKPOINTS; 0 keeps all).")
+    train.add_argument("--no-per", action="store_true",
+                       help="Sample the replay ring uniformly (USE_PER=False).")
+    train.add_argument("--no-telemetry", action="store_true",
+                       help="No run telemetry: no health.json heartbeat or stall watchdog, no "
+                       "metrics.jsonl ledger, no flight.jsonl ring, no anomaly screen.")
+    train.add_argument("--watchdog-deadline", type=float, default=None, metavar="SECONDS",
+                       help="Stall watchdog deadline: no learner step and no rollout harvest for "
+                       "this long dumps thread stacks and flags the heartbeat (default 300).")
+    train.add_argument("--log-level", default="INFO", choices=["DEBUG", "INFO", "WARNING", "ERROR"])
     train.set_defaults(fn=cmd_train)
 
     ev = sub.add_parser(
@@ -897,6 +1169,8 @@ def build_parser() -> argparse.ArgumentParser:
     league.add_argument("--device-replay", default=None, choices=["auto", "on", "off"])
     league.add_argument("--device", default="cuda",
                         help="Torch device (default cuda; 'cpu' runs the plain versions).")
+    league.add_argument("--no-telemetry", action="store_true",
+                        help="No run telemetry (heartbeat, ledger, flight ring, anomaly screen).")
     league.set_defaults(fn=cmd_league)
 
     fleet = sub.add_parser(
@@ -973,6 +1247,35 @@ def build_parser() -> argparse.ArgumentParser:
     fleet.add_argument("--smoke", action="store_true",
                        help="Exit 1 unless every request was completed or shed.")
     fleet.set_defaults(fn=cmd_fleet)
+
+    health = sub.add_parser(
+        "health",
+        help="Heartbeat check: a run's health.json with a staleness verdict (exit 0 live / "
+        "1 stalled / 2 missing). Imports no torch.",
+    )
+    health.add_argument("run", nargs="?", default=None, help="Run name (default: the newest).")
+    health.add_argument("--root-dir", default=None,
+                        help="Runs root directory (default ./.alphatriangle_data).")
+    health.add_argument("--deadline", type=float, default=None, metavar="SECONDS",
+                        help="Staleness deadline (default: the run's watchdog deadline).")
+    health.add_argument("--probe", action="store_true",
+                        help="One JSON line and the probe's exit code (0 live / 1 stalled / "
+                        "2 missing / 3 a dispatch past its deadline).")
+    health.set_defaults(fn=cmd_health)
+
+    perf = sub.add_parser(
+        "perf",
+        help="Summary of a run's metrics ledger (step time p50/p95, MFU, throughput trend, "
+        "dispatch walls per program). Imports no torch.",
+    )
+    perf.add_argument("run", nargs="?", default=None,
+                      help="Run name, run directory or metrics.jsonl (default: the newest run).")
+    perf.add_argument("--root-dir", default=None,
+                      help="Runs root directory (default ./.alphatriangle_data).")
+    perf.add_argument("--window", type=int, default=None, metavar="N",
+                      help="Summarize only the newest N utilization records.")
+    perf.add_argument("--json", action="store_true", help="The summary as one JSON line.")
+    perf.set_defaults(fn=cmd_perf)
     return parser
 
 

@@ -1,14 +1,17 @@
 """Run-telemetry configuration: the fields of
-`alphatriangle_tpu/config/telemetry_config.py` that a fleet replica sets,
-under the same names, defaults and bounds.
+`alphatriangle_tpu/config/telemetry_config.py` that a training run and a
+fleet replica set, under the same names, defaults and bounds.
 
 Every other knob of the JAX config stays at its JAX default as the
 default argument of the part it sets: the span ring's size
-(`tracer.SpanTracer`), the stall deadline and poll (`health`), the
-ledger's and flight ring's rotation (`ledger.MetricsLedger`,
-`flight.FlightRecorder`) and the dispatch deadline factor. Tracing, the
-heartbeat and its watchdog, the ledger and the flight recorder with its
-dispatch watchdog are always on.
+(`tracer.SpanTracer`), the stall watchdog's poll (`health.Watchdog`),
+the anomaly screen's thresholds (`anomaly.AnomalyDetector`), the
+dispatch deadline factor and the ledger's and flight ring's rotation
+(`ledger.MetricsLedger`, `flight.FlightRecorder`). With `ENABLED`, the
+heartbeat and its watchdog, the anomaly screen, the ledger and the
+flight recorder with its dispatch watchdog are all on; the device
+stat-packs, their beacons and the Prometheus textfile are not ported
+yet.
 """
 
 from dataclasses import dataclass
@@ -20,9 +23,15 @@ from ._base import ConfigBase, check_range
 class TelemetryConfig(ConfigBase):
     """Knobs of the telemetry subsystem."""
 
+    # Off: every hook is a no-op and no file is written.
+    ENABLED: bool = True
+
     # health.json is rewritten when the step advances, and at least this
     # often while the loop ticks.
     HEALTH_WRITE_INTERVAL_S: float = 5.0
+    # No learner step and no rollout harvest for this long is a stall:
+    # the watchdog dumps every thread's stack and flags the heartbeat.
+    WATCHDOG_DEADLINE_S: float = 300.0
 
     # A dispatch in flight past 10 x its expected wall (floored at MIN;
     # FIRST before the program has sealed once) is a wedge: the watchdog
@@ -34,6 +43,7 @@ class TelemetryConfig(ConfigBase):
     def __post_init__(self) -> None:
         for name in (
             "HEALTH_WRITE_INTERVAL_S",
+            "WATCHDOG_DEADLINE_S",
             "DISPATCH_MIN_DEADLINE_S",
             "DISPATCH_FIRST_DEADLINE_S",
             "DISPATCH_WATCHDOG_POLL_S",

@@ -23,10 +23,14 @@ reach self-play. Pool members restore through
 a member the port cannot read (a JAX Orbax step directory, a pruned
 step) raises with its path.
 
-Each round appends one record to `round_records`, with the fields of
-the JAX package's `kind:"league"` ledger record; the port's metrics
-ledger waits for its telemetry slice. `Stats/stale_dropped` goes to the
-run's `StatsCollector` as in the JAX loop.
+Each round appends one `kind:"league"` record, the JAX package's fields
+(and the live side's moves, `live_moves`), to `round_records` and to the
+run's metrics ledger (`metrics.jsonl`, `cli perf`'s league summary);
+its `mean_staleness` and `weight_reloads` read the service's reload
+clock, as the JAX record does. The league run has the training run's
+telemetry: heartbeat, util records, flight ring, anomaly screen.
+`Stats/stale_dropped` goes to the run's `StatsCollector` as in the JAX
+loop.
 """
 
 import logging
@@ -151,30 +155,31 @@ class FlywheelLoop(TrainingLoop):
         self.timings["league_round_s"].append(dt)
         clock = svc.weight_reloads
         versions = harvest.context.get("row_versions", []) if harvest else []
-        self.round_records.append(
-            {
-                "kind": "league",
-                "time": time.time(),
-                "step": self.global_step,
-                "round": self.league_rounds,
-                "pool_size": len(self.pool),
-                "opponent": opponent,
-                "opponent_mix": self.matchmaker.opponent_mix(),
-                "win_fraction": round(float(win_fraction), 4),
-                "live_elo": round(self.pool.rating(LIVE_ID), 3),
-                "promoted": promoted,
-                "promotions": self.pool.promotions,
-                "live_moves": int(np.sum(live_lengths)),
-                "moves_ingested": added,
-                "ingested_moves_per_sec": round(added / dt, 2),
-                "stale_dropped": dropped,
-                "stale_dropped_total": self.stale_dropped_total,
-                "mean_staleness": round(clock - sum(versions) / len(versions), 3) if versions else None,
-                "weight_reloads": clock,
-                "buffer_size_before": buffer_before,
-                "buffer_size_after": len(self.c.buffer),
-            }
-        )
+        record = {
+            "kind": "league",
+            "time": time.time(),
+            "step": self.global_step,
+            "round": self.league_rounds,
+            "pool_size": len(self.pool),
+            "opponent": opponent,
+            "opponent_mix": self.matchmaker.opponent_mix(),
+            "win_fraction": round(float(win_fraction), 4),
+            "live_elo": round(self.pool.rating(LIVE_ID), 3),
+            "promoted": promoted,
+            "promotions": self.pool.promotions,
+            "live_moves": int(np.sum(live_lengths)),
+            "moves_ingested": added,
+            "ingested_moves_per_sec": round(added / dt, 2),
+            "stale_dropped": dropped,
+            "stale_dropped_total": self.stale_dropped_total,
+            "mean_staleness": round(clock - sum(versions) / len(versions), 3) if versions else None,
+            "weight_reloads": clock,
+            "buffer_size_before": buffer_before,
+            "buffer_size_after": len(self.c.buffer),
+        }
+        self.round_records.append(record)
+        if self.telemetry.ledger is not None:
+            self.telemetry.ledger.append(record)
         logger.info(
             "League round %d: live %.2f vs %s (elo %.1f vs %.1f), %d rows ingested%s.",
             self.league_rounds, win_fraction, opponent, self.pool.rating(LIVE_ID),
@@ -256,6 +261,7 @@ def run_flywheel(
     pool_from: "str | None" = None,
     device=None,
     use_tensorboard: bool = False,
+    telemetry_config=None,
 ) -> "FlywheelLoop | None":
     """Run a flywheel session (`cli league`) on `device` (CUDA unless
     named): `run_training`'s setup, restore, SIGTERM handling and
@@ -291,6 +297,7 @@ def run_flywheel(
         persistence_config=persistence_config,
         device=device,
         use_tensorboard=use_tensorboard,
+        telemetry_config=telemetry_config,
     )
     try:
         pool = LeaguePool(c.persistence_config.get_run_base_dir() / LEAGUE_FILENAME, elo_k=league_config.ELO_K)

@@ -30,7 +30,14 @@ errors, sampled slots) reach the host in one copy at the end
 (`utils.transfer.fetch`), after which the host SumTree mirror replays
 the ingest at the same pre-megastep watermark and the TD updates in
 the same order. The search itself keeps the host syncs it already had.
+
+With a run's flight recorder attached (`flight`), each megastep writes
+an intent (`megastep/t<T>_k<K>`) before its work is launched and a seal
+after that one copy; `transfer_d2h_seconds` counts the host seconds
+blocked in the copy, the wait for the card included.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -41,6 +48,7 @@ from ..config.train_config import TrainConfig
 from ..nn import precision
 from ..nn.network import LiveWeights
 from ..ops.per_sample import per_sample
+from ..telemetry.flight import flight_span
 from ..utils.transfer import fetch
 from .device_buffer import DeviceReplayBuffer, ring_scatter
 
@@ -93,6 +101,8 @@ class MegastepRunner:
         # None until `sync_priorities_from_host` seeds it.
         self._priorities: "torch.Tensor | None" = None
         self.dispatch_count = 0  # megasteps run
+        self.transfer_d2h_seconds = 0.0  # host seconds blocked in the megasteps' fetch
+        self.flight = None  # the run's flight recorder, when attached
         self.model_config = trainer.nn.model_config
         self.reduced = precision.inference_dtype(self.model_config) != torch.float32
         self.last_idx: "np.ndarray | None" = None  # (K, B) slots of the last draw
@@ -196,10 +206,13 @@ class MegastepRunner:
             self.sync_priorities_from_host()
         max_p = self._max_priority_watermark()
         start_step = trainer.state.step
-        out = self._impl(t, k, max_p)
-        self.dispatch_count += 1
-        engine.net.forget_inference_model()  # the module moved in place
-        host = fetch(out)  # the one transfer of the megastep
+        with flight_span(self.flight, "megastep", f"megastep/t{t}_k{k}", avals=f"B{self.batch_size}xT{t}xK{k}"):
+            out = self._impl(t, k, max_p)
+            self.dispatch_count += 1
+            engine.net.forget_inference_model()  # the module moved in place
+            t0 = time.perf_counter()
+            host = fetch(out)  # the one transfer of the megastep
+            self.transfer_d2h_seconds += time.perf_counter() - t0
 
         # --- host mirror reconciliation ---------------------------------
         count = int(host["rows_added"])

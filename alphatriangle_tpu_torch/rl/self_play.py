@@ -51,9 +51,18 @@ engine's): the module itself under float32, else the net's one
 cast once on the card and shared by every stream of the loop; a chunk on
 another stream waits for the copy's `ready` event. The megastep passes
 its own copy, cast from the learner's module once per megastep.
+
+Telemetry: with a run's flight recorder attached (`flight`, by
+`training/setup.py` or the loop), each `play_chunk` writes an intent
+before its moves are launched and a seal after its one fetch, so the
+sealed wall covers the chunk on the card. `dispatch_count` counts the
+chunks, `transfer_d2h_seconds` the host seconds blocked in their
+fetches, the wait for the card included.
 """
 
 import logging
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -69,6 +78,7 @@ from ..mcts.gumbel import GumbelMCTS
 from ..mcts.search import BatchedMCTS, CarriedTree
 from ..nn.network import LiveWeights
 from ..nn.precision import InferenceNet
+from ..telemetry.flight import flight_span
 from ..utils.transfer import fetch, receive
 from .types import SelfPlayResult
 
@@ -187,6 +197,12 @@ class SelfPlayEngine:
         self._total_simulations = 0
         self._total_reused_visits = 0  # root visits inherited through reuse
         self.dispatch_count = 0  # chunks played through play_chunk
+        # Host seconds blocked in the chunks' fetches; lock-guarded with
+        # the dispatch count (the loop reads both from another thread).
+        self.transfer_d2h_seconds = 0.0
+        self._transfer_lock = threading.Lock()
+        # The run's flight recorder; None writes no intent/seal records.
+        self.flight = None
         self.last_trace: "dict[str, np.ndarray] | None" = None
 
     # --- one chunk on the device ------------------------------------------
@@ -385,14 +401,19 @@ class SelfPlayEngine:
         `DeviceReplayBuffer.ingest_payload`; only the episode stats and
         the trace are fetched (one copy). Returns that payload, or None."""
         t = int(num_moves or self.config.ROLLOUT_CHUNK_MOVES)
-        weights = self._inference_variables(self.net.live)
-        self.note_weights_version(weights.version)
-        self._carry, outputs = self._chunk(t, self._carry, weights)
-        payload = None
-        if not fetch_experiences:
-            payload = {"mat": outputs.pop("mat"), "flush": outputs.pop("flush")}
-        host = fetch(outputs)
-        self.dispatch_count += 1
+        with flight_span(self.flight, "rollout", f"self_play_chunk/t{t}", avals=f"B{self.batch_size}xT{t}"):
+            weights = self._inference_variables(self.net.live)
+            self.note_weights_version(weights.version)
+            self._carry, outputs = self._chunk(t, self._carry, weights)
+            payload = None
+            if not fetch_experiences:
+                payload = {"mat": outputs.pop("mat"), "flush": outputs.pop("flush")}
+            t0 = time.perf_counter()
+            host = fetch(outputs)  # the chunk's one transfer: the seal waits for it
+            dt = time.perf_counter() - t0
+        with self._transfer_lock:
+            self.transfer_d2h_seconds += dt
+            self.dispatch_count += 1
         self.fold_chunk_stats(host)
         if payload is not None:
             return payload

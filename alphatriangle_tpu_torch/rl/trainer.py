@@ -22,7 +22,11 @@ slots) and their `_begin` / `train_steps_finish` halves, where begin
 queues the K steps' work on the card and returns a handle of device
 tensors and finish makes the group's one device-to-host copy. The step
 counter advances at begin, so the next group's sampling and LR read the
-post-group step while the group still runs.
+post-group step while the group still runs. With a run's flight recorder
+attached (`flight`), begin writes the group's intent (`learner_step`,
+`learner_fused_steps` or `learner_fused_from_ring`) before its work is
+queued and finish seals it after the fetch: the sealed wall is the
+group's dispatch to its results on the host.
 
 The optimizer follows optax's chain as plain tensor functions:
 `clip_by_global_norm` (optax's formula, not `clip_grad_norm_`'s
@@ -207,6 +211,8 @@ class Trainer:
         self.dispatch_count = 0
         self.transfer_h2d_seconds = 0.0
         self.transfer_d2h_seconds = 0.0
+        # The run's flight recorder; None writes no intent/seal records.
+        self.flight = None
 
     # --- core -------------------------------------------------------------
 
@@ -312,12 +318,19 @@ class Trainer:
         self.transfer_h2d_seconds += time.perf_counter() - t0
         return out
 
-    def _begin(self, run, k: int) -> dict:
-        """Queue `run` (K steps on the card) and return its handle."""
+    def _begin(self, run, k: int, program: str, avals: str) -> dict:
+        """Queue `run` (K steps on the card) and return its handle; the
+        flight span opened here is sealed by `train_steps_finish`."""
         start = self.state.step
-        metrics, td = run()
+        span = self.flight.begin("learner", program, avals=avals) if self.flight is not None else None
+        try:
+            metrics, td = run()
+        except BaseException as exc:  # a failed dispatch seals ok: false
+            if span is not None:
+                span.seal(error=repr(exc))
+            raise
         self.dispatch_count += 1
-        return {"k": k, "metrics": metrics, "td": td, "start_step": start}
+        return {"k": k, "metrics": metrics, "td": td, "start_step": start, "flight": span}
 
     def train_step(self, batch: dict):
         """One step on a host batch. Returns (metrics, per-sample TD
@@ -346,7 +359,12 @@ class Trainer:
         stacked = self._upload(
             {key: np.stack([np.asarray(b[key]) for b in batches]) for key in batches[0]}
         )
-        return self._begin(lambda: self._train_steps_impl(stacked), len(batches))
+        k = len(batches)
+        if k == 1:
+            program, avals = "learner_step", f"B{n}"
+        else:
+            program, avals = "learner_fused_steps", f"K{k}xB{n}"
+        return self._begin(lambda: self._train_steps_impl(stacked), k, program, avals)
 
     def train_steps_from(self, buffer, samples: list) -> list:
         """K steps on rows the device ring holds at the sampled slots."""
@@ -364,15 +382,23 @@ class Trainer:
         })
         return self._begin(
             lambda: self._train_steps_from_impl(buffer.storage, dev["idx"], dev["weights"]),
-            len(samples),
+            len(samples), "learner_fused_from_ring", f"K{len(samples)}",
         )
 
     def train_steps_finish(self, handle: dict) -> list:
         """The group's one device-to-host copy; the per-step (metrics with
         the step's LR, TD errors) list, in order."""
+        span = handle.pop("flight", None)
         t0 = time.perf_counter()
-        host = fetch({"metrics": handle["metrics"], "td": handle["td"]})
+        try:
+            host = fetch({"metrics": handle["metrics"], "td": handle["td"]})
+        except BaseException as exc:
+            if span is not None:
+                span.seal(error=repr(exc))
+            raise
         self.transfer_d2h_seconds += time.perf_counter() - t0
+        if span is not None:
+            span.seal()
         results = []
         for i in range(handle["k"]):
             m = {key: float(v[i]) for key, v in host["metrics"].items()}

@@ -14,8 +14,9 @@ line per tick, `{"step", "time", "means"}`, the JAX package's format,
 read by its `cli watch`); TensorBoard through `torch.utils.tensorboard`
 when asked and when that module imports (where TensorFlow is installed,
 the import alone takes seconds). `writers` names the ones the collector
-opened. MLflow stays out, as in the JAX package where the package is
-absent.
+opened. A tick sink (`set_tick_sink`) gets every tick's means: a
+training run's metrics ledger. MLflow stays out, as in the JAX package
+where the package is absent.
 """
 
 import atexit
@@ -78,6 +79,10 @@ class StatsCollector:
         self.writers = (["live_metrics"] if self._live_path is not None else []) + (
             ["tensorboard"] if self._writer is not None else []
         )
+        # Optional durable sink, called with (step, means) after every
+        # processed batch: `RunTelemetry.record_metrics`, the metrics
+        # ledger, wired in setup.
+        self._tick_sink = None
         # Events logged after the last tick land at the newest step seen
         # on close(); an atexit hook covers paths that never call it.
         self._last_event_step = 0
@@ -88,6 +93,10 @@ class StatsCollector:
     @property
     def live_path(self) -> "Path | None":
         return self._live_path
+
+    def set_tick_sink(self, sink) -> None:
+        """Attach a callable(step, means) invoked after each tick."""
+        self._tick_sink = sink
 
     # --- ingestion (cheap, any thread) ------------------------------------
 
@@ -146,6 +155,11 @@ class StatsCollector:
                     f.write(json.dumps({"step": global_step, "time": time.time(), "means": means}) + "\n")
             except OSError:  # observability is never fatal
                 logger.exception("live-metrics append failed")
+        if self._tick_sink is not None and means:
+            try:
+                self._tick_sink(global_step, means)
+            except Exception:  # the durable sink is best-effort too
+                logger.exception("metrics tick sink failed")
         return means
 
     def force_process_and_log(self, global_step: int) -> dict[str, float]:

@@ -1,22 +1,29 @@
 """Run telemetry: counterpart of `alphatriangle_tpu/telemetry/`, with the
-parts a serve run and the serve fleet use.
+parts a training run, a league run, a serve run and the serve fleet use.
 
-`RunTelemetry` bundles, behind one facade a `PolicyService` talks to:
+`RunTelemetry` bundles, behind one facade the training loop and a
+`PolicyService` talk to:
 
 - `tracer.SpanTracer`: wall-clock spans exported to `trace.json`;
 - `health.HealthMonitor` + `health.Watchdog`: the `health.json`
   heartbeat and the stall watchdog;
-- `ledger.MetricsLedger` + `perf.UtilizationMeter`: one derived
-  `kind: "util"` record per tick appended to `metrics.jsonl`;
+- `anomaly.AnomalyDetector`: a streaming screen of every learner step's
+  losses, gradient norm and entropy (spikes, non-finite values, entropy
+  collapse) and of the card's memory per tick (monotonic growth),
+  escalated to `Anomaly/*` metrics and warnings;
+- `ledger.MetricsLedger` + `perf.UtilizationMeter`: the collector's
+  processed metric batches and one derived `kind: "util"` record per
+  tick appended to `metrics.jsonl`;
 - `flight.FlightRecorder` + `flight.DispatchWatchdog`: the intent/seal
   ring of every bracketed dispatch and its deadline watchdog, which
   exits 113 on a wedge.
 
-Every module of the package is stdlib only, apart from the lazy torch
-import of `health.device_memory_stats`: the fleet parent reads ledgers,
-heartbeats and flight rings without loading torch. The anomaly
-detector, the device stat-packs and beacons, and the memory and compile
-records are not ported yet.
+With `TelemetryConfig.ENABLED` false every hook is a no-op and no file
+is written. Every module of the package is stdlib only, apart from the
+lazy torch import of `health.device_memory_stats`: `cli health`,
+`cli perf` and the fleet parent read ledgers, heartbeats and flight
+rings without loading torch. The device stat-packs and beacons, and the
+memory and compile records, are not ported yet.
 """
 
 import logging
@@ -25,15 +32,18 @@ from pathlib import Path
 
 from ..config.telemetry_config import TelemetryConfig
 from . import tracectx
+from .anomaly import Anomaly, AnomalyDetector
 from .flight import FLIGHT_FILENAME, DispatchWatchdog, FlightRecorder
 from .health import HealthMonitor, Watchdog, device_memory_stats, dump_thread_stacks
-from .ledger import METRICS_FILENAME, MetricsLedger
+from .ledger import METRICS_FILENAME, MetricsLedger, tick_record
 from .perf import UtilizationMeter
 from .tracer import SpanTracer
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "Anomaly",
+    "AnomalyDetector",
     "DispatchWatchdog",
     "FlightRecorder",
     "HealthMonitor",
@@ -51,59 +61,76 @@ STACKS_FILENAME = "stall_stacks.txt"
 
 
 class RunTelemetry:
-    """One run's telemetry: tracer, heartbeat and stall watchdog, ledger
-    and meter, flight recorder and dispatch watchdog.
+    """One run's telemetry: tracer, heartbeat and stall watchdog, anomaly
+    screen, ledger and meter, flight recorder and dispatch watchdog.
 
-    `start()` when serving begins, `on_rollout` as requests are served
-    (O(1), any thread), `on_util_tick` / `on_tick` once per tick (the
-    only places with IO), `close()` at the end."""
+    `start()` when the loop or the serving begins, `on_rollout` /
+    `on_learner_step` as work lands (O(1), any thread), `on_util_tick` /
+    `on_tick` once per iteration or tick (the only places with IO),
+    `close()` at the end."""
 
     def __init__(
         self,
         config: TelemetryConfig | None = None,
         run_dir: Path | str = ".",
+        stats=None,
         run_name: str = "",
         clock=time.monotonic,
         perf: UtilizationMeter | None = None,
     ) -> None:
-        self.config = config or TelemetryConfig()
+        self.config = cfg = config or TelemetryConfig()
         self.run_dir = Path(run_dir)
+        self.stats = stats
         self.run_name = run_name
+        enabled = cfg.ENABLED
         self.tracer = SpanTracer()
-        self.health = HealthMonitor(self.run_dir / HEALTH_FILENAME, run_name=run_name, clock=clock)
-        self.perf = perf
-        self.ledger = MetricsLedger(self.run_dir / METRICS_FILENAME)
-        if perf is not None:
-            self.health.set_device_info(perf.device_kind, perf.peak_tflops, perf.peak_source)
-        self.watchdog = Watchdog(
-            self.health, deadline_s=self.health.deadline_s, on_stall=self._on_stall, clock=clock
-        )
-        self.dispatch_watchdog = DispatchWatchdog(
-            self.run_dir,
-            poll_s=self.config.DISPATCH_WATCHDOG_POLL_S,
-            on_wedge=self._on_wedge,
+        self.health = HealthMonitor(
+            self.run_dir / HEALTH_FILENAME, deadline_s=cfg.WATCHDOG_DEADLINE_S, run_name=run_name,
             clock=clock,
         )
-        # A spawning parent's trace context (the env seam) becomes the
-        # ring's base trace, linking every dispatch here back to the
-        # spawn event.
-        parent_ctx = tracectx.from_env()
-        self.flight = FlightRecorder(
-            self.run_dir / FLIGHT_FILENAME,
-            min_deadline_s=self.config.DISPATCH_MIN_DEADLINE_S,
-            first_deadline_s=self.config.DISPATCH_FIRST_DEADLINE_S,
-            watchdog=self.dispatch_watchdog,
-            base_trace=parent_ctx.fields() if parent_ctx is not None else None,
-        )
+        self.anomaly = AnomalyDetector()
+        self.perf = perf
+        self.ledger = MetricsLedger(self.run_dir / METRICS_FILENAME) if enabled else None
+        if perf is not None:
+            self.health.set_device_info(perf.device_kind, perf.peak_tflops, perf.peak_source)
+        # Components pick the recorder up as their `flight` attribute
+        # (training/setup.py, serving/service.py).
+        self.watchdog: Watchdog | None = None
+        self.flight: FlightRecorder | None = None
+        self.dispatch_watchdog: DispatchWatchdog | None = None
+        if enabled:
+            self.watchdog = Watchdog(
+                self.health, deadline_s=cfg.WATCHDOG_DEADLINE_S, on_stall=self._on_stall, clock=clock
+            )
+            self.dispatch_watchdog = DispatchWatchdog(
+                self.run_dir, poll_s=cfg.DISPATCH_WATCHDOG_POLL_S, on_wedge=self._on_wedge, clock=clock,
+            )
+            # A spawning parent's trace context (the env seam) becomes the
+            # ring's base trace, linking every dispatch here back to the
+            # spawn event.
+            parent_ctx = tracectx.from_env()
+            self.flight = FlightRecorder(
+                self.run_dir / FLIGHT_FILENAME,
+                min_deadline_s=cfg.DISPATCH_MIN_DEADLINE_S,
+                first_deadline_s=cfg.DISPATCH_FIRST_DEADLINE_S,
+                watchdog=self.dispatch_watchdog,
+                base_trace=parent_ctx.fields() if parent_ctx is not None else None,
+            )
         self._step = 0
         self._last_write_mono = None
         self._last_written_step: int | None = None
         self._clock = clock
         self._closed = False
 
+    @property
+    def enabled(self) -> bool:
+        return self.config.ENABLED
+
     def start(self) -> None:
-        self.watchdog.start()
-        self.dispatch_watchdog.start()
+        if self.watchdog is not None:
+            self.watchdog.start()
+        if self.dispatch_watchdog is not None:
+            self.dispatch_watchdog.start()
 
     def close(self, step: int | None = None) -> None:
         """Stop the watchdogs; write the flight ring's overhead record,
@@ -111,9 +138,14 @@ class RunTelemetry:
         if self._closed:
             return
         self._closed = True
-        self.watchdog.stop()
-        self.dispatch_watchdog.stop()
-        self.flight.close()
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if self.dispatch_watchdog is not None:
+            self.dispatch_watchdog.stop()
+        if self.flight is not None:
+            self.flight.close()
+        if not self.enabled:
+            return
         if step is not None:
             self._step = step
         self.health.write()
@@ -124,25 +156,64 @@ class RunTelemetry:
         )
 
     def on_rollout(self, experiences: int = 0, episodes: int = 0) -> None:
-        self.health.note_rollout(experiences, episodes)
+        if self.enabled:
+            self.health.note_rollout(experiences, episodes)
+
+    def on_learner_step(self, step: int, metrics: dict) -> list[Anomaly]:
+        """Record learner progress and screen this step's metrics, named
+        as the stats pipeline names them (`Loss/total_loss`,
+        `Loss/Grad_Norm`, `Loss/Entropy`, ...). Returns the anomalies,
+        already escalated to `Anomaly/*` metrics and warnings."""
+        self._step = step
+        if not self.enabled:
+            return []
+        self.health.note_learner_step(step)
+        values = {}
+        for name, value in metrics.items():
+            try:
+                values[name] = float(value)
+            except (TypeError, ValueError):
+                continue
+        anomalies = self.anomaly.observe_metrics(values, step)
+        self._escalate(anomalies, step)
+        return anomalies
+
+    def _escalate(self, anomalies: list, step: int) -> None:
+        for a in anomalies:
+            logger.warning("Training anomaly: %s", a.describe())
+            if self.stats is not None:
+                self.stats.log_scalar(f"Anomaly/{a.kind}", 1.0, step)
+
+    def record_metrics(self, step: int, means: dict) -> None:
+        """Ledger one processed metric batch: the `StatsCollector`'s tick
+        sink, so every flush lands, the final ones included."""
+        if self.ledger is not None and means:
+            self.ledger.append(tick_record(step, means))
 
     def on_util_tick(self, step: int, **counters) -> "dict | None":
         """Derive and ledger one utilization record from the caller's
         cumulative counters (`UtilizationMeter.tick`'s keys); the card's
-        memory is read here. Returns the record."""
-        if self.perf is None:
+        memory is read here and screened for monotonic growth. Returns
+        the record."""
+        if not self.enabled or self.perf is None:
             return None
         if "device_memory" not in counters:
             counters["device_memory"] = device_memory_stats()
         record = self.perf.tick(step, **counters)
         if record is None:
             return None
-        self.ledger.append(record)
+        if self.ledger is not None:
+            self.ledger.append(record)
         self.health.note_utilization(record)
+        in_use = record.get("mem_bytes_in_use")
+        if isinstance(in_use, (int, float)):
+            self._escalate(self.anomaly.observe_memory(in_use, step), step)
         return record
 
     def on_tick(self, step: int, buffer_size: int = 0) -> None:
         """Write the heartbeat when the step moved or the interval passed."""
+        if not self.enabled:
+            return
         self._step = step
         self.health.note_buffer(buffer_size)
         now = self._clock()
@@ -161,6 +232,8 @@ class RunTelemetry:
         the heartbeat on disk."""
         dump_thread_stacks(self.run_dir / STACKS_FILENAME)
         self.tracer.instant("watchdog_stall", age_s=round(age_s, 1))
+        if self.stats is not None:
+            self.stats.log_scalar("Health/stall", age_s, self._step)
         self.tracer.export(self.run_dir / TRACE_FILENAME)
         self.health.write()
         logger.warning(

@@ -13,8 +13,9 @@ either package's readers classify the other's run directories.
   deadline it dumps every thread's stack, runs the caller hook (span
   trace flush), writes `wedge_report.json` and exits with
   `WEDGE_EXIT_CODE` (113), so a supervisor respawns in seconds.
-- Readers (`read_flight`, `unsealed_intents`, `classify_run`): stdlib
-  only, so a parent beside a wedged card reads them without torch.
+- Readers (`read_flight`, `unsealed_intents`, `summarize_flight`,
+  `classify_run`): stdlib only, so a parent beside a wedged card reads
+  them without torch.
 
 Records:
 
@@ -132,10 +133,17 @@ class FlightSpan:
 class FlightRecorder:
     """Intent/seal writer + per-program expected-duration model.
 
-    Thread-safe: several threads may dispatch concurrently; state
-    updates and appends are lock-guarded. The cost per dispatch is two
-    `MetricsLedger.append`s (open/write/flush/close each), accumulated
-    in `overhead_seconds`.
+    Thread-safe: several threads may dispatch concurrently (the
+    overlapped loop's producers, each on its own CUDA stream, beside the
+    learner); the counters and the expected walls, keyed by program name,
+    update under the recorder's lock, and each append under the ledger's.
+    The cost per dispatch is two `MetricsLedger.append`s
+    (open/write/flush/close each), accumulated in `overhead_seconds`.
+
+    `sealed_wall_seconds` sums the walls of the sealed spans, so spans
+    open at the same time on several threads count once each;
+    `inflight_wall_s()` is the union: the seconds in which at least one
+    span was open.
     """
 
     def __init__(
@@ -165,6 +173,16 @@ class FlightRecorder:
         self.dispatches = 0
         self._lock = threading.Lock()
         self._seq = 0
+        # The union of the open spans [t0, seal]: how many are open, the
+        # current stretch's start and latest seal, where the last stretch
+        # ended (a span that began before that, on another thread, but
+        # took the lock after it, starts its stretch there), and the
+        # closed stretches' total.
+        self._open = 0
+        self._open_since = 0.0
+        self._stretch_end = 0.0
+        self._last_close = 0.0
+        self._inflight_closed_s = 0.0
         self._expected: dict[str, float] = {}
         # A resumed run inherits its predecessors' measured durations:
         # the first dispatch of a warm program gets a calibrated
@@ -247,8 +265,21 @@ class FlightRecorder:
         span = FlightSpan(
             self, seq, program, family, time.perf_counter(), trace=trace
         )
-        self.overhead_seconds += span.t0 - t_host
+        with self._lock:
+            self.overhead_seconds += span.t0 - t_host
+            if self._open == 0:
+                self._open_since = self._stretch_end = max(span.t0, self._last_close)
+            self._open += 1
         return span
+
+    def inflight_wall_s(self) -> float:
+        """Seconds so far with at least one span open, the open ones up
+        to now included."""
+        with self._lock:
+            total = self._inflight_closed_s
+            if self._open:
+                total += max(0.0, time.perf_counter() - self._open_since)
+            return total
 
     def _seal(self, span: FlightSpan, error: "str | None" = None) -> None:
         t_host = time.perf_counter()
@@ -272,11 +303,16 @@ class FlightRecorder:
             record["error"] = error
         self._ledger.append(record)
         with self._lock:
+            self._open -= 1
+            self._stretch_end = max(self._stretch_end, t_host)
+            if self._open == 0:
+                self._inflight_closed_s += self._stretch_end - self._open_since
+                self._last_close = self._stretch_end
             if error is None:
                 self._fold_expected(span.program, wall)
                 self.sealed_wall_seconds += wall
                 self.dispatches += 1
-        self.overhead_seconds += time.perf_counter() - t_host
+            self.overhead_seconds += time.perf_counter() - t_host
 
     def close(self) -> None:
         """Append the run's overhead summary."""
@@ -517,6 +553,45 @@ DOCTOR_EXIT_CODES = {
     "oom": 6,
     "preempted": 7,
 }
+
+
+def summarize_flight(records: list) -> list[dict]:
+    """Per-program rows from the sealed records: count, errors (seals
+    `ok: false`), wall p50 / p95 / total in seconds, family; busiest
+    program first (`cli perf`'s program table and its `--json`
+    `programs`)."""
+    from .perf import _percentile
+
+    by_program: dict[str, list[float]] = {}
+    family: dict[str, str] = {}
+    errors: dict[str, int] = {}
+    for r in records:
+        if r.get("phase") != "seal":
+            continue
+        program = str(r.get("program"))
+        family.setdefault(program, str(r.get("family")))
+        if not r.get("ok", True):
+            errors[program] = errors.get(program, 0) + 1
+            continue
+        wall = r.get("wall_s")
+        if isinstance(wall, (int, float)):
+            by_program.setdefault(program, []).append(float(wall))
+    rows = []
+    for program in set(by_program) | set(errors):
+        walls = by_program.get(program, [])
+        rows.append(
+            {
+                "program": program,
+                "family": family.get(program, program_family(program)),
+                "count": len(walls),
+                "errors": errors.get(program, 0),
+                "wall_s_p50": _percentile(walls, 0.50),
+                "wall_s_p95": _percentile(walls, 0.95),
+                "wall_s_total": round(sum(walls), 6) if walls else 0.0,
+            }
+        )
+    rows.sort(key=lambda r: -r["wall_s_total"])
+    return rows
 
 
 def _memory_pressure(health: "dict | None", utils: list) -> "float | None":

@@ -14,6 +14,7 @@ reader beside a wedged card never imports torch.
 import json
 import logging
 import os
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +53,9 @@ class MetricsLedger:
         # if so the tail is terminated first, so OUR first record does
         # not glue onto it and vanish with it.
         self._tail_checked = False
+        # Threads of one process (the overlapped loop's producers and its
+        # learner share a flight ring) append and rotate one at a time.
+        self._lock = threading.Lock()
 
     def append(self, record: dict) -> bool:
         """Append one record as a complete JSON line; True on success.
@@ -65,15 +69,16 @@ class MetricsLedger:
             logger.exception("ledger record not serializable; dropped")
             return False
         try:
-            self._maybe_rotate(len(line))
-            self.path.parent.mkdir(parents=True, exist_ok=True)
-            if not self._tail_checked:
-                self._tail_checked = True
-                if self._tail_is_torn():
-                    line = "\n" + line
-            with self.path.open("a") as f:
-                f.write(line)
-                f.flush()
+            with self._lock:
+                self._maybe_rotate(len(line))
+                self.path.parent.mkdir(parents=True, exist_ok=True)
+                if not self._tail_checked:
+                    self._tail_checked = True
+                    if self._tail_is_torn():
+                        line = "\n" + line
+                with self.path.open("a") as f:
+                    f.write(line)
+                    f.flush()
             return True
         except OSError:
             logger.exception("ledger append to %s failed", self.path)

@@ -1,6 +1,7 @@
-"""Live utilization accounting and the fleet summary: counterpart of
+"""Live utilization accounting and the run summaries: counterpart of
 `alphatriangle_tpu/telemetry/perf.py`'s `UtilizationMeter`,
-`_percentile` and `summarize_fleet`.
+`_percentile`, `_mean`, `_trend`, `summarize_utilization`,
+`summarize_league` and `summarize_fleet`.
 
 - `UtilizationMeter` folds a run's cumulative counters (served
   requests, simulations, dispatch wall) into one derived `kind: "util"`
@@ -8,10 +9,14 @@
   forward FLOPs (`utils/flops.py`), the card's memory, the chip's idle
   share of the tick window; the serve run's `serve_*` SLO fields ride
   in `extra`.
-- `summarize_fleet` folds a fleet run's `kind: "fleet"` events into its
+- `summarize_utilization` folds a run's util records into the `cli perf`
+  summary (windowed step time, MFU, throughput and its trend);
+  `summarize_league` a league run's `kind: "league"` records;
+  `summarize_fleet` a fleet run's `kind: "fleet"` events into its
   lifecycle, routing and storm figures (`fleet.prom`, the report).
 
-Stdlib only: the fleet parent imports this without torch.
+Stdlib only: `cli perf`, `cli health` and the fleet parent import this
+without torch.
 """
 
 import logging
@@ -20,6 +25,8 @@ import time
 from ..utils.flops import peak_bf16_tflops_info
 
 logger = logging.getLogger(__name__)
+
+SUMMARY_SCHEMA = "alphatriangle.perf.v1"
 
 
 class UtilizationMeter:
@@ -302,6 +309,227 @@ def _percentile(values: list, q: float) -> "float | None":
         return None
     idx = min(len(vals) - 1, max(0, round(q * (len(vals) - 1))))
     return float(vals[idx])
+
+
+def _mean(values: list) -> "float | None":
+    vals = [v for v in values if isinstance(v, (int, float))]
+    return sum(vals) / len(vals) if vals else None
+
+
+def _trend(values: list) -> "float | None":
+    """Second-half mean over first-half mean, minus 1 (signed drift)."""
+    vals = [v for v in values if isinstance(v, (int, float))]
+    if len(vals) < 4:
+        return None
+    half = len(vals) // 2
+    first, second = _mean(vals[:half]), _mean(vals[half:])
+    if not first:
+        return None
+    return second / first - 1.0
+
+
+def summarize_utilization(
+    records: list, window: "int | None" = None
+) -> "dict | None":
+    """Fold a run's util records into the `cli perf` summary.
+
+    `window` keeps only the newest N records (the whole run otherwise).
+    None when no usable records exist (schema failure for callers).
+
+    Tolerates historical ledgers: runs recorded before the `kind`
+    field (or before the serve/mem/dispatch gauges) still summarize —
+    a kind-less record counts as a util tick when it carries any core
+    throughput field; fields added later simply come out None.
+    """
+    _UTIL_SIGNATURE = (
+        "moves_per_sec",
+        "learner_steps_per_sec",
+        "games_per_hour",
+        "step_time_ms",
+        "mfu",
+    )
+    records = [
+        r
+        for r in records
+        if isinstance(r, dict)
+        and (
+            r.get("kind") == "util"
+            or (
+                "kind" not in r
+                and any(k in r for k in _UTIL_SIGNATURE)
+            )
+        )
+    ]
+    if not records:
+        return None
+    full_span = len(records)
+    if window is not None and window > 0:
+        records = records[-window:]
+
+    def col(key: str) -> list:
+        return [r.get(key) for r in records]
+
+    last = records[-1]
+    mfus = [v for v in col("mfu") if isinstance(v, (int, float))]
+
+    def numeric(key: str) -> list:
+        return [v for v in col(key) if isinstance(v, (int, float))]
+
+    # Serve SLO summary (records written by serving/service.py ticks):
+    # p50 averages across tick windows, p95 takes the WORST window —
+    # the conservative bound an SLO gate wants.
+    serve: dict = {}
+    if numeric("serve_move_latency_ms_p95"):
+        serve = {
+            "serve_move_latency_ms_p50": _mean(
+                numeric("serve_move_latency_ms_p50")
+            ),
+            "serve_move_latency_ms_p95": max(
+                numeric("serve_move_latency_ms_p95")
+            ),
+            "serve_queue_wait_ms_p50": _mean(
+                numeric("serve_queue_wait_ms_p50")
+            ),
+            "serve_queue_wait_ms_p95": (
+                max(numeric("serve_queue_wait_ms_p95"))
+                if numeric("serve_queue_wait_ms_p95")
+                else None
+            ),
+            "serve_requests_per_sec": _mean(
+                numeric("serve_requests_per_sec")
+            ),
+            "serve_requests_total": last.get("serve_requests_total"),
+            "serve_sessions_last": last.get("serve_sessions"),
+            "serve_sessions_admitted": last.get("serve_sessions_admitted"),
+            "serve_sessions_retired": last.get("serve_sessions_retired"),
+            "serve_slots": last.get("serve_slots"),
+            "serve_batch_fill": _mean(numeric("serve_batch_fill")),
+            "serve_weight_reloads": last.get("serve_weight_reloads"),
+            # Bucket-ladder micro-batcher (serving/buckets.py): the
+            # rung the service ended on, the windowed wave fill that
+            # drives rung walking, and how many switches the run made.
+            "serve_bucket": last.get("serve_bucket"),
+            "serve_fill": _mean(numeric("serve_fill")),
+            "serve_rung_switches": last.get("serve_rung_switches"),
+        }
+    # Device-stats gauges, which the JAX package's stat-packs mirror onto
+    # its util records. The port writes none yet; a ledger without them
+    # gets no such keys.
+    devstats: dict = {}
+    if numeric("root_visit_entropy") or numeric("tree_occupancy"):
+        occ = numeric("tree_occupancy")
+        devstats = {
+            "root_visit_entropy": _mean(numeric("root_visit_entropy")),
+            "tree_occupancy": _mean(occ),
+            "tree_occupancy_max": max(occ) if occ else None,
+            "beacons_armed": last.get("beacons_armed"),
+        }
+    # The idle gauge: the share of each tick with no dispatch in flight
+    # (`UtilizationMeter.tick`'s `chip_idle_fraction`), only on records
+    # whose writer passed the sealed dispatch wall.
+    roofline: dict = {}
+    idle = numeric("chip_idle_fraction")
+    if idle:
+        roofline = {
+            "chip_idle_fraction": _mean(idle),
+            "chip_idle_fraction_max": max(idle),
+        }
+    return {
+        **serve,
+        **devstats,
+        **roofline,
+        "schema": SUMMARY_SCHEMA,
+        "ticks": len(records),
+        "ticks_total": full_span,
+        "first_step": records[0].get("step"),
+        "last_step": last.get("step"),
+        "wall_seconds": round(
+            sum(
+                r.get("window_s", 0.0)
+                for r in records
+                if isinstance(r.get("window_s"), (int, float))
+            ),
+            1,
+        ),
+        "device_kind": last.get("device_kind"),
+        "peak_bf16_tflops": last.get("peak_bf16_tflops"),
+        "peak_source": last.get("peak_source"),
+        "step_time_ms_p50": _percentile(col("step_time_ms"), 0.50),
+        "step_time_ms_p95": _percentile(col("step_time_ms"), 0.95),
+        "learner_steps_per_sec": _mean(col("learner_steps_per_sec")),
+        "moves_per_sec": _mean(col("moves_per_sec")),
+        "games_per_hour": _mean(col("games_per_hour")),
+        "sims_per_sec": _mean(col("sims_per_sec")),
+        "leaf_evals_per_sec": _mean(col("leaf_evals_per_sec")),
+        "mcts_reused_visit_fraction": _mean(
+            col("mcts_reused_visit_fraction")
+        ),
+        "tflops_per_sec": _mean(col("tflops_per_sec")),
+        "mfu": _mean(mfus),
+        "mfu_max": max(mfus) if mfus else None,
+        "buffer_fill_last": last.get("buffer_fill"),
+        "transfer_h2d_ms": _mean(col("transfer_h2d_ms")),
+        "transfer_d2h_ms": _mean(col("transfer_d2h_ms")),
+        "compile_cache_hit_rate": last.get("compile_cache_hit_rate"),
+        "dispatches_per_iteration": _mean(col("dispatches_per_iteration")),
+        # Memory: run-wide observed peak, plus the newest in-use/limit
+        # snapshot for the `cli perf` readout.
+        "mem_peak_bytes_in_use": (
+            max(
+                (
+                    v
+                    for v in col("mem_peak_bytes_in_use")
+                    if isinstance(v, (int, float))
+                ),
+                default=None,
+            )
+        ),
+        "mem_bytes_in_use_last": last.get("mem_bytes_in_use"),
+        "mem_bytes_limit": last.get("mem_bytes_limit"),
+        "throughput_trend": _trend(
+            col("moves_per_sec")
+            if any(isinstance(v, (int, float)) and v > 0 for v in col("moves_per_sec"))
+            else col("learner_steps_per_sec")
+        ),
+    }
+
+
+def summarize_league(records: list) -> "dict | None":
+    """Fold a run's `kind:"league"` records (league/flywheel.py, one
+    per matchmade round) into the league block of the `cli perf`
+    summary: pool size, ingest volume/rate, opponent-mix histogram,
+    mean trajectory staleness, promotions. None for non-flywheel runs
+    (no league records), so the block and the compare row only appear
+    where the flywheel ran."""
+    league = [
+        r for r in records if isinstance(r, dict) and r.get("kind") == "league"
+    ]
+    if not league:
+        return None
+    last = league[-1]
+
+    def numeric(key: str) -> list:
+        return [
+            r.get(key)
+            for r in league
+            if isinstance(r.get(key), (int, float))
+            and not isinstance(r.get(key), bool)
+        ]
+
+    moves = numeric("moves_ingested")
+    return {
+        "league_rounds": len(league),
+        "league_pool_size": last.get("pool_size"),
+        "league_moves_ingested": int(sum(moves)) if moves else None,
+        "league_ingested_moves_per_sec": _mean(
+            numeric("ingested_moves_per_sec")
+        ),
+        "league_mean_staleness": _mean(numeric("mean_staleness")),
+        "league_stale_dropped": last.get("stale_dropped_total"),
+        "league_promotions": last.get("promotions"),
+        "league_live_elo": last.get("live_elo"),
+        "league_opponent_mix": last.get("opponent_mix"),
+    }
 
 
 def summarize_fleet(records: list) -> "dict | None":

@@ -1,5 +1,5 @@
 """Component bundle: counterpart of `alphatriangle_tpu/training/components.py`,
-limited to what the single-device loops build: no telemetry or mesh."""
+limited to what the single-device loops build: no mesh."""
 
 from dataclasses import dataclass
 
@@ -9,6 +9,7 @@ from ..config.env_config import EnvConfig
 from ..config.mcts_config import MCTSConfig
 from ..config.model_config import ModelConfig
 from ..config.persistence_config import PersistenceConfig
+from ..config.telemetry_config import TelemetryConfig
 from ..config.train_config import TrainConfig
 from ..env.engine import TriangleEnv
 from ..features.core import FeatureExtractor
@@ -19,6 +20,7 @@ from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
 from ..stats.collector import StatsCollector
 from ..stats.persistence import CheckpointManager
+from ..telemetry import RunTelemetry
 
 
 @dataclass
@@ -41,3 +43,8 @@ class TrainingComponents:
     mcts_config: MCTSConfig
     persistence_config: PersistenceConfig
     device: torch.device
+
+    # The run's telemetry (setup builds it; the loop builds a default one
+    # for components assembled by hand) and the config it was built from.
+    telemetry: "RunTelemetry | None" = None
+    telemetry_config: "TelemetryConfig | None" = None

@@ -62,7 +62,22 @@ loop's `System/*` gauges. The collector ticks once per iteration (each
 warm-up chunk, megastep, synchronous or overlapped iteration) and once
 more at the end. The per-step metrics also stay in memory (`metrics`,
 which `report()` reads), as do `episode_scores`, `staleness` and
-`timings`. Telemetry waits for a later slice.
+`timings`.
+
+Telemetry (`components.telemetry`, `telemetry.RunTelemetry`; a default
+one for components assembled by hand): `run` starts its watchdogs and
+closes it last; every harvest beats `on_rollout`, every learner step
+`on_learner_step` with its losses, gradient norm and entropy under the
+stats names (the anomaly screen). Every iteration ends in
+`_iteration_tail`, as the JAX loop's does: one `kind: "util"` record
+from the loop's cumulative counters (`on_util_tick`: episodes, rows,
+simulations, reused visits, the ring's size, transfer seconds, program
+dispatches, iterations with warm-up chunks counted, and the flight
+recorder's sealed dispatch wall, from which the record's
+`chip_idle_fraction` is the share of the tick with no dispatch in
+flight, not the card's idle share), the heartbeat (`on_tick`), the
+collector's tick and, every 10 s, a progress line. The device
+stat-packs, which feed the record's `extra`, are not ported yet.
 """
 
 import contextlib
@@ -79,7 +94,9 @@ import torch
 
 from ..rl.self_play import SelfPlayEngine
 from ..stats.events import RawMetricEvent
+from ..telemetry import RunTelemetry
 from ..telemetry.flight import PREEMPT_EXIT_CODE, PREEMPT_REPORT_FILENAME, write_preempt_report
+from ..utils.helpers import format_eta
 from ..utils.transfer import hand_off, receive
 from .components import TrainingComponents
 from .setup import clamp_self_play_workers
@@ -153,6 +170,19 @@ class TrainingLoop:
             "learner_s": [], "producer_chunk_s": [],
         }
         self.run_s: "float | None" = None
+        self._last_progress_time = time.monotonic()
+        self._last_progress_step = 0
+        self.telemetry = components.telemetry or RunTelemetry(
+            components.telemetry_config,
+            run_dir=components.persistence_config.get_run_base_dir(),
+            stats=components.stats,
+            run_name=components.persistence_config.RUN_NAME,
+        )
+        components.telemetry = self.telemetry
+        # Components assembled by hand skip setup's flight attach.
+        for part in (components.self_play, components.trainer, components.megastep):
+            if part is not None and getattr(part, "flight", None) is None:
+                part.flight = self.telemetry.flight
         if self.cfg.FUSED_LEARNER_STEPS > self.cfg.WORKER_UPDATE_FREQ_STEPS:
             logger.warning(
                 "FUSED_LEARNER_STEPS=%d > WORKER_UPDATE_FREQ_STEPS=%d: weights can only "
@@ -285,6 +315,7 @@ class TrainingLoop:
         if stream is not None:
             self.harvests_by_stream[stream] = self.harvests_by_stream.get(stream, 0) + 1
         self.experiences_added += added
+        self.telemetry.on_rollout(added, result.num_episodes)
         return added
 
     def _version_clock(self) -> int:
@@ -320,6 +351,15 @@ class TrainingLoop:
             events.append(RawMetricEvent("PER/Beta", record["per_beta"], step))
         c.stats.log_batch_events(events)
         self.metrics.append(record)
+        # Liveness beat and the anomaly screen, under the stats names.
+        self.telemetry.on_learner_step(
+            step,
+            {
+                **{f"Loss/{key}": val for key, val in metrics.items() if key.endswith("loss")},
+                "Loss/Grad_Norm": metrics["grad_norm"],
+                "Loss/Entropy": metrics["entropy"],
+            },
+        )
 
     def _crossed(self, step: int, freq: int, last: "int | None") -> bool:
         """Did `step` cross a `freq` multiple since `last`? (Steps may
@@ -454,12 +494,97 @@ class TrainingLoop:
                 break
         return ran
 
+    # --- the end of every iteration -------------------------------------
+
+    def _engines(self) -> list:
+        """Every rollout engine of the run, the primary first, each once."""
+        engines = {id(self.c.self_play): self.c.self_play}
+        for rec in self._streams.values():
+            engine = rec.get("engine")
+            if engine is not None:
+                engines[id(engine)] = engine
+        return list(engines.values())
+
+    def _transfer_seconds(self) -> tuple[float, float]:
+        """Cumulative host<->device transfer seconds, (h2d, d2h): the
+        learner's batch uploads; the learner's fetches, every engine's
+        chunk fetches and the megasteps' fetch."""
+        c = self.c
+        h2d = float(c.trainer.transfer_h2d_seconds)
+        d2h = float(c.trainer.transfer_d2h_seconds)
+        d2h += sum(float(e.transfer_d2h_seconds) for e in self._engines())
+        if c.megastep is not None:
+            d2h += float(c.megastep.transfer_d2h_seconds)
+        return h2d, d2h
+
+    def _total_dispatches(self) -> int:
+        """Cumulative program dispatches, counted as the JAX loop counts
+        them: rollout chunks of every engine, learner groups, ring
+        ingests and megasteps (not kernels)."""
+        c = self.c
+        total = int(c.trainer.dispatch_count) + int(getattr(c.buffer, "dispatch_count", 0))
+        total += sum(int(e.dispatch_count) for e in self._engines())
+        if c.megastep is not None:
+            total += int(c.megastep.dispatch_count)
+        return total
+
+    def _iteration_tail(self, warmup: bool = False) -> None:
+        """Count the iteration (a megastep warm-up chunk as such), then
+        the utilization record, the heartbeat, the collector's tick and
+        the progress line, in the JAX loop's order."""
+        if warmup:
+            self.warmup_chunks += 1
+        else:
+            self.iterations += 1
+        h2d, d2h = self._transfer_seconds()
+        telemetry = self.telemetry
+        telemetry.on_util_tick(
+            self.global_step,
+            episodes=self.episodes_played,
+            experiences=self.experiences_added,
+            simulations=self.total_simulations,
+            reused_visits=self.total_reused_visits,
+            buffer_size=len(self.c.buffer),
+            transfer_h2d_s=h2d,
+            transfer_d2h_s=d2h,
+            dispatches=self._total_dispatches(),
+            # The JAX loop counts its warm-up chunks as iterations.
+            iterations=self.iterations + self.warmup_chunks,
+            # The union of the open brackets: the overlapped loop's streams
+            # and learner groups are in flight at the same time.
+            dispatch_wall_s=telemetry.flight.inflight_wall_s() if telemetry.flight is not None else None,
+            extra=None,
+        )
+        telemetry.on_tick(self.global_step, len(self.c.buffer))
+        self.c.stats.process_and_log(self.global_step)
+        self._log_progress()
+
+    def _log_progress(self) -> None:
+        """At most every 10 s: step, rate, ring, episodes and the ETA."""
+        now = time.monotonic()
+        elapsed = now - self._last_progress_time
+        if elapsed < 10.0:
+            return
+        steps = self.global_step - self._last_progress_step
+        rate = steps / elapsed if elapsed > 0 else 0.0
+        max_steps = self.cfg.MAX_TRAINING_STEPS
+        eta = format_eta((max_steps - self.global_step) / rate) if rate > 0 and max_steps else "?"
+        logger.info(
+            "step %d/%s | %.2f steps/s | buffer %d | episodes %d | ETA %s",
+            self.global_step, max_steps, rate, len(self.c.buffer), self.episodes_played, eta,
+        )
+        self._last_progress_time = now
+        self._last_progress_step = self.global_step
+
     # --- main loop --------------------------------------------------------
 
     def run(self) -> LoopStatus:
-        """Run until MAX_TRAINING_STEPS, a stop request or an error."""
+        """Run until MAX_TRAINING_STEPS, a stop request or an error. The
+        telemetry's close comes last, so the final heartbeat covers the
+        forced save; a close that raises ends the run as ERROR."""
         status = LoopStatus.COMPLETED
         t0 = time.perf_counter()
+        self.telemetry.start()
         try:
             if self.cfg.FUSED_MEGASTEP:
                 self._run_megastep_mode()
@@ -491,6 +616,12 @@ class TrainingLoop:
                     "Preempted at step %d (emergency checkpoint at step %s); exiting for restart.",
                     self.global_step, self._last_saved_step,
                 )
+            try:
+                self.telemetry.close(self.global_step)
+            except Exception as exc:
+                logger.exception("Telemetry shutdown failed.")
+                self.error = self.error or exc
+                status = LoopStatus.ERROR
         self.run_s = time.perf_counter() - t0
         self.status = status
         return status
@@ -508,11 +639,10 @@ class TrainingLoop:
             self.rows_per_iteration.append(added)
             self.steps_per_iteration.append(self._run_training_steps(n_steps))
             t2 = time.perf_counter()
-            self.iterations += 1
             self.timings["rollout_s"].append(t1 - t0)
             self.timings["learner_s"].append(t2 - t1)
             self.timings["iteration_s"].append(t2 - t0)
-            self.c.stats.process_and_log(self.global_step)
+            self._iteration_tail()
 
     # --- fused megastep ---------------------------------------------------
 
@@ -528,8 +658,7 @@ class TrainingLoop:
             t0 = time.perf_counter()
             self._process_rollout()
             self.timings["warmup_chunk_s"].append(time.perf_counter() - t0)
-            self.warmup_chunks += 1
-            self.c.stats.process_and_log(self.global_step)
+            self._iteration_tail(warmup=True)
         # Device priorities pick up everything the warm-up, and a restore
         # before it, wrote into the host mirror: the first megastep's PER
         # draw reads the restored priorities.
@@ -546,12 +675,11 @@ class TrainingLoop:
             outs, added = runner.run_megastep(cfg.ROLLOUT_CHUNK_MOVES, k)
             self.timings["megastep_s"].append(time.perf_counter() - t0)
             self.megastep_iterations += 1
-            self.iterations += 1
             self._fold_result(self.c.self_play.harvest(), added=added)
             for i, (metrics, td_errors) in enumerate(outs):
                 self._record_step(metrics, td_errors, None, prev_step + i + 1)
             self._maybe_checkpoint()
-            self.c.stats.process_and_log(self.global_step)
+            self._iteration_tail()
 
     # --- overlapped producer/consumer -----------------------------------
 
@@ -625,7 +753,7 @@ class TrainingLoop:
         """A replacement engine for a crashed stream: a fresh carry and
         key stream, the primary's env, extractor, net and batch size."""
         primary = self.c.self_play
-        return SelfPlayEngine(
+        engine = SelfPlayEngine(
             primary.env,
             primary.extractor,
             primary.net,
@@ -634,6 +762,8 @@ class TrainingLoop:
             batch_size=primary.batch_size,
             seed=self.cfg.RANDOM_SEED + 2000 + stream * 100 + attempt,
         )
+        engine.flight = primary.flight
+        return engine
 
     def _supervise_producers(self, harvests: "queue.Queue") -> None:
         """Respawn crashed streams with exponential backoff; stop the run
@@ -733,21 +863,22 @@ class TrainingLoop:
 
     def _make_rollout_streams(self) -> list:
         """The primary engine plus NUM_SELF_PLAY_WORKERS - 1 more (own
-        carry and seed; the primary's env, extractor and net), clamped to
-        the device's budget."""
+        carry and seed; the primary's env, extractor, net and flight
+        recorder, so every stream's chunks are bracketed), clamped to the
+        device's budget."""
         primary = self.c.self_play
         streams = [primary]
         for i in range(1, clamp_self_play_workers(self.cfg.NUM_SELF_PLAY_WORKERS, self.c.device)):
-            streams.append(
-                SelfPlayEngine(
-                    primary.env,
-                    primary.extractor,
-                    primary.net,
-                    primary.mcts_config,
-                    primary.config,
-                    seed=self.cfg.RANDOM_SEED + 1000 + i,
-                )
+            engine = SelfPlayEngine(
+                primary.env,
+                primary.extractor,
+                primary.net,
+                primary.mcts_config,
+                primary.config,
+                seed=self.cfg.RANDOM_SEED + 1000 + i,
             )
+            engine.flight = primary.flight
+            streams.append(engine)
         return streams
 
     def _run_async(self) -> None:
@@ -813,9 +944,8 @@ class TrainingLoop:
                         self._steps_this_run * cfg.BATCH_SIZE / self.experiences_added,
                         self.global_step,
                     )
-                self.iterations += 1
                 self.timings["iteration_s"].append(time.perf_counter() - t0)
-                stats.process_and_log(self.global_step)
+                self._iteration_tail()
         finally:
             self.stop_event.set()
             # Land the groups still in flight so their steps are recorded.

@@ -13,10 +13,12 @@ newest valid checkpoint and the spill at or before it; then
 once more at the end. The stats collector is closed on every way out
 (its last events flushed). Returns the finished `TrainingLoop` (its
 `status`, `metrics` and `report()`); `EXIT_CODES` maps the status to a
-process exit code, 114 for a preemption. A config the port cannot run
-raises ValueError from setup, before anything is built. A restore that
-fails ends the run as ERROR before any step: a fresh model is never
-trained into a run directory whose state could not be read.
+process exit code, 114 for a preemption. `log_level` configures the
+root logger first (`logging_config.setup_logging`), as the JAX runner
+does; `telemetry_config` reaches the run's telemetry. A config the port
+cannot run raises ValueError from setup, before anything is built. A
+restore that fails ends the run as ERROR before any step: a fresh model
+is never trained into a run directory whose state could not be read.
 """
 
 import logging
@@ -28,7 +30,9 @@ from ..config.env_config import EnvConfig
 from ..config.mcts_config import MCTSConfig
 from ..config.model_config import ModelConfig
 from ..config.persistence_config import PersistenceConfig
+from ..config.telemetry_config import TelemetryConfig
 from ..config.train_config import TrainConfig
+from ..logging_config import setup_logging
 from ..stats.persistence import CheckpointManager
 from .loop import PREEMPT_EXIT_CODE, LoopStatus, TrainingLoop
 from .setup import setup_training_components
@@ -117,11 +121,17 @@ def run_training(
     persistence_config: "PersistenceConfig | None" = None,
     device=None,
     use_tensorboard: bool = False,
+    telemetry_config: "TelemetryConfig | None" = None,
+    log_level: "str | None" = None,
 ) -> TrainingLoop:
     """Run (or resume) a training session on `device` (CUDA unless
     named), in the run directory `persistence_config` names (default:
     `TrainConfig.RUN_NAME` under `./.alphatriangle_data`);
-    `use_tensorboard` as in `setup_training_components`."""
+    `use_tensorboard` and `telemetry_config` as in
+    `setup_training_components`; `log_level` (e.g. "INFO") sets up the
+    root logger, which is left alone when None."""
+    if log_level is not None:
+        setup_logging(log_level)
     train_config = train_config or TrainConfig()
     persistence_config = persistence_config or PersistenceConfig(RUN_NAME=train_config.RUN_NAME)
     train_config, persistence_config = _resolve_auto_resume(train_config, persistence_config)
@@ -133,6 +143,7 @@ def run_training(
         persistence_config=persistence_config,
         device=device,
         use_tensorboard=use_tensorboard,
+        telemetry_config=telemetry_config,
     )
     loop = TrainingLoop(components)
     try:

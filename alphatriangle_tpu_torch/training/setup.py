@@ -6,12 +6,17 @@ The port builds the env, the feature extractor, the net (on the given
 device, CUDA unless the caller names another), the learner, the replay
 ring, the rollout engine, in megastep mode the megastep runner, the
 run's `CheckpointManager`, which makes the run directory and writes its
-`configs.json`, and the `StatsCollector` (`live_metrics.jsonl`, and
+`configs.json`, the `StatsCollector` (`live_metrics.jsonl`, and
 TensorBoard with `use_tensorboard` where it imports), which records the
-configs. The device is resolved before anything touches the disk, so a
-CUDA request without a card makes no directory. The learner shares the
-net's module only in megastep mode (rl/trainer.py). Telemetry and meshes
-wait for later slices.
+configs, and the run's `RunTelemetry`: a `UtilizationMeter` on the run's
+own FLOPs and the device's name (`torch.cuda.get_device_name`, "cpu" on
+the CPU), the collector's tick sink into the metrics ledger, and the
+flight recorder attached to self-play, the learner and the megastep.
+The device is resolved before anything touches the disk, so a CUDA
+request without a card makes no directory. The learner shares the net's
+module only in megastep mode (rl/trainer.py). Meshes wait for a later
+slice; so do the compile-cache tracer and the memory records of the JAX
+setup.
 """
 
 import logging
@@ -23,6 +28,7 @@ from ..config.env_config import EnvConfig
 from ..config.mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
 from ..config.model_config import ModelConfig
 from ..config.persistence_config import PersistenceConfig
+from ..config.telemetry_config import TelemetryConfig
 from ..config.train_config import TrainConfig
 from ..config.validation import expected_other_features_dim
 from ..device import resolve_device
@@ -36,6 +42,9 @@ from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
 from ..stats.collector import StatsCollector
 from ..stats.persistence import CheckpointManager
+from ..telemetry import RunTelemetry
+from ..telemetry.perf import UtilizationMeter
+from ..utils.flops import forward_flops, train_step_flops
 from .components import TrainingComponents
 
 logger = logging.getLogger(__name__)
@@ -100,12 +109,14 @@ def setup_training_components(
     persistence_config: "PersistenceConfig | None" = None,
     device=None,
     use_tensorboard: bool = False,
+    telemetry_config: "TelemetryConfig | None" = None,
 ) -> TrainingComponents:
     """Validate configs and build every training component on `device`;
     the run directory is `persistence_config`'s (default: run
     `RUN_NAME` under `./.alphatriangle_data`). `use_tensorboard` adds
     the TensorBoard writer to the stats collector (`cli train` asks
-    for it unless --no-tensorboard)."""
+    for it unless --no-tensorboard); `telemetry_config` configures the
+    run's telemetry (default: all of it on)."""
     train_config = train_config or TrainConfig()
     env_config = env_config or EnvConfig()
     model_config = model_config or ModelConfig(
@@ -153,6 +164,29 @@ def setup_training_components(
     checkpoints.save_configs(all_configs)
     stats = StatsCollector(persistence_config, use_tensorboard=use_tensorboard)
     stats.log_params(all_configs)
+    telemetry_config = telemetry_config or TelemetryConfig()
+    perf_meter = UtilizationMeter(
+        forward_flops=forward_flops(model_config, env_config, env_config.action_dim),
+        train_step_flops=train_step_flops(
+            model_config, env_config, env_config.action_dim, train_config.BATCH_SIZE
+        ),
+        device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
+        buffer_capacity=train_config.BUFFER_CAPACITY,
+        mesh_devices=1,
+    )
+    telemetry = RunTelemetry(
+        telemetry_config,
+        run_dir=persistence_config.get_run_base_dir(),
+        stats=stats,
+        run_name=persistence_config.RUN_NAME,
+        perf=perf_meter,
+    )
+    # Every processed metric batch lands in the ledger, the final flushes
+    # included; every dispatch family writes its intent and seal records.
+    stats.set_tick_sink(telemetry.record_metrics)
+    self_play.flight = trainer.flight = telemetry.flight
+    if megastep is not None:
+        megastep.flight = telemetry.flight
     return TrainingComponents(
         env=env,
         extractor=extractor,
@@ -169,4 +203,6 @@ def setup_training_components(
         mcts_config=mcts_config,
         persistence_config=persistence_config,
         device=device,
+        telemetry=telemetry,
+        telemetry_config=telemetry_config,
     )

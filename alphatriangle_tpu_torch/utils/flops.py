@@ -1,12 +1,16 @@
 """Analytic FLOP accounting: counterpart of `alphatriangle_tpu/utils/
-flops.py`'s `forward_flops` and `peak_bf16_tflops_info`.
+flops.py`'s `forward_flops`, `train_step_flops` and
+`peak_bf16_tflops_info`.
 
 `forward_flops` turns a ModelConfig and EnvConfig into the matmul and
 conv FLOPs of one forward pass of one example (1 MAC = 2 FLOPs; norms,
-activations and elementwise adds are left out). The peak table is the
-JAX package's as it is: it lists TPU chips only, so a CUDA card reads
-`"unknown"`, its peak None and its MFU null, unless the operator sets
-`ALPHATRIANGLE_PEAK_TFLOPS`. Imports neither torch nor the configs.
+activations and elementwise adds are left out); `train_step_flops` is
+one learner step on a batch. The peak table keys a device by the name
+`torch.cuda.get_device_name` gives it: the H100 variants at NVIDIA's
+published dense bf16 peaks, beside the JAX package's TPU entries. A
+device the table does not know reads `"unknown"`, its peak None and its
+MFU null, unless the operator sets `ALPHATRIANGLE_PEAK_TFLOPS`. Imports
+neither torch nor the configs.
 """
 
 import logging
@@ -83,9 +87,22 @@ def forward_flops(model, env, action_dim: int) -> int:
     return total
 
 
-# Peak dense bf16 matmul throughput per chip, TFLOP/s. Public figures:
-# v4 275, v5e (v5 lite) 394, v5p 459, v6e (Trillium) 918.
+def train_step_flops(model, env, action_dim: int, batch: int) -> int:
+    """Matmul FLOPs of one SGD step on a `batch`: forward + ~2x
+    backward (+1x forward recompute under REMAT)."""
+    mult = 4 if model.REMAT else 3
+    return mult * batch * forward_flops(model, env, action_dim)
+
+
+# Peak dense bf16 matmul throughput per device, TFLOP/s, without
+# sparsity. NVIDIA's published H100 figures by `torch.cuda.get_device_name`
+# (SXM5 989.4, PCIe 756, NVL 835); the TPU chips' public figures, v4 275,
+# v5e (v5 lite) 394, v5p 459, v6e (Trillium) 918. No H100 key is a
+# prefix of another, so the longest-prefix fallback cannot cross them.
 _PEAK_BF16_TFLOPS = {
+    "NVIDIA H100 80GB HBM3": 989.4,
+    "NVIDIA H100 PCIe": 756.0,
+    "NVIDIA H100 NVL": 835.0,
     "TPU v4": 275.0,
     "TPU v5 lite": 394.0,
     "TPU v5e": 394.0,
@@ -97,7 +114,8 @@ _PEAK_BF16_TFLOPS = {
 
 
 def peak_bf16_tflops_info(device_kind: str) -> tuple[float | None, str]:
-    """(peak bf16 TFLOP/s, source) for a device kind.
+    """(peak bf16 TFLOP/s, source) for a device kind (a CUDA device's
+    `torch.cuda.get_device_name`).
 
     Source is "env" (ALPHATRIANGLE_PEAK_TFLOPS override — wins so
     operators can assert a denominator for unlisted chips or CPU

@@ -237,6 +237,30 @@ configs.json, 64 simulations):
   their plain versions. Its launches and dispatches are the fleet path's
   in the kernels line.
 
+Slice eleven's telemetry of a training run rides on those paths, at
+their widths and cuts (no training run is added):
+
+- train, train-reuse, train-sync, train-sync-host and train-async: each
+  telemetry hook the loop calls (`RunTelemetry.on_rollout`,
+  `on_learner_step`, `on_util_tick`, `on_tick`, the collector's
+  `record_metrics`) timed with `perf_counter`, plus the flight
+  recorder's own `overhead_seconds`, per iteration (from one
+  `_iteration_tail` to the next): the mean per iteration must be at most
+  5% of the iteration p50. Right after `run_training`: `health.json`
+  live by the port's `health_verdict`; `metrics.jsonl` one `kind:"util"`
+  record per iteration after the first, each on this card's name with
+  `peak_source` "table", and with an MFU in (0, 1) and non-zero
+  dispatches, transfers and simulations in the synchronous and megastep
+  loops (per record) and over the overlapped loop's run (its beats may
+  fold nothing); the flight ring one intent and one `ok` seal per chunk,
+  learner group or megastep the components counted, none unsealed.
+- preempt-resume: `cli health --probe` of the run while the first
+  `cli train` trains (exit 0, one JSON line, code 0); after the resumed
+  run, `cli health` and `cli perf --json` of it, in a process whose
+  imports of torch, numpy and JAX raise: exit 0, a non-null MFU.
+- league: the report's `ledger` is the run's `metrics.jsonl`, which
+  holds the report's `kind:"league"` records, one per round.
+
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
 
@@ -1002,6 +1026,191 @@ def loop_config(**kw):
     return cfg
 
 
+# The share of a loop's iteration p50 its telemetry hooks may take.
+TELEMETRY_HOOK_SHARE = 0.05
+TELEMETRY_HOOKS = ("on_rollout", "on_learner_step", "on_util_tick", "on_tick", "record_metrics")
+
+
+def watch_telemetry():
+    """Time every telemetry hook of a training run (`perf_counter` around
+    each `RunTelemetry` method the loop and its collector call, on any
+    thread), and close an iteration at the end of each `_iteration_tail`:
+    its hook seconds, with the flight recorder's `overhead_seconds` added
+    since the last one (the intents and seals of every thread), and its
+    wall since the end of the last one. A hook that raises is noted: the
+    collector logs and drops what its tick sink (`record_metrics`)
+    raises, as the JAX collector does, so `check_telemetry` fails the
+    phase on it. Returns ({"iterations", "errors", "record_metrics"},
+    restore)."""
+    from alphatriangle_tpu_torch.telemetry import RunTelemetry
+    from alphatriangle_tpu_torch.training.loop import TrainingLoop
+
+    real = {name: getattr(RunTelemetry, name) for name in TELEMETRY_HOOKS}
+    real_tail = TrainingLoop._iteration_tail
+    lock = threading.Lock()
+    state = {"hook_s": 0.0, "flight_s": 0.0, "t": None}
+    watch = {"iterations": [], "errors": [], "record_metrics": 0}
+
+    def timed(name, fn):
+        def hook(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            except BaseException as exc:
+                with lock:
+                    watch["errors"].append(f"{name}: {exc!r}")
+                raise
+            finally:
+                dt = time.perf_counter() - t0
+                with lock:
+                    state["hook_s"] += dt
+                    if name == "record_metrics":
+                        watch["record_metrics"] += 1
+        return hook
+
+    def tail(self, *args, **kwargs):
+        real_tail(self, *args, **kwargs)
+        now = time.perf_counter()
+        flight = self.telemetry.flight
+        flight_s = flight.overhead_seconds if flight is not None else 0.0
+        with lock:
+            watch["iterations"].append({
+                "hook_s": state["hook_s"] + flight_s - state["flight_s"],
+                "flight_s": flight_s - state["flight_s"],
+                "wall_s": None if state["t"] is None else now - state["t"],
+            })
+            state.update(hook_s=0.0, flight_s=flight_s, t=now)
+
+    for name, fn in real.items():
+        setattr(RunTelemetry, name, timed(name, fn))
+    TrainingLoop._iteration_tail = tail
+
+    def restore():
+        for name, fn in real.items():
+            setattr(RunTelemetry, name, fn)
+        TrainingLoop._iteration_tail = real_tail
+
+    return watch, restore
+
+
+def check_telemetry(loop, watch: dict, label: str, strict: bool = True) -> dict:
+    """A finished training run's heartbeat, ledger and flight ring on the
+    card, and its telemetry's host time, from `watch_telemetry` (see the
+    module docstring). `strict`: every util record did work and has an
+    MFU in (0, 1) (the synchronous and megastep loops). Otherwise (the
+    overlapped loop, which adds a chunk's work to its counters when it
+    folds the harvest, so one short record can carry a whole chunk) only
+    the run does: its MFU is the analytic FLOPs of all records over their
+    summed windows."""
+    import torch
+
+    from alphatriangle_tpu_torch.telemetry.flight import read_flight, unsealed_intents
+    from alphatriangle_tpu_torch.telemetry.health import health_verdict, read_health
+    from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
+    from alphatriangle_tpu_torch.telemetry.perf import summarize_utilization
+
+    if watch["errors"]:
+        fail(f"{label}: telemetry hooks raised: {watch['errors']}")
+    iterations = watch["iterations"]
+    c = loop.c
+    run = c.persistence_config.get_run_base_dir()
+    kind = torch.cuda.get_device_name(c.device)
+    health = read_health(run / "health.json")
+    if health is None:
+        fail(f"{label}: no health.json in {run}")
+    live, age, reason = health_verdict(health)
+    if not live or health["learner_step"] != loop.global_step:
+        fail(f"{label}: heartbeat {reason} at step {health['learner_step']} ({age:.1f} s old)")
+    ledger = read_ledger(run / "metrics.jsonl")
+    utils = [r for r in ledger if r.get("kind") == "util"]
+    # The collector's tick sink: one record per processed batch with means.
+    sink = [r for r in ledger if r.get("kind") == "tick"]
+    if len(sink) != watch["record_metrics"] or not any("Loss/total_loss" in r["means"] for r in sink):
+        fail(f"{label}: {len(sink)} tick records for {watch['record_metrics']} processed metric batches, "
+             f"Loss/total_loss in {sum('Loss/total_loss' in r['means'] for r in sink)}")
+    ticks = loop.iterations + loop.warmup_chunks
+    if len(utils) != ticks - 1:
+        fail(f"{label}: {len(utils)} util records for {ticks} iterations")
+    for r in utils:
+        if r["device_kind"] != kind or r["peak_source"] != "table":
+            fail(f"{label}: util record at step {r['step']} on {r['device_kind']!r} "
+                 f"({r['peak_source']}), want {kind!r} from the table")
+        if "chip_idle_fraction" not in r or r["dispatches_per_iteration"] is None:
+            fail(f"{label}: util record at step {r['step']} lacks the dispatch figures")
+        if strict and not (0 < r["mfu"] < 1 and r["dispatches_per_iteration"] > 0 and r["transfer_d2h_ms"] > 0
+                           and r["sims_per_sec"] > 0):
+            fail(f"{label}: util record at step {r['step']} without work, or its MFU out of (0, 1): "
+                 f"{json.dumps(r)}")
+    summary = summarize_utilization(utils)
+    window_s = sum(r["window_s"] for r in utils)
+    mfu_run = sum(r["tflops_per_sec"] * r["window_s"] for r in utils) / window_s / summary["peak_bf16_tflops"]
+    if not (0 < mfu_run < 1 and summary["dispatches_per_iteration"] > 0
+            and summary["transfer_d2h_ms"] > 0 and summary["sims_per_sec"] > 0):
+        fail(f"{label}: util summary without work (run MFU {mfu_run}): {json.dumps(summary)}")
+    records = read_flight(run / "flight.jsonl")
+    if unsealed_intents(records):
+        fail(f"{label}: unsealed flight intents {unsealed_intents(records)}")
+    seals = {r["seq"]: r for r in records if r.get("phase") == "seal"}
+    by_family: dict = {}
+    for r in records:
+        if r.get("phase") == "intent":
+            if not seals[r["seq"]].get("ok"):
+                fail(f"{label}: dispatch {r['program']} sealed {seals[r['seq']]}")
+            by_family[r["family"]] = by_family.get(r["family"], 0) + 1
+    want = {"rollout": sum(e.dispatch_count for e in loop._engines()), "learner": c.trainer.dispatch_count,
+            "megastep": c.megastep.dispatch_count if c.megastep is not None else 0}
+    if by_family != {k: v for k, v in want.items() if v}:
+        fail(f"{label}: flight intents by family {by_family}, the components counted {want}")
+    walls = [i["wall_s"] for i in iterations[1:]]
+    if len(iterations) != ticks or not walls:
+        fail(f"{label}: {len(iterations)} iteration tails timed for {ticks} iterations")
+    p50 = statistics.median(walls)
+    hook = [i["hook_s"] for i in iterations]
+    mean_hook = sum(hook) / len(hook)
+    if mean_hook > TELEMETRY_HOOK_SHARE * p50:
+        fail(f"{label}: telemetry hooks {mean_hook * 1e3:.2f} ms an iteration, over "
+             f"{TELEMETRY_HOOK_SHARE:.0%} of the iteration p50 {p50 * 1e3:.1f} ms")
+    return {
+        "util_records": len(utils),
+        "tick_records": len(sink),
+        "mfu_run": mfu_run,
+        "mfu": summary["mfu"],
+        "mfu_max": summary["mfu_max"],
+        "tflops_per_sec": summary["tflops_per_sec"],
+        "peak_bf16_tflops": summary["peak_bf16_tflops"],
+        "dispatches_per_iteration": summary["dispatches_per_iteration"],
+        "transfer_d2h_ms": summary["transfer_d2h_ms"],
+        "sims_per_sec": summary["sims_per_sec"],
+        "dispatch_in_flight_share": (
+            None if summary.get("chip_idle_fraction") is None else 1.0 - summary["chip_idle_fraction"]
+        ),
+        "flight_intents": by_family,
+        "iterations_timed": len(iterations),
+        "iteration_ms_p50": p50 * 1e3,
+        "iteration_ms_min": min(walls) * 1e3,
+        "iteration_ms_max": max(walls) * 1e3,
+        "hook_ms_mean": mean_hook * 1e3,
+        "hook_ms_max": max(hook) * 1e3,
+        "flight_overhead_ms_mean": statistics.fmean(i["flight_s"] for i in iterations) * 1e3,
+        "hook_share_of_p50": mean_hook / p50,
+    }
+
+
+def say_telemetry(label: str, r: dict, card: str) -> None:
+    say(
+        f"{label} telemetry: {r['util_records']} util records, {r['tick_records']} tick records, MFU over the "
+        f"run {r['mfu_run']:.4%} (records' mean {r['mfu']:.4%}, max {r['mfu_max']:.4%}) of "
+        f"{r['peak_bf16_tflops']} TFLOP/s, {r['tflops_per_sec']:.2f} TFLOP/s, "
+        f"{r['dispatches_per_iteration']:.2f} dispatches an iteration, fetch {r['transfer_d2h_ms']:.1f} "
+        f"ms a tick, {r['sims_per_sec']:.0f} sims/s, a dispatch in flight "
+        f"{r['dispatch_in_flight_share']:.1%} of the ticks; flight intents {r['flight_intents']}; "
+        f"hooks {r['hook_ms_mean']:.3f} ms an iteration (max {r['hook_ms_max']:.3f}, flight recorder "
+        f"{r['flight_overhead_ms_mean']:.3f}), {r['hook_share_of_p50']:.3%} of the iteration p50 "
+        f"{r['iteration_ms_p50']:.1f} ms (min {r['iteration_ms_min']:.1f}, max "
+        f"{r['iteration_ms_max']:.1f}, {r['iterations_timed']} iterations) [{card}]"
+    )
+
+
 def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = None):
     """The default training configuration, with or without subtree
     reuse, cut in depth only, through `run_training` in megastep mode,
@@ -1022,19 +1231,24 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
         kern.launches = 0
+    watch, restore_watch = watch_telemetry()
     t0 = time.perf_counter()
     mcts_cfg = AlphaTriangleMCTSConfig(tree_reuse=reuse)
-    loop = run_training(
-        cfg, mcts_config=mcts_cfg, persistence_config=run_dir("train-reuse" if reuse else "train"),
-        device=dev,
-    )
-    torch.cuda.synchronize()
+    try:
+        loop = run_training(
+            cfg, mcts_config=mcts_cfg, persistence_config=run_dir("train-reuse" if reuse else "train"),
+            device=dev,
+        )
+        torch.cuda.synchronize()
+    finally:
+        restore_watch()
     wall_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
     if restore is not None:
         restore()
     if loop.status is not LoopStatus.COMPLETED:
         fail(f"training ended {loop.status.value}")
+    telemetry = check_telemetry(loop, watch, "train-reuse" if reuse else "train")
     c = loop.c
     mega = loop.timings["megastep_s"]
     if loop.megastep_iterations != TRAIN_MEGASTEPS or len(mega) != TRAIN_MEGASTEPS:
@@ -1116,6 +1330,7 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
         "reused_share": share,
         "peak_mem_gb": peak_gb,
         "profile": read_profile(prof, TRAIN_STAGES, prof_wall_ms, statistics.median(mega) * 1e3),
+        "telemetry": telemetry,
     }
 
 
@@ -1252,6 +1467,7 @@ def train_sync_phase(torch, dev, kernels, host_ring: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
         kern.launches = 0
+    watch, restore_watch = watch_telemetry()
     t0 = time.perf_counter()
     try:
         loop = run_training(cfg, persistence_config=run_dir(label), device=dev)
@@ -1261,8 +1477,10 @@ def train_sync_phase(torch, dev, kernels, host_ring: bool = False) -> dict:
     finally:
         restore_chunks()
         restore_syncs()
+        restore_watch()
     if loop.status is not LoopStatus.COMPLETED or loop.global_step != steps:
         fail(f"{label}: ended {loop.status.value} at step {loop.global_step}, want {steps}")
+    telemetry = check_telemetry(loop, watch, label)
     c, buf, trainer = loop.c, loop.c.buffer, loop.c.trainer
     if buf.is_device == host_ring:
         fail(f"{label}: the replay ring is not where DEVICE_REPLAY={cfg.DEVICE_REPLAY!r} puts it")
@@ -1325,6 +1543,7 @@ def train_sync_phase(torch, dev, kernels, host_ring: bool = False) -> dict:
         "transfer_h2d_s": trainer.transfer_h2d_seconds,
         "transfer_d2h_s": trainer.transfer_d2h_seconds,
         "peak_mem_gb": peak_gb,
+        "telemetry": telemetry,
     }
     if host_ring:
         return out
@@ -1383,6 +1602,7 @@ def train_async_phase(torch, dev, kernels) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels.values():
         kern.launches = 0
+    watch, restore_watch = watch_telemetry()
     t0 = time.perf_counter()
     try:
         loop = run_training(cfg, persistence_config=run_dir(label), device=dev)
@@ -1393,9 +1613,11 @@ def train_async_phase(torch, dev, kernels) -> dict:
     finally:
         restore_chunks()
         restore_syncs()
+        restore_watch()
     if loop.status is not LoopStatus.COMPLETED or loop.global_step != ASYNC_STEPS:
         fail(f"{label}: ended {loop.status.value} at step {loop.global_step}, want {ASYNC_STEPS}"
              f" ({loop.report()['error']})")
+    telemetry = check_telemetry(loop, watch, label, strict=False)
     c, buf = loop.c, loop.c.buffer
     if not buf.is_device:
         fail(f"{label}: DEVICE_REPLAY='auto' did not give the device ring on the card")
@@ -1446,6 +1668,7 @@ def train_async_phase(torch, dev, kernels) -> dict:
         "learner_steps_per_s_run": loop.global_step / run_s,
         "learner_dispatches": c.trainer.dispatch_count,
         "peak_mem_gb": peak_gb,
+        "telemetry": telemetry,
     }
 
     # The same loop, continued for ASYNC_PROFILED_STEPS more steps under
@@ -1845,6 +2068,19 @@ def state_equal(torch, a: dict, b: dict) -> bool:
     return True
 
 
+def run_reader(args: list, label: str) -> tuple:
+    """`cli health` / `cli perf` with `args` in a process whose imports of
+    torch, numpy or JAX raise (the readers run on the standard library);
+    (exit code, standard output). Fails on a guarded import."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_TORCH_PARENT + "sys.exit(main(sys.argv[1:]))", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=60,
+    )
+    if "a torch-free process imported" in proc.stderr:
+        fail(f"{label}: {proc.stderr.strip().splitlines()[-1]}")
+    return proc.returncode, proc.stdout
+
+
 def preempt_resume_phase(torch) -> dict:
     """`cli train` (the synchronous loop, the device ring) at the default
     widths, SIGTERM once its first checkpoint is committed: exit 114, a
@@ -1873,6 +2109,14 @@ def preempt_resume_phase(torch) -> dict:
             if proc.poll() is not None or time.monotonic() > deadline:
                 return
             time.sleep(0.05)
+        # The run's probe while it trains: live, one JSON line.
+        t_probe = time.perf_counter()
+        rc, out = run_reader(["health", "ckpt", "--root-dir", str(root), "--probe"], label)
+        signalled["probe_s"] = time.perf_counter() - t_probe
+        lines = out.strip().splitlines()
+        signalled["probe"] = json.loads(lines[0]) if len(lines) == 1 else None
+        signalled["probe_rc"] = rc
+        signalled["alive_after_probe"] = proc.poll() is None
         signalled["at"] = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
 
@@ -1881,6 +2125,9 @@ def preempt_resume_phase(torch) -> dict:
     first_s = time.perf_counter() - t0
     if "at" not in signalled:
         fail(f"{label}: the run ended (exit {rc}) before step {PREEMPT_FREQ} was committed")
+    probe = signalled["probe"]
+    if signalled["probe_rc"] != 0 or probe is None or probe["code"] != 0 or not signalled["alive_after_probe"]:
+        fail(f"{label}: the probe of the training run gave exit {signalled['probe_rc']}, {probe}")
     stop_s = time.perf_counter() - signalled["at"]
     if rc != 114 or first["status"] != "preempted":
         fail(f"{label}: SIGTERM gave exit {rc}, status {first['status']}, want 114, preempted")
@@ -1910,6 +2157,13 @@ def preempt_resume_phase(torch) -> dict:
         check_report_losses(r, label)
         if r["replay_ring"] != "device" or r["mode"] != "sync":
             fail(f"{label}: not the synchronous loop on the device ring")
+    # The run's heartbeat and ledger through the readers, as a user reads them.
+    health_rc, health_out = run_reader(["health", "ckpt", "--root-dir", str(root)], label)
+    perf_rc, perf_out = run_reader(["perf", "ckpt", "--root-dir", str(root), "--json"], label)
+    summary = json.loads(perf_out) if perf_rc == 0 else {}
+    if health_rc != 0 or not health_out.startswith("run ckpt: LIVE") or perf_rc != 0 or summary.get("mfu") is None:
+        fail(f"{label}: cli health exit {health_rc} ({health_out[:200]!r}), cli perf exit {perf_rc}, "
+             f"MFU {summary.get('mfu')}")
     lanes = TrainConfig().SELF_PLAY_BATCH_SIZE
     launches = {
         k: first["kernel_launches"][k] + second["kernel_launches"][k] for k in first["kernel_launches"]
@@ -1936,6 +2190,15 @@ def preempt_resume_phase(torch) -> dict:
         "resumed_save_ms": [t * 1e3 for t in ck2["save_s"]],
         "steps_per_iteration": [first["steps_per_iteration"], second["steps_per_iteration"]],
         "losses": [first["losses"], second["losses"]],
+        "probe": probe,
+        "probe_s": signalled["probe_s"],
+        "health": health_out.strip().splitlines(),
+        "perf": {k: summary.get(k) for k in (
+            "ticks", "ticks_total", "device_kind", "peak_bf16_tflops", "peak_source", "mfu", "mfu_max",
+            "tflops_per_sec", "learner_steps_per_sec", "moves_per_sec", "sims_per_sec",
+            "step_time_ms_p50", "dispatches_per_iteration", "transfer_d2h_ms", "chip_idle_fraction",
+        )},
+        "perf_programs": summary.get("programs"),
     }
 
 
@@ -3545,6 +3808,7 @@ def league_phase(torch, dev) -> dict:
     report's ratings, 16 + 2 launches per league dispatch (the league
     process's own counts: with mix 1.0 every search is a league dispatch)."""
     from alphatriangle_tpu_torch.league import LIVE_ID, LeaguePool
+    from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
 
     label = "league"
     held = league_width_kernels(torch, dev)
@@ -3586,6 +3850,10 @@ def league_phase(torch, dev) -> dict:
         pool.rating(LIVE_ID), 2
     ) != report["live_elo"]:
         fail(f"{label}: league.jsonl does not replay to the report's ratings")
+    ledgered = [r for r in read_ledger(report["ledger"]) if r.get("kind") == "league"]
+    if len(ledgered) != report["league_rounds"] or ledgered != report["league_records"]:
+        fail(f"{label}: {len(ledgered)} league records in {report['ledger']} for "
+             f"{report['league_rounds']} rounds")
     launches = report["kernel_launches"]
     dispatches = report["league_dispatches"]
     want = {"gather_rows": 16 * dispatches, "backup_update": 2 * dispatches, "per_sample": 0,
@@ -3611,6 +3879,7 @@ def league_phase(torch, dev) -> dict:
         "steps": report["steps"],
         "iteration_s_p50": report["timings"]["iteration_s_p50"],
         "kernels_held_bit_equal": held,
+        "ledger_league_records": len(ledgered),
     }
 
 
@@ -3630,14 +3899,14 @@ FLEET_RELOAD_AFTER, FLEET_HANG_AT, FLEET_KILL_AFTER = 8, 2, 60
 # The in-process replica: episodes of 8 moves filling each rung of the
 # fleet's ladder in turn (16, 8, 4): every width a replica may serve at.
 FLEET_INPROC_WIDTHS = tuple(sorted((int(b) for b in FLEET_BUCKETS.split(",")), reverse=True))
-# A guard that makes the fleet parent's imports of torch, numpy or JAX
-# raise: the parent must run on the standard library.
+# A guard that makes a process's imports of torch, numpy or JAX raise:
+# the fleet parent and the run readers must run on the standard library.
 _NO_TORCH_PARENT = (
     "import builtins, sys\n"
     "_real = builtins.__import__\n"
     "def _guard(name, *a, **k):\n"
     "    if name.split('.')[0] in ('torch', 'numpy', 'jax'):\n"
-    "        raise ImportError('the fleet parent imported ' + name)\n"
+    "        raise ImportError('a torch-free process imported ' + name)\n"
     "    return _real(name, *a, **k)\n"
     "builtins.__import__ = _guard\n"
     "from alphatriangle_tpu_torch.cli import main\n"
@@ -4178,6 +4447,7 @@ def run_phases(torch) -> int:
     t0 = time.perf_counter()
     treport = train_phase(torch, dev, KERNELS, record=recorded["train"])
     say_train("train", treport, card)
+    say_telemetry("train", treport["telemetry"], card)
     say(f"train phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4205,22 +4475,26 @@ def run_phases(torch) -> int:
     t0 = time.perf_counter()
     trreport = train_phase(torch, dev, KERNELS, reuse=True)
     say_train("train-reuse", trreport, card)
+    say_telemetry("train-reuse", trreport["telemetry"], card)
     say(f"train-reuse phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     syreport = train_sync_phase(torch, dev, KERNELS)
     say_loop("train-sync", syreport, card)
+    say_telemetry("train-sync", syreport["telemetry"], card)
     say_profile("sync iteration", syreport["profile"], card)
     say(f"train-sync phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     shreport = train_sync_phase(torch, dev, KERNELS, host_ring=True)
     say_loop("train-sync-host", shreport, card)
+    say_telemetry("train-sync-host", shreport["telemetry"], card)
     say(f"train-sync-host phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     asreport = train_async_phase(torch, dev, KERNELS)
     say_async(asreport, card)
+    say_telemetry("train-async", asreport["telemetry"], card)
     say(f"train-async phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4236,6 +4510,18 @@ def run_phases(torch) -> int:
         f"resumed iteration {prreport['first_resumed_iteration_ms']:.1f} ms (p50 "
         f"{prreport['resumed_iteration_ms_p50']:.1f} ms), to step {PREEMPT_STEPS}; launches "
         f"{prreport['launches']} [{card}]"
+    )
+    pp = prreport["perf"]
+    say(
+        f"preempt-resume readers: cli health --probe while training {json.dumps(prreport['probe'])} "
+        f"({prreport['probe_s']:.2f} s); cli health: {prreport['health'][0]}; cli perf: "
+        f"{pp['ticks']} ticks, MFU {pp['mfu']:.4%} (max {pp['mfu_max']:.4%}) of "
+        f"{pp['peak_bf16_tflops']} TFLOP/s [{pp['peak_source']}] on {pp['device_kind']}, "
+        f"{pp['learner_steps_per_sec']:.2f} learner steps/s, step p50 {pp['step_time_ms_p50']} ms, "
+        f"{pp['dispatches_per_iteration']:.2f} dispatches an iteration; programs "
+        + ", ".join(f"{p['program']} {p['count']} x p50 {p['wall_s_p50'] * 1e3:.1f} ms"
+                    for p in prreport["perf_programs"] or [])
+        + f" [{card}]"
     )
     say(f"preempt-resume phase: {time.perf_counter() - t0:.1f} s")
 
@@ -4421,7 +4707,8 @@ def run_phases(torch) -> int:
         f"dispatch p50 {lgreport['dispatch_ms_p50']:.1f} ms over {lgreport['dispatches']} dispatches, "
         f"ratings {lgreport['ratings']}; pool run {lgreport['pool_s']:.1f} s, league run "
         f"{lgreport['league_s']:.1f} s; gather_rows and backup_update bit-equal to plain at "
-        f"{', '.join(f'b{b}' for b in lgreport['kernels_held_bit_equal'])} in process; launches "
+        f"{', '.join(f'b{b}' for b in lgreport['kernels_held_bit_equal'])} in process; "
+        f"{lgreport['ledger_league_records']} kind:league records in the run's ledger; launches "
         f"{lgreport['launches']} [{card}]"
     )
     say(f"league phase: {time.perf_counter() - t_lad:.1f} s")

@@ -42,6 +42,9 @@ for slice_ten in ("telemetry", "telemetry.ledger", "telemetry.tracectx", "teleme
                   "serving.router", "serving.replica", "serving.fleet", "config.telemetry_config",
                   "utils.flops"):
     assert "alphatriangle_tpu_torch." + slice_ten in names, slice_ten
+for slice_eleven in ("telemetry.anomaly", "utils.helpers", "logging_config", "autotune",
+                     "autotune.artifact"):
+    assert "alphatriangle_tpu_torch." + slice_eleven in names, slice_eleven
 leaked = sorted(
     m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic", "tensorboard", "tensorflow")
 )

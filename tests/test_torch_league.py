@@ -41,6 +41,7 @@ from alphatriangle_tpu.env.engine import TriangleEnv as JaxEnv  # noqa: E402
 from alphatriangle_tpu.features.core import get_feature_extractor  # noqa: E402
 from alphatriangle_tpu.mcts import BatchedMCTS as JaxMCTS  # noqa: E402
 from alphatriangle_tpu.serving import PolicyService as JaxService  # noqa: E402
+from alphatriangle_tpu.telemetry import perf as jperf  # noqa: E402
 from alphatriangle_tpu_torch import cli, league, rng  # noqa: E402
 from alphatriangle_tpu_torch.config import LeagueConfig, PersistenceConfig, TrainConfig  # noqa: E402
 from alphatriangle_tpu_torch.env import TriangleEnv  # noqa: E402
@@ -53,6 +54,8 @@ from alphatriangle_tpu_torch.rl import Trainer  # noqa: E402
 from alphatriangle_tpu_torch.rl.types import SelfPlayResult  # noqa: E402
 from alphatriangle_tpu_torch.serving import PolicyService  # noqa: E402
 from alphatriangle_tpu_torch.stats import CheckpointManager  # noqa: E402
+from alphatriangle_tpu_torch.telemetry import ledger as tledger  # noqa: E402
+from alphatriangle_tpu_torch.telemetry import perf as tperf  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
@@ -411,7 +414,12 @@ def test_cli_league_end_to_end(tmp_path, tiny_env_config, tiny_model_config, cap
     for r in records:
         assert r["moves_ingested"] == r["live_moves"] - r["stale_dropped"]
     assert report["league_moves_ingested"] == report["league_live_moves"] - report["stale_dropped"] > 0
-    assert report["ledger"] is None
+    # One `kind:"league"` ledger record per round, the report's records,
+    # folded by the JAX `summarize_league` as by the port's.
+    ledgered = [r for r in tledger.read_ledger(report["ledger"]) if r.get("kind") == "league"]
+    assert ledgered == records
+    assert tperf.summarize_league(ledgered) == jperf.summarize_league(ledgered)
+    assert tperf.summarize_league(ledgered)["league_rounds"] == report["league_rounds"]
     for pool in (league.LeaguePool(report["league_jsonl"]), jleague.LeaguePool(report["league_jsonl"])):
         assert {m: round(pool.rating(m), 2) for m in pool.member_ids()} == report["ratings"]
         assert round(pool.rating(league.LIVE_ID), 2) == report["live_elo"]

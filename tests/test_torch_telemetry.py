@@ -501,15 +501,26 @@ def test_utilization_meter_matches_jax(monkeypatch):
             ))
         records[name] = out
     assert records["torch"][0] is None
-    assert _strip(records["torch"][1:]) == _strip(records["jax"][1:])
+    # The port's peak table knows the H100 (989.4 dense bf16 TFLOP/s); the
+    # JAX one lists TPU chips only. Everything else is the same record.
+    peak_fields = ("peak_bf16_tflops", "peak_source", "mfu")
+
+    def unpeaked(recs):
+        return [{k: v for k, v in r.items() if k not in peak_fields} for r in _strip(recs)]
+
+    assert unpeaked(records["torch"][1:]) == unpeaked(records["jax"][1:])
+    assert all(r["peak_source"] == "unknown" and r["mfu"] is None for r in records["jax"][1:])
     rec = records["torch"][-1]
-    assert rec["peak_source"] == "unknown" and rec["mfu"] is None
+    assert rec["peak_source"] == "table" and rec["peak_bf16_tflops"] == 989.4
+    assert rec["mfu"] == pytest.approx(rec["tflops_per_sec"] / 989.4, abs=5e-9)  # 8 decimals
     assert rec["chip_idle_fraction"] == 0.75 and rec["mem_bytes_limit"] == 80 << 30
 
 
 @pytest.mark.parametrize("which", ["default", "tiny", "small"])
-def test_forward_flops_match_jax(which, tiny_env_config, tiny_model_config):
+def test_forward_flops_match_jax(which, tiny_env_config, tiny_model_config, monkeypatch):
     from alphatriangle_tpu.config import EnvConfig, ModelConfig
+
+    monkeypatch.delenv(tflops.PEAK_TFLOPS_ENV, raising=False)
 
     from torch_parity import small_model_config
 
@@ -521,8 +532,10 @@ def test_forward_flops_match_jax(which, tiny_env_config, tiny_model_config):
     assert tflops.forward_flops(torch_cfg(model_cfg), torch_cfg(env_cfg), env_cfg.action_dim) == (
         jflops.forward_flops(model_cfg, env_cfg, env_cfg.action_dim)
     )
-    for kind in ("TPU v5 lite", "TPU v6e", "NVIDIA H100 80GB HBM3", ""):
+    for kind in ("TPU v5 lite", "TPU v6e", ""):
         assert tflops.peak_bf16_tflops_info(kind) == jflops.peak_bf16_tflops_info(kind)
+    # The port's table also knows its own card, which the JAX one does not.
+    assert tflops.peak_bf16_tflops_info("NVIDIA H100 80GB HBM3") == (989.4, "table")
 
 
 def test_device_memory_stats_without_a_context():

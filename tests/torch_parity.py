@@ -2,6 +2,8 @@
 states, keys and weights between the JAX package and its PyTorch port,
 a small model of the port's own, and an exact stub net for both."""
 
+import json
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -246,3 +248,24 @@ def inject_jax_noise(monkeypatch) -> None:
 
     monkeypatch.setattr(rng, "gumbel", gumbel)
     monkeypatch.setattr(rng, "gamma", gamma)
+
+
+def tiny_preset(path, env_cfg, model_cfg, **train) -> str:
+    """A tuned-preset artifact of the given (JAX) board and net, the default
+    train config with `train` on top and a 4-simulation search, for `cli
+    train --preset PATH` runs that take seconds on the CPU. Returns its
+    path."""
+    from alphatriangle_tpu.config import AlphaTriangleMCTSConfig as JaxMCTSConfig
+
+    payload = {
+        "schema": tcfg.TUNED_PRESET_SCHEMA,
+        "configs": {
+            "env": env_cfg.model_dump(),
+            "model": model_cfg.model_dump(),
+            "train": tcfg.TrainConfig(**train).model_dump(),
+            "mcts": JaxMCTSConfig(max_simulations=4, max_depth=3, mcts_batch_size=4).model_dump(),
+        },
+    }
+    path = Path(path)
+    path.write_text(json.dumps(payload))
+    return str(path)
