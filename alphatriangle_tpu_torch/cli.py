@@ -1,6 +1,6 @@
 """Command line of the PyTorch port: counterpart of
 `alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval`, `league`, `fleet`,
-`health` and `perf` subcommands.
+`health`, `perf` and `analyze` subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--buckets CSV] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
@@ -31,7 +31,7 @@ ladder's rungs and switches and the reloaded steps included.
         [--run-name NAME] [--root-dir DIR] [--no-auto-resume]
         [--load-checkpoint STEP_DIR] [--load-buffer NPZ]
         [--checkpoint-freq N] [--keep-checkpoints K]
-        [--no-telemetry] [--watchdog-deadline SECONDS] [--log-level LEVEL]
+        [--no-telemetry] [--watchdog-deadline SECONDS] [--profile] [--log-level LEVEL]
 
 Trains the default board and net, or a BASELINE preset's (`--preset
 1..5`, `config/presets.py`, or a `tuned_preset.json`; the flags given
@@ -53,7 +53,11 @@ directory also gets the run's telemetry unless `--no-telemetry`: the
 `metrics.jsonl` ledger (every metrics tick and one `kind:"util"` record
 an iteration, with the MFU against the card's bf16 peak), the
 `flight.jsonl` ring of every dispatch, and the anomaly screen of every
-learner step. `--no-per` samples the ring uniformly. A completed run of
+learner step; with the device stat-packs on (the default), one
+`kind:"device_stats"` ledger record an iteration. `--profile` adds the
+loop's phase timers (`Profile/*_ms`, `profile_data/phase_timers.json`)
+and a `torch.profiler` trace of iterations 1-2 in `profile_data/`.
+`--no-per` samples the ring uniformly. A completed run of
 a tuned preset ledgers a `tune_outcome` record. Prints one JSON report:
 steps, losses, rows ingested, episodes, weight syncs, the achieved
 replay ratio, timings, the save and restore times and the kernel
@@ -122,10 +126,19 @@ A summary of a run's metrics ledger: step time p50 / p95, learner
 steps/s, games/h, moves/s, sims/s, the MFU against the device's bf16
 peak, transfers, dispatches per iteration, memory, the throughput trend
 and, from the flight ring, each program's dispatch p50 / p95; the
-league's line for a league run. `--window` keeps the newest N util
-records. Exit 0, or 2 without a ledger or util records.
+league's line for a league run; the search-health and PER / learner
+lines of the run's `kind:"device_stats"` records. `--window` keeps the
+newest N util records. Exit 0, or 2 without a ledger or util records.
 
-`health` and `perf` import neither torch nor numpy: they read files.
+    python -m alphatriangle_tpu_torch.cli analyze PROFILE_DIR [--top N]
+
+A `cli train --profile` run's `profile_data/`: the phase timers' table,
+then for each `*.pt.trace.json` the device time by kernel per device
+and stream and the host time by op per thread, with counts and shares.
+Exit 0, or 1 when the directory holds neither.
+
+`health`, `perf` and `analyze` import neither torch nor numpy: they
+read files.
 """
 
 import argparse
@@ -321,6 +334,8 @@ def cmd_train(args: argparse.Namespace) -> int:
         overrides["LOAD_BUFFER_PATH"] = args.load_buffer
     if args.no_per:
         overrides["USE_PER"] = False
+    if args.profile:
+        overrides["PROFILE_WORKERS"] = True
     telemetry_config = None
     if args.no_telemetry or args.watchdog_deadline is not None:
         from .config import TelemetryConfig
@@ -886,6 +901,7 @@ def cmd_perf(args: argparse.Namespace) -> int:
     """A run's ledger summarized: step time, MFU, throughput and its
     trend, each program's dispatch walls, the league. Exit 0, or 2 when
     the ledger is missing or holds no util records."""
+    from .telemetry.device_stats import summarize_device_stats
     from .telemetry.flight import FLIGHT_FILENAME, read_flight, summarize_flight
     from .telemetry.ledger import read_ledger, resolve_ledger_path
     from .telemetry.perf import summarize_league, summarize_utilization
@@ -916,6 +932,11 @@ def cmd_perf(args: argparse.Namespace) -> int:
     league = summarize_league([r for r in records if r.get("kind") == "league"])
     if league is not None:
         summary.update(league)
+    # The device stat-packs' kind:"device_stats" records: the ds_* fields
+    # and the lines below (none without records).
+    devstats = summarize_device_stats([r for r in records if r.get("kind") == "device_stats"])
+    if devstats is not None:
+        summary.update(devstats)
     if args.json:
         summary["source"] = str(ledger)
         print(json.dumps(summary))
@@ -967,6 +988,25 @@ def cmd_perf(args: argparse.Namespace) -> int:
             f"  in flight    none {_fmt_cell(summary.get('chip_idle_fraction'), ',.1f', 100.0, '%')}"
             f" of the ticks (max {_fmt_cell(summary.get('chip_idle_fraction_max'), ',.1f', 100.0, '%')})"
         )
+    if devstats is not None:
+        # Search health from the stat-packs: entropy and occupancy are
+        # means over the records, |v|max and the occupancy max run-wide.
+        print(
+            f"  search       entropy {_fmt_cell(summary.get('ds_root_entropy'), ',.2f')}"
+            f" (min {_fmt_cell(summary.get('ds_root_entropy_min'), ',.2f')})"
+            f"   |v|max {_fmt_cell(summary.get('ds_value_abs_max'), ',.2f')}"
+            f"   occupancy {_fmt_cell(summary.get('ds_tree_occupancy'), ',.0f', 100.0, '%')}"
+            f" (max {_fmt_cell(summary.get('ds_tree_occupancy_max'), ',.0f', 100.0, '%')})"
+            f"   reuse {_fmt_cell(summary.get('ds_reuse_frac'), ',.0f', 100.0, '%')}"
+            f"   records {_fmt_cell(summary.get('ds_records'), ',.0f')}"
+        )
+        if summary.get("ds_grad_norm_max") is not None or summary.get("ds_priority_skew") is not None:
+            print(
+                f"  ingest/per   priority skew {_fmt_cell(summary.get('ds_priority_skew'), ',.1f')}"
+                f"   IS w min {_fmt_cell(summary.get('ds_is_weight_min'), ',.3f')}"
+                f"   grad max {_fmt_cell(summary.get('ds_grad_norm_max'), ',.2f')}"
+                f"   update max {_fmt_cell(summary.get('ds_update_norm_max'), ',.3f')}"
+            )
     if league is not None:
         print(
             f"  league       pool {_fmt_cell(summary.get('league_pool_size'), ',.0f')}"
@@ -993,6 +1033,14 @@ def cmd_perf(args: argparse.Namespace) -> int:
         "(2nd-half vs 1st-half throughput)"
     )
     return 0
+
+
+def cmd_analyze(args: argparse.Namespace) -> int:
+    """The phase table and trace summaries of a profile directory (exit 0;
+    1 when it holds neither). Imports no torch."""
+    from .profiling import analyze_profile_dir
+
+    return analyze_profile_dir(args.profile_dir, top=args.top)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1101,6 +1149,9 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--watchdog-deadline", type=float, default=None, metavar="SECONDS",
                        help="Stall watchdog deadline: no learner step and no rollout harvest for "
                        "this long dumps thread stacks and flags the heartbeat (default 300).")
+    train.add_argument("--profile", action="store_true",
+                       help="Phase timers (Profile/*_ms, phase_timers.json) and a torch.profiler "
+                       "trace of iterations 1-2 into runs/<run>/profile_data/.")
     train.add_argument("--log-level", default="INFO", choices=["DEBUG", "INFO", "WARNING", "ERROR"])
     train.set_defaults(fn=cmd_train)
 
@@ -1276,6 +1327,15 @@ def build_parser() -> argparse.ArgumentParser:
                       help="Summarize only the newest N utilization records.")
     perf.add_argument("--json", action="store_true", help="The summary as one JSON line.")
     perf.set_defaults(fn=cmd_perf)
+
+    an = sub.add_parser(
+        "analyze",
+        help="Summary of a profile run: the phase timers' table, then each torch.profiler "
+        "trace's device time by kernel and stream and host time by thread. Imports no torch.",
+    )
+    an.add_argument("profile_dir", help="runs/<run>/profile_data directory.")
+    an.add_argument("--top", type=int, default=20)
+    an.set_defaults(fn=cmd_analyze)
     return parser
 
 

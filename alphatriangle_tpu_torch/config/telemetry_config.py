@@ -8,10 +8,16 @@ default argument of the part it sets: the span ring's size
 the anomaly screen's thresholds (`anomaly.AnomalyDetector`), the
 dispatch deadline factor and the ledger's and flight ring's rotation
 (`ledger.MetricsLedger`, `flight.FlightRecorder`). With `ENABLED`, the
-heartbeat and its watchdog, the anomaly screen, the ledger and the
-flight recorder with its dispatch watchdog are all on; the device
-stat-packs, their beacons and the Prometheus textfile are not ported
-yet.
+heartbeat and its watchdog, the anomaly screen, the ledger, the flight
+recorder with its dispatch watchdog and the device stat-packs
+(`telemetry/device_stats.py`) are all on; progress beacons arm by
+environment or by the dispatch watchdog's near-deadline warning. The
+JAX config's `DEVICE_STATS`, `BEACON_EVERY_N_WAVES` and
+`DISPATCH_WARN_FRACTION` stay at their defaults too: the stat-packs
+follow `ENABLED` (`ALPHATRIANGLE_DEVICE_STATS` overrides it), the
+beacons' wave rate is `ALPHATRIANGLE_BEACON_EVERY` (8) and the warning
+fraction is `flight.DispatchWatchdog`'s (0.5). The Prometheus textfile
+is not ported yet.
 """
 
 from dataclasses import dataclass

@@ -28,7 +28,10 @@ Each round appends one `kind:"league"` record, the JAX package's fields
 run's metrics ledger (`metrics.jsonl`, `cli perf`'s league summary);
 its `mean_staleness` and `weight_reloads` read the service's reload
 clock, as the JAX record does. The league run has the training run's
-telemetry: heartbeat, util records, flight ring, anomaly screen.
+telemetry: heartbeat, util records, flight ring, anomaly screen, and
+one `kind:"device_stats"` record an iteration, whose serve leg folds
+the league service's stat-packs (the JAX flywheel leaves those in the
+service's window).
 `Stats/stale_dropped` goes to the run's `StatsCollector` as in the JAX
 loop.
 """
@@ -208,6 +211,16 @@ class FlywheelLoop(TrainingLoop):
         )
 
     # --- the mixed loop ---------------------------------------------------
+
+    def _drain_device_stats(self) -> "dict | None":
+        """The loop's stat-pack fold, plus the league service's
+        dispatches since the last iteration as its serve leg (a league
+        round's searches are the service's)."""
+        ds = super()._drain_device_stats()
+        leg = self.service.take_device_stats()
+        if leg:
+            ds = {**(ds or {}), "serve": leg}
+        return ds
 
     def _process_rollout(self) -> int:
         """The synchronous loop's rollout: a league round when the mix

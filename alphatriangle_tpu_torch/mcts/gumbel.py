@@ -23,7 +23,9 @@ the Gumbel sample (playout-cap fast searches, serving and evaluation
 play the best cheap move). The JAX version's `fori_loop` over waves
 with a `lax.cond` before the halving is a plain Python loop here; the
 Gumbel draw goes through `rng.gumbel`, looked up at call time so tests
-can substitute JAX's draws.
+can substitute JAX's draws. The waves carry the depth histogram and
+reach the `search_wave` beacon site, and the output the stat-pack, as
+`BatchedMCTS`'s do.
 """
 
 import torch
@@ -121,9 +123,13 @@ class GumbelMCTS(BatchedMCTS):
 
         wasted = torch.zeros((batch,), dtype=torch.int32, device=dev)
         base = 1
+        hist = self._stats_seed()
         for k in range(self.num_waves):
+            self.beacon(k)
             roots = self._assign_roots(tree, cand)
-            wasted, base = self._wave(batch, tree, wasted, base, rng.fold_in(wave_rng, k), roots)
+            wasted, base = self._wave(
+                batch, tree, wasted, base, rng.fold_in(wave_rng, k), roots, hist=hist
+            )
             if k < self.num_waves - 1:
                 cand = self._halve(tree, cand, base_score)
 
@@ -143,6 +149,10 @@ class GumbelMCTS(BatchedMCTS):
 
         root_visits = 1.0 + visits.sum(dim=-1)
         root_value = (tree.root_value0 + tree.e_value[:, 0, :].sum(dim=-1)) / root_visits
+        stats = None
+        if hist is not None:
+            with record_function("search.stats"):
+                stats = self._stat_pack(tree, wasted, base, hist, batch)
         return SearchOutput(
             visit_counts=visits.clone(),
             root_value=root_value,
@@ -151,4 +161,5 @@ class GumbelMCTS(BatchedMCTS):
             wasted_slots=wasted,
             selected_action=selected,
             improved_policy=improved,
+            stats=stats,
         )

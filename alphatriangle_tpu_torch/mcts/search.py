@@ -25,8 +25,20 @@ per descent level. The noise draws go through `rng.gumbel` and
 `rng.gamma` (looked up on the module at call time, so tests can
 substitute JAX's draws). A wave may force each member's depth-0 action
 (`root_action`), which the Gumbel root search (mcts/gumbel.py,
-`GumbelMCTS`) uses to spread a wave over its candidates. The device
-stat-pack waits for a later slice: `SearchOutput.stats` stays None.
+`GumbelMCTS`) uses to spread a wave over its candidates.
+
+Device stat-packs (`telemetry/device_stats.py`): an engine built while
+`device_stats_enabled()` holds carries an int64 leaf-depth histogram
+through its waves (one count per member, at its descent depth clipped to
+`DEPTH_BINS - 1`: an exact `index_add_` of integers, with no host sync)
+and returns `SearchOutput.stats`, one float64 (SEARCH_PACK_SIZE,) tensor
+(`_stat_pack`: the histogram, root-visit entropy and concentration, the
+largest |Q| or root value, tree occupancy and the reused share of the
+root visits), computed with plain reductions on the card and fetched by
+the caller's existing copy. Otherwise `stats` stays None and the waves
+run as before. Each wave is a beacon site (`search_wave`, every
+`beacon_every()`th wave), which launches nothing unless beacons are
+armed.
 
 Subtree reuse (`MCTSConfig.tree_reuse`) widens the node budget to
 `max_simulations + tree_reuse_budget + 1` rows. After a move,
@@ -60,6 +72,8 @@ from ..ops import backup_update, gather_rows, subtree_promote
 from ..ops.gather_rows import MODES as GATHER_MODES
 from ..ops.mcts_backup import MODES as BACKUP_MODES
 from ..ops.subtree_reuse import MODES as REUSE_MODES
+from ..telemetry import device_stats
+from ..telemetry.device_stats import DEPTH_BINS
 
 
 @dataclass
@@ -102,7 +116,7 @@ class SearchOutput:
     wasted_slots: torch.Tensor  # (B,) int32 orphan node slots
     selected_action: torch.Tensor  # (B,) int32; -1 = select from visits
     improved_policy: torch.Tensor  # (B, A) f32 zeros under PUCT
-    stats: Any = None
+    stats: Any = None  # (SEARCH_PACK_SIZE,) f64 stat-pack when device stats are on
 
 
 class BatchedMCTS:
@@ -150,6 +164,10 @@ class BatchedMCTS:
             w -= 1
         self.wave_size = w
         self.num_waves = config.max_simulations // w
+        # The stat-pack flag when the engine is built (as the JAX engine
+        # snapshots it); a live engine never flips it.
+        self.device_stats = device_stats.device_stats_enabled()
+        self._hist_ones: dict = {}  # members per wave -> int64 ones, for the histogram
 
     # --- network evaluation ----------------------------------------------
 
@@ -277,12 +295,16 @@ class BatchedMCTS:
             "rec_active": rec_active,
         }
 
-    def _wave(self, batch: int, tree: Tree, wasted: torch.Tensor, base, wave_rng, root_action=None):
+    def _wave(
+        self, batch: int, tree: Tree, wasted: torch.Tensor, base, wave_rng, root_action=None,
+        hist=None,
+    ):
         """One wave: W parallel simulations across all B trees. `base` is
         the first insertion row, an int (fresh root) or a (B,) tensor
         (reuse: each game retained its own row count); `root_action` as
-        in `_descend_wave`. Updates `tree` in place; returns (wasted,
-        next base)."""
+        in `_descend_wave`; `hist`, when given, the (DEPTH_BINS,) int64
+        depth histogram, counted into in place. Updates `tree` in place;
+        returns (wasted, next base)."""
         cfg = self.config
         w, a, depth = self.wave_size, self.action_dim, cfg.max_depth
         dev = self.device
@@ -338,6 +360,11 @@ class BatchedMCTS:
         # active level takes the fresh step reward.
         rec_active = d["rec_active"]
         last_idx = rec_active.sum(dim=-1) - 1
+        if hist is not None:
+            # One count per member at its descent depth (a terminal root
+            # counts in bin 0; depths past the last bin clip into it).
+            d_bin = last_idx.clamp(0, DEPTH_BINS - 1).reshape(-1)
+            hist.index_add_(0, d_bin, self._ones(d_bin.numel()))
         g = leaf_values
         contrib = []
         for lvl in range(depth - 1, -1, -1):
@@ -366,13 +393,69 @@ class BatchedMCTS:
         wasted = wasted + (w - live.sum(dim=1, dtype=torch.int32))
         return wasted, base + w
 
+    def _ones(self, n: int) -> torch.Tensor:
+        ones = self._hist_ones.get(n)
+        if ones is None:
+            ones = self._hist_ones[n] = torch.ones((n,), dtype=torch.int64, device=self.device)
+        return ones
+
+    def _stats_seed(self) -> "torch.Tensor | None":
+        """The zeroed depth histogram the waves count into when device
+        stats are on; None when they are off."""
+        if not self.device_stats:
+            return None
+        return torch.zeros((DEPTH_BINS,), dtype=torch.int64, device=self.device)
+
+    def beacon(self, k: int) -> None:
+        """The `search_wave` beacon site of wave `k`."""
+        device_stats.emit_beacon("search_wave", k, every=device_stats.beacon_every(), device=self.device)
+
     def _run_waves(self, batch: int, tree: Tree, wave_rng: torch.Tensor, base=1):
         """`num_waves` waves from `tree`, the first inserting at `base`
-        (an int, or a (B,) tensor under reuse); returns the wasted slots."""
+        (an int, or a (B,) tensor under reuse); returns (wasted slots,
+        the final base, the depth histogram or None)."""
         wasted = torch.zeros((batch,), dtype=torch.int32, device=self.device)
+        hist = self._stats_seed()
         for k in range(self.num_waves):
-            wasted, base = self._wave(batch, tree, wasted, base, rng.fold_in(wave_rng, k))
-        return wasted
+            self.beacon(k)
+            wasted, base = self._wave(batch, tree, wasted, base, rng.fold_in(wave_rng, k), hist=hist)
+        return wasted, base, hist
+
+    def _stat_pack(self, tree: Tree, wasted, final_base, hist, batch: int, reused=None) -> torch.Tensor:
+        """The search's stat-pack from tensors already on the device: the
+        depth histogram, then `SEARCH_SCALARS` (mean root-visit entropy
+        and concentration, the largest |Q| over visited root edges or
+        |root value|, mean occupancy of the node rows, the mean share of
+        root visits inherited through reuse), packed as one float64
+        tensor. The per-game values are the JAX `_stat_pack`'s float32
+        ones; their means over the games are taken in float64, where the
+        sum of the concentrations, occupancies and reused shares (float32
+        values of 0 or in [2^-11, 1], at most 2^16 of them) is exact in
+        any order, so the card and the CPU give the same bits (the JAX
+        package's float32 means round on the order of XLA's sum)."""
+        visits = tree.e_visits[:, 0, :]  # (B, A) root edge visits
+        total = visits.sum(dim=-1)
+        p = visits / total.clamp(min=1.0)[:, None]
+        entropy = -torch.where(p > 0, p * torch.log(p.clamp(min=1e-12)), 0.0).sum(dim=-1)
+        q_abs = torch.where(visits > 0, tree.e_value[:, 0, :].abs() / visits.clamp(min=1e-9), 0.0)
+        value_abs_max = torch.maximum(q_abs.max(), tree.root_value0.abs().max())
+        if isinstance(final_base, int):
+            live = float(final_base) - wasted.to(torch.float32)
+        else:
+            live = final_base.to(torch.float32) - wasted.to(torch.float32)
+        if reused is None:
+            reuse_frac = torch.zeros((), device=self.device)
+        else:
+            reuse_frac = (reused / total.clamp(min=1.0)).to(torch.float64).mean()
+        f64 = torch.float64
+        scalars = torch.stack([
+            entropy.to(f64).mean(),
+            p.amax(dim=-1).to(f64).mean(),
+            value_abs_max.to(f64),
+            (live / float(self.num_nodes)).to(f64).mean(),
+            reuse_frac.to(f64),
+        ])
+        return torch.cat([hist.to(f64), scalars])
 
     def _output_from_tree(self, tree: Tree, wasted: torch.Tensor, batch: int) -> SearchOutput:
         """Root stats are row 0 of the edge planes."""
@@ -403,8 +486,12 @@ class BatchedMCTS:
         noise_rng, wave_rng = keys[1], keys[2]
         with record_function("search.init_tree"):
             tree = self._init_tree(root_states, noise_rng)
-        wasted = self._run_waves(batch, tree, wave_rng)
-        return self._output_from_tree(tree, wasted, batch)
+        wasted, base, hist = self._run_waves(batch, tree, wave_rng)
+        out = self._output_from_tree(tree, wasted, batch)
+        if hist is not None:
+            with record_function("search.stats"):
+                out.stats = self._stat_pack(tree, wasted, base, hist, batch)
+        return out
 
     # --- subtree reuse (MCTSConfig.tree_reuse; ops/subtree_reuse.py) ---
 
@@ -453,8 +540,12 @@ class BatchedMCTS:
             zero = torch.zeros((), device=self.device)
             reused = torch.where(ok, ct.e_visits[:, 0, :].sum(dim=-1), zero)
             base0 = torch.where(ok, carried.base.clamp(min=1), 1).long()
-        wasted = self._run_waves(batch, tree, wave_rng, base0)
-        return self._output_from_tree(tree, wasted, batch), tree, reused
+        wasted, base, hist = self._run_waves(batch, tree, wave_rng, base0)
+        out = self._output_from_tree(tree, wasted, batch)
+        if hist is not None:
+            with record_function("search.stats"):
+                out.stats = self._stat_pack(tree, wasted, base, hist, batch, reused=reused)
+        return out, tree, reused
 
     @torch.no_grad()
     def promote(self, tree: Tree, actions: torch.Tensor) -> CarriedTree:

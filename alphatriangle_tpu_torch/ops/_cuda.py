@@ -119,11 +119,21 @@ class CudaKernel:
         err.restype = ctypes.c_char_p
         self._fn, self._err = fn, err
 
+    def function(self, name: str, argtypes: list, restype=ctypes.c_int):
+        """Another function of the loaded library (load it first)."""
+        fn = getattr(self._lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        return fn
+
+    def error(self, rc: int) -> str:
+        return f"{self._err(rc).decode()} ({rc})"
+
     def launch(self, *args) -> None:
         """Launch on the given arguments; raise if the launch is refused."""
         rc = self.load()(*args)
         if rc != 0:
-            raise RuntimeError(f"{self.name} launch failed: {self._err(rc).decode()} ({rc})")
+            raise RuntimeError(f"{self.name} launch failed: {self.error(rc)}")
         with self._lock:
             self.launches += 1
 

@@ -35,6 +35,17 @@ With a run's flight recorder attached (`flight`), each megastep writes
 an intent (`megastep/t<T>_k<K>`) before its work is launched and a seal
 after that one copy; `transfer_d2h_seconds` counts the host seconds
 blocked in the copy, the wait for the card included.
+
+Device stats (the engine's flag, `device_stats`): the chunk's stacked
+search stat-packs and a PER stat-pack (`_per_stat_pack`: priority skew
+over the live slots and the IS-weight extremes of the K draws, plain
+reductions on the card) ride the same copy; the host folds them, with
+the rollout leg and the learner leg (the K steps' largest gradient and
+update norms, which the learner already returns), into
+`last_device_stats`. The megastep's beacon sites are `rollout_chunk`
+after the chunk and `ring_scatter` after the ingest, indexed by the
+learner step, beside the searches' `search_wave` and the learner's
+`learner_step`.
 """
 
 import time
@@ -48,6 +59,14 @@ from ..config.train_config import TrainConfig
 from ..nn import precision
 from ..nn.network import LiveWeights
 from ..ops.per_sample import per_sample
+from ..telemetry.device_stats import (
+    emit_beacon,
+    fold_search_stats,
+    note_dispatch,
+    rollout_chunk_stats,
+    unpack_per_stats,
+    unpack_search_stats,
+)
 from ..telemetry.flight import flight_span
 from ..utils.transfer import fetch
 from .device_buffer import DeviceReplayBuffer, ring_scatter
@@ -106,6 +125,9 @@ class MegastepRunner:
         self.model_config = trainer.nn.model_config
         self.reduced = precision.inference_dtype(self.model_config) != torch.float32
         self.last_idx: "np.ndarray | None" = None  # (K, B) slots of the last draw
+        # The engine's stat-pack flag and the newest megastep's folded legs.
+        self.device_stats = bool(engine.device_stats)
+        self.last_device_stats: "dict | None" = None
 
     # --- device stages -------------------------------------------------
 
@@ -133,6 +155,15 @@ class MegastepRunner:
             weights = torch.ones((k, b), dtype=torch.float32, device=self.device)
         return idx, weights
 
+    @staticmethod
+    def _per_stat_pack(priorities: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+        """The PER leg (`PER_SCALARS`): the priority mass's skew, max over
+        the mean of the live slots (empty and trash slots hold exactly
+        0), and the extremes of the K draws' IS weights; float64."""
+        count = (priorities > 0).sum().clamp(min=1).to(torch.float32)
+        mean_live = (priorities.sum() / count).clamp(min=1e-9)
+        return torch.stack([priorities.max() / mean_live, weights.min(), weights.max()]).to(torch.float64)
+
     def _impl(self, num_moves: int, k: int, max_priority: float) -> dict:
         """The five stages; updates engine carry, ring, priorities and
         learner in place and returns the outputs (still on the device)."""
@@ -144,6 +175,8 @@ class MegastepRunner:
         with record_function("selfplay.chunk"):
             live = LiveWeights(trainer.state.step, model)
             engine._carry, outs = engine._chunk(num_moves, engine._carry, live)
+        emit_beacon("rollout_chunk", trainer.state.step, device=self.device)
+        ds_search = outs.pop("device_stats", None)
         with record_function("ring.ingest"):
             count, pos, keep = ring_scatter(
                 buf.storage, buf._pos, (outs.pop("mat"), outs.pop("flush")), self.cap
@@ -152,8 +185,10 @@ class MegastepRunner:
             if self.use_per:
                 self._priorities.index_put_((pos,), torch.where(keep, max_priority, 0.0))
                 self._priorities[self.cap] = 0.0
+        emit_beacon("ring_scatter", trainer.state.step, device=self.device)
         with record_function("per.sample"):
             idx, weights = self._sample_indices(self._priorities, size, k)
+            ds_per = self._per_stat_pack(self._priorities, weights) if self.device_stats else None
         with record_function("learner.steps"):
             metrics_k, td_k = trainer._train_steps_from_impl(buf.storage, idx, weights)
         if self.use_per:
@@ -163,7 +198,7 @@ class MegastepRunner:
                     slots = last_write_slots(idx[j], self.cap)
                     self._priorities.index_put_((slots,), prio.to(torch.float32))
                 self._priorities[self.cap] = 0.0
-        return {
+        out = {
             "rows_added": count,
             "episode": outs["episode"],
             "trace": outs["trace"],
@@ -172,6 +207,9 @@ class MegastepRunner:
             "td": td_k,
             "idx": idx,
         }
+        if self.device_stats:
+            out["device_stats"] = {"search": ds_search, "per": ds_per}
+        return out
 
     # --- host API ------------------------------------------------------
 
@@ -207,6 +245,7 @@ class MegastepRunner:
         max_p = self._max_priority_watermark()
         start_step = trainer.state.step
         with flight_span(self.flight, "megastep", f"megastep/t{t}_k{k}", avals=f"B{self.batch_size}xT{t}xK{k}"):
+            note_dispatch(f"megastep/t{t}_k{k}")
             out = self._impl(t, k, max_p)
             self.dispatch_count += 1
             engine.net.forget_inference_model()  # the module moved in place
@@ -230,6 +269,19 @@ class MegastepRunner:
         # --- engine-side stats: episodes, simulations, reused visits ----
         engine.fold_chunk_stats(host)
         engine.note_weights_version(start_step)
+        if self.device_stats:
+            ds = host["device_stats"]
+            learner = {
+                dst: round(float(np.max(host["metrics"][src])), 6)
+                for src, dst in (("grad_norm", "grad_norm_max"), ("update_norm", "update_norm_max"))
+                if src in host["metrics"]
+            }
+            self.last_device_stats = {
+                "search": fold_search_stats(unpack_search_stats(ds["search"])),
+                "rollout": rollout_chunk_stats(host["episode"]["ending"], host["trace"]["reward"]),
+                "per": unpack_per_stats(ds["per"]),
+                "learner": learner or None,
+            }
 
         # --- learner results --------------------------------------------
         results = []

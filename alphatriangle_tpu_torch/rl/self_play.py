@@ -57,7 +57,12 @@ Telemetry: with a run's flight recorder attached (`flight`, by
 before its moves are launched and a seal after its one fetch, so the
 sealed wall covers the chunk on the card. `dispatch_count` counts the
 chunks, `transfer_d2h_seconds` the host seconds blocked in their
-fetches, the wait for the card included.
+fetches, the wait for the card included. Under device stats (the flag
+the searches snapshot when built, `device_stats`) each move's stat-pack
+joins its outputs as `device_stats`, stacked over the chunk's moves to
+(T, SEARCH_PACK_SIZE) and fetched with the rest; `play_chunk` folds it
+into `last_device_stats` (`{"search": ..., "rollout": ...}`, the JAX
+engine's legs), which the training loop ledgers once per iteration.
 """
 
 import logging
@@ -78,6 +83,12 @@ from ..mcts.gumbel import GumbelMCTS
 from ..mcts.search import BatchedMCTS, CarriedTree
 from ..nn.network import LiveWeights
 from ..nn.precision import InferenceNet
+from ..telemetry.device_stats import (
+    fold_search_stats,
+    note_dispatch,
+    rollout_chunk_stats,
+    unpack_search_stats,
+)
 from ..telemetry.flight import flight_span
 from ..utils.transfer import fetch, receive
 from .types import SelfPlayResult
@@ -204,6 +215,10 @@ class SelfPlayEngine:
         # The run's flight recorder; None writes no intent/seal records.
         self.flight = None
         self.last_trace: "dict[str, np.ndarray] | None" = None
+        # The searches' stat-pack flag (snapshotted when they were built)
+        # and the newest chunk's folded search and rollout legs.
+        self.device_stats = self.mcts.device_stats
+        self.last_device_stats: "dict | None" = None
 
     # --- one chunk on the device ------------------------------------------
 
@@ -357,6 +372,8 @@ class SelfPlayEngine:
             # was a full (policy-training) search; `_chunk` stacks them.
             "mode": (sims, is_full),
         }
+        if out.stats is not None:
+            outputs["device_stats"] = out.stats  # stacked over the chunk's moves
         return new_carry, outputs
 
     def _inference_variables(self, live: LiveWeights) -> LiveWeights:
@@ -402,6 +419,7 @@ class SelfPlayEngine:
         the trace are fetched (one copy). Returns that payload, or None."""
         t = int(num_moves or self.config.ROLLOUT_CHUNK_MOVES)
         with flight_span(self.flight, "rollout", f"self_play_chunk/t{t}", avals=f"B{self.batch_size}xT{t}"):
+            note_dispatch(f"self_play_chunk/t{t}")
             weights = self._inference_variables(self.net.live)
             self.note_weights_version(weights.version)
             self._carry, outputs = self._chunk(t, self._carry, weights)
@@ -415,6 +433,13 @@ class SelfPlayEngine:
             self.transfer_d2h_seconds += dt
             self.dispatch_count += 1
         self.fold_chunk_stats(host)
+        if self.device_stats:
+            # The search leg from the fetched packs; the rollout leg is a
+            # host fold over arrays the same fetch carried.
+            self.last_device_stats = {
+                "search": fold_search_stats(unpack_search_stats(host.get("device_stats"))),
+                "rollout": rollout_chunk_stats(host["episode"]["ending"], host["trace"]["reward"]),
+            }
         if payload is not None:
             return payload
         for block in (host["mat"], host["flush"]):

@@ -26,7 +26,9 @@ post-group step while the group still runs. With a run's flight recorder
 attached (`flight`), begin writes the group's intent (`learner_step`,
 `learner_fused_steps` or `learner_fused_from_ring`) before its work is
 queued and finish seals it after the fetch: the sealed wall is the
-group's dispatch to its results on the host.
+group's dispatch to its results on the host. Each step is a
+`learner_step` beacon site, indexed by the step before it, which
+launches nothing unless beacons are armed.
 
 The optimizer follows optax's chain as plain tensor functions:
 `clip_by_global_norm` (optax's formula, not `clip_grad_norm_`'s
@@ -57,6 +59,7 @@ import torch
 
 from .. import rng
 from ..config.train_config import TrainConfig
+from ..telemetry.device_stats import emit_beacon
 from ..utils.transfer import fetch, upload
 from ..utils.types import DenseBatch
 
@@ -275,7 +278,10 @@ class Trainer:
         """K steps over the leading axis of `stacked`, in order; returns
         (metrics of (K,) tensors, TD errors (K, B))."""
         k = stacked["value_target"].shape[0]
-        outs = [self._train_step_impl({n: v[i] for n, v in stacked.items()}) for i in range(k)]
+        outs = []
+        for i in range(k):
+            emit_beacon("learner_step", self.state.step, device=self.device)
+            outs.append(self._train_step_impl({n: v[i] for n, v in stacked.items()}))
         metrics = {name: torch.stack([m[name] for m, _ in outs]) for name in outs[0][0]}
         return metrics, torch.stack([td for _, td in outs])
 

@@ -56,7 +56,16 @@ the heartbeat, and each dispatch is bracketed in the flight ring as
 `serve/b<slots>`: the intent before the search, the seal after the one
 host fetch, so a wedge names the program and the `trace_ids` it was
 serving. Inside the bracket, before the search, sits the env-gated
-`serve-dispatch` fault site (`supervise/faults.py`).
+`serve-dispatch` fault site (`supervise/faults.py`), then the dispatch
+names its program for beacon rows (`note_dispatch`).
+
+Device stats: when the search was built with stat-packs on (the serve
+path never sets the flag; `ALPHATRIANGLE_DEVICE_STATS=1`, or a process
+whose training setup set it, turns them on, as in the JAX package), each
+dispatch's pack rides its one fetch and is folded into the tick window;
+`tick()` merges the window into the serve leg, ledgers it as a
+`kind:"device_stats"` record and mirrors its root entropy and occupancy
+into the util record's gauges.
 """
 
 import logging
@@ -72,7 +81,15 @@ from torch.profiler import record_function
 from .. import rng
 from ..mcts.search import CarriedTree
 from ..nn import precision
+from ..telemetry.device_stats import (
+    beacons_armed,
+    fold_search_stats,
+    merge_search_folds,
+    note_dispatch,
+    unpack_search_stats,
+)
 from ..telemetry.flight import flight_span
+from ..utils.transfer import fetch
 from .buckets import BucketLadder
 from .session import SessionSlots
 
@@ -159,6 +176,10 @@ class PolicyService:
         self._win_fill: list[float] = []
         self._win_requests = 0
         self._last_tick_t = clock()
+        # One stat-pack fold per dispatch (a search built with them) in
+        # the window, merged into a serve leg at a drain.
+        self._win_device_stats: list[dict] = []
+        self._last_serve_ds: "dict | None" = None
         # The last dispatch's search output and, under reuse, its (B,)
         # inherited root visits (device tensors, no fetch).
         self.last_output = None
@@ -346,7 +367,7 @@ class PolicyService:
         host fetch of every result array (caller holds the lock).
         Returns (search output, reused root visits or None, the
         pre-step states, the fetched host rows: actions, rewards, dones,
-        scores and the reused visits)."""
+        scores and the reused visits, the fetched stat-pack or None)."""
         reused = None
         if self._reduced:
             self.mcts.model = self._serve_variables()
@@ -374,8 +395,11 @@ class PolicyService:
             ]
             if reused is not None:
                 rows.append(reused)
-            host = torch.stack(rows).cpu().numpy()
-        return out, reused, pre_states, host
+            if out.stats is None:
+                host, pack = torch.stack(rows).cpu().numpy(), None
+            else:  # the stat-pack rides the same copy
+                host, pack = fetch((torch.stack(rows), out.stats))
+        return out, reused, pre_states, host, pack
 
     def dispatch(self, key: "torch.Tensor | None" = None) -> list[dict]:
         """Serve every pending request in ONE batched search + step.
@@ -411,7 +435,12 @@ class PolicyService:
                     from ..supervise.faults import fault_point
 
                     fault_point("serve-dispatch", self.dispatch_count)
-                out, reused, pre_states, host = self._search_step(mask, key)
+                note_dispatch(serve_program_name(self.sessions.slots))
+                out, reused, pre_states, host, pack = self._search_step(mask, key)
+                if pack is not None:
+                    fold = fold_search_stats(unpack_search_stats(pack))
+                    if fold:
+                        self._win_device_stats.append(fold)
             t1 = self._clock()
             self.last_output = out
             self.last_reused = reused
@@ -516,6 +545,9 @@ class PolicyService:
                 "serve_reused_visits_total": self.reused_visits_total,
             }
             if drain:
+                # This window's serve leg for `tick()` (None when stats are
+                # off or no dispatch ran in the window).
+                self._last_serve_ds = self.take_device_stats()
                 self._win_wait_ms = []
                 self._win_lat_ms = []
                 self._win_batch_ms = []
@@ -523,6 +555,15 @@ class PolicyService:
                 self._win_requests = 0
                 self._last_tick_t = now
             return stats
+
+    def take_device_stats(self) -> "dict | None":
+        """The serve leg of the dispatches since the last take or drain
+        (their folded stat-packs merged), and a new window; None when
+        stats are off or no dispatch ran."""
+        with self._lock:
+            leg = merge_search_folds(self._win_device_stats)
+            self._win_device_stats = []
+            return leg
 
     def tick(self) -> "dict | None":
         """One telemetry tick: drain the window into a `kind: "util"`
@@ -532,6 +573,16 @@ class PolicyService:
         if self.telemetry is None:
             return None
         stats = self.serve_stats(drain=True)
+        extra = {k: v for k, v in stats.items() if v is not None}
+        serve_ds = self._last_serve_ds
+        if serve_ds:
+            # The gauges ride the util record; the whole leg is its own
+            # device_stats record below.
+            if serve_ds.get("root_entropy") is not None:
+                extra["root_visit_entropy"] = serve_ds["root_entropy"]
+            if serve_ds.get("occupancy") is not None:
+                extra["tree_occupancy"] = serve_ds["occupancy"]
+            extra["beacons_armed"] = int(beacons_armed())
         record = self.telemetry.on_util_tick(
             step=self.dispatch_count,
             episodes=self.episodes_done_total,
@@ -540,8 +591,13 @@ class PolicyService:
             reused_visits=self.reused_visits_total,
             buffer_size=self.queue_depth,
             dispatch_wall_s=getattr(self.flight, "sealed_wall_seconds", None),
-            extra={k: v for k, v in stats.items() if v is not None},
+            extra=extra,
         )
+        if serve_ds:
+            self.telemetry.record_device_stats(
+                self.dispatch_count, serve=serve_ds, program=serve_program_name(self.sessions.slots)
+            )
+            self._last_serve_ds = None
         self.telemetry.on_tick(self.dispatch_count, buffer_size=self.queue_depth)
         return record
 

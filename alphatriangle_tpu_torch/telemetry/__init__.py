@@ -16,14 +16,20 @@ parts a training run, a league run, a serve run and the serve fleet use.
   tick appended to `metrics.jsonl`;
 - `flight.FlightRecorder` + `flight.DispatchWatchdog`: the intent/seal
   ring of every bracketed dispatch and its deadline watchdog, which
-  exits 113 on a wedge.
+  warns once per dispatch past half its deadline
+  (`_on_dispatch_warn` arms the progress beacons) and exits 113 on a
+  wedge;
+- `device_stats`: the stat-pack legs each iteration or serve tick folds
+  (`record_device_stats`, one `kind: "device_stats"` ledger record,
+  screened by `AnomalyDetector.observe_search`) and the progress
+  beacons, whose rows go to the run's `beacons.jsonl`.
 
 With `TelemetryConfig.ENABLED` false every hook is a no-op and no file
 is written. Every module of the package is stdlib only, apart from the
 lazy torch import of `health.device_memory_stats`: `cli health`,
 `cli perf` and the fleet parent read ledgers, heartbeats and flight
-rings without loading torch. The device stat-packs and beacons, and the
-memory and compile records, are not ported yet.
+rings without loading torch. The memory and compile records are not
+ported yet.
 """
 
 import logging
@@ -33,6 +39,14 @@ from pathlib import Path
 from ..config.telemetry_config import TelemetryConfig
 from . import tracectx
 from .anomaly import Anomaly, AnomalyDetector
+from .device_stats import (
+    arm_beacons,
+    attach_beacon_run_dir,
+    beacons_armed,
+    detach_beacon_run_dir,
+    device_stats_record,
+    drain_beacons,
+)
 from .flight import FLIGHT_FILENAME, DispatchWatchdog, FlightRecorder
 from .health import HealthMonitor, Watchdog, device_memory_stats, dump_thread_stacks
 from .ledger import METRICS_FILENAME, MetricsLedger, tick_record
@@ -104,6 +118,7 @@ class RunTelemetry:
             )
             self.dispatch_watchdog = DispatchWatchdog(
                 self.run_dir, poll_s=cfg.DISPATCH_WATCHDOG_POLL_S, on_wedge=self._on_wedge, clock=clock,
+                on_warn=self._on_dispatch_warn,
             )
             # A spawning parent's trace context (the env seam) becomes the
             # ring's base trace, linking every dispatch here back to the
@@ -116,6 +131,9 @@ class RunTelemetry:
                 watchdog=self.dispatch_watchdog,
                 base_trace=parent_ctx.fields() if parent_ctx is not None else None,
             )
+            # Beacon rows of this process go to this run's beacons.jsonl;
+            # no file is made until an armed site writes one.
+            attach_beacon_run_dir(self.run_dir)
         self._step = 0
         self._last_write_mono = None
         self._last_written_step: int | None = None
@@ -134,7 +152,8 @@ class RunTelemetry:
 
     def close(self, step: int | None = None) -> None:
         """Stop the watchdogs; write the flight ring's overhead record,
-        the final heartbeat and the span trace."""
+        the card's last published beacon rows (then no more rows go to
+        this run's file), the final heartbeat and the span trace."""
         if self._closed:
             return
         self._closed = True
@@ -146,6 +165,8 @@ class RunTelemetry:
             self.flight.close()
         if not self.enabled:
             return
+        drain_beacons()
+        detach_beacon_run_dir(self.run_dir)
         if step is not None:
             self._step = step
         self.health.write()
@@ -189,6 +210,24 @@ class RunTelemetry:
         sink, so every flush lands, the final ones included."""
         if self.ledger is not None and means:
             self.ledger.append(tick_record(step, means))
+
+    def record_device_stats(self, step: int, program: "str | None" = None, **legs) -> "dict | None":
+        """Ledger one `kind: "device_stats"` record from the legs the host
+        folded out of the iteration's fetch (search / rollout / per /
+        learner / serve), and screen its search or serve leg for a value
+        explosion, a root-entropy collapse or a saturated tree. Returns
+        the record; None when disabled or every leg is empty."""
+        if not self.enabled:
+            return None
+        record = device_stats_record(step, program=program, **legs)
+        if record is None:
+            return None
+        if self.ledger is not None:
+            self.ledger.append(record)
+        search_leg = record.get("search") or record.get("serve")
+        if search_leg:
+            self._escalate(self.anomaly.observe_search(search_leg, step), step)
+        return record
 
     def on_util_tick(self, step: int, **counters) -> "dict | None":
         """Derive and ledger one utilization record from the caller's
@@ -240,6 +279,16 @@ class RunTelemetry:
             "Watchdog: thread stacks -> %s, span trace -> %s",
             self.run_dir / STACKS_FILENAME, self.run_dir / TRACE_FILENAME,
         )
+
+    def _on_dispatch_warn(self, info: dict) -> None:
+        """Near-deadline hook: a dispatch is running long, so arm the
+        progress beacons now; the work enqueued after this reports its
+        phases, and a later wedge names the phase it hung in."""
+        self.tracer.instant(
+            "dispatch_warn", program=info.get("program"), elapsed_s=info.get("elapsed_s")
+        )
+        if not beacons_armed():
+            arm_beacons()
 
     def _on_wedge(self, info: dict) -> None:
         """Dispatch watchdog hook, before wedge_report.json and the exit:

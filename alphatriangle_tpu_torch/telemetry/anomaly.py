@@ -1,7 +1,7 @@
 """Streaming training-anomaly detection over per-step metrics:
 counterpart of `alphatriangle_tpu/telemetry/anomaly.py` (`Anomaly`,
-`AnomalyDetector.observe`, `observe_memory`, `observe_metrics`), firing
-the same anomalies on the same series.
+`AnomalyDetector.observe`, `observe_memory`, `observe_search`,
+`observe_metrics`), firing the same anomalies on the same series.
 
 The detector keeps an EWMA mean and variance per metric (O(1) per
 observation) and fires structured anomalies that `RunTelemetry`
@@ -20,9 +20,15 @@ window. Checks per observation:
   card's bytes in use): a monotonic climb for `memory_growth_ticks`
   ticks that grew by at least `memory_growth_fraction`. Latched; any
   decrease re-arms it.
+- **search health** (`observe_search`, fed one folded search or serve
+  leg of the device stat-packs per record): `value_abs_max` through the
+  nonfinite and spike checks as `Search/value_abs_max`; a root entropy
+  at or below `search_entropy_floor` fires `collapse` on
+  `Search/root_entropy`, an occupancy at or above `occupancy_ceiling`
+  fires `saturation` on `Search/tree_occupancy`, each latched and
+  re-armed by recovery. A partial leg skips the keys it lacks.
 
-`observe_search`, which screens the in-program search stat-packs, waits
-for those stat-packs. Stdlib only.
+Stdlib only.
 """
 
 import math
@@ -38,7 +44,7 @@ EPS_REL = 1e-3
 class Anomaly:
     """One detected anomaly, with recent-window context for the log."""
 
-    kind: str  # "nonfinite" | "spike" | "collapse" | "memory_growth"
+    kind: str  # "nonfinite" | "spike" | "collapse" | "memory_growth" | "saturation"
     metric: str
     step: int
     value: float
@@ -58,6 +64,11 @@ class Anomaly:
             parts.append(
                 f"bytes_in_use {self.value:,.0f} grew monotonically from {self.mean:,.0f} "
                 "(possible leak)"
+            )
+        elif self.kind == "saturation":
+            parts.append(
+                f"value {self.value:.4g} at/above saturation ceiling — "
+                "tree slots exhausted, extra simulations are wasted"
             )
         else:
             parts.append(f"value {self.value!r}")
@@ -91,6 +102,8 @@ class AnomalyDetector:
         entropy_metrics: tuple[str, ...] = ("Loss/Entropy",),
         memory_growth_ticks: int = 12,
         memory_growth_fraction: float = 0.05,
+        search_entropy_floor: float = 0.05,
+        occupancy_ceiling: float = 0.98,
     ) -> None:
         self.alpha = alpha
         self.z_threshold = z_threshold
@@ -100,6 +113,11 @@ class AnomalyDetector:
         self.entropy_metrics = set(entropy_metrics)
         self.memory_growth_ticks = memory_growth_ticks
         self.memory_growth_fraction = memory_growth_fraction
+        self.search_entropy_floor = search_entropy_floor
+        self.occupancy_ceiling = occupancy_ceiling
+        # observe_search's latches: one anomaly per excursion.
+        self._search_collapsed = False
+        self._search_saturated = False
         self._lock = threading.Lock()
         self._state: dict[str, _MetricState] = {}
         # Leak detector: the value at the start of the current monotonic
@@ -173,6 +191,37 @@ class AnomalyDetector:
                 )
             self._mem_recent.append((step, value))
             return out
+
+    def observe_search(self, leg: dict, step: int) -> list[Anomaly]:
+        """Screen one folded search leg of the device stat-packs; keys the
+        leg lacks are skipped."""
+        out: list[Anomaly] = []
+        if not isinstance(leg, dict):
+            return out
+        v = leg.get("value_abs_max")
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            # A value explosion is a spike on this series.
+            out.extend(self.observe("Search/value_abs_max", float(v), step))
+        for key, metric, kind in (
+            ("root_entropy", "Search/root_entropy", "collapse"),
+            ("occupancy", "Search/tree_occupancy", "saturation"),
+        ):
+            x = leg.get(key)
+            if not isinstance(x, (int, float)) or isinstance(x, bool) or not math.isfinite(float(x)):
+                continue
+            x = float(x)
+            with self._lock:
+                if kind == "collapse":
+                    hit, latched = x <= self.search_entropy_floor, self._search_collapsed
+                else:
+                    hit, latched = x >= self.occupancy_ceiling, self._search_saturated
+                if hit and not latched:
+                    out.append(Anomaly(kind, metric, step, x))
+                if kind == "collapse":
+                    self._search_collapsed = hit
+                else:
+                    self._search_saturated = hit
+        return out
 
     def observe_metrics(self, metrics: dict[str, float], step: int) -> list[Anomaly]:
         out: list[Anomaly] = []

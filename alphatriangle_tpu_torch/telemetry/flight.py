@@ -9,10 +9,13 @@ either package's readers classify the other's run directories.
   with the measured wall. A serve dispatch seals after its one host
   fetch, so the wall covers the kernels, not only their launches. An
   intent without a seal names the program the process died inside.
-- `DispatchWatchdog`: armed per intent, disarmed per seal. Past the
-  deadline it dumps every thread's stack, runs the caller hook (span
-  trace flush), writes `wedge_report.json` and exits with
-  `WEDGE_EXIT_CODE` (113), so a supervisor respawns in seconds.
+- `DispatchWatchdog`: armed per intent, disarmed per seal. Past
+  `warn_fraction` of its deadline a dispatch warns once (`on_warn`:
+  telemetry arms the progress beacons). Past the deadline it dumps
+  every thread's stack, runs the caller hook (span trace flush),
+  writes `wedge_report.json` with the run's `last_beacon` (the card's
+  beacon ring drained first) and exits with `WEDGE_EXIT_CODE` (113), so
+  a supervisor respawns in seconds.
 - Readers (`read_flight`, `unsealed_intents`, `summarize_flight`,
   `classify_run`): stdlib only, so a parent beside a wedged card reads
   them without torch.
@@ -26,9 +29,6 @@ Records:
      "family": ..., "wall_s": ..., "ok": true, "t_mono": ..., "time": ...}
 
 A failed dispatch seals `ok: false` with its `error`.
-
-The progress beacons of the device stat-packs are not ported yet: a
-wedge report carries no `last_beacon`.
 """
 
 import contextlib
@@ -367,6 +367,12 @@ class DispatchWatchdog:
     `os._exit(WEDGE_EXIT_CODE)`. `os._exit` because the
     thread that would run normal shutdown is the one blocked inside the
     hung dispatch. The clock is injectable so tests freeze it.
+
+    A near-deadline warning comes first: a dispatch in flight past
+    `warn_fraction` of its deadline (0.5, the JAX config's default; None
+    turns the warning off) calls `on_warn` once (telemetry arms the
+    progress beacons there, so the work enqueued after it, and a later
+    wedge, report their phases); `warn_count` counts them.
     """
 
     def __init__(
@@ -376,11 +382,16 @@ class DispatchWatchdog:
         on_wedge=None,
         exit_on_wedge: bool = True,
         clock=time.monotonic,
+        warn_fraction: "float | None" = 0.5,
+        on_warn=None,
     ) -> None:
         self.run_dir = Path(run_dir)
         self.poll_s = poll_s
         self.on_wedge = on_wedge
         self.exit_on_wedge = exit_on_wedge
+        self.warn_fraction = warn_fraction
+        self.on_warn = on_warn
+        self.warn_count = 0
         self._clock = clock
         self._lock = threading.Lock()
         self._armed: dict[int, dict] = {}
@@ -402,6 +413,7 @@ class DispatchWatchdog:
         dispatch is overdue (having fired the full reaction), else
         None. Called by the poll thread, and directly by tests."""
         now = self._clock() if now is None else now
+        warnings: list[dict] = []
         with self._lock:
             if self._fired:
                 return None
@@ -409,14 +421,40 @@ class DispatchWatchdog:
             for info in self._armed.values():
                 elapsed = now - info["armed_at"]
                 deadline = float(info.get("deadline_s") or 0.0)
+                if (
+                    self.warn_fraction is not None
+                    and not info.get("warned")
+                    and deadline > 0.0
+                    and elapsed > self.warn_fraction * deadline
+                ):
+                    # Once per dispatch, before any wedge reaction.
+                    info["warned"] = True
+                    self.warn_count += 1
+                    warnings.append(dict(info, elapsed_s=round(elapsed, 3)))
                 if elapsed > deadline and (
                     overdue is None or elapsed > overdue[1]
                 ):
                     overdue = (info, elapsed)
-            if overdue is None:
-                return None
-            self._fired = True
-            self.wedge_count += 1
+            if overdue is not None:
+                self._fired = True
+                self.wedge_count += 1
+        for winfo in warnings:
+            logger.warning(
+                "DispatchWatchdog: %s (%s) at %.0f%% of its %.0fs deadline (%.0fs elapsed) — "
+                "near-deadline warning.",
+                winfo.get("program"),
+                winfo.get("family"),
+                100.0 * winfo["elapsed_s"] / float(winfo["deadline_s"]),
+                float(winfo.get("deadline_s") or 0.0),
+                winfo["elapsed_s"],
+            )
+            if self.on_warn is not None:
+                try:
+                    self.on_warn(winfo)
+                except Exception:
+                    logger.exception("on_warn hook failed")
+        if overdue is None:
+            return None
         info, elapsed = overdue
         return self._fire(dict(info), elapsed)
 
@@ -456,6 +494,17 @@ class DispatchWatchdog:
             "stacks_file": str(stacks_path),
             "exit_code": WEDGE_EXIT_CODE if self.exit_on_wedge else None,
         }
+        try:
+            # The newest beacon row (None unless beacons were armed): the
+            # phase the hung work, or the work before it, last reached.
+            # The card's ring is drained first.
+            from .device_stats import drain_beacons, last_beacon
+
+            drain_beacons()
+            report["last_beacon"] = last_beacon(self.run_dir)
+        except Exception:
+            logger.exception("beacon read for the wedge report failed")
+            report["last_beacon"] = None
         write_wedge_report(self.run_dir / WEDGE_REPORT_FILENAME, report)
         if self.exit_on_wedge:
             # Flush logging/stdio by hand: _exit skips atexit and
@@ -615,6 +664,7 @@ def classify_run(
     wedge: "dict | None" = None,
     now: "float | None" = None,
     preempt: "dict | None" = None,
+    beacon: "dict | None" = None,
 ) -> dict:
     """Pure postmortem classifier over a run's on-disk evidence.
 
@@ -637,7 +687,12 @@ def classify_run(
       checkpoint restore).
     - `clean`: all intents sealed, no stall evidence.
 
-    Returns {verdict, exit_code, program, family, detail, evidence}.
+    `beacon` is the run's newest progress-beacon row (`last_beacon`;
+    the wedge report's own copy wins when both exist): a hung verdict
+    names it in its detail and carries it as `last_beacon`.
+
+    Returns {verdict, exit_code, program, family, detail, evidence};
+    hung verdicts add `last_beacon` when a beacon row exists.
     """
     records = flight_records or []
     seals_by_program: dict[str, int] = {}
@@ -690,6 +745,13 @@ def classify_run(
         )
     if hung is not None:
         program, family, detail = hung
+        beacon_row = (wedge or {}).get("last_beacon") or beacon
+        if isinstance(beacon_row, dict):
+            from .device_stats import describe_beacon
+
+            described = describe_beacon(beacon_row)
+            if described:
+                detail = f"{detail}; last beacon: {described}"
         if pressure is not None and pressure >= OOM_UTILIZATION:
             verdict_dict = result(
                 "oom",
@@ -704,6 +766,8 @@ def classify_run(
                 else "compile-hung"
             )
             verdict_dict = result(verdict, program, family, detail)
+        if isinstance(beacon_row, dict):
+            verdict_dict["last_beacon"] = beacon_row
         return verdict_dict
     if preempt is not None:
         ckpt = preempt.get("checkpointed_step")

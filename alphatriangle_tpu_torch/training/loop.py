@@ -76,8 +76,23 @@ dispatches, iterations with warm-up chunks counted, and the flight
 recorder's sealed dispatch wall, from which the record's
 `chip_idle_fraction` is the share of the tick with no dispatch in
 flight, not the card's idle share), the heartbeat (`on_tick`), the
-collector's tick and, every 10 s, a progress line. The device
-stat-packs, which feed the record's `extra`, are not ported yet.
+collector's tick and, every 10 s, a progress line. Before them the
+tail drains the freshest device stat-pack fold (`_drain_device_stats`:
+the megastep runner's, else any rollout engine's) into one
+`kind: "device_stats"` record (`RunTelemetry.record_device_stats`) and
+mirrors its root entropy and occupancy, with the beacons' armed state,
+into the util record's `root_visit_entropy`, `tree_occupancy` and
+`beacons_armed`.
+
+Profiling (`profiling.ProfileSession`): the loop times its phases under
+the JAX loop's names (`rollout`, `sample`, `train`, `weight_sync`,
+`checkpoint`, `megastep`, and in the overlapped loop `fold`, `dispatch`
+and `enqueue_wait/stream<N>`), each phase also a span of the telemetry
+tracer. With `TrainConfig.PROFILE_WORKERS` (`cli train --profile`) the
+timers go to the collector as `Profile/<phase>_ms` each iteration and to
+`profile_data/phase_timers.json` at the end, and iterations 1-2 run
+under a `torch.profiler` window exported into `profile_data/`
+(`cli analyze` reads both).
 """
 
 import contextlib
@@ -92,9 +107,11 @@ from enum import Enum
 import numpy as np
 import torch
 
+from ..profiling import ProfileSession
 from ..rl.self_play import SelfPlayEngine
 from ..stats.events import RawMetricEvent
 from ..telemetry import RunTelemetry
+from ..telemetry.device_stats import beacons_armed
 from ..telemetry.flight import PREEMPT_EXIT_CODE, PREEMPT_REPORT_FILENAME, write_preempt_report
 from ..utils.helpers import format_eta
 from ..utils.transfer import hand_off, receive
@@ -183,6 +200,13 @@ class TrainingLoop:
         for part in (components.self_play, components.trainer, components.megastep):
             if part is not None and getattr(part, "flight", None) is None:
                 part.flight = self.telemetry.flight
+        # The phase timers always run; the trace window, the metrics and
+        # the dump only under PROFILE_WORKERS.
+        self.profile = ProfileSession(
+            enabled=self.cfg.PROFILE_WORKERS,
+            profile_dir=components.persistence_config.get_profile_dir(),
+            tracer=self.telemetry.tracer,
+        )
         if self.cfg.FUSED_LEARNER_STEPS > self.cfg.WORKER_UPDATE_FREQ_STEPS:
             logger.warning(
                 "FUSED_LEARNER_STEPS=%d > WORKER_UPDATE_FREQ_STEPS=%d: weights can only "
@@ -414,7 +438,8 @@ class TrainingLoop:
         global_step] crossed a WORKER_UPDATE_FREQ_STEPS multiple: once,
         however many multiples the group crossed."""
         if self._crossed(self.global_step, self.cfg.WORKER_UPDATE_FREQ_STEPS, prev_step):
-            self.c.trainer.sync_to_network()
+            with self.profile.phase("weight_sync"):
+                self.c.trainer.sync_to_network()
             self.weight_updates += 1
             self.c.stats.log_scalar(
                 "Progress/Weight_Updates_Total", self.weight_updates, self.global_step
@@ -437,13 +462,14 @@ class TrainingLoop:
         """Up to `group` batches sampled from the ring on the host, at the
         learner's dispatch-time step (PER beta)."""
         samples = []
-        for _ in range(group):
-            s = self.c.buffer.sample(
-                self.cfg.BATCH_SIZE, current_train_step=self.c.trainer.global_step
-            )
-            if s is None:
-                break
-            samples.append(s)
+        with self.profile.phase("sample"):
+            for _ in range(group):
+                s = self.c.buffer.sample(
+                    self.cfg.BATCH_SIZE, current_train_step=self.c.trainer.global_step
+                )
+                if s is None:
+                    break
+                samples.append(s)
         return samples
 
     def _begin_groups(self, samples: list) -> list:
@@ -480,16 +506,18 @@ class TrainingLoop:
                 break
             prev_step = self.global_step
             outs, used = [], []
-            for handle, part in self._begin_groups(samples):
-                outs.extend(self.c.trainer.train_steps_finish(handle))
-                used.extend(part)
+            with self.profile.phase("train"):
+                for handle, part in self._begin_groups(samples):
+                    outs.extend(self.c.trainer.train_steps_finish(handle))
+                    used.extend(part)
             if not outs:
                 break
             for i, (s, (metrics, td_errors)) in enumerate(zip(used, outs)):
                 self._record_step(metrics, td_errors, s["indices"], prev_step + i + 1)
             ran += len(outs)
             self._maybe_sync_weights(prev_step)
-            self._maybe_checkpoint()
+            with self.profile.phase("checkpoint"):
+                self._maybe_checkpoint()
             if len(outs) < group:
                 break
         return ran
@@ -528,16 +556,43 @@ class TrainingLoop:
             total += int(c.megastep.dispatch_count)
         return total
 
+    def _drain_device_stats(self) -> "dict | None":
+        """The freshest stat-pack fold: the megastep runner's, else the
+        primary engine's, else another stream's. Taken once: the source
+        is cleared, so an idle iteration ledgers nothing stale."""
+        sources = [self.c.megastep] if self.c.megastep is not None else []
+        sources += self._engines()
+        for src in sources:
+            ds = getattr(src, "last_device_stats", None)
+            if ds:
+                src.last_device_stats = None
+                return ds
+        return None
+
     def _iteration_tail(self, warmup: bool = False) -> None:
         """Count the iteration (a megastep warm-up chunk as such), then
-        the utilization record, the heartbeat, the collector's tick and
-        the progress line, in the JAX loop's order."""
+        the profile metrics, the device-stats record, the utilization
+        record, the heartbeat, the collector's tick and the progress
+        line, in the JAX loop's order."""
+        if self.cfg.PROFILE_WORKERS:
+            for name, val in self.profile.timers.metrics().items():
+                self.c.stats.log_scalar(name, val, self.global_step)
         if warmup:
             self.warmup_chunks += 1
         else:
             self.iterations += 1
-        h2d, d2h = self._transfer_seconds()
         telemetry = self.telemetry
+        ds = self._drain_device_stats()
+        extra = None
+        if ds:
+            telemetry.record_device_stats(self.global_step, **ds)
+            search = ds.get("search") or {}
+            extra = {"beacons_armed": int(beacons_armed())}
+            if search.get("root_entropy") is not None:
+                extra["root_visit_entropy"] = search["root_entropy"]
+            if search.get("occupancy") is not None:
+                extra["tree_occupancy"] = search["occupancy"]
+        h2d, d2h = self._transfer_seconds()
         telemetry.on_util_tick(
             self.global_step,
             episodes=self.episodes_played,
@@ -553,7 +608,7 @@ class TrainingLoop:
             # The union of the open brackets: the overlapped loop's streams
             # and learner groups are in flight at the same time.
             dispatch_wall_s=telemetry.flight.inflight_wall_s() if telemetry.flight is not None else None,
-            extra=None,
+            extra=extra,
         )
         telemetry.on_tick(self.global_step, len(self.c.buffer))
         self.c.stats.process_and_log(self.global_step)
@@ -602,6 +657,7 @@ class TrainingLoop:
         finally:
             self.stop_event.set()
             try:
+                self.profile.close()
                 self._maybe_checkpoint(force=True)
                 self.c.stats.force_process_and_log(self.global_step)
             except Exception as exc:
@@ -628,12 +684,16 @@ class TrainingLoop:
 
     def _run_sync(self) -> None:
         cfg = self.cfg
+        iteration = 0
         while not self.stop_event.is_set():
             if self._max_steps_reached():
                 logger.info("Reached MAX_TRAINING_STEPS=%d.", cfg.MAX_TRAINING_STEPS)
                 break
+            self.profile.on_iteration(iteration)
+            iteration += 1
             t0 = time.perf_counter()
-            added = self._process_rollout()
+            with self.profile.phase("rollout"):
+                added = self._process_rollout()
             t1 = time.perf_counter()
             n_steps = cfg.LEARNER_STEPS_PER_ROLLOUT or max(1, round(added / cfg.BATCH_SIZE))
             self.rows_per_iteration.append(added)
@@ -654,9 +714,13 @@ class TrainingLoop:
         cfg = self.cfg
         runner = self.c.megastep
         need = max(cfg.MIN_BUFFER_SIZE_TO_TRAIN, cfg.BATCH_SIZE)
+        iteration = 0
         while not self.stop_event.is_set() and not self._megastep_ready(need):
+            self.profile.on_iteration(iteration)
+            iteration += 1
             t0 = time.perf_counter()
-            self._process_rollout()
+            with self.profile.phase("rollout"):
+                self._process_rollout()
             self.timings["warmup_chunk_s"].append(time.perf_counter() - t0)
             self._iteration_tail(warmup=True)
         # Device priorities pick up everything the warm-up, and a restore
@@ -670,15 +734,19 @@ class TrainingLoop:
             k = self._learner_budget(runner.steps_per_megastep)
             if k <= 0:
                 break
+            self.profile.on_iteration(iteration)
+            iteration += 1
             prev_step = self.global_step
             t0 = time.perf_counter()
-            outs, added = runner.run_megastep(cfg.ROLLOUT_CHUNK_MOVES, k)
+            with self.profile.phase("megastep"):
+                outs, added = runner.run_megastep(cfg.ROLLOUT_CHUNK_MOVES, k)
             self.timings["megastep_s"].append(time.perf_counter() - t0)
             self.megastep_iterations += 1
             self._fold_result(self.c.self_play.harvest(), added=added)
             for i, (metrics, td_errors) in enumerate(outs):
                 self._record_step(metrics, td_errors, None, prev_step + i + 1)
-            self._maybe_checkpoint()
+            with self.profile.phase("checkpoint"):
+                self._maybe_checkpoint()
             self._iteration_tail()
 
     # --- overlapped producer/consumer -----------------------------------
@@ -726,15 +794,19 @@ class TrainingLoop:
                 receive(engine._carry, ready)  # the engine was built or last ran elsewhere
                 while not self.stop_event.is_set():
                     t0 = time.perf_counter()
-                    result, payload = self._play_rollout(engine, self._producer_chunk_moves())
+                    with self.profile.phase("rollout"):
+                        result, payload = self._play_rollout(engine, self._producer_chunk_moves())
                     self.timings["producer_chunk_s"].append(time.perf_counter() - t0)
                     item = (result, engine.last_trace, payload, hand_off(engine.device), stream)
-                    while not self.stop_event.is_set():
-                        try:
-                            out.put(item, timeout=0.2)
-                            break
-                        except queue.Full:
-                            continue
+                    # Back-pressure, timed per stream: a long wait here means
+                    # the consumer, not self-play, is the bottleneck.
+                    with self.profile.phase(f"enqueue_wait/stream{stream}"):
+                        while not self.stop_event.is_set():
+                            try:
+                                out.put(item, timeout=0.2)
+                                break
+                            except queue.Full:
+                                continue
         except BaseException as exc:
             if not self.stop_event.is_set():
                 self._producer_failures.put((stream, exc))
@@ -823,7 +895,8 @@ class TrainingLoop:
         samples = self._sample_group(group)
         if not samples:
             return False
-        groups = self._begin_groups(samples)
+        with self.profile.phase("dispatch"):
+            groups = self._begin_groups(samples)
         self._inflight.extend(groups)
         return bool(groups)
 
@@ -832,7 +905,8 @@ class TrainingLoop:
         installs the learner's current weights, which may already include
         the next group: fresher than the step label, never older."""
         handle, samples = self._inflight.popleft()
-        outs = self.c.trainer.train_steps_finish(handle)
+        with self.profile.phase("train"):
+            outs = self.c.trainer.train_steps_finish(handle)
         prev_step = self.global_step
         for i, (s, (metrics, td_errors)) in enumerate(zip(samples, outs)):
             self._record_step(metrics, td_errors, s["indices"], prev_step + i + 1)
@@ -858,7 +932,8 @@ class TrainingLoop:
             ran += self._finish_oldest_group()
         if ran and self._checkpoint_due():
             ran += self._drain_learner()
-            self._maybe_checkpoint()
+            with self.profile.phase("checkpoint"):
+                self._maybe_checkpoint()
         return ran
 
     def _make_rollout_streams(self) -> list:
@@ -902,32 +977,36 @@ class TrainingLoop:
                 rec["cuda_stream"] = torch.cuda.Stream(self.c.device)
             rec["engine"] = engine
             rec["thread"] = self._spawn_producer_thread(engine, harvests, i)
+        iteration = 0
         try:
             while not self.stop_event.is_set():
                 if self._max_steps_reached():
                     logger.info("Reached MAX_TRAINING_STEPS=%d.", cfg.MAX_TRAINING_STEPS)
                     break
+                self.profile.on_iteration(iteration)
+                iteration += 1
                 t0 = time.perf_counter()
                 self._supervise_producers(harvests)
                 # Drain everything available; block briefly only when
                 # there is no learner work either.
                 folded = 0
-                while True:
-                    try:
-                        self._fold_result(*harvests.get_nowait())
-                        folded += 1
-                    except queue.Empty:
-                        break
-                if (
-                    folded == 0
-                    and not self.stop_event.is_set()
-                    and (self._learner_steps_allowed() == 0 or not self.c.buffer.is_ready())
-                ):
-                    try:
-                        self._fold_result(*harvests.get(timeout=0.5))
-                        folded += 1
-                    except queue.Empty:
-                        pass
+                with self.profile.phase("fold"):
+                    while True:
+                        try:
+                            self._fold_result(*harvests.get_nowait())
+                            folded += 1
+                        except queue.Empty:
+                            break
+                    if (
+                        folded == 0
+                        and not self.stop_event.is_set()
+                        and (self._learner_steps_allowed() == 0 or not self.c.buffer.is_ready())
+                    ):
+                        try:
+                            self._fold_result(*harvests.get(timeout=0.5))
+                            folded += 1
+                        except queue.Empty:
+                            pass
                 if cfg.PIPELINE_LEARNER:
                     steps_ran = self._pump_learner(self._learner_steps_allowed())
                 else:

@@ -12,8 +12,10 @@ configs, and the run's `RunTelemetry`: a `UtilizationMeter` on the run's
 own FLOPs and the device's name (`torch.cuda.get_device_name`, "cpu" on
 the CPU), the collector's tick sink into the metrics ledger, and the
 flight recorder attached to self-play, the learner and the megastep.
-The device is resolved before anything touches the disk, so a CUDA
-request without a card makes no directory. The learner shares the net's
+Before any engine exists it publishes the device stat-pack flag
+(`set_device_stats(TelemetryConfig.ENABLED)`), which the searches read
+when they are built. The device is resolved before anything touches
+the disk, so a CUDA request without a card makes no directory. The learner shares the net's
 module only in megastep mode (rl/trainer.py). Meshes wait for a later
 slice; so do the compile-cache tracer and the memory records of the JAX
 setup.
@@ -43,6 +45,7 @@ from ..rl.trainer import Trainer
 from ..stats.collector import StatsCollector
 from ..stats.persistence import CheckpointManager
 from ..telemetry import RunTelemetry
+from ..telemetry.device_stats import set_device_stats
 from ..telemetry.perf import UtilizationMeter
 from ..utils.flops import forward_flops, train_step_flops
 from .components import TrainingComponents
@@ -124,6 +127,9 @@ def setup_training_components(
     )
     mcts_config = mcts_config or AlphaTriangleMCTSConfig()
     device = resolve_device(device)
+    # The searches snapshot the stat-pack flag when they are built.
+    telemetry_config = telemetry_config or TelemetryConfig()
+    set_device_stats(telemetry_config.ENABLED)
 
     env = TriangleEnv(env_config, device=device)
     extractor = FeatureExtractor(env, model_config)
@@ -164,7 +170,6 @@ def setup_training_components(
     checkpoints.save_configs(all_configs)
     stats = StatsCollector(persistence_config, use_tensorboard=use_tensorboard)
     stats.log_params(all_configs)
-    telemetry_config = telemetry_config or TelemetryConfig()
     perf_meter = UtilizationMeter(
         forward_flops=forward_flops(model_config, env_config, env_config.action_dim),
         train_step_flops=train_step_flops(

@@ -87,7 +87,10 @@ train phase's widths and cuts, through `run_training`:
   (checked as above), one set of weights per chunk, and 16 + 2 search
   launches per searched move over all streams. Then the same loop runs 8
   more steps under the profiler: the card's busy share is the union of
-  every stream's kernel and copy intervals over the window's wall.
+  every stream's kernel and copy intervals over the window's wall. Then
+  4 more with every beacon armed and no beacon ring yet: the rows the
+  ring's drain writes must equal, as a multiset, the beacons the host
+  enqueued on the two producer streams and the learner's, none dropped.
 
 Then the checkpoint paths, at the default widths and the train-sync
 phase's depth cuts:
@@ -243,7 +246,7 @@ their widths and cuts (no training run is added):
 - train, train-reuse, train-sync, train-sync-host and train-async: each
   telemetry hook the loop calls (`RunTelemetry.on_rollout`,
   `on_learner_step`, `on_util_tick`, `on_tick`, the collector's
-  `record_metrics`) timed with `perf_counter`, plus the flight
+  `record_metrics`, the iteration's `record_device_stats`) timed with `perf_counter`, plus the flight
   recorder's own `overhead_seconds`, per iteration (from one
   `_iteration_tail` to the next): the mean per iteration must be at most
   5% of the iteration p50. Right after `run_training`: `health.json`
@@ -261,6 +264,54 @@ their widths and cuts (no training run is added):
 - league: the report's `ledger` is the run's `metrics.jsonl`, which
   holds the report's `kind:"league"` records, one per round.
 
+Slice twelve's device telemetry and profiling, at the serve and train
+defaults' widths and cuts:
+
+- kernel: the beacon writer (`csrc/beacon.cu`, not a TPU kernel: the
+  JAX package's beacons are host callbacks) against its plain version,
+  4,196 rows through a wrapping 4,096-slot ring in mapped pinned memory,
+  equal word for word; timed per call against its bytes bound.
+- the train phases (train, train-reuse, train-sync, -sync-host, -async,
+  the three train-preset3 loops) and league run with the stat-packs on
+  (the training default): one `kind:"device_stats"` record an iteration
+  (the overlapped loop: its freshest folds), every search leg finite
+  with its root entropy in [0, ln 360], the depth histograms summing to
+  the run's simulations (fast moves at their 16), a PER and a learner
+  leg for every megastep, a reused share above 0 with reuse, the util
+  records' `root_visit_entropy`, `tree_occupancy` and `beacons_armed`
+  set; the league's serve legs count every league dispatch. The search
+  and PER launches stay 16 + 2 a searched move and one count a megastep.
+  Serve phases build their searches with the stat-packs off, the serve
+  default. After the train phase's run, on its components: megasteps
+  with the packs off and on interleaved, one profiled with them off
+  whose host-blocking runtime calls must equal the profiled one's with
+  them on, and one megastep with every beacon armed whose rows, drained
+  from the card's ring, must equal the beacons the host enqueued.
+- reference: the small reference search's stat-pack on the card equal
+  to the CPU's (histogram, concentration, occupancy, |value| max; the
+  entropy within 1e-6 relative).
+- serve-stats: the serve default built with the packs off and under
+  `ALPHATRIANGLE_DEVICE_STATS=1` with a serve run's telemetry,
+  dispatches interleaved (p50 off / on), one of each profiled (launches,
+  equal host-blocking calls), the stats service's ticks ledgering serve
+  legs of 64 x 64 simulations a dispatch and the util gauges.
+- beacons: the serve default with a 4 s dispatch deadline whose wedges
+  do not exit. A dispatch stalled 2.8 s on the card between its waves:
+  the near-deadline warning arms the beacons, once.
+  Dispatches until the deadline is back at its floor, then an armed
+  dispatch stalled 6 s on the card before its second wave's beacon: 1 s
+  into it the host has enqueued that beacon, and the run's last beacon
+  must be the first wave's (`search_wave` 0; the rows before it end at
+  wave 1); the wedge report written at 4 s carries it and
+  `classify_run` names it; the rows after the fetch equal what the host
+  enqueued. Then armed and unarmed dispatches interleaved.
+- profile: `cli train --fused-megastep --profile` to 3 megasteps of
+  4-move chunks (the window then holds a megastep), then
+  `cli analyze` of its `profile_data/` (exit 0 both): the phase timers
+  hold rollout, megastep and checkpoint; the trace's device lines count
+  the window's gather, backup and PER-count kernels exactly; the top
+  five device kernels and the profiled against the unprofiled megastep.
+
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
 
@@ -268,6 +319,7 @@ Then one JSON line of kernel figures, the card line, `kernels: ...`, and
 as the last line `{"ok": true, "device": {...}}`.
 """
 
+import collections
 import json
 import os
 import re
@@ -818,6 +870,7 @@ def serve_phase(
     from alphatriangle_tpu_torch.serving import PolicyService, run_simulated_load
 
     slots, sims = 64, 64
+    serve_default_stats()
     env_cfg, model_cfg = EnvConfig(), ModelConfig()
     mcts_cfg = AlphaTriangleMCTSConfig(
         max_simulations=sims, tree_reuse=reuse, root_selection="gumbel" if gumbel else "puct"
@@ -917,7 +970,7 @@ def serve_phase(
 
 STAGES = (
     "search.init_tree", "search.descend", "search.expand", "search.evaluate",
-    "search.backup", "search.promote", "serve.step", "serve.fetch",
+    "search.backup", "search.promote", "search.stats", "serve.step", "serve.fetch",
 )
 
 
@@ -996,7 +1049,8 @@ def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
 # The megastep's stages; the search's own stages nest inside selfplay.chunk.
 TRAIN_STAGES = (
     "selfplay.cast", "selfplay.chunk", "search.init_tree", "search.descend", "search.expand", "search.evaluate",
-    "search.backup", "search.promote", "ring.ingest", "per.sample", "learner.steps", "per.update",
+    "search.backup", "search.promote", "search.stats", "ring.ingest", "per.sample", "learner.steps",
+    "per.update",
 )
 
 
@@ -1028,7 +1082,9 @@ def loop_config(**kw):
 
 # The share of a loop's iteration p50 its telemetry hooks may take.
 TELEMETRY_HOOK_SHARE = 0.05
-TELEMETRY_HOOKS = ("on_rollout", "on_learner_step", "on_util_tick", "on_tick", "record_metrics")
+TELEMETRY_HOOKS = (
+    "on_rollout", "on_learner_step", "on_util_tick", "on_tick", "record_metrics", "record_device_stats",
+)
 
 
 def watch_telemetry():
@@ -1170,7 +1226,9 @@ def check_telemetry(loop, watch: dict, label: str, strict: bool = True) -> dict:
     if mean_hook > TELEMETRY_HOOK_SHARE * p50:
         fail(f"{label}: telemetry hooks {mean_hook * 1e3:.2f} ms an iteration, over "
              f"{TELEMETRY_HOOK_SHARE:.0%} of the iteration p50 {p50 * 1e3:.1f} ms")
+    device_stats = check_device_stats(loop, label, strict=strict)
     return {
+        "device_stats": device_stats,
         "util_records": len(utils),
         "tick_records": len(sink),
         "mfu_run": mfu_run,
@@ -1209,6 +1267,7 @@ def say_telemetry(label: str, r: dict, card: str) -> None:
         f"{r['iteration_ms_p50']:.1f} ms (min {r['iteration_ms_min']:.1f}, max "
         f"{r['iteration_ms_max']:.1f}, {r['iterations_timed']} iterations) [{card}]"
     )
+    say_device_stats(label, r["device_stats"], card)
 
 
 def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = None):
@@ -1300,12 +1359,19 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
         c.megastep.run_megastep(TRAIN_CHUNK_MOVES, TRAIN_K)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    # Stat-packs off / on, and the beacons armed (outside the counted run).
+    stats_ab = None
+    if not reuse:
+        stats_ab = megastep_stats_ab(
+            torch, c, prof, c.persistence_config.get_run_base_dir(), sleep_cycles_per_ms()
+        )
     lanes = c.self_play.batch_size
     warm = loop.timings["warmup_chunk_s"]
     report = loop.report()
     sims = mcts_cfg.max_simulations
     share = loop.total_reused_visits / (loop.total_reused_visits + loop.total_simulations)
     return {
+        "stats_ab": stats_ab,
         "launches": launches,
         "megasteps": loop.megastep_iterations,
         "warmup_chunks": loop.warmup_chunks,
@@ -1337,8 +1403,9 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
 # The synchronous and overlapped phases' depth cuts (their widths are the
 # defaults, as in the train phase).
 SYNC_STEPS, SYNC_HOST_STEPS, ASYNC_STEPS = 12, 4, 16
-# A further window of the overlapped loop, run under the profiler.
-ASYNC_PROFILED_STEPS = 8
+# Further windows of the overlapped loop: one under the profiler, one
+# with every beacon armed.
+ASYNC_PROFILED_STEPS, ASYNC_ARMED_STEPS = 8, 4
 
 
 def watch_chunks():
@@ -1699,7 +1766,68 @@ def train_async_phase(torch, dev, kernels) -> dict:
         "device_busy_share": busy["union_ms"] / prof_wall_ms if measured else None,
         "streams_overlap": busy["sum_ms"] / busy["union_ms"] if measured else None,
     }
+    out["armed"] = armed_async_window(torch, loop, dev)
     return out
+
+
+def armed_async_window(torch, loop, dev) -> dict:
+    """The overlapped loop, continued for ASYNC_ARMED_STEPS more steps with
+    every beacon armed from the start. No beacon ring exists yet: the
+    first armed site makes it, on whichever thread reaches one, and the
+    two producer streams and the learner's then all add to its counter.
+    The rows must be, as a multiset, the beacons the host enqueued on
+    every stream (noted with their stream at `BeaconRing.emit`), with
+    none dropped."""
+    from alphatriangle_tpu_torch.ops import beacon as obeacon
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+
+    label = "train-async-armed"
+    run = RUN_ROOT / label
+    enqueued, lock, real_emit = [], threading.Lock(), obeacon.BeaconRing.emit
+
+    def emit(self, phase, index, program):
+        real_emit(self, phase, index, program)
+        with lock:
+            enqueued.append(((phase, int(index), program), torch.cuda.current_stream(self.device).cuda_stream))
+
+    tds.disarm_beacons()  # stops and forgets every ring
+    loop.cfg = loop.cfg.model_copy({"MAX_TRAINING_STEPS": loop.global_step + ASYNC_ARMED_STEPS})
+    loop.stop_event.clear()
+    steps0 = loop.global_step
+    obeacon.BeaconRing.emit = emit
+    tds.attach_beacon_run_dir(run)
+    tds.arm_beacons(1)
+    try:
+        t0 = time.perf_counter()
+        loop._run_async()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        tds.drain_beacons()
+        dropped = obeacon.ring_for(dev).dropped
+        rows = beacon_rows(run / "beacons.jsonl")
+    finally:
+        obeacon.BeaconRing.emit = real_emit
+        tds.disarm_beacons()
+    if loop.global_step != steps0 + ASYNC_ARMED_STEPS:
+        fail(f"{label}: ended at step {loop.global_step}, want {steps0 + ASYNC_ARMED_STEPS}")
+    want = collections.Counter(row for row, _ in enqueued)
+    streams = {s for _, s in enqueued}
+    phases = sorted({p for p, _, _ in rows})
+    if not rows or collections.Counter(rows) != want or dropped:
+        fail(f"{label}: {len(rows)} rows against the {len(enqueued)} the host enqueued, {dropped} "
+             f"dropped; rows not enqueued {list((collections.Counter(rows) - want).items())[:8]}, "
+             f"enqueued and missing {list((want - collections.Counter(rows)).items())[:8]}")
+    if len(streams) < 3 or not {"search_wave", "learner_step"} <= set(phases):
+        fail(f"{label}: beacons from {len(streams)} streams, phases {phases}: want both producers' "
+             "and the learner's")
+    return {
+        "steps": ASYNC_ARMED_STEPS,
+        "wall_ms": wall_ms,
+        "rows": len(rows),
+        "streams": len(streams),
+        "phases": phases,
+        "dropped": dropped,
+    }
 
 
 def tiny_reference_configs():
@@ -1830,7 +1958,7 @@ class _ExactStub:
         return torch.zeros((grid.shape[0], 12), device=grid.device), value
 
 
-def reference_phase(torch, dev) -> None:
+def reference_phase(torch, dev) -> dict:
     from alphatriangle_tpu_torch import rng
     from alphatriangle_tpu_torch.config import (
         AlphaTriangleMCTSConfig,
@@ -1853,20 +1981,39 @@ def reference_phase(torch, dev) -> None:
     mcts_cfg = AlphaTriangleMCTSConfig(
         max_simulations=16, max_depth=5, mcts_batch_size=8, dirichlet_epsilon=0.0
     )
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+
     outs = {}
-    for device in ("cpu", dev):
-        env = TriangleEnv(env_cfg, device=device)
-        mcts = BatchedMCTS(
-            env, FeatureExtractor(env, model_cfg), _ExactStub(11), mcts_cfg,
-            value_support(model_cfg),
-        )
-        roots = env.reset(rng.split(rng.PRNGKey(4), 16))
-        out = mcts.search(roots, rng.PRNGKey(5))
-        outs[device] = (out.visit_counts.cpu(), out.root_value.cpu())
+    tds.set_device_stats(True)  # both searches carry their stat-packs
+    try:
+        for device in ("cpu", dev):
+            env = TriangleEnv(env_cfg, device=device)
+            mcts = BatchedMCTS(
+                env, FeatureExtractor(env, model_cfg), _ExactStub(11), mcts_cfg,
+                value_support(model_cfg),
+            )
+            roots = env.reset(rng.split(rng.PRNGKey(4), 16))
+            out = mcts.search(roots, rng.PRNGKey(5))
+            outs[device] = (out.visit_counts.cpu(), out.root_value.cpu(), out.stats.cpu())
+    finally:
+        tds.set_device_stats(False)
     if not torch.equal(outs["cpu"][0], outs[dev][0]):
         fail("search visit counts on the card differ from the CPU's")
     if not torch.allclose(outs["cpu"][1], outs[dev][1], atol=1e-5, rtol=1e-5):
         fail("search root values on the card differ from the CPU's")
+    # The stat-pack: histogram, concentration, occupancy and |value| max
+    # equal (float64 means of equal float32 values are exact in any
+    # order); the entropy's per-game sums over the actions within 1e-6.
+    got, want = (tds.unpack_search_stats(outs[d][2].numpy()) for d in (dev, "cpu"))
+    for key in ("depth_hist", "root_concentration", "occupancy", "value_abs_max", "reuse_frac"):
+        if not (got[key] == want[key]).all():
+            fail(f"search stat-pack {key} on the card {got[key]} differs from the CPU's {want[key]}")
+    if abs(got["root_entropy"] - want["root_entropy"]) > 1e-6 * abs(want["root_entropy"]):
+        fail(f"search stat-pack root_entropy on the card {got['root_entropy']} vs the CPU's "
+             f"{want['root_entropy']}")
+    if got["depth_hist"].sum() != 16 * 16:
+        fail("the reference stat-pack's histogram does not count every simulation")
+    return {key: (v.tolist() if hasattr(v, "tolist") else v) for key, v in got.items()}
 
 
 def reference_reuse_phase(torch, dev) -> dict:
@@ -2697,6 +2844,7 @@ def train_preset3_phase(torch, dev, kernels, mode: str, record: "dict | None" = 
             fail(f"{label}: {searched} moves ({full} full) against {len(series)} ticks {series}")
     if not ticks <= len(live) <= ticks + 1:
         fail(f"{label}: {len(live)} live_metrics lines for {ticks} ticks")
+    device_stats = check_device_stats(loop, label, strict=mode != "async")
     lanes = c.self_play.batch_size
     out = {
         "launches": launches,
@@ -2715,6 +2863,7 @@ def train_preset3_phase(torch, dev, kernels, mode: str, record: "dict | None" = 
         "live_metrics_lines": len(live),
         "stats_writers": report["stats_writers"],
         "learner_steps_per_s_run": report["timings"]["learner_steps_per_s"],
+        "device_stats": device_stats,
     }
     if mode == "async":
         out.update({
@@ -3289,6 +3438,7 @@ def serve_precision_phase(torch, dev, kernels, cycles: float) -> dict:
     from alphatriangle_tpu_torch.serving import PolicyService
 
     names = ("float32", "bfloat16", "int8")
+    serve_default_stats()
     env_cfg = EnvConfig()
     state = NeuralNetwork(ModelConfig(), env_cfg, seed=0, device="cpu").get_weights()
     services, launches, casts0 = {}, {}, prec.InferenceNet.casts
@@ -3507,6 +3657,7 @@ def ladder_service(torch, dev, reuse: bool = False, ladder: str = LADDER):
     from alphatriangle_tpu_torch.nn import NeuralNetwork
     from alphatriangle_tpu_torch.serving import PolicyService
 
+    serve_default_stats()
     env_cfg, model_cfg = EnvConfig(), ModelConfig()
     mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=64, tree_reuse=reuse)
     env = TriangleEnv(env_cfg, device=dev)
@@ -3860,7 +4011,27 @@ def league_phase(torch, dev) -> dict:
             "subtree_promote": 0}
     if launches != want or dispatches == 0:
         fail(f"{label}: launches {launches} in {dispatches} league dispatches, want {want}")
+    # Device stats (the training default): one record an iteration in both
+    # runs; the pool's search legs count its simulations; the league's
+    # serve legs count every league dispatch's 64 simulations a lane.
+    sims = 64
+    ds = {}
+    for name, rep_, path in (
+        ("league-pool", pool_report, Path(pool_report["run_dir"]) / "metrics.jsonl"),
+        ("league", report, Path(report["ledger"])),
+    ):
+        records = [r for r in read_ledger(path) if r.get("kind") == "device_stats"]
+        ticks = rep_["iterations"] + rep_["warmup_chunks"]
+        hist = {leg: sum(sum(r[leg]["depth_hist"]) for r in records if r.get(leg)) for leg in ("search", "serve")}
+        if len(records) != ticks or hist["search"] != rep_["simulations"]:
+            fail(f"{name}: {len(records)} device_stats records for {ticks} iterations, search legs "
+                 f"counting {hist['search']} of {rep_['simulations']} simulations")
+        ds[name] = {"records": len(records), **hist}
+    if ds["league"]["serve"] != dispatches * LEAGUE_SLOTS * sims:
+        fail(f"{label}: serve legs count {ds['league']['serve']} simulations for {dispatches} "
+             f"dispatches of {LEAGUE_SLOTS} x {sims}")
     return {
+        "device_stats": ds,
         "launches": launches,
         "dispatches": dispatches,
         "pool_launches": pool_report["kernel_launches"],
@@ -4084,6 +4255,7 @@ def fleet_inproc_part(torch, dev, kernels) -> dict:
     from alphatriangle_tpu_torch.serving.replica import ReplicaServer
 
     label = "fleet-inproc"
+    serve_default_stats()
     env_cfg, model_cfg = EnvConfig(), ModelConfig()
     env = TriangleEnv(env_cfg, device=dev)
     extractor = FeatureExtractor(env, model_cfg)
@@ -4312,6 +4484,12 @@ def say_async(r: dict, card: str) -> None:
             f"wall, {p['device_spans']} kernels and copies; summed over streams "
             f"{p['device_kernel_ms_summed']:.1f} ms, overlap {p['streams_overlap']:.2f}x) [{card}]"
         )
+    a = r["armed"]
+    say(
+        f"armed async window: {a['steps']} steps in {a['wall_ms']:.1f} ms, {a['rows']} beacon rows from "
+        f"{a['streams']} streams ({', '.join(a['phases'])}) equal as a multiset to the host's, "
+        f"{a['dropped']} dropped [{card}]"
+    )
 
 
 def say_preset3(label: str, r: dict, card: str) -> None:
@@ -4341,8 +4519,636 @@ def say_preset3(label: str, r: dict, card: str) -> None:
         f"{r['launches']} [{card}]"
     )
     say(f"{label} losses: {json.dumps(r['losses'])}")
+    say_device_stats(label, r["device_stats"], card)
     if "profile" in r:
         say_profile("megastep" if "megasteps" in r else "sync iteration", r["profile"], card)
+
+
+# --- slice 12: the device telemetry plane and the profiling plane -----------
+
+# Interleaved pairs timed: stat-packs off / on, beacons unarmed / armed.
+STATS_PAIRS = 3
+# The beacon phase's service: a dispatch that has sealed once is due in
+# max(10 x its expected wall, this floor); it warns at half of that. The
+# stalls follow the first wave's beacon site: the first ends before the
+# deadline (the warning arms the beacons), the second after it (a wedge).
+BEACON_DEADLINE_S, BEACON_POLL_S = 4.0, 0.05
+BEACON_WARN_STALL_MS, BEACON_WEDGE_STALL_MS = 2800.0, 6000.0
+# The stall's wait before the beacon file is read, within the stall.
+BEACON_READ_AFTER_S = 1.0
+
+
+def serve_default_stats() -> None:
+    """The serve bring-up never sets the stat-pack flag (nor does the JAX
+    package's): a serve path starts with it off, whatever a training
+    phase of this process set."""
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+
+    tds.set_device_stats(False)
+
+
+def runtime_syncs(prof) -> dict:
+    """The host-blocking CUDA runtime calls a profile recorded, by name."""
+    names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpyAsync", "cudaMemcpy")
+    counts = {name: 0 for name in names}
+    for e in prof.events():
+        if e.name in counts:
+            counts[e.name] += 1
+    return counts
+
+
+def check_device_stats(loop, label: str, strict: bool = True) -> dict:
+    """A finished run's `kind:"device_stats"` records (stat-packs on, the
+    training default). `strict` (the synchronous and megastep loops): one
+    record an iteration, their depth histograms summing to the run's
+    simulations (fast moves at their 16), a PER and a learner leg for
+    every megastep, the three gauges on every util record. Otherwise
+    (the overlapped loop ledgers the freshest fold of its streams) at
+    least one record, its histograms within the run's simulations. Every
+    search leg finite, its root entropy within [0, ln 360], every
+    histogram a whole number of searches over the lanes; with inherited
+    visits, a reused share above 0."""
+    import math
+
+    from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
+
+    ledger = read_ledger(loop.c.persistence_config.get_run_base_dir() / "metrics.jsonl")
+    records = [r for r in ledger if r.get("kind") == "device_stats"]
+    utils = [r for r in ledger if r.get("kind") == "util"]
+    ticks = loop.iterations + loop.warmup_chunks
+    lanes = loop.c.self_play.batch_size
+    if not records or (strict and len(records) != ticks):
+        fail(f"{label}: {len(records)} device_stats records for {ticks} iterations")
+    sims = 0
+    for r in records:
+        leg = r.get("search") or {}
+        keys = ("root_entropy", "root_concentration", "occupancy", "value_abs_max", "reuse_frac")
+        if any(not isinstance(leg.get(k), float) or not math.isfinite(leg[k]) for k in keys):
+            fail(f"{label}: a search leg is missing or not finite: {json.dumps(r)}")
+        if not 0.0 <= leg["root_entropy"] <= math.log(360.0) + 1e-9:
+            fail(f"{label}: root entropy {leg['root_entropy']} outside [0, ln 360]")
+        n = sum(leg["depth_hist"])
+        if n <= 0 or n != int(n) or int(n) % lanes:
+            fail(f"{label}: a depth histogram counts {n} simulations over {lanes} lanes")
+        sims += int(n)
+    if sims > loop.total_simulations or (strict and sims != loop.total_simulations):
+        fail(f"{label}: the histograms count {sims} simulations, the run {loop.total_simulations}")
+    full = [r for r in records if r.get("per") and r.get("learner")]
+    if loop.c.megastep is not None and strict and len(full) != loop.megastep_iterations:
+        fail(f"{label}: {len(full)} records with PER and learner legs for "
+             f"{loop.megastep_iterations} megasteps")
+    for r in full:
+        vals = [*r["per"].values(), *r["learner"].values()]
+        if not all(math.isfinite(v) for v in vals) or not 0.0 < r["per"]["is_weight_min"] <= 1.0:
+            fail(f"{label}: PER or learner leg out of range: {json.dumps(r)}")
+    gauges = [u for u in utils
+              if all(u.get(k) is not None for k in ("root_visit_entropy", "tree_occupancy", "beacons_armed"))]
+    if not gauges or (strict and len(gauges) != len(utils)):
+        fail(f"{label}: {len(gauges)} of {len(utils)} util records carry the device-stats gauges")
+    reuse = max(r["search"]["reuse_frac"] for r in records)
+    if loop.total_reused_visits > 0 and reuse <= 0.0:
+        fail(f"{label}: inherited visits but a reused share of 0 in every record")
+    legs = [r["search"] for r in records]
+    return {
+        "records": len(records),
+        "iterations": ticks,
+        "hist_simulations": sims,
+        "run_simulations": loop.total_simulations,
+        "root_entropy_mean": statistics.fmean(x["root_entropy"] for x in legs),
+        "root_concentration_mean": statistics.fmean(x["root_concentration"] for x in legs),
+        "occupancy_mean": statistics.fmean(x["occupancy"] for x in legs),
+        "value_abs_max": max(x["value_abs_max"] for x in legs),
+        "reuse_frac_max": reuse,
+        "per_records": len(full),
+        "priority_skew_max": max((r["per"]["priority_skew"] for r in full), default=None),
+        "grad_norm_max": max((r["learner"]["grad_norm_max"] for r in full), default=None),
+        "util_records_with_gauges": len(gauges),
+    }
+
+
+def say_device_stats(label: str, r: dict, card: str) -> None:
+    say(
+        f"{label} device stats: {r['records']} records for {r['iterations']} iterations, histograms "
+        f"{r['hist_simulations']} of the run's {r['run_simulations']} simulations, root entropy mean "
+        f"{r['root_entropy_mean']:.4f}, concentration {r['root_concentration_mean']:.4f}, occupancy "
+        f"{r['occupancy_mean']:.4f}, |value| max {r['value_abs_max']:.4f}, reused share max "
+        f"{r['reuse_frac_max']:.4f}; {r['per_records']} PER / learner legs (skew max "
+        f"{r['priority_skew_max']}, grad norm max {r['grad_norm_max']}); gauges on "
+        f"{r['util_records_with_gauges']} util records [{card}]"
+    )
+
+
+def set_search_stats(c, on: bool) -> None:
+    """Flip the stat-pack flag built components snapshotted, so one set of
+    components runs both sides of an A/B."""
+    engine = c.self_play
+    for part in (c.megastep, engine, engine.mcts, engine.mcts_fast):
+        if part is not None:
+            part.device_stats = on
+
+
+def watch_beacons(torch, cycles: float):
+    """Note every beacon the host enqueues on the card ((phase, index,
+    program), through `BeaconRing.emit`), and, when `stall["ms"]` is set,
+    enqueue one `torch.cuda._sleep` of that long right before the next
+    second-wave beacon site of a search (`BatchedMCTS.beacon(1)`, armed
+    or not): the host then enqueues that beacon while the card sleeps in
+    front of it. Returns (enqueued, stall, restore)."""
+    from alphatriangle_tpu_torch.mcts.search import BatchedMCTS
+    from alphatriangle_tpu_torch.ops.beacon import BeaconRing
+
+    enqueued, stall = [], {"ms": 0.0}
+    real_emit, real_site = BeaconRing.emit, BatchedMCTS.beacon
+
+    def emit(self, phase, index, program):
+        real_emit(self, phase, index, program)
+        enqueued.append((phase, int(index), program))
+
+    def site(self, k):
+        if k == 1 and stall["ms"]:
+            torch.cuda._sleep(int(cycles * stall["ms"]))
+            stall["ms"] = 0.0
+        real_site(self, k)
+
+    BeaconRing.emit, BatchedMCTS.beacon = emit, site
+
+    def restore():
+        BeaconRing.emit, BatchedMCTS.beacon = real_emit, real_site
+
+    return enqueued, stall, restore
+
+
+def beacon_rows(path) -> list:
+    from alphatriangle_tpu_torch.telemetry.device_stats import read_beacons
+
+    return [(r["phase"], r["index"], r["program"]) for r in read_beacons(path)]
+
+
+def megastep_stats_ab(torch, c, prof_on, run: Path, cycles: float) -> dict:
+    """On the train phase's components after its run: megasteps with the
+    stat-packs off and on, interleaved (host clock around each, which
+    ends in the megastep's own fetch); one more megastep profiled with
+    them off, whose host-blocking runtime calls must equal the profiled
+    one's with them on (`prof_on`); then one megastep with every beacon
+    armed, its rows (drained from the card's ring) equal to the beacons
+    the host enqueued, in order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphatriangle_tpu_torch.ops import beacon as obeacon
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+
+    times = {"off": [], "on": []}
+    for _ in range(STATS_PAIRS):
+        for mode in ("off", "on"):
+            set_search_stats(c, mode == "on")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c.megastep.run_megastep(TRAIN_CHUNK_MOVES, TRAIN_K)
+            times[mode].append((time.perf_counter() - t0) * 1e3)
+    set_search_stats(c, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_off:
+        c.megastep.run_megastep(TRAIN_CHUNK_MOVES, TRAIN_K)
+        torch.cuda.synchronize()
+    set_search_stats(c, True)
+    syncs_on, syncs_off = runtime_syncs(prof_on), runtime_syncs(prof_off)
+    if syncs_on != syncs_off or not syncs_on["cudaMemcpyAsync"] + syncs_on["cudaMemcpy"]:
+        fail(f"train: stat-packs changed a megastep's host-blocking calls: on {syncs_on}, off {syncs_off}")
+    on = read_profile(prof_on, TRAIN_STAGES, 1.0, 1.0)
+    off = read_profile(prof_off, TRAIN_STAGES, 1.0, 1.0)
+    # One megastep with every beacon armed.
+    path = run / "beacons.jsonl"
+    enqueued, _, restore = watch_beacons(torch, cycles)
+    obeacon.KERNEL.launches = 0
+    tds.attach_beacon_run_dir(run)
+    tds.arm_beacons(1)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.megastep.run_megastep(TRAIN_CHUNK_MOVES, TRAIN_K)
+        armed_ms = (time.perf_counter() - t0) * 1e3
+        tds.drain_beacons()
+        rows = beacon_rows(path)
+    finally:
+        tds.disarm_beacons()
+        restore()
+    program = f"megastep/t{TRAIN_CHUNK_MOVES}_k{TRAIN_K}"
+    want = [(p, i, program) for p, i, _ in enqueued]
+    phases = {p for p, _, _ in rows}
+    if rows != enqueued or rows != want or phases != {"search_wave", "rollout_chunk", "ring_scatter",
+                                                      "learner_step"}:
+        fail(f"train: the armed megastep's beacon rows {rows[:8]}... differ from the host's {enqueued[:8]}...")
+    return {
+        "megastep_ms_off": times["off"],
+        "megastep_ms_on": times["on"],
+        "megastep_ms_p50_off": statistics.median(times["off"]),
+        "megastep_ms_p50_on": statistics.median(times["on"]),
+        "device_launches_off": off["device_launches"],
+        "device_launches_on": on["device_launches"],
+        "added_launches_per_searched_move": (on["device_launches"] - off["device_launches"]) / TRAIN_CHUNK_MOVES,
+        "device_ms_off": off["device_ms"],
+        "device_ms_on": on["device_ms"],
+        "stats_device_ms": on["stages"]["search.stats"]["device_ms"],
+        "host_blocking_calls": syncs_on,
+        "armed_megastep_ms": armed_ms,
+        "armed_rows": len(rows),
+        "beacon_launches": obeacon.KERNEL.launches,
+    }
+
+
+def serve_round(torch, service, sids: set, seed: int) -> float:
+    """Fill the free slots with new sessions, request a move for every
+    live one and dispatch; close the sessions whose game ended. Returns
+    the dispatch's host ms (it ends in the dispatch's one fetch)."""
+    from alphatriangle_tpu_torch import rng
+
+    free = service.sessions.free_count
+    if free:
+        keys = rng.fold_in(rng.PRNGKey(seed), torch.arange(free))
+        sids.update(s.sid for s in service.open_sessions(keys))
+    for sid in sids:
+        service.request_move(sid)
+    t0 = time.perf_counter()
+    results = service.dispatch()
+    ms = (time.perf_counter() - t0) * 1e3
+    if len(results) != len(sids):
+        fail(f"a dispatch answered {len(results)} of {len(sids)} requests")
+    for r in results:
+        if r["done"]:
+            service.close_session(r["sid"])
+            sids.discard(r["sid"])
+    return ms
+
+
+def serve_stack(torch, dev):
+    """The serve default's env, extractor and net (seed 0)."""
+    from alphatriangle_tpu_torch.config import EnvConfig, ModelConfig
+    from alphatriangle_tpu_torch.env import TriangleEnv
+    from alphatriangle_tpu_torch.features import FeatureExtractor
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+
+    env_cfg, model_cfg = EnvConfig(), ModelConfig()
+    env = TriangleEnv(env_cfg, device=dev)
+    return env, FeatureExtractor(env, model_cfg), NeuralNetwork(model_cfg, env_cfg, seed=0, device=dev)
+
+
+def serve_stats_phase(torch, dev, slots: int = 64, sims: int = 64) -> dict:
+    """The serve default at 64 slots x 64 simulations twice over one net:
+    a service built with the stat-packs off (the serve default) and one
+    built under `ALPHATRIANGLE_DEVICE_STATS=1` with a serve run's
+    telemetry. Their dispatches interleaved: p50 off and on; one dispatch
+    of each profiled: the kernels and copies it launched, and its
+    host-blocking runtime calls, which must be equal. Two ticks of the
+    stats service: each ledgers one `kind:"device_stats"` record whose
+    serve leg counts 64 x 64 simulations a dispatch of its window, and
+    the second's util record carries the three gauges."""
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.serving import PolicyService
+    from alphatriangle_tpu_torch.serving.service import build_serve_telemetry
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+    from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
+
+    serve_default_stats()
+    env, extractor, net = serve_stack(torch, dev)
+    mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=sims)
+    services, sids = {}, {}
+    run = RUN_ROOT / "serve-stats"
+    for mode in ("off", "on"):
+        os.environ[tds.DEVICE_STATS_ENV] = "1" if mode == "on" else "0"
+        try:
+            mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+        finally:
+            del os.environ[tds.DEVICE_STATS_ENV]
+        telemetry = None
+        if mode == "on":
+            telemetry = build_serve_telemetry(run, "serve-stats", env.cfg, extractor.model_config,
+                                              device=dev)
+        services[mode] = PolicyService(env, extractor, net, mcts, slots=slots, rng_seed=0, telemetry=telemetry)
+        sids[mode] = set()
+    if services["off"].mcts.device_stats or not services["on"].mcts.device_stats:
+        fail("serve-stats: the environment override did not set the searches' stat-pack flags")
+    on = services["on"]
+    times = {"off": [], "on": []}
+    for i in range(STATS_PAIRS + 1):
+        for mode in ("off", "on"):
+            ms = serve_round(torch, services[mode], sids[mode], seed=100 + i)
+            if i:  # the first pair warms both
+                times[mode].append(ms)
+        if i == 0:
+            on.tick()  # the meter's baseline; ledgers the first dispatch's leg
+    record_util = on.tick()
+    profiles = {}
+    for mode in ("off", "on"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve_round(torch, services[mode], sids[mode], seed=200)
+            torch.cuda.synchronize()
+        profiles[mode] = (read_profile(prof, STAGES, 1.0, 1.0), runtime_syncs(prof))
+    on.tick()
+    on.telemetry.close(on.dispatch_count)
+    if profiles["on"][1] != profiles["off"][1] or (
+        dev.type == "cuda" and not profiles["on"][1]["cudaMemcpyAsync"] + profiles["on"][1]["cudaMemcpy"]
+    ):
+        fail(f"serve-stats: stat-packs changed a dispatch's host-blocking calls: {profiles}")
+    ledger = read_ledger(run / "metrics.jsonl")
+    records = [r for r in ledger if r.get("kind") == "device_stats"]
+    windows = [1, STATS_PAIRS, 1]  # dispatches of the stats service between its ticks
+    if len(records) != len(windows):
+        fail(f"serve-stats: {len(records)} device_stats records for {len(windows)} ticks")
+    for r, n in zip(records, windows):
+        leg = r.get("serve") or {}
+        if sum(leg.get("depth_hist", [])) != slots * sims * n or r.get("program") != f"serve/b{slots}":
+            fail(f"serve-stats: a serve leg does not count {n} dispatches of {slots} x {sims}: {json.dumps(r)}")
+        if not 0.0 <= leg["root_entropy"] <= math.log(360.0):
+            fail(f"serve-stats: root entropy {leg['root_entropy']}")
+    if record_util is None or any(record_util.get(k) is None for k in
+                                  ("root_visit_entropy", "tree_occupancy", "beacons_armed")):
+        fail(f"serve-stats: the util record lacks the device-stats gauges: {record_util}")
+    off_p, on_p = profiles["off"][0], profiles["on"][0]
+    return {
+        "dispatch_ms_off": times["off"],
+        "dispatch_ms_on": times["on"],
+        "dispatch_ms_p50_off": statistics.median(times["off"]),
+        "dispatch_ms_p50_on": statistics.median(times["on"]),
+        "device_launches_off": off_p["device_launches"],
+        "device_launches_on": on_p["device_launches"],
+        "added_launches_per_dispatch": on_p["device_launches"] - off_p["device_launches"],
+        "stats_device_ms": on_p["stages"]["search.stats"]["device_ms"],
+        "stats_host_ms": on_p["stages"]["search.stats"]["host_ms"],
+        "device_ms_off": off_p["device_ms"],
+        "device_ms_on": on_p["device_ms"],
+        "host_blocking_calls": profiles["on"][1],
+        "records": len(records),
+        "serve_leg": records[1]["serve"],
+    }
+
+
+def beacon_phase(torch, dev, cycles: float) -> dict:
+    """Beacons on the serve default at 64 slots, with a run's telemetry
+    whose dispatch deadline is `BEACON_DEADLINE_S` (polled every
+    `BEACON_POLL_S`, the warning at half of it) and wedges that do not
+    exit. Unarmed dispatches, then one that stalls `BEACON_WARN_STALL_MS`
+    on the card between its waves: its warning must arm the beacons
+    (`arm_beacons` called exactly once) and no wedge fires. Dispatches
+    until the deadline is back at its floor (armed: their rows end at
+    wave 1), then an armed dispatch that stalls `BEACON_WEDGE_STALL_MS`
+    right before its second wave's beacon: `BEACON_READ_AFTER_S` into
+    it, the host has enqueued that beacon, and the run's last beacon
+    must still be the first wave's (`search_wave` 0 of `serve/b64`), as
+    the card has reached only that; the wedge report, written while the
+    card still sleeps, must carry it and `classify_run` must name it;
+    after the fetch the rows must be the beacons the host enqueued, in
+    order. Then armed and unarmed dispatches interleaved (the armed cost)."""
+    from alphatriangle_tpu_torch import telemetry as telemetry_pkg
+    from alphatriangle_tpu_torch.config import AlphaTriangleMCTSConfig, TelemetryConfig
+    from alphatriangle_tpu_torch.mcts import BatchedMCTS
+    from alphatriangle_tpu_torch.ops import beacon as obeacon
+    from alphatriangle_tpu_torch.serving import PolicyService
+    from alphatriangle_tpu_torch.serving.service import build_serve_telemetry
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+    from alphatriangle_tpu_torch.telemetry.flight import (
+        classify_run, read_flight, read_wedge_report, WEDGE_REPORT_FILENAME,
+    )
+
+    serve_default_stats()
+    tds.disarm_beacons()
+    run = RUN_ROOT / "beacons"
+    env, extractor, net = serve_stack(torch, dev)
+    mcts_cfg = AlphaTriangleMCTSConfig(max_simulations=64)
+    # One dispatch of the stack without telemetry first: a cold first
+    # dispatch (the libraries' set-up) must not trip the short deadline.
+    warm = PolicyService(env, extractor, net, BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support),
+                         slots=64, rng_seed=0)
+    serve_round(torch, warm, set(), seed=299)
+    del warm
+    cfg = TelemetryConfig(
+        DISPATCH_MIN_DEADLINE_S=BEACON_DEADLINE_S, DISPATCH_FIRST_DEADLINE_S=BEACON_DEADLINE_S,
+        DISPATCH_WATCHDOG_POLL_S=BEACON_POLL_S,
+    )
+    telemetry = build_serve_telemetry(run, "beacons", env.cfg, extractor.model_config, cfg, device=dev)
+    dog = telemetry.dispatch_watchdog
+    dog.exit_on_wedge = False
+    mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+    service = PolicyService(env, extractor, net, mcts, slots=64, rng_seed=0, telemetry=telemetry)
+    armed = []
+    real_arm = telemetry_pkg.arm_beacons
+
+    def counting_arm(every=None):
+        # Counted as the hook calls it; armed at every wave, so that the
+        # stall after wave 0's beacon is the one the reader sees.
+        armed.append(every)
+        real_arm(1)
+
+    telemetry_pkg.arm_beacons = counting_arm
+    enqueued, stall, restore = watch_beacons(torch, cycles)
+    obeacon.KERNEL.launches = 0
+    sids: set = set()
+    telemetry.start()
+    try:
+        def to_the_floor(seed: int) -> None:
+            """Dispatches until the program's expected wall (a running
+            mean of its sealed walls) puts its deadline at the floor."""
+            for i in range(16):
+                serve_round(torch, service, sids, seed=seed + i)
+                deadline = telemetry.flight.deadline_s(telemetry.flight.expected_s("serve/b64"))
+                if i and deadline <= BEACON_DEADLINE_S:
+                    return
+            fail(f"beacons: the dispatch deadline stayed at {deadline:.2f} s")
+
+        to_the_floor(300)
+        if tds.beacons_armed() or enqueued or dog.warn_count:
+            fail(f"beacons: armed ({tds.beacons_armed()}) or warned ({dog.warn_count}) while warming up")
+        # A long dispatch: the warning arms the beacons, no wedge.
+        stall["ms"] = BEACON_WARN_STALL_MS
+        warn_ms = serve_round(torch, service, sids, seed=310)
+        if armed != [None] or dog.warn_count != 1 or dog.wedge_count != 0 or not tds.beacons_armed():
+            fail(f"beacons: after a {warn_ms:.0f} ms dispatch, arms {armed}, warnings "
+                 f"{dog.warn_count}, wedges {dog.wedge_count}")
+        to_the_floor(340)  # armed: the last row is now an earlier dispatch's
+        before = len(enqueued)
+        # The wedge: armed, stalled after its first wave's beacon.
+        seen = {}
+
+        def read_later():
+            time.sleep(BEACON_READ_AFTER_S)
+            seen["enqueued"] = list(enqueued[before:])
+            seen["row"] = tds.last_beacon(run)
+
+        reader = threading.Thread(target=read_later, name="beacon-reader")
+        stall["ms"] = BEACON_WEDGE_STALL_MS
+        reader.start()
+        wedge_ms = serve_round(torch, service, sids, seed=311)
+        reader.join(timeout=30)
+        tds.drain_beacons()
+        mine = enqueued[before:]
+        rows = beacon_rows(run / "beacons.jsonl")
+        report = read_wedge_report(run / WEDGE_REPORT_FILENAME)
+        verdict = classify_run(read_flight(run / "flight.jsonl"), wedge=report)
+        row = seen.get("row") or {}
+        if ("search_wave", 1, "serve/b64") not in seen.get("enqueued", []) or (
+            row.get("phase"), row.get("index"), row.get("program")
+        ) != ("search_wave", 0, "serve/b64"):
+            fail(f"beacons: {BEACON_READ_AFTER_S} s into the stall the last beacon was {row}, "
+                 f"the host had enqueued {seen.get('enqueued')}")
+        if report is None or dog.wedge_count != 1 or (report.get("last_beacon") or {}).get("index") != 0:
+            fail(f"beacons: wedge report {report}")
+        if verdict["verdict"] != "dispatch-hung" or verdict.get("last_beacon", {}).get("phase") != "search_wave" \
+                or "last beacon: serve/b64 phase=search_wave index=0" not in verdict["detail"]:
+            fail(f"beacons: classify_run gave {verdict}")
+        if armed != [None] or dog.warn_count != 2:
+            fail(f"beacons: arms {armed}, warnings {dog.warn_count} (one a dispatch) by the wedge")
+        if rows != enqueued or [p for p, _, _ in mine] != ["search_wave"] * mcts.num_waves:
+            fail(f"beacons: rows {rows} against the host's {enqueued}")
+        # The armed cost: unarmed and armed dispatches interleaved.
+        times = {"unarmed": [], "armed": []}
+        for i in range(STATS_PAIRS):
+            for mode in ("unarmed", "armed"):
+                tds._beacons_armed = mode == "armed"
+                times[mode].append(serve_round(torch, service, sids, seed=320 + i))
+        launches = obeacon.KERNEL.launches
+        ring = obeacon.ring_for(dev)
+    finally:
+        restore()
+        telemetry_pkg.arm_beacons = real_arm
+        tds.disarm_beacons()
+        telemetry.close(service.dispatch_count)
+    return {
+        "warn_dispatch_ms": warn_ms,
+        "wedge_dispatch_ms": wedge_ms,
+        "read_after_s": BEACON_READ_AFTER_S,
+        "last_beacon_during_stall": {k: row.get(k) for k in ("program", "phase", "index")},
+        "enqueued_before_read": seen["enqueued"],
+        "wedge_last_beacon": {k: report["last_beacon"].get(k) for k in ("program", "phase", "index")},
+        "verdict": verdict["verdict"],
+        "verdict_detail": verdict["detail"],
+        "rows": len(rows),
+        "dropped": ring.dropped,
+        "dispatch_ms_unarmed": times["unarmed"],
+        "dispatch_ms_armed": times["armed"],
+        "dispatch_ms_p50_unarmed": statistics.median(times["unarmed"]),
+        "dispatch_ms_p50_armed": statistics.median(times["armed"]),
+        "launches": launches,
+    }
+
+
+def beacon_kernel(torch, dev, rate: float, cycles: float) -> dict:
+    """The beacon writer against its plain version: the same 4096 + 100
+    rows (the ring wraps) into a pinned ring by the kernel and into a ring
+    in device memory by the plain version, equal word for word with
+    equal counters; both timed per call. The bound: the row's 32 bytes
+    and the counter's 8 read and written, over the memory rate."""
+    from alphatriangle_tpu_torch.ops import beacon as ob
+
+    slots, n = ob.RING_SLOTS, ob.RING_SLOTS + 100
+    host = torch.zeros((slots, ob.ROW_WORDS), dtype=torch.int64, pin_memory=True)
+    dev_ring = torch.zeros((slots, ob.ROW_WORDS), dtype=torch.int64, device=dev)
+    c_k, c_p = (torch.zeros((1,), dtype=torch.int64, device=dev) for _ in range(2))
+    ptr = ob.device_pointer(host)
+    for i in range(n):
+        ob.beacon_cuda(c_k, ptr, slots, 1 + i % 3, i, 7)
+        ob.beacon_plain(c_p, dev_ring, 1 + i % 3, i, 7)
+    torch.cuda.synchronize()
+    if not torch.equal(host, dev_ring.cpu()) or not torch.equal(c_k, c_p) or int(c_k[0]) != n:
+        fail("beacon kernel differs from its plain version")
+    err = float((host - dev_ring.cpu()).abs().max())
+    return {
+        "name": "beacon",
+        "route": "cuda",
+        "source": "alphatriangle_tpu_torch/csrc/beacon.cu",
+        "replaces": "none: not a TPU kernel (the jax.debug.callback of alphatriangle_tpu/telemetry/"
+                    "device_stats.py:221 emit_beacon)",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ob.beacon_cuda(c_k, ptr, slots, 1, 0, 7), cycles),
+        "plain_ms": time_ms(lambda: ob.beacon_plain(c_p, dev_ring, 1, 0, 7), cycles),
+        "bound_ms": (ob.ROW_WORDS * 8 + 16) / rate * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+# The profile phase's chunks: 4 moves, so that the warm-up ends within
+# 2 chunks and the trace window (iterations 1-2) holds a megastep; 3
+# megasteps, so that one runs after the window.
+PROFILE_CHUNK_MOVES, PROFILE_MEGASTEPS = 4, 3
+
+
+def profile_phase(torch) -> dict:
+    """`cli train --fused-megastep --profile` at the train phase's widths,
+    cut to `PROFILE_MEGASTEPS` megasteps of `PROFILE_CHUNK_MOVES`-move
+    chunks, then `cli analyze` of its profile directory: exit 0 both;
+    `phase_timers.json` with the rollout, megastep and checkpoint phases;
+    the trace's device lines naming the gather, the backup and the PER
+    count kernels, with their counts."""
+    from alphatriangle_tpu_torch.profiling import summarize_chrome_trace
+
+    label = "profile"
+    rc, report = run_cli([
+        "train", "--device", "cuda", "--root-dir", str(RUN_ROOT / label), "--run-name", label,
+        "--no-auto-resume", "--no-tensorboard", "--fused-megastep", "--fused-learner-steps",
+        str(TRAIN_K), "--max-steps", str(PROFILE_MEGASTEPS * TRAIN_K), "--rollout-chunk",
+        str(PROFILE_CHUNK_MOVES), "--min-buffer", str(TRAIN_MIN_BUFFER), "--profile",
+    ], label, 600)
+    if rc != 0 or report["status"] != "completed" or report["megasteps"] != PROFILE_MEGASTEPS:
+        fail(f"{label}: exit {rc}, status {report.get('status')}, megasteps {report.get('megasteps')}")
+    prof_dir = Path(report["run_dir"]) / "profile_data"
+    timers = json.loads((prof_dir / "phase_timers.json").read_text())
+    if not {"rollout", "megastep", "checkpoint"} <= set(timers) or (
+        timers["megastep"]["count"] != PROFILE_MEGASTEPS
+    ):
+        fail(f"{label}: phase_timers.json holds {timers}")
+    traces = list(prof_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"{label}: {len(traces)} traces in {prof_dir}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "alphatriangle_tpu_torch.cli", "analyze", str(prof_dir), "--top", "10"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    analyze_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "device" not in proc.stdout:
+        fail(f"{label}: cli analyze exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = summarize_chrome_trace(traces[0])
+    device = [ln for ln in lines if ln["plane"] != "host"]
+    totals: dict = {}
+    for ln in device:
+        for op in ln["ops"]:
+            t = totals.setdefault(op["name"], [0.0, 0])
+            t[0] += op["total_us"]
+            t[1] += op["count"]
+    counts = {
+        k: sum(c for name, (_, c) in totals.items() if re.search(rf"\b{k}\w*_kernel\b", name))
+        for k in ("gather_rows", "backup_update", "per_sample_count", "per_sample_summary")
+    }
+    # The window is iterations 1-2 of warm-up chunks then megasteps, each
+    # of a chunk's searched moves; a megastep runs the PER count's two grids.
+    window = (["warmup"] * report["warmup_chunks"] + ["megastep"] * report["megasteps"])[1:3]
+    moves, megasteps = PROFILE_CHUNK_MOVES * len(window), window.count("megastep")
+    want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample_count": megasteps,
+            "per_sample_summary": megasteps}
+    if counts != want or megasteps == 0:
+        fail(f"{label}: the trace's device lines count {counts} for the window {window}, want {want}")
+    grand = sum(t for t, _ in totals.values())
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:5]
+    mega = report["timings"]["megastep_s"]
+    return {
+        "phase_timers": {k: v["count"] for k, v in timers.items()},
+        "kernel_counts": counts,
+        "device_lines": [f"{ln['plane']} / {ln['line']}" for ln in device],
+        "device_ms": grand / 1e3,
+        "top5": [{"name": k[:80], "ms": t / 1e3, "count": c, "share": t / grand} for k, (t, c) in top],
+        "window": window,
+        "megastep_ms_profiled": [t * 1e3 for t in mega[:megasteps]],
+        "megastep_ms_unprofiled": [t * 1e3 for t in mega[megasteps:]],
+        "trace_mb": traces[0].stat().st_size / 2**20,
+        "analyze_s": analyze_s,
+        "launches": report["kernel_launches"],
+    }
 
 
 def main() -> int:
@@ -4373,9 +5179,11 @@ def run_phases(torch) -> int:
     kind = torch.cuda.get_device_name(0)
     say(f"card: {card}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
-    build_s = build_all(list(KERNELS.values()))
-    say(f"kernel build: {build_s:.1f} s for {', '.join(KERNELS)}")
-    for kern in KERNELS.values():
+    from alphatriangle_tpu_torch.ops import beacon as obeacon
+
+    build_s = build_all([*KERNELS.values(), obeacon.KERNEL])
+    say(f"kernel build: {build_s:.1f} s for {', '.join(KERNELS)}, beacon")
+    for kern in [*KERNELS.values(), obeacon.KERNEL]:
         for line in kern.log.read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 say(f"  ptxas {kern.name}: {line.strip()}")
@@ -4428,6 +5236,12 @@ def run_phases(torch) -> int:
     )
     say(f"kernel backup_update against the games (family random): {by_lanes} [{card}]")
     say(f"an empty kernel timed the same way: {empty_ms * 1e3:.2f} us [{card}]")
+    bkreport = beacon_kernel(torch, dev, rate, sleep_cycles_per_ms())
+    say(
+        f"kernel beacon (not a TPU kernel): equal to plain over {obeacon.RING_SLOTS + 100} rows; "
+        f"{bkreport['ms'] * 1e3:.2f} us (plain {bkreport['plain_ms'] * 1e3:.2f} us, bound "
+        f"{bkreport['bound_ms'] * 1e3:.4f} us by bytes) [{card}]"
+    )
     shapes = search_shape_phase(torch, dev, rate, sleep_cycles_per_ms())
     for kname, by_shape in shapes.items():
         kreport[kname]["search_shapes"] = by_shape
@@ -4448,6 +5262,17 @@ def run_phases(torch) -> int:
     treport = train_phase(torch, dev, KERNELS, record=recorded["train"])
     say_train("train", treport, card)
     say_telemetry("train", treport["telemetry"], card)
+    ab = treport["stats_ab"]
+    say(
+        f"train stat-packs off / on (interleaved): megastep p50 {ab['megastep_ms_p50_off']:.1f} / "
+        f"{ab['megastep_ms_p50_on']:.1f} ms ({', '.join(f'{t:.1f}' for t in ab['megastep_ms_off'])} / "
+        f"{', '.join(f'{t:.1f}' for t in ab['megastep_ms_on'])}); profiled: {ab['device_launches_off']} / "
+        f"{ab['device_launches_on']} kernels and copies ({ab['added_launches_per_searched_move']:.1f} more "
+        f"a searched move), device {ab['device_ms_off']:.1f} / {ab['device_ms_on']:.1f} ms, search.stats "
+        f"{ab['stats_device_ms']:.3f} ms on the card, host-blocking calls equal {ab['host_blocking_calls']}; "
+        f"armed megastep {ab['armed_megastep_ms']:.1f} ms, {ab['armed_rows']} beacon rows equal to the "
+        f"host's, {ab['beacon_launches']} beacon launches [{card}]"
+    )
     say(f"train phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4708,18 +5533,61 @@ def run_phases(torch) -> int:
         f"ratings {lgreport['ratings']}; pool run {lgreport['pool_s']:.1f} s, league run "
         f"{lgreport['league_s']:.1f} s; gather_rows and backup_update bit-equal to plain at "
         f"{', '.join(f'b{b}' for b in lgreport['kernels_held_bit_equal'])} in process; "
-        f"{lgreport['ledger_league_records']} kind:league records in the run's ledger; launches "
-        f"{lgreport['launches']} [{card}]"
+        f"{lgreport['ledger_league_records']} kind:league records in the run's ledger; device_stats "
+        f"{lgreport['device_stats']}; launches {lgreport['launches']} [{card}]"
     )
     say(f"league phase: {time.perf_counter() - t_lad:.1f} s")
     say(f"slice-nine phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ssreport = serve_stats_phase(torch, dev)
+    say(
+        f"serve-stats: dispatch p50 off / on {ssreport['dispatch_ms_p50_off']:.1f} / "
+        f"{ssreport['dispatch_ms_p50_on']:.1f} ms (interleaved: "
+        f"{', '.join(f'{t:.1f}' for t in ssreport['dispatch_ms_off'])} / "
+        f"{', '.join(f'{t:.1f}' for t in ssreport['dispatch_ms_on'])}); profiled "
+        f"{ssreport['device_launches_off']} / {ssreport['device_launches_on']} kernels and copies "
+        f"(+{ssreport['added_launches_per_dispatch']} a dispatch), device {ssreport['device_ms_off']:.2f} / "
+        f"{ssreport['device_ms_on']:.2f} ms, search.stats {ssreport['stats_device_ms']:.3f} ms on the card "
+        f"({ssreport['stats_host_ms']:.3f} ms host), host-blocking calls equal "
+        f"{ssreport['host_blocking_calls']}; {ssreport['records']} serve legs ledgered, "
+        f"{json.dumps(ssreport['serve_leg'])} [{card}]"
+    )
+    bnreport = beacon_phase(torch, dev, sleep_cycles_per_ms())
+    say(
+        f"beacons: a {bnreport['warn_dispatch_ms']:.0f} ms dispatch armed them once; "
+        f"{bnreport['read_after_s']} s into a {BEACON_WEDGE_STALL_MS:.0f} ms stall the last beacon was "
+        f"{bnreport['last_beacon_during_stall']} (the host had enqueued "
+        f"{bnreport['enqueued_before_read']}); wedge report {bnreport['wedge_last_beacon']}, "
+        f"{bnreport['verdict']}: {bnreport['verdict_detail']}; {bnreport['rows']} rows equal to the "
+        f"host's ({bnreport['dropped']} dropped); dispatch p50 unarmed / armed "
+        f"{bnreport['dispatch_ms_p50_unarmed']:.1f} / {bnreport['dispatch_ms_p50_armed']:.1f} ms; "
+        f"{bnreport['launches']} beacon launches [{card}]"
+    )
+    pfreport = profile_phase(torch)
+    say(
+        f"profile: cli train --fused-megastep --profile, window {pfreport['window']}, phases "
+        f"{pfreport['phase_timers']}; megasteps {[round(t, 1) for t in pfreport['megastep_ms_profiled']]} ms "
+        f"in the window, {[round(t, 1) for t in pfreport['megastep_ms_unprofiled']]} ms after it; trace "
+        f"{pfreport['trace_mb']:.1f} MiB, cli "
+        f"analyze {pfreport['analyze_s']:.1f} s; device {pfreport['device_ms']:.1f} ms on "
+        f"{pfreport['device_lines']}; kernels {pfreport['kernel_counts']}; top five "
+        + ", ".join(f"{t['name'][:48]} {t['ms']:.1f} ms x{t['count']} ({t['share']:.1%})"
+                    for t in pfreport["top5"])
+        + f" [{card}]"
+    )
+    say(f"slice-twelve phases: {time.perf_counter() - t0:.1f} s")
 
     flreport = fleet_phase(torch, dev, KERNELS, kind)
     say_fleet(flreport, card)
 
     t0 = time.perf_counter()
-    reference_phase(torch, dev)
-    say("reference: card search equals the CPU search on a small input")
+    rsreport = reference_phase(torch, dev)
+    say(
+        "reference: card search equals the CPU search on a small input, its stat-pack too "
+        f"(histogram {[int(v) for v in rsreport['depth_hist'][:6]]}..., entropy "
+        f"{rsreport['root_entropy']:.6f}, occupancy {rsreport['occupancy']:.6f})"
+    )
     rureport = reference_reuse_phase(torch, dev)
     say(
         f"reference: card carried search equals the CPU's over {rureport['moves']} moves "
@@ -4762,6 +5630,7 @@ def run_phases(torch) -> int:
         f"{rqreport['search']['int8']['root_prior_max_abs_err']:.2e} on the root priors"
     )
     rreport["precision"] = rqreport
+    rreport["search_stat_pack"] = rsreport
     say(f"reference phase: {time.perf_counter() - t0:.1f} s")
 
     paths = {
@@ -4801,13 +5670,24 @@ def run_phases(torch) -> int:
                 per[f"{path}_searched_move"] = by_path[path] / rep["searched_moves"]
         entry["launches_per"] = per
         kernels_line.append(entry)
+    # The beacon writer runs on its own paths: armed beacons (the beacon
+    # phase's dispatches and the train phase's armed megastep).
+    beacon_entry = dict(bkreport)
+    beacon_entry["launches_by_path"] = {
+        "beacons": bnreport["launches"], "train_armed_megastep": treport["stats_ab"]["beacon_launches"],
+    }
+    beacon_entry["launches"] = sum(beacon_entry["launches_by_path"].values())
+    if not all(beacon_entry["launches_by_path"].values()):
+        fail(f"the beacon writer was not launched on every beacon path: {beacon_entry['launches_by_path']}")
+    kernels_line.append(beacon_entry)
     say(json.dumps({
         "kernels": kernels_line, **paths, "ring_round_trip": rtreport, "reference": rreport,
         "attention_memory": amreport, "empty_kernel_ms": empty_ms,
+        "serve_stats": ssreport, "beacons": bnreport, "profile": pfreport,
         "card": card,
     }))
     say(card)
-    say("kernels: " + ", ".join(KERNELS))
+    say("kernels: " + ", ".join(KERNELS) + ", beacon")
     say(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},

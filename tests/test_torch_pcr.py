@@ -42,6 +42,7 @@ from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,
     TorchExactStub,
+    assert_stat_packs,
     inject_jax_noise,
     small_model_config,
     torch_cfg,
@@ -73,7 +74,10 @@ def pcr_engines(tiny_env_config) -> dict:
     """(root, record) -> (JAX engine, port engine); the JAX chunk
     programs compile together in threads before the first case."""
     compiled: dict = {}
-    pairs = {case: _engines(tiny_env_config, TRAIN, 5, _mcts_kw(*case), compiled) for case in CASES}
+    pairs = {
+        case: _engines(tiny_env_config, TRAIN, 5, _mcts_kw(*case), compiled, stats=True)
+        for case in CASES
+    }
     with ThreadPoolExecutor(len(pairs)) as pool:
         assert all(pool.map(lambda case: pairs[case][0].warm_chunk(MOVES), pairs))
     pairs["compiled"] = compiled
@@ -91,8 +95,13 @@ class TestPCRChunk:
         tcarry, tout = teng._chunk(MOVES, teng._carry, LiveWeights(11, teng.net.model))
         jout = jax.device_get(jout)
         jout["trace"] = {k: jout["trace"][k] for k in tout["trace"]}
-        jout.pop("device_stats", None)
+        # Full and fast moves' stat-packs, stacked over the chunk: the
+        # histogram counts each move's own simulations.
+        packs = tout.pop("device_stats")
+        assert_stat_packs(packs, jout.pop("device_stats"), f"{root} record={record}")
         is_full = tout["trace"]["is_full"].numpy()
+        sims_per_move = packs[:, :16].sum(dim=1).numpy()
+        np.testing.assert_array_equal(sims_per_move, np.where(is_full, 8, 4) * 5)
         assert 0 < is_full.sum() < MOVES  # both kinds of move in the chunk
         np.testing.assert_array_equal(is_full, jout["trace"]["is_full"])
         np.testing.assert_array_equal(tout["trace"]["sims"].numpy(), np.where(is_full, 8, 4))

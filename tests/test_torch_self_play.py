@@ -32,6 +32,7 @@ from alphatriangle_tpu.env.engine import TriangleEnv as JaxEnv  # noqa: E402
 from alphatriangle_tpu.features.core import get_feature_extractor  # noqa: E402
 from alphatriangle_tpu.mcts.helpers import select_action_from_visits as jax_select  # noqa: E402
 from alphatriangle_tpu.rl.self_play import SelfPlayEngine as JaxEngine  # noqa: E402
+from alphatriangle_tpu.telemetry import device_stats as jds  # noqa: E402
 from alphatriangle_tpu_torch.env import TriangleEnv  # noqa: E402
 from alphatriangle_tpu_torch.features import FeatureExtractor  # noqa: E402
 from alphatriangle_tpu_torch.mcts import select_action_from_visits  # noqa: E402
@@ -39,11 +40,14 @@ from alphatriangle_tpu_torch.nn.network import LiveWeights  # noqa: E402
 from alphatriangle_tpu_torch.nn.model import value_support  # noqa: E402
 from alphatriangle_tpu_torch.ops import KERNELS  # noqa: E402
 from alphatriangle_tpu_torch.rl import SelfPlayEngine  # noqa: E402
+from alphatriangle_tpu_torch.telemetry.device_stats import SEARCH_PACK_SIZE  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,
     TorchExactStub,
+    assert_stat_packs,
+    device_stats_on,
     inject_jax_noise,
     small_model_config,
     stub_net,
@@ -92,10 +96,14 @@ def compiled() -> dict:
     return {}
 
 
-def _engines(jenv_cfg, train_kw: dict, batch: int, mcts_kw: dict, compiled=None):
+def _engines(jenv_cfg, train_kw: dict, batch: int, mcts_kw: dict, compiled=None, stats=False):
     """(JAX engine, port engine) over the exact stub net; with
     `compiled=None` the port engine alone (JAX engine None). JAX engines
-    of one configuration share their compiled chunk programs."""
+    of one configuration share their compiled chunk programs. `stats`
+    builds both with their device stat-packs on."""
+    if stats:
+        with device_stats_on():
+            return _engines(jenv_cfg, train_kw, batch, mcts_kw, compiled)
     model_cfg = small_model_config(jenv_cfg)
     mcts_cfg = AlphaTriangleMCTSConfig(**mcts_kw)
     jcfg = JaxTrainConfig(AUTO_RESUME_LATEST=False, RUN_NAME="sp", **train_kw)
@@ -108,7 +116,8 @@ def _engines(jenv_cfg, train_kw: dict, batch: int, mcts_kw: dict, compiled=None)
             model=JaxExactStub(adim, atoms), support=jnp.asarray(support.numpy()),
             weights_version=3, variables={},
         )
-        key = repr((jenv_cfg, sorted(train_kw.items()), batch, sorted(mcts_kw.items())))
+        key = repr((jenv_cfg, sorted(train_kw.items()), batch, sorted(mcts_kw.items()),
+                    jds.device_stats_enabled()))
         jeng = JaxEngine(
             jenv, get_feature_extractor(jenv, model_cfg), jnet, mcts_cfg, jcfg, batch_size=batch,
             seed=9, share_compiled=compiled.get(key),
@@ -158,6 +167,7 @@ def chunk_engines(tiny_env_config, compiled) -> dict:
             5 if board == "tiny" else 3,
             dict(max_simulations=8, max_depth=4, mcts_batch_size=4),
             compiled,
+            stats=True,
         )
     with ThreadPoolExecutor(len(pairs)) as pool:
         assert all(pool.map(lambda case: pairs[case][0].warm_chunk(case[2]), pairs))
@@ -174,7 +184,10 @@ class TestChunk:
         assert {k: v.launches for k, v in KERNELS.items()} == before  # CPU: plain versions
         jout = jax.device_get(jout)
         jout["trace"] = {k: jout["trace"][k] for k in tout["trace"]}
-        jout.pop("device_stats", None)
+        # The moves' stat-packs, stacked over the chunk on both sides.
+        assert jeng.device_stats and teng.device_stats
+        assert tuple(tout["device_stats"].shape) == (moves, SEARCH_PACK_SIZE)
+        assert_stat_packs(tout.pop("device_stats"), jout.pop("device_stats"), board)
         # Episodes carry the version they started under: the engine's
         # initial one (3), or this chunk's (11) for those it reset.
         _assert_tree(tout, jout)

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from alphatriangle_tpu.serving import fleet as jfleet  # noqa: E402
 from alphatriangle_tpu.supervise import supervisor as jsupervisor  # noqa: E402
+from alphatriangle_tpu.telemetry import device_stats as jds  # noqa: E402
 from alphatriangle_tpu.telemetry import flight as jflight  # noqa: E402
 from alphatriangle_tpu.telemetry import health as jhealth  # noqa: E402
 from alphatriangle_tpu.telemetry import ledger as jledger  # noqa: E402
@@ -24,6 +25,7 @@ from alphatriangle_tpu.telemetry import slo as jslo  # noqa: E402
 from alphatriangle_tpu.utils import flops as jflops  # noqa: E402
 from alphatriangle_tpu_torch.serving import fleet as tfleet  # noqa: E402
 from alphatriangle_tpu_torch.supervise import supervisor as tsupervisor  # noqa: E402
+from alphatriangle_tpu_torch.telemetry import device_stats as tds  # noqa: E402
 from alphatriangle_tpu_torch.telemetry import flight as tflight  # noqa: E402
 from alphatriangle_tpu_torch.telemetry import health as thealth  # noqa: E402
 from alphatriangle_tpu_torch.telemetry import ledger as tledger  # noqa: E402
@@ -181,6 +183,16 @@ def test_dispatch_watchdog_fires_once_without_exit(tmp_path):
         clock = _Clock(10.0)
         wedged = []
         run_dir = tmp_path / name
+        # One beacon row in the run, each package's writer: the report
+        # carries it as `last_beacon`.
+        ds = {"jax": jds, "torch": tds}[name]
+        ds.attach_beacon_run_dir(run_dir)
+        ds.note_dispatch("serve/b16")
+        if name == "jax":
+            jds._write_beacon_row("search_wave", 8)
+        else:
+            tds.arm_beacons()
+            tds.emit_beacon("search_wave", 8)
         dog = mod.DispatchWatchdog(run_dir, on_wedge=wedged.append, exit_on_wedge=False,
                                    clock=clock)
         dog.arm(3, program="serve/b16", family="serve", deadline_s=5.0, expected_s=0.4,
@@ -198,7 +210,11 @@ def test_dispatch_watchdog_fires_once_without_exit(tmp_path):
         on_disk = mod.read_wedge_report(run_dir / mod.WEDGE_REPORT_FILENAME)
         assert on_disk["program"] == "serve/b16" and on_disk["exit_code"] is None
         reports[name] = report
-    jrep = {k: v for k, v in reports["jax"].items() if k != "last_beacon"}
+    jrep = reports["jax"]
+    beacons = [_strip([r.pop("last_beacon")])[0] for r in (reports["torch"], jrep)]
+    assert beacons[0] == beacons[1] == {
+        "kind": "beacon", "program": "serve/b16", "phase": "search_wave", "index": 8,
+    }
     assert _strip([reports["torch"]]) == _strip([{**jrep, "stacks_file": reports["torch"]["stacks_file"]}])
     assert reports["torch"]["elapsed_s"] == 6.5
 

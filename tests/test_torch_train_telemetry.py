@@ -149,7 +149,16 @@ def test_util_records_replay_into_jax(mode_run, tmp_path, tiny_env_config, tiny_
     ]
     assert ours[0] is None and theirs[0] is None
     assert [_unshared(r) for r in ours[1:]] == [_unshared(r) for r in theirs[1:]]
-    assert all(kw["extra"] is None and kw["dispatch_wall_s"] is not None for _, kw, _ in calls)
+    assert all(kw["dispatch_wall_s"] is not None for _, kw, _ in calls)
+    # The device stat-packs (on by default in training) mirror their
+    # gauges into the util record of every iteration that folded one.
+    extras = [kw["extra"] for _, kw, _ in calls if kw["extra"] is not None]
+    assert extras and all(
+        set(e) == {"root_visit_entropy", "tree_occupancy", "beacons_armed"} and e["beacons_armed"] == 0
+        for e in extras
+    )
+    if mode != "async":  # every iteration played a chunk
+        assert len(extras) == len(calls)
     last = calls[-1][1]
     c = loop.c
     engines = loop._engines()
@@ -172,6 +181,7 @@ def test_util_records_replay_into_jax(mode_run, tmp_path, tiny_env_config, tiny_
     ledger = read_ledger(run_dir / "metrics.jsonl")
     utils = [r for r in ledger if r.get("kind") == "util"]
     assert utils == [json.loads(json.dumps(r)) for r in ours[1:]]
+    assert sum(r.get("kind") == "device_stats" for r in ledger) == len(extras)
     assert any(r.get("kind") == "tick" and "Loss/total_loss" in r["means"] for r in ledger)
     assert all(r["device_kind"] == "cpu" and r["mfu"] is None for r in utils)
     if mode == "megastep":  # one megastep, one dispatch

@@ -2,6 +2,7 @@
 states, keys and weights between the JAX package and its PyTorch port,
 a small model of the port's own, and an exact stub net for both."""
 
+import contextlib
 import json
 from pathlib import Path
 from types import SimpleNamespace
@@ -47,8 +48,25 @@ def plain_jax_programs(monkeypatch):
     earlier test in its worker process (`tests/test_torch_stats.py`,
     for one) had compiled a program of the same configs, and passed
     when it ran first. Imported into a test module, this autouse
-    fixture applies to each of its tests."""
+    fixture applies to each of its tests.
+
+    It also gives each test both packages' device-stats state at its
+    defaults (stat-packs off, beacons unarmed, no beacon ledger), and
+    puts back what was there after it: training setup publishes the
+    stat-pack flag for the rest of its process, so otherwise a test
+    would see whatever an earlier test in its worker left."""
     monkeypatch.setattr(compile_cache, "_global_cache", compile_cache.CompileCache(enabled=False))
+    from alphatriangle_tpu.telemetry import device_stats as jds
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+
+    for mod in (jds, tds):
+        for name in ("_device_stats", "_beacons_armed", "_beacon_every", "_beacon_ledger",
+                     "_current_program"):
+            monkeypatch.setattr(mod, name, None)
+    yield
+    from alphatriangle_tpu_torch.ops import beacon
+
+    beacon.stop_all()
 
 
 def torch_cfg(jax_cfg):
@@ -269,3 +287,45 @@ def tiny_preset(path, env_cfg, model_cfg, **train) -> str:
     path = Path(path)
     path.write_text(json.dumps(payload))
     return str(path)
+
+
+# Stat-packs against JAX's: the depth histogram and |value| maximum
+# exactly; the means over B <= 8 games within 1e-6 relative (XLA's CPU
+# mean is a float32 sum in order times float32(1/B), off by at most B
+# roundings of 2^-24; the port's float64 mean of the same float32 values
+# is exact); the root entropy within 1e-6 relative (a log and a sum in
+# each framework's order).
+STAT_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def device_stats_on():
+    """Both packages' stat-pack flag on while engines are built inside
+    the block (engines read it when built); the old values after it."""
+    from alphatriangle_tpu.telemetry import device_stats as jds
+    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+
+    saved = [(mod, mod._device_stats) for mod in (jds, tds)]
+    for mod, _ in saved:
+        mod.set_device_stats(True)
+    try:
+        yield
+    finally:
+        for mod, value in saved:
+            mod._device_stats = value
+
+
+def assert_stat_packs(tpacks, jstats, msg: str = "") -> None:
+    """The port's (..., SEARCH_PACK_SIZE) stat-packs against the JAX
+    stat-pack leaves of the same searches."""
+    from alphatriangle_tpu_torch.telemetry.device_stats import unpack_search_stats
+
+    got = unpack_search_stats(tpacks.numpy() if isinstance(tpacks, torch.Tensor) else tpacks)
+    want = jax.device_get(jstats)
+    assert set(got) == set(want), msg
+    for key in ("depth_hist", "value_abs_max"):
+        np.testing.assert_array_equal(got[key], np.asarray(want[key], np.float64), err_msg=f"{msg} {key}")
+    for key in ("root_concentration", "occupancy", "reuse_frac", "root_entropy"):
+        np.testing.assert_allclose(
+            got[key], np.asarray(want[key]), rtol=STAT_RTOL, atol=0, err_msg=f"{msg} {key}"
+        )
