@@ -1,6 +1,7 @@
 """Command line of the PyTorch port: counterpart of
 `alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval`, `league`, `fleet`,
-`health`, `perf` and `analyze` subcommands.
+`health`, `perf`, `analyze`, `supervise`, `doctor`, `trace`, `watch`,
+`compare`, `slo`, `devices`, `tb` and `ml` subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--buckets CSV] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
@@ -31,7 +32,9 @@ ladder's rungs and switches and the reloaded steps included.
         [--run-name NAME] [--root-dir DIR] [--no-auto-resume]
         [--load-checkpoint STEP_DIR] [--load-buffer NPZ]
         [--checkpoint-freq N] [--keep-checkpoints K]
-        [--no-telemetry] [--watchdog-deadline SECONDS] [--profile] [--log-level LEVEL]
+        [--no-telemetry] [--watchdog-deadline SECONDS] [--dispatch-min-deadline SECONDS]
+        [--dispatch-watchdog-poll SECONDS]
+        [--profile] [--log-level LEVEL]
 
 Trains the default board and net, or a BASELINE preset's (`--preset
 1..5`, `config/presets.py`, or a `tuned_preset.json`; the flags given
@@ -52,16 +55,18 @@ directory also gets the run's telemetry unless `--no-telemetry`: the
 `health.json` heartbeat (stall deadline `--watchdog-deadline`), the
 `metrics.jsonl` ledger (every metrics tick and one `kind:"util"` record
 an iteration, with the MFU against the card's bf16 peak), the
-`flight.jsonl` ring of every dispatch, and the anomaly screen of every
-learner step; with the device stat-packs on (the default), one
+`flight.jsonl` ring of every dispatch (a dispatch past max(
+`--dispatch-min-deadline`, 10 x its expected wall) is a wedge: the run
+writes `wedge_report.json` and exits 113), and the anomaly screen of
+every learner step; with the device stat-packs on (the default), one
 `kind:"device_stats"` ledger record an iteration. `--profile` adds the
 loop's phase timers (`Profile/*_ms`, `profile_data/phase_timers.json`)
 and a `torch.profiler` trace of iterations 1-2 in `profile_data/`.
 `--no-per` samples the ring uniformly. A completed run of
 a tuned preset ledgers a `tune_outcome` record. Prints one JSON report:
 steps, losses, rows ingested, episodes, weight syncs, the achieved
-replay ratio, timings, the save and restore times and the kernel
-launches.
+replay ratio, timings, the save and restore times, the kernel launches
+and the beacon writer's launches.
 
     python -m alphatriangle_tpu_torch.cli eval [--checkpoint STEP_DIR |
         --run-name NAME] [--vs-checkpoint STEP_DIR | --vs-run NAME]
@@ -137,8 +142,55 @@ then for each `*.pt.trace.json` the device time by kernel per device
 and stream and the host time by op per thread, with counts and shares.
 Exit 0, or 1 when the directory holds neither.
 
-`health`, `perf` and `analyze` import neither torch nor numpy: they
-read files.
+    python -m alphatriangle_tpu_torch.cli supervise --run-name NAME [--root-dir DIR]
+        [--max-restarts 8] [--circuit-breaker 3] [--backoff-base 5] [--backoff-max 300]
+        [--quarantine-after 2] -- train|league [FLAGS]
+
+The self-healing parent of a training or league child
+(`supervise/supervisor.py`): each death is classified with the doctor's
+evidence and the recovery policy restarts the child from the run's
+newest committed checkpoint after a backoff, with its overrides in the
+child's environment (quarantines, the OOM ladder, `TELEMETRY__BEACONS`
+after a wedge), or gives up. `--run-name` / `--root-dir` /
+`--no-auto-resume` are added to the child's argv. Exit 0 when the child
+completes, 115 when the policy gives up, the child's code after a
+forwarded SIGTERM / SIGINT. Events go to the run's `supervisor.jsonl`.
+
+    python -m alphatriangle_tpu_torch.cli doctor [RUN|DIR] [--root-dir DIR] [--json]
+
+How a run ended, from its files: the verdict (clean, never-started,
+compile-hung, dispatch-hung, host-stall, oom, preempted) with the program
+a hung run died in and its last beacon, and the evidence; a fleet
+parent's run directory from its `fleet.jsonl`. The exit code is the
+verdict (0, 2-7).
+
+    python -m alphatriangle_tpu_torch.cli trace [RUN] [--root-dir DIR] [--top N] [--fleet]
+    python -m alphatriangle_tpu_torch.cli watch [--run-name NAME] [--root-dir DIR]
+        [--interval 2] [--once]
+    python -m alphatriangle_tpu_torch.cli compare A B [--root-dir DIR] [--threshold 0.1]
+        [--metrics CSV] [--json]
+    python -m alphatriangle_tpu_torch.cli slo [RUN|DIR] [--root-dir DIR] [--json]
+        [--latency-threshold MS] [--window SECONDS:BURN ...] [--now EPOCH] [--prom]
+
+`trace`: the run's `trace.json` spans per name (exit 1 without one);
+`--fleet` merges a fleet parent's evidence into `trace_fleet.json` with
+a flow arrow per routed request. `watch`: the live console of a run
+(rates, losses, the replay ratio, the newest util record, the dispatch
+in flight, the heartbeat; a fleet parent's routing and SLO lines).
+`compare`: two runs' (or snapshots') aligned metrics, exit 0 parity, 1 a
+regression past the threshold, 2 unreadable. `slo`: a fleet's error
+budgets and burn rates, exit 0 within budget, 1 burning, 2 no data.
+
+    python -m alphatriangle_tpu_torch.cli devices
+    python -m alphatriangle_tpu_torch.cli tb|ml [--root-dir DIR] [--port N]
+
+`devices` lists the CUDA devices (exit 1 without one); `tb` and `ml`
+launch TensorBoard or the MLflow UI over the runs root, exit 1 when it
+is not installed.
+
+Every command but `serve`, `train`, `eval`, `league` and `devices`
+imports neither torch nor numpy: they read files, and the supervisor's
+and the fleet's parents outlive a wedged card.
 """
 
 import argparse
@@ -337,14 +389,19 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.profile:
         overrides["PROFILE_WORKERS"] = True
     telemetry_config = None
-    if args.no_telemetry or args.watchdog_deadline is not None:
+    t_kw: dict = {}
+    if args.no_telemetry:
+        t_kw["ENABLED"] = False
+    for flag, field in (
+        ("watchdog_deadline", "WATCHDOG_DEADLINE_S"),
+        ("dispatch_min_deadline", "DISPATCH_MIN_DEADLINE_S"),
+        ("dispatch_watchdog_poll", "DISPATCH_WATCHDOG_POLL_S"),
+    ):
+        if getattr(args, flag) is not None:
+            t_kw[field] = getattr(args, flag)
+    if t_kw:
         from .config import TelemetryConfig
 
-        t_kw: dict = {}
-        if args.no_telemetry:
-            t_kw["ENABLED"] = False
-        if args.watchdog_deadline is not None:
-            t_kw["WATCHDOG_DEADLINE_S"] = args.watchdog_deadline
         telemetry_config = TelemetryConfig(**t_kw)
     configs = {"env_config": None, "model_config": None, "mcts_config": None}
     preset = None
@@ -426,9 +483,11 @@ def cmd_train(args: argparse.Namespace) -> int:
         from .autotune import ledger_tune_outcome
 
         tune_outcome = ledger_tune_outcome(loop.c.persistence_config.get_run_base_dir(), tuned_payload)
+    from .ops.beacon import KERNEL as beacon_kernel
+
     print(json.dumps({
         **loop.report(), "preset": preset, "tune_outcome": tune_outcome,
-        "kernel_launches": _kernel_launches(),
+        "kernel_launches": _kernel_launches(), "beacon_launches": beacon_kernel.launches,
     }))
     return rc
 
@@ -809,30 +868,20 @@ def cmd_fleet(args: argparse.Namespace) -> int:
 
 def _resolve_run_dir(run_name: "str | None", root_dir: "str | None") -> "Path | None":
     """The run directory of a run name under the runs root; the newest
-    (by modification time) when the name is omitted."""
+    (by modification time, `stats/watch.py` `find_latest_run_dir`) when
+    the name is omitted. Imports no torch."""
     from .config import PersistenceConfig
+    from .stats.watch import find_latest_run_dir
 
     persistence = PersistenceConfig(
         RUN_NAME=run_name or "latest", **({"ROOT_DATA_DIR": root_dir} if root_dir else {})
     )
     if run_name:
         return persistence.get_run_base_dir()
-    runs_root = persistence.get_runs_root_dir()
-
-    def mtime(p: Path) -> float:
-        try:
-            return p.stat().st_mtime
-        except OSError:  # removed between the listing and the stat
-            return 0.0
-
-    try:
-        candidates = [p for p in runs_root.iterdir() if p.is_dir()]
-    except OSError:
-        candidates = []
-    if not candidates:
-        print(f"no runs under {runs_root}", file=sys.stderr)
-        return None
-    return max(candidates, key=mtime)
+    run_dir = find_latest_run_dir(persistence.get_runs_root_dir())
+    if run_dir is None:
+        print(f"no runs under {persistence.get_runs_root_dir()}", file=sys.stderr)
+    return run_dir
 
 
 def cmd_health(args: argparse.Namespace) -> int:
@@ -899,12 +948,13 @@ def _fmt_cell(value, spec: str = ",.2f", scale: float = 1.0, unit: str = "") -> 
 
 def cmd_perf(args: argparse.Namespace) -> int:
     """A run's ledger summarized: step time, MFU, throughput and its
-    trend, each program's dispatch walls, the league. Exit 0, or 2 when
-    the ledger is missing or holds no util records."""
+    trend, each program's dispatch walls, the league, a fleet parent's
+    `fleet.jsonl`. Exit 0, or 2 when the ledger is missing or holds no
+    util records."""
     from .telemetry.device_stats import summarize_device_stats
     from .telemetry.flight import FLIGHT_FILENAME, read_flight, summarize_flight
     from .telemetry.ledger import read_ledger, resolve_ledger_path
-    from .telemetry.perf import summarize_league, summarize_utilization
+    from .telemetry.perf import fold_league_and_fleet, summarize_utilization
 
     target = Path(args.run) if args.run else None
     if target is not None and target.exists():
@@ -929,9 +979,7 @@ def cmd_perf(args: argparse.Namespace) -> int:
     programs = summarize_flight(read_flight(ledger.parent / FLIGHT_FILENAME))
     if programs:
         summary["programs"] = programs
-    league = summarize_league([r for r in records if r.get("kind") == "league"])
-    if league is not None:
-        summary.update(league)
+    league, fleet = fold_league_and_fleet(summary, records, ledger)
     # The device stat-packs' kind:"device_stats" records: the ds_* fields
     # and the lines below (none without records).
     devstats = summarize_device_stats([r for r in records if r.get("kind") == "device_stats"])
@@ -1018,6 +1066,19 @@ def cmd_perf(args: argparse.Namespace) -> int:
             f"   promotions {_fmt_cell(summary.get('league_promotions'), ',.0f')}"
             f"   live elo {_fmt_cell(summary.get('league_live_elo'), ',.1f')}"
         )
+    if fleet is not None:
+        # Latency is end to end as the router saw it, retries and hedges
+        # included.
+        print(
+            f"  fleet        move p50 {_fmt_cell(summary.get('fleet_move_latency_ms_p50'), ',.1f', 1, 'ms')}"
+            f"   p95 {_fmt_cell(summary.get('fleet_move_latency_ms_p95'), ',.1f', 1, 'ms')}"
+            f"   {_fmt_cell(summary.get('fleet_requests_per_sec'), ',.1f')} req/s"
+            f"   deaths {_fmt_cell(summary.get('fleet_deaths'), ',.0f')}"
+            f"   respawns {_fmt_cell(summary.get('fleet_respawns'), ',.0f')}"
+            f"   readmits {_fmt_cell(summary.get('fleet_readmissions'), ',.0f')}"
+            f"   sheds {_fmt_cell(summary.get('fleet_sheds'), ',.0f')}"
+            f"   lost {_fmt_cell(summary.get('fleet_lost'), ',.0f')}"
+        )
     if programs:
         width = max(max(len(p["program"]) for p in programs), 7)
         print(f"  {'program':<{width}}  {'count':>6}  {'p50':>9}  {'p95':>9}  {'total':>9}  err")
@@ -1041,6 +1102,421 @@ def cmd_analyze(args: argparse.Namespace) -> int:
     from .profiling import analyze_profile_dir
 
     return analyze_profile_dir(args.profile_dir, top=args.top)
+
+
+def cmd_trace(args: argparse.Namespace) -> int:
+    """A run's span trace (`trace.json`) summarized per span name, busiest
+    first; `--fleet` fuses a fleet parent's evidence into one Perfetto
+    timeline with a flow arrow per routed request (`telemetry/merge.py`).
+    Exit 0, or 1 without a readable trace or fleet ledger. Imports no
+    torch."""
+    from .telemetry.tracer import summarize_trace_file
+
+    run_dir = _resolve_run_dir(args.run, args.root_dir)
+    if run_dir is None:
+        return 1
+    if args.fleet:
+        from .telemetry.merge import merge_fleet_trace
+
+        try:
+            result = merge_fleet_trace(run_dir)
+        except FileNotFoundError:
+            print(f"no fleet evidence in {run_dir} (fleet.jsonl missing: not a fleet parent's run "
+                  "directory?)", file=sys.stderr)
+            return 1
+        print(
+            f"merged {result['events']:,} events from {result['processes']} process(es), "
+            f"{result['replicas']} replica dir(s) -> {result['path']}"
+        )
+        print(
+            f"  route spans {result['route_spans']:,}   flow arrows {result['flows']:,} over "
+            f"{len(result['flow_trace_ids']):,} trace id(s)"
+        )
+        print(f"\nfull fleet timeline: load {result['path']} in https://ui.perfetto.dev or chrome://tracing")
+        return 0
+    path = run_dir / "trace.json"
+    try:
+        rows = summarize_trace_file(path, top=args.top)
+    except (OSError, ValueError) as exc:
+        print(f"no readable span trace at {path} ({exc})", file=sys.stderr)
+        return 1
+    if not rows:
+        print(f"{path}: no complete spans recorded.")
+        return 0
+    width = max(max(len(r["name"]) for r in rows), 5)
+    print(f"{'span':<{width}}  {'count':>7}  {'total s':>9}  {'mean ms':>9}  {'max ms':>9}  {'threads':>7}")
+    for r in rows:
+        print(
+            f"{r['name']:<{width}}  {r['count']:>7d}  {r['total_ms'] / 1e3:>9.2f}  "
+            f"{r['mean_ms']:>9.2f}  {r['max_ms']:>9.2f}  {r['threads']:>7d}"
+        )
+    print(f"\nfull timeline: load {path} in https://ui.perfetto.dev or chrome://tracing")
+    return 0
+
+
+def cmd_watch(args: argparse.Namespace) -> int:
+    """The live-run console: tails a run's live_metrics.jsonl, ledger,
+    flight ring, heartbeat and (a fleet parent's) fleet.jsonl, and redraws
+    one frame every --interval seconds; `--once` prints one frame and
+    exits 0. Imports no torch."""
+    from .stats.watch import (
+        FleetWatchState,
+        WatchState,
+        fleet_line,
+        render_frame,
+        tail_fleet,
+        tail_flight,
+        tail_ledger_utils,
+        tail_live_metrics,
+    )
+    from .telemetry.flight import FLIGHT_FILENAME
+    from .telemetry.health import read_health
+
+    run_dir = _resolve_run_dir(args.run_name, args.root_dir)
+    if run_dir is None:
+        return 1
+    live = run_dir / "live_metrics.jsonl"
+    ledger = run_dir / "metrics.jsonl"
+    flight = run_dir / FLIGHT_FILENAME
+    fleet_ledger = run_dir / "fleet.jsonl"
+    heartbeat = run_dir / "health.json"
+    state = WatchState()
+    fleet_state = FleetWatchState()
+    offsets = [
+        tail_live_metrics(live, state, 0),
+        tail_ledger_utils(ledger, state, 0),
+        tail_flight(flight, state, 0),
+        tail_fleet(fleet_ledger, fleet_state, 0),
+    ]
+
+    def frame() -> str:
+        """The standard frame; a fleet parent's run directory adds the
+        routing line and the SLO roll-up under it."""
+        text = render_frame(state, run_dir.name, health=read_health(heartbeat))
+        fl = fleet_line(fleet_state)
+        if fl is None:
+            return text
+        text += "\n" + fl
+        try:
+            from .telemetry.slo import evaluate_slos, slo_status_line
+
+            text += "\n  " + slo_status_line(evaluate_slos(run_dir))
+        except Exception:  # the SLO line must never kill the console
+            pass
+        return text
+
+    if not live.exists() and not fleet_ledger.exists():
+        print(f"waiting for {live} (run still starting?) — Ctrl-C to stop", file=sys.stderr)
+    shown = frame()
+    print(shown, flush=True)
+    if args.once:
+        return 0
+    try:
+        while True:
+            time.sleep(args.interval)
+            offsets = [
+                tail_live_metrics(live, state, offsets[0]),
+                tail_ledger_utils(ledger, state, offsets[1]),
+                tail_flight(flight, state, offsets[2]),
+                tail_fleet(fleet_ledger, fleet_state, offsets[3]),
+            ]
+            # Redraw in place: move up over the previous frame.
+            height = shown.count("\n") + 1
+            shown = frame()
+            print(f"\x1b[{height}F\x1b[0J" + shown, flush=True)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_compare(args: argparse.Namespace) -> int:
+    """The aligned metrics of two runs (or a run and a `cli perf --json`
+    or bench snapshot): exit 0 parity or better, 1 a metric regressed
+    past --threshold, 2 a side unreadable or nothing aligned. Imports no
+    torch."""
+    from .telemetry.perf import compare_summaries, load_comparable
+
+    a, label_a = load_comparable(args.run_a, args.root_dir)
+    b, label_b = load_comparable(args.run_b, args.root_dir)
+    for side, loaded, label in (("A", a, label_a), ("B", b, label_b)):
+        if loaded is None:
+            print(f"compare: side {side}: {label}", file=sys.stderr)
+    if a is None or b is None:
+        return 2
+    metrics = tuple(m for m in args.metrics.split(",") if m) if args.metrics else None
+    rows, regressions = compare_summaries(a, b, threshold=args.threshold, metrics=metrics)
+    if not [r for r in rows if r[4] != "n/a"]:
+        print("compare: no aligned metrics between the two sides", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps({
+            "a": label_a,
+            "b": label_b,
+            "threshold": args.threshold,
+            "rows": [
+                {"metric": m, "a": va, "b": vb, "ratio": ratio, "status": status}
+                for m, va, vb, ratio, status in rows
+            ],
+            "regressions": regressions,
+        }))
+        return 1 if regressions else 0
+    print(f"compare  A = {label_a}")
+    print(f"         B = {label_b}   (threshold {args.threshold:.0%})")
+    width = max(len(r[0]) for r in rows)
+    print(f"  {'metric':<{width}}  {'A':>12}  {'B':>12}  {'A/B':>7}  verdict")
+    for metric, va, vb, ratio, status in rows:
+        print(
+            f"  {metric:<{width}}  {_fmt_cell(va, ',.3f'):>12}  {_fmt_cell(vb, ',.3f'):>12}  "
+            f"{_fmt_cell(ratio, '.3f'):>7}  {status}"
+        )
+    if regressions:
+        print(f"REGRESSION: {', '.join(regressions)} worse than baseline by more than {args.threshold:.0%}")
+        return 1
+    print("parity: no metric regressed past the threshold")
+    return 0
+
+
+def cmd_slo(args: argparse.Namespace) -> int:
+    """A fleet run's SLO report (`telemetry/slo.py`): availability, p95
+    move latency and dispatch success as error budgets with burn-rate
+    alerts. The exit code is the alert state: 0 within budget, 1 burning,
+    2 no data. Imports no torch."""
+    from .telemetry.slo import (
+        FLEET_PROM_FILENAME,
+        SLO_EXIT_CODES,
+        evaluate_slos,
+        slo_status_line,
+        write_fleet_prometheus,
+    )
+
+    target = Path(args.run) if args.run else None
+    if target is not None and target.is_dir():
+        run_dir = target
+    else:
+        run_dir = _resolve_run_dir(args.run, args.root_dir)
+        if run_dir is None:
+            return SLO_EXIT_CODES["no-data"]
+    windows = None
+    if args.window:
+        try:
+            windows = tuple((float(w.split(":")[0]), float(w.split(":")[1])) for w in args.window)
+        except (ValueError, IndexError):
+            print(f"bad --window {args.window!r}: want SECONDS:BURN (e.g. 300:14.4)", file=sys.stderr)
+            return SLO_EXIT_CODES["no-data"]
+    kw = {"windows": windows} if windows else {}
+    report = evaluate_slos(run_dir, now=args.now, latency_threshold_ms=args.latency_threshold, **kw)
+    if args.prom:
+        from .telemetry.ledger import read_ledger
+        from .telemetry.perf import summarize_fleet
+
+        write_fleet_prometheus(
+            run_dir / FLEET_PROM_FILENAME,
+            summarize_fleet(read_ledger(run_dir / "fleet.jsonl")),
+            report,
+            run_name=run_dir.name,
+        )
+    if args.json:
+        print(json.dumps(report))
+        return int(report["exit_code"])
+    print(f"slo {run_dir}")
+    print(f"  {slo_status_line(report)}")
+    for slo in report["slos"]:
+        print(f"  {slo['name']:<18} objective {slo['objective']:.2%}  budget {slo['error_budget']:.2%}  "
+              f"[{slo['status']}]")
+        for w in slo["windows"]:
+            flag = "  BURNING" if w["burning"] else ""
+            print(
+                f"    window {w['window_s']:>6g}s  total {w['total']:>10,.0f}  bad {w['bad']:>8,.0f}  "
+                f"err {w['error_rate']:.4f}  burn x{w['burn_rate']:,.1f} "
+                f"(alert at x{w['burn_threshold']:g}){flag}"
+            )
+    print(f"  status    {report['status']} (exit {report['exit_code']})")
+    return int(report["exit_code"])
+
+
+def cmd_doctor(args: argparse.Namespace) -> int:
+    """How a run ended, from its files alone: the flight ring, the
+    heartbeat, the wedge and preempt reports, the ledger's util records
+    and the newest progress beacon; a fleet parent's run directory from
+    its `fleet.jsonl` and the replicas' verdicts. The exit code is the
+    verdict: 0 clean, 2 never-started, 3 compile-hung, 4 dispatch-hung,
+    5 host-stall, 6 oom, 7 preempted. Imports no torch: it runs beside a
+    wedged card."""
+    from .telemetry.device_stats import describe_beacon, last_beacon
+    from .telemetry.flight import (
+        FLIGHT_FILENAME,
+        PREEMPT_REPORT_FILENAME,
+        WEDGE_REPORT_FILENAME,
+        classify_run,
+        read_flight,
+        read_preempt_report,
+        read_wedge_report,
+    )
+    from .telemetry.health import read_health
+    from .telemetry.ledger import read_ledger, resolve_ledger_path
+
+    target = Path(args.run) if args.run else None
+    if target is not None and target.exists():
+        run_dir = target if target.is_dir() else target.parent
+    else:
+        run_dir = _resolve_run_dir(args.run, args.root_dir)
+        if run_dir is None:
+            return 2
+    if (run_dir / "fleet.jsonl").exists():
+        # A fleet parent has no heartbeat of a learner and no dispatches
+        # of its own: classify from its ledger and the replicas' deaths.
+        from .serving.fleet import classify_fleet
+
+        verdict = classify_fleet(run_dir)
+        if args.json:
+            verdict["run_dir"] = str(run_dir)
+            print(json.dumps(verdict))
+            return int(verdict["exit_code"])
+        ev = verdict["evidence"]
+        print(f"doctor {run_dir} (fleet parent)")
+        print(
+            f"  verdict   {verdict['verdict']}"
+            + (f"  ({verdict['program']} [{verdict['family']}])" if verdict.get("program") else "")
+        )
+        if verdict.get("detail"):
+            print(f"  detail    {verdict['detail']}")
+        print(
+            f"  evidence  {ev['fleet_events']} fleet events, {ev['deaths']} deaths, "
+            f"{ev['respawns']} respawns, {ev['evictions']} evictions, {len(ev['gaveup'])} gave up"
+            + (", fleet-stop" if ev["fleet_stop"] else ", NO fleet-stop")
+            + (", storm summary" if ev.get("storm_summary") else "")
+            + (
+                f", {ev['unsealed_route_intents']} unsealed route intent(s)"
+                if ev.get("unsealed_route_intents")
+                else ""
+            )
+        )
+        return int(verdict["exit_code"])
+    ledger = resolve_ledger_path(run_dir)
+    verdict = classify_run(
+        read_flight(run_dir / FLIGHT_FILENAME),
+        health=read_health(run_dir / "health.json"),
+        utils=read_ledger(ledger, kinds={"util"}) if ledger else [],
+        wedge=read_wedge_report(run_dir / WEDGE_REPORT_FILENAME),
+        preempt=read_preempt_report(run_dir / PREEMPT_REPORT_FILENAME),
+        beacon=last_beacon(run_dir),
+    )
+    if args.json:
+        verdict["run_dir"] = str(run_dir)
+        print(json.dumps(verdict))
+        return int(verdict["exit_code"])
+    ev = verdict["evidence"]
+    print(f"doctor {run_dir}")
+    print(
+        f"  verdict   {verdict['verdict']}"
+        + (f"  ({verdict['program']} [{verdict['family']}])" if verdict.get("program") else "")
+    )
+    if verdict.get("detail"):
+        print(f"  detail    {verdict['detail']}")
+    if verdict.get("last_beacon"):
+        print(f"  beacon    {describe_beacon(verdict['last_beacon'])}")
+    print(
+        f"  evidence  {ev['intents']} intents, {ev['seals']} seals, {ev['unsealed']} unsealed"
+        + (", wedge report" if ev["wedge_report"] else "")
+        + (", preempt report" if ev.get("preempt_report") else "")
+        + (", stalled heartbeat" if ev["stalled"] else "")
+        + (f", mem {ev['mem_utilization']:.0%}" if isinstance(ev.get("mem_utilization"), float) else "")
+    )
+    return int(verdict["exit_code"])
+
+
+def cmd_supervise(args: argparse.Namespace) -> int:
+    """The self-healing parent of `cli train` / `cli league`: spawns the
+    child, classifies each death with the doctor's evidence and applies
+    the recovery policy (restart from the newest committed checkpoint
+    after a backoff, degrade on OOM, quarantine a family that keeps
+    wedging, give up past the budget). Exit 0 when the child completes,
+    115 when the policy gives up, the child's own code after a forwarded
+    SIGTERM / SIGINT. Events go to runs/<run>/supervisor.jsonl. Imports
+    no torch: the parent outlives a wedged card."""
+    from .supervise import RecoveryPolicy, Supervisor
+
+    child = list(args.child or [])
+    if child and child[0] == "--":
+        child = child[1:]
+    if not child:
+        child = ["train"]
+    if child[0] in ("train", "league"):
+        # The restarted child must resume this run, not auto-resume into
+        # whichever run is newest.
+        if "--run-name" not in child:
+            child += ["--run-name", args.run_name]
+        if args.root_dir and "--root-dir" not in child:
+            child += ["--root-dir", args.root_dir]
+        if child[0] == "train" and "--no-auto-resume" not in child:
+            child.append("--no-auto-resume")
+    run_dir = _resolve_run_dir(args.run_name, args.root_dir)
+    if run_dir is None:
+        return 2
+    policy = RecoveryPolicy(
+        max_restarts=args.max_restarts,
+        circuit_breaker_deaths=args.circuit_breaker,
+        backoff_base_s=args.backoff_base,
+        backoff_max_s=args.backoff_max,
+        quarantine_after=args.quarantine_after,
+    )
+    argv = [sys.executable, "-m", "alphatriangle_tpu_torch.cli", *child]
+    print(f"supervise: {run_dir}\n  child: {' '.join(child)}", flush=True)
+    return Supervisor(argv, run_dir, policy=policy).run()
+
+
+def cmd_devices(args: argparse.Namespace) -> int:
+    """The CUDA devices torch sees: index, name, memory, compute
+    capability and SMs, with the torch and CUDA versions. Exit 1, saying
+    so on stderr, when there is none."""
+    import torch
+
+    versions = f"torch {torch.__version__}, CUDA {torch.version.cuda}"
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count == 0:
+        print(f"no CUDA device ({versions})", file=sys.stderr)
+        return 1
+    print(f"{versions}: {count} CUDA device(s)")
+    for i in range(count):
+        props = torch.cuda.get_device_properties(i)
+        print(
+            f"  {i}: {props.name}  {props.total_memory / 2**30:.1f} GiB  "
+            f"capability {props.major}.{props.minor}  {props.multi_processor_count} SMs"
+        )
+    return 0
+
+
+def _launch_ui(tool: str, argv: list, module: "str | None" = None) -> int:
+    """Run a dashboard in the foreground; exit 1 when it is not installed.
+    `module` is the runnable module where it differs from the import name
+    (TensorBoard's is `tensorboard.main`)."""
+    import subprocess
+
+    try:
+        __import__(tool)
+    except ImportError:
+        print(f"{tool} is not installed in this environment. Install it to use this command.",
+              file=sys.stderr)
+        return 1
+    cmd = [sys.executable, "-m", module or tool, *argv]
+    print(f"Launching: {' '.join(cmd)} (Ctrl-C to stop)")
+    try:
+        return subprocess.call(cmd)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_tb(args: argparse.Namespace) -> int:
+    from .config import PersistenceConfig
+
+    root = args.root_dir or PersistenceConfig().ROOT_DATA_DIR
+    return _launch_ui("tensorboard", ["--logdir", root, "--port", str(args.port)], module="tensorboard.main")
+
+
+def cmd_ml(args: argparse.Namespace) -> int:
+    from .config import PersistenceConfig
+
+    root = args.root_dir or PersistenceConfig().ROOT_DATA_DIR
+    return _launch_ui("mlflow", ["ui", "--backend-store-uri", root, "--port", str(args.port)])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1149,6 +1625,12 @@ def build_parser() -> argparse.ArgumentParser:
     train.add_argument("--watchdog-deadline", type=float, default=None, metavar="SECONDS",
                        help="Stall watchdog deadline: no learner step and no rollout harvest for "
                        "this long dumps thread stacks and flags the heartbeat (default 300).")
+    train.add_argument("--dispatch-min-deadline", type=float, default=None, metavar="SECONDS",
+                       help="Dispatch watchdog floor: a dispatch in flight past max(this, 10 x its "
+                       "expected wall) is a wedge; the run writes wedge_report.json and exits 113 "
+                       "(default 60).")
+    train.add_argument("--dispatch-watchdog-poll", type=float, default=None, metavar="SECONDS",
+                       help="Dispatch watchdog poll interval (default 5).")
     train.add_argument("--profile", action="store_true",
                        help="Phase timers (Profile/*_ms, phase_timers.json) and a torch.profiler "
                        "trace of iterations 1-2 into runs/<run>/profile_data/.")
@@ -1336,6 +1818,123 @@ def build_parser() -> argparse.ArgumentParser:
     an.add_argument("profile_dir", help="runs/<run>/profile_data directory.")
     an.add_argument("--top", type=int, default=20)
     an.set_defaults(fn=cmd_analyze)
+
+    supervise = sub.add_parser(
+        "supervise",
+        help="Self-healing parent of train / league: restart a dead child from its newest "
+        "committed checkpoint by the doctor's verdict (backoff, OOM degrade, family quarantine, "
+        "circuit breaker); events in runs/<run>/supervisor.jsonl. Imports no torch.",
+    )
+    supervise.add_argument("--run-name", required=True,
+                           help="Run directory to supervise (added to the child's argv when absent "
+                           "there).")
+    supervise.add_argument("--root-dir", default=None,
+                           help="Runs root directory (default ./.alphatriangle_data).")
+    supervise.add_argument("--max-restarts", type=int, default=8, metavar="N",
+                           help="Restart budget before giving up (exit 115).")
+    supervise.add_argument("--circuit-breaker", type=int, default=3, metavar="N",
+                           help="Consecutive deaths without a new committed checkpoint that give up "
+                           "(exit 115).")
+    supervise.add_argument("--backoff-base", type=float, default=5.0, metavar="SECONDS")
+    supervise.add_argument("--backoff-max", type=float, default=300.0, metavar="SECONDS")
+    supervise.add_argument("--quarantine-after", type=int, default=2, metavar="N",
+                           help="Wedges on one program family before its riskiest knob is "
+                           "quarantined (megastep -> the synchronous loop, learner -> K=1, rollout "
+                           "-> no producer threads).")
+    supervise.add_argument("child", nargs=argparse.REMAINDER,
+                           help="The child subcommand and its flags after '--' (default: train).")
+    supervise.set_defaults(fn=cmd_supervise)
+
+    doctor = sub.add_parser(
+        "doctor",
+        help="Postmortem of a run from its files (flight ring, heartbeat, wedge and preempt "
+        "reports, ledger, beacons): names the program a dead run hung in; the exit code is the "
+        "verdict. Imports no torch.",
+    )
+    doctor.add_argument("run", nargs="?", default=None,
+                        help="Run name, run directory or flight.jsonl (default: the newest run).")
+    doctor.add_argument("--root-dir", default=None,
+                        help="Runs root directory (default ./.alphatriangle_data).")
+    doctor.add_argument("--json", action="store_true", help="The verdict as one JSON line.")
+    doctor.set_defaults(fn=cmd_doctor)
+
+    trace = sub.add_parser(
+        "trace",
+        help="Summary of a run's span trace (trace.json, loadable in Perfetto); --fleet merges a "
+        "fleet parent's evidence into one timeline. Imports no torch.",
+    )
+    trace.add_argument("run", nargs="?", default=None, help="Run name (default: the newest).")
+    trace.add_argument("--root-dir", default=None,
+                       help="Runs root directory (default ./.alphatriangle_data).")
+    trace.add_argument("--top", type=int, default=20)
+    trace.add_argument("--fleet", action="store_true",
+                       help="Fuse a fleet parent's run directory (its route brackets, fleet.jsonl, "
+                       "every replica's flight ring and trace.json, clock-aligned) into one "
+                       "trace_fleet.json with a flow arrow per trace id.")
+    trace.set_defaults(fn=cmd_trace)
+
+    watch = sub.add_parser(
+        "watch",
+        help="Live console of a run (live_metrics.jsonl, ledger, flight ring, heartbeat; a fleet "
+        "parent's routing and SLO lines). Imports no torch.",
+    )
+    watch.add_argument("--run-name", default=None, help="Default: the newest run.")
+    watch.add_argument("--root-dir", default=None,
+                       help="Runs root directory (default ./.alphatriangle_data).")
+    watch.add_argument("--interval", type=float, default=2.0)
+    watch.add_argument("--once", action="store_true", help="Render one frame and exit.")
+    watch.set_defaults(fn=cmd_watch)
+
+    comp = sub.add_parser(
+        "compare",
+        help="Aligned-metric regression report between two runs (or a run and a `perf --json` or "
+        "bench snapshot); exit 0 parity, 1 regression, 2 unreadable. Imports no torch.",
+    )
+    comp.add_argument("run_a", help="Candidate: run name or directory, metrics.jsonl, or JSON.")
+    comp.add_argument("run_b", help="Baseline: run name or directory, metrics.jsonl, or JSON.")
+    comp.add_argument("--root-dir", default=None,
+                      help="Runs root directory (default ./.alphatriangle_data).")
+    comp.add_argument("--threshold", type=float, default=0.1, metavar="FRAC",
+                      help="Fail when a metric is worse than the baseline by more than this "
+                      "fraction (default 0.1).")
+    comp.add_argument("--json", action="store_true", help="The report as one JSON line.")
+    comp.add_argument("--metrics", default=None, metavar="M1[,M2...]",
+                      help="Compare only these metrics (default: telemetry/perf.py "
+                      "COMPARE_METRICS).")
+    comp.set_defaults(fn=cmd_compare)
+
+    slo = sub.add_parser(
+        "slo",
+        help="Fleet SLO report: error budgets and multi-window burn-rate alerts from the fleet's "
+        "ledgers; exit 0 within budget, 1 burning, 2 no data. Imports no torch.",
+    )
+    slo.add_argument("run", nargs="?", default=None,
+                     help="Run name or a fleet parent's run directory (default: the newest run).")
+    slo.add_argument("--root-dir", default=None,
+                     help="Runs root directory (default ./.alphatriangle_data).")
+    slo.add_argument("--json", action="store_true", help="The whole report as one JSON line.")
+    slo.add_argument("--latency-threshold", type=float, default=500.0,
+                     help="p95 move-latency SLO threshold in ms (default 500).")
+    slo.add_argument("--window", action="append", default=None, metavar="SECONDS:BURN",
+                     help="Burn-rate windows (repeatable), e.g. 300:14.4 3600:6 (default: the "
+                     "fast-page / slow-ticket pair).")
+    slo.add_argument("--now", type=float, default=None,
+                     help="Evaluate at this epoch time instead of the newest record's.")
+    slo.add_argument("--prom", action="store_true", help="Also rewrite the fleet.prom textfile.")
+    slo.set_defaults(fn=cmd_slo)
+
+    devices = sub.add_parser("devices", help="The CUDA devices torch sees; exit 1 without one.")
+    devices.set_defaults(fn=cmd_devices)
+
+    tb = sub.add_parser("tb", help="Launch TensorBoard over the runs root (when installed).")
+    tb.add_argument("--root-dir", default=None)
+    tb.add_argument("--port", type=int, default=6006)
+    tb.set_defaults(fn=cmd_tb)
+
+    ml = sub.add_parser("ml", help="Launch the MLflow UI over the runs root (when installed).")
+    ml.add_argument("--root-dir", default=None)
+    ml.add_argument("--port", type=int, default=5000)
+    ml.set_defaults(fn=cmd_ml)
     return parser
 
 

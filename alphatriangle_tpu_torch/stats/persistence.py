@@ -26,6 +26,10 @@ A run directory (`config/persistence_config.py`) holds, per saved step:
   the one before;
 - `configs.json`: the run's configs under the JAX dump's keys.
 
+Under `ALPHATRIANGLE_FAULTS` the chaos drills' `checkpoint-save` site
+(`supervise/faults.py`: sigkill-save) fires between the meta and the
+commit marker.
+
 Retention keeps the newest `KEEP_LAST_CHECKPOINTS` steps and
 `KEEP_LAST_BUFFERS` spills (0 keeps all). The JAX package writes its
 Orbax trees asynchronously and commits them from a background flusher
@@ -124,6 +128,13 @@ class CheckpointManager:
             self._ckpt_dir / f"step_{step:08d}.meta.json",
             json.dumps({"global_step": step, **(counters or {})}, indent=2),
         )
+        if os.environ.get("ALPHATRIANGLE_FAULTS"):
+            # The chaos drills' checkpoint-save site (supervise/faults.py:
+            # sigkill-save): the state and the meta are on disk, the
+            # commit marker is not, so a kill here leaves a torn step.
+            from ..supervise.faults import fault_point
+
+            fault_point("checkpoint-save", step)
         _atomic_write_text(self._commit_marker_path(step), json.dumps({"global_step": step}))
         self.timings["save_s"].append(time.perf_counter() - t0)
         logger.info("Checkpoint saved at step %d -> %s", step, path)

@@ -20,9 +20,10 @@ matrix without a process.
     circuit breaker: consecutive deaths without progress, or deaths past
     the restart budget, -> give up.
 
-A wedge also records `TELEMETRY__BEACONS` in the overrides, as the JAX
-policy does; the port's replicas have no beacons yet and ignore it.
-Stdlib only.
+A wedge also records `TELEMETRY__BEACONS` in the overrides: a
+supervised training child (`training/runner.py`) arms its progress
+beacons before it builds its engines, so a repeat wedge names its
+phase; the fleet's replicas ignore it. Stdlib only.
 """
 
 import time
@@ -141,9 +142,8 @@ class RecoveryPolicy:
         reasons: list[str] = []
         wedged = verdict in WEDGE_VERDICTS or exit_code == WEDGE_EXIT_CODE
         if wedged:
-            # The JAX policy's directive to build the respawn's
-            # programs with progress beacons; kept so both policies
-            # ledger the same overrides.
+            # The respawn arms its progress beacons before it builds
+            # its engines (training/runner.py).
             if not self._overrides.get("TELEMETRY__BEACONS"):
                 self._overrides["TELEMETRY__BEACONS"] = True
                 reasons.append(

@@ -80,7 +80,9 @@ class RunTelemetry:
 
     `start()` when the loop or the serving begins, `on_rollout` /
     `on_learner_step` as work lands (O(1), any thread), `on_util_tick` /
-    `on_tick` once per iteration or tick (the only places with IO),
+    `on_tick` once per iteration or tick (the only places with IO; the
+    heartbeat that `on_tick` writes carries the card's memory as
+    `on_util_tick` read it just before),
     `close()` at the end."""
 
     def __init__(
@@ -135,6 +137,9 @@ class RunTelemetry:
             # no file is made until an armed site writes one.
             attach_beacon_run_dir(self.run_dir)
         self._step = 0
+        # The card's memory as the last utilization tick read it, for the
+        # heartbeat written after it (one read a tick, not two).
+        self._tick_memory: "list | None" = None
         self._last_write_mono = None
         self._last_written_step: int | None = None
         self._clock = clock
@@ -238,6 +243,7 @@ class RunTelemetry:
             return None
         if "device_memory" not in counters:
             counters["device_memory"] = device_memory_stats()
+        self._tick_memory = counters["device_memory"]
         record = self.perf.tick(step, **counters)
         if record is None:
             return None
@@ -261,10 +267,11 @@ class RunTelemetry:
             or step != self._last_written_step
             or now - self._last_write_mono >= self.config.HEALTH_WRITE_INTERVAL_S
         )
+        memory, self._tick_memory = self._tick_memory, None
         if due:
             self._last_write_mono = now
             self._last_written_step = step
-            self.health.write()
+            self.health.write(memory)
 
     def _on_stall(self, age_s: float) -> None:
         """Stall watchdog hook: stacks, an instant span, the trace and

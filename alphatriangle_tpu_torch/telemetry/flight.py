@@ -15,7 +15,10 @@ either package's readers classify the other's run directories.
   every thread's stack, runs the caller hook (span trace flush),
   writes `wedge_report.json` with the run's `last_beacon` (the card's
   beacon ring drained first) and exits with `WEDGE_EXIT_CODE` (113), so
-  a supervisor respawns in seconds.
+  a supervisor respawns in seconds. Under `ALPHATRIANGLE_FAULTS` the
+  chaos drills' `dispatch` site (`supervise/faults.py`: hang-dispatch,
+  corrupt-ring) fires in `begin`, once the intent is written and the
+  watchdog armed.
 - Readers (`read_flight`, `unsealed_intents`, `summarize_flight`,
   `classify_run`): stdlib only, so a parent beside a wedged card reads
   them without torch.
@@ -262,6 +265,13 @@ class FlightRecorder:
                 expected_s=expected,
                 avals=avals,
             )
+        if os.environ.get("ALPHATRIANGLE_FAULTS"):
+            # The chaos drills' dispatch site (supervise/faults.py): it
+            # fires after the intent is durable and the watchdog is armed,
+            # so an injected hang dies as a wedged dispatch does.
+            from ..supervise.faults import fault_point
+
+            fault_point("dispatch", seq, flight_path=self.path)
         span = FlightSpan(
             self, seq, program, family, time.perf_counter(), trace=trace
         )

@@ -21,13 +21,22 @@ import threading
 import time
 from pathlib import Path
 
+from .ledger import write_bytes
+
 logger = logging.getLogger(__name__)
+
+
+# Each card's name and total memory, read once a process: neither
+# changes, and the CUDA call that reads the total is the slowest part
+# of a snapshot.
+_CARDS: dict[int, tuple[str, int]] = {}
 
 
 def device_memory_stats() -> list[dict]:
     """Per-card memory snapshot from the caching allocator: bytes in use
-    and their peak (`torch.cuda.memory_stats`), the card's total as the
-    limit (`torch.cuda.mem_get_info`). Imports torch lazily, so the
+    and their peak (`torch.cuda.memory_stats_as_nested_dict`, which skips
+    the flattening of `memory_stats`), the card's total as the limit
+    (`torch.cuda.mem_get_info`, once). Imports torch lazily, so the
     heartbeat's readers (the fleet parent among them) never load it, and
     reads nothing until this process has a CUDA context: it never
     creates one. Empty on the CPU."""
@@ -38,14 +47,17 @@ def device_memory_stats() -> list[dict]:
             return []
         out = []
         for i in range(torch.cuda.device_count()):
-            stats = torch.cuda.memory_stats(i)
+            allocated = torch.cuda.memory_stats_as_nested_dict(i).get("allocated_bytes", {}).get("all", {})
+            if i not in _CARDS:
+                _CARDS[i] = (torch.cuda.get_device_name(i), torch.cuda.mem_get_info(i)[1])
+            kind, total = _CARDS[i]
             out.append(
                 {
                     "device": i,
-                    "kind": torch.cuda.get_device_name(i),
-                    "bytes_in_use": stats.get("allocated_bytes.all.current"),
-                    "bytes_limit": torch.cuda.mem_get_info(i)[1],
-                    "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
+                    "kind": kind,
+                    "bytes_in_use": allocated.get("current"),
+                    "bytes_limit": total,
+                    "peak_bytes_in_use": allocated.get("peak"),
                 }
             )
         return out
@@ -165,8 +177,12 @@ class HealthMonitor:
                 self._last_rollout or self._started,
             )
 
-    def snapshot(self) -> dict:
-        """The heartbeat payload (ages computed at snapshot time)."""
+    def snapshot(self, device_memory: "list | None" = None) -> dict:
+        """The heartbeat payload (ages computed at snapshot time).
+        `device_memory`: `device_memory_stats()` as the caller read it
+        this tick; read here when None."""
+        if device_memory is None:
+            device_memory = device_memory_stats()
         now = self._clock()
         with self._lock:
             return {
@@ -196,16 +212,18 @@ class HealthMonitor:
                 "peak_bf16_tflops": self._peak_tflops,
                 "peak_source": self._peak_source,
                 "utilization": self._utilization,
-                "device_memory": device_memory_stats(),
+                "device_memory": device_memory,
             }
 
-    def write(self) -> None:
-        """Atomic heartbeat write; failures logged, never raised."""
+    def write(self, device_memory: "list | None" = None) -> None:
+        """Atomic heartbeat write (`snapshot`'s argument); failures
+        logged, never raised."""
         try:
-            self.path.parent.mkdir(parents=True, exist_ok=True)
+            # Four system calls (open, write, close, rename): the loop's
+            # tick writes it, under the overlapped loop's producer threads.
             tmp = self.path.with_suffix(".json.tmp")
-            tmp.write_text(json.dumps(self.snapshot(), indent=2))
-            tmp.replace(self.path)
+            write_bytes(tmp, json.dumps(self.snapshot(device_memory), indent=2).encode())
+            os.replace(tmp, self.path)
         except OSError:
             logger.exception("heartbeat write to %s failed", self.path)
 

@@ -4,11 +4,18 @@ other's `metrics.jsonl`, `fleet.jsonl` and flight rings.
 
 Every utilization tick (`kind: "util"`) and every fleet decision
 (`kind: "fleet"`) is appended as one JSON line. Each `append` opens the
-file, writes one complete line, flushes and closes: a crash mid-write
-leaves at most one torn final line, which the readers skip and the next
-process's first append terminates. Rotation renames `metrics.jsonl` ->
-`.1` -> `.2` between appends, so no record spans files. Stdlib only: a
-reader beside a wedged card never imports torch.
+file, writes one complete line and closes: a crash mid-write leaves at
+most one torn final line, which the readers skip and the next process's
+first append terminates. Rotation renames `metrics.jsonl` -> `.1` ->
+`.2` between appends, so no record spans files. Stdlib only: a reader
+beside a wedged card never imports torch.
+
+An append is three system calls (`os.open`, `os.write`, `os.close`):
+the directory is made only when the open finds it missing, and the
+file's size is tracked in memory and read again only when the next
+record would cross the rotation limit. Every system call lets go of
+the interpreter lock, and the loop's hooks that append run beside the
+overlapped loop's producer threads, which take it in between.
 """
 
 import json
@@ -30,13 +37,37 @@ DEFAULT_MAX_BYTES = 16 * 1024 * 1024
 DEFAULT_KEEP = 2
 
 
+_APPEND_FLAGS = os.O_WRONLY | os.O_APPEND | os.O_CREAT
+_REPLACE_FLAGS = os.O_WRONLY | os.O_CREAT | os.O_TRUNC
+
+
+def write_bytes(path: Path, data: bytes, flags: int = _REPLACE_FLAGS) -> None:
+    """Write `data` to `path` (truncating it, or appending with
+    `_APPEND_FLAGS`) with one open, the writes and one close, making the
+    parent directory only when the open finds it missing. Raises OSError."""
+    try:
+        fd = os.open(path, flags, 0o666)
+    except FileNotFoundError:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        fd = os.open(path, flags, 0o666)
+    try:
+        view = memoryview(data)
+        while view:
+            view = view[os.write(fd, view):]
+    finally:
+        os.close(fd)
+
+
 class MetricsLedger:
     """Append-only JSONL writer with size-based rotation.
 
-    Stateless between appends (open/write/flush/close per record): the
+    No handle is kept between appends (open/write/close per record): the
     single-writer training loop appends a few records per second at
-    most, and statelessness is what makes the crash story trivial —
-    there is never an open handle holding unflushed records.
+    most, and that is what makes the crash story trivial — there is
+    never an open handle holding unflushed records. Only the file's size
+    is remembered; another writer's appends to the same file make a
+    rotation late, never early, because the size is read again before
+    one.
     """
 
     def __init__(
@@ -53,6 +84,8 @@ class MetricsLedger:
         # if so the tail is terminated first, so OUR first record does
         # not glue onto it and vanish with it.
         self._tail_checked = False
+        # The file's size as this writer left it (None: not read yet).
+        self._size: int | None = None
         # Threads of one process (the overlapped loop's producers and its
         # learner share a flight ring) append and rotate one at a time.
         self._lock = threading.Lock()
@@ -64,21 +97,20 @@ class MetricsLedger:
         never a reason to kill a training run.
         """
         try:
-            line = json.dumps(record, default=str) + "\n"
+            line = (json.dumps(record, default=str) + "\n").encode()
         except (TypeError, ValueError):
             logger.exception("ledger record not serializable; dropped")
             return False
         try:
             with self._lock:
                 self._maybe_rotate(len(line))
-                self.path.parent.mkdir(parents=True, exist_ok=True)
                 if not self._tail_checked:
                     self._tail_checked = True
                     if self._tail_is_torn():
-                        line = "\n" + line
-                with self.path.open("a") as f:
-                    f.write(line)
-                    f.flush()
+                        line = b"\n" + line
+                write_bytes(self.path, line, _APPEND_FLAGS)
+                if self._size is not None:
+                    self._size += len(line)
             return True
         except OSError:
             logger.exception("ledger append to %s failed", self.path)
@@ -104,12 +136,16 @@ class MetricsLedger:
         rewritten, so a crash between renames loses nothing."""
         if self.max_bytes <= 0:
             return
+        if self._size is not None and self._size + incoming <= self.max_bytes:
+            return
         try:
-            size = self.path.stat().st_size
+            self._size = self.path.stat().st_size
         except OSError:
+            self._size = 0
             return
-        if size + incoming <= self.max_bytes:
+        if self._size + incoming <= self.max_bytes:
             return
+        self._size = 0
         if self.keep <= 0:
             self.path.unlink(missing_ok=True)
             return

@@ -1,7 +1,8 @@
 """Live utilization accounting and the run summaries: counterpart of
 `alphatriangle_tpu/telemetry/perf.py`'s `UtilizationMeter`,
 `_percentile`, `_mean`, `_trend`, `summarize_utilization`,
-`summarize_league` and `summarize_fleet`.
+`summarize_league`, `summarize_fleet` and the cross-run comparison
+(`load_comparable`, `compare_summaries`).
 
 - `UtilizationMeter` folds a run's cumulative counters (served
   requests, simulations, dispatch wall) into one derived `kind: "util"`
@@ -14,19 +15,81 @@
   `summarize_league` a league run's `kind: "league"` records;
   `summarize_fleet` a fleet run's `kind: "fleet"` events into its
   lifecycle, routing and storm figures (`fleet.prom`, the report).
+- `load_comparable` reads one side of `cli compare` (a `cli perf --json`
+  snapshot, a bench JSON line, a ledger, a run directory or a run name)
+  into a summary with the league and fleet folds; `compare_summaries`
+  aligns two of them metric by metric against a threshold. The JAX
+  version's memory-budget fold (`kind:"memory"` records) is not ported:
+  the port writes no such records yet.
 
-Stdlib only: `cli perf`, `cli health` and the fleet parent import this
-without torch.
+Stdlib only: `cli perf`, `cli compare`, `cli health` and the fleet
+parent import this without torch.
 """
 
+import json
 import logging
 import time
+from pathlib import Path
 
 from ..utils.flops import peak_bf16_tflops_info
 
 logger = logging.getLogger(__name__)
 
 SUMMARY_SCHEMA = "alphatriangle.perf.v1"
+
+# Metrics `cli compare` aligns between two runs. Throughputs regress
+# when they DROP; the memory metrics (peak bytes per device run-wide,
+# composed static budget) regress when they GROW — a run that suddenly
+# needs more device memory is a regression even when it is no slower. The serve metrics (serving/service.py) are the policy
+# service's SLOs: per-move latency p95 regresses when it grows,
+# served requests/s when it drops. Rows compare only when BOTH sides
+# carry the metric, so training-vs-training comparisons never see the
+# serve rows and vice versa.
+COMPARE_METRICS = (
+    "games_per_hour",
+    "moves_per_sec",
+    "learner_steps_per_sec",
+    # Leaf-equivalent search effort per second: fresh simulations plus
+    # root visits inherited through subtree reuse (ops/subtree_reuse.py);
+    # with reuse off it equals sims/s exactly.
+    "leaf_evals_per_sec",
+    # Fraction of leaf-eval effort that was inherited rather than
+    # re-searched (0 with reuse off). Informational next to the rate:
+    # a run whose fraction collapses is re-searching work it used to
+    # carry (e.g. reload churn clearing lanes).
+    "mcts_reused_visit_fraction",
+    "mfu",
+    "mem_peak_bytes_in_use",
+    "memory_budget_bytes",
+    "serve_move_latency_ms_p95",
+    "serve_requests_per_sec",
+    # League flywheel (league/flywheel.py): how fast served games turn
+    # into replay rows. Only flywheel runs carry it (rows compare only
+    # when both sides have the metric, like the serve SLOs).
+    "league_ingested_moves_per_sec",
+    # Fleet storm SLOs (serving/fleet.py): end-to-end move latency and
+    # served request rate as the ROUTER saw them — retries, hedges and
+    # failovers included, so a fleet that hides replica churn well
+    # compares well. Only fleet runs carry them.
+    "fleet_move_latency_ms_p95",
+    "fleet_requests_per_sec",
+    # The fraction of each tick window with no dispatch in flight.
+    # Lower is better: a run that got faster by starving the device less
+    # shows up here even when throughput gains are marginal.
+    "chip_idle_fraction",
+)
+
+# Metrics where a LOWER candidate value is the good direction.
+LOWER_IS_BETTER = frozenset(
+    {
+        "mem_peak_bytes_in_use",
+        "memory_budget_bytes",
+        "serve_move_latency_ms_p95",
+        "fleet_move_latency_ms_p95",
+        "chip_idle_fraction",
+    }
+)
+
 
 
 class UtilizationMeter:
@@ -605,3 +668,150 @@ def summarize_fleet(records: list) -> "dict | None":
             }
         )
     return out
+
+
+# --- cross-run comparison ----------------------------------------------
+
+
+def _summary_from_bench(payload: dict, label: str) -> "dict | None":
+    """Normalize one `bench.py` JSON line into compare metrics."""
+    if payload.get("metric") != "self_play_games_per_hour":
+        return None
+    extra = payload.get("extra") or {}
+    flops = extra.get("flops") or {}
+    return {
+        "schema": SUMMARY_SCHEMA,
+        "source": label,
+        "games_per_hour": payload.get("value"),
+        "moves_per_sec": extra.get("moves_per_sec"),
+        "leaf_evals_per_sec": extra.get("leaf_evals_per_sec"),
+        "mcts_reused_visit_fraction": extra.get(
+            "mcts_reused_visit_fraction"
+        ),
+        "learner_steps_per_sec": (
+            extra.get("learner_steps_per_sec_fused")
+            or extra.get("learner_steps_per_sec")
+        ),
+        "mfu": flops.get("self_play_mfu"),
+        "device_kind": extra.get("device_kind"),
+    }
+
+
+def load_comparable(
+    target: str, root_dir: "str | None" = None
+) -> "tuple[dict | None, str]":
+    """(normalized summary, label) for one side of `cli compare`.
+
+    Accepts, in resolution order: a perf-summary JSON file (from
+    `cli perf --json`), a bench JSON line file (`BENCH_*.json`), a
+    `metrics.jsonl` path, a run directory, or a run name under the
+    runs root. Returns (None, reason) when nothing usable exists.
+    """
+    from .ledger import read_ledger, resolve_ledger_path
+
+    path = Path(target)
+    if path.is_file() and path.suffix == ".json":
+        try:
+            payload = json.loads(path.read_text())
+        except (OSError, json.JSONDecodeError) as exc:
+            return None, f"{target}: unreadable JSON ({exc})"
+        if isinstance(payload, dict):
+            if payload.get("schema") == SUMMARY_SCHEMA:
+                payload.setdefault("source", str(path))
+                return payload, str(path)
+            bench = _summary_from_bench(payload, str(path))
+            if bench is not None:
+                return bench, str(path)
+        return None, f"{target}: not a perf summary or bench JSON"
+    if path.exists():
+        ledger = resolve_ledger_path(path)
+    else:
+        run_dir = _run_dir_for(target, root_dir)
+        ledger = resolve_ledger_path(run_dir) if run_dir else None
+    if ledger is None:
+        return None, f"{target}: no metrics ledger found"
+    # Read ALL records (no kinds= pre-filter): ledgers written before
+    # the `kind` field exist, and the pre-filter would drop their
+    # util ticks before the tolerant summarize above ever saw them.
+    records = read_ledger(ledger)
+    summary = summarize_utilization(records)
+    if summary is None:
+        return None, f"{ledger}: no utilization records"
+    fold_league_and_fleet(summary, records, ledger)
+    summary["source"] = str(ledger)
+    return summary, str(ledger)
+
+
+def fold_league_and_fleet(
+    summary: dict, records: list, ledger: "Path | str"
+) -> "tuple[dict | None, dict | None]":
+    """Fold into `summary` (in place) the league flywheel's league_*
+    fields from the ledger's `kind:"league"` records, and a fleet
+    parent's fleet_* fields from the `fleet.jsonl` (serving/fleet.py's
+    decision ledger) BESIDE the metrics ledger: with them come the
+    league and fleet SLO rows of `cli compare` and the lines of `cli
+    perf`. Returns the two folds, each None when absent."""
+    from .ledger import read_ledger
+
+    league = summarize_league([r for r in records if r.get("kind") == "league"])
+    if league is not None:
+        summary.update(league)
+    fleet_path = Path(ledger).parent / "fleet.jsonl"
+    fleet = summarize_fleet(read_ledger(fleet_path)) if fleet_path.is_file() else None
+    if fleet is not None:
+        summary.update(fleet)
+    return league, fleet
+
+
+def _run_dir_for(run_name: str, root_dir: "str | None") -> "Path | None":
+    from ..config.persistence_config import PersistenceConfig
+
+    persistence = PersistenceConfig(RUN_NAME=run_name)
+    if root_dir:
+        persistence = persistence.model_copy(
+            update={"ROOT_DATA_DIR": root_dir}
+        )
+    run_dir = persistence.get_run_base_dir()
+    return run_dir if run_dir.is_dir() else None
+
+
+def compare_summaries(
+    a: dict, b: dict, threshold: float = 0.1, metrics=None
+) -> tuple[list, list]:
+    """(rows, regressions) comparing candidate `a` against baseline `b`.
+
+    A row is (metric, a_value, b_value, ratio, status). For throughput
+    metrics, status is "regression" when a < b * (1 - threshold) and
+    "improved" when a > b * (1 + threshold); for LOWER_IS_BETTER
+    metrics (peak bytes, memory budget, serve latency p95) the
+    directions flip — growth past the threshold is the regression.
+    "n/a" when either side is missing. `regressions` lists the
+    regressed metric names. `metrics` restricts the compared set (the
+    `cli compare --metrics` selector; serve-smoke gates the serve SLO
+    rows alone with it); default is all of COMPARE_METRICS.
+    """
+    rows = []
+    regressions = []
+    for metric in metrics if metrics is not None else COMPARE_METRICS:
+        va, vb = a.get(metric), b.get(metric)
+        usable = all(
+            isinstance(v, (int, float)) and not isinstance(v, bool)
+            for v in (va, vb)
+        )
+        if not usable or vb <= 0:
+            rows.append((metric, va, vb, None, "n/a"))
+            continue
+        ratio = va / vb
+        if metric in LOWER_IS_BETTER:
+            better, worse = ratio < 1.0 - threshold, ratio > 1.0 + threshold
+        else:
+            better, worse = ratio > 1.0 + threshold, ratio < 1.0 - threshold
+        if worse:
+            status = "regression"
+            regressions.append(metric)
+        elif better:
+            status = "improved"
+        else:
+            status = "ok"
+        rows.append((metric, va, vb, ratio, status))
+    return rows, regressions

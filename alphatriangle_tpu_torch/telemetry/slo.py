@@ -1,5 +1,6 @@
 """Fleet SLO engine: counterpart of `alphatriangle_tpu/telemetry/slo.py`
-(`collect_slos`, `evaluate_slos`, `write_fleet_prometheus`), computed
+(`collect_slos`, `evaluate_slos`, `slo_status_line`,
+`write_fleet_prometheus`), computed
 only from what the fleet already ledgers:
 
 - **availability**: 1 - rejected / requests. Rejections are the router's
@@ -244,6 +245,23 @@ def evaluate_slos(
         "status": status,
         "exit_code": SLO_EXIT_CODES[status],
     }
+
+
+def slo_status_line(report: dict) -> str:
+    """One-line roll-up for `cli watch` / `cli slo` headers: each SLO's
+    status with its worst window's burn rate."""
+    parts = []
+    for slo in report.get("slos", []):
+        worst = max(
+            (w.get("burn_rate", 0.0) for w in slo.get("windows", [])),
+            default=None,
+        )
+        flag = {"ok": "+", "burning": "!", "no-data": "?"}.get(
+            slo.get("status"), "?"
+        )
+        burn = f" burn x{worst:.1f}" if worst is not None else ""
+        parts.append(f"{flag}{slo.get('name')}{burn}")
+    return f"slo[{report.get('status', '?')}] " + "  ".join(parts)
 
 
 # --- aggregated whole-fleet Prometheus textfile --------------------------

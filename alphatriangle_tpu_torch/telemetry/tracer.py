@@ -6,7 +6,8 @@ span per served game) are ring-buffered in memory, an O(1) append under
 a lock from any thread, and exported as Chrome trace events to
 `trace.json` in the run directory when the run closes, or when a stall
 or a wedge flushes them. Load it in chrome://tracing or
-https://ui.perfetto.dev.
+https://ui.perfetto.dev. `summarize_trace_file` folds such a file (or
+any Chrome trace) into the per-span rows `cli trace` prints.
 """
 
 import json
@@ -14,7 +15,7 @@ import logging
 import os
 import threading
 import time
-from collections import deque
+from collections import defaultdict, deque
 from pathlib import Path
 
 logger = logging.getLogger(__name__)
@@ -133,3 +134,39 @@ class SpanTracer:
                 self.recorded,
             )
         return len(events)
+
+
+def summarize_trace_file(path: Path, top: int = 20) -> list[dict]:
+    """Per-name rows of a `trace.json` (this tracer's or any Chrome
+    trace), busiest first: count, total / mean / max ms and the threads
+    the span ran on. Reads the object form ({"traceEvents": [...]}) and
+    the bare array; raises OSError / ValueError on unreadable input
+    (`cli trace` exits 1 on it)."""
+    data = json.loads(Path(path).read_text())
+    events = data.get("traceEvents", []) if isinstance(data, dict) else data
+    total_us: dict[str, float] = defaultdict(float)
+    max_us: dict[str, float] = defaultdict(float)
+    count: dict[str, int] = defaultdict(int)
+    threads: dict[str, set] = defaultdict(set)
+    for ev in events:
+        if not isinstance(ev, dict) or ev.get("ph") != _COMPLETE:
+            continue
+        name = ev.get("name", "?")
+        dur = float(ev.get("dur", 0))
+        total_us[name] += dur
+        max_us[name] = max(max_us[name], dur)
+        count[name] += 1
+        threads[name].add(ev.get("tid"))
+    rows = [
+        {
+            "name": name,
+            "count": count[name],
+            "total_ms": total_us[name] / 1e3,
+            "mean_ms": total_us[name] / 1e3 / max(count[name], 1),
+            "max_ms": max_us[name] / 1e3,
+            "threads": len(threads[name]),
+        }
+        for name in total_us
+    ]
+    rows.sort(key=lambda r: r["total_ms"], reverse=True)
+    return rows[:top]

@@ -384,6 +384,13 @@ class TrainingLoop:
                 "Loss/Entropy": metrics["entropy"],
             },
         )
+        if os.environ.get("ALPHATRIANGLE_FAULTS"):
+            # The chaos drills' step site (supervise/faults.py: sigterm,
+            # sigkill, crash at step N), once the step's bookkeeping is
+            # done; every loop mode records its steps here.
+            from ..supervise.faults import fault_point
+
+            fault_point("step", step)
 
     def _crossed(self, step: int, freq: int, last: "int | None") -> bool:
         """Did `step` cross a `freq` multiple since `last`? (Steps may

@@ -3,7 +3,9 @@
 mode the config selects (synchronous unless `ASYNC_ROLLOUTS` or
 `FUSED_MEGASTEP`).
 
-Resolves auto-resume (`AUTO_RESUME_LATEST`: the newest run under the
+Applies the recovery overrides a `cli supervise` parent hands its
+respawned child (`_apply_supervise_overrides`, the environment's
+`ALPHATRIANGLE_SUPERVISE_OVERRIDES`), then resolves auto-resume (`AUTO_RESUME_LATEST`: the newest run under the
 persistence root with a committed checkpoint, when it is not this run
 already), builds the components (`setup.py`), restores the learner, the
 counters and the replay ring (`LOAD_CHECKPOINT_PATH`, else the run's
@@ -21,7 +23,9 @@ restore that fails ends the run as ERROR before any step: a fresh model
 is never trained into a run directory whose state could not be read.
 """
 
+import json
 import logging
+import os
 import signal
 import threading
 import time
@@ -34,6 +38,7 @@ from ..config.telemetry_config import TelemetryConfig
 from ..config.train_config import TrainConfig
 from ..logging_config import setup_logging
 from ..stats.persistence import CheckpointManager
+from ..supervise.supervisor import OVERRIDES_ENV
 from .loop import PREEMPT_EXIT_CODE, LoopStatus, TrainingLoop
 from .setup import setup_training_components
 
@@ -45,6 +50,51 @@ EXIT_CODES = {
     LoopStatus.ERROR: 1,
     LoopStatus.PREEMPTED: PREEMPT_EXIT_CODE,
 }
+
+
+#: JSON object of TrainConfig field overrides a `cli supervise` parent
+#: hands its child: the recovery policy's degraded and quarantined knobs,
+#: whatever flags spawned the child. `<FIELD>__scale` keys multiply the
+#: current value (at least 1). The JAX runner's name for the variable.
+SUPERVISE_OVERRIDES_ENV = OVERRIDES_ENV
+
+
+def _apply_supervise_overrides(train_config: TrainConfig) -> TrainConfig:
+    """`train_config` under the supervisor's overrides, rebuilt through the
+    constructor so its validation runs (the schedule lengths it derived
+    stay: the horizon is not a recovery knob). The `TELEMETRY__*` keys are
+    directives, not fields: `TELEMETRY__BEACONS` arms the progress beacons
+    before any engine is built, so a respawn after a wedge names the phase
+    a repeat wedge hangs in. An unparseable value changes nothing."""
+    raw = os.environ.get(SUPERVISE_OVERRIDES_ENV)
+    if not raw:
+        return train_config
+    try:
+        overrides = json.loads(raw)
+    except ValueError:
+        logger.warning("Unparseable %s=%r; ignoring.", SUPERVISE_OVERRIDES_ENV, raw)
+        return train_config
+    if not isinstance(overrides, dict) or not overrides:
+        return train_config
+    directives = {k: overrides.pop(k) for k in [k for k in overrides if k.startswith("TELEMETRY__")]}
+    if directives.get("TELEMETRY__BEACONS"):
+        from ..telemetry.device_stats import arm_beacons
+
+        arm_beacons()
+        logger.warning("Supervisor directive TELEMETRY__BEACONS: progress beacons armed for this respawn.")
+    if not overrides:
+        return train_config
+    resolved: dict = {}
+    for key, value in overrides.items():
+        if key.endswith("__scale"):
+            name = key[: -len("__scale")]
+            resolved[name] = max(1, round(getattr(train_config, name) * float(value)))
+        else:
+            resolved[key] = value
+    logger.warning("Supervisor recovery overrides active: %s", resolved)
+    base = train_config.model_dump()
+    base.update(resolved)
+    return TrainConfig(**base)
 
 
 def _install_preempt_handler(loop: TrainingLoop):
@@ -132,7 +182,7 @@ def run_training(
     root logger, which is left alone when None."""
     if log_level is not None:
         setup_logging(log_level)
-    train_config = train_config or TrainConfig()
+    train_config = _apply_supervise_overrides(train_config or TrainConfig())
     persistence_config = persistence_config or PersistenceConfig(RUN_NAME=train_config.RUN_NAME)
     train_config, persistence_config = _resolve_auto_resume(train_config, persistence_config)
     components = setup_training_components(

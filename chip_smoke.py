@@ -312,6 +312,35 @@ defaults' widths and cuts:
   the window's gather, backup and PER-count kernels exactly; the top
   five device kernels and the profiled against the unprofiled megastep.
 
+Slice thirteen's supervisor, doctor and run readers, after the fleet:
+
+- supervise-wedge: `cli supervise --run-name R -- train --fused-megastep`
+  at the train phase's widths and cuts to step 12 with a checkpoint every
+  2, in a process whose imports of torch, numpy and JAX raise, with
+  `hang-dispatch` at the 3rd megastep's dispatch (dispatch deadline
+  max(15 s, 10 x its expected wall), watchdog poll 0.5 s): exit 0;
+  `supervisor.jsonl` spawn -> death (113, dispatch-hung, family
+  megastep, restart with `TELEMETRY__BEACONS`) -> spawn -> complete; `cli
+  doctor` at the death naming the hung megastep (exit 4); no child
+  building a kernel (`_build/` unchanged); the respawn resuming at the
+  newest committed step (at most one cadence lost), its
+  beacon rows written by the card's writer, 16 + 2 search launches a
+  searched move and one count a megastep. The death to the respawn's
+  first dispatch and first megastep, the hang to the death.
+- supervise-torn: the same with `sigkill-save` at step 4: a SIGKILL
+  between the meta and the commit marker, the torn step_4 seen at the
+  death, the restart from step 2, exit 0.
+- doctor: `cli doctor --json` of the preempted run (preempted, exit 7,
+  taken before its resume), the beacon phase's wedged serve run
+  (dispatch-hung naming its beacon), the fleet parent (the fleet branch,
+  its deaths and respawns those of `fleet.jsonl`) and the supervised run
+  once complete (clean); each exit code its verdict's.
+- readers: `cli trace` of the profile run (its phase spans), `trace
+  --fleet` of the fleet parent (every replica, flow arrows), `watch
+  --once`, `compare` of the supervised run with itself (parity), `slo
+  --json` and `perf --json` of the fleet parent (the report's exit code;
+  the fleet_* fields), all torch-free; `cli devices` (the card, one).
+
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
 
@@ -320,6 +349,7 @@ as the last line `{"ok": true, "device": {...}}`.
 """
 
 import collections
+import gc
 import json
 import os
 import re
@@ -1105,11 +1135,36 @@ def watch_telemetry():
     real_tail = TrainingLoop._iteration_tail
     lock = threading.Lock()
     state = {"hook_s": 0.0, "flight_s": 0.0, "t": None}
-    watch = {"iterations": [], "errors": [], "record_metrics": 0}
+    # Per hook: calls, wall seconds, the calling thread's CPU seconds (the
+    # rest of the wall is waiting: IO, the interpreter lock, CUDA calls)
+    # and the longest call.
+    by_name = {name: {"calls": 0, "wall_s": 0.0, "cpu_s": 0.0, "max_s": 0.0} for name in TELEMETRY_HOOKS}
+    # The collector's passes over the run, and those inside a hook (they
+    # count in its wall): passes, seconds and the longest, by generation.
+    gc_passes = {where: {gen: [0, 0.0, 0.0] for gen in range(3)} for where in ("run", "hooks")}
+    watch = {"iterations": [], "errors": [], "record_metrics": 0, "by_name": by_name, "gc": gc_passes}
+    local = threading.local()
+
+    def on_gc(phase, info):
+        if phase == "start":
+            local.gc_t0 = time.perf_counter()
+            return
+        t0 = getattr(local, "gc_t0", None)
+        if t0 is None:
+            return
+        dt = time.perf_counter() - t0
+        local.gc_t0 = None
+        wheres = ("run", "hooks") if getattr(local, "in_hook", 0) else ("run",)
+        for where in wheres:
+            rec = gc_passes[where][info["generation"]]
+            rec[0] += 1
+            rec[1] += dt
+            rec[2] = max(rec[2], dt)
 
     def timed(name, fn):
         def hook(self, *args, **kwargs):
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            local.in_hook = getattr(local, "in_hook", 0) + 1
             try:
                 return fn(self, *args, **kwargs)
             except BaseException as exc:
@@ -1117,9 +1172,15 @@ def watch_telemetry():
                     watch["errors"].append(f"{name}: {exc!r}")
                 raise
             finally:
-                dt = time.perf_counter() - t0
+                local.in_hook -= 1
+                dt, dc = time.perf_counter() - t0, time.thread_time() - c0
                 with lock:
                     state["hook_s"] += dt
+                    b = by_name[name]
+                    b["calls"] += 1
+                    b["wall_s"] += dt
+                    b["cpu_s"] += dc
+                    b["max_s"] = max(b["max_s"], dt)
                     if name == "record_metrics":
                         watch["record_metrics"] += 1
         return hook
@@ -1140,11 +1201,14 @@ def watch_telemetry():
     for name, fn in real.items():
         setattr(RunTelemetry, name, timed(name, fn))
     TrainingLoop._iteration_tail = tail
+    gc.callbacks.append(on_gc)
 
     def restore():
         for name, fn in real.items():
             setattr(RunTelemetry, name, fn)
         TrainingLoop._iteration_tail = real_tail
+        if on_gc in gc.callbacks:
+            gc.callbacks.remove(on_gc)
 
     return watch, restore
 
@@ -1223,9 +1287,22 @@ def check_telemetry(loop, watch: dict, label: str, strict: bool = True) -> dict:
     p50 = statistics.median(walls)
     hook = [i["hook_s"] for i in iterations]
     mean_hook = sum(hook) / len(hook)
+    by_name = {
+        name: {"calls": b["calls"], "wall_ms": b["wall_s"] * 1e3, "cpu_ms": b["cpu_s"] * 1e3,
+               "max_ms": b["max_s"] * 1e3}
+        for name, b in watch["by_name"].items() if b["calls"]
+    }
+    gc_passes = {
+        where: {f"gen{gen}": {"passes": n, "ms": t * 1e3, "max_ms": m * 1e3} for gen, (n, t, m) in gens.items()}
+        for where, gens in watch["gc"].items()
+    }
     if mean_hook > TELEMETRY_HOOK_SHARE * p50:
         fail(f"{label}: telemetry hooks {mean_hook * 1e3:.2f} ms an iteration, over "
-             f"{TELEMETRY_HOOK_SHARE:.0%} of the iteration p50 {p50 * 1e3:.1f} ms")
+             f"{TELEMETRY_HOOK_SHARE:.0%} of the iteration p50 {p50 * 1e3:.1f} ms; by hook "
+             f"{format_hooks(by_name)}; flight recorder "
+             f"{statistics.fmean(i['flight_s'] for i in iterations) * 1e3:.3f} ms an iteration; "
+             f"iterations' hook ms {[round(i['hook_s'] * 1e3, 1) for i in iterations]}; "
+             f"collector passes {json.dumps(gc_passes)}")
     device_stats = check_device_stats(loop, label, strict=strict)
     return {
         "device_stats": device_stats,
@@ -1251,7 +1328,21 @@ def check_telemetry(loop, watch: dict, label: str, strict: bool = True) -> dict:
         "hook_ms_max": max(hook) * 1e3,
         "flight_overhead_ms_mean": statistics.fmean(i["flight_s"] for i in iterations) * 1e3,
         "hook_share_of_p50": mean_hook / p50,
+        "hook_ms_by_name": by_name,
+        "gc_passes": gc_passes,
     }
+
+
+def format_gc(gens: dict) -> str:
+    return ", ".join(f"{g} {r['passes']} x {r['ms']:.1f} (max {r['max_ms']:.1f})" for g, r in gens.items())
+
+
+def format_hooks(by_name: dict) -> str:
+    """`name calls x wall (cpu, max) ms`, one per hook that was called."""
+    return ", ".join(
+        f"{name} {b['calls']} x {b['wall_ms']:.1f} ({b['cpu_ms']:.1f} cpu, max {b['max_ms']:.1f}) ms"
+        for name, b in by_name.items()
+    )
 
 
 def say_telemetry(label: str, r: dict, card: str) -> None:
@@ -1265,7 +1356,10 @@ def say_telemetry(label: str, r: dict, card: str) -> None:
         f"hooks {r['hook_ms_mean']:.3f} ms an iteration (max {r['hook_ms_max']:.3f}, flight recorder "
         f"{r['flight_overhead_ms_mean']:.3f}), {r['hook_share_of_p50']:.3%} of the iteration p50 "
         f"{r['iteration_ms_p50']:.1f} ms (min {r['iteration_ms_min']:.1f}, max "
-        f"{r['iteration_ms_max']:.1f}, {r['iterations_timed']} iterations) [{card}]"
+        f"{r['iteration_ms_max']:.1f}, {r['iterations_timed']} iterations); by hook, over the run: "
+        f"{format_hooks(r['hook_ms_by_name'])}; the collector's passes (count, ms, longest) over the "
+        f"run {format_gc(r['gc_passes']['run'])}, inside hooks {format_gc(r['gc_passes']['hooks'])} "
+        f"[{card}]"
     )
     say_device_stats(label, r["device_stats"], card)
 
@@ -2286,6 +2380,11 @@ def preempt_resume_phase(torch) -> dict:
     spill = run / "buffers" / f"buffer_{step:08d}.npz"
     if not (run / "checkpoints" / f"step_{step:08d}.commit").is_file() or not spill.is_file():
         fail(f"{label}: no committed checkpoint and spill at step {step}")
+    # The doctor of the preempted run, before the resume writes into it.
+    doctor_rc, doctor_out = run_reader(["doctor", "ckpt", "--root-dir", str(root), "--json"], label)
+    doctor = json.loads(doctor_out)
+    if doctor_rc != 7 or doctor["verdict"] != "preempted":
+        fail(f"{label}: cli doctor of the preempted run gave exit {doctor_rc}: {doctor}")
     with np.load(spill) as data:
         spill_rows = int(data["size"])
     t0 = time.perf_counter()
@@ -2339,6 +2438,8 @@ def preempt_resume_phase(torch) -> dict:
         "losses": [first["losses"], second["losses"]],
         "probe": probe,
         "probe_s": signalled["probe_s"],
+        "doctor_rc": doctor_rc,
+        "doctor": doctor,
         "health": health_out.strip().splitlines(),
         "perf": {k: summary.get(k) for k in (
             "ticks", "ticks_total", "device_kind", "peak_bf16_tflops", "peak_source", "mfu", "mfu_max",
@@ -4371,6 +4472,39 @@ def say_fleet(r: dict, card: str) -> None:
     say(f"fleet cli part: {cli_part['wall_s']:.1f} s; fleet phase: {r['phase_s']:.1f} s")
 
 
+def supervised_path(r: dict) -> dict:
+    """A supervised run's figures for the JSON line: the respawn's
+    launches (the killed child's are not reported) and the chain."""
+    keep = ("launches", "searched_moves", "megasteps", "beacon_launches", "wall_s", "steps_done_before_death",
+            "steps_lost", "death_to_respawn_first_intent_s", "death_to_respawn_first_megastep_s",
+            "respawn_spawn_to_first_intent_s", "respawn_restore_ms", "respawn_megastep_ms_p50",
+            "respawn_run_s", "hang_at_dispatch", "hung_program", "wedge_deadline_s", "wedge_elapsed_s",
+            "hang_to_death_s", "beacon_rows", "checkpoints_at_death")
+    out = {k: r[k] for k in keep if k in r}
+    out["events"] = [
+        {k: e.get(k) for k in ("event", "attempt", "rc", "verdict", "program", "family", "progress_step",
+                                "action", "delay_s", "overrides") if e.get(k) is not None}
+        for e in r["events"]
+    ]
+    out["doctor_at_death"] = {"rc": r["at_death"]["doctor_rc"], "verdict": r["at_death"]["doctor"]["verdict"],
+                              "program": r["at_death"]["doctor"].get("program")}
+    return out
+
+
+def say_supervise(label: str, r: dict, card: str) -> None:
+    death = r["events"][1]
+    say(
+        f"{label}: exit 0 in {r['wall_s']:.1f} s; {' -> '.join(e['event'] for e in r['events'])}; death rc "
+        f"{death['rc']}, {death['verdict']} [{death.get('family')}], committed step {death['progress_step']}, "
+        f"{r['steps_done_before_death']} steps done, {r['steps_lost']} lost; death to the respawn's first "
+        f"dispatch {r['death_to_respawn_first_intent_s']:.1f} s (spawn to it "
+        f"{r['respawn_spawn_to_first_intent_s']:.1f} s), to its first megastep "
+        f"{r['death_to_respawn_first_megastep_s']:.1f} s; restore {r['respawn_restore_ms']:.1f} ms, "
+        f"megastep p50 {r['respawn_megastep_ms_p50']:.1f} ms; launches {r['launches']} in "
+        f"{r['searched_moves']} searched moves, {r['megasteps']} megasteps [{card}]"
+    )
+
+
 def say_ladder(label: str, r: dict, card: str) -> None:
     by_rung = "; ".join(
         f"b{rung}: {v['dispatches']} dispatches, p50 {v['dispatch_ms_p50']:.1f} ms, first after a "
@@ -5151,6 +5285,310 @@ def profile_phase(torch) -> dict:
     }
 
 
+# Slice thirteen's drills: `cli supervise -- train --fused-megastep` at the
+# train phase's widths and cuts, a checkpoint every 2 steps to step 12;
+# the wedge at the 3rd megastep's dispatch (past the first committed
+# checkpoint), whose deadline is max(15 s, 10 x the megastep's expected
+# wall) under a watchdog polled every 0.5 s; the torn save at step 4.
+SUPERVISE_FREQ, SUPERVISE_STEPS = 2, 12
+SUPERVISE_HANG_MEGASTEP, SUPERVISE_MIN_DEADLINE = 3, 15.0
+SUPERVISE_TORN_STEP = 4
+
+
+def supervisor_events(run: Path) -> list:
+    from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
+
+    return [e for e in read_ledger(run / "supervisor.jsonl") if e.get("kind") == "supervisor"]
+
+
+def run_supervised(label: str, faults: str) -> dict:
+    """`cli supervise --run-name <label> -- train --fused-megastep` at the
+    train phase's widths and cuts, in a process whose imports of torch,
+    numpy and JAX raise, with `faults` armed (once, by a sentinel under
+    the phase's root). At the first death, before the respawn gets far:
+    the checkpoint directory's listing and `cli doctor --json` of the run.
+    Returns the exit code, the children's JSON reports, the events of
+    `supervisor.jsonl`, the at-death evidence and the wall."""
+    from alphatriangle_tpu_torch.config import TrainConfig
+    from alphatriangle_tpu_torch.telemetry.flight import read_flight
+
+    root = RUN_ROOT / label
+    run = root / "AlphaTriangleTPUTorch" / "runs" / label
+    argv = [
+        "supervise", "--run-name", label, "--root-dir", str(root), "--backoff-base", "0.5", "--",
+        "train", "--fused-megastep", "--device", "cuda", "--seed", "0",
+        "--max-steps", str(SUPERVISE_STEPS), "--rollout-chunk", str(TRAIN_CHUNK_MOVES),
+        "--min-buffer", str(TRAIN_MIN_BUFFER), "--fused-learner-steps", str(TRAIN_K),
+        "--checkpoint-freq", str(SUPERVISE_FREQ), "--no-tensorboard",
+        "--dispatch-min-deadline", str(SUPERVISE_MIN_DEADLINE), "--dispatch-watchdog-poll", "0.5",
+        "--log-level", "WARNING",
+    ]
+    env = {**os.environ, "ALPHATRIANGLE_FAULTS": faults,
+           "ALPHATRIANGLE_FAULT_STATE_DIR": str(root / "faults")}
+    at_death: dict = {}
+    done = threading.Event()
+
+    def watch_death():
+        while not done.is_set():
+            events = supervisor_events(run) if (run / "supervisor.jsonl").exists() else []
+            if any(e["event"] == "death" for e in events):
+                ckpt = run / "checkpoints"
+                # Each entry's name; a step directory's with its files.
+                at_death["checkpoints"] = {
+                    p.name: sorted(q.name for q in p.iterdir()) if p.is_dir() else None
+                    for p in sorted(ckpt.iterdir())
+                }
+                rc, out = run_reader(["doctor", label, "--root-dir", str(root), "--json"], label)
+                at_death["doctor_rc"], at_death["doctor"] = rc, json.loads(out)
+                return
+            time.sleep(0.05)
+
+    watcher = threading.Thread(target=watch_death, daemon=True)
+    out_path, err_path = RUN_ROOT / f"{label}.out", RUN_ROOT / f"{label}.err"
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _NO_TORCH_PARENT + f"sys.exit(main({argv!r}))"],
+            cwd=ROOT, stdout=out, stderr=err, text=True, env=env,
+        )
+        watcher.start()
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            done.set()
+            watcher.join(timeout=60)
+    wall_s = time.perf_counter() - t0
+    stderr = err_path.read_text()
+    if "a torch-free process imported" in stderr:
+        fail(f"{label}: the supervisor imported torch, numpy or JAX: {stderr[-1000:]}")
+    reports = [json.loads(line) for line in out_path.read_text().splitlines() if line.startswith("{")]
+    events = supervisor_events(run)
+    names = [e["event"] for e in events]
+    if rc != 0 or names != ["spawn", "death", "spawn", "complete"] or len(reports) != 1:
+        fail(f"{label}: exit {rc}, supervisor.jsonl {names}, {len(reports)} reports; stderr "
+             f"{stderr[-3000:]}")
+    if "doctor" not in at_death:
+        fail(f"{label}: no evidence taken at the death")
+    report = reports[0]
+    moves = report["lane_moves"] // TrainConfig().SELF_PLAY_BATCH_SIZE
+    launches = report["kernel_launches"]
+    check_report_losses(report, label)
+    want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample": report["megasteps"],
+            "subtree_promote": 0}
+    if report["status"] != "completed" or report["steps"] != SUPERVISE_STEPS or launches != want:
+        fail(f"{label}: the respawn ended {report['status']} at step {report['steps']}, launches "
+             f"{launches} in {moves} searched moves and {report['megasteps']} megasteps, want {want}")
+    if report["mode"] != "megastep" or not report["device"].startswith("cuda"):
+        fail(f"{label}: the respawn ran {report['mode']} on {report['device']}")
+    death, respawn = events[1], events[2]
+    flight = read_flight(run / "flight.jsonl")
+    first = [r for r in flight if r["time"] < respawn["time"]]
+    later = [r for r in flight if r["time"] >= respawn["time"]]
+    sealed = [r for r in first if r["phase"] == "seal" and r["family"] == "megastep" and r.get("ok", True)]
+    steps_done = len(sealed) * TRAIN_K
+    if report["resumed_step"] != death["progress_step"] or death["progress_step"] is None:
+        fail(f"{label}: the respawn resumed at {report['resumed_step']}, the newest committed step at the "
+             f"death was {death['progress_step']}")
+    first_intent = next(r for r in later if r["phase"] == "intent")
+    first_mega = next(r for r in later if r["phase"] == "seal" and r["family"] == "megastep")
+    return {
+        "rc": rc, "events": events, "report": report, "at_death": at_death, "wall_s": wall_s,
+        "run": run, "root": root, "first_attempt_flight": first,
+        "launches": launches, "searched_moves": moves, "megasteps": report["megasteps"],
+        "beacon_launches": report["beacon_launches"],
+        "steps_done_before_death": steps_done,
+        "steps_lost": steps_done - report["resumed_step"],
+        "death_to_respawn_first_intent_s": first_intent["time"] - death["time"],
+        "death_to_respawn_first_megastep_s": first_mega["time"] - death["time"],
+        "respawn_spawn_to_first_intent_s": first_intent["time"] - respawn["time"],
+        "respawn_restore_ms": report["restore_s"] * 1e3,
+        "respawn_megastep_ms_p50": report["timings"]["megastep_s_p50"] * 1e3,
+        "respawn_run_s": report["timings"]["run_s"],
+    }
+
+
+def supervise_wedge_phase(torch, warmup_chunks: int) -> dict:
+    """`cli supervise` with `hang-dispatch` at the 3rd megastep's dispatch:
+    the child's watchdog exits 113; supervisor.jsonl must read spawn ->
+    death (113, dispatch-hung, family megastep, restart with
+    TELEMETRY__BEACONS) -> spawn (those overrides) -> complete; the
+    doctor at the death names the hung megastep (exit 4); no child builds a
+    kernel (the `_build/` listing unchanged); the respawn resumes at the
+    newest committed step, losing at most one cadence,
+    writes beacon rows through the card's writer, and its search kernels
+    and PER count launch 16 + 2 a searched move and once a megastep."""
+    label = "supervise-wedge"
+    torch.cuda.empty_cache()  # the card's memory for the children
+    hang_at = warmup_chunks + SUPERVISE_HANG_MEGASTEP
+    built = build_listing()[0]
+    r = run_supervised(label, f"hang-dispatch@after={hang_at}")
+    if build_listing()[0] != built:
+        fail(f"{label}: the children built kernels: {built} -> {build_listing()[0]}")
+    death, respawn = r["events"][1], r["events"][2]
+    if not (death["rc"] == 113 and death["verdict"] == "dispatch-hung" and death["family"] == "megastep"
+            and death["action"] == "restart" and death["overrides"].get("TELEMETRY__BEACONS") is True
+            and respawn["overrides"] == death["overrides"]):
+        fail(f"{label}: death {death}, respawn overrides {respawn.get('overrides')}")
+    doc = r["at_death"]["doctor"]
+    if r["at_death"]["doctor_rc"] != 4 or doc["verdict"] != "dispatch-hung" or doc["family"] != "megastep":
+        fail(f"{label}: cli doctor at the death gave exit {r['at_death']['doctor_rc']}: {doc}")
+    if r["steps_lost"] > SUPERVISE_FREQ or r["report"]["resumed_step"] < SUPERVISE_FREQ:
+        fail(f"{label}: {r['steps_done_before_death']} steps done before the death, resumed at "
+             f"{r['report']['resumed_step']}")
+    from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
+
+    rows = [b for b in read_ledger(r["run"] / "beacons.jsonl") if b["time"] >= respawn["time"]]
+    if not rows or r["beacon_launches"] == 0:
+        fail(f"{label}: the respawn wrote {len(rows)} beacon rows in {r['beacon_launches']} launches")
+    wedge = json.loads((r["run"] / "wedge_report.json.attempt1").read_text())
+    hung = next(x for x in r["first_attempt_flight"] if x["phase"] == "intent" and x["seq"] == hang_at)
+    if wedge["seq"] != hang_at or wedge["program"] != hung["program"] or wedge["exit_code"] != 113:
+        fail(f"{label}: wedge report {wedge} against the hung intent {hung}")
+    r.update({
+        "hang_at_dispatch": hang_at, "hung_program": hung["program"], "death": death,
+        "wedge_deadline_s": wedge["deadline_s"], "wedge_elapsed_s": wedge["elapsed_s"],
+        "hang_to_death_s": death["time"] - hung["time"], "beacon_rows": len(rows),
+    })
+    return r
+
+
+def supervise_torn_phase(torch) -> dict:
+    """`cli supervise` with `sigkill-save` at step 4: the child dies by
+    SIGKILL between the state and meta writes and the commit marker,
+    leaving an uncommitted step_4 (seen at the death); the supervisor
+    restarts from step 2, the newest committed, and the run completes."""
+    label = "supervise-torn"
+    torch.cuda.empty_cache()
+    r = run_supervised(label, f"sigkill-save@step={SUPERVISE_TORN_STEP}")
+    death = r["events"][1]
+    prior = SUPERVISE_TORN_STEP - SUPERVISE_FREQ
+    torn = f"step_{SUPERVISE_TORN_STEP:08d}"
+    listing = r["at_death"]["checkpoints"]
+    if not (death["rc"] == -signal.SIGKILL and death["action"] == "restart" and death["progress_step"] == prior
+            and r["report"]["resumed_step"] == prior):
+        fail(f"{label}: death {death}, the respawn resumed at {r['report']['resumed_step']}")
+    if (listing.get(torn) != ["train_state.pt"] or f"{torn}.meta.json" not in listing
+            or f"{torn}.commit" in listing or f"step_{prior:08d}.commit" not in listing):
+        fail(f"{label}: the checkpoints at the death: {listing}")
+    if not (r["root"] / "faults" / "sigkill-save.fired").exists():
+        fail(f"{label}: the sigkill-save fault never fired")
+    r.update({"death": death, "checkpoints_at_death": listing})
+    return r
+
+
+def doctor_phase(prreport: dict, flreport: dict, swreport: dict) -> dict:
+    """`cli doctor --json` (in a process whose imports of torch, numpy and
+    JAX raise) over the beacon phase's wedged serve run (dispatch-hung,
+    naming its last beacon, exit 4), the fleet phase's parent (the fleet
+    branch: the deaths and respawns its fleet.jsonl counted) and the
+    supervise-wedge run once it completed (clean: the supervisor moved the
+    wedge report aside and the respawn sealed past the hung dispatch);
+    with the preempt-resume phase's first run (preempted, exit 7) and the
+    supervise-wedge run at its death (dispatch-hung, exit 4), taken in
+    their phases. Each exit code must be its verdict's."""
+    from alphatriangle_tpu_torch.telemetry.flight import DOCTOR_EXIT_CODES
+
+    label = "doctor"
+    out = {"preempted": {"rc": prreport["doctor_rc"], **prreport["doctor"]},
+           "supervise_wedge_at_death": {"rc": swreport["at_death"]["doctor_rc"],
+                                        **swreport["at_death"]["doctor"]}}
+    fleet_root = RUN_ROOT / "fleet"
+    for name, args in (
+        ("beacon_wedge", [str(RUN_ROOT / "beacons")]),
+        ("fleet_parent", ["fleet", "--root-dir", str(fleet_root)]),
+        ("supervise_wedge_done", ["supervise-wedge", "--root-dir", str(RUN_ROOT / "supervise-wedge")]),
+    ):
+        rc, text = run_reader(["doctor", *args, "--json"], label)
+        out[name] = {"rc": rc, **json.loads(text)}
+    for name, v in out.items():
+        if v["rc"] != DOCTOR_EXIT_CODES[v["verdict"]] or v["rc"] != v["exit_code"]:
+            fail(f"{label}: {name} exit {v['rc']} for the verdict {v['verdict']}")
+    want = {"preempted": "preempted", "supervise_wedge_at_death": "dispatch-hung",
+            "beacon_wedge": "dispatch-hung", "supervise_wedge_done": "clean"}
+    got = {name: out[name]["verdict"] for name in want}
+    if got != want:
+        fail(f"{label}: verdicts {got}, want {want}")
+    if "last beacon: serve/b64 phase=search_wave index=0" not in out["beacon_wedge"]["detail"]:
+        fail(f"{label}: the beacon run's verdict does not name its beacon: {out['beacon_wedge']['detail']}")
+    events = fleet_events(fleet_root / "AlphaTriangleTPUTorch" / "runs" / "fleet" / "fleet.jsonl")
+    ev = out["fleet_parent"]["evidence"]
+    counted = {k: sum(1 for e in events if e["event"] == k) for k in ("death", "respawn")}
+    if (ev["deaths"], ev["respawns"]) != (counted["death"], counted["respawn"]) or counted["death"] < 2:
+        fail(f"{label}: the fleet branch counted {ev['deaths']} deaths and {ev['respawns']} respawns, "
+             f"fleet.jsonl {counted} (the fleet report: {flreport['cli']['report']['fleet']})")
+    return out
+
+
+def readers_phase(kind: str) -> dict:
+    """The commands that read a run, each in a process whose imports of
+    torch, numpy and JAX raise, over the run directories earlier phases
+    left: `cli trace` of the profile run (rows for its phase spans),
+    `cli trace --fleet` of the fleet parent (events of every replica, flow
+    arrows), `cli watch --once` of the supervise-wedge run (a frame naming
+    it), `cli compare` of that run against itself (parity), `cli slo
+    --json` and `cli perf --json` of the fleet parent (the exit code the
+    report's; the fleet_* fields); then `cli devices` (it imports torch):
+    the card, one device."""
+    label = "readers"
+    out: dict = {}
+    t0 = time.perf_counter()
+    rc, text = run_reader(["trace", "profile", "--root-dir", str(RUN_ROOT / "profile")], label)
+    spans = [line.split()[0] for line in text.splitlines()[1:] if line.strip() and not line.startswith("full")]
+    if rc != 0 or not {"rollout", "megastep"} <= set(spans):
+        fail(f"{label}: cli trace exit {rc}: {text[:500]}")
+    out["trace_spans"] = spans
+    fleet_root = RUN_ROOT / "fleet"
+    fleet_dir = fleet_root / "AlphaTriangleTPUTorch" / "runs" / "fleet"
+    rc, text = run_reader(["trace", "fleet", "--root-dir", str(fleet_root), "--fleet"], label)
+    merged = json.loads((fleet_dir / "trace_fleet.json").read_text())
+    names = [m["args"]["name"] for m in merged["traceEvents"] if m.get("name") == "process_name"]
+    replicas = {n.split()[1] for n in names if n.startswith("replica ")}
+    flows = sum(1 for e in merged["traceEvents"] if e.get("cat") == "fleet-flow" and e.get("ph") in "tf")
+    if rc != 0 or replicas != {f"replica_r{i}" for i in range(FLEET_REPLICAS)} or flows == 0:
+        fail(f"{label}: cli trace --fleet exit {rc}, replicas {replicas}, {flows} flow arrows: {text}")
+    out["trace_fleet"] = {"processes": len(names), "replicas": sorted(replicas), "flows": flows,
+                          "events": len(merged["traceEvents"]), "summary": text.strip().splitlines()}
+    rc, text = run_reader(
+        ["watch", "--run-name", "supervise-wedge", "--root-dir", str(RUN_ROOT / "supervise-wedge"), "--once"],
+        label,
+    )
+    if rc != 0 or not text.startswith(f"run supervise-wedge @ step {SUPERVISE_STEPS}"):
+        fail(f"{label}: cli watch exit {rc}: {text[:500]}")
+    out["watch_frame"] = text.strip().splitlines()
+    ledger = str(RUN_ROOT / "supervise-wedge" / "AlphaTriangleTPUTorch" / "runs" / "supervise-wedge")
+    rc, text = run_reader(["compare", ledger, ledger, "--json"], label)
+    compared = json.loads(text) if rc == 0 else {}
+    if rc != 0 or compared.get("regressions") != [] or not any(
+        row["status"] == "ok" for row in compared.get("rows", [])
+    ):
+        fail(f"{label}: cli compare of a run against itself exit {rc}: {text[:500]}")
+    out["compare_rows"] = [row["metric"] for row in compared["rows"] if row["status"] == "ok"]
+    rc, text = run_reader(["slo", str(fleet_dir), "--json"], label)
+    slo = json.loads(text)
+    if rc != slo["exit_code"]:
+        fail(f"{label}: cli slo exit {rc}, its report's {slo['exit_code']}")
+    out["slo"] = {"rc": rc, "status": slo["status"],
+                  "slos": {s["name"]: s["status"] for s in slo["slos"]}}
+    rc, text = run_reader(["perf", str(fleet_dir), "--json"], label)
+    perf = json.loads(text) if rc == 0 else {}
+    fleet_fields = {k: v for k, v in perf.items() if k.startswith("fleet_")}
+    if rc != 0 or not fleet_fields.get("fleet_deaths"):
+        fail(f"{label}: cli perf of the fleet parent exit {rc}, fields {sorted(fleet_fields)}")
+    out["perf_fleet"] = fleet_fields
+    proc = subprocess.run(
+        [sys.executable, "-m", "alphatriangle_tpu_torch.cli", "devices"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    if proc.returncode != 0 or kind not in proc.stdout or ": 1 CUDA device(s)" not in proc.stdout:
+        fail(f"{label}: cli devices exit {proc.returncode}: {proc.stdout} {proc.stderr[-500:]}")
+    out["devices"] = proc.stdout.strip().splitlines()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5582,6 +6020,39 @@ def run_phases(torch) -> int:
     say_fleet(flreport, card)
 
     t0 = time.perf_counter()
+    swreport = supervise_wedge_phase(torch, treport["warmup_chunks"])
+    say_supervise("supervise-wedge", swreport, card)
+    say(
+        f"supervise-wedge: hang-dispatch at dispatch {swreport['hang_at_dispatch']} "
+        f"({swreport['hung_program']}), wedge report at {swreport['wedge_elapsed_s']} s past its "
+        f"{swreport['wedge_deadline_s']} s deadline, death {swreport['hang_to_death_s']:.1f} s after "
+        f"the hung intent; doctor at the death {swreport['at_death']['doctor']['verdict']} "
+        f"(exit {swreport['at_death']['doctor_rc']}); {swreport['beacon_rows']} beacon rows from "
+        f"{swreport['beacon_launches']} launches in the respawn [{card}]"
+    )
+    say(f"supervise-wedge phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    streport = supervise_torn_phase(torch)
+    say_supervise("supervise-torn", streport, card)
+    say(f"supervise-torn: the checkpoints at the death {json.dumps(streport['checkpoints_at_death'])} [{card}]")
+    say(f"supervise-torn phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dcreport = doctor_phase(prreport, flreport, swreport)
+    say("doctor: " + "; ".join(
+        f"{name} {v['verdict']} (exit {v['rc']})" for name, v in dcreport.items()
+    ) + f"; fleet evidence {json.dumps(dcreport['fleet_parent']['evidence'])}")
+    rdreport = readers_phase(kind)
+    say(
+        f"readers: trace {rdreport['trace_spans']}; trace --fleet {rdreport['trace_fleet']['events']} "
+        f"events, {rdreport['trace_fleet']['processes']} processes ({', '.join(rdreport['trace_fleet']['replicas'])}), "
+        f"{rdreport['trace_fleet']['flows']} flow arrows; watch {rdreport['watch_frame'][0]!r}; compare "
+        f"parity on {rdreport['compare_rows']}; slo {rdreport['slo']}; perf fleet_deaths "
+        f"{rdreport['perf_fleet'].get('fleet_deaths')}, fleet_respawns "
+        f"{rdreport['perf_fleet'].get('fleet_respawns')}; devices {rdreport['devices']}"
+    )
+    say(f"doctor and readers phases: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     rsreport = reference_phase(torch, dev)
     say(
         "reference: card search equals the CPU search on a small input, its stat-pack too "
@@ -5645,6 +6116,7 @@ def run_phases(torch) -> int:
         **{f"serve_{name}": r for name, r in spreport.items()},
         "serve_ladder": slreport, "serve_ladder_reuse": slrreport, "league": lgreport,
         "fleet": flreport,
+        "supervise_wedge": supervised_path(swreport), "supervise_torn": supervised_path(streport),
     }
     kernels_line = []
     for kname, kr in kreport.items():
@@ -5675,6 +6147,7 @@ def run_phases(torch) -> int:
     beacon_entry = dict(bkreport)
     beacon_entry["launches_by_path"] = {
         "beacons": bnreport["launches"], "train_armed_megastep": treport["stats_ab"]["beacon_launches"],
+        "supervise_wedge_respawn": swreport["beacon_launches"],
     }
     beacon_entry["launches"] = sum(beacon_entry["launches_by_path"].values())
     if not all(beacon_entry["launches_by_path"].values()):
@@ -5684,6 +6157,7 @@ def run_phases(torch) -> int:
         "kernels": kernels_line, **paths, "ring_round_trip": rtreport, "reference": rreport,
         "attention_memory": amreport, "empty_kernel_ms": empty_ms,
         "serve_stats": ssreport, "beacons": bnreport, "profile": pfreport,
+        "doctor": dcreport, "readers": rdreport,
         "card": card,
     }))
     say(card)

@@ -282,8 +282,8 @@ def test_recovery_policy_matches_jax(case, quarantine_after):
 
 
 def test_fault_sites_and_spec_match_jax():
-    # The port arms the serve-dispatch site only, with the JAX faults.
-    assert tfaults.SITE_FAULTS == {"serve-dispatch": jfaults.SITE_FAULTS["serve-dispatch"]}
+    # The port arms every JAX site, with the JAX faults.
+    assert tfaults.SITE_FAULTS == jfaults.SITE_FAULTS
     assert tfaults.SITE_FAULTS["serve-dispatch"] == ("hang-serve", "crash-serve")
     assert (tfaults.FAULTS_ENV, tfaults.FAULT_STATE_DIR_ENV) == (
         jfaults.FAULTS_ENV, jfaults.FAULT_STATE_DIR_ENV)
@@ -295,7 +295,7 @@ def test_crash_serve_fires_once_per_state_dir(tmp_path, monkeypatch):
     monkeypatch.setenv(tfaults.FAULTS_ENV, "crash-serve@after=2")
     monkeypatch.setenv(tfaults.FAULT_STATE_DIR_ENV, str(tmp_path))
     tfaults.fault_point("serve-dispatch", 1)  # below its threshold
-    tfaults.fault_point("dispatch", 5)  # a site the port does not arm
+    tfaults.fault_point("dispatch", 5)  # a site none of whose faults is armed
     with pytest.raises(RuntimeError, match="injected serve-dispatch"):
         tfaults.fault_point("serve-dispatch", 2)
     tfaults.fault_point("serve-dispatch", 3)  # the sentinel is claimed

@@ -21,6 +21,7 @@ import json
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -172,8 +173,13 @@ def _layouts(port_run, tmp_path) -> Path:
 
 
 @pytest.mark.parametrize("probe", [False, True])
-def test_cli_health_exit_codes_match_jax(port_run, tmp_path, capsys, probe):
+def test_cli_health_exit_codes_match_jax(port_run, tmp_path, capsys, probe, monkeypatch):
     root = _layouts(port_run, tmp_path)
+    # One wall clock for both commands: a heartbeat's printed age is
+    # rounded to the second, and two reads of a moving clock straddled
+    # a rounding boundary on a loaded machine.
+    frozen = time.time()
+    monkeypatch.setattr(time, "time", lambda: frozen)
     deadline = ["--deadline", "3600"]
     codes = {}
     for name in ("live", "stale", "stalled", "missing"):
