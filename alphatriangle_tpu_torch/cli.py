@@ -35,6 +35,8 @@ ladder's rungs and switches and the reloaded steps included.
         [--no-telemetry] [--watchdog-deadline SECONDS] [--dispatch-min-deadline SECONDS]
         [--dispatch-watchdog-poll SECONDS]
         [--profile] [--log-level LEVEL]
+        [--distributed [--coordinator HOST:PORT|file://PATH --num-processes N
+         --process-id R] [--dist-backend {auto,nccl,gloo}]]
 
 Trains the default board and net, or a BASELINE preset's (`--preset
 1..5`, `config/presets.py`, or a `tuned_preset.json`; the flags given
@@ -50,7 +52,16 @@ to `live_metrics.jsonl` in the run directory and, unless
 `<root>/AlphaTriangleTPUTorch/runs/<run>` (root `./.alphatriangle_data`
 unless `--root-dir`), checkpoints every `--checkpoint-freq` steps and
 at the end, and resumes the newest checkpointed run under the root
-unless `--no-auto-resume`. SIGTERM saves, spills and exits 114. The run
+unless `--no-auto-resume`. SIGTERM saves, spills and exits 114.
+`--distributed` trains one model over the ranks of a process group, one
+rank per device (`parallel/`): the synchronous loop and the megastep,
+each rank on its share of the lanes and of the batch, its gradients
+all-reduced (`--async-rollouts` raises: ROADMAP.md item 6b). Ranks come
+from torchrun (`torchrun --nproc-per-node 2 -m alphatriangle_tpu_torch.cli
+train --distributed ...`) or from the explicit flags, one process each;
+NCCL on CUDA, gloo on the CPU, and `--dist-backend gloo` for ranks that
+share one card. Rank 0 writes the run directory; every rank prints its
+report (its `dp` block: rank, world, backend, parameter digests). The run
 directory also gets the run's telemetry unless `--no-telemetry`: the
 `health.json` heartbeat (stall deadline `--watchdog-deadline`), the
 `metrics.jsonl` ledger (every metrics tick and one `kind:"util"` record
@@ -61,7 +72,8 @@ writes `wedge_report.json` and exits 113), and the anomaly screen of
 every learner step; with the device stat-packs on (the default), one
 `kind:"device_stats"` ledger record an iteration. `--profile` adds the
 loop's phase timers (`Profile/*_ms`, `profile_data/phase_timers.json`)
-and a `torch.profiler` trace of iterations 1-2 in `profile_data/`.
+and a `torch.profiler` trace of iterations 1-2 (a megastep run's
+megasteps 1-2) in `profile_data/`.
 `--no-per` samples the ring uniformly. A completed run of
 a tuned preset ledgers a `tune_outcome` record. Prints one JSON report:
 steps, losses, rows ingested, episodes, weight syncs, the achieved
@@ -454,6 +466,19 @@ def cmd_train(args: argparse.Namespace) -> int:
     if args.keep_checkpoints is not None:
         persistence["KEEP_LAST_CHECKPOINTS"] = args.keep_checkpoints
     persistence_config = PersistenceConfig(**persistence)
+    distributed_config = None
+    if args.distributed or args.coordinator is not None:
+        if args.async_rollouts:
+            raise SystemExit(
+                "--distributed with --async-rollouts: the overlapped loop across ranks waits for "
+                "ROADMAP.md item 6b"
+            )
+        from .parallel import DistributedConfig
+
+        distributed_config = DistributedConfig(
+            ENABLED=True, COORDINATOR_ADDRESS=args.coordinator, NUM_PROCESSES=args.num_processes,
+            PROCESS_ID=args.process_id, BACKEND=args.dist_backend,
+        )
     if args.dry_setup:
         c = setup_training_components(
             train_cfg, persistence_config=persistence_config, device=device,
@@ -473,7 +498,7 @@ def cmd_train(args: argparse.Namespace) -> int:
     loop = run_training(
         train_cfg, persistence_config=persistence_config, device=device,
         use_tensorboard=not args.no_tensorboard, telemetry_config=telemetry_config,
-        log_level=args.log_level, **configs,
+        log_level=args.log_level, distributed_config=distributed_config, **configs,
     )
     rc = EXIT_CODES[loop.status]
     tune_outcome = None
@@ -1633,8 +1658,18 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Dispatch watchdog poll interval (default 5).")
     train.add_argument("--profile", action="store_true",
                        help="Phase timers (Profile/*_ms, phase_timers.json) and a torch.profiler "
-                       "trace of iterations 1-2 into runs/<run>/profile_data/.")
+                       "trace of iterations 1-2 (a megastep run's megasteps 1-2) into "
+                       "runs/<run>/profile_data/.")
     train.add_argument("--log-level", default="INFO", choices=["DEBUG", "INFO", "WARNING", "ERROR"])
+    train.add_argument("--distributed", action="store_true",
+                       help="Data-parallel training, one rank per device, on torch.distributed: "
+                       "torchrun's environment, or --coordinator/--num-processes/--process-id.")
+    train.add_argument("--coordinator", default=None, metavar="HOST:PORT|file://PATH",
+                       help="Rendezvous store of the process group (rank 0 serves HOST:PORT).")
+    train.add_argument("--num-processes", type=int, default=None, help="World size.")
+    train.add_argument("--process-id", type=int, default=None, help="This process's rank.")
+    train.add_argument("--dist-backend", default="auto", choices=["auto", "nccl", "gloo"],
+                       help="auto: NCCL on CUDA, gloo on the CPU; ranks sharing one card need gloo.")
     train.set_defaults(fn=cmd_train)
 
     ev = sub.add_parser(

@@ -348,8 +348,10 @@ class TriangleEnv:
         reward = torch.where(valid, reward_valid, reward_invalid)
         return next_state, reward, next_state.done
 
-    def reset_where_done(self, state: EnvState, key: torch.Tensor) -> EnvState:
-        """Replace finished games with fresh ones; `key` is a single key."""
+    def reset_where_done(self, state: EnvState, key: torch.Tensor, lanes=None) -> EnvState:
+        """Replace finished games with fresh ones; `key` is a single key,
+        split over the whole lane array, of which `lanes` (a dp rank's
+        `rng.Lanes`), when given, takes its rows."""
         batch = state.done.shape[0]
-        fresh = self.reset(rng.split(key, batch))
+        fresh = self.reset(rng.split(key, batch, lanes=lanes))
         return where_state(state.done, fresh, state)

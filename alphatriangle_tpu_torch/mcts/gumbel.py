@@ -113,7 +113,7 @@ class GumbelMCTS(BatchedMCTS):
             if self.exploit:
                 g = torch.zeros((batch, a), device=dev)
             else:
-                g = rng.gumbel(gumbel_rng, (batch, a), device=dev)
+                g = rng.gumbel(gumbel_rng, (batch, a), device=dev, lanes=self.lanes)
             base_score = torch.where(valid, g + logits, float("-inf"))
             # m is clamped to the wave so every survivor gets at least one
             # simulation per halving phase.

@@ -40,7 +40,7 @@ def select_root_actions(output, use_gumbel: bool = False) -> np.ndarray:
 
 
 def select_action_from_visits(
-    visit_counts: torch.Tensor, temperature, key: torch.Tensor
+    visit_counts: torch.Tensor, temperature, key: torch.Tensor, lanes: "rng.Lanes | None" = None
 ) -> torch.Tensor:
     """(B, A) visit counts -> (B,) int32 sampled actions.
 
@@ -49,14 +49,15 @@ def select_action_from_visits(
     log(counts) / T. Zero-count actions are never chosen, and a row
     with no visits gives the sentinel -1 (callers clamp it: finished
     games). `temperature` is a float or a (B,) tensor; `key` is one key
-    on the CPU, drawn through `rng.gumbel`.
+    on the CPU, drawn through `rng.gumbel` (a dp rank's rows of the
+    whole lane array's draw when `lanes` is given).
     """
     counts = visit_counts.to(torch.float32)
     temp = torch.as_tensor(temperature, dtype=torch.float32, device=counts.device)
     temp = temp.expand(counts.shape[:-1])[..., None]
     log_counts = torch.where(counts > 0, torch.log(counts), float("-inf"))
     greedy = torch.argmax(log_counts, dim=-1)
-    gumbel = rng.gumbel(key, tuple(counts.shape), device=counts.device)
+    gumbel = rng.gumbel(key, tuple(counts.shape), device=counts.device, lanes=lanes)
     sampled = torch.argmax(log_counts / temp.clamp(min=1e-6) + gumbel, dim=-1)
     chosen = torch.where(temp[..., 0] <= 1e-8, greedy, sampled)
     any_visits = counts.sum(dim=-1) > 0

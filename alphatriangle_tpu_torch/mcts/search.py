@@ -148,6 +148,9 @@ class BatchedMCTS:
         self.extractor = extractor
         self.model = model
         self.config = config
+        # A dp rank's rows of the engine's lane array (rng.Lanes): its
+        # lane-dimension draws are the global array's at its rows.
+        self.lanes: "rng.Lanes | None" = None
         self.support = value_support.to(self.device)
         # Reuse keeps up to `reuse_slots` promoted rows (the subtree and
         # its root) besides a full search's insertions.
@@ -204,7 +207,7 @@ class BatchedMCTS:
         zero = torch.zeros((), device=dev)
         root_value = torch.where(root_states.done, zero, values)
         if cfg.dirichlet_epsilon > 0 and cfg.dirichlet_alpha > 0:
-            gammas = rng.gamma(noise_rng, cfg.dirichlet_alpha, (batch, a), device=dev)
+            gammas = rng.gamma(noise_rng, cfg.dirichlet_alpha, (batch, a), device=dev, lanes=self.lanes)
             gammas = torch.where(valid, gammas, zero)
             noise = gammas / gammas.sum(dim=-1, keepdim=True).clamp(min=1e-9)
             priors = (1.0 - cfg.dirichlet_epsilon) * priors + cfg.dirichlet_epsilon * noise
@@ -267,7 +270,7 @@ class BatchedMCTS:
             if noisy:
                 level_key = rng.fold_in(wave_rng, d)
                 scores = scores + cfg.wave_noise_scale * rng.gumbel(
-                    level_key, (batch, w, a), device=dev
+                    level_key, (batch, w, a), device=dev, lanes=self.lanes
                 )
             act = torch.argmax(scores, dim=-1)  # first maximum, as jnp.argmax
             if d == 0 and root_action is not None:

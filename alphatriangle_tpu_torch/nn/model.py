@@ -182,10 +182,12 @@ class BatchNorm(nn.Module):
     biased variance, once per forward: not when `update_stats` is off,
     which the residual blocks' recomputation under REMAT sets (Flax's
     `nn.remat` updates once). In `eval()` mode it reads the running
-    statistics. The arithmetic follows Flax's `_normalize` in its
-    operands' dtypes: f32 statistics promote the compute-dtype input to
-    f32, and with bf16 statistics, scale and bias (the inference copy of
-    `nn/precision.py`) the whole norm runs in bf16.
+    statistics. In a dp learner (`sync_stats`) the batch statistics are
+    the global batch's, as Flax's layer takes them under GSPMD. The
+    arithmetic follows Flax's `_normalize` in its operands' dtypes: f32
+    statistics promote the compute-dtype input to f32, and with bf16
+    statistics, scale and bias (the inference copy of `nn/precision.py`)
+    the whole norm runs in bf16.
     """
 
     momentum = 0.99
@@ -198,11 +200,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.dtype = dtype
         self.update_stats = True
+        # (x, dims) -> (mean, var) over the global batch of a dp learner
+        # (`parallel.sharding.synced_batch_stats`); None: this batch's.
+        self.sync_stats = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1) if x.dim() == 4 else (-1,)
         if self.training:
-            mean, var = _fast_stats(x, (0, 2, 3) if x.dim() == 4 else (0,))
+            stats = _fast_stats if self.sync_stats is None else self.sync_stats
+            mean, var = stats(x, (0, 2, 3) if x.dim() == 4 else (0,))
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum

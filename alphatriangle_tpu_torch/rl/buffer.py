@@ -42,9 +42,16 @@ class ExperienceBuffer:
 
     is_device = False
 
-    def __init__(self, config: TrainConfig, seed: "int | None" = None, action_dim: "int | None" = None):
+    def __init__(
+        self,
+        config: TrainConfig,
+        seed: "int | None" = None,
+        action_dim: "int | None" = None,
+        capacity: "int | None" = None,
+    ):
         self.config = config
-        self.capacity = config.BUFFER_CAPACITY
+        # `capacity`: a ring smaller than BUFFER_CAPACITY (a dp shard's).
+        self.capacity = capacity or config.BUFFER_CAPACITY
         self.min_size_to_train = config.MIN_BUFFER_SIZE_TO_TRAIN
         self.use_per = config.USE_PER
         self.alpha = config.PER_ALPHA

@@ -107,8 +107,9 @@ class DeviceReplayBuffer(ExperienceBuffer):
         action_dim: int,
         device,
         seed: "int | None" = None,
+        capacity: "int | None" = None,
     ):
-        super().__init__(config, seed=seed, action_dim=action_dim)
+        super().__init__(config, seed=seed, action_dim=action_dim, capacity=capacity)
         cap = self.capacity
         self.device = torch.device(device)
 

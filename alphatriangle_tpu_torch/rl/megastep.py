@@ -1,7 +1,6 @@
-"""Fused megastep, single device: counterpart of
-`alphatriangle_tpu/rl/megastep.py` (`MegastepRunner._sample_indices`,
-`_impl`, `_max_priority_watermark`, `sync_priorities_from_host`,
-`run_megastep`).
+"""Fused megastep: counterpart of `alphatriangle_tpu/rl/megastep.py`
+(`MegastepRunner._sample_indices`, `_impl`, `_sharded_impl`,
+`_max_priority_watermark`, `sync_priorities_from_host`, `run_megastep`).
 
 One megastep is, on one device and with no host sync between stages:
 
@@ -30,6 +29,18 @@ errors, sampled slots) reach the host in one copy at the end
 (`utils.transfer.fetch`), after which the host SumTree mirror replays
 the ingest at the same pre-megastep watermark and the TD updates in
 the same order. The search itself keeps the host syncs it already had.
+
+The dp megastep (a `ShardedDeviceReplayBuffer`, JAX `_sharded_impl`)
+runs the same five stages on every rank: the chunk on the rank's lanes
+(the engine's `lanes`), the ingest into its ring shard, the PER draw of
+its B/dp stratum over its own priority slice with the sampling key
+folded with its dp index (`fold_in(key, shard)`), the IS weights
+max-normalised over the GLOBAL batch (an all-reduce MAX, JAX's `pmax`),
+K learner steps whose gradients are all-reduced (`rl/trainer.py`) and
+the priority write into its slice; the fresh rows of every shard enter
+at the global watermark (`ShardedDeviceReplayBuffer.max_priority`).
+Indices stay local (`last_idx`); the PER stat leg covers the rank's
+shard. The flight program is `megastep/dp<D>_t<T>_k<K>`.
 
 With a run's flight recorder attached (`flight`), each megastep writes
 an intent (`megastep/t<T>_k<K>`) before its work is launched and a seal
@@ -87,9 +98,31 @@ class MegastepRunner:
     """Binds one (engine, trainer, device ring) triple; the training
     loop's megastep mode drives it once per iteration."""
 
+    sharded = False  # the dp megastep (a ShardedDeviceReplayBuffer)
+
     def __init__(self, engine, trainer, buffer: DeviceReplayBuffer, train_config: TrainConfig):
         if not getattr(buffer, "is_device", False):
             raise ValueError("MegastepRunner needs the device-resident replay ring")
+        self.sharded = bool(getattr(buffer, "is_sharded", False))
+        if self.sharded:
+            # Each rank pairs its lanes with its own ring shard.
+            if engine.lanes is None:
+                raise ValueError(
+                    "Sharded megastep: the self-play engine must step its rank's lanes "
+                    "(SelfPlayEngine(lanes=...)) to feed the rank's ring shard"
+                )
+            if trainer.mesh != buffer.mesh:
+                raise ValueError("Sharded megastep: trainer and replay ring must share one mesh.")
+            if train_config.BATCH_SIZE % buffer.dp != 0:
+                raise ValueError(
+                    f"BATCH_SIZE={train_config.BATCH_SIZE} must divide over dp={buffer.dp} "
+                    "(each shard samples its B/dp stratum)."
+                )
+        elif engine.lanes is not None:
+            raise ValueError(
+                "MegastepRunner with the single-device ring needs a single-device engine; "
+                "lane-sharded engines pair with the dp-sharded ring (ShardedDeviceReplayBuffer)."
+            )
         if engine.net.model is not trainer.model:
             raise ValueError("the rollout engine must search with the learner's module")
         if not (engine.device == buffer.device == trainer.device):
@@ -103,7 +136,8 @@ class MegastepRunner:
         self.config = train_config
         self.device = buffer.device
         self.batch_size = train_config.BATCH_SIZE
-        self.cap = buffer.capacity
+        self.dp = buffer.dp if self.sharded else 1
+        self.cap = buffer.capacity  # the rank's shard when sharded
         self.use_per = train_config.USE_PER
         self.per_alpha = float(train_config.PER_ALPHA)
         self.per_epsilon = float(train_config.PER_EPSILON)
@@ -143,6 +177,13 @@ class MegastepRunner:
         b = self.batch_size
         keys = rng.split(self.trainer.state.rng)
         self.trainer.state.rng, k_sample = keys[0], keys[1]
+        if self.sharded:
+            buf = self.buffer
+            beta = float(self._beta(self.trainer.state.step)) if self.use_per else 0.0
+            idx, w = buf.sample_local(
+                priorities, size, k, b // self.dp, rng.fold_in(k_sample, buf.rank), beta
+            )
+            return idx, (buf.normalize_weights(w) if self.use_per else w)
         if self.use_per:
             idx, probs = per_sample(priorities, self.cap, k, b, k_sample, mode=self.per_sample_backend)
             beta = float(self._beta(self.trainer.state.step))
@@ -215,7 +256,10 @@ class MegastepRunner:
 
     def _max_priority_watermark(self) -> float:
         """The pre-megastep watermark fresh rows enter at; the host
-        mirror's reconciliation reuses the same value."""
+        mirror's reconciliation reuses the same value. Sharded: the
+        global one over every shard's tree."""
+        if self.sharded:
+            return self.buffer.max_priority
         tree = self.buffer.tree
         return float(tree.max_priority) if tree is not None else 1.0
 
@@ -244,8 +288,9 @@ class MegastepRunner:
             self.sync_priorities_from_host()
         max_p = self._max_priority_watermark()
         start_step = trainer.state.step
-        with flight_span(self.flight, "megastep", f"megastep/t{t}_k{k}", avals=f"B{self.batch_size}xT{t}xK{k}"):
-            note_dispatch(f"megastep/t{t}_k{k}")
+        name = f"megastep/dp{self.dp}_t{t}_k{k}" if self.sharded else f"megastep/t{t}_k{k}"
+        with flight_span(self.flight, "megastep", name, avals=f"B{self.batch_size}xT{t}xK{k}"):
+            note_dispatch(name)
             out = self._impl(t, k, max_p)
             self.dispatch_count += 1
             engine.net.forget_inference_model()  # the module moved in place

@@ -33,6 +33,14 @@ fresh), and the trace's `reused` counts the root visits inherited. The
 chunk runs under `torch.no_grad()` with the net in eval mode; it
 fetches nothing until the caller asks (`play_chunk` fetches once).
 
+Lane sharding: a dp rank's engine (`lanes`, an `rng.Lanes` of the
+global lane array) steps only its rows [lo, hi). Every draw over the
+lane dimension (the first hands, the resets, the root noise, the wave
+noise, the action draw) is the global array's draw at those rows
+(`rng`'s `lanes=`: the rank hashes only its own counters), and every
+other key is the unsharded engine's, so each rank's rows equal the
+unsharded engine's rows for its lanes bit for bit.
+
 Weights: a chunk reads the net's `LiveWeights` once, at its start
 (`nn/network.py`), and searches with that module and tags with that
 version to its end, whatever a sync installs meanwhile. Each lane's
@@ -135,6 +143,7 @@ class SelfPlayEngine:
         train_config: TrainConfig,
         batch_size: "int | None" = None,
         seed: int = 0,
+        lanes: "rng.Lanes | None" = None,
     ):
         self.env = env
         self.device = env.device
@@ -161,6 +170,13 @@ class SelfPlayEngine:
         self.config = train_config
         self.mcts_config = mcts_config
         self.batch_size = batch_size or train_config.SELF_PLAY_BATCH_SIZE
+        # A dp rank steps its rows [lo, hi) of the global lane array.
+        self.lanes = lanes
+        if lanes is not None:
+            self.batch_size = lanes.hi - lanes.lo
+            for search in (self.mcts, self.mcts_fast):
+                if search is not None:
+                    search.lanes = lanes
         self.n_step = train_config.N_STEP_RETURNS
         self.gamma = train_config.GAMMA
 
@@ -179,7 +195,7 @@ class SelfPlayEngine:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         self._carry = RolloutCarry(
-            env=env.reset(rng.split(keys[1], b)),
+            env=env.reset(rng.split(keys[1], b, lanes=lanes)),
             rng=keys[0],
             pend_grid=zeros(b, n, c, env.rows, env.cols),
             pend_other=zeros(b, n, f),
@@ -285,7 +301,7 @@ class SelfPlayEngine:
             temps = self._temperatures(states.step_count)
             if not is_full:
                 temps = torch.zeros_like(temps)
-            actions = select_action_from_visits(out.visit_counts, temps, k_select)
+            actions = select_action_from_visits(out.visit_counts, temps, k_select, self.lanes)
         # -1 (no root visits) only happens for finished games, where the
         # step is a no-op; live-game sentinels are counted and reported.
         sentinel_live = ((actions < 0) & ~states.done).sum(dtype=torch.int32)
@@ -332,7 +348,7 @@ class SelfPlayEngine:
         }
 
         # 8. Reset finished games in place; the batch never shrinks.
-        reset_states = self.env.reset_where_done(new_states.replace(done=ending), k_reset)
+        reset_states = self.env.reset_where_done(new_states.replace(done=ending), k_reset, self.lanes)
         episode_start_version = torch.where(ending, version, carry.episode_start_version)
 
         # 9. Promote the played action's subtree for the next move; lanes

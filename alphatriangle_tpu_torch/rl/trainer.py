@@ -1,6 +1,22 @@
-"""Learner: counterpart of `alphatriangle_tpu/rl/trainer.py` on one
-device (no mesh): LR schedules, the optimizer chain, the C51 target
-projection, the loss, the (fused) train steps and the weight sync.
+"""Learner: counterpart of `alphatriangle_tpu/rl/trainer.py`: LR
+schedules, the optimizer chain, the C51 target projection, the loss,
+the (fused) train steps and the weight sync, on one device or as one
+rank of a dp mesh (`mesh`).
+
+Data parallelism (the JAX learner's dp-sharded batch and replicated
+state): each rank steps on its local batch (BATCH_SIZE / dp rows,
+`_check_local_batch`), and its gradients are all-reduced and averaged
+in one flat bucket (`parallel.sharding.all_reduce_mean_`) before the
+optimizer chain, so the clip by global norm sees the global batch's
+gradient and every rank applies the same update: the replicas stay bit
+for bit equal. With equal local batches the mean of the ranks' loss
+means is the global mean; the entropy metric, a ratio of sums, rides
+the same bucket as its two sums. A batch norm takes its statistics over
+the global batch (`synced_batch_stats`); each rank folds its dp index
+into the dropout generator's key, so ranks draw different masks. TD
+errors come back as the rank's own rows. In a world of one the bucket
+still makes its all-reduce (the result is the gradient itself), and
+nothing else changes, so the run is the one-process run bit for bit.
 
 Outside megastep mode the learner owns a copy of the `NeuralNetwork`'s
 module, made at construction (the JAX trainer copies the net's
@@ -58,7 +74,9 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..config.mesh_config import Mesh, MeshConfig
 from ..config.train_config import TrainConfig
+from ..parallel.sharding import all_reduce_mean_, broadcast_object, broadcast_tensors_, synced_batch_stats
 from ..telemetry.device_stats import emit_beacon
 from ..utils.transfer import fetch, upload
 from ..utils.types import DenseBatch
@@ -191,10 +209,18 @@ def _generator(key: torch.Tensor, device) -> torch.Generator:
 class Trainer:
     """Owns the learner state bound to one `NeuralNetwork`."""
 
-    def __init__(self, nn, train_config: TrainConfig):
+    def __init__(self, nn, train_config: TrainConfig, mesh: "Mesh | None" = None):
         self.nn = nn
         self.config = train_config
+        self.mesh = mesh or MeshConfig.single_device_mesh()
+        self.dp_size = self.mesh.dp
         self.model = nn.model if train_config.FUSED_MEGASTEP else copy.deepcopy(nn.model)
+        if self.dp_size > 1:
+            from ..nn.model import BatchNorm
+
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm):
+                    m.sync_stats = lambda x, dims: synced_batch_stats(x, dims, self.mesh)
         self.device = nn.device
         self.params = list(self.model.parameters())
         for p in self.params:
@@ -231,7 +257,8 @@ class Trainer:
         value_ce = -(target * torch.log_softmax(value_logits, dim=-1)).sum(dim=-1)
         entropy_rows = -(torch.exp(log_policy) * log_policy).sum(dim=-1)
         entropy_term = (pw * entropy_rows).mean()
-        entropy_metric = (pw * entropy_rows).sum() / pw.sum().clamp(min=1.0)
+        entropy_sum, pw_sum = (pw * entropy_rows).sum(), pw.sum()
+        entropy_metric = entropy_sum / pw_sum.clamp(min=1.0)
         w = batch["weights"]
         per_row = cfg.POLICY_LOSS_WEIGHT * policy_ce + cfg.VALUE_LOSS_WEIGHT * value_ce
         # The entropy regulariser is not IS-weighted (as in the reference).
@@ -242,6 +269,7 @@ class Trainer:
             "value_loss": (w * value_ce).mean(),
             "entropy": entropy_metric,
             "td_errors": value_ce,
+            "entropy_sums": (entropy_sum, pw_sum),
         }
         return total, aux
 
@@ -250,27 +278,38 @@ class Trainer:
         tensors, per-row TD errors (B,))."""
         state = self.state
         keys = rng.split(state.rng)
+        drop_key = keys[1] if self.dp_size == 1 else rng.fold_in(keys[1], self.mesh.dp_index)
         self.model.train()
         try:
             with torch.enable_grad():
-                total, aux = self._loss_fn(batch, _generator(keys[1], self.device))
+                total, aux = self._loss_fn(batch, _generator(drop_key, self.device))
                 grads = torch.autograd.grad(total, self.params, allow_unused=True)
             # A parameter the loss does not reach has a zero gradient (jax.grad's).
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)]
         finally:
             self.model.eval()
         with torch.no_grad():
+            metrics = {
+                name: aux[name].detach()
+                for name in ("total_loss", "policy_loss", "value_loss", "entropy")
+            }
+            if self.mesh.backend is not None:
+                # Gradients averaged over the ranks; the loss means and the
+                # entropy's two sums summed in the same bucket.
+                ent_sum, pw_sum = aux["entropy_sums"]
+                extra = torch.stack([
+                    metrics["total_loss"], metrics["policy_loss"], metrics["value_loss"],
+                    ent_sum.detach(), pw_sum.detach(),
+                ])
+                sums = all_reduce_mean_(grads, self.mesh, extra=extra)
+                for i, name in enumerate(("total_loss", "policy_loss", "value_loss")):
+                    metrics[name] = sums[i] / self.dp_size
+                metrics["entropy"] = sums[3] / sums[4].clamp(min=1.0)
             updates, opt_state = self.optimizer.update(grads, state.opt_state, self.params)
             for p, u in zip(self.params, updates):
                 p.add_(u)
-            metrics = {
-                "total_loss": aux["total_loss"].detach(),
-                "policy_loss": aux["policy_loss"].detach(),
-                "value_loss": aux["value_loss"].detach(),
-                "entropy": aux["entropy"].detach(),
-                "grad_norm": global_norm(grads),
-                "update_norm": global_norm(updates),
-            }
+            metrics["grad_norm"] = global_norm(grads)
+            metrics["update_norm"] = global_norm(updates)
         self.state = TrainState(opt_state=opt_state, step=state.step + 1, rng=keys[0])
         return metrics, aux["td_errors"].detach()
 
@@ -338,6 +377,42 @@ class Trainer:
         self.dispatch_count += 1
         return {"k": k, "metrics": metrics, "td": td, "start_step": start, "flight": span}
 
+    def _check_local_batch(self, n: int) -> None:
+        """A dp rank's batch is its B / dp share of the global batch:
+        equal local batches make the mean of the ranks' means the global
+        mean."""
+        if self.dp_size > 1 and n * self.dp_size != self.config.BATCH_SIZE:
+            raise ValueError(
+                f"Local batch size {n} is not BATCH_SIZE={self.config.BATCH_SIZE} over "
+                f"dp={self.dp_size}."
+            )
+
+    def broadcast_state(self) -> None:
+        """Rank 0's learner state (parameters, running statistics, Adam
+        moments, step, key) on every rank, in place: the replicas start
+        equal at setup (a restore installs rank 0's broadcast snapshot on
+        every rank, `training/runner.py`)."""
+        if self.mesh.backend is None:
+            return
+        opt = self.state.opt_state
+        tensors = [*self.params, *self._stats_buffers().values(), *opt.mu, *opt.nu]
+        broadcast_tensors_(tensors, self.mesh)
+        head = broadcast_object((opt.count, self.state.step, self.state.rng.tolist()), self.mesh)
+        opt.count = int(head[0])
+        self.state = TrainState(
+            opt_state=opt, step=int(head[1]), rng=torch.tensor(head[2], dtype=torch.int64)
+        )
+
+    def param_checksum(self) -> tuple:
+        """An exact digest of the parameters' bits: the int64 sums of
+        their float32 words, plain and weighted by position mod 1021.
+        Replicas whose bits agree give equal digests."""
+        with torch.no_grad():
+            words = torch.cat([p.detach().reshape(-1).view(torch.int32) for p in self.params])
+            words = words.to(torch.int64)
+            weight = torch.arange(words.numel(), device=words.device) % 1021 + 1
+            return int(words.sum()), int((words * weight).sum())
+
     def train_step(self, batch: dict):
         """One step on a host batch. Returns (metrics, per-sample TD
         errors), or None on an empty batch."""
@@ -359,6 +434,7 @@ class Trainer:
         n = int(batches[0]["value_target"].shape[0])
         if n == 0:
             return None
+        self._check_local_batch(n)
         batches = [
             {"policy_weight": np.ones(n, dtype=np.float32), **b} for b in batches
         ]

@@ -19,9 +19,20 @@ sampler. Tests that compare searches inject JAX's draws for both.
 A single key on the CPU (the search and the service keep their key
 schedule there) feeds its two words to device work as plain integers,
 so no draw ever waits on the device.
+
+A rank of a dp run steps only its own lanes of the global lane array
+(`Lanes`). Its draws over the lane dimension (`lanes=` of `split`,
+`bits`, `uniform`, `gumbel` and `gamma`) are the global array's rows
+[lo, hi), so each lane sees the very numbers an unsharded engine draws
+for it, as the lane-sharded JAX engine's one replicated key over the
+global lane array gives. The counter-based draws hash only the rank's
+own counters (the partitionable threefry's counter of an element is
+its flat index in the global shape); `gamma`, which is not
+counter-based, draws the global array and slices it.
 """
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -30,6 +41,16 @@ MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
 _F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+@dataclass(frozen=True)
+class Lanes:
+    """Rows [lo, hi) of a lane dimension of `total` rows: one dp rank's
+    share of the engine's lockstep games."""
+
+    lo: int
+    hi: int
+    total: int
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -75,11 +96,18 @@ def _key_words(key: torch.Tensor, sample_ndim: int):
     return key[..., 0].reshape(lead + tail), key[..., 1].reshape(lead + tail)
 
 
-def _hash_counts(key: torch.Tensor, shape: tuple, device) -> tuple:
-    """threefry(key, iota(shape)) with the 64-bit iota split hi/lo."""
+def _hash_counts(key: torch.Tensor, shape: tuple, device, lanes: "Lanes | None" = None) -> tuple:
+    """threefry(key, iota(shape)) with the 64-bit iota split hi/lo. With
+    `lanes`, `shape` is rows [lo, hi) of a leading dimension of
+    `lanes.total` rows, and the iota is the global one's rows."""
     shape = tuple(int(s) for s in shape)
     k0, k1 = _key_words(key, len(shape))
-    counts = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    start = 0
+    if lanes is not None:
+        if shape[0] != lanes.hi - lanes.lo:
+            raise ValueError(f"shape {shape} does not hold the {lanes.hi - lanes.lo} rows of {lanes}")
+        start = lanes.lo * math.prod(shape[1:])
+    counts = torch.arange(start, start + math.prod(shape), dtype=torch.int64, device=device)
     counts = counts.reshape(shape)
     return threefry2x32(k0, k1, counts >> 32, counts & MASK32)
 
@@ -88,9 +116,10 @@ def _out_device(key: torch.Tensor, device):
     return key.device if device is None else torch.device(device)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """`jax.random.split`: (..., 2) keys -> (..., num, 2) keys."""
-    y0, y1 = _hash_counts(key, (num,), key.device)
+def split(key: torch.Tensor, num: int = 2, lanes: "Lanes | None" = None) -> torch.Tensor:
+    """`jax.random.split`: (..., 2) keys -> (..., num, 2) keys (with
+    `lanes`, keys lo..hi-1 of a split into `lanes.total`)."""
+    y0, y1 = _hash_counts(key, (num,), key.device, lanes)
     y0, y1 = torch.broadcast_tensors(y0, y1)
     return torch.stack([y0, y1], dim=-1)
 
@@ -107,9 +136,9 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def bits(key: torch.Tensor, shape: tuple, device=None) -> torch.Tensor:
+def bits(key: torch.Tensor, shape: tuple, device=None, lanes: "Lanes | None" = None) -> torch.Tensor:
     """`jax.random.bits` (32-bit): (..., *shape) int64 words."""
-    y0, y1 = _hash_counts(key, shape, _out_device(key, device))
+    y0, y1 = _hash_counts(key, shape, _out_device(key, device), lanes)
     return y0 ^ y1
 
 
@@ -134,11 +163,12 @@ def uniform(
     minval: float = 0.0,
     maxval: float = 1.0,
     device=None,
+    lanes: "Lanes | None" = None,
 ) -> torch.Tensor:
     """`jax.random.uniform` (float32): 23 random mantissa bits in [1, 2),
     shifted and scaled onto [minval, maxval)."""
     lo, hi = np.float32(minval), np.float32(maxval)
-    b = bits(key, shape, device)
+    b = bits(key, shape, device, lanes)
     f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     # XLA fuses the scale and shift into one multiply-add: one rounding,
     # which a float64 multiply-add reproduces for these 24-bit operands.
@@ -154,21 +184,26 @@ def bernoulli(key: torch.Tensor, p: float, shape: tuple = (), device=None):
     return bool(draw) if draw.dim() == 0 else draw
 
 
-def gumbel(key: torch.Tensor, shape: tuple, device=None) -> torch.Tensor:
+def gumbel(key: torch.Tensor, shape: tuple, device=None, lanes: "Lanes | None" = None) -> torch.Tensor:
     """Standard Gumbel draws, `jax.random.gumbel`'s "low" mode:
     -log(-log(u)), u uniform on [tiny, 1)."""
-    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0, device=device)
+    u = uniform(key, shape, minval=_F32_TINY, maxval=1.0, device=device, lanes=lanes)
     return -torch.log(-torch.log(u))
 
 
-def gamma(key: torch.Tensor, alpha: float, shape: tuple, device=None) -> torch.Tensor:
+def gamma(
+    key: torch.Tensor, alpha: float, shape: tuple, device=None, lanes: "Lanes | None" = None
+) -> torch.Tensor:
     """Gamma(alpha, 1) draws from a generator seeded by the key.
 
     `key` is one key on the CPU. The draws follow the key but are not
-    JAX's (see the module docstring)."""
+    JAX's (see the module docstring). With `lanes` the global array is
+    drawn and sliced: a generator's stream is not counter-based."""
     k0, k1 = (int(v) for v in key.tolist())
     dev = _out_device(key, device)
     gen = torch.Generator(device=dev)
     gen.manual_seed((k0 << 32) | k1)
-    conc = torch.full(tuple(shape), float(alpha), dtype=torch.float32, device=dev)
-    return torch._standard_gamma(conc, generator=gen)
+    full = tuple(shape) if lanes is None else (lanes.total, *tuple(shape)[1:])
+    conc = torch.full(full, float(alpha), dtype=torch.float32, device=dev)
+    out = torch._standard_gamma(conc, generator=gen)
+    return out if lanes is None else out[lanes.lo: lanes.hi]

@@ -9,8 +9,8 @@ Non-finite values are dropped from the means, counted per name, warned
 once per name and reported as one cumulative `Stats/nonfinite_dropped`
 scalar on each tick.
 
-Writers: `live_metrics.jsonl` in the run directory, always (one JSON
-line per tick, `{"step", "time", "means"}`, the JAX package's format,
+Writers: `live_metrics.jsonl` in the run directory, unless
+`use_live_file` is off (a dp run's ranks but the first; one JSON line per tick, `{"step", "time", "means"}`, the JAX package's format,
 read by its `cli watch`); TensorBoard through `torch.utils.tensorboard`
 when asked and when that module imports (where TensorFlow is installed,
 the import alone takes seconds). `writers` names the ones the collector
@@ -56,6 +56,7 @@ class StatsCollector:
         self,
         persistence: "PersistenceConfig | None" = None,
         use_tensorboard: bool = True,
+        use_live_file: bool = True,
     ):
         self._lock = threading.Lock()
         self._pending: dict[str, list[tuple[int, float]]] = defaultdict(list)
@@ -72,7 +73,7 @@ class StatsCollector:
                 tb_dir.mkdir(parents=True, exist_ok=True)
                 self._writer = writer_cls(str(tb_dir))
         self._live_path: "Path | None" = None
-        if persistence is not None:
+        if persistence is not None and use_live_file:
             base = persistence.get_run_base_dir()
             base.mkdir(parents=True, exist_ok=True)
             self._live_path = base / "live_metrics.jsonl"

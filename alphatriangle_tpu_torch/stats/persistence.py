@@ -39,6 +39,10 @@ place), so the marker is written in line and there is no flusher.
 Loading uses `torch.load(..., map_location=<run device>,
 weights_only=True)`.
 
+In a dp run (`parallel/`) rank 0 alone writes checkpoints, `meta.json`,
+commit markers, spills and `configs.json`; a dp-sharded ring's spill is
+gathered to rank 0 first. The runner restores on rank 0 and broadcasts.
+
 `timings` keeps the host seconds of each save, spill and restore and the
 bytes of each spill.
 """
@@ -57,6 +61,7 @@ import numpy as np
 import torch
 
 from ..config.persistence_config import PersistenceConfig
+from ..parallel.distributed import is_primary
 
 logger = logging.getLogger(__name__)
 
@@ -111,10 +116,13 @@ class CheckpointManager:
     def _commit_marker_path(self, step: int) -> Path:
         return self._ckpt_dir / f"step_{step:08d}.commit"
 
-    def save(self, step: int, train_state: dict, counters: "dict[str, Any] | None" = None) -> Path:
+    def save(self, step: int, train_state: dict, counters: "dict[str, Any] | None" = None) -> "Path | None":
         """Checkpoint a `Trainer.get_state()` snapshot and the counters;
         returns the step directory. A step saved again (the forced final
-        save) replaces the earlier one."""
+        save) replaces the earlier one. In a dp run only rank 0 writes
+        (the state is a replica on every rank); the others get None."""
+        if not is_primary():
+            return None
         t0 = time.perf_counter()
         path = self._ckpt_dir / f"step_{step:08d}"
         if path.exists():
@@ -162,7 +170,11 @@ class CheckpointManager:
             logger.debug("Pruned buffer spill %s", path.name)
 
     def save_buffer(self, step: int, buffer) -> "Path | None":
-        """Spill the replay ring (host or device); None when it is empty."""
+        """Spill the replay ring (host or device); None when it is empty.
+        In a dp run rank 0 writes: a sharded ring's snapshot is gathered
+        there (every rank calls this), a rank's own host ring is rank 0's."""
+        if not is_primary() and not getattr(buffer, "is_sharded", False):
+            return None
         t0 = time.perf_counter()
         state = buffer.get_state()
         if state["storage"] is None:
@@ -183,7 +195,9 @@ class CheckpointManager:
         return path
 
     def save_configs(self, configs: dict[str, Any]) -> None:
-        """Dump the configs to the run directory's configs.json."""
+        """Dump the configs to the run directory's configs.json (rank 0)."""
+        if not is_primary():
+            return
         out = {k: (v.model_dump() if hasattr(v, "model_dump") else v) for k, v in configs.items()}
         _atomic_write_text(
             self.config.get_run_base_dir() / "configs.json",
@@ -301,37 +315,53 @@ class CheckpointManager:
             global_step=step,
         )
 
-    def restore_buffer_path(self, buffer, path: "str | Path") -> bool:
-        """Load an explicit buffer spill (`LOAD_BUFFER_PATH`)."""
+    @staticmethod
+    def read_spill_path(path: "str | Path") -> dict:
+        """An explicit buffer spill (`LOAD_BUFFER_PATH`) as a snapshot."""
         path = Path(path)
         if not path.is_file():
             raise FileNotFoundError(f"No buffer spill at {path}")
-        self._load_spill_into(buffer, path)
-        return True
+        return load_spill(path)
 
-    def restore_buffer(self, buffer, max_step: "int | None" = None) -> bool:
-        """Load the newest spill (at or before `max_step`) into `buffer`;
-        a torn spill falls back to the one before."""
-        if not self._buffer_dir.exists():
-            return False
-        spills = sorted(self._buffer_dir.glob("buffer_*.npz"))
+    def read_spill(self, max_step: "int | None" = None) -> "dict | None":
+        """The newest readable spill (at or before `max_step`) as a
+        snapshot; a torn spill falls back to the one before. None
+        without one."""
+        spills = sorted(self._buffer_dir.glob("buffer_*.npz")) if self._buffer_dir.exists() else []
         if max_step is not None:
             spills = [s for s in spills if int(s.stem.split("_")[1]) <= max_step]
         for spill in reversed(spills):
             try:
-                self._load_spill_into(buffer, spill)
-                return True
+                return load_spill(spill)
             except Exception as exc:
                 logger.warning(
                     "Buffer spill %s unreadable (%s); falling back to the previous spill",
                     spill.name, exc,
                 )
-        return False
+        return None
 
-    def _load_spill_into(self, buffer, path: Path) -> None:
+    def install_spill(self, buffer, snapshot: "dict | None", read_s: float = 0.0) -> bool:
+        """Load a spill snapshot into `buffer` (nothing for None); the
+        restore's ring time is `read_s` (the read) and the load."""
+        if snapshot is None:
+            return False
         t0 = time.perf_counter()
-        buffer.set_state(load_spill(path))
-        self.timings["restore_buffer_s"].append(time.perf_counter() - t0)
+        buffer.set_state(snapshot)
+        self.timings["restore_buffer_s"].append(read_s + time.perf_counter() - t0)
+        return True
+
+    def restore_buffer_path(self, buffer, path: "str | Path") -> bool:
+        """Load an explicit buffer spill (`LOAD_BUFFER_PATH`)."""
+        t0 = time.perf_counter()
+        snapshot = self.read_spill_path(path)
+        return self.install_spill(buffer, snapshot, time.perf_counter() - t0)
+
+    def restore_buffer(self, buffer, max_step: "int | None" = None) -> bool:
+        """Load the newest spill (at or before `max_step`) into `buffer`;
+        a torn spill falls back to the one before."""
+        t0 = time.perf_counter()
+        snapshot = self.read_spill(max_step)
+        return self.install_spill(buffer, snapshot, time.perf_counter() - t0)
 
     # --- auto-resume ------------------------------------------------------
 

@@ -7,6 +7,7 @@ import torch
 
 from ..config.env_config import EnvConfig
 from ..config.mcts_config import MCTSConfig
+from ..config.mesh_config import Mesh
 from ..config.model_config import ModelConfig
 from ..config.persistence_config import PersistenceConfig
 from ..config.telemetry_config import TelemetryConfig
@@ -25,7 +26,7 @@ from ..telemetry import RunTelemetry
 
 @dataclass
 class TrainingComponents:
-    """Everything a training run needs, on one device."""
+    """Everything a training run needs, on one device or one dp rank."""
 
     env: TriangleEnv
     extractor: FeatureExtractor
@@ -48,3 +49,5 @@ class TrainingComponents:
     # for components assembled by hand) and the config it was built from.
     telemetry: "RunTelemetry | None" = None
     telemetry_config: "TelemetryConfig | None" = None
+    # The dp mesh over the process group (None: one device).
+    mesh: "Mesh | None" = None

@@ -92,7 +92,23 @@ tracer. With `TrainConfig.PROFILE_WORKERS` (`cli train --profile`) the
 timers go to the collector as `Profile/<phase>_ms` each iteration and to
 `profile_data/phase_timers.json` at the end, and iterations 1-2 run
 under a `torch.profiler` window exported into `profile_data/`
-(`cli analyze` reads both).
+(`cli analyze` reads both). A megastep run counts its megasteps there,
+not its warm-up chunks, so the window holds megasteps 1-2.
+
+A dp run (`components.mesh` over a process group; the synchronous loop
+and the megastep) keeps its ranks in lockstep: the stop test (a stop,
+or a preemption, on any rank stops every rank at the same beat), a
+rank's own host ring drawing None, the megastep's warm-up gate ("every
+shard can fill") and the synchronous loop's step count (from the
+iteration's global rows) are reduced over the ranks; the step clock,
+the checkpoint cadences and the stop at MAX_TRAINING_STEPS follow the
+learner step, which is the same everywhere. A rank's own host ring
+draws B / dp rows (JAX `training/loop.py:464`), a sharded ring each
+rank's stratum of B. Rank 0 alone writes the preemption report. A
+rank's counters are its own lanes' (rank 0's also hold a restored run's
+totals); the checkpoint and the utilization record take their sum over
+the ranks (`_lane_totals`, one gather at those lockstep beats), as the
+JAX dp mesh counts every lane. The events are the rank's own.
 """
 
 import contextlib
@@ -107,6 +123,8 @@ from enum import Enum
 import numpy as np
 import torch
 
+from ..parallel.distributed import is_primary
+from ..parallel.sharding import all_gather_ints, all_reduce_scalar
 from ..profiling import ProfileSession
 from ..rl.self_play import SelfPlayEngine
 from ..stats.events import RawMetricEvent
@@ -139,6 +157,16 @@ class TrainingLoop:
         self.status: "LoopStatus | None" = None
         self.error: "BaseException | None" = None
         self._device_replay = components.buffer.is_device
+        # A dp run: every decision that changes how many collectives a
+        # rank runs is reduced over the ranks first (`_should_stop`,
+        # `_sample_group`, `_megastep_ready`, the synchronous loop's step
+        # count), so the ranks stay in lockstep.
+        self.mesh = components.mesh
+        self._grouped = self.mesh is not None and self.mesh.backend is not None
+        self._sharded = bool(getattr(components.buffer, "is_sharded", False))
+        # Per megastep or iteration of a dp run: the parameters' digest
+        # (`Trainer.param_checksum`), equal on every rank.
+        self.param_checksums: list = []
         self.global_step = 0
         self.episodes_played = 0
         self.total_simulations = 0
@@ -187,6 +215,7 @@ class TrainingLoop:
             "learner_s": [], "producer_chunk_s": [],
         }
         self.run_s: "float | None" = None
+        self.first_megastep_unix: "float | None" = None  # wall clock at the first megastep's end
         self._last_progress_time = time.monotonic()
         self._last_progress_step = 0
         self.telemetry = components.telemetry or RunTelemetry(
@@ -229,7 +258,9 @@ class TrainingLoop:
         """`preempt_report.json` in the run directory (tmp + os.replace),
         written after the emergency save, so `checkpointed_step` is the
         step a restart resumes from. A failed write is logged: the exit
-        code still tells the preemption."""
+        code still tells the preemption. In a dp run rank 0 writes it."""
+        if not is_primary():
+            return
         write_preempt_report(
             self.c.persistence_config.get_run_base_dir() / PREEMPT_REPORT_FILENAME,
             {
@@ -244,10 +275,12 @@ class TrainingLoop:
 
     def set_initial_state(self, global_step: int, episodes_played: int, total_simulations: int) -> None:
         """Install a restored run's counters; the save cadences count on
-        from `global_step`."""
+        from `global_step`. In a dp run rank 0 alone carries the restored
+        totals, so the ranks' sum (`_lane_totals`) is the run's."""
+        primary = is_primary()
         self.global_step = global_step
-        self.episodes_played = episodes_played
-        self.total_simulations = total_simulations
+        self.episodes_played = episodes_played if primary else 0
+        self.total_simulations = total_simulations if primary else 0
         self._cadence_anchor = global_step
         self.resumed_step = global_step
 
@@ -392,6 +425,20 @@ class TrainingLoop:
 
             fault_point("step", step)
 
+    def _should_stop(self) -> bool:
+        """The stop test of every loop beat. In a dp run one reduction
+        over the ranks: a stop (or a preemption) on any rank stops them
+        all at the same beat, the preemption included."""
+        if not self._grouped:
+            return self.stop_event.is_set()
+        code = 2 if self._preempt_requested else 1 if self.stop_event.is_set() else 0
+        code = int(all_reduce_scalar(code, self.mesh, op="max"))
+        if code == 2:
+            self._preempt_requested = True
+        if code:
+            self.stop_event.set()
+        return code > 0
+
     def _crossed(self, step: int, freq: int, last: "int | None") -> bool:
         """Did `step` cross a `freq` multiple since `last`? (Steps may
         advance by a whole group per call.)"""
@@ -425,12 +472,13 @@ class TrainingLoop:
         step = self.global_step
         if self._ckpt_save_due(force) and self._last_saved_step != step:
             self._last_saved_step = step
+            episodes, simulations, _, _ = self._lane_totals()
             c.checkpoints.save(
                 step,
                 c.trainer.get_state(),
                 counters={
-                    "episodes_played": self.episodes_played,
-                    "total_simulations": self.total_simulations,
+                    "episodes_played": episodes,
+                    "total_simulations": simulations,
                     "weight_updates": self.weight_updates,
                 },
             )
@@ -469,12 +517,19 @@ class TrainingLoop:
         """Up to `group` batches sampled from the ring on the host, at the
         learner's dispatch-time step (PER beta)."""
         samples = []
+        # BATCH_SIZE is the global batch: a sharded ring draws each rank's
+        # stratum of it; a rank's own host ring draws its B / dp share, as
+        # each host of the JAX multi-process run does.
+        batch = self.cfg.BATCH_SIZE
+        if self._grouped and not self._sharded:
+            batch //= self.mesh.dp
         with self.profile.phase("sample"):
             for _ in range(group):
-                s = self.c.buffer.sample(
-                    self.cfg.BATCH_SIZE, current_train_step=self.c.trainer.global_step
-                )
-                if s is None:
+                s = self.c.buffer.sample(batch, current_train_step=self.c.trainer.global_step)
+                ok = s is not None
+                if self._grouped and not self._sharded:
+                    ok = bool(all_reduce_scalar(ok, self.mesh, op="min"))
+                if not ok:
                     break
                 samples.append(s)
         return samples
@@ -503,7 +558,7 @@ class TrainingLoop:
         runs after each group. Returns the steps run."""
         k = max(1, self.cfg.FUSED_LEARNER_STEPS)
         ran = 0
-        while ran < max_steps and not self.stop_event.is_set():
+        while ran < max_steps and not self._should_stop():
             budget = self._learner_budget(max_steps - ran)
             if budget <= 0:
                 break
@@ -600,12 +655,13 @@ class TrainingLoop:
             if search.get("occupancy") is not None:
                 extra["tree_occupancy"] = search["occupancy"]
         h2d, d2h = self._transfer_seconds()
+        episodes, simulations, experiences, reused = self._lane_totals()
         telemetry.on_util_tick(
             self.global_step,
-            episodes=self.episodes_played,
-            experiences=self.experiences_added,
-            simulations=self.total_simulations,
-            reused_visits=self.total_reused_visits,
+            episodes=episodes,
+            experiences=experiences,
+            simulations=simulations,
+            reused_visits=reused,
             buffer_size=len(self.c.buffer),
             transfer_h2d_s=h2d,
             transfer_d2h_s=d2h,
@@ -620,6 +676,16 @@ class TrainingLoop:
         telemetry.on_tick(self.global_step, len(self.c.buffer))
         self.c.stats.process_and_log(self.global_step)
         self._log_progress()
+
+    def _lane_totals(self) -> tuple:
+        """(episodes, simulations, rows, reused visits) over every rank's
+        lanes: one gather of the ranks' counters in a dp run (every rank
+        calls it at the same beat), the loop's own counters otherwise."""
+        own = (self.episodes_played, self.total_simulations, self.experiences_added,
+               self.total_reused_visits)
+        if not self._grouped:
+            return own
+        return tuple(sum(col) for col in zip(*all_gather_ints(own, self.mesh)))
 
     def _log_progress(self) -> None:
         """At most every 10 s: step, rate, ring, episodes and the ETA."""
@@ -692,7 +758,7 @@ class TrainingLoop:
     def _run_sync(self) -> None:
         cfg = self.cfg
         iteration = 0
-        while not self.stop_event.is_set():
+        while not self._should_stop():
             if self._max_steps_reached():
                 logger.info("Reached MAX_TRAINING_STEPS=%d.", cfg.MAX_TRAINING_STEPS)
                 break
@@ -702,9 +768,12 @@ class TrainingLoop:
             with self.profile.phase("rollout"):
                 added = self._process_rollout()
             t1 = time.perf_counter()
-            n_steps = cfg.LEARNER_STEPS_PER_ROLLOUT or max(1, round(added / cfg.BATCH_SIZE))
+            # The global rows of the iteration set every rank's step count.
+            rows = int(all_reduce_scalar(added, self.mesh)) if self._grouped else added
+            n_steps = cfg.LEARNER_STEPS_PER_ROLLOUT or max(1, round(rows / cfg.BATCH_SIZE))
             self.rows_per_iteration.append(added)
             self.steps_per_iteration.append(self._run_training_steps(n_steps))
+            self._note_replicas()
             t2 = time.perf_counter()
             self.timings["rollout_s"].append(t1 - t0)
             self.timings["learner_s"].append(t2 - t1)
@@ -714,17 +783,26 @@ class TrainingLoop:
     # --- fused megastep ---------------------------------------------------
 
     def _megastep_ready(self, need: int) -> bool:
-        """Warm-up exit test: the ring can produce a training batch."""
-        return len(self.c.buffer) >= need
+        """Warm-up exit test: the ring can produce a training batch. A
+        sharded ring needs `need` rows over all shards and every shard
+        its B/dp stratum (one gather of the shard sizes, the same answer
+        on every rank)."""
+        buf = self.c.buffer
+        if self._sharded:
+            sizes = buf.shard_sizes()
+            return sum(sizes) >= need and min(sizes) >= self.cfg.BATCH_SIZE // buf.dp
+        return len(buf) >= need
+
+    def _note_replicas(self) -> None:
+        """A dp run's parameter digest after a megastep or an iteration."""
+        if self.mesh is not None and self.mesh.dp > 1:
+            self.param_checksums.append(self.c.trainer.param_checksum())
 
     def _run_megastep_mode(self) -> None:
         cfg = self.cfg
         runner = self.c.megastep
         need = max(cfg.MIN_BUFFER_SIZE_TO_TRAIN, cfg.BATCH_SIZE)
-        iteration = 0
-        while not self.stop_event.is_set() and not self._megastep_ready(need):
-            self.profile.on_iteration(iteration)
-            iteration += 1
+        while not self._should_stop() and not self._megastep_ready(need):
             t0 = time.perf_counter()
             with self.profile.phase("rollout"):
                 self._process_rollout()
@@ -734,7 +812,9 @@ class TrainingLoop:
         # before it, wrote into the host mirror: the first megastep's PER
         # draw reads the restored priorities.
         runner.sync_priorities_from_host()
-        while not self.stop_event.is_set():
+        # The --profile window counts megasteps: the warm-up stays out.
+        iteration = 0
+        while not self._should_stop():
             if self._max_steps_reached():
                 logger.info("Reached MAX_TRAINING_STEPS=%d.", cfg.MAX_TRAINING_STEPS)
                 break
@@ -748,10 +828,13 @@ class TrainingLoop:
             with self.profile.phase("megastep"):
                 outs, added = runner.run_megastep(cfg.ROLLOUT_CHUNK_MOVES, k)
             self.timings["megastep_s"].append(time.perf_counter() - t0)
+            if self.first_megastep_unix is None:
+                self.first_megastep_unix = time.time()
             self.megastep_iterations += 1
             self._fold_result(self.c.self_play.harvest(), added=added)
             for i, (metrics, td_errors) in enumerate(outs):
                 self._record_step(metrics, td_errors, None, prev_step + i + 1)
+            self._note_replicas()
             with self.profile.phase("checkpoint"):
                 self._maybe_checkpoint()
             self._iteration_tail()
@@ -1079,6 +1162,15 @@ class TrainingLoop:
             "checkpointed_step": self._last_saved_step,
             "buffer_saved_step": self._last_buffer_saved_step,
             "device": str(self.c.device),
+            # The dp mesh: this rank, the world, the process group's
+            # backend (None: one process) and the digests per megastep or
+            # iteration, which agree over the ranks.
+            "dp": {
+                "rank": self.mesh.dp_index if self.mesh is not None else 0,
+                "world": self.mesh.dp if self.mesh is not None else 1,
+                "backend": self.mesh.backend if self.mesh is not None else None,
+                "param_checksums": self.param_checksums,
+            },
             "steps": self.global_step,
             "iterations": self.iterations,
             "megasteps": self.megastep_iterations,
@@ -1126,7 +1218,12 @@ class TrainingLoop:
                 "learner_steps_per_s": self.global_step / run_s if run_s else None,
                 "lane_moves_per_s": self.lane_moves / run_s if run_s else None,
                 "first_iteration_s": iters[0] if iters else (mega[0] if mega else None),
+                "first_megastep_unix": self.first_megastep_unix,
             },
+            # The caching allocator's peak on the run's card (None on the CPU).
+            "peak_device_bytes": (
+                torch.cuda.max_memory_allocated(self.c.device) if self.c.device.type == "cuda" else None
+            ),
             # Host seconds of each save, spill and restore; bytes of each spill.
             "checkpoints": {k: list(v) for k, v in ckpt.items()},
             # The stats collector's writers and live file.

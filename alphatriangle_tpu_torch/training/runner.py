@@ -21,6 +21,15 @@ does; `telemetry_config` reaches the run's telemetry. A config the port
 cannot run raises ValueError from setup, before anything is built. A
 restore that fails ends the run as ERROR before any step: a fresh model
 is never trained into a run directory whose state could not be read.
+
+With a `DistributedConfig` (`cli train --distributed`) the runner joins
+the process group before the device is touched
+(`parallel.initialize_distributed`, which picks the rank's card), rank
+0 resolves auto-resume and broadcasts the run name, setup builds the
+dp mesh, and a restore is read on rank 0 (learner state, counters,
+spill) and broadcast: every rank installs the same learner state, and
+a sharded ring keeps its stripe of the spill. Ranks but the first open
+no TensorBoard writer. The runner leaves the group when the run ends.
 """
 
 import json
@@ -31,12 +40,21 @@ import threading
 import time
 
 from ..config.env_config import EnvConfig
+from ..config.mesh_config import MeshConfig
 from ..config.mcts_config import MCTSConfig
 from ..config.model_config import ModelConfig
 from ..config.persistence_config import PersistenceConfig
 from ..config.telemetry_config import TelemetryConfig
 from ..config.train_config import TrainConfig
 from ..logging_config import setup_logging
+from ..parallel.distributed import (
+    DistributedConfig,
+    initialize_distributed,
+    is_primary,
+    rank_device,
+    shutdown_distributed,
+)
+from ..parallel.sharding import broadcast_object
 from ..stats.persistence import CheckpointManager
 from ..supervise.supervisor import OVERRIDES_ENV
 from .loop import PREEMPT_EXIT_CODE, LoopStatus, TrainingLoop
@@ -134,33 +152,43 @@ def _resolve_auto_resume(
 
 def _restore(loop: TrainingLoop) -> None:
     """Install the checkpointed learner, counters and ring (see module
-    docstring); nothing when the run has no checkpoint yet."""
+    docstring); nothing when the run has no checkpoint yet. Rank 0 reads
+    (the process itself when it runs alone) and every rank gets the same
+    learner state, counters and spill by one broadcast; the spill is
+    read only with a restored checkpoint, or from LOAD_BUFFER_PATH."""
     c = loop.c
     cfg = c.train_config
-    if cfg.LOAD_CHECKPOINT_PATH:
-        loaded = c.checkpoints.restore_path(cfg.LOAD_CHECKPOINT_PATH)
-    else:
-        loaded = c.checkpoints.restore(buffer=c.buffer)
-    if cfg.LOAD_BUFFER_PATH:
-        c.checkpoints.restore_buffer_path(c.buffer, cfg.LOAD_BUFFER_PATH)
+    payload, read_s = None, 0.0
+    if is_primary():
+        if cfg.LOAD_CHECKPOINT_PATH:
+            loaded = c.checkpoints.restore_path(cfg.LOAD_CHECKPOINT_PATH)
+        else:
+            loaded = c.checkpoints.restore()
+        t0 = time.perf_counter()
+        spill = None
+        if cfg.LOAD_BUFFER_PATH:
+            spill = c.checkpoints.read_spill_path(cfg.LOAD_BUFFER_PATH)
+        elif loaded.train_state is not None and not cfg.LOAD_CHECKPOINT_PATH:
+            spill = c.checkpoints.read_spill(loaded.global_step)
+        read_s = time.perf_counter() - t0
+        payload = (loaded.train_state, loaded.counters, loaded.global_step, spill)
+    train_state, counters, step, spill = broadcast_object(payload, c.mesh)
+    c.checkpoints.install_spill(c.buffer, spill, read_s)
     loop.restored_rows = len(c.buffer)
-    if loaded.train_state is None:
+    if train_state is None:
         return
-    c.trainer.set_state(loaded.train_state)
+    c.trainer.set_state(train_state)
     if c.trainer.model is not c.net.model:
         # Self-play and LiveWeights read the net's weights from the new
         # version on; in megastep mode the module is shared.
         c.trainer.sync_to_network()
     loop.set_initial_state(
-        loaded.global_step,
-        int(loaded.counters.get("episodes_played", 0)),
-        int(loaded.counters.get("total_simulations", 0)),
+        step,
+        int(counters.get("episodes_played", 0)),
+        int(counters.get("total_simulations", 0)),
     )
-    loop.weight_updates = int(loaded.counters.get("weight_updates", 0))
-    logger.info(
-        "Resumed at step %d (%d episodes, buffer %d).",
-        loaded.global_step, loop.episodes_played, len(c.buffer),
-    )
+    loop.weight_updates = int(counters.get("weight_updates", 0))
+    logger.info("Resumed at step %d (%d episodes, buffer %d).", step, loop.episodes_played, len(c.buffer))
 
 
 def run_training(
@@ -173,18 +201,49 @@ def run_training(
     use_tensorboard: bool = False,
     telemetry_config: "TelemetryConfig | None" = None,
     log_level: "str | None" = None,
+    distributed_config: "DistributedConfig | None" = None,
+    mesh_config: "MeshConfig | None" = None,
 ) -> TrainingLoop:
     """Run (or resume) a training session on `device` (CUDA unless
     named), in the run directory `persistence_config` names (default:
     `TrainConfig.RUN_NAME` under `./.alphatriangle_data`);
     `use_tensorboard` and `telemetry_config` as in
     `setup_training_components`; `log_level` (e.g. "INFO") sets up the
-    root logger, which is left alone when None."""
+    root logger, which is left alone when None; `distributed_config`
+    joins a process group first (see the module docstring) and
+    `mesh_config` shapes its mesh."""
     if log_level is not None:
         setup_logging(log_level)
     train_config = _apply_supervise_overrides(train_config or TrainConfig())
+    joined = distributed_config is not None and distributed_config.ENABLED
+    if joined:
+        if train_config.ASYNC_ROLLOUTS:
+            raise ValueError(
+                "--distributed with --async-rollouts: the overlapped loop across ranks waits for "
+                "ROADMAP.md item 6b"
+            )
+        initialize_distributed(distributed_config, device or "cuda")
+        from ..parallel.distributed import process_info
+
+        device = rank_device(device or "cuda", process_info()[0])
+        use_tensorboard = use_tensorboard and is_primary()
+    try:
+        return _run(train_config, env_config, model_config, mcts_config, persistence_config, device,
+                    use_tensorboard, telemetry_config, mesh_config, joined)
+    finally:
+        if joined:
+            shutdown_distributed()
+
+
+def _run(train_config, env_config, model_config, mcts_config, persistence_config, device,
+         use_tensorboard, telemetry_config, mesh_config, joined) -> TrainingLoop:
     persistence_config = persistence_config or PersistenceConfig(RUN_NAME=train_config.RUN_NAME)
     train_config, persistence_config = _resolve_auto_resume(train_config, persistence_config)
+    if joined:
+        # Rank 0's choice of run, so every rank writes beside the same one.
+        name = broadcast_object(train_config.RUN_NAME if is_primary() else None)
+        train_config = train_config.model_copy(update={"RUN_NAME": name})
+        persistence_config = persistence_config.model_copy(update={"RUN_NAME": name})
     components = setup_training_components(
         train_config=train_config,
         env_config=env_config,
@@ -194,6 +253,7 @@ def run_training(
         device=device,
         use_tensorboard=use_tensorboard,
         telemetry_config=telemetry_config,
+        mesh_config=mesh_config,
     )
     loop = TrainingLoop(components)
     try:

@@ -81,11 +81,11 @@ train phase's widths and cuts, through `run_training`:
   ring, batches uploaded.
 - train-async: `ASYNC_ROLLOUTS` with 2 producer streams, `REPLAY_RATIO`
   1.0, a pipelined learner of fused pairs, a queue of 4, the default
-  2-second chunk target, the device ring, 16 steps. The run must
-  complete at step 16 with both streams' harvests folded, no producer
+  2-second chunk target, the device ring, 12 steps. The run must
+  complete at step 12 with both streams' harvests folded, no producer
   restart, a replay ratio of at most 1.0, at least one weight sync
   (checked as above), one set of weights per chunk, and 16 + 2 search
-  launches per searched move over all streams. Then the same loop runs 8
+  launches per searched move over all streams. Then the same loop runs 4
   more steps under the profiler: the card's busy share is the union of
   every stream's kernel and copy intervals over the window's wall. Then
   4 more with every beacon armed and no beacon ring yet: the rows the
@@ -96,12 +96,12 @@ Then the checkpoint paths, at the default widths and the train-sync
 phase's depth cuts:
 
 - preempt-resume: `python -m alphatriangle_tpu_torch.cli train` (the
-  synchronous loop, the device ring) with a checkpoint every 4 of 12
+  synchronous loop, the device ring) with a checkpoint every 4 of 10
   steps, SIGTERM once step 4 is committed. It must exit 114 and leave
   `preempt_report.json`, a committed checkpoint and a spill at the step
   it stopped at. The same command under another run name must
   auto-resume that run from that step with the spill's rows and reach
-  step 12 (exit 0). The search kernels 16 + 2 times per searched move
+  step 10 (exit 0). The search kernels 16 + 2 times per searched move
   over both processes (each process counts its own).
 - megastep-resume: `run_training` in megastep mode, checkpoints every 2
   steps to step 4, then a run of another name auto-resumes it for 2
@@ -116,7 +116,7 @@ phase's depth cuts:
   the restored ring and SumTree must equal it bit for bit, oldest row
   first.
 - eval: `python -m alphatriangle_tpu_torch.cli eval` against the
-  preempted run's checkpoint, 64 games x 64 simulations, cut at 32
+  preempted run's checkpoint, 64 games x 64 simulations, cut at 8
   moves. The JAX report's keys, the restored step named, the random
   side equal to the same baseline played on the CPU, 16 + 2 search
   launches per dispatch.
@@ -133,7 +133,7 @@ the presets, each at its preset's full width and cut in depth only:
 - train-preset3: `cli train --preset 3` (512 lanes, Gumbel roots of 64
   simulations, fast searches of 16 at p = 0.25, the 4-layer
   transformer, batch 256, the 250,000-slot ring) in its synchronous loop
-  to 4 learner steps, timed with no synchronisation added: 16 + 2
+  to 2 learner steps, timed with no synchronisation added: 16 + 2
   launches per full move and 8 + 1 per fast one over the run, the
   Full_Search_Fraction ticks matching the moves, a live_metrics.jsonl
   line per tick. Then chunks of the same engine with every move timed
@@ -207,7 +207,7 @@ Then slice nine's paths, at the serve default's widths (`EnvConfig()`,
   recorded on the way) bit-equal to its plain version.
 - league: `cli train` (the synchronous loop, 4 steps, a checkpoint every
   2) writes a pool of two checkpoints; `cli league --pool-from` it with
-  `--steps 4 --mix 1.0 --slots 8 --games 4 --max-moves 24
+  `--steps 2 --mix 1.0 --slots 8 --games 4 --max-moves 24
   --promotion-games 1 --promotion-win-rate 0.0`. Exit 0, a pool of at
   least 2, a round and a promotion, every round's rows ingested equal to
   the live side's moves less the stale ones, `league.jsonl` replayed to
@@ -305,8 +305,8 @@ defaults' widths and cuts:
   wave 1); the wedge report written at 4 s carries it and
   `classify_run` names it; the rows after the fetch equal what the host
   enqueued. Then armed and unarmed dispatches interleaved.
-- profile: `cli train --fused-megastep --profile` to 3 megasteps of
-  4-move chunks (the window then holds a megastep), then
+- profile: `cli train --fused-megastep --profile` to 2 megasteps of
+  4-move chunks (the window, which counts megasteps, holds the second), then
   `cli analyze` of its `profile_data/` (exit 0 both): the phase timers
   hold rollout, megastep and checkpoint; the trace's device lines count
   the window's gather, backup and PER-count kernels exactly; the top
@@ -327,9 +327,9 @@ Slice thirteen's supervisor, doctor and run readers, after the fleet:
   beacon rows written by the card's writer, 16 + 2 search launches a
   searched move and one count a megastep. The death to the respawn's
   first dispatch and first megastep, the hang to the death.
-- supervise-torn: the same with `sigkill-save` at step 4: a SIGKILL
-  between the meta and the commit marker, the torn step_4 seen at the
-  death, the restart from step 2, exit 0.
+- supervise-torn: the same, to step 8, with `sigkill-save` at step 4: a
+  SIGKILL between the meta and the commit marker, the torn step_4 seen at
+  the death, the restart from step 2, exit 0.
 - doctor: `cli doctor --json` of the preempted run (preempted, exit 7,
   taken before its resume), the beacon phase's wedged serve run
   (dispatch-hung naming its beacon), the fleet parent (the fleet branch,
@@ -340,6 +340,45 @@ Slice thirteen's supervisor, doctor and run readers, after the fleet:
   --once`, `compare` of the supervised run with itself (parity), `slo
   --json` and `perf --json` of the fleet parent (the report's exit code;
   the fleet_* fields), all torch-free; `cli devices` (the card, one).
+
+Slice fourteen's data-parallel training, after the supervise drills and
+before the doctor (the one-process resume below runs beside the doctor,
+readers and reference phases), at the train phase's widths and cuts to 4
+megasteps with a checkpoint every megastep,
+each rank's second and third megasteps traced (`--profile`, whose
+window counts megasteps, not warm-up chunks):
+
+- train-dp1: `cli train --distributed --fused-megastep` as a world of
+  one over NCCL. The report must name NCCL and a world of one; 16 + 2
+  search launches a searched move and one count a megastep; finite
+  losses; the parameters after the first megastep bit-equal to the train
+  phase's (the same run without `--distributed`), or else, where two
+  `cli train` runs without it agree bit for bit, to theirs, and within
+  rtol 2e-4, atol 2e-5 where they do not; the phase says which.
+- train-dp2-shared: the same command as two rank processes sharing the
+  card over gloo (`--dist-backend gloo`), each with 256 lanes, a batch
+  of 128 and a 125,000-slot ring shard. The parameter digests of both
+  ranks equal after each megastep; each rank's launches as above; rank
+  0 alone writing the checkpoints, `meta.json`, the ledger and the
+  heartbeat (rank 1 opens no writer); then the run's checkpoint and
+  spill resumed in one process (`cli train --fused-megastep`, one more
+  megastep) with both shards' rows.
+
+Each prints, per rank, the megastep p50, the `dp.all_reduce` label's
+share of the traced megastep, the peak device memory and the wall from
+the spawn to the first megastep. The kernel phase holds `gather_rows`
+and `backup_update` bit-equal to their plain versions at a rank's 256
+lanes too, and `per_sample` over a rank's 125,000-slot shard with K x
+128 draws.
+
+Depth cut for them (widths unchanged): supervise-torn to step 8
+(was 12), train-async to step 12 (was 16) and its profiled
+window 4 steps (was 8), preempt-resume to step 10 (was 12), the league
+to step 2 (was 4), the train and serve A/B and the beacons' 2 off / on
+pairs (was 3), the profile run 2 megasteps (was 3), eval to 8 moves
+(was 16), the preset-3 loops to 2 learner steps (were 4); the evals, the
+profile run and the league's two runs call the command in this process
+(they spawned one each).
 
 Every run directory lives under one temporary directory, removed at the
 end, and every train phase starts its run fresh.
@@ -355,6 +394,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -375,6 +415,10 @@ TRAIN_CHUNK_MOVES = 2
 TRAIN_MIN_BUFFER = 256
 TRAIN_K = 2
 TRAIN_MEGASTEPS = 4
+# The dp phases (train-dp1, train-dp2-shared): the train default at full
+# width, as one rank over NCCL and as two ranks sharing the card over
+# gloo (each with 256 lanes, a batch of 128 and a 125,000-slot shard).
+DP2_LANES, DP2_BATCH, DP2_SHARD = 256, 128, 125_000
 # The promotion's shapes on both reuse paths: the default search's 64 +
 # 65 node rows, its 65-row budget and its 8 BFS rounds (the depth).
 PROMOTE_N, PROMOTE_BUDGET, PROMOTE_ROUNDS = 129, 65, 8
@@ -805,6 +849,53 @@ def real_wave_phase(torch, cycles: float, recorded: dict) -> dict:
     return report
 
 
+def per_sample_operands(torch, dev, gen, ps, cap: int, bq: int) -> tuple:
+    """The PER count's operands at a ring of `cap` slots and K x `bq`
+    draws (a zero-priority run, a ring not yet full, a zero trash slot,
+    draws on segment edges), its kernel's and plain version's counts,
+    held equal: (cum, u, kernel, plain)."""
+    at = lambda frac: int(cap * frac)  # noqa: E731 (the flagship's fractions of the ring)
+    prio = torch.rand(cap + 1, generator=gen, device=dev) * 2.0
+    prio[at(0.16):at(0.26)] = 0.0  # empty slots: a zero-priority run
+    prio[at(0.8) + 1:] = 0.0  # a ring not yet full; the trash slot at `cap` is 0
+    cum = torch.cumsum(prio[:cap], dim=0)
+    u = ps.stratum_draws(cum, TRAIN_K, bq, torch.tensor([0, 11], dtype=torch.int64))
+    edges = torch.tensor([0, at(0.16) - 1, at(0.16), at(0.26)], device=dev)
+    u[0, :4] = cum[edges]  # on segment edges
+    u[-1, -1] = cum[-1]
+    got = ps.count_below_cuda(cum, u)
+    want = ps.count_below_plain(cum, u)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"per_sample kernel differs from its plain version at cap {cap}, B={bq}")
+    return cum, u, got, want
+
+
+def rank_shapes(torch, dev, rate: float, cycles: float) -> dict:
+    """The kernels at the shapes a rank of the two-rank dp megastep gives
+    them (train-dp2-shared): the search's at 256 lanes, the PER count
+    over a 125,000-slot shard with K x 128 draws. Bit-equal to their
+    plain versions; the kernels' times and bounds."""
+    import importlib
+
+    ps = importlib.import_module("alphatriangle_tpu_torch.ops.per_sample")
+    out = {
+        name: {key: e[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes")}
+        for name, e in search_kernels(torch, dev, rate, cycles, b=DP2_LANES).items()
+    }
+    cap, bq = DP2_SHARD, DP2_BATCH
+    cum, u, _, _ = per_sample_operands(torch, dev, torch.Generator(device=dev).manual_seed(3), ps, cap, bq)
+    ps_bytes = cap * 4 + 2 * TRAIN_K * bq * 4
+    out["per_sample"] = {
+        "ms": time_ms(lambda: ps.count_below_cuda(cum, u), cycles),
+        "plain_ms": time_ms(lambda: ps.count_below_plain(cum, u), cycles, iters=20),
+        "bound_ms": ps_bytes / rate * 1e3,
+        "library_ms": time_ms(lambda: torch.searchsorted(cum, u), cycles),
+        "bytes": ps_bytes,
+    }
+    return out
+
+
 def kernel_phase(torch, dev, rate: float) -> dict:
     """Every kernel at the shapes of the paths that run it: the search's
     at the serving path's 64 lanes (the figures of the kernels line) and
@@ -822,18 +913,7 @@ def kernel_phase(torch, dev, rate: float) -> dict:
     # --- per_sample: the megastep's PER count at the flagship ---
     ps = importlib.import_module("alphatriangle_tpu_torch.ops.per_sample")
     cap, kq, bq = 250_000, TRAIN_K, 256
-    prio = torch.rand(cap + 1, generator=gen, device=dev) * 2.0
-    prio[40_000:65_000] = 0.0  # empty slots: a zero-priority run
-    prio[200_001:] = 0.0  # a ring not yet full; the trash slot at `cap` is 0
-    cum = torch.cumsum(prio[:cap], dim=0)
-    u = ps.stratum_draws(cum, kq, bq, torch.tensor([0, 11], dtype=torch.int64))
-    u[0, :4] = cum[torch.tensor([0, 39_999, 40_000, 65_000], device=dev)]  # on segment edges
-    u[-1, -1] = cum[-1]
-    got = ps.count_below_cuda(cum, u)
-    want = ps.count_below_plain(cum, u)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("per_sample kernel differs from its plain version")
+    cum, u, got, want = per_sample_operands(torch, dev, gen, ps, cap, bq)
     # The function needs the cumsum read once, the draws read and the counts
     # written: bytes bound it. The kernel's brute-force compares (one per
     # draw and element) are work of its algorithm, not of the function.
@@ -859,6 +939,10 @@ def kernel_phase(torch, dev, rate: float) -> dict:
         "cumsum_descents": int((cum[1:] < cum[:-1]).sum()),
         "searchsorted_disagrees": int((torch.searchsorted(cum, u).int() != want).sum()),
     }
+
+    # --- the per-rank shapes of the two-rank dp megastep ---
+    for name, entry in rank_shapes(torch, dev, rate, cycles).items():
+        report[name]["at_dp2_rank"] = entry
 
     # --- the redesigned kernels on their adversarial families ---
     families = kernel_families(torch, dev, cycles)
@@ -1364,6 +1448,11 @@ def say_telemetry(label: str, r: dict, card: str) -> None:
     say_device_stats(label, r["device_stats"], card)
 
 
+# The train phase's parameters after its first megastep (CPU copies): the
+# undistributed run train-dp1 is held to.
+FIRST_MEGASTEP_PARAMS: dict = {}
+
+
 def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = None):
     """The default training configuration, with or without subtree
     reuse, cut in depth only, through `run_training` in megastep mode,
@@ -1385,6 +1474,19 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
     for kern in kernels.values():
         kern.launches = 0
     watch, restore_watch = watch_telemetry()
+    from alphatriangle_tpu_torch.rl.megastep import MegastepRunner
+
+    real_megastep = MegastepRunner.run_megastep
+
+    def first_megastep(self, *args, **kwargs):
+        out = real_megastep(self, *args, **kwargs)
+        if not reuse and not FIRST_MEGASTEP_PARAMS:
+            FIRST_MEGASTEP_PARAMS.update(
+                {n: p.detach().cpu().clone() for n, p in self.trainer.model.named_parameters()}
+            )
+        return out
+
+    MegastepRunner.run_megastep = first_megastep
     t0 = time.perf_counter()
     mcts_cfg = AlphaTriangleMCTSConfig(tree_reuse=reuse)
     try:
@@ -1394,6 +1496,7 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
         )
         torch.cuda.synchronize()
     finally:
+        MegastepRunner.run_megastep = real_megastep
         restore_watch()
     wall_s = time.perf_counter() - t0
     launches = {name: kern.launches for name, kern in kernels.items()}
@@ -1453,11 +1556,12 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
         c.megastep.run_megastep(TRAIN_CHUNK_MOVES, TRAIN_K)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    profiled = read_profile(prof, TRAIN_STAGES, prof_wall_ms, statistics.median(mega) * 1e3)
     # Stat-packs off / on, and the beacons armed (outside the counted run).
     stats_ab = None
     if not reuse:
         stats_ab = megastep_stats_ab(
-            torch, c, prof, c.persistence_config.get_run_base_dir(), sleep_cycles_per_ms()
+            torch, c, prof, profiled, c.persistence_config.get_run_base_dir(), sleep_cycles_per_ms()
         )
     lanes = c.self_play.batch_size
     warm = loop.timings["warmup_chunk_s"]
@@ -1489,17 +1593,17 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
         "reused_visits": loop.total_reused_visits,
         "reused_share": share,
         "peak_mem_gb": peak_gb,
-        "profile": read_profile(prof, TRAIN_STAGES, prof_wall_ms, statistics.median(mega) * 1e3),
+        "profile": profiled,
         "telemetry": telemetry,
     }
 
 
 # The synchronous and overlapped phases' depth cuts (their widths are the
 # defaults, as in the train phase).
-SYNC_STEPS, SYNC_HOST_STEPS, ASYNC_STEPS = 12, 4, 16
+SYNC_STEPS, SYNC_HOST_STEPS, ASYNC_STEPS = 12, 4, 12
 # Further windows of the overlapped loop: one under the profiler, one
 # with every beacon armed.
-ASYNC_PROFILED_STEPS, ASYNC_ARMED_STEPS = 8, 4
+ASYNC_PROFILED_STEPS, ASYNC_ARMED_STEPS = 4, 4
 
 
 def watch_chunks():
@@ -2247,12 +2351,12 @@ def reference_train_phase(torch, dev) -> dict:
 
 # The checkpoint phases' depth cuts (widths are the defaults): the
 # train-sync phase's 2-move chunks and 256 rows to start training; the
-# preempted run checkpoints every 4 steps of 12; the megastep run every 2
+# preempted run checkpoints every 4 steps of 10; the megastep run every 2
 # steps of 4, then resumes for 2 more megasteps; eval plays 64 games of up
-# to 32 moves (the serve default's 64 slots x 64 simulations).
-PREEMPT_FREQ, PREEMPT_STEPS = 4, 12
+# to 8 moves (the serve default's 64 slots x 64 simulations).
+PREEMPT_FREQ, PREEMPT_STEPS = 4, 10
 MEGA_RESUME_FREQ, MEGA_RESUME_STEPS = 2, 4
-EVAL_GAMES, EVAL_SIMS, EVAL_MAX_MOVES = 64, 64, 16
+EVAL_GAMES, EVAL_SIMS, EVAL_MAX_MOVES = 64, 64, 8
 # `cli eval`'s report keys, the JAX package's (alphatriangle_tpu/cli.py cmd_eval).
 EVAL_KEYS = (
     "source", "games", "sims", "mcts_mean_score", "mcts_max_score", "mcts_mean_length",
@@ -2286,6 +2390,30 @@ def run_cli(args: list, label: str, timeout: float, on_start=None) -> tuple:
         return rc, json.loads(lines[-1])
     except (IndexError, ValueError):
         fail(f"{label}: exit {rc} without a JSON report; stderr: {err_path.read_text()[-3000:]}")
+
+
+def cli_in_process(args: list, label: str) -> tuple:
+    """`python -m alphatriangle_tpu_torch.cli <args>` run in this process
+    (`cli.main`, its standard output in a file under RUN_ROOT), the
+    kernels' launch counts zeroed first so its report counts its own.
+    Returns (exit code, the JSON report on its last line)."""
+    import contextlib
+    import io
+
+    from alphatriangle_tpu_torch import cli
+    from alphatriangle_tpu_torch.ops import KERNELS
+
+    for kern in KERNELS.values():
+        kern.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    (RUN_ROOT / f"{label}.out").write_text(out.getvalue())
+    lines = out.getvalue().strip().splitlines()
+    try:
+        return rc, json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"{label}: exit {rc} without a JSON report")
 
 
 def check_report_losses(report: dict, label: str) -> None:
@@ -2648,9 +2776,9 @@ def eval_phase(
     torch, gumbel: bool = False, run: str = "ckpt", root: str = "preempt-resume",
     step: int = PREEMPT_STEPS, label: "str | None" = None, precision: str = "float32",
 ) -> dict:
-    """`cli eval` on the card against a run's newest checkpoint (the
-    preempt-resume run's by default): 64 paired games through
-    `PolicyService` (64 slots x 64 simulations), cut at 32 moves; with
+    """`cli eval` on the card (in this process) against a run's newest
+    checkpoint (the preempt-resume run's by default): 64 paired games through
+    `PolicyService` (64 slots x 64 simulations), cut at 8 moves; with
     `gumbel`, `cli eval --gumbel` (the Gumbel search in exploit mode).
     The report carries the JAX report's keys and names the restored step;
     its random side equals the same baseline played on the CPU; the
@@ -2662,11 +2790,11 @@ def eval_phase(
     from alphatriangle_tpu_torch.env import TriangleEnv
 
     label = label or ("eval-gumbel" if gumbel else "eval")
-    rc, report = run_cli(
+    rc, report = cli_in_process(
         ["eval", "--run-name", run, "--root-dir", str(RUN_ROOT / root), "--games",
          str(EVAL_GAMES), "--sims", str(EVAL_SIMS), "--max-moves", str(EVAL_MAX_MOVES), "--device",
          "cuda"] + (["--gumbel"] if gumbel else []),
-        label, 600,
+        label,
     )
     if rc != 0 or report.get("gumbel") is not gumbel:
         fail(f"{label}: exit {rc}, gumbel {report.get('gumbel')}")
@@ -2701,9 +2829,9 @@ def eval_phase(
 
 # --- slice 7: Gumbel root search, playout caps, the presets --------------
 
-# Preset 3's cuts in both loops (depth only): 2-move chunks, 256 rows to
-# start training, 4 learner steps in groups of 2.
-P3_STEPS, P3_K = 4, 2
+# Preset 3's cuts in every loop (depth only): 2-move chunks, 256 rows to
+# start training, 2 learner steps in a group of 2.
+P3_STEPS, P3_K = 2, 2
 # Presets 2, 4 and 5 (the synchronous loop at each preset's widths): the
 # moves of the one chunk that gives the ring a batch (rows mature after
 # the 5-step window), and one learner step.
@@ -2737,22 +2865,49 @@ def record_waves_by_width(store: dict, names: dict):
     return lambda: setattr(search_mod, "backup_update", real)
 
 
-def search_shape_phase(torch, dev, rate: float, cycles: float) -> dict:
+def search_cases_in_background():
+    """Start making the search-shape cases of `search_shape_phase` (numpy,
+    `ops/kernel_cases.py`: gigabytes at presets 4 and 5) on a thread, so
+    numpy fills them (without the interpreter lock) beside the build and
+    the kernel phase. Returns the wait for them: {shape: {"gather": its
+    arrays, family: (planes, updates)}}."""
+    from alphatriangle_tpu_torch.ops.kernel_cases import SEARCH_SHAPES, backup_case, gather_case
+
+    cases: dict = {}
+
+    def make() -> None:
+        for name, (b, n, a, w, d) in SEARCH_SHAPES.items():
+            cases[name] = {"gather": gather_case(b, n, 6 * a, w, seed=n)}
+            for family in ("gumbel_roots", "random"):
+                cases[name][family] = backup_case(family, b=b, n=n, a=a, seed=n, w=w, d=d)
+
+    join = in_background(make)
+
+    def wait() -> dict:
+        join()
+        return cases
+
+    return wait
+
+
+def search_shape_phase(torch, dev, rate: float, cycles: float, cases: dict) -> dict:
     """The gather and the backup at the search shapes of the paths this
     slice adds (`kernel_cases.SEARCH_SHAPES`: fast searches, presets 2, 4
     and 5): bit-equal to their plain versions (the backup on the Gumbel
     wave family and the random one), then each kernel's time against the
-    least time its bytes need."""
+    least time its bytes need. `cases` are `search_cases_in_background`'s
+    (each shape's arrays are dropped once used)."""
     import importlib
 
-    from alphatriangle_tpu_torch.ops.kernel_cases import SEARCH_SHAPES, backup_case, gather_case
+    from alphatriangle_tpu_torch.ops.kernel_cases import SEARCH_SHAPES
 
     g = importlib.import_module("alphatriangle_tpu_torch.ops.gather_rows")
     mb = importlib.import_module("alphatriangle_tpu_torch.ops.mcts_backup")
     report = {"gather_rows": {}, "backup_update": {}}
     for name, (b, n, a, w, d) in SEARCH_SHAPES.items():
         k = 6 * a
-        stats, idx = (torch.from_numpy(x).to(dev) for x in gather_case(b, n, k, w, seed=n))
+        made = cases.pop(name)
+        stats, idx = (torch.from_numpy(x).to(dev) for x in made.pop("gather"))
         got = g.gather_rows_cuda(stats, idx)
         torch.cuda.synchronize()
         if not torch.equal(got, g.gather_rows_plain(stats, idx)):
@@ -2767,7 +2922,7 @@ def search_shape_phase(torch, dev, rate: float, cycles: float) -> dict:
         }
         del stats, idx, got
         for case in ("gumbel_roots", "random"):
-            planes, updates = backup_case(case, b=b, n=n, a=a, seed=n, w=w, d=d)
+            planes, updates = made.pop(case)
             planes = [torch.from_numpy(x).to(dev) for x in planes]
             updates = [torch.from_numpy(x).to(dev) for x in updates]
             want = mb.backup_update_plain(*[p.clone() for p in planes], *updates)
@@ -3734,7 +3889,7 @@ LADDER_SESSIONS, LADDER_CONCURRENCY, LADDER_MAX_MOVES = 160, 64, 8
 # The league phase: a pool of two checkpoints written by `cli train`,
 # then `cli league` against it (depth cuts only: 4 learner steps).
 LEAGUE_POOL_STEPS, LEAGUE_POOL_FREQ = 4, 2
-LEAGUE_STEPS, LEAGUE_SLOTS, LEAGUE_GAMES, LEAGUE_MAX_MOVES = 4, 8, 4, 24
+LEAGUE_STEPS, LEAGUE_SLOTS, LEAGUE_GAMES, LEAGUE_MAX_MOVES = 2, 8, 4, 24
 
 
 def build_listing() -> tuple:
@@ -4058,33 +4213,34 @@ def league_phase(torch, dev) -> dict:
     pool of at least 2, a round and a promotion, every round's rows the live
     side's moves less the stale ones, `league.jsonl` replayed to the
     report's ratings, 16 + 2 launches per league dispatch (the league
-    process's own counts: with mix 1.0 every search is a league dispatch)."""
+    command's own counts: with mix 1.0 every search is a league dispatch).
+    Both commands run in this process."""
     from alphatriangle_tpu_torch.league import LIVE_ID, LeaguePool
     from alphatriangle_tpu_torch.telemetry.ledger import read_ledger
 
     label = "league"
     held = league_width_kernels(torch, dev)
-    torch.cuda.empty_cache()  # the card's memory for the two processes this phase starts
+    torch.cuda.empty_cache()
     root = str(RUN_ROOT / label)
     t0 = time.perf_counter()
-    rc, pool_report = run_cli([
+    rc, pool_report = cli_in_process([
         "train", "--device", "cuda", "--root-dir", root, "--run-name", "league-pool",
         "--no-auto-resume", "--no-tensorboard", "--max-steps", str(LEAGUE_POOL_STEPS),
         "--checkpoint-freq", str(LEAGUE_POOL_FREQ), "--rollout-chunk", str(TRAIN_CHUNK_MOVES),
         "--min-buffer", str(TRAIN_MIN_BUFFER),
-    ], "league-pool", 600)
+    ], "league-pool")
     pool_s = time.perf_counter() - t0
     if rc != 0 or pool_report["steps"] != LEAGUE_POOL_STEPS:
         fail(f"{label}: the pool run exited {rc} at step {pool_report.get('steps')}")
     pool_moves = sum(1 for _ in pool_report["rows_per_iteration"]) * TRAIN_CHUNK_MOVES
     check_launches(pool_report["kernel_launches"], pool_moves, "league-pool")
     t0 = time.perf_counter()
-    rc, report = run_cli([
+    rc, report = cli_in_process([
         "league", "--device", "cuda", "--root-dir", root, "--pool-from", "league-pool",
         "--run-name", "league", "--steps", str(LEAGUE_STEPS), "--mix", "1.0",
         "--slots", str(LEAGUE_SLOTS), "--games", str(LEAGUE_GAMES), "--max-moves", str(LEAGUE_MAX_MOVES),
         "--promotion-games", "1", "--promotion-win-rate", "0.0", "--min-buffer", str(TRAIN_MIN_BUFFER),
-    ], "league", 900)
+    ], "league")
     league_s = time.perf_counter() - t0
     if rc != 0 or report["exit"] != 0 or report["status"] != "completed":
         fail(f"{label}: exit {rc}, status {report.get('status')}, error {report.get('error')}")
@@ -4661,7 +4817,7 @@ def say_preset3(label: str, r: dict, card: str) -> None:
 # --- slice 12: the device telemetry plane and the profiling plane -----------
 
 # Interleaved pairs timed: stat-packs off / on, beacons unarmed / armed.
-STATS_PAIRS = 3
+STATS_PAIRS = 2
 # The beacon phase's service: a dispatch that has sealed once is due in
 # max(10 x its expected wall, this floor); it warns at half of that. The
 # stalls follow the first wave's beacon site: the first ends before the
@@ -4819,14 +4975,14 @@ def beacon_rows(path) -> list:
     return [(r["phase"], r["index"], r["program"]) for r in read_beacons(path)]
 
 
-def megastep_stats_ab(torch, c, prof_on, run: Path, cycles: float) -> dict:
+def megastep_stats_ab(torch, c, prof_on, on: dict, run: Path, cycles: float) -> dict:
     """On the train phase's components after its run: megasteps with the
     stat-packs off and on, interleaved (host clock around each, which
     ends in the megastep's own fetch); one more megastep profiled with
     them off, whose host-blocking runtime calls must equal the profiled
-    one's with them on (`prof_on`); then one megastep with every beacon
-    armed, its rows (drained from the card's ring) equal to the beacons
-    the host enqueued, in order."""
+    one's with them on (`prof_on`, read already into `on`); then one
+    megastep with every beacon armed, its rows (drained from the card's
+    ring) equal to the beacons the host enqueued, in order."""
     from torch.profiler import ProfilerActivity, profile
 
     from alphatriangle_tpu_torch.ops import beacon as obeacon
@@ -4849,7 +5005,6 @@ def megastep_stats_ab(torch, c, prof_on, run: Path, cycles: float) -> dict:
     syncs_on, syncs_off = runtime_syncs(prof_on), runtime_syncs(prof_off)
     if syncs_on != syncs_off or not syncs_on["cudaMemcpyAsync"] + syncs_on["cudaMemcpy"]:
         fail(f"train: stat-packs changed a megastep's host-blocking calls: on {syncs_on}, off {syncs_off}")
-    on = read_profile(prof_on, TRAIN_STAGES, 1.0, 1.0)
     off = read_profile(prof_off, TRAIN_STAGES, 1.0, 1.0)
     # One megastep with every beacon armed.
     path = run / "beacons.jsonl"
@@ -5206,15 +5361,14 @@ def beacon_kernel(torch, dev, rate: float, cycles: float) -> dict:
     }
 
 
-# The profile phase's chunks: 4 moves, so that the warm-up ends within
-# 2 chunks and the trace window (iterations 1-2) holds a megastep; 3
-# megasteps, so that one runs after the window.
-PROFILE_CHUNK_MOVES, PROFILE_MEGASTEPS = 4, 3
+# The profile phase's chunks: 4 moves, and 2 megasteps: the trace window
+# (megasteps 1-2) holds the second, the first runs unprofiled.
+PROFILE_CHUNK_MOVES, PROFILE_MEGASTEPS = 4, 2
 
 
 def profile_phase(torch) -> dict:
-    """`cli train --fused-megastep --profile` at the train phase's widths,
-    cut to `PROFILE_MEGASTEPS` megasteps of `PROFILE_CHUNK_MOVES`-move
+    """`cli train --fused-megastep --profile` (in this process) at the
+    train phase's widths, cut to `PROFILE_MEGASTEPS` megasteps of `PROFILE_CHUNK_MOVES`-move
     chunks, then `cli analyze` of its profile directory: exit 0 both;
     `phase_timers.json` with the rollout, megastep and checkpoint phases;
     the trace's device lines naming the gather, the backup and the PER
@@ -5222,12 +5376,12 @@ def profile_phase(torch) -> dict:
     from alphatriangle_tpu_torch.profiling import summarize_chrome_trace
 
     label = "profile"
-    rc, report = run_cli([
+    rc, report = cli_in_process([
         "train", "--device", "cuda", "--root-dir", str(RUN_ROOT / label), "--run-name", label,
         "--no-auto-resume", "--no-tensorboard", "--fused-megastep", "--fused-learner-steps",
         str(TRAIN_K), "--max-steps", str(PROFILE_MEGASTEPS * TRAIN_K), "--rollout-chunk",
         str(PROFILE_CHUNK_MOVES), "--min-buffer", str(TRAIN_MIN_BUFFER), "--profile",
-    ], label, 600)
+    ], label)
     if rc != 0 or report["status"] != "completed" or report["megasteps"] != PROFILE_MEGASTEPS:
         fail(f"{label}: exit {rc}, status {report.get('status')}, megasteps {report.get('megasteps')}")
     prof_dir = Path(report["run_dir"]) / "profile_data"
@@ -5259,10 +5413,10 @@ def profile_phase(torch) -> dict:
         k: sum(c for name, (_, c) in totals.items() if re.search(rf"\b{k}\w*_kernel\b", name))
         for k in ("gather_rows", "backup_update", "per_sample_count", "per_sample_summary")
     }
-    # The window is iterations 1-2 of warm-up chunks then megasteps, each
-    # of a chunk's searched moves; a megastep runs the PER count's two grids.
-    window = (["warmup"] * report["warmup_chunks"] + ["megastep"] * report["megasteps"])[1:3]
-    moves, megasteps = PROFILE_CHUNK_MOVES * len(window), window.count("megastep")
+    # The window is megasteps 1-2 (the warm-up chunks stay out), each of a
+    # chunk's searched moves; a megastep runs the PER count's two grids.
+    window = (["megastep"] * report["megasteps"])[1:3]
+    moves, megasteps = PROFILE_CHUNK_MOVES * len(window), len(window)
     want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample_count": megasteps,
             "per_sample_summary": megasteps}
     if counts != want or megasteps == 0:
@@ -5277,8 +5431,8 @@ def profile_phase(torch) -> dict:
         "device_ms": grand / 1e3,
         "top5": [{"name": k[:80], "ms": t / 1e3, "count": c, "share": t / grand} for k, (t, c) in top],
         "window": window,
-        "megastep_ms_profiled": [t * 1e3 for t in mega[:megasteps]],
-        "megastep_ms_unprofiled": [t * 1e3 for t in mega[megasteps:]],
+        "megastep_ms_profiled": [t * 1e3 for t in mega[1: 1 + megasteps]],
+        "megastep_ms_unprofiled": [t * 1e3 for t in mega[:1] + mega[1 + megasteps:]],
         "trace_mb": traces[0].stat().st_size / 2**20,
         "analyze_s": analyze_s,
         "launches": report["kernel_launches"],
@@ -5286,11 +5440,13 @@ def profile_phase(torch) -> dict:
 
 
 # Slice thirteen's drills: `cli supervise -- train --fused-megastep` at the
-# train phase's widths and cuts, a checkpoint every 2 steps to step 12;
+# train phase's widths and cuts, a checkpoint every 2 steps to step 12 (the
+# torn drill to step 8: the wedge drill's respawn must dispatch past the
+# hung intent's sequence number, which the doctor reads as sealed by it);
 # the wedge at the 3rd megastep's dispatch (past the first committed
 # checkpoint), whose deadline is max(15 s, 10 x the megastep's expected
 # wall) under a watchdog polled every 0.5 s; the torn save at step 4.
-SUPERVISE_FREQ, SUPERVISE_STEPS = 2, 12
+SUPERVISE_FREQ, SUPERVISE_STEPS, SUPERVISE_TORN_STEPS = 2, 12, 8
 SUPERVISE_HANG_MEGASTEP, SUPERVISE_MIN_DEADLINE = 3, 15.0
 SUPERVISE_TORN_STEP = 4
 
@@ -5301,7 +5457,7 @@ def supervisor_events(run: Path) -> list:
     return [e for e in read_ledger(run / "supervisor.jsonl") if e.get("kind") == "supervisor"]
 
 
-def run_supervised(label: str, faults: str) -> dict:
+def run_supervised(label: str, faults: str, steps: int = SUPERVISE_STEPS) -> dict:
     """`cli supervise --run-name <label> -- train --fused-megastep` at the
     train phase's widths and cuts, in a process whose imports of torch,
     numpy and JAX raise, with `faults` armed (once, by a sentinel under
@@ -5317,7 +5473,7 @@ def run_supervised(label: str, faults: str) -> dict:
     argv = [
         "supervise", "--run-name", label, "--root-dir", str(root), "--backoff-base", "0.5", "--",
         "train", "--fused-megastep", "--device", "cuda", "--seed", "0",
-        "--max-steps", str(SUPERVISE_STEPS), "--rollout-chunk", str(TRAIN_CHUNK_MOVES),
+        "--max-steps", str(steps), "--rollout-chunk", str(TRAIN_CHUNK_MOVES),
         "--min-buffer", str(TRAIN_MIN_BUFFER), "--fused-learner-steps", str(TRAIN_K),
         "--checkpoint-freq", str(SUPERVISE_FREQ), "--no-tensorboard",
         "--dispatch-min-deadline", str(SUPERVISE_MIN_DEADLINE), "--dispatch-watchdog-poll", "0.5",
@@ -5378,7 +5534,7 @@ def run_supervised(label: str, faults: str) -> dict:
     check_report_losses(report, label)
     want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample": report["megasteps"],
             "subtree_promote": 0}
-    if report["status"] != "completed" or report["steps"] != SUPERVISE_STEPS or launches != want:
+    if report["status"] != "completed" or report["steps"] != steps or launches != want:
         fail(f"{label}: the respawn ended {report['status']} at step {report['steps']}, launches "
              f"{launches} in {moves} searched moves and {report['megasteps']} megasteps, want {want}")
     if report["mode"] != "megastep" or not report["device"].startswith("cuda"):
@@ -5462,7 +5618,7 @@ def supervise_torn_phase(torch) -> dict:
     restarts from step 2, the newest committed, and the run completes."""
     label = "supervise-torn"
     torch.cuda.empty_cache()
-    r = run_supervised(label, f"sigkill-save@step={SUPERVISE_TORN_STEP}")
+    r = run_supervised(label, f"sigkill-save@step={SUPERVISE_TORN_STEP}", SUPERVISE_TORN_STEPS)
     death = r["events"][1]
     prior = SUPERVISE_TORN_STEP - SUPERVISE_FREQ
     torn = f"step_{SUPERVISE_TORN_STEP:08d}"
@@ -5589,6 +5745,264 @@ def readers_phase(kind: str) -> dict:
     return out
 
 
+# Slice fourteen: `cli train --distributed --fused-megastep` at the train
+# phase's widths and cuts to 4 megasteps, a checkpoint every megastep;
+# megasteps 1-2 of each rank traced (`--profile`, whose window counts
+# megasteps) for the all-reduce's share.
+DP_STEPS = TRAIN_K * TRAIN_MEGASTEPS
+DP_TRACED = 2  # --profile traces megasteps 1-2 of the run's 4
+
+
+def dp_argv(run: str, steps: int, fresh: bool = True) -> list:
+    return [
+        "train", "--fused-megastep", "--device", "cuda", "--seed", "0",
+        "--rollout-chunk", str(TRAIN_CHUNK_MOVES), "--min-buffer", str(TRAIN_MIN_BUFFER),
+        "--fused-learner-steps", str(TRAIN_K), "--max-steps", str(steps),
+        "--checkpoint-freq", str(TRAIN_K), "--keep-checkpoints", "0", "--root-dir", str(RUN_ROOT / "dp"),
+        "--run-name", run, "--no-tensorboard", "--log-level", "WARNING",
+        *(["--no-auto-resume"] if fresh else []),
+    ]
+
+
+def dp_flags(world: int, rank: int, port: int, backend: str) -> list:
+    return ["--distributed", "--coordinator", f"localhost:{port}", "--num-processes", str(world),
+            "--process-id", str(rank), "--dist-backend", backend]
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_all(jobs: list, timeout: float = 600) -> list:
+    """Start every (label, args, extra env) job at once as `python -m
+    alphatriangle_tpu_torch.cli <args>`, wait for all; each job's (exit
+    code, JSON report, pid, unix time just before its spawn). No process
+    outlives the call."""
+    procs, files = [], []
+    try:
+        for label, args, env in jobs:
+            out = open(RUN_ROOT / f"{label}.out", "w")
+            err = open(RUN_ROOT / f"{label}.err", "w")
+            files += [out, err]
+            t_spawn = time.time()
+            proc = subprocess.Popen([sys.executable, "-m", "alphatriangle_tpu_torch.cli", *args], cwd=ROOT,
+                                    stdout=out, stderr=err, text=True, env={**os.environ, **env})
+            procs.append((label, proc, t_spawn))
+        deadline = time.monotonic() + timeout
+        for _, proc, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files:
+            f.close()
+    results = []
+    for label, proc, t_spawn in procs:
+        lines = (RUN_ROOT / f"{label}.out").read_text().strip().splitlines()
+        err = (RUN_ROOT / f"{label}.err").read_text()
+        try:
+            report = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            fail(f"{label}: exit {proc.returncode} without a JSON report; stderr: {err[-3000:]}")
+        if proc.returncode != 0 or report["status"] != "completed":
+            fail(f"{label}: exit {proc.returncode}, status {report['status']} ({report['error']}); "
+                 f"stderr: {err[-3000:]}")
+        results.append((report, proc.pid, t_spawn))
+    return results
+
+
+def dp_trace_share(run: Path, pid: int) -> dict:
+    """The traced megasteps of rank `pid` (the `--profile` window's two):
+    their wall in the trace and the `dp.all_reduce` label's host time
+    inside them (and the label's device range, where the trace has one),
+    as a share of that wall."""
+    traces = list((run / "profile_data").glob(f"*_{pid}.*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"dp: {len(traces)} traces of rank pid {pid} in {run / 'profile_data'}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    mega = [e for e in events if e.get("name") == "phase/megastep" and e.get("ph") == "X"
+            and e.get("cat") == "user_annotation"]
+    if len(mega) != DP_TRACED:
+        fail(f"dp: the trace of pid {pid} holds {len(mega)} megasteps, not {DP_TRACED}")
+    inside = [e for e in events if e.get("name") == "dp.all_reduce" and e.get("ph") == "X"
+              and any(m["ts"] <= e["ts"] < m["ts"] + m["dur"] for m in mega)]
+    host = [e["dur"] for e in inside if e.get("cat") == "user_annotation"]
+    device = [e["dur"] for e in inside if e.get("cat") == "gpu_user_annotation"]
+    if len(host) != TRAIN_K * DP_TRACED:
+        fail(f"dp: {len(host)} dp.all_reduce calls in the traced megasteps of pid {pid}, "
+             f"not {TRAIN_K * DP_TRACED}")
+    wall = sum(m["dur"] for m in mega)
+    return {
+        "megastep_ms": wall / DP_TRACED / 1e3,
+        "all_reduce_host_ms": sum(host) / DP_TRACED / 1e3,
+        "all_reduce_share": sum(host) / wall,
+        "all_reduce_device_ms": sum(device) / DP_TRACED / 1e3 if device else None,
+        "calls": len(host) // DP_TRACED,
+    }
+
+
+def dp_rank_figures(report: dict, pid: int, t_spawn: float, run: Path, label: str) -> dict:
+    """One rank's checks (finite losses, 16 + 2 search launches a
+    searched move and one PER count a megastep) and its figures."""
+    check_report_losses(report, label)
+    moves = (report["warmup_chunks"] + report["megasteps"]) * TRAIN_CHUNK_MOVES
+    launches = report["kernel_launches"]
+    want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample": report["megasteps"],
+            "subtree_promote": 0}
+    if launches != want or report["megasteps"] != TRAIN_MEGASTEPS:
+        fail(f"{label}: launches {launches} over {moves} searched moves and {report['megasteps']} "
+             f"megasteps, want {want} and {TRAIN_MEGASTEPS} megasteps")
+    mega = report["timings"]["megastep_s"]
+    return {
+        "rank": report["dp"]["rank"], "megastep_ms": [t * 1e3 for t in mega],
+        "megastep_ms_p50": statistics.median(mega) * 1e3,
+        "spawn_to_first_megastep_s": report["timings"]["first_megastep_unix"] - t_spawn,
+        "peak_gb": report["peak_device_bytes"] / 2**30, "trace": dp_trace_share(run, pid),
+        "launches": launches, "searched_moves": moves, "megasteps": report["megasteps"],
+        "warmup_chunks": report["warmup_chunks"], "lanes": report["lane_moves"] // moves,
+    }
+
+
+def dp_params(torch, run: str, step: int) -> dict:
+    path = RUN_ROOT / "dp" / "AlphaTriangleTPUTorch" / "runs" / run / "checkpoints" / f"step_{step:08d}"
+    return torch.load(path / "train_state.pt", map_location="cpu", weights_only=True)["params"]
+
+
+def train_dp1_phase(torch) -> dict:
+    """A world of one over NCCL to 4 megasteps. Its parameters after the
+    first megastep must equal those of the same run without
+    --distributed: the train phase's (`run_training` at the same
+    configuration), bit for bit. If they do not, two `cli train` runs
+    without --distributed (together) decide: bit for bit where those two
+    agree bit for bit, else within rtol 2e-4, atol 2e-5."""
+    [(rd, pid, t_spawn)] = launch_all([
+        ("train-dp1", dp_argv("dp1", DP_STEPS) + ["--profile"] + dp_flags(1, 0, free_port(), "auto"), {}),
+    ])
+    if (rd["dp"]["backend"], rd["dp"]["world"]) != ("nccl", 1):
+        fail(f"train-dp1: report names {rd['dp']}, not NCCL over a world of one")
+    d = dp_params(torch, "dp1", TRAIN_K)
+    ref, repeatable, reference = FIRST_MEGASTEP_PARAMS, None, "train phase"
+    if set(ref) != set(d):
+        fail(f"train-dp1: parameter names differ from the train phase's: {sorted(set(ref) ^ set(d))[:4]}")
+    if not all(torch.equal(ref[n], d[n]) for n in d):
+        # To the same step count: the LR and PER-beta schedules follow it.
+        launch_all([(f"train-dp1-plain-{x}", dp_argv(f"plain-{x}", DP_STEPS), {}) for x in "ab"])
+        ref, reference = dp_params(torch, "plain-a", TRAIN_K), "cli train runs"
+        b = dp_params(torch, "plain-b", TRAIN_K)
+        repeatable = all(torch.equal(ref[n], b[n]) for n in ref)
+        for name in ref:
+            if repeatable and not torch.equal(ref[name], d[name]):
+                fail(f"train-dp1: {name} after the first megastep differs from the undistributed run's "
+                     "(which repeats bit for bit)")
+            if not repeatable and not torch.allclose(d[name], ref[name], rtol=2e-4, atol=2e-5):
+                fail(f"train-dp1: {name} after the first megastep is not within rtol 2e-4, atol 2e-5")
+    run = RUN_ROOT / "dp" / "AlphaTriangleTPUTorch" / "runs" / "dp1"
+    rank = dp_rank_figures(rd, pid, t_spawn, run, "train-dp1")
+    return {
+        "backend": "nccl", "world": 1, "reference": reference, "undistributed_repeatable": repeatable,
+        "params_bit_equal": all(torch.equal(ref[n], d[n]) for n in d),
+        "ranks": [rank], "launches": rank["launches"], "searched_moves": rank["searched_moves"],
+        "megasteps": rank["megasteps"],
+    }
+
+
+def train_dp2_shared_phase(torch) -> tuple:
+    """Two ranks sharing the card over gloo, each with 256 lanes, a batch
+    of 128 and a 125,000-slot ring shard. Their parameter digests must
+    agree after every megastep, each rank launch the search kernels 16 +
+    2 times a searched move and the PER count once a megastep, rank 0
+    alone write the run's singletons. Returns the report and the resume
+    check: the checkpoint must resume in one process (`cli train
+    --fused-megastep`) with both shards' rows."""
+    port = free_port()
+    results = launch_all([
+        (f"train-dp2-rank{r}", dp_argv("dp2", DP_STEPS) + ["--profile"] + dp_flags(2, r, port, "gloo"), {})
+        for r in range(2)
+    ])
+    (r0, pid0, _), (r1, _, _) = results
+    if r0["dp"]["param_checksums"] != r1["dp"]["param_checksums"] or \
+            len(r0["dp"]["param_checksums"]) != TRAIN_MEGASTEPS:
+        fail(f"train-dp2-shared: parameter digests differ or miss a megastep: {r0['dp']} / {r1['dp']}")
+    run = RUN_ROOT / "dp" / "AlphaTriangleTPUTorch" / "runs" / "dp2"
+    ranks = [dp_rank_figures(r, pid, t, run, f"train-dp2-rank{i}") for i, (r, pid, t) in enumerate(results)]
+    if [r["lanes"] for r in ranks] != [DP2_LANES, DP2_LANES]:
+        fail(f"train-dp2-shared: lanes per rank {[r['lanes'] for r in ranks]}, not {DP2_LANES}")
+    # Rank 0 alone writes the run directory's singletons.
+    health = json.loads((run / "health.json").read_text())
+    kinds = [json.loads(line).get("kind") for line in (run / "metrics.jsonl").read_text().splitlines()]
+    steps = sorted(p.name for p in (run / "checkpoints").iterdir() if p.is_dir())
+    want_steps = [f"step_{TRAIN_K * (i + 1):08d}" for i in range(TRAIN_MEGASTEPS)]
+    meta = json.loads((run / "checkpoints" / f"step_{DP_STEPS:08d}.meta.json").read_text())
+    if (health["pid"] != pid0 or r1["stats_writers"] or r1["live_metrics"] is not None
+            or kinds.count("device_stats") != r0["warmup_chunks"] + r0["megasteps"]
+            or steps != want_steps or meta["global_step"] != DP_STEPS
+            or not (run / "configs.json").exists()):
+        fail(f"train-dp2-shared: singletons not rank 0's alone: heartbeat pid {health['pid']} (rank 0 "
+             f"{pid0}), rank 1 writers {r1['stats_writers']}, {kinds.count('device_stats')} device_stats "
+             f"records, checkpoints {steps}, meta {meta}")
+    rows = r0["buffer_size"] + r1["buffer_size"]
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] for k in ranks[0]["launches"]}
+    report = {
+        "backend": "gloo", "world": 2, "ranks": ranks, "launches": launches,
+        "searched_moves": sum(r["searched_moves"] for r in ranks),
+        "megasteps": sum(r["megasteps"] for r in ranks), "param_checksums": r0["dp"]["param_checksums"],
+    }
+
+    def resume() -> None:
+        """The one-process resume (its own process: `run_phases` runs it
+        beside the torch-free readers and the small reference checks)."""
+        [(res, _, _)] = launch_all([("train-dp2-resume", dp_argv("dp2", DP_STEPS + TRAIN_K, fresh=False), {})])
+        if (res["resumed_step"], res["restored_rows"], res["steps"]) != (DP_STEPS, rows, DP_STEPS + TRAIN_K) \
+                or res["dp"]["backend"] is not None or res["kernel_launches"]["per_sample"] != 1:
+            fail(f"train-dp2-shared: the one-process resume gave step {res['resumed_step']}, "
+                 f"{res['restored_rows']} rows (want {DP_STEPS}, {rows}), launches {res['kernel_launches']}")
+        check_report_losses(res, "train-dp2-resume")
+        report["resume"] = {"resumed_step": res["resumed_step"], "restored_rows": res["restored_rows"],
+                            "restore_s": res["restore_s"], "megastep_ms": res["timings"]["megastep_s"][0] * 1e3,
+                            "beside": "doctor, readers and reference phases"}
+
+    return report, resume
+
+
+def in_background(fn):
+    """Run `fn` on a thread; returns a join that re-raises its failure."""
+    box: dict = {}
+
+    def run():
+        try:
+            fn()
+        except BaseException as exc:  # a fail() in the thread ends the script at the join
+            box["exc"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join() -> None:
+        thread.join()
+        if "exc" in box:
+            raise box["exc"]
+
+    return join
+
+
+def say_dp(label: str, r: dict, card: str) -> None:
+    for rk in r["ranks"]:
+        tr = rk["trace"]
+        dev = "" if tr["all_reduce_device_ms"] is None else f", device {tr['all_reduce_device_ms']:.2f} ms"
+        say(
+            f"{label} rank {rk['rank']} ({r['backend']}, world {r['world']}, {rk['lanes']} lanes): megastep "
+            f"p50 {rk['megastep_ms_p50']:.1f} ms ({', '.join(f'{t:.1f}' for t in rk['megastep_ms'])}); "
+            f"dp.all_reduce {tr['all_reduce_host_ms']:.2f} ms in {tr['calls']} calls a megastep{dev}, "
+            f"{tr['all_reduce_share']:.2%} of the traced megasteps ({tr['megastep_ms']:.1f} ms each); peak "
+            f"{rk['peak_gb']:.2f} GiB; spawn to first megastep {rk['spawn_to_first_megastep_s']:.1f} s; "
+            f"launches {rk['launches']} [{card}]"
+        )
+
+
 def main() -> int:
     import torch
 
@@ -5615,6 +6029,7 @@ def run_phases(torch) -> int:
     ).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    search_cases = search_cases_in_background()
     say(f"card: {card}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     from alphatriangle_tpu_torch.ops import beacon as obeacon
@@ -5680,7 +6095,7 @@ def run_phases(torch) -> int:
         f"{bkreport['ms'] * 1e3:.2f} us (plain {bkreport['plain_ms'] * 1e3:.2f} us, bound "
         f"{bkreport['bound_ms'] * 1e3:.4f} us by bytes) [{card}]"
     )
-    shapes = search_shape_phase(torch, dev, rate, sleep_cycles_per_ms())
+    shapes = search_shape_phase(torch, dev, rate, sleep_cycles_per_ms(), search_cases())
     for kname, by_shape in shapes.items():
         kreport[kname]["search_shapes"] = by_shape
         for shape, r in by_shape.items():
@@ -6037,6 +6452,24 @@ def run_phases(torch) -> int:
     say(f"supervise-torn: the checkpoints at the death {json.dumps(streport['checkpoints_at_death'])} [{card}]")
     say(f"supervise-torn phase: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    d1report = train_dp1_phase(torch)
+    say_dp("train-dp1", d1report, card)
+    repeat = d1report["undistributed_repeatable"]
+    say(
+        f"train-dp1: the parameters after the first megastep equal the undistributed run's "
+        f"({d1report['reference']}"
+        + ("" if repeat is None else f"; two of them {'repeat bit for bit' if repeat else 'differ'}")
+        + f") {'bit for bit' if d1report['params_bit_equal'] else 'within rtol 2e-4, atol 2e-5'} [{card}]"
+    )
+    say(f"train-dp1 phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d2report, d2resume = train_dp2_shared_phase(torch)
+    say_dp("train-dp2-shared", d2report, card)
+    say(f"train-dp2-shared phase (the ranks): {time.perf_counter() - t0:.1f} s")
+    t_resume = time.perf_counter()
+    join_resume = in_background(d2resume)
+
+    t0 = time.perf_counter()
     dcreport = doctor_phase(prreport, flreport, swreport)
     say("doctor: " + "; ".join(
         f"{name} {v['verdict']} (exit {v['rc']})" for name, v in dcreport.items()
@@ -6103,6 +6536,17 @@ def run_phases(torch) -> int:
     rreport["precision"] = rqreport
     rreport["search_stat_pack"] = rsreport
     say(f"reference phase: {time.perf_counter() - t0:.1f} s")
+    join_resume()
+    rs = d2report["resume"]
+    say(
+        f"train-dp2-shared: parameter digests equal on both ranks after each of {TRAIN_MEGASTEPS} "
+        f"megasteps; rank 0 alone wrote the checkpoints, meta.json, the ledger and the heartbeat; "
+        f"one process resumed step {rs['resumed_step']} with both shards' {rs['restored_rows']} rows "
+        f"(restore {rs['restore_s'] * 1e3:.1f} ms, first megastep {rs['megastep_ms']:.1f} ms, beside "
+        f"{rs['beside']}) [{card}]"
+    )
+    say(f"train-dp2-shared resume, beside the doctor, readers and reference phases: "
+        f"{time.perf_counter() - t_resume:.1f} s")
 
     paths = {
         "serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport,
@@ -6117,6 +6561,7 @@ def run_phases(torch) -> int:
         "serve_ladder": slreport, "serve_ladder_reuse": slrreport, "league": lgreport,
         "fleet": flreport,
         "supervise_wedge": supervised_path(swreport), "supervise_torn": supervised_path(streport),
+        "train_dp1": d1report, "train_dp2_shared": d2report,
     }
     kernels_line = []
     for kname, kr in kreport.items():
@@ -6124,7 +6569,8 @@ def run_phases(torch) -> int:
             "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms",
         ) + tuple(
-            key for key in ("at_512_lanes", "worst_case", "real_waves", "ms_by_lanes", "search_shapes")
+            key for key in ("at_512_lanes", "at_dp2_rank", "worst_case", "real_waves", "ms_by_lanes",
+                            "search_shapes")
             if key in kr
         )}
         by_path = {path: rep["launches"][kname] for path, rep in paths.items()}

@@ -45,6 +45,9 @@ for slice_ten in ("telemetry", "telemetry.ledger", "telemetry.tracectx", "teleme
 for slice_eleven in ("telemetry.anomaly", "utils.helpers", "logging_config", "autotune",
                      "autotune.artifact"):
     assert "alphatriangle_tpu_torch." + slice_eleven in names, slice_eleven
+for slice_fourteen in ("parallel", "parallel.distributed", "parallel.sharding",
+                       "rl.sharded_device_buffer"):
+    assert "alphatriangle_tpu_torch." + slice_fourteen in names, slice_fourteen
 leaked = sorted(
     m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic", "tensorboard", "tensorflow")
 )

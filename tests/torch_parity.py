@@ -256,13 +256,21 @@ def inject_jax_noise(monkeypatch) -> None:
     the same key, so a search sees exactly the JAX package's noise."""
     from alphatriangle_tpu_torch import rng
 
-    def gumbel(key, shape, device=None):
-        draws = np.asarray(jax.random.gumbel(jax_key(key), tuple(shape)))
+    def rows(draws, lanes, device, key):
+        """A dp rank's rows (`lanes`) of a draw over the global lane array."""
+        if lanes is not None:
+            draws = draws[lanes.lo: lanes.hi]
         return torch.from_numpy(draws.copy()).to(device or key.device)
 
-    def gamma(key, alpha, shape, device=None):
-        draws = np.asarray(jax.random.gamma(jax_key(key), alpha, shape=tuple(shape)))
-        return torch.from_numpy(draws.copy()).to(device or key.device)
+    def full(shape, lanes):
+        return tuple(shape) if lanes is None else (lanes.total, *tuple(shape)[1:])
+
+    def gumbel(key, shape, device=None, lanes=None):
+        return rows(np.asarray(jax.random.gumbel(jax_key(key), full(shape, lanes))), lanes, device, key)
+
+    def gamma(key, alpha, shape, device=None, lanes=None):
+        draws = np.asarray(jax.random.gamma(jax_key(key), alpha, shape=full(shape, lanes)))
+        return rows(draws, lanes, device, key)
 
     monkeypatch.setattr(rng, "gumbel", gumbel)
     monkeypatch.setattr(rng, "gamma", gamma)
@@ -329,3 +337,66 @@ def assert_stat_packs(tpacks, jstats, msg: str = "") -> None:
         np.testing.assert_allclose(
             got[key], np.asarray(want[key]), rtol=STAT_RTOL, atol=0, err_msg=f"{msg} {key}"
         )
+
+
+# --- CPU data-parallel ranks (tests/torch_dp_rank.py) -------------------
+
+_ROOT = Path(__file__).resolve().parent.parent
+RANK_TIMEOUT_S = 120
+
+
+def spawn_ranks(spec: dict, tmp_path, world: int = 2) -> tuple:
+    """Start `world` gloo rank processes of `tests/torch_dp_rank.py` on
+    `spec` (its store and output paths filled in under `tmp_path`), one
+    thread each; returns (processes, output directory). The parent
+    computes its JAX reference while they run."""
+    import os
+    import subprocess
+    import sys
+
+    out = Path(tmp_path) / "ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    spec = dict(spec, world=world, store=str(out / "store"), out=str(out))
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(_ROOT))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(_ROOT / "tests" / "torch_dp_rank.py"), str(spec_path), str(r)],
+            cwd=_ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for r in range(world)
+    ]
+    return procs, out
+
+
+def collect_ranks(procs, out) -> list:
+    """Wait for the ranks and load each one's results (rank order)."""
+    import subprocess
+
+    results = []
+    for r, proc in enumerate(procs):
+        try:
+            _, err = proc.communicate(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            raise
+        assert proc.returncode == 0, f"rank {r} exited {proc.returncode}:\n{err[-4000:]}"
+        results.append(torch.load(Path(out) / f"rank{r}.pt", weights_only=False))
+    return results
+
+
+def assert_params_within(state: dict, jax_params, rounding: dict, lr: float, steps: int,
+                         rtol: float = 2e-4, atol: float = 2e-5) -> None:
+    """A port state dict's parameters against a Flax params tree within
+    `rtol`/`atol` (the JAX dp test's tolerance), apart from the entries
+    `rounding` marks (`rounding_sized`), which Adam may move by ~lr in
+    either sign and are held to its bound only."""
+    want = flax_to_torch({"params": jax.tree_util.tree_map(np.asarray, jax_params)})
+    for name, ref in want.items():
+        got = state[name].numpy()
+        ref = ref.numpy()
+        mask = rounding.get(name, np.zeros(ref.shape, bool))
+        np.testing.assert_allclose(got[~mask], ref[~mask], rtol=rtol, atol=atol, err_msg=name)
+        assert np.abs(got[mask] - ref[mask]).max(initial=0.0) <= 2 * lr * steps, name
