@@ -56,7 +56,9 @@ unless `--no-auto-resume`. SIGTERM saves, spills and exits 114.
 `--distributed` trains one model over the ranks of a process group, one
 rank per device (`parallel/`): the synchronous loop and the megastep,
 each rank on its share of the lanes and of the batch, its gradients
-all-reduced (`--async-rollouts` raises: ROADMAP.md item 6b). Ranks come
+all-reduced (`--async-rollouts` raises: ROADMAP.md item 6c). Tensor and
+sequence parallelism (the mesh's mdl and sp axes) are reached through
+`run_training(mesh_config=...)`, as in JAX: no flag sets them. Ranks come
 from torchrun (`torchrun --nproc-per-node 2 -m alphatriangle_tpu_torch.cli
 train --distributed ...`) or from the explicit flags, one process each;
 NCCL on CUDA, gloo on the CPU, and `--dist-backend gloo` for ranks that
@@ -471,7 +473,7 @@ def cmd_train(args: argparse.Namespace) -> int:
         if args.async_rollouts:
             raise SystemExit(
                 "--distributed with --async-rollouts: the overlapped loop across ranks waits for "
-                "ROADMAP.md item 6b"
+                "ROADMAP.md item 6c"
             )
         from .parallel import DistributedConfig
 

@@ -32,6 +32,20 @@ for leaf. What the Flax model does and this one repeats:
   in the JAX model) when the net trains with gradients; a layer's
   dropout masks are drawn again from the same generator state, so the
   gradients equal those without it.
+- `attention_fn` (`parallel/ring_attention.make_sp_attention`) replaces
+  the dense attention core of every transformer layer, as the Flax
+  model's does: it receives the unscaled (B, T, H, hd) query, key and
+  value and returns (B, T, H, hd), and attention-weight dropout is off
+  under it while the residual dropouts stay.
+- Tensor parallelism (`tensor_parallel_`, over the mesh's mdl axis,
+  Megatron layout of `parallel.sharding.tp_spec`): a layer's q / k / v
+  hold this rank's heads and `out` their columns; `Dense_0` holds its
+  hidden columns and `Dense_1` their rows. The replicated input of each
+  column-parallel part passes `copy_to_mdl` and each row-parallel
+  product `reduce_from_mdl`, before its replicated bias is added once.
+  A width that does not divide by mdl leaves its part replicated. The
+  dropout mask of the sharded MLP hidden is drawn at full width and
+  sliced, so it is this rank's columns of the replicated layer's mask.
 - Plain matmuls and convolutions (`torch.nn.functional`), as the JAX
   package left them to XLA: none of this is a hand-written kernel.
 """
@@ -45,6 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config.model_config import ModelConfig
+from ..parallel.sharding import copy_to_mdl, reduce_from_mdl, shard_tensor, state_shardings
 
 _NORM_EPS = 1e-6
 _BATCH_NORM_EPS = 1e-5  # flax.linen.BatchNorm's default
@@ -284,11 +299,16 @@ class ResidualBlock(nn.Module):
 
 class MultiHeadDotProductAttention(nn.Module):
     """Flax MHA (self-attention): q/k/v `DenseGeneral` D -> (H, hd),
-    query scaled by 1/sqrt(hd), softmax over keys, out (H, hd) -> D."""
+    query scaled by 1/sqrt(hd), softmax over keys, out (H, hd) -> D; or
+    `attention_fn` on the unscaled projections. Under tensor parallelism
+    (`tp`, a mesh) it holds `local_heads` of the H heads."""
 
-    def __init__(self, dim: int, heads: int, dtype):
+    def __init__(self, dim: int, heads: int, dtype, attention_fn=None):
         super().__init__()
         self.heads, self.head_dim, self.dtype = heads, dim // heads, dtype
+        self.local_heads = heads
+        self.attention_fn = attention_fn
+        self.tp = None
         self.query = Dense(dim, dim, dtype)
         self.key = Dense(dim, dim, dtype)
         self.value = Dense(dim, dim, dtype)
@@ -296,7 +316,13 @@ class MultiHeadDotProductAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, dropout=None) -> torch.Tensor:
         b, t, _ = x.shape
-        h, hd = self.heads, self.head_dim
+        h, hd = self.local_heads, self.head_dim
+        if self.tp is not None:
+            x = copy_to_mdl(x, self.tp)
+        if self.attention_fn is not None:
+            q, k, v = (proj(x).reshape(b, t, h, hd) for proj in (self.query, self.key, self.value))
+            y = self.attention_fn(q, k, v, deterministic=not self.training).reshape(b, t, h * hd)
+            return self._project(y)
 
         def split(y):
             return y.reshape(b, t, h, hd).transpose(1, 2)  # (b, h, t, hd)
@@ -323,47 +349,77 @@ class MultiHeadDotProductAttention(nn.Module):
                 weights = weights * scale
             ys.append(torch.matmul(weights, v[s : s + rows]))
         y = ys[0] if len(ys) == 1 else torch.cat(ys)
-        return self.out(y.transpose(1, 2).reshape(b, t, h * hd))
+        return self._project(y.transpose(1, 2).reshape(b, t, h * hd))
+
+    def _project(self, y: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return self.out(y)
+        return _row_parallel(self.out, y, self.tp)
 
 
-def dropout(x: torch.Tensor, rate: float, gen: torch.Generator) -> torch.Tensor:
+def _row_parallel(dense: "Dense", y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel Dense: this rank's rows' product, summed over mdl,
+    then the replicated bias once."""
+    dt = dense.dtype
+    partial = F.linear(y.to(dt), dense.weight.to(dt))
+    return reduce_from_mdl(partial, mesh) + dense.bias.to(dt)
+
+
+def dropout(
+    x: torch.Tensor, rate: float, gen: torch.Generator, shard: "tuple | None" = None
+) -> torch.Tensor:
     """`flax.linen.Dropout` in train mode: keep each element with
-    probability 1 - rate and scale the kept ones by 1 / (1 - rate)."""
+    probability 1 - rate and scale the kept ones by 1 / (1 - rate).
+    `shard` (n, i): x is column block i of n of the full tensor, whose
+    mask is drawn whole and sliced."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    if shard is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    else:
+        n, i = shard
+        full = torch.rand((*x.shape[:-1], x.shape[-1] * n), generator=gen, device=x.device)
+        mask = full.chunk(n, dim=-1)[i] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm encoder layer. In `train()` mode dropout of `dropout_rate`
-    applies to the attention weights and to the inputs of both residual
-    adds (and between the two MLP denses), as in the Flax layer, with
-    masks drawn from the generator the caller passes; in `eval()` mode
-    it is the identity."""
+    applies to the attention weights (not under `attention_fn`) and to
+    the inputs of both residual adds (and between the two MLP denses),
+    as in the Flax layer, with masks drawn from the generator the caller
+    passes; in `eval()` mode it is the identity. `tp` (a mesh) runs the
+    MLP tensor-parallel (`nn/model.py` docstring)."""
 
-    def __init__(self, dim, heads, mlp_dim, act, dtype, dropout_rate: float = 0.1):
+    def __init__(self, dim, heads, mlp_dim, act, dtype, dropout_rate: float = 0.1, attention_fn=None):
         super().__init__()
         self.LayerNorm_0 = LayerNorm(dim, dtype)
-        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, heads, dtype)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, heads, dtype, attention_fn)
         self.LayerNorm_1 = LayerNorm(dim, dtype)
         self.Dense_0 = Dense(dim, mlp_dim, dtype)
         self.Dense_1 = Dense(mlp_dim, dim, dtype)
         self.act = act
         self.dropout_rate = dropout_rate
+        self.tp = None
 
     def forward(self, x, generator: "torch.Generator | None" = None):
         rate = self.dropout_rate if self.training else 0.0
         if rate > 0.0 and generator is None:
             raise ValueError("train-mode dropout needs an explicit torch.Generator")
+        tp = self.tp
 
-        def drop(y):
-            return dropout(y, rate, generator) if rate > 0.0 else y
+        def drop(y, shard=None):
+            return dropout(y, rate, generator, shard) if rate > 0.0 else y
 
-        attn_drop = (rate, generator) if rate > 0.0 else None
-        y = self.MultiHeadDotProductAttention_0(self.LayerNorm_0(x), dropout=attn_drop)
+        attn = self.MultiHeadDotProductAttention_0
+        attn_drop = (rate, generator) if rate > 0.0 and attn.attention_fn is None else None
+        y = attn(self.LayerNorm_0(x), dropout=attn_drop)
         x = x + drop(y)
-        y = drop(self.act(self.Dense_0(self.LayerNorm_1(x))))
-        return x + drop(self.Dense_1(y))
+        y = self.LayerNorm_1(x)
+        if tp is None:
+            y = drop(self.act(self.Dense_0(y)))
+            return x + drop(self.Dense_1(y))
+        y = drop(self.act(self.Dense_0(copy_to_mdl(y, tp))), (tp.mdl, tp.mdl_index))
+        return x + drop(_row_parallel(self.Dense_1, y, tp))
 
 
 class MLPHead(nn.Module):
@@ -388,7 +444,7 @@ class MLPHead(nn.Module):
 class AlphaTriangleNet(nn.Module):
     """Policy + C51 value network over (grid, other_features)."""
 
-    def __init__(self, config: ModelConfig, action_dim: int, rows: int, cols: int):
+    def __init__(self, config: ModelConfig, action_dim: int, rows: int, cols: int, attention_fn=None):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -427,7 +483,10 @@ class AlphaTriangleNet(nn.Module):
                 setattr(
                     self,
                     f"TransformerEncoderLayer_{i}",
-                    TransformerEncoderLayer(d, cfg.TRANSFORMER_HEADS, cfg.TRANSFORMER_FC_DIM, act, dtype),
+                    TransformerEncoderLayer(
+                        d, cfg.TRANSFORMER_HEADS, cfg.TRANSFORMER_FC_DIM, act, dtype,
+                        attention_fn=attention_fn,
+                    ),
                 )
             self.LayerNorm_0 = LayerNorm(d, dtype)
 
@@ -441,6 +500,12 @@ class AlphaTriangleNet(nn.Module):
         self.MLPHead_1 = MLPHead(
             fan_in, cfg.VALUE_HEAD_DIMS, cfg.NUM_VALUE_ATOMS, cfg.NORM_TYPE, act, dtype
         )
+
+    def set_attention_fn(self, attention_fn) -> None:
+        """Swap every transformer layer's attention core (None: dense)."""
+        for m in self.modules():
+            if isinstance(m, MultiHeadDotProductAttention):
+                m.attention_fn = attention_fn
 
     def forward(
         self, grid: torch.Tensor, other: torch.Tensor, generator: "torch.Generator | None" = None
@@ -475,6 +540,35 @@ class AlphaTriangleNet(nn.Module):
         policy = self.MLPHead_0(shared)
         value = self.MLPHead_1(shared)
         return policy.float(), value.float()
+
+
+def tensor_parallel_(model: AlphaTriangleNet, mesh) -> dict:
+    """Shard `model`'s transformer layers over the mesh's mdl axis in
+    place: each leaf that `tp_spec` splits becomes this rank's shard (a
+    new Parameter at the same place in `parameters()`), and the layers
+    and attentions that hold shards run tensor-parallel. Returns the
+    layout, name -> "replicated" or the split dim. A no-op at mdl = 1."""
+    heads = model.config.TRANSFORMER_HEADS
+    layout = state_shardings(dict(model.named_parameters()), mesh, heads)
+    if mesh.mdl <= 1:
+        return layout
+    for name, dim in layout.items():
+        if dim == "replicated":
+            continue
+        path, leaf = name.rsplit(".", 1)
+        owner = model.get_submodule(path)
+        full = getattr(owner, leaf)
+        setattr(owner, leaf, nn.Parameter(shard_tensor(full.detach(), dim, mesh),
+                                          requires_grad=full.requires_grad))
+    for mod_name, mod in model.named_modules():
+        if isinstance(mod, TransformerEncoderLayer):
+            if layout[f"{mod_name}.Dense_0.weight"] != "replicated":
+                mod.tp = mesh
+        elif isinstance(mod, MultiHeadDotProductAttention):
+            if layout[f"{mod_name}.query.weight"] != "replicated":
+                mod.tp = mesh
+                mod.local_heads = mod.heads // mesh.mdl
+    return layout
 
 
 def _remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:

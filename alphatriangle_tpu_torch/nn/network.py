@@ -11,6 +11,12 @@ weights under a running chunk. On the card, `ready` is an event after
 the copy that made the module: a chunk on another stream waits for it
 before reading the module (`rl/self_play.py`).
 
+`attention_fn` (`parallel/ring_attention.make_sp_attention`) is threaded
+into the module's transformer, as the JAX net's: the parameters are the
+same either way. Training setup builds self-play's net dense and gives
+the learner's copy the sequence-parallel core (`rl/trainer.py`), whose
+`sync_to_network` installs whole tensors in a dense module.
+
 Callers that hold the module itself (a `BatchedMCTS` built on
 `net.model`) pick up new weights by reading `net.model` again:
 `PolicyService.reload_weights` does.
@@ -66,13 +72,14 @@ class NeuralNetwork:
         seed: int = 0,
         state_dict: "dict | None" = None,
         device=None,
+        attention_fn=None,
     ):
         self.device = resolve_device(device)
         self.model_config = model_config
         self.env_config = env_config
         self.action_dim = env_config.action_dim
         model = AlphaTriangleNet(
-            model_config, self.action_dim, env_config.ROWS, env_config.COLS
+            model_config, self.action_dim, env_config.ROWS, env_config.COLS, attention_fn=attention_fn
         )
         init_parameters(model, seed)
         if state_dict is not None:

@@ -2,10 +2,13 @@
 `alphatriangle_tpu/parallel/distributed.py` on `torch.distributed`.
 
 The port runs one rank per device. Its D ranks stand for the JAX
-package's dp mesh of D devices wherever the JAX package has a dp path
-that only works in one process (the sharded device ring, the dp
-megastep), and for its multi-process run (`jax.distributed`) in the
-host-ring loop. Host-side singleton work (TensorBoard, the live file,
+package's mesh of D devices wherever the JAX package has a path that
+only works in one process (the sharded device ring, the dp megastep,
+the mdl and sp axes), and for its multi-process run (`jax.distributed`)
+in the host-ring loop. `attach_groups` gives a mesh one process group
+per line of each axis wider than one rank (the dp line through a rank:
+the ranks of its mdl and sp indices; the mdl and sp lines alike), the
+world itself where an axis spans every rank. Host-side singleton work (TensorBoard, the live file,
 checkpoints, `meta.json`, `configs.json`, telemetry) runs on rank 0
 only (`is_primary`).
 
@@ -23,6 +26,7 @@ nothing switches backend quietly. The group has a timeout
 error instead of a hang.
 """
 
+import dataclasses
 import datetime
 import logging
 import os
@@ -33,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..config._base import ConfigBase, check_choice, check_range
+from ..config.mesh_config import Mesh, axis_ranks, indices_of
 
 logger = logging.getLogger(__name__)
 
@@ -172,3 +177,40 @@ def process_info() -> tuple[int, int]:
 def backend_name() -> "str | None":
     """The group's backend ("nccl" / "gloo"), None outside a group."""
     return dist.get_backend() if dist.is_initialized() else None
+
+
+def attach_groups(mesh: Mesh) -> Mesh:
+    """`mesh` with its axes' process groups (`Mesh.groups`: axis name ->
+    this rank's line's group; an axis of one rank is absent, one that
+    spans the world is the default group). `dist.new_group` is a
+    collective over the whole world: every rank creates every line's
+    group of every axis, in one fixed order (dp, mdl, sp; lines by their
+    first rank), its own lines and the others' alike, or the run hangs.
+    Without a process group the mesh comes back as it is."""
+    if not dist.is_initialized():
+        return mesh
+    world = dist.get_world_size()
+    if mesh.size != world:
+        raise ValueError(f"a mesh of {mesh.size} ranks over a world of {world}")
+    sizes = (mesh.dp, mesh.mdl, mesh.sp)
+    here = (mesh.dp_index, mesh.mdl_index, mesh.sp_index)
+    groups: dict = {}
+    for axis, name in enumerate(mesh.axis_names):
+        if sizes[axis] == 1:
+            continue
+        if sizes[axis] == world:
+            groups[name] = dist.group.WORLD
+            continue
+        mine = axis_ranks(mesh, axis, here)
+        seen = set()
+        for r in range(world):
+            line = tuple(axis_ranks(mesh, axis, indices_of(r, mesh.mdl, mesh.sp)))
+            if line in seen:
+                continue
+            seen.add(line)
+            group = dist.new_group(list(line))
+            if list(line) == mine:
+                groups[name] = group
+    logger.info("mesh %s: groups for %s", mesh.shape, sorted(groups))
+    return dataclasses.replace(mesh, groups=groups)
+

@@ -39,7 +39,12 @@ lane dimension (the first hands, the resets, the root noise, the wave
 noise, the action draw) is the global array's draw at those rows
 (`rng`'s `lanes=`: the rank hashes only its own counters), and every
 other key is the unsharded engine's, so each rank's rows equal the
-unsharded engine's rows for its lanes bit for bit.
+unsharded engine's rows for its lanes bit for bit. A harvest's context
+carries each row's move (`row_moves`: its chunk, block and move within
+the harvest, in emission order), so the harvests of adjacent lane
+shards merge into the rows, in the order, that one engine over their
+union emits (`merge_lane_shards`; the training loop's ingest on a mesh
+with sp replicas).
 
 Weights: a chunk reads the net's `LiveWeights` once, at its start
 (`nn/network.py`), and searches with that module and tags with that
@@ -76,7 +81,7 @@ engine's legs), which the training loop ledgers once per iteration.
 import logging
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -129,6 +134,27 @@ def _stack(moves: list):
     if isinstance(first, dict):
         return {k: _stack([m[k] for m in moves]) for k in first}
     return torch.stack(moves)
+
+
+def merge_lane_shards(parts: list, index: int) -> SelfPlayResult:
+    """The harvests of adjacent lane shards (in lane order) as one: their
+    rows in the order one engine over the shards' union emits them (by
+    each row's move, `row_moves`, then by lane), every other field
+    shard `index`'s own."""
+    if len(parts) == 1:
+        return parts[index]
+    moves = np.concatenate([p.context["row_moves"] for p in parts])
+    order = np.argsort(moves, kind="stable")
+
+    def rows(name: str) -> np.ndarray:
+        return np.concatenate([getattr(p, name) for p in parts])[order]
+
+    mine = parts[index]
+    return replace(
+        mine, grid=rows("grid"), other_features=rows("other_features"),
+        policy_target=rows("policy_target"), value_target=rows("value_target"),
+        policy_weight=rows("policy_weight"), context={**mine.context, "row_moves": moves[order]},
+    )
 
 
 class SelfPlayEngine:
@@ -216,6 +242,7 @@ class SelfPlayEngine:
         # played under (None: no chunk yet).
         self._min_weights_version: "int | None" = None
         self._out: list = []
+        self._row_moves = 0  # the harvest's moves so far, two blocks each
         self._episode_scores: list[float] = []
         self._episode_lengths: list[int] = []
         self._episode_start_versions: list[int] = []
@@ -458,8 +485,8 @@ class SelfPlayEngine:
             }
         if payload is not None:
             return payload
-        for block in (host["mat"], host["flush"]):
-            m = block["mask"]
+        for i, block in enumerate((host["mat"], host["flush"])):
+            m = block["mask"]  # (T, B)
             if m.any():
                 self._out.append(
                     (
@@ -468,8 +495,10 @@ class SelfPlayEngine:
                         block["policy"][m],
                         block["ret"][m].astype(np.float32),
                         block["pw"][m].astype(np.float32),
+                        self._row_moves + i * t + np.nonzero(m)[0],
                     )
                 )
+        self._row_moves += 2 * t
         return None
 
     def note_weights_version(self, version: int) -> None:
@@ -517,7 +546,7 @@ class SelfPlayEngine:
     def harvest(self) -> SelfPlayResult:
         """Collect emitted experiences + episode stats since the last call."""
         if self._out:
-            cols = [np.concatenate([o[i] for o in self._out]) for i in range(5)]
+            cols = [np.concatenate([o[i] for o in self._out]) for i in range(6)]
         else:
             c, h, w = self._grid_shape
             cols = [
@@ -526,6 +555,7 @@ class SelfPlayEngine:
                 np.zeros((0, self._action_dim), np.float32),
                 np.zeros((0,), np.float32),
                 np.zeros((0,), np.float32),
+                np.zeros((0,), np.int64),
             ]
         result = SelfPlayResult(
             grid=cols[0],
@@ -545,8 +575,10 @@ class SelfPlayEngine:
                 if self._min_weights_version is not None
                 else self.net.live.version
             ),
+            context={"row_moves": cols[5]},
         )
         self._out = []
+        self._row_moves = 0
         self._episode_scores = []
         self._episode_lengths = []
         self._episode_start_versions = []

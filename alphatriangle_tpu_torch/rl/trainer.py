@@ -13,10 +13,29 @@ for bit equal. With equal local batches the mean of the ranks' loss
 means is the global mean; the entropy metric, a ratio of sums, rides
 the same bucket as its two sums. A batch norm takes its statistics over
 the global batch (`synced_batch_stats`); each rank folds its dp index
-into the dropout generator's key, so ranks draw different masks. TD
+into the dropout generator's key, so dp ranks draw different masks. TD
 errors come back as the rank's own rows. In a world of one the bucket
 still makes its all-reduce (the result is the gradient itself), and
 nothing else changes, so the run is the one-process run bit for bit.
+
+Tensor parallelism (the mesh's mdl axis, `tp_size`): the learner's
+module holds this rank's shards of the transformer (`nn/model.py`
+`tensor_parallel_`, the layout of `parallel.sharding.tp_spec`), and
+its Adam moments the same shards. The gradients of replicated
+parameters come out whole and equal on the mdl ranks through the
+Megatron pair, and those of the shards are the shards of the
+replicated learner's, so the bucket averages over the dp line only.
+The clip by global norm and the norm metrics see the global norm: the
+sharded leaves' squares summed over the mdl line, the replicated
+leaves' once. The mdl and sp replicas of a dp row fold the same dp
+index into the dropout key and draw the same masks; the sharded MLP's
+mask is drawn whole and sliced. Sequence parallelism (the sp axis):
+the learner's module takes `attention_fn`
+(`parallel/ring_attention.make_sp_attention`), and every sp rank of a
+dp row steps on the same rows. `get_state` / `set_state`,
+`param_checksum` and `sync_to_network` speak whole tensors (gathered
+over mdl; a shard is taken on the way in), so a checkpoint does not
+depend on the layout and self-play searches with a whole, dense module.
 
 Outside megastep mode the learner owns a copy of the `NeuralNetwork`'s
 module, made at construction (the JAX trainer copies the net's
@@ -76,7 +95,14 @@ import torch
 from .. import rng
 from ..config.mesh_config import Mesh, MeshConfig
 from ..config.train_config import TrainConfig
-from ..parallel.sharding import all_reduce_mean_, broadcast_object, broadcast_tensors_, synced_batch_stats
+from ..parallel.sharding import (
+    all_reduce_mean_,
+    all_reduce_sum_mdl,
+    broadcast_object,
+    gather_tensor,
+    shard_tensor,
+    synced_batch_stats,
+)
 from ..telemetry.device_stats import emit_beacon
 from ..utils.transfer import fetch, upload
 from ..utils.types import DenseBatch
@@ -131,11 +157,13 @@ class OptState:
 class Optimizer:
     """The optax chain of `make_optimizer` (alphatriangle_tpu/rl/trainer.py)."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, norm=global_norm):
         self.kind = cfg.OPTIMIZER_TYPE
         self.schedule = make_lr_schedule(cfg)
         self.weight_decay = cfg.WEIGHT_DECAY
         self.clip = cfg.GRADIENT_CLIP_VALUE
+        # The norm the clip sees (a tensor-parallel learner's is global).
+        self.norm = norm
 
     def init(self, params) -> OptState:
         if self.kind == "SGD":
@@ -147,7 +175,7 @@ class Optimizer:
     def update(self, grads, state: OptState, params):
         """(grads, state, params) -> (updates, new state)."""
         if self.clip is not None:
-            g_norm = global_norm(grads)
+            g_norm = self.norm(grads)
             trigger = g_norm < self.clip
             grads = [torch.where(trigger, g, (g / g_norm) * self.clip) for g in grads]
         wd = self.weight_decay
@@ -209,12 +237,28 @@ def _generator(key: torch.Tensor, device) -> torch.Generator:
 class Trainer:
     """Owns the learner state bound to one `NeuralNetwork`."""
 
-    def __init__(self, nn, train_config: TrainConfig, mesh: "Mesh | None" = None):
+    def __init__(self, nn, train_config: TrainConfig, mesh: "Mesh | None" = None, attention_fn=None):
         self.nn = nn
         self.config = train_config
         self.mesh = mesh or MeshConfig.single_device_mesh()
         self.dp_size = self.mesh.dp
+        self.tp_size = self.mesh.mdl
         self.model = nn.model if train_config.FUSED_MEGASTEP else copy.deepcopy(nn.model)
+        # A dense, whole copy for `sync_to_network` when the learner's
+        # module is sharded or sequence-parallel.
+        self._whole = None
+        if self.tp_size > 1 or attention_fn is not None:
+            self._whole = copy.deepcopy(nn.model)
+            self._whole.set_attention_fn(None)
+        if attention_fn is not None:
+            self.model.set_attention_fn(attention_fn)
+        self.names = [name for name, _ in self.model.named_parameters()]
+        self.full_shapes = {name: tuple(p.shape) for name, p in self.model.named_parameters()}
+        from ..nn.model import tensor_parallel_
+
+        layout = tensor_parallel_(self.model, self.mesh)
+        # Per parameter: the dim its mdl shards split, or None.
+        self.shard_dims = [None if layout[n] == "replicated" else layout[n] for n in self.names]
         if self.dp_size > 1:
             from ..nn.model import BatchNorm
 
@@ -228,7 +272,7 @@ class Trainer:
         mc = nn.model_config
         self.num_atoms = mc.NUM_VALUE_ATOMS
         self.v_min, self.v_max = mc.VALUE_MIN, mc.VALUE_MAX
-        self.optimizer = Optimizer(train_config)
+        self.optimizer = Optimizer(train_config, norm=self.global_norm)
         self.schedule = self.optimizer.schedule
         self.state = TrainState(
             opt_state=self.optimizer.init(self.params),
@@ -308,8 +352,8 @@ class Trainer:
             updates, opt_state = self.optimizer.update(grads, state.opt_state, self.params)
             for p, u in zip(self.params, updates):
                 p.add_(u)
-            metrics["grad_norm"] = global_norm(grads)
-            metrics["update_norm"] = global_norm(updates)
+            metrics["grad_norm"] = self.global_norm(grads)
+            metrics["update_norm"] = self.global_norm(updates)
         self.state = TrainState(opt_state=opt_state, step=state.step + 1, rng=keys[0])
         return metrics, aux["td_errors"].detach()
 
@@ -342,6 +386,24 @@ class Trainer:
         (K, B) slots `idx`."""
         rows = {name: v[idx] for name, v in storage.items()}
         return self._train_steps_impl(self._stacked_rows_batch(rows, weights))
+
+    def global_norm(self, tensors) -> torch.Tensor:
+        """optax.global_norm of a per-parameter list over the whole
+        model: a sharded leaf's squares summed over the mdl line, a
+        replicated leaf's counted once."""
+        if self.tp_size == 1:
+            return global_norm(tensors)
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        sharded = sum(((t * t).sum() for t, d in zip(tensors, self.shard_dims) if d is not None), zero)
+        whole = sum(((t * t).sum() for t, d in zip(tensors, self.shard_dims) if d is None), zero)
+        return torch.sqrt(all_reduce_sum_mdl(sharded, self.mesh) + whole)
+
+    def _full(self, tensors) -> list:
+        """A per-parameter list as whole tensors (gathered over mdl)."""
+        return [
+            t if d is None else gather_tensor(t.detach(), d, self.mesh)
+            for t, d in zip(tensors, self.shard_dims)
+        ]
 
     # --- host API ---------------------------------------------------------
 
@@ -389,26 +451,21 @@ class Trainer:
 
     def broadcast_state(self) -> None:
         """Rank 0's learner state (parameters, running statistics, Adam
-        moments, step, key) on every rank, in place: the replicas start
-        equal at setup (a restore installs rank 0's broadcast snapshot on
-        every rank, `training/runner.py`)."""
+        moments, step, key) on every rank: the replicas start equal at
+        setup (a restore installs rank 0's broadcast snapshot on every
+        rank, `training/runner.py`). The state travels whole and each
+        rank takes its shards."""
         if self.mesh.backend is None:
             return
-        opt = self.state.opt_state
-        tensors = [*self.params, *self._stats_buffers().values(), *opt.mu, *opt.nu]
-        broadcast_tensors_(tensors, self.mesh)
-        head = broadcast_object((opt.count, self.state.step, self.state.rng.tolist()), self.mesh)
-        opt.count = int(head[0])
-        self.state = TrainState(
-            opt_state=opt, step=int(head[1]), rng=torch.tensor(head[2], dtype=torch.int64)
-        )
+        self.set_state(broadcast_object(self.get_state(), self.mesh))
 
     def param_checksum(self) -> tuple:
-        """An exact digest of the parameters' bits: the int64 sums of
-        their float32 words, plain and weighted by position mod 1021.
-        Replicas whose bits agree give equal digests."""
+        """An exact digest of the whole parameters' bits (gathered over
+        mdl; every rank calls it): the int64 sums of their float32
+        words, plain and weighted by position mod 1021. Replicas whose
+        bits agree give equal digests."""
         with torch.no_grad():
-            words = torch.cat([p.detach().reshape(-1).view(torch.int32) for p in self.params])
+            words = torch.cat([p.reshape(-1).view(torch.int32) for p in self._full(self.params)])
             words = words.to(torch.int64)
             weight = torch.arange(words.numel(), device=words.device) % 1021 + 1
             return int(words.sum()), int((words * weight).sum())
@@ -499,12 +556,13 @@ class Trainer:
         """The learner's state as CPU copies (nothing aliases the live
         tensors, which the next step updates in place): {"params",
         "batch_stats", "opt_state": {"count", "mu", "nu"}, "step",
-        "rng"}, the tensors keyed by parameter or buffer name."""
-        names = [name for name, _ in self.model.named_parameters()]
+        "rng"}, the tensors keyed by parameter or buffer name, whole
+        (gathered over mdl: every rank calls it)."""
+        names = self.names
         opt = self.state.opt_state
 
         def host(tensors) -> dict:
-            return {n: t.detach().cpu().clone() for n, t in zip(names, tensors)}
+            return {n: t.detach().cpu().clone() for n, t in zip(names, self._full(tensors))}
 
         return {
             "params": host(self.params),
@@ -515,21 +573,23 @@ class Trainer:
         }
 
     def set_state(self, state: dict) -> None:
-        """Install a `get_state` snapshot: the parameters and running
-        statistics are copied into the module in place (the net's own in
-        megastep mode; otherwise `sync_to_network` hands them to
-        self-play), the moments into fresh tensors on the learner's
-        device. Raises when a name or a shape differs from this
-        learner's."""
-        names = [name for name, _ in self.model.named_parameters()]
+        """Install a `get_state` snapshot (whole tensors): the
+        parameters and running statistics are copied into the module in
+        place (the net's own in megastep mode; otherwise
+        `sync_to_network` hands them to self-play), the moments into
+        fresh tensors on the learner's device; a tensor-parallel rank
+        takes its shards. Raises when a name or a shape differs from
+        this learner's."""
+        names = self.names
         buffers = self._stats_buffers()
         opt = state["opt_state"]
         stats = state.get("batch_stats", {})
+        shapes = self.full_shapes
         for part, tree, want in (
-            ("params", state["params"], dict(zip(names, self.params))),
-            ("batch_stats", stats, buffers),
-            ("mu", opt["mu"], dict(zip(names, self.params))),
-            ("nu", opt["nu"], dict(zip(names, self.params))),
+            ("params", state["params"], shapes),
+            ("batch_stats", stats, {n: tuple(b.shape) for n, b in buffers.items()}),
+            ("mu", opt["mu"], shapes),
+            ("nu", opt["nu"], shapes),
         ):
             if part in ("mu", "nu") and not tree and self.optimizer.kind == "SGD":
                 continue
@@ -538,21 +598,27 @@ class Trainer:
                     f"{part} names differ from the learner's: "
                     f"{sorted(set(tree) ^ set(want))[:4]}"
                 )
-            for name, p in want.items():
-                if tuple(tree[name].shape) != tuple(p.shape):
+            for name, shape in want.items():
+                if tuple(tree[name].shape) != shape:
                     raise ValueError(
                         f"{part}[{name}] has shape {tuple(tree[name].shape)}, "
-                        f"the learner's {tuple(p.shape)}"
+                        f"the learner's {shape}"
                     )
+
+        def local(tree) -> list:
+            return [
+                tree[n] if d is None else shard_tensor(tree[n], d, self.mesh)
+                for n, d in zip(names, self.shard_dims)
+            ]
 
         def device(tree) -> list:
             if not tree:
                 return []
-            return [tree[n].to(self.device, p.dtype, copy=True) for n, p in zip(names, self.params)]
+            return [t.to(self.device, p.dtype, copy=True) for t, p in zip(local(tree), self.params)]
 
         with torch.no_grad():
-            for name, p in zip(names, self.params):
-                p.copy_(state["params"][name])
+            for p, t in zip(self.params, local(state["params"])):
+                p.copy_(t)
             for name, b in buffers.items():
                 b.copy_(stats[name])
         self.state = TrainState(
@@ -563,11 +629,22 @@ class Trainer:
 
     def sync_to_network(self) -> int:
         """Install a device-side copy of the learner's module (its
-        running statistics included) as the net's weights; returns the
-        bumped weights version. Chunks that already read the net's
-        weights keep theirs."""
+        running statistics included; whole and dense) as the net's
+        weights; returns the bumped weights version. Chunks that already
+        read the net's weights keep theirs."""
         if self.model is self.nn.model:
             raise RuntimeError(
                 "the learner trains the net's own module (megastep mode): there is nothing to sync"
             )
-        return self.nn.install(copy.deepcopy(self.model))
+        if self._whole is None:
+            return self.nn.install(copy.deepcopy(self.model))
+        # Whole tensors (gathered over mdl: every rank calls it) in a
+        # dense copy of the net's module.
+        model = copy.deepcopy(self._whole)
+        with torch.no_grad():
+            for p, t in zip(model.parameters(), self._full(self.params)):
+                p.copy_(t)
+            whole = dict(model.named_buffers())
+            for name, b in self._stats_buffers().items():
+                whole[name].copy_(b)
+        return self.nn.install(model)

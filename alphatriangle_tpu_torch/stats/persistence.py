@@ -39,9 +39,13 @@ place), so the marker is written in line and there is no flusher.
 Loading uses `torch.load(..., map_location=<run device>,
 weights_only=True)`.
 
-In a dp run (`parallel/`) rank 0 alone writes checkpoints, `meta.json`,
-commit markers, spills and `configs.json`; a dp-sharded ring's spill is
-gathered to rank 0 first. The runner restores on rank 0 and broadcasts.
+In a multi-rank run (`parallel/`) rank 0 alone writes checkpoints,
+`meta.json`, commit markers, spills and `configs.json`; a dp-sharded
+ring's spill is gathered to rank 0 first. The learner state is whole:
+a tensor-parallel learner gathers its mdl shards in `get_state` (every
+rank calls it), so a checkpoint does not depend on the layout and
+resumes in one process or in another mesh. The runner restores on rank
+0 and broadcasts, and each rank takes its shards.
 
 `timings` keeps the host seconds of each save, spill and restore and the
 bytes of each spill.

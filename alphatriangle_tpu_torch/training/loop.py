@@ -95,20 +95,28 @@ under a `torch.profiler` window exported into `profile_data/`
 (`cli analyze` reads both). A megastep run counts its megasteps there,
 not its warm-up chunks, so the window holds megasteps 1-2.
 
-A dp run (`components.mesh` over a process group; the synchronous loop
-and the megastep) keeps its ranks in lockstep: the stop test (a stop,
-or a preemption, on any rank stops every rank at the same beat), a
-rank's own host ring drawing None, the megastep's warm-up gate ("every
-shard can fill") and the synchronous loop's step count (from the
-iteration's global rows) are reduced over the ranks; the step clock,
-the checkpoint cadences and the stop at MAX_TRAINING_STEPS follow the
-learner step, which is the same everywhere. A rank's own host ring
+A run over a process group (`components.mesh`; the synchronous loop on
+any mesh, the megastep on a dp-only one) keeps its ranks in lockstep:
+the stop test (a stop, or a preemption, on any rank stops every rank at
+the same beat), a rank's own host ring drawing None, the megastep's
+warm-up gate ("every shard can fill") and the synchronous loop's step
+count (from the iteration's global rows) are reduced over the ranks; the
+step clock, the checkpoint cadences and the stop at MAX_TRAINING_STEPS
+follow the learner step, which is the same everywhere. A rank's own host ring
 draws B / dp rows (JAX `training/loop.py:464`), a sharded ring each
 rank's stratum of B. Rank 0 alone writes the preemption report. A
 rank's counters are its own lanes' (rank 0's also hold a restored run's
 totals); the checkpoint and the utilization record take their sum over
 the ranks (`_lane_totals`, one gather at those lockstep beats), as the
-JAX dp mesh counts every lane. The events are the rank's own.
+JAX mesh counts every lane once: the lanes of an mdl line's first rank
+(it plays them and broadcasts each harvest to its replicas,
+`_shared_rollout`) and the replay rows of a dp row's first rank (every
+(mdl, sp) rank of the row holds them); the
+iteration's global rows count the same way. After every iteration or
+megastep of a multi-rank run the ranks' digests of the whole parameters
+are gathered and compared (`_note_replicas`): every replica must hold
+the same bits, or the run stops with an error. The events are the
+rank's own.
 """
 
 import contextlib
@@ -124,9 +132,16 @@ import numpy as np
 import torch
 
 from ..parallel.distributed import is_primary
-from ..parallel.sharding import all_gather_ints, all_reduce_scalar
+from ..parallel.sharding import (
+    MDL,
+    SP,
+    all_gather_ints,
+    all_reduce_scalar,
+    line_broadcast_object,
+    line_gather_object,
+)
 from ..profiling import ProfileSession
-from ..rl.self_play import SelfPlayEngine
+from ..rl.self_play import SelfPlayEngine, merge_lane_shards
 from ..stats.events import RawMetricEvent
 from ..telemetry import RunTelemetry
 from ..telemetry.device_stats import beacons_armed
@@ -216,6 +231,7 @@ class TrainingLoop:
         }
         self.run_s: "float | None" = None
         self.first_megastep_unix: "float | None" = None  # wall clock at the first megastep's end
+        self.first_iteration_unix: "float | None" = None  # at the first synchronous iteration's end
         self._last_progress_time = time.monotonic()
         self._last_progress_step = 0
         self.telemetry = components.telemetry or RunTelemetry(
@@ -295,8 +311,27 @@ class TrainingLoop:
     def _process_rollout(self) -> int:
         """One rollout chunk of the primary engine into the ring; returns
         the rows added."""
+        if self.mesh is not None and (self.mesh.mdl > 1 or self.mesh.sp > 1):
+            return self._fold_result(*self._shared_rollout())
         result, payload = self._play_rollout(self.c.self_play, self.cfg.ROLLOUT_CHUNK_MOVES)
         return self._fold_result(result, payload=payload)
+
+    def _shared_rollout(self) -> tuple:
+        """One rollout chunk on a mesh with mdl or sp replicas: (harvest,
+        trace), the harvest's rows its dp row's. The first rank of the
+        mdl line plays its lanes and broadcasts the harvest (its mdl
+        replicas would play the same lanes with the same keys); the sp
+        line then merges its ranks' rows in the dp row's lane order, so
+        every rank of a dp row ingests the rows of the (dp, sp = 1) run
+        in that run's order. The episode and search counts stay the
+        rank's lanes' (`_lane_totals` counts the lanes' owners)."""
+        played = None
+        if self.mesh.mdl_index == 0:
+            engine = self.c.self_play
+            played = (engine.play_moves(self.cfg.ROLLOUT_CHUNK_MOVES), engine.last_trace)
+        result, trace = line_broadcast_object(played, self.mesh, MDL)
+        parts = line_gather_object(result, self.mesh, SP)
+        return merge_lane_shards(parts, self.mesh.sp_index), trace
 
     def _fold_result(
         self, result, trace=None, payload=None, ready=None, stream=None, added=None
@@ -678,13 +713,17 @@ class TrainingLoop:
         self._log_progress()
 
     def _lane_totals(self) -> tuple:
-        """(episodes, simulations, rows, reused visits) over every rank's
-        lanes: one gather of the ranks' counters in a dp run (every rank
-        calls it at the same beat), the loop's own counters otherwise."""
+        """(episodes, simulations, rows, reused visits) over every lane
+        once: one gather of the ranks' counters in a multi-rank run
+        (every rank calls it at the same beat), each counted on the
+        ranks that own it (`Mesh.lane_owner`, `Mesh.row_owner`); the
+        loop's own counters otherwise."""
         own = (self.episodes_played, self.total_simulations, self.experiences_added,
                self.total_reused_visits)
         if not self._grouped:
             return own
+        lanes, rows = int(self.mesh.lane_owner), int(self.mesh.row_owner)
+        own = tuple(v * w for v, w in zip(own, (lanes, lanes, rows, lanes)))
         return tuple(sum(col) for col in zip(*all_gather_ints(own, self.mesh)))
 
     def _log_progress(self) -> None:
@@ -768,8 +807,12 @@ class TrainingLoop:
             with self.profile.phase("rollout"):
                 added = self._process_rollout()
             t1 = time.perf_counter()
-            # The global rows of the iteration set every rank's step count.
-            rows = int(all_reduce_scalar(added, self.mesh)) if self._grouped else added
+            # The global rows of the iteration (each dp row's once) set
+            # every rank's step count.
+            if self._grouped:
+                rows = int(all_reduce_scalar(added if self.mesh.row_owner else 0, self.mesh))
+            else:
+                rows = added
             n_steps = cfg.LEARNER_STEPS_PER_ROLLOUT or max(1, round(rows / cfg.BATCH_SIZE))
             self.rows_per_iteration.append(added)
             self.steps_per_iteration.append(self._run_training_steps(n_steps))
@@ -778,6 +821,8 @@ class TrainingLoop:
             self.timings["rollout_s"].append(t1 - t0)
             self.timings["learner_s"].append(t2 - t1)
             self.timings["iteration_s"].append(t2 - t0)
+            if self.first_iteration_unix is None:
+                self.first_iteration_unix = time.time()
             self._iteration_tail()
 
     # --- fused megastep ---------------------------------------------------
@@ -794,9 +839,17 @@ class TrainingLoop:
         return len(buf) >= need
 
     def _note_replicas(self) -> None:
-        """A dp run's parameter digest after a megastep or an iteration."""
-        if self.mesh is not None and self.mesh.dp > 1:
-            self.param_checksums.append(self.c.trainer.param_checksum())
+        """A multi-rank run's digest of the whole parameters after a
+        megastep or an iteration, gathered and compared over the ranks
+        (every rank calls it): all of them replicas of one model, they
+        must agree bit for bit."""
+        if self.mesh is None or self.mesh.size == 1:
+            return
+        digest = self.c.trainer.param_checksum()
+        digests = all_gather_ints(digest, self.mesh)
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"replicas diverged after step {self.global_step}: digests {digests}")
+        self.param_checksums.append(digest)
 
     def _run_megastep_mode(self) -> None:
         cfg = self.cfg
@@ -1162,12 +1215,18 @@ class TrainingLoop:
             "checkpointed_step": self._last_saved_step,
             "buffer_saved_step": self._last_buffer_saved_step,
             "device": str(self.c.device),
-            # The dp mesh: this rank, the world, the process group's
-            # backend (None: one process) and the digests per megastep or
-            # iteration, which agree over the ranks.
+            # The mesh: this rank, the world, the axes' sizes and this
+            # rank's indices, the process group's backend (None: one
+            # process) and the digests per megastep or iteration, which
+            # agree over the ranks.
             "dp": {
-                "rank": self.mesh.dp_index if self.mesh is not None else 0,
-                "world": self.mesh.dp if self.mesh is not None else 1,
+                "rank": self.mesh.rank if self.mesh is not None else 0,
+                "world": self.mesh.size if self.mesh is not None else 1,
+                "mesh": {"dp": self.mesh.dp, "mdl": self.mesh.mdl, "sp": self.mesh.sp}
+                if self.mesh is not None else {"dp": 1, "mdl": 1, "sp": 1},
+                "index": {"dp": self.mesh.dp_index, "mdl": self.mesh.mdl_index,
+                          "sp": self.mesh.sp_index}
+                if self.mesh is not None else {"dp": 0, "mdl": 0, "sp": 0},
                 "backend": self.mesh.backend if self.mesh is not None else None,
                 "param_checksums": self.param_checksums,
             },
@@ -1219,6 +1278,7 @@ class TrainingLoop:
                 "lane_moves_per_s": self.lane_moves / run_s if run_s else None,
                 "first_iteration_s": iters[0] if iters else (mega[0] if mega else None),
                 "first_megastep_unix": self.first_megastep_unix,
+                "first_iteration_unix": self.first_iteration_unix,
             },
             # The caching allocator's peak on the run's card (None on the CPU).
             "peak_device_bytes": (

@@ -26,9 +26,11 @@ With a `DistributedConfig` (`cli train --distributed`) the runner joins
 the process group before the device is touched
 (`parallel.initialize_distributed`, which picks the rank's card), rank
 0 resolves auto-resume and broadcasts the run name, setup builds the
-dp mesh, and a restore is read on rank 0 (learner state, counters,
-spill) and broadcast: every rank installs the same learner state, and
-a sharded ring keeps its stripe of the spill. Ranks but the first open
+mesh (`mesh_config`: dp, and the mdl and sp axes, which no CLI flag
+sets), and a restore is read on rank 0 (learner state, counters,
+spill) and broadcast: every rank installs the same whole learner state
+and takes its mdl shards of it, and a sharded ring keeps its stripe of
+the spill. Ranks but the first open
 no TensorBoard writer. The runner leaves the group when the run ends.
 """
 
@@ -220,7 +222,7 @@ def run_training(
         if train_config.ASYNC_ROLLOUTS:
             raise ValueError(
                 "--distributed with --async-rollouts: the overlapped loop across ranks waits for "
-                "ROADMAP.md item 6b"
+                "ROADMAP.md item 6c"
             )
         initialize_distributed(distributed_config, device or "cuda")
         from ..parallel.distributed import process_info

@@ -22,15 +22,27 @@ The compile-cache tracer and the memory records of the JAX setup wait
 for a later slice.
 
 In a process group (`parallel/distributed.py`) the mesh is
-`MeshConfig.build_mesh` over the ranks, one device each (MDL_SIZE or
-SP_SIZE above 1 raise, as does the overlapped loop: ROADMAP.md item
-6b). Each rank steps its SELF_PLAY_BATCH_SIZE / dp lanes
-(`rng.Lanes`; an indivisible batch raises), the learner all-reduces its
-gradients, and the ring is picked from three tiers (`make_buffer`).
-Rank 0's learner state is broadcast to every rank. Ranks but the first
-open no TensorBoard writer and no live file and run with telemetry
-off; every rank publishes the same stat-pack flag, which shapes its
-work. The utilization meter counts the world's devices.
+`MeshConfig.build_mesh` over the ranks, one device each, with its axes'
+process groups (`attach_groups`); the overlapped loop across ranks
+raises (ROADMAP.md item 6c). The mesh's axes are reached through
+`mesh_config`, as in JAX: no flag of `cli train` sets MDL_SIZE or
+SP_SIZE. Self-play lanes ride (dp, sp) (`rollout_lane_axes`): each rank
+steps lanes shard `dp_i * SP + sp_i` of the dp x sp shards (`rng.Lanes`;
+an indivisible batch raises), replicated over mdl. The learner
+all-reduces its gradients over dp, shards its transformer over mdl
+(`rl/trainer.py`) and, when sp > 1, attends through
+`parallel/ring_attention.make_sp_attention` (SP_ATTENTION: ring or
+ulysses); self-play attends densely over its own lanes. The ring is
+picked from three tiers (`make_buffer`); a mesh with mdl or sp wider
+than one takes the host ring, as JAX's `sharded_ok` asks for a dp-only
+mesh, and each ingest's rows are shared over the dp row's replicas
+(`training/loop.py` `_shared_rollout`: the mdl line's first rank plays,
+the sp line merges its rows in lane order), so the mdl and sp ranks of
+a dp row hold and draw bit-equal rows. Rank 0's learner state is broadcast to every
+rank. Ranks but the first open no TensorBoard writer and no live file
+and run with telemetry off; every rank publishes the same stat-pack
+flag, which shapes its work. The utilization meter counts the world's
+devices.
 """
 
 import logging
@@ -40,7 +52,7 @@ import torch
 
 from ..config.env_config import EnvConfig
 from ..config.mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
-from ..config.mesh_config import Mesh, MeshConfig
+from ..config.mesh_config import Mesh, MeshConfig, lane_shard_count, rollout_lane_axes
 from ..config.model_config import ModelConfig
 from ..config.persistence_config import PersistenceConfig
 from ..config.telemetry_config import TelemetryConfig
@@ -51,7 +63,7 @@ from ..env.engine import TriangleEnv
 from ..features.core import FeatureExtractor
 from ..rng import Lanes
 from ..nn.network import NeuralNetwork
-from ..parallel.distributed import backend_name, is_primary, process_info
+from ..parallel.distributed import attach_groups, backend_name, is_primary, process_info
 from ..rl.buffer import ExperienceBuffer
 from ..rl.device_buffer import DeviceReplayBuffer
 from ..rl.megastep import MegastepRunner
@@ -106,11 +118,11 @@ def make_buffer(
     """The replay ring's home per `DEVICE_REPLAY`, in three tiers:
 
     - one rank -> the device ring (`DeviceReplayBuffer`);
-    - dp ranks with BUFFER_CAPACITY, BATCH_SIZE and SELF_PLAY_BATCH_SIZE
-      divisible by dp -> the dp-sharded ring (`ShardedDeviceReplayBuffer`,
-      one shard per rank);
+    - dp ranks (a dp-only mesh) with BUFFER_CAPACITY, BATCH_SIZE and
+      SELF_PLAY_BATCH_SIZE divisible by dp -> the dp-sharded ring
+      (`ShardedDeviceReplayBuffer`, one shard per rank);
     - otherwise -> the host ring, each rank its own (the JAX
-      multi-process run's).
+      multi-process run's; a mesh with mdl or sp replicas).
 
     The device ring is wanted for "on", for the megastep (whose ingest
     and sampling run on the card) and for "auto" on a CUDA device; "off"
@@ -120,8 +132,8 @@ def make_buffer(
     mesh = mesh or MeshConfig.single_device_mesh()
     mode = train_config.DEVICE_REPLAY
     dp = mesh.dp
-    single = dp == 1
-    sharded_ok = dp > 1 and all(
+    single = mesh.size == 1
+    sharded_ok = dp > 1 and mesh.size == dp and all(
         v % dp == 0
         for v in (train_config.BUFFER_CAPACITY, train_config.BATCH_SIZE,
                   train_config.SELF_PLAY_BATCH_SIZE)
@@ -129,8 +141,9 @@ def make_buffer(
     if (train_config.FUSED_MEGASTEP or mode == "on") and not (single or sharded_ok):
         raise ValueError(
             f"{'FUSED_MEGASTEP' if train_config.FUSED_MEGASTEP else 'DEVICE_REPLAY=on'} needs one "
-            "rank, or dp ranks with BUFFER_CAPACITY, BATCH_SIZE and SELF_PLAY_BATCH_SIZE "
-            f"divisible by dp (got dp={dp}); use DEVICE_REPLAY='auto' for the host ring."
+            "rank, or a dp-only mesh (no mdl or sp replication) with BUFFER_CAPACITY, BATCH_SIZE "
+            f"and SELF_PLAY_BATCH_SIZE divisible by dp (got {mesh.shape}); use "
+            "DEVICE_REPLAY='auto' for the host ring."
         )
     want = (
         mode == "on"
@@ -159,10 +172,11 @@ def make_buffer(
 
 
 def build_mesh(mesh_config: "MeshConfig | None", train_config: TrainConfig) -> Mesh:
-    """The run's mesh over the process group (one device per rank); the
-    single-device mesh without a group, where a DP_SIZE the one process
-    cannot meet falls back to one device with a warning, as the JAX
-    setup does."""
+    """The run's mesh over the process group (one device per rank) with
+    its axes' process groups; the single-device mesh without a group,
+    where a DP_SIZE the one process cannot meet falls back to one device
+    with a warning, as the JAX setup does (an mdl or sp axis the world
+    cannot hold raises)."""
     mesh_config = mesh_config or MeshConfig()
     rank, world = process_info()
     backend = backend_name()
@@ -176,15 +190,27 @@ def build_mesh(mesh_config: "MeshConfig | None", train_config: TrainConfig) -> M
     if backend is not None and train_config.ASYNC_ROLLOUTS:
         raise ValueError(
             "ASYNC_ROLLOUTS under torch.distributed: the overlapped loop across ranks "
-            "waits for ROADMAP.md item 6b"
+            "waits for ROADMAP.md item 6c"
         )
-    # The lanes shard over dp alone: build_mesh refuses SP_SIZE > 1.
-    if train_config.SELF_PLAY_BATCH_SIZE % mesh.dp != 0:
+    shards = lane_shard_count(mesh, rollout_lane_axes(mesh, *mesh.axis_names[::2]))
+    if train_config.SELF_PLAY_BATCH_SIZE % shards != 0:
         raise ValueError(
             f"SELF_PLAY_BATCH_SIZE={train_config.SELF_PLAY_BATCH_SIZE} must divide evenly over "
-            f"the {mesh.dp} lane shards (each rank steps its share of the lanes)."
+            f"the {shards} lane shards (each rank steps its share of the lanes)."
         )
-    return mesh
+    return attach_groups(mesh)
+
+
+def rank_lanes(mesh: Mesh, total: int) -> "Lanes | None":
+    """This rank's lanes: shard `dp_i * SP + sp_i` of the dp x sp lane
+    shards (the lanes of the mdl line, which its first rank plays); None on a
+    mesh of one lane shard."""
+    shards = mesh.dp * mesh.sp
+    if shards == 1:
+        return None
+    per = total // shards
+    shard = mesh.dp_index * mesh.sp + mesh.sp_index
+    return Lanes(shard * per, (shard + 1) * per, total)
 
 
 def setup_training_components(
@@ -222,17 +248,26 @@ def setup_training_components(
 
     env = TriangleEnv(env_config, device=device)
     extractor = FeatureExtractor(env, model_config)
-    net = NeuralNetwork(model_config, env_config, seed=train_config.RANDOM_SEED, device=device)
-    trainer = Trainer(net, train_config, mesh=mesh)
-    trainer.broadcast_state()
+    # Self-play's net attends densely over its own lanes; the learner's
+    # copy takes the sequence-parallel core when the mesh has an sp axis.
     buffer = make_buffer(train_config, env_config, model_config, extractor, device, mesh)
-    lanes = None
-    if mesh.dp > 1:
-        per = train_config.SELF_PLAY_BATCH_SIZE // mesh.dp
-        lanes = Lanes(mesh.dp_index * per, (mesh.dp_index + 1) * per, train_config.SELF_PLAY_BATCH_SIZE)
-        logger.info("Self-play lanes [%d, %d) of %d on rank %d.", lanes.lo, lanes.hi, lanes.total, mesh.dp_index)
+    net = NeuralNetwork(model_config, env_config, seed=train_config.RANDOM_SEED, device=device)
+    attention_fn = None
+    if mesh.sp > 1:
+        from ..parallel.ring_attention import make_sp_attention
+
+        mesh_config = mesh_config or MeshConfig()
+        attention_fn = make_sp_attention(mesh, kind=mesh_config.SP_ATTENTION)
+        logger.info("Sequence-parallel attention: %s over sp=%d", mesh_config.SP_ATTENTION, mesh.sp)
+    trainer = Trainer(net, train_config, mesh=mesh, attention_fn=attention_fn)
+    if mesh.mdl > 1:
+        logger.info("Tensor parallelism: transformer shards over mdl=%d (Megatron layout).", mesh.mdl)
+    trainer.broadcast_state()
+    lanes = rank_lanes(mesh, train_config.SELF_PLAY_BATCH_SIZE)
+    if lanes is not None:
+        logger.info("Self-play lanes [%d, %d) of %d on rank %d.", lanes.lo, lanes.hi, lanes.total, mesh.rank)
     self_play = SelfPlayEngine(
-        env, extractor, net, mcts_config, train_config, seed=train_config.RANDOM_SEED + 1, lanes=lanes
+        env, extractor, net, mcts_config, train_config, seed=train_config.RANDOM_SEED + 1, lanes=lanes,
     )
     megastep = None
     if train_config.FUSED_MEGASTEP:
@@ -274,7 +309,7 @@ def setup_training_components(
         ),
         device_kind=torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
         buffer_capacity=train_config.BUFFER_CAPACITY,
-        mesh_devices=mesh.dp,
+        mesh_devices=mesh.size,
     )
     telemetry = RunTelemetry(
         telemetry_config,

@@ -68,7 +68,7 @@ which exits non-zero:
 Between phases 7 and 8, the synchronous and the overlapped loop at the
 train phase's widths and cuts, through `run_training`:
 
-- train-sync: the device ring (`DEVICE_REPLAY="auto"` on the card), 12
+- train-sync: the device ring (`DEVICE_REPLAY="auto"` on the card), 10
   learner steps in single-step groups, a weight sync at step 10. Losses
   must be finite, each iteration must take `max(1, round(rows / 256))`
   steps once the ring can give a batch (within the budget), the search
@@ -81,14 +81,14 @@ train phase's widths and cuts, through `run_training`:
   ring, batches uploaded.
 - train-async: `ASYNC_ROLLOUTS` with 2 producer streams, `REPLAY_RATIO`
   1.0, a pipelined learner of fused pairs, a queue of 4, the default
-  2-second chunk target, the device ring, 12 steps. The run must
-  complete at step 12 with both streams' harvests folded, no producer
+  2-second chunk target, the device ring, 10 steps. The run must
+  complete at step 10 with both streams' harvests folded, no producer
   restart, a replay ratio of at most 1.0, at least one weight sync
   (checked as above), one set of weights per chunk, and 16 + 2 search
-  launches per searched move over all streams. Then the same loop runs 4
+  launches per searched move over all streams. Then the same loop runs 2
   more steps under the profiler: the card's busy share is the union of
   every stream's kernel and copy intervals over the window's wall. Then
-  4 more with every beacon armed and no beacon ring yet: the rows the
+  2 more with every beacon armed and no beacon ring yet: the rows the
   ring's drain writes must equal, as a multiset, the beacons the host
   enqueued on the two producer streams and the learner's, none dropped.
 
@@ -207,7 +207,7 @@ Then slice nine's paths, at the serve default's widths (`EnvConfig()`,
   recorded on the way) bit-equal to its plain version.
 - league: `cli train` (the synchronous loop, 4 steps, a checkpoint every
   2) writes a pool of two checkpoints; `cli league --pool-from` it with
-  `--steps 2 --mix 1.0 --slots 8 --games 4 --max-moves 24
+  `--steps 1 --mix 1.0 --slots 8 --games 4 --max-moves 24
   --promotion-games 1 --promotion-win-rate 0.0`. Exit 0, a pool of at
   least 2, a round and a promotion, every round's rows ingested equal to
   the live side's moves less the stale ones, `league.jsonl` replayed to
@@ -312,7 +312,9 @@ defaults' widths and cuts:
   the window's gather, backup and PER-count kernels exactly; the top
   five device kernels and the profiled against the unprofiled megastep.
 
-Slice thirteen's supervisor, doctor and run readers, after the fleet:
+Slice thirteen's supervisor, doctor and run readers, after the fleet
+(the two supervise drills on a thread of their own, beside slice
+fourteen's dp phases: each side waits on its own processes):
 
 - supervise-wedge: `cli supervise --run-name R -- train --fused-megastep`
   at the train phase's widths and cuts to step 12 with a checkpoint every
@@ -341,7 +343,7 @@ Slice thirteen's supervisor, doctor and run readers, after the fleet:
   --json` and `perf --json` of the fleet parent (the report's exit code;
   the fleet_* fields), all torch-free; `cli devices` (the card, one).
 
-Slice fourteen's data-parallel training, after the supervise drills and
+Slice fourteen's data-parallel training, beside the supervise drills and
 before the doctor (the one-process resume below runs beside the doctor,
 readers and reference phases), at the train phase's widths and cuts to 4
 megasteps with a checkpoint every megastep,
@@ -371,9 +373,46 @@ and `backup_update` bit-equal to their plain versions at a rank's 256
 lanes too, and `per_sample` over a rank's 125,000-slot shard with K x
 128 draws.
 
-Depth cut for them (widths unchanged): supervise-torn to step 8
-(was 12), train-async to step 12 (was 16) and its profiled
-window 4 steps (was 8), preempt-resume to step 10 (was 12), the league
+Slice fifteen's tensor and sequence parallelism, after the dp2 resume,
+in the synchronous loop: one pair of rank processes sharing the card
+over gloo (`python3 chip_smoke.py --mesh-rank SPEC RANK`, this file as a
+child) runs both meshes in turn, each through `run_training(mesh_config=
+...)` (no CLI flag sets the mdl or sp axis) over a process group of its
+own, at the train default's widths (64 simulations, batch 256), cut to
+3-move chunks, 1 learner step an iteration and 3 steps: 4 iterations,
+the first without rows, the third traced (`--profile`'s window of
+iterations 1-2 narrowed to 2, a trace half the size); the shares are
+its (the second pays the learner's first use, on tp2 unequally: the
+rank that played has run the net).
+
+- train-tp2-shared: `MeshConfig(MDL_SIZE=2)`, the transformer sharded
+  Megatron-style over the two ranks. The mdl line's first rank plays the
+  512 lanes and broadcasts each harvest (the lanes are replicated over
+  mdl); the other plays none.
+- train-sp2-shared: `MeshConfig(SP_SIZE=2, SP_ATTENTION="ring")`, 256
+  lanes a rank. Before training each rank holds ring and Ulysses
+  attention at the learner's shape (256, 120, 4, 32), float32, to dense
+  attention on the whole inputs, forward and q / k / v gradients, within
+  2e-5 / 5e-5 (`tests/test_ring_attention.py`'s tolerances), and times
+  each beside dense.
+
+Each must complete at step 3 with the gathered-parameter digests equal
+on both ranks after every iteration, the search kernels launched 16 + 2
+times a searched move on every rank that plays, at its lanes, and no
+PER count (the host ring), and the checkpoint's episodes those of the
+lanes' owners (each lane once). Each prints per rank the iteration p50,
+the share of the traced training iteration under `tp.all_reduce` /
+`sp.attention`, the peak device memory and the wall to the first
+iteration (from the pair's spawn for tp2, from the start of its group
+for sp2).
+
+Depth cut for slice fifteen (widths unchanged): the league to step 1
+(was 2). Earlier, for the two
+meshes: train-sync to step 10 (was 12),
+train-async to step 10 (was 12; 16 before slice fourteen), both still
+past their weight sync at step 10, and train-async's profiled and armed
+windows 2 steps each (were 4). Earlier cuts: supervise-torn to step 8
+(was 12), train-async's profiled window 4 steps (was 8), preempt-resume to step 10 (was 12), the league
 to step 2 (was 4), the train and serve A/B and the beacons' 2 off / on
 pairs (was 3), the profile run 2 megasteps (was 3), eval to 8 moves
 (was 16), the preset-3 loops to 2 learner steps (were 4); the evals, the
@@ -381,7 +420,10 @@ profile run and the league's two runs call the command in this process
 (they spawned one each).
 
 Every run directory lives under one temporary directory, removed at the
-end, and every train phase starts its run fresh.
+end, and every train phase starts its run fresh. Every profile is read
+from the profiler's raw events (`Trace`), held equal to torch's own
+reader on the first profiled dispatch; each line is also written to
+stderr beside the script's elapsed seconds.
 
 Then one JSON line of kernel figures, the card line, `kernels: ...`, and
 as the last line `{"ok": true, "device": {...}}`.
@@ -448,8 +490,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def say(msg: str) -> None:
+    """`msg` on stdout; on stderr, its start beside the script's elapsed time."""
     print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg[:100]}", file=sys.stderr, flush=True)
 
 
 def hbm_rate(name: str) -> float:
@@ -1088,6 +1135,10 @@ STAGES = (
 )
 
 
+# The first profiled dispatch's check of `Trace` against torch's reader.
+TRACE_READER: dict = {}
+
+
 def profile_dispatch(torch, service, dispatch_ms: float) -> dict:
     """One more full dispatch under `torch.profiler`, after the counted
     run: the device time of its kernels and copies, the kernels that
@@ -1109,7 +1160,155 @@ def profile_dispatch(torch, service, dispatch_ms: float) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     if len(results) != service.sessions.slots:
         fail("the profiled dispatch did not serve every slot")
+    if not TRACE_READER:
+        TRACE_READER.update(check_trace_reader(prof, STAGES))
     return read_profile(prof, STAGES, wall_ms, dispatch_ms)
+
+
+class Trace:
+    """A finished `torch.profiler` session's events, read straight from
+    the profiler's result. torch's own reader (`prof.events()`,
+    `key_averages()`) builds a Python object for every event and a tree
+    of them, seconds for a megastep's ~100,000 events, once for every
+    profile this script reads; this keeps a tuple an event and gives the
+    same figures by the same rules (held equal to torch's reader on the
+    serve dispatch's profile, `check_trace_reader`):
+
+    - a device event's time is its span, nothing for an asynchronous one;
+    - an op's kernels are the device events linked to it (the profiler's
+      linked correlation id), an op's device time its kernels' and those
+      of the ops nested in it on its thread (a stage's device time);
+    - events grouped as `key_averages` groups them (name, device type,
+      user annotation)."""
+
+    def __init__(self, prof):
+        from torch.autograd import DeviceType
+        from torch.autograd.profiler_util import _filter_name
+
+        cuda, result = DeviceType.CUDA, prof.profiler.kineto_results
+        # Device times in us from the trace's start, as torch's reader keeps
+        # them (the absolute ns in a float would lose the low digits).
+        base = result.trace_start_ns()
+        self.cpu = collections.defaultdict(list)  # thread -> [(start ns, end ns, id, is_async, name)]
+        self.device = []  # (name, start us, end us, is_async, is_user_annotation)
+        self.names = collections.Counter()
+        self.kernel_us = collections.defaultdict(float)  # op id -> its linked kernels' device us
+        for e in result.events():
+            name = e.name()
+            if name.startswith("ProfilerStep#"):
+                name = "ProfilerStep*"  # as torch's reader names it
+            if _filter_name(name) or getattr(e, "is_hidden_event", lambda: False)():
+                continue
+            self.names[name] += 1
+            start, end = e.start_ns(), e.end_ns()
+            is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+            kind, linked = e.device_type(), e.linked_correlation_id()
+            if kind == cuda:
+                ua = getattr(e, "is_user_annotation", lambda: False)()
+                start_us, end_us = (start - base) / 1000, (end - base) / 1000
+                self.device.append((name, start_us, end_us, is_async, ua))
+                if linked > 0:
+                    self.kernel_us[linked] += end_us - start_us
+            elif kind == DeviceType.CPU and linked == 0:
+                self.cpu[e.start_thread_id()].append((start, end, e.correlation_id(), is_async, name))
+        for ops in self.cpu.values():
+            ops.sort(key=lambda op: (op[0], -op[1]))
+
+    def device_rows(self, labels) -> list:
+        """(name, device ms, count) of each group of device events not
+        named in `labels` with device time, the most first."""
+        groups: dict = {}
+        for name, start, end, is_async, ua in self.device:
+            g = groups.setdefault((name, ua), [0.0, 0])
+            g[0] += 0.0 if is_async else end - start
+            g[1] += 1
+        rows = [(name, us / 1e3, n) for (name, _), (us, n) in groups.items() if name not in labels and us > 0]
+        return sorted(rows, key=lambda r: -r[1])
+
+    def stages(self, stage_names) -> dict:
+        """Each named op's host time, device time (its kernels and those
+        of the ops nested in it) and calls."""
+        import bisect
+
+        out = {name: {"host_ms": 0.0, "device_ms": 0.0, "calls": 0} for name in stage_names}
+        for ops in self.cpu.values():
+            starts = [op[0] for op in ops]
+            for start, end, _, is_async, name in ops:
+                if name not in out:
+                    continue
+                st = out[name]
+                st["host_ms"] += (end - start) / 1e6
+                st["calls"] += 1
+                if is_async:
+                    continue
+                lo, hi = bisect.bisect_left(starts, start), bisect.bisect_left(starts, end)
+                st["device_ms"] += sum(
+                    self.kernel_us.get(op[2], 0.0) for op in ops[lo:hi]
+                    if op[1] <= end and not op[3]
+                ) / 1e3
+        return out
+
+    def device_spans(self, labels) -> list:
+        """(start, end) in us of every device event not named in `labels`."""
+        return [(s, e) for name, s, e, _, _ in self.device if name not in labels and e > s]
+
+
+def trace_of(prof) -> Trace:
+    """The profile's `Trace`, read once."""
+    if not hasattr(prof, "_smoke_trace"):
+        prof._smoke_trace = Trace(prof)
+    return prof._smoke_trace
+
+
+def check_trace_reader(prof, stage_names) -> dict:
+    """torch's reader and `Trace` on one profile must give the same
+    device rows, stages, spans and event counts; their times."""
+    from torch.autograd import DeviceType
+
+    labels = set(STAGES) | set(TRAIN_STAGES)
+    t0 = time.perf_counter()
+    trace = Trace(prof)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events, averages = prof.events(), prof.key_averages()
+    torch_s = time.perf_counter() - t0
+    rows = sorted(
+        (e.key, e.self_device_time_total / 1e3, e.count) for e in averages
+        if e.device_type == DeviceType.CUDA and e.key not in labels and e.self_device_time_total > 0
+    )
+    stages = {name: {"host_ms": 0.0, "device_ms": 0.0, "calls": 0} for name in stage_names}
+    for e in events:
+        if e.name in stages and e.device_type == DeviceType.CPU:
+            stages[e.name]["host_ms"] += e.cpu_time_total / 1e3
+            stages[e.name]["device_ms"] += e.device_time_total / 1e3
+            stages[e.name]["calls"] += 1
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in events
+        if e.device_type == DeviceType.CUDA and e.name not in labels and e.time_range.end > e.time_range.start
+    )
+    # The runtime calls' counts are the ones this script reads (torch's
+    # reader also folds an op into a same-named parent, `aten::bitwise_and`
+    # calling itself: not a runtime call).
+    runtime = lambda name: name.startswith("cu")  # noqa: E731
+    counts = collections.Counter(e.name for e in events if runtime(e.name))
+    names = collections.Counter({k: n for k, n in trace.names.items() if runtime(k)})
+
+    def close(a: float, b: float) -> bool:
+        return abs(a - b) <= 1e-6 * max(1.0, abs(a), abs(b))
+
+    mine = sorted(trace.device_rows(labels))
+    got = trace.stages(stage_names)
+    my_spans = sorted(trace.device_spans(labels))
+    if ([(k, n) for k, _, n in mine] != [(k, n) for k, _, n in rows]
+            or not all(close(a[1], b[1]) for a, b in zip(mine, rows))
+            or any(got[s]["calls"] != stages[s]["calls"] or not close(got[s]["host_ms"], stages[s]["host_ms"])
+                   or not close(got[s]["device_ms"], stages[s]["device_ms"]) for s in stage_names)
+            or len(my_spans) != len(spans)
+            or not close(sum(b - a for a, b in my_spans), sum(b - a for a, b in spans))
+            or names != counts):
+        fail(f"the profile reader differs from torch's: rows {mine[:3]} / {rows[:3]}, stages {got} / {stages}, "
+             f"{len(my_spans)} / {len(spans)} spans, runtime calls {names - counts} / {counts - names}")
+    return {"events": len(events), "runtime_calls": sum(counts.values()), "torch_s": torch_s, "fast_s": fast_s}
 
 
 def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
@@ -1118,25 +1317,11 @@ def read_profile(prof, stage_names, wall_ms: float, ref_ms: float) -> dict:
     ported kernels' time. The busy share divides the device time by the
     unprofiled time `ref_ms` of the same work (the profiler slows the
     host, not the kernels)."""
-    from torch.autograd import DeviceType
-
     # Every `record_function` label also shows as a device range; only
     # kernels and copies count as device time.
-    labels = set(STAGES) | set(TRAIN_STAGES)
-    rows = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.key not in labels
-        and e.self_device_time_total > 0
-    ]
-    rows.sort(key=lambda r: -r[1])
-    stages = {name: {"host_ms": 0.0, "device_ms": 0.0, "calls": 0} for name in stage_names}
-    for e in prof.events():
-        if e.name in stages and e.device_type == DeviceType.CPU:
-            st = stages[e.name]
-            st["host_ms"] += e.cpu_time_total / 1e3
-            st["device_ms"] += e.device_time_total / 1e3
-            st["calls"] += 1
+    trace = trace_of(prof)
+    rows = trace.device_rows(set(STAGES) | set(TRAIN_STAGES))
+    stages = trace.stages(stage_names)
     device_ms = sum(r[1] for r in rows)
     # The ported kernels launch through ctypes, outside any torch op, so
     # the stage labels do not see them; read them by kernel name (one op
@@ -1181,11 +1366,9 @@ def loop_config(**kw):
     starts fresh in its own directory), and `kw`; fails if a width was cut."""
     from alphatriangle_tpu_torch.config import TrainConfig
 
-    kw = {"AUTO_RESUME_LATEST": False, **kw}
-    cfg = TrainConfig(
-        RANDOM_SEED=0, ROLLOUT_CHUNK_MOVES=TRAIN_CHUNK_MOVES, MIN_BUFFER_SIZE_TO_TRAIN=TRAIN_MIN_BUFFER,
-        **kw,
-    )
+    kw = {"AUTO_RESUME_LATEST": False, "ROLLOUT_CHUNK_MOVES": TRAIN_CHUNK_MOVES,
+          "MIN_BUFFER_SIZE_TO_TRAIN": TRAIN_MIN_BUFFER, **kw}
+    cfg = TrainConfig(RANDOM_SEED=0, **kw)
     defaults = TrainConfig()
     for name in ("SELF_PLAY_BATCH_SIZE", "BATCH_SIZE", "BUFFER_CAPACITY", "N_STEP_RETURNS", "USE_PER",
                  "OPTIMIZER_TYPE", "LR_SCHEDULER_TYPE", "GRADIENT_CLIP_VALUE"):
@@ -1600,10 +1783,10 @@ def train_phase(torch, dev, kernels, reuse: bool = False, record: list | None = 
 
 # The synchronous and overlapped phases' depth cuts (their widths are the
 # defaults, as in the train phase).
-SYNC_STEPS, SYNC_HOST_STEPS, ASYNC_STEPS = 12, 4, 12
+SYNC_STEPS, SYNC_HOST_STEPS, ASYNC_STEPS = 10, 4, 10
 # Further windows of the overlapped loop: one under the profiler, one
 # with every beacon armed.
-ASYNC_PROFILED_STEPS, ASYNC_ARMED_STEPS = 4, 4
+ASYNC_PROFILED_STEPS, ASYNC_ARMED_STEPS = 2, 2
 
 
 def watch_chunks():
@@ -1703,12 +1886,7 @@ def device_union(prof, labels) -> dict:
     """Device time of a profile's kernels and copies on every stream: the
     union of their intervals (the time the card was busy) and their sum
     (above the union where streams ran at once)."""
-    from torch.autograd import DeviceType
-
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == DeviceType.CUDA and e.name not in labels and e.time_range.end > e.time_range.start
-    )
+    spans = sorted(trace_of(prof).device_spans(labels))
     union, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -3774,7 +3952,7 @@ def serve_precision_phase(torch, dev, kernels, cycles: float) -> dict:
     # Kernel launches as the runtime saw them (the profiler may file a
     # window's first kernel under its buffer request).
     launched = sum(
-        e.count for e in prof.key_averages() if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+        n for name, n in trace_of(prof).names.items() if name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
     )
     if launched != groups.launches:
         fail(f"serve-int8: a dequantization launched {launched} kernels, want {groups.launches}")
@@ -3889,7 +4067,7 @@ LADDER_SESSIONS, LADDER_CONCURRENCY, LADDER_MAX_MOVES = 160, 64, 8
 # The league phase: a pool of two checkpoints written by `cli train`,
 # then `cli league` against it (depth cuts only: 4 learner steps).
 LEAGUE_POOL_STEPS, LEAGUE_POOL_FREQ = 4, 2
-LEAGUE_STEPS, LEAGUE_SLOTS, LEAGUE_GAMES, LEAGUE_MAX_MOVES = 2, 8, 4, 24
+LEAGUE_STEPS, LEAGUE_SLOTS, LEAGUE_GAMES, LEAGUE_MAX_MOVES = 1, 8, 4, 24
 
 
 def build_listing() -> tuple:
@@ -4841,11 +5019,8 @@ def runtime_syncs(prof) -> dict:
     """The host-blocking CUDA runtime calls a profile recorded, by name."""
     names = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
              "cudaMemcpyAsync", "cudaMemcpy")
-    counts = {name: 0 for name in names}
-    for e in prof.events():
-        if e.name in counts:
-            counts[e.name] += 1
-    return counts
+    counts = trace_of(prof).names
+    return {name: counts[name] for name in names}
 
 
 def check_device_stats(loop, label: str, strict: bool = True) -> dict:
@@ -6003,6 +6178,301 @@ def say_dp(label: str, r: dict, card: str) -> None:
         )
 
 
+# Slice fifteen: tensor and sequence parallelism in the synchronous loop.
+# One pair of rank processes shares the card over gloo (`python3
+# chip_smoke.py --mesh-rank SPEC RANK`, this file run as a child) and runs
+# both meshes in turn, each over a group of its own; each calls
+# `run_training(mesh_config=...)`, as no CLI flag sets the mdl or sp axis,
+# at the train default's widths (bf16 net, conv 32-64-128, two transformer
+# layers of 128 with 4 heads, FC 256, 120 tokens; 64 simulations, batch
+# 256), cut in depth: 3-move chunks (the 5-step returns leave the first
+# chunk without rows), 1 learner step an iteration to 3 steps, so 4
+# iterations; the third traced (`--profile`'s window of iterations 1-2
+# narrowed to 2, `MESH_TRACED`): the second that trains (the first pays
+# the learner's first use, on tp2 unequally across the ranks).
+MESH_CHUNK_MOVES, MESH_STEPS_PER_ITERATION, MESH_STEPS, MESH_ITERATIONS = 3, 1, 3, 4
+MESH_TRACED = 2  # the loop's iteration index the profiler traces
+MESH_PHASES = {
+    "train-tp2-shared": ({"MDL_SIZE": 2}, "tp.all_reduce", 512),
+    "train-sp2-shared": ({"SP_SIZE": 2, "SP_ATTENTION": "ring"}, "sp.attention", 256),
+}
+# The learner's attention at the default widths: (batch, tokens, heads,
+# head_dim); ring and Ulysses against dense at `tests/test_ring_attention.py`'s
+# tolerances (float32 inputs, float32 accumulation).
+ATTN_SHAPE = (256, 120, 4, 32)
+ATTN_FWD_TOL, ATTN_GRAD_TOL = 2e-5, 5e-5
+ATTN_TIMED = 5
+
+
+def label_share(trace_path: str, label: str) -> dict:
+    """A rank's traced iteration (from its `phase/rollout` span to the
+    profiler's last event: the second that trains) and `label`'s host
+    time inside it (the union of its spans), with its device range where
+    the trace has one."""
+    events = [e for e in json.loads(Path(trace_path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    start = max(e["ts"] for e in events
+                if e.get("name") == "phase/rollout" and e.get("cat") == "user_annotation")
+    wall = max(e["ts"] + e["dur"] for e in events) - start
+
+    def union(spans) -> float:
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    def spans(cat: str) -> list:
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("name") == label and e.get("cat") == cat and e["ts"] >= start]
+
+    host, device = spans("user_annotation"), spans("gpu_user_annotation")
+    return {"traced_ms": wall / 1e3, "host_ms": union(host) / 1e3, "share": union(host) / wall,
+            "calls": len(host), "device_ms": union(device) / 1e3 if device else None}
+
+
+def attention_check(torch, mesh_config, rank: int) -> dict:
+    """Ring and Ulysses on the card at the learner's attention shape over
+    the sp group: this rank's sequence shard's output and q / k / v
+    gradients against dense attention on the whole inputs (float32); the
+    largest errors beside their tolerances, and each one's fwd + bwd wall
+    (median of a few, collectives included) beside dense's."""
+    from alphatriangle_tpu_torch.parallel.distributed import attach_groups
+    from alphatriangle_tpu_torch.parallel.ring_attention import (
+        _dense_attention,
+        ring_attention,
+        ulysses_attention,
+    )
+
+    mesh = attach_groups(mesh_config.build_mesh(2, rank, "gloo"))
+    gen = torch.Generator().manual_seed(0)
+    full = {x: torch.randn(ATTN_SHAPE, generator=gen).cuda() for x in ("q", "k", "v", "dout")}
+    scale = 1.0 / ATTN_SHAPE[-1] ** 0.5
+    n, i = mesh.sp, mesh.sp_index
+
+    def run(fn, part):
+        q, k, v = (part(full[x]).clone().requires_grad_(True) for x in ("q", "k", "v"))
+        y = fn(q, k, v)
+        y.backward(part(full["dout"]))
+        return {"out": y.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+
+    def timed(fn, part) -> float:
+        times = []
+        for _ in range(ATTN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(fn, part)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    whole = lambda t: t  # noqa: E731
+    mine = lambda t: t.chunk(n, dim=1)[i]  # noqa: E731
+    dense = lambda q, k, v: _dense_attention(q, k, v, scale)  # noqa: E731
+    ref = {name: mine(t) for name, t in run(dense, whole).items()}
+    out = {"shape": list(ATTN_SHAPE), "sp": n, "dense_ms": timed(dense, whole)}
+    for kind, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        got = run(lambda q, k, v, fn=fn: fn(q, k, v, mesh=mesh, scale=scale), mine)
+        errs = {name: float((got[name] - ref[name]).abs().max()) for name in got}
+        for name, g in got.items():
+            tol = ATTN_FWD_TOL if name == "out" else ATTN_GRAD_TOL
+            if not torch.allclose(g, ref[name], rtol=tol, atol=tol):
+                fail(f"{kind} attention on rank {rank}: {name} off dense by {errs[name]:.3e} "
+                     f"(tolerance {tol} relative and absolute)")
+        out[kind] = {"max_abs_err": errs, "fwd_tol": ATTN_FWD_TOL, "grad_tol": ATTN_GRAD_TOL,
+                     "ms": timed(lambda q, k, v, fn=fn: fn(q, k, v, mesh=mesh, scale=scale), mine)}
+    return out
+
+
+def mesh_rank_child(spec_path: str, rank: int) -> int:
+    """One rank of the mesh pair (this file as a child): for each mesh in
+    turn, over a group of its own (`run_training` leaves it at its end),
+    the sp mesh's attention check, then `run_training`; writes each
+    mesh's figures to the spec's output file."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    spec = json.loads(Path(spec_path).read_text())
+    global RUN_ROOT
+    RUN_ROOT = Path(spec["root"])
+    from alphatriangle_tpu_torch import profiling
+    from alphatriangle_tpu_torch.config import MeshConfig
+    from alphatriangle_tpu_torch.ops import KERNELS
+    from alphatriangle_tpu_torch.parallel import DistributedConfig, initialize_distributed
+    from alphatriangle_tpu_torch.training import LoopStatus, run_training
+
+    real_init = profiling.ProfileSession.__init__
+
+    def one_iteration(self, enabled, profile_dir, trace_start=1, trace_stop=3, tracer=None):
+        real_init(self, enabled, profile_dir, MESH_TRACED, MESH_TRACED + 1, tracer)
+
+    profiling.ProfileSession.__init__ = one_iteration
+    for label, (mesh_fields, traced_label, _) in MESH_PHASES.items():
+        t_start = time.time()
+        dist_config = DistributedConfig(
+            ENABLED=True, COORDINATOR_ADDRESS=f"localhost:{spec['ports'][label]}", NUM_PROCESSES=2,
+            PROCESS_ID=rank, BACKEND="gloo",
+        )
+        mesh_config = MeshConfig(**mesh_fields)
+        out = {"rank": rank, "start_unix": t_start}
+        if mesh_config.SP_SIZE > 1:
+            initialize_distributed(dist_config, "cuda")
+            out["attention"] = attention_check(torch, mesh_config, rank)
+        for kern in KERNELS.values():
+            kern.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        # The run's name is TrainConfig's: every rank writes beside rank 0's choice.
+        cfg = loop_config(MAX_TRAINING_STEPS=MESH_STEPS, ROLLOUT_CHUNK_MOVES=MESH_CHUNK_MOVES,
+                          LEARNER_STEPS_PER_ROLLOUT=MESH_STEPS_PER_ITERATION, PROFILE_WORKERS=True,
+                          RUN_NAME=label)
+        loop = run_training(cfg, persistence_config=run_dir(label), device="cuda",
+                            distributed_config=dist_config, mesh_config=mesh_config, log_level="WARNING")
+        if loop.status is not LoopStatus.COMPLETED or loop.global_step != MESH_STEPS:
+            fail(f"{label} rank {rank}: ended {loop.status.value} at step {loop.global_step} ({loop.error!r})")
+        check_losses(loop, f"{label} rank {rank}")
+        report = loop.report()
+        out.update({
+            "report": {k: report[k] for k in ("dp", "iterations", "steps", "episodes", "lane_moves",
+                                               "buffer_size", "replay_ring", "rows_per_iteration",
+                                               "steps_per_iteration", "peak_device_bytes", "losses")},
+            "iteration_ms": [t * 1e3 for t in loop.timings["iteration_s"]],
+            "learner_ms": [t * 1e3 for t in loop.timings["learner_s"]],
+            "rollout_ms": [t * 1e3 for t in loop.timings["rollout_s"]],
+            "first_iteration_unix": loop.first_iteration_unix,
+            "launches": {name: kern.launches for name, kern in KERNELS.items()},
+            "trace": label_share(str(loop.profile.trace_path), traced_label),
+        })
+        Path(spec["out"].format(label=label, rank=rank)).write_text(json.dumps(out))
+        del loop
+        torch.cuda.empty_cache()
+    return 0
+
+
+def mesh_phases(torch) -> tuple:
+    """The pair of ranks sharing the card over gloo (`mesh_rank_child`)
+    through both meshes; per mesh its checks (4 synchronous iterations,
+    the gathered-parameter digests equal after every iteration, the
+    search kernels 16 + 2 times a searched move on a rank that plays, at
+    its lanes, none on an mdl replica past the line's first, no PER count:
+    the mesh takes the host ring; the checkpoint's lane totals counting
+    each lane once) and figures. Returns (reports by label, the pair's
+    wall)."""
+    spec = {"ports": {label: free_port() for label in MESH_PHASES}, "root": str(RUN_ROOT),
+            "out": str(RUN_ROOT / "{label}-rank{rank}.json")}
+    spec_path = RUN_ROOT / "mesh.spec.json"
+    spec_path.write_text(json.dumps(spec))
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(2):
+            out = open(RUN_ROOT / f"mesh-rank{r}.out", "w")
+            err = open(RUN_ROOT / f"mesh-rank{r}.err", "w")
+            files += [out, err]
+            t_spawn = time.time()
+            procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                                            str(spec_path), str(r)], cwd=ROOT, stdout=out, stderr=err,
+                                           text=True), t_spawn))
+        deadline = time.monotonic() + 600
+        for proc, _ in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in files:
+            f.close()
+    wall_s = time.perf_counter() - t0
+    for r, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            tail = (RUN_ROOT / f"mesh-rank{r}.out").read_text()[-1500:]
+            err = (RUN_ROOT / f"mesh-rank{r}.err").read_text()[-3000:]
+            fail(f"mesh rank {r}: exit {proc.returncode}: {tail} {err}")
+    reports = {}
+    for i, (label, (mesh_fields, traced_label, lanes)) in enumerate(MESH_PHASES.items()):
+        ranks = []
+        for r, (proc, t_spawn) in enumerate(procs):
+            rk = json.loads(Path(spec["out"].format(label=label, rank=r)).read_text())
+            rep = rk["report"]
+            moves = rep["iterations"] * MESH_CHUNK_MOVES
+            # The mdl line's first rank plays; its replicas receive the rows.
+            searched = moves if rep["dp"]["index"]["mdl"] == 0 else 0
+            want = {"gather_rows": 16 * searched, "backup_update": 2 * searched, "per_sample": 0,
+                    "subtree_promote": 0}
+            if rep["iterations"] != MESH_ITERATIONS or rk["launches"] != want or rep["replay_ring"] != "host":
+                fail(f"{label} rank {r}: {rep['iterations']} iterations, launches {rk['launches']} (want "
+                     f"{want} over {searched} searched moves), {rep['replay_ring']} ring")
+            shape = {"dp": 1, "mdl": mesh_fields.get("MDL_SIZE", 1), "sp": mesh_fields.get("SP_SIZE", 1)}
+            if rep["lane_moves"] != lanes * moves or rep["dp"]["mesh"] != shape:
+                fail(f"{label} rank {r}: {rep['lane_moves']} lane moves over {moves} moves (want {lanes} "
+                     f"lanes), mesh {rep['dp']['mesh']}")
+            ranks.append({
+                "rank": r, "index": rep["dp"]["index"], "lanes": lanes, "searched_moves": searched,
+                "launches": rk["launches"], "iteration_ms": rk["iteration_ms"],
+                "iteration_ms_p50": statistics.median(rk["iteration_ms"]),
+                "learner_ms_per_step_p50": statistics.median(
+                    t / n for t, n in zip(rk["learner_ms"], rep["steps_per_iteration"]) if n),
+                "rollout_ms_p50": statistics.median(rk["rollout_ms"]),
+                "peak_gb": rep["peak_device_bytes"] / 2**30,
+                # The pair spawns once, for the first mesh; a later mesh
+                # counts from the start of its group.
+                "to_first_iteration_from": "spawn" if i == 0 else "group start",
+                "to_first_iteration_s": rk["first_iteration_unix"] - (t_spawn if i == 0 else rk["start_unix"]),
+                "trace": rk["trace"], "episodes": rep["episodes"], "digests": rep["dp"]["param_checksums"],
+                "rows_per_iteration": rep["rows_per_iteration"], "steps_per_iteration": rep["steps_per_iteration"],
+                **({"attention": rk["attention"]} if "attention" in rk else {}),
+            })
+        if ranks[0]["digests"] != ranks[1]["digests"] or len(ranks[0]["digests"]) != MESH_ITERATIONS:
+            fail(f"{label}: gathered-parameter digests differ or miss an iteration: "
+                 f"{ranks[0]['digests']} / {ranks[1]['digests']}")
+        if ranks[0]["trace"]["calls"] == 0:
+            fail(f"{label}: no {traced_label} span in the traced training iteration of rank 0")
+        meta = json.loads((RUN_ROOT / label / "AlphaTriangleTPUTorch" / "runs" / label / "checkpoints"
+                           / f"step_{MESH_STEPS:08d}.meta.json").read_text())
+        owners = [rk for rk in ranks if rk["index"]["mdl"] == 0]
+        if meta["episodes_played"] != sum(rk["episodes"] for rk in owners):
+            fail(f"{label}: the checkpoint counts {meta['episodes_played']} episodes, the lanes' owners "
+                 f"{[rk['episodes'] for rk in owners]}")
+        reports[label] = {
+            "backend": "gloo", "world": 2, "mesh": mesh_fields, "label": traced_label, "ranks": ranks,
+            "launches": {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] for k in ranks[0]["launches"]},
+            "searched_moves": sum(rk["searched_moves"] for rk in ranks), "digests": ranks[0]["digests"],
+            "checkpoint_episodes": meta["episodes_played"],
+        }
+    return reports, wall_s
+
+
+def say_mesh(label: str, r: dict, card: str) -> None:
+    for rk in r["ranks"]:
+        tr = rk["trace"]
+        dev = "" if tr["device_ms"] is None else f", device {tr['device_ms']:.2f} ms"
+        idx = rk["index"]
+        say(
+            f"{label} rank {rk['rank']} (gloo, mesh {r['mesh']}, index dp {idx['dp']} mdl {idx['mdl']} sp "
+            f"{idx['sp']}, {rk['lanes']} lanes, {rk['searched_moves']} searched moves): iteration p50 "
+            f"{rk['iteration_ms_p50']:.1f} ms "
+            f"({', '.join(f'{t:.1f}' for t in rk['iteration_ms'])}; rows {rk['rows_per_iteration']}, steps "
+            f"{rk['steps_per_iteration']}), rollout p50 {rk['rollout_ms_p50']:.1f} ms, learner "
+            f"{rk['learner_ms_per_step_p50']:.1f} ms a step; {r['label']} {tr['host_ms']:.1f} ms in "
+            f"{tr['calls']} spans{dev}, {tr['share']:.2%} of the traced training iteration "
+            f"({tr['traced_ms']:.1f} ms); peak {rk['peak_gb']:.2f} GiB; {rk['to_first_iteration_from']} to "
+            f"first iteration {rk['to_first_iteration_s']:.1f} s; launches {rk['launches']} [{card}]"
+        )
+        if "attention" in rk:
+            at = rk["attention"]
+            for kind in ("ring", "ulysses"):
+                e = at[kind]["max_abs_err"]
+                say(
+                    f"{label} rank {rk['rank']} {kind} attention {tuple(at['shape'])} f32 against dense: "
+                    f"max abs err out {e['out']:.2e} (tol {ATTN_FWD_TOL}), dq {e['dq']:.2e}, dk {e['dk']:.2e}, "
+                    f"dv {e['dv']:.2e} (tol {ATTN_GRAD_TOL}); fwd + bwd {at[kind]['ms']:.1f} ms, dense on "
+                    f"the whole {at['dense_ms']:.1f} ms [{card}]"
+                )
+    say(f"{label}: gathered-parameter digests equal on both ranks after each of {MESH_ITERATIONS} "
+        f"iterations {r['digests']}; the checkpoint counts {r['checkpoint_episodes']} episodes, each lane once")
+
+
 def main() -> int:
     import torch
 
@@ -6109,6 +6579,9 @@ def run_phases(torch) -> int:
     t0 = time.perf_counter()
     sreport = serve_phase(torch, dev, KERNELS, record=recorded["serve"])
     say_serve("serve", sreport, card)
+    say(f"profile reader: equal to torch's on the profiled dispatch's {TRACE_READER['events']} events "
+        f"({TRACE_READER['runtime_calls']} runtime calls; {TRACE_READER['fast_s']:.2f} s, torch's "
+        f"{TRACE_READER['torch_s']:.2f} s)")
     say(f"serve phase: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -6434,23 +6907,21 @@ def run_phases(torch) -> int:
     flreport = fleet_phase(torch, dev, KERNELS, kind)
     say_fleet(flreport, card)
 
-    t0 = time.perf_counter()
-    swreport = supervise_wedge_phase(torch, treport["warmup_chunks"])
-    say_supervise("supervise-wedge", swreport, card)
-    say(
-        f"supervise-wedge: hang-dispatch at dispatch {swreport['hang_at_dispatch']} "
-        f"({swreport['hung_program']}), wedge report at {swreport['wedge_elapsed_s']} s past its "
-        f"{swreport['wedge_deadline_s']} s deadline, death {swreport['hang_to_death_s']:.1f} s after "
-        f"the hung intent; doctor at the death {swreport['at_death']['doctor']['verdict']} "
-        f"(exit {swreport['at_death']['doctor_rc']}); {swreport['beacon_rows']} beacon rows from "
-        f"{swreport['beacon_launches']} launches in the respawn [{card}]"
-    )
-    say(f"supervise-wedge phase: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    streport = supervise_torn_phase(torch)
-    say_supervise("supervise-torn", streport, card)
-    say(f"supervise-torn: the checkpoints at the death {json.dumps(streport['checkpoints_at_death'])} [{card}]")
-    say(f"supervise-torn phase: {time.perf_counter() - t0:.1f} s")
+    # The supervise drills (torch-free `cli supervise` parents and their
+    # children) run beside the dp phases' rank processes: each side waits
+    # on its own processes, and neither reads the other's launch counts.
+    t_drills = time.perf_counter()
+    drills: dict = {}
+
+    def supervise_drills() -> None:
+        t0 = time.perf_counter()
+        drills["wedge"] = supervise_wedge_phase(torch, treport["warmup_chunks"])
+        drills["wedge_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drills["torn"] = supervise_torn_phase(torch)
+        drills["torn_s"] = time.perf_counter() - t0
+
+    join_drills = in_background(supervise_drills)
     t0 = time.perf_counter()
     d1report = train_dp1_phase(torch)
     say_dp("train-dp1", d1report, card)
@@ -6466,6 +6937,22 @@ def run_phases(torch) -> int:
     d2report, d2resume = train_dp2_shared_phase(torch)
     say_dp("train-dp2-shared", d2report, card)
     say(f"train-dp2-shared phase (the ranks): {time.perf_counter() - t0:.1f} s")
+    join_drills()
+    swreport, streport = drills["wedge"], drills["torn"]
+    say_supervise("supervise-wedge", swreport, card)
+    say(
+        f"supervise-wedge: hang-dispatch at dispatch {swreport['hang_at_dispatch']} "
+        f"({swreport['hung_program']}), wedge report at {swreport['wedge_elapsed_s']} s past its "
+        f"{swreport['wedge_deadline_s']} s deadline, death {swreport['hang_to_death_s']:.1f} s after "
+        f"the hung intent; doctor at the death {swreport['at_death']['doctor']['verdict']} "
+        f"(exit {swreport['at_death']['doctor_rc']}); {swreport['beacon_rows']} beacon rows from "
+        f"{swreport['beacon_launches']} launches in the respawn [{card}]"
+    )
+    say(f"supervise-wedge phase (beside the dp phases): {drills['wedge_s']:.1f} s")
+    say_supervise("supervise-torn", streport, card)
+    say(f"supervise-torn: the checkpoints at the death {json.dumps(streport['checkpoints_at_death'])} [{card}]")
+    say(f"supervise-torn phase (beside the dp phases): {drills['torn_s']:.1f} s")
+    say(f"supervise drills and dp phases: {time.perf_counter() - t_drills:.1f} s")
     t_resume = time.perf_counter()
     join_resume = in_background(d2resume)
 
@@ -6548,6 +7035,11 @@ def run_phases(torch) -> int:
     say(f"train-dp2-shared resume, beside the doctor, readers and reference phases: "
         f"{time.perf_counter() - t_resume:.1f} s")
 
+    mesh_reports, mesh_s = mesh_phases(torch)
+    for label, r in mesh_reports.items():
+        say_mesh(label, r, card)
+    say(f"{' and '.join(MESH_PHASES)} phases (one pair of ranks): {mesh_s:.1f} s")
+
     paths = {
         "serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport,
         "train_sync": syreport, "train_sync_host": shreport, "train_async": asreport,
@@ -6562,6 +7054,8 @@ def run_phases(torch) -> int:
         "fleet": flreport,
         "supervise_wedge": supervised_path(swreport), "supervise_torn": supervised_path(streport),
         "train_dp1": d1report, "train_dp2_shared": d2report,
+        "train_tp2_shared": mesh_reports["train-tp2-shared"],
+        "train_sp2_shared": mesh_reports["train-sp2-shared"],
     }
     kernels_line = []
     for kname, kr in kreport.items():
@@ -6616,4 +7110,6 @@ def run_phases(torch) -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

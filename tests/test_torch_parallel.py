@@ -85,7 +85,7 @@ from torch_parity import (  # noqa: E402
 )
 
 DP = 2
-ITEM_6B = "ROADMAP.md item 6b"
+ITEM_6C = "ROADMAP.md item 6c"
 
 
 # --- membership, meshes and refusals -------------------------------------
@@ -152,19 +152,26 @@ class TestMesh:
         with pytest.raises(ValueError, match="one rank per device"):
             MeshConfig(DP_SIZE=2).build_mesh(4, 0)
 
-    @pytest.mark.parametrize("field", ["MDL_SIZE", "SP_SIZE"])
-    def test_tensor_and_sequence_parallelism_refused(self, tmp_path, tiny_env_config, field):
-        with pytest.raises(ValueError, match=ITEM_6B):
-            MeshConfig(**{field: 2}).build_mesh(2, 0)
-        with pytest.raises(ValueError, match=ITEM_6B):
+    @pytest.mark.parametrize("case", ["MDL_SIZE", "SP_SIZE", "leaves_ranks_out"])
+    def test_remaining_refusals(self, tmp_path, tiny_env_config, case):
+        """An mdl or sp axis the world cannot hold raises, naming the
+        ranks it needs, before setup makes a directory (one process is a
+        world of one); a mesh that leaves ranks out of the world raises."""
+        if case == "leaves_ranks_out":
+            with pytest.raises(ValueError, match=r"Mesh of 2 ranks \(dp=1 x mdl=2 x sp=1\) over 4 ranks"):
+                MeshConfig(DP_SIZE=1, MDL_SIZE=2).build_mesh(4, 0)
+            return
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            MeshConfig(**{case: 2}).build_mesh(1, 0)
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             setup_training_components(
                 env_config=torch_cfg(tiny_env_config), persistence_config=run_root(tmp_path),
-                device=CPU, mesh_config=MeshConfig(**{field: 2}),
+                device=CPU, mesh_config=MeshConfig(**{case: 2}),
             )
         assert not (tmp_path / "AlphaTriangleTPUTorch").exists()
 
     def test_distributed_async_rollouts_refused(self, tmp_path):
-        with pytest.raises(SystemExit, match=ITEM_6B):
+        with pytest.raises(SystemExit, match=ITEM_6C):
             cli.main(["train", "--device", "cpu", "--distributed", "--async-rollouts",
                       "--root-dir", str(tmp_path), "--no-auto-resume"])
 

@@ -19,6 +19,20 @@ Scenarios:
   global warm-up rows striped into the shards, seeded priorities, one
   megastep; the shard's storage, the sampled slots, the IS weights,
   the parameters and the counters after it.
+- `tp_learner`: K learner steps of a tensor-parallel learner on the
+  spec's mesh (`mesh`: MeshConfig fields), on the rank's dp rows, once
+  per entry of `dropout` (False: the transformer's dropout rate set to
+  0, as the frameworks draw their masks from different generators); the
+  whole state (`get_state`), the rank's shards, metrics, TD errors, the
+  digest and the net's module after `sync_to_network`.
+- `sp_attention`: ring and Ulysses on the rank's sequence shard of
+  global (B, S, H, D) q, k, v, forward and the gradients of a given
+  output gradient, and `make_sp_attention`'s function on the whole
+  inputs.
+- `sp_model`: the net with `make_sp_attention` in eval mode on a batch.
+- `train`: `run_training` over the group with the spec's mesh (on
+  `device`, default the CPU, over `backend`); the report, the rows
+  of the ring's first add and the kernels' launch counts.
 """
 
 import json
@@ -33,7 +47,7 @@ from alphatriangle_tpu_torch.env import TriangleEnv
 from alphatriangle_tpu_torch.features import FeatureExtractor
 from alphatriangle_tpu_torch.nn import NeuralNetwork
 from alphatriangle_tpu_torch.parallel import DistributedConfig, initialize_distributed, shard_batch
-from alphatriangle_tpu_torch.parallel.distributed import backend_name
+from alphatriangle_tpu_torch.parallel.distributed import attach_groups, backend_name
 from alphatriangle_tpu_torch.rl.megastep import MegastepRunner
 from alphatriangle_tpu_torch.rl.self_play import SelfPlayEngine
 from alphatriangle_tpu_torch.rl.sharded_device_buffer import ShardedDeviceReplayBuffer
@@ -114,19 +128,127 @@ def megastep(spec, mesh) -> dict:
     }
 
 
+def tp_learner(spec, mesh) -> dict:
+    env, model, train, _ = _configs(spec)
+    batches = [shard_batch(mesh, dict(b)) for b in np.load(spec["batches"], allow_pickle=True)["batches"]]
+    out = {}
+    for drop in spec["dropout"]:
+        net = _net(spec, env, model)
+        trainer = Trainer(net, train, mesh=mesh)
+        if not drop:
+            for m in trainer.model.modules():
+                if hasattr(m, "dropout_rate"):
+                    m.dropout_rate = 0.0
+        results = trainer.train_steps(batches)
+        state = trainer.get_state()
+        version = trainer.sync_to_network()
+        out["dropout" if drop else "no_dropout"] = {
+            "state": state,
+            "shards": {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
+            "synced": {k: v.clone() for k, v in net.model.state_dict().items()},
+            "synced_version": version,
+            "metrics": [m for m, _ in results],
+            "td": [np.asarray(td) for _, td in results],
+            "checksum": trainer.param_checksum(),
+        }
+    return out
+
+
+def sp_attention(spec, mesh) -> dict:
+    from alphatriangle_tpu_torch.parallel.ring_attention import (
+        make_sp_attention,
+        ring_attention,
+        ulysses_attention,
+    )
+
+    arrays = np.load(spec["qkv"])
+    full = {k: torch.from_numpy(arrays[k]) for k in ("q", "k", "v", "dout")}
+    n, i = mesh.sp, mesh.sp_index
+    out = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        q, k, v = (full[x].chunk(n, dim=1)[i].clone().requires_grad_(True) for x in ("q", "k", "v"))
+        y = fn(q, k, v, mesh=mesh)
+        y.backward(full["dout"].chunk(n, dim=1)[i])
+        out[name] = {"out": y.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+        q, k, v = (full[x].clone().requires_grad_(True) for x in ("q", "k", "v"))
+        y = make_sp_attention(mesh, name)(q, k, v)
+        y.backward(full["dout"])
+        out[f"{name}_fn"] = {"out": y.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad}
+    return out
+
+
+def sp_model(spec, mesh) -> dict:
+    from alphatriangle_tpu_torch.parallel.ring_attention import make_sp_attention
+
+    env, model, _, _ = _configs(spec)
+    out = {}
+    for kind in ("ring", "ulysses"):
+        net = NeuralNetwork(model, env, seed=0, device="cpu", attention_fn=make_sp_attention(mesh, kind))
+        net.model.load_state_dict(torch.load(spec["state_dict"], weights_only=True))
+        batch = np.load(spec["batch"])
+        with torch.no_grad():
+            policy, value = net.model(torch.from_numpy(batch["grid"]), torch.from_numpy(batch["other"]))
+        out[kind] = {"policy": policy, "value": value}
+    return out
+
+
+def train(spec, rank: int, world: int) -> dict:
+    from alphatriangle_tpu_torch.rl.buffer import ExperienceBuffer
+    from alphatriangle_tpu_torch.training import runner
+
+    env, model, train_cfg, mcts = _configs(spec)
+    adds = []
+    add_dense = ExperienceBuffer.add_dense
+
+    def recording(self, *args, **kwargs):
+        adds.append([np.array(a) for a in args] + [np.array(v) for v in kwargs.values()])
+        return add_dense(self, *args, **kwargs)
+
+    ExperienceBuffer.add_dense = recording
+    from alphatriangle_tpu_torch.rl.self_play import SelfPlayEngine
+
+    chunks = []
+    play_chunk = SelfPlayEngine.play_chunk
+
+    def counting(self, *args, **kwargs):
+        chunks.append(1)
+        return play_chunk(self, *args, **kwargs)
+
+    SelfPlayEngine.play_chunk = counting
+    loop = runner.run_training(
+        train_config=train_cfg, env_config=env, model_config=model, mcts_config=mcts,
+        persistence_config=tcfg.PersistenceConfig(**spec["persistence"]), device=spec.get("device", "cpu"),
+        distributed_config=DistributedConfig(
+            ENABLED=True, COORDINATOR_ADDRESS=f"file://{spec['store']}", NUM_PROCESSES=world,
+            PROCESS_ID=rank, TIMEOUT_S=120.0, BACKEND=spec.get("backend", "auto"),
+        ),
+        mesh_config=MeshConfig(**spec["mesh"]),
+    )
+    from alphatriangle_tpu_torch.ops import KERNELS
+
+    return {"report": loop.report(), "first_add": adds[0] if adds else None, "adds": len(adds),
+            "chunks": len(chunks),
+            "launches": {name: kern.launches for name, kern in KERNELS.items()}}
+
+
 def main() -> None:
     spec = json.loads(open(sys.argv[1]).read())
     rank = int(sys.argv[2])
     world = int(spec["world"])
-    initialize_distributed(
-        DistributedConfig(
-            ENABLED=True, COORDINATOR_ADDRESS=f"file://{spec['store']}", NUM_PROCESSES=world,
-            PROCESS_ID=rank, TIMEOUT_S=120.0,
-        ),
-        device="cpu",
-    )
-    mesh = MeshConfig().build_mesh(world, rank, backend_name())
-    out = {"learner": learner, "megastep": megastep}[spec["scenario"]](spec, mesh)
+    if spec["scenario"] == "train":
+        out = train(spec, rank, world)
+    else:
+        initialize_distributed(
+            DistributedConfig(
+                ENABLED=True, COORDINATOR_ADDRESS=f"file://{spec['store']}", NUM_PROCESSES=world,
+                PROCESS_ID=rank, TIMEOUT_S=120.0,
+            ),
+            device="cpu",
+        )
+        mesh = attach_groups(MeshConfig(**spec.get("mesh", {})).build_mesh(world, rank, backend_name()))
+        scenarios = {"learner": learner, "megastep": megastep, "tp_learner": tp_learner,
+                     "sp_attention": sp_attention, "sp_model": sp_model}
+        out = scenarios[spec["scenario"]](spec, mesh)
     torch.save(out, f"{spec['out']}/rank{rank}.pt")
 
 
