@@ -1,12 +1,15 @@
 """Command line of the PyTorch port: counterpart of
 `alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval`, `league`, `fleet`,
 `health`, `perf`, `analyze`, `supervise`, `doctor`, `trace`, `watch`,
-`compare`, `slo`, `devices`, `tb` and `ml` subcommands.
+`compare`, `slo`, `warm`, `fit`, `mem`, `roofline`, `devices`, `tb` and `ml`
+subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--buckets CSV] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
         [--state-dict PATH] [--gumbel] [--run-name NAME | --checkpoint STEP_DIR]
         [--root-dir DIR] [--reload-every N] [--duration SECONDS]
+        [--serve-run-name NAME] [--smoke] [--tick-every 8] [--limit-gb GIB]
+        [--no-preflight] [--no-warm]
 
 Serves simulated sessions through `PolicyService`: the default board and
 net (an untrained net of seed 0, or a state dict written by
@@ -20,8 +23,18 @@ the budget elapses. `--gumbel` searches with `GumbelMCTS(exploit=True)`
 and serves its selected actions. `--buckets 16,32,64` serves on a rung
 ladder (`serving/buckets.py`): every rung is warmed first, the load
 keeps up to the top rung's count of sessions live, and the service
-walks between rungs with it. Prints one JSON report, the precision, the
-ladder's rungs and switches and the reloaded steps included.
+walks between rungs with it. The service writes its own telemetry
+(heartbeat, `metrics.jsonl` ticked every `--tick-every` dispatches,
+flight ring) into the run `--serve-run-name` (default `serve_<run-name>`,
+or `serve`) under the served run's root; before the load it warms
+every rung (unless `--no-warm`) and runs the memory pre-flight (unless
+`--no-preflight`): each rung's dispatch run once, its allocator peak
+measured, the worst rung against `--limit-gb` or the card, exit 1 over
+it. `--smoke` serves one wave and exits 1 unless every session was
+served and the ledger landed. Prints one JSON
+report, the precision, the ladder's rungs and switches, the reloaded
+steps, the pre-flight and the served dispatches' kernel launches
+included.
 
     python -m alphatriangle_tpu_torch.cli train [--preset N|PATH] [--dry-setup]
         [--gumbel] [--fast-sims S [--full-search-prob P]] [--no-tensorboard]
@@ -54,9 +67,10 @@ unless `--root-dir`), checkpoints every `--checkpoint-freq` steps and
 at the end, and resumes the newest checkpointed run under the root
 unless `--no-auto-resume`. SIGTERM saves, spills and exits 114.
 `--distributed` trains one model over the ranks of a process group, one
-rank per device (`parallel/`): the synchronous loop and the megastep,
-each rank on its share of the lanes and of the batch, its gradients
-all-reduced (`--async-rollouts` raises: ROADMAP.md item 6c). Tensor and
+rank per device (`parallel/`): the synchronous loop, the overlapped loop
+(`--async-rollouts`, its beats in lockstep over the ranks) and the
+megastep, each rank on its share of the lanes and of the batch, its
+gradients all-reduced. Tensor and
 sequence parallelism (the mesh's mdl and sp axes) are reached through
 `run_training(mesh_config=...)`, as in JAX: no flag sets them. Ranks come
 from torchrun (`torchrun --nproc-per-node 2 -m alphatriangle_tpu_torch.cli
@@ -202,9 +216,27 @@ budgets and burn rates, exit 0 within budget, 1 burning, 2 no data.
 launch TensorBoard or the MLflow UI over the runs root, exit 1 when it
 is not installed.
 
-Every command but `serve`, `train`, `eval`, `league` and `devices`
-imports neither torch nor numpy: they read files, and the supervisor's
-and the fleet's parents outlive a wedged card.
+    python -m alphatriangle_tpu_torch.cli warm [TARGET] [--programs S,...] [--device cuda]
+    python -m alphatriangle_tpu_torch.cli fit [TARGET] [--limit-gb GIB] [--serve]
+        [--programs S,...] [--json] [--device cuda]
+    python -m alphatriangle_tpu_torch.cli mem|roofline [RUN|DIR|metrics.jsonl]
+        [--root-dir DIR] [--json]
+
+`warm` builds every kernel (or loads it from the build cache) and runs
+each hot program of a plan once at its shapes (`warm.py`; TARGET: auto,
+the device's scale, smoke, cpu, 1..5 or a tuned_preset.json,
+`bench_config.py`); exit 0 when every program ran. `fit` composes the
+plan's per-device memory budget from the learner state, the ring and
+each program's allocator peak over one run of it, against the card's
+memory, `--limit-gb` or ALPHATRIANGLE_DEVICE_BYTES_LIMIT: exit 0 fits,
+1 over (or out of memory in a measured run), 2 no limit known. `mem`
+prints a run's memory-attribution table, `roofline` each dispatched
+program's analytic intensity against the card's balance and the gaps
+between dispatches; exit 2 without records.
+
+Every command but `serve`, `train`, `eval`, `league`, `warm`, `fit` and
+`devices` imports neither torch nor numpy: they read files, and the
+supervisor's and the fleet's parents outlive a wedged card.
 """
 
 import argparse
@@ -225,7 +257,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     from .mcts import BatchedMCTS, GumbelMCTS
     from .nn import NeuralNetwork
     from .rl import Trainer
-    from .serving import PolicyService, run_simulated_load
+    from .serving import PolicyService, build_serve_telemetry, run_simulated_load
     from .stats import CheckpointManager
 
     def say(msg: str) -> None:
@@ -255,6 +287,9 @@ def cmd_serve(args: argparse.Namespace) -> int:
         source = args.state_dict
     net = NeuralNetwork(model_cfg, env_cfg, seed=0, state_dict=state_dict, device=device)
     trainer = mgr = None
+    # The step served: a checkpoint committed after the restore (during the
+    # warm start or the pre-flight) is the first hot reload's.
+    served_step = {"step": None, "reloaded": []}
     if args.checkpoint or args.run_name:
         trainer = Trainer(net, TrainConfig(RUN_NAME=persistence.RUN_NAME))
         mgr = CheckpointManager(persistence, device=device, create_dirs=False)
@@ -265,30 +300,55 @@ def cmd_serve(args: argparse.Namespace) -> int:
             trainer.set_state(loaded.train_state)
             trainer.sync_to_network()
             source = f"step {loaded.global_step}"
+            served_step["step"] = loaded.global_step
     if args.gumbel:
         mcts = GumbelMCTS(env, extractor, net.model, mcts_cfg, net.support, exploit=True)
     else:
         mcts = BatchedMCTS(env, extractor, net.model, mcts_cfg, net.support)
+    # The service's own run directory: its heartbeat, ledger, flight ring
+    # and trace, under the served run's root (a step directory's own, for
+    # --checkpoint without --root-dir).
+    serve_run = args.serve_run_name or (f"serve_{args.run_name}" if args.run_name else "serve")
+    root = args.root_dir
+    if root is None and args.checkpoint:
+        root = str(Path(args.checkpoint).resolve().parents[4])
+    run_dir = PersistenceConfig(
+        RUN_NAME=serve_run, **({"ROOT_DATA_DIR": root} if root else {})
+    ).get_run_base_dir()
+    telemetry = build_serve_telemetry(run_dir, serve_run, env_cfg, model_cfg, device=device)
+    from .compile_cache import get_build_cache
+
+    get_build_cache().set_tracer(telemetry.tracer)
     service = PolicyService(
-        env, extractor, net, mcts, slots=args.slots, rng_seed=args.seed, ladder=args.buckets
+        env, extractor, net, mcts, slots=args.slots, rng_seed=args.seed, ladder=args.buckets,
+        telemetry=telemetry,
     )
     ladder_note = f", ladder {','.join(map(str, service.ladder.rungs))}" if args.buckets else ""
     say(
         f"serve: {source} net, board {env_cfg.ROWS}x{env_cfg.COLS}, {args.slots} slots"
         f"{ladder_note}, {args.sims} sims/move{', gumbel' if args.gumbel else ''}, "
-        f"{model_cfg.INFERENCE_PRECISION} weights, device {device}"
+        f"{model_cfg.INFERENCE_PRECISION} weights, device {device}, run dir {run_dir}"
     )
-    if args.buckets:
+    if not args.no_warm:
         # Every rung, before the load: a switch mid-stream then costs the
-        # migration, not a cold width.
+        # migration, not a cold width (the kernels build here on a card).
         t_warm = time.perf_counter()
         service.warm()
         say(f"serve: warmed rungs {list(service.ladder.rungs)} ({time.perf_counter() - t_warm:.1f}s)")
+    preflight = None
+    if not args.no_preflight:
+        preflight = _serve_preflight(service, device, args.limit_gb, say)
+        if preflight["exit"] == 1:
+            say("serve: refusing to serve an over-budget config")
+            telemetry.close(step=0)
+            return 1
+    # The report's launches are the served dispatches' (not the warm-up's
+    # or the pre-flight's).
+    launches_before = _kernel_launches()
 
     # Hot reload: every --reload-every dispatches, poll the run's newest
     # committed checkpoint; a new step is restored and swapped in
     # between dispatches.
-    served_step = {"step": mgr.latest_step() if mgr else None, "reloaded": []}
 
     def reload_hook(svc, dispatches: int) -> None:
         if mgr is None or not args.run_name or args.reload_every <= 0:
@@ -311,20 +371,33 @@ def cmd_serve(args: argparse.Namespace) -> int:
     t0 = time.perf_counter()
     deadline = None if args.duration is None else time.monotonic() + args.duration
     waves = []
-    while True:
-        waves.append(run_simulated_load(
-            service,
-            total_sessions=args.sessions,
-            # Under a ladder, demand up to the top rung walks it up.
-            concurrency=service.max_slots if args.buckets else args.slots,
-            max_moves=args.max_moves,
-            seed=args.seed + len(waves),
-            reload_hook=reload_hook,
-            progress=say,
-        ))
-        if deadline is None or time.monotonic() >= deadline:
-            break
+    telemetry.start()
+    try:
+        while True:
+            waves.append(run_simulated_load(
+                service,
+                total_sessions=args.sessions,
+                # Under a ladder, demand up to the top rung walks it up.
+                concurrency=service.max_slots if args.buckets else args.slots,
+                max_moves=args.max_moves,
+                seed=args.seed + len(waves),
+                reload_hook=reload_hook,
+                progress=say,
+                tick_every=args.tick_every,
+            ))
+            if args.smoke or deadline is None or time.monotonic() >= deadline:
+                break
+    except KeyboardInterrupt:
+        say("serve: interrupted; draining")
+    finally:
+        # The window since the last tick, then the last tick and close.
+        window = service.serve_stats(drain=False)
+        service.tick()
+        telemetry.close(step=service.dispatch_count)
+    if not waves:
+        return 1
     stats = waves[-1]
+    launches = {k: v - launches_before[k] for k, v in _kernel_launches().items()}
     report = {
         "source": source,
         "run_name": args.run_name,
@@ -342,11 +415,58 @@ def cmd_serve(args: argparse.Namespace) -> int:
         **stats,
         "sessions_served": sum(w["sessions_served"] for w in waves),
         "moves_served": sum(w["moves_served"] for w in waves),
-        **service.serve_stats(drain=False),
-        "kernel_launches": _kernel_launches(),
+        **window,
+        "run": serve_run,
+        "ledger": str(run_dir / "metrics.jsonl"),
+        "preflight": preflight,
+        "kernel_launches": launches,
     }
     print(json.dumps(report))
-    return 0 if report["sessions_served"] >= args.sessions * len(waves) else 1
+    ok = report["sessions_served"] >= args.sessions * len(waves)
+    if args.smoke:
+        # The smoke's gate: every session served and the ledger landed.
+        ok = ok and (run_dir / "metrics.jsonl").exists()
+    return 0 if ok else 1
+
+
+def _serve_preflight(service, device, limit_gb, say) -> dict:
+    """The serve pre-flight (JAX `cmd_serve`'s): each rung's dispatch run
+    once with its allocator peak measured (`telemetry/memory.py`
+    `measure_program`), the worst rung's resident weights and slot
+    states plus its peak against the card's limit. Returns {budget,
+    limit, source, exit, reason}; exit 1 over budget or out of memory,
+    None when the device keeps no allocator statistics (the CPU)."""
+    import torch
+
+    from .telemetry.memory import (
+        fit_verdict,
+        fmt_bytes,
+        measure_program,
+        resolve_bytes_limit,
+        serve_budget_bytes,
+        tree_bytes,
+    )
+
+    weights = tree_bytes(list(service.net.model.parameters()))
+    record, budget = None, 0
+    try:
+        for rung in service.ladder.rungs:
+            slots = tree_bytes(service.sessions.states) * rung // max(1, service.sessions.slots)
+            rec = measure_program(f"serve/b{rung}", lambda r=rung: service.warm_rung(r), device,
+                                  argument_bytes=weights + slots)
+            if rec is not None and serve_budget_bytes(rec) >= budget:
+                record, budget = rec, serve_budget_bytes(rec)
+    except torch.cuda.OutOfMemoryError as exc:
+        say(f"serve: pre-flight ran out of memory ({type(exc).__name__})")
+        return {"budget": None, "limit": None, "source": None, "exit": 1, "reason": "out of memory"}
+    limit, source = resolve_bytes_limit(limit_gb, device=device)
+    if record is None:
+        say("serve: pre-flight skipped (no allocator statistics on this device)")
+        return {"budget": None, "limit": limit, "source": source, "exit": None, "reason": "skipped"}
+    code, reason = fit_verdict(budget, limit)
+    say(f"serve: pre-flight {fmt_bytes(budget)} — {reason}")
+    service.telemetry.record_memory(record)
+    return {"budget": budget, "limit": limit, "source": source, "exit": code, "reason": reason}
 
 
 def merge_train_overrides(base_config, overrides: dict):
@@ -470,11 +590,6 @@ def cmd_train(args: argparse.Namespace) -> int:
     persistence_config = PersistenceConfig(**persistence)
     distributed_config = None
     if args.distributed or args.coordinator is not None:
-        if args.async_rollouts:
-            raise SystemExit(
-                "--distributed with --async-rollouts: the overlapped loop across ranks waits for "
-                "ROADMAP.md item 6c"
-            )
         from .parallel import DistributedConfig
 
         distributed_config = DistributedConfig(
@@ -981,7 +1096,7 @@ def cmd_perf(args: argparse.Namespace) -> int:
     from .telemetry.device_stats import summarize_device_stats
     from .telemetry.flight import FLIGHT_FILENAME, read_flight, summarize_flight
     from .telemetry.ledger import read_ledger, resolve_ledger_path
-    from .telemetry.perf import fold_league_and_fleet, summarize_utilization
+    from .telemetry.perf import fold_league_and_fleet, fold_memory_budget, summarize_utilization
 
     target = Path(args.run) if args.run else None
     if target is not None and target.exists():
@@ -1003,7 +1118,11 @@ def cmd_perf(args: argparse.Namespace) -> int:
             file=sys.stderr,
         )
         return 2
-    programs = summarize_flight(read_flight(ledger.parent / FLIGHT_FILENAME))
+    # The static memory budget of the run's kind:"memory" records
+    # (`cli compare` gates it as memory_budget_bytes).
+    mem_budget = fold_memory_budget(summary, records)
+    flight = read_flight(ledger.parent / FLIGHT_FILENAME)
+    programs = summarize_flight(flight)
     if programs:
         summary["programs"] = programs
     league, fleet = fold_league_and_fleet(summary, records, ledger)
@@ -1012,6 +1131,10 @@ def cmd_perf(args: argparse.Namespace) -> int:
     devstats = summarize_device_stats([r for r in records if r.get("kind") == "device_stats"])
     if devstats is not None:
         summary.update(devstats)
+    # The roofline fold (telemetry/roofline.py), when the run has cost
+    # records: the roofline_* fields, the programs' intensity, bound and
+    # roofline fraction, and the gaps line.
+    roof = _fold_roofline(summary, records, flight, ledger, programs)
     if args.json:
         summary["source"] = str(ledger)
         print(json.dumps(summary))
@@ -1049,11 +1172,12 @@ def cmd_perf(args: argparse.Namespace) -> int:
         f"   buffer fill {_fmt_cell(summary.get('buffer_fill_last'), ',.2f', 100.0, '%')}"
         f"   dispatch/iter {_fmt_cell(summary.get('dispatches_per_iteration'), ',.1f')}"
     )
-    if summary.get("mem_peak_bytes_in_use") is not None:
+    if summary.get("mem_peak_bytes_in_use") is not None or mem_budget is not None:
         print(
             f"  memory       peak {_fmt_cell(summary.get('mem_peak_bytes_in_use'), ',.2f', 2**-30, ' GiB')}"
             f"   in use {_fmt_cell(summary.get('mem_bytes_in_use_last'), ',.2f', 2**-30, ' GiB')}"
             f"   limit {_fmt_cell(summary.get('mem_bytes_limit'), ',.2f', 2**-30, ' GiB')}"
+            f"   est budget {_fmt_cell(mem_budget, ',.2f', 2**-30, ' GiB')} (cli mem)"
         )
     if summary.get("chip_idle_fraction") is not None:
         # The share of the ticks with no dispatch in flight: a dispatch
@@ -1106,20 +1230,352 @@ def cmd_perf(args: argparse.Namespace) -> int:
             f"   sheds {_fmt_cell(summary.get('fleet_sheds'), ',.0f')}"
             f"   lost {_fmt_cell(summary.get('fleet_lost'), ',.0f')}"
         )
+    if roof is not None and roof.get("attribution"):
+        attrib = roof["attribution"]
+        gap_text = "  ".join(
+            f"{cat} {_fmt_cell(sec, ',.1f', 1, 's')}"
+            for cat, sec in (attrib.get("gaps") or {}).items()
+            if isinstance(sec, (int, float)) and sec > 0
+        )
+        print(
+            f"  roofline     idle {_fmt_cell(attrib.get('chip_idle_fraction'), ',.1f', 100.0, '%')}"
+            f"   dispatch {_fmt_cell(attrib.get('dispatch_s'), ',.1f', 1, 's')}"
+            f"   attributed {_fmt_cell(attrib.get('attributed_fraction'), ',.1f', 100.0, '%')}"
+            + (f"   gaps: {gap_text}" if gap_text else "")
+        )
     if programs:
+        # Roofline columns only when the run has cost records.
         width = max(max(len(p["program"]) for p in programs), 7)
-        print(f"  {'program':<{width}}  {'count':>6}  {'p50':>9}  {'p95':>9}  {'total':>9}  err")
+        head = f"  {'program':<{width}}  {'count':>6}  {'p50':>9}  {'p95':>9}  {'total':>9}  err"
+        if roof is not None:
+            head += f"  {'intensity':>10}  {'bound':>7}  {'roofline':>8}"
+        print(head)
         for p in programs:
-            print(
+            line = (
                 f"  {p['program']:<{width}}  {p['count']:>6}"
                 f"  {_fmt_cell(p['wall_s_p50'], ',.1f', 1e3, 'ms'):>9}"
                 f"  {_fmt_cell(p['wall_s_p95'], ',.1f', 1e3, 'ms'):>9}"
                 f"  {_fmt_cell(p['wall_s_total'], ',.1f', 1, 's'):>9}  {p['errors']}"
             )
+            if roof is not None:
+                line += (
+                    f"  {_fmt_cell(p.get('intensity'), ',.1f'):>10}"
+                    f"  {p.get('bound') or '—':>7}"
+                    f"  {_fmt_cell(p.get('roofline_fraction'), ',.2f', 100.0, '%'):>8}"
+                )
+            print(line)
     print(
         f"  trend        {_fmt_cell(summary.get('throughput_trend'), '+,.1f', 100.0, '%')} "
         "(2nd-half vs 1st-half throughput)"
     )
+    return 0
+
+
+def _fold_roofline(summary: dict, records: list, flight: list, ledger: Path, programs) -> "dict | None":
+    """`cli perf`'s roofline fold, as the JAX command folds it: with cost
+    records, the roofline summary's machine balance and gap attribution
+    as roofline_* fields and each program's intensity, bound and roofline
+    fraction (in place). None without cost records."""
+    from .telemetry.roofline import summarize_roofline
+
+    cost_records = [r for r in records if r.get("kind") == "cost"]
+    if not cost_records:
+        return None
+    roof = summarize_roofline(
+        cost_records, flight, device_kind=summary.get("device_kind") or "",
+        peak_tflops=summary.get("peak_bf16_tflops"),
+        trace_path=[ledger.parent / "trace.json", ledger.parent / "profile_data"],
+    )
+    if roof is None:
+        return None
+    if roof.get("machine_balance_flops_per_byte") is not None:
+        summary["roofline_machine_balance_flops_per_byte"] = roof["machine_balance_flops_per_byte"]
+        summary["roofline_peak_hbm_gbps"] = roof.get("peak_hbm_gbps")
+    attrib = roof.get("attribution")
+    if attrib:
+        summary["roofline_chip_idle_fraction"] = attrib.get("chip_idle_fraction")
+        summary["roofline_attributed_fraction"] = attrib.get("attributed_fraction")
+        summary["roofline_dispatch_s"] = attrib.get("dispatch_s")
+        summary["roofline_gap_s"] = attrib.get("gap_s")
+        for cat, sec in (attrib.get("gaps") or {}).items():
+            summary[f"roofline_gap_{cat}_s"] = sec
+    rows = {r["program"]: r for r in roof.get("programs") or []}
+    for p in programs or []:
+        r = rows.get(p.get("program"))
+        if r is not None:
+            p["intensity"] = r.get("intensity")
+            p["bound"] = r.get("bound")
+            p["roofline_fraction"] = r.get("roofline_fraction")
+    return roof
+
+
+_BENCH_TARGETS = ("auto", "smoke", "cpu", "1", "2", "3", "4", "5")
+
+
+def _apply_bench_target(target: "str | None", environ: dict) -> None:
+    """Map a warm / fit target onto the plan's environment knobs, as the
+    JAX command does: digits 1..5 select a BASELINE preset (BENCH_CONFIG),
+    a path a `tuned_preset.json` (BENCH_TUNED_PRESET); auto / smoke / cpu
+    leave those two knobs, where the environment sets them, in charge."""
+    if not target or target in ("auto", "smoke", "cpu"):
+        return
+    if target.isdigit():
+        environ["BENCH_CONFIG"] = target
+        return
+    if Path(target).is_file():
+        environ["BENCH_TUNED_PRESET"] = target
+        return
+    raise SystemExit(
+        f"Unknown target {target!r}: expected one of {'|'.join(_BENCH_TARGETS)} or a "
+        "tuned_preset.json path."
+    )
+
+
+def _bench_plan(args: argparse.Namespace):
+    """(device, plan) of a warm / fit target: `--device`, else the CPU for
+    the `cpu` target, else CUDA; the plan at that device's scale."""
+    import os
+
+    from .bench_config import resolve_bench_plan
+    from .device import resolve_device
+
+    device = resolve_device(args.device or ("cpu" if args.target == "cpu" else None))
+    environ = dict(os.environ)
+    smoke = args.target == "smoke" or environ.get("BENCH_SMOKE") == "1"
+    _apply_bench_target(args.target, environ)
+    return device, resolve_bench_plan(smoke, device.type, environ=environ)
+
+
+def cmd_warm(args: argparse.Namespace) -> int:
+    """Build every kernel and run each hot program of a plan once at its
+    shapes (`warm.py`), so the next process on the card starts from the
+    build cache and warm libraries. Prints one JSON report (a row a
+    program: status and seconds; the build cache's hits and misses).
+    Exit 0 when every program ran, 1 otherwise."""
+    from .warm import warm_bench_programs
+
+    device, plan = _bench_plan(args)
+    programs = set(args.programs.split(",")) if args.programs else None
+    report = warm_bench_programs(
+        plan, device, programs=programs, progress=lambda msg: print(msg, file=sys.stderr, flush=True),
+    )
+    print(json.dumps(report))
+    rows = report["programs"]
+    ok = all(r["status"] in ("ran", "skipped-cpu") for r in rows)
+    return 0 if ok and any(r["status"] == "ran" for r in rows[1:]) else 1
+
+
+def cmd_fit(args: argparse.Namespace) -> int:
+    """Memory pre-flight of a plan: the learner state, the replay ring and
+    each hot program run once at the plan's shapes with the caching
+    allocator's peak measured (`telemetry/memory.py` `estimate_fit`;
+    eager PyTorch has no ahead-of-time memory analysis), composed into
+    the per-device budget and held against the card's memory. Exit 0
+    fits, 1 over budget (or out of memory in a measured run), 2 no limit
+    known (the CPU without --limit-gb or ALPHATRIANGLE_DEVICE_BYTES_LIMIT)."""
+    import os
+
+    from .telemetry.memory import FIT_OVER, estimate_fit, fit_verdict, fmt_bytes, resolve_bytes_limit
+
+    device, plan = _bench_plan(args)
+    print(
+        f"fit: device={device} scale={plan.scale} batch={plan.sp_batch} chunk={plan.chunk} "
+        f"lbatch={plan.lbatch} device_replay={plan.device_replay}",
+        file=sys.stderr, flush=True,
+    )
+    programs = set(args.programs.split(",")) if args.programs else None
+    report = estimate_fit(
+        plan, device, serve=args.serve, programs=programs,
+        progress=lambda msg: print(msg, file=sys.stderr, flush=True),
+    )
+    budget = report["budget"]
+    limit, source = resolve_bytes_limit(args.limit_gb, dict(os.environ), device=device)
+    if report["oom"] is not None:
+        code, reason = FIT_OVER, f"OVER BUDGET: a measured run ran out of memory ({report['oom']})"
+    else:
+        code, reason = fit_verdict(budget["total_bytes"], limit)
+    if args.json:
+        print(json.dumps({
+            "schema": "alphatriangle.fit.v1", "scale": plan.scale, "backend": device.type,
+            "budget": budget, "bytes_limit": limit, "limit_source": source, "exit": code,
+            "reason": reason, "records": report["records"],
+        }))
+        return code
+    print(f"fit {plan.scale} on {device}")
+    for label, key in (
+        ("train state", "train_state_bytes"),
+        ("replay ring (device)", "replay_ring_bytes"),
+        ("rollout residency", "rollout_resident_bytes"),
+        ("program transient", "program_transient_bytes"),
+    ):
+        print(f"  {label:<22} {fmt_bytes(budget[key]):>12}")
+    print(f"  {'TOTAL (per device)':<22} {fmt_bytes(budget['total_bytes']):>12}")
+    print(f"  limit                  {fmt_bytes(limit):>12}" + (f"  [{source}]" if limit is not None else ""))
+    print(reason)
+    return code
+
+
+def _run_ledger(args: argparse.Namespace):
+    """The metrics ledger a reader command names (a run name, a run
+    directory or a metrics.jsonl path; the newest run by default), or
+    None, said on stderr."""
+    from .telemetry.ledger import resolve_ledger_path
+
+    target = Path(args.run) if args.run else None
+    if target is not None and target.exists():
+        ledger = resolve_ledger_path(target)
+    else:
+        run_dir = _resolve_run_dir(args.run, args.root_dir)
+        if run_dir is None:
+            return None
+        ledger = resolve_ledger_path(run_dir)
+    if ledger is None:
+        print(f"no metrics ledger for {args.run}", file=sys.stderr)
+    return ledger
+
+
+def cmd_mem(args: argparse.Namespace) -> int:
+    """A run's memory-attribution table from its `metrics.jsonl` alone
+    (`kind:"memory"` and `"util"` records); imports no torch. Exit 0, or
+    2 when the run has no memory records (telemetry off, or an older run)."""
+    from .telemetry.ledger import read_ledger
+    from .telemetry.memory import attribution_rows, compose_budget, fmt_bytes
+
+    ledger = _run_ledger(args)
+    if ledger is None:
+        return 2
+    records = read_ledger(ledger, kinds={"memory"})
+    utils = read_ledger(ledger, kinds={"util"})
+    observed = next(
+        (u for u in reversed(utils) if isinstance(u.get("mem_bytes_in_use"), (int, float))), None
+    )
+    if not records and observed is None:
+        print(
+            f"{ledger}: no memory records (the run predates the memory ledger, or telemetry was "
+            "disabled)",
+            file=sys.stderr,
+        )
+        return 2
+    budget = compose_budget(records)
+    if args.json:
+        print(json.dumps({"source": str(ledger), "records": records, "budget": budget,
+                          "observed": observed}))
+        return 0
+    print(f"mem {ledger}")
+    rows = attribution_rows(records)
+    if rows:
+        width = max(max(len(r[0]) for r in rows), 9)
+        print(f"  {'component':<{width}}  {'bytes':>12}  detail")
+        for component, total, detail in rows:
+            print(f"  {component:<{width}}  {fmt_bytes(total):>12}  {detail}")
+        print(
+            f"  static budget (per device): {fmt_bytes(budget['total_bytes'])} = "
+            f"state {fmt_bytes(budget['train_state_bytes'])}"
+            f" + ring {fmt_bytes(budget['replay_ring_bytes'])}"
+            f" + rollout {fmt_bytes(budget['rollout_resident_bytes'])}"
+            f" + transient {fmt_bytes(budget['program_transient_bytes'])}"
+        )
+    if observed is not None:
+        limit = observed.get("mem_bytes_limit")
+        util = observed.get("mem_utilization")
+        print(
+            f"  observed: {fmt_bytes(observed.get('mem_bytes_in_use'))} in use, "
+            f"peak {fmt_bytes(observed.get('mem_peak_bytes_in_use'))}"
+            + (
+                f", limit {fmt_bytes(limit)}"
+                + (f" ({util:.1%} used)" if isinstance(util, (int, float)) else "")
+                if limit else ""
+            )
+            + f" (step {observed.get('step')})"
+        )
+    return 0
+
+
+def cmd_roofline(args: argparse.Namespace) -> int:
+    """A run's roofline report from its files alone (`metrics.jsonl`'s
+    `kind:"cost"` and util records, `flight.jsonl`, `trace.json` and a
+    `--profile` run's `profile_data/` traces): each
+    program's analytic arithmetic intensity against the card's machine
+    balance, its bound and achieved share of the roofline at its
+    measured p50 wall, and the gaps between dispatches by host category;
+    imports no torch. Exit 0, or 2 with neither cost records nor a
+    flight timeline."""
+    from .telemetry.flight import FLIGHT_FILENAME, read_flight
+    from .telemetry.ledger import read_ledger
+    from .telemetry.perf import summarize_utilization
+    from .telemetry.roofline import summarize_roofline
+
+    ledger = _run_ledger(args)
+    if ledger is None:
+        return 2
+    run_dir = ledger.parent
+    records = read_ledger(ledger)
+    util = summarize_utilization(records) or {}
+    summary = summarize_roofline(
+        [r for r in records if r.get("kind") == "cost"],
+        read_flight(run_dir / FLIGHT_FILENAME),
+        device_kind=util.get("device_kind") or "",
+        peak_tflops=util.get("peak_bf16_tflops"),
+        trace_path=[run_dir / "trace.json", run_dir / "profile_data"],
+    )
+    if summary is None:
+        print(
+            f"{run_dir}: no cost records or flight timeline (the run predates the roofline "
+            "plane, or telemetry was disabled)",
+            file=sys.stderr,
+        )
+        return 2
+    if args.json:
+        summary["source"] = str(ledger)
+        print(json.dumps(summary))
+        return 0
+    peak = summary.get("peak_bf16_tflops")
+    hbm = summary.get("peak_hbm_gbps")
+    hbm_source = summary.get("peak_hbm_source")
+    balance = summary.get("machine_balance_flops_per_byte")
+    print(f"roofline {run_dir}")
+    print(
+        f"  device       {summary.get('device_kind') or '?'}"
+        f"   peak bf16 {_fmt_cell(peak, ',.0f', 1, ' TFLOP/s') if peak else 'unknown'}"
+        f"   memory {_fmt_cell(hbm, ',.0f', 1, ' GB/s') if hbm else 'unknown'}"
+        + (f" [{hbm_source}]" if hbm_source not in (None, "unknown") else "")
+        + (f"   balance {_fmt_cell(balance, ',.0f', 1, ' FLOP/B')}" if balance is not None else "")
+    )
+    attrib = summary.get("attribution")
+    if attrib:
+        print(
+            f"  attribution  wall {_fmt_cell(attrib.get('wall_s'), ',.1f', 1, 's')}"
+            f"   dispatch {_fmt_cell(attrib.get('dispatch_s'), ',.1f', 1, 's')}"
+            f"   idle {_fmt_cell(attrib.get('chip_idle_fraction'), ',.1f', 100.0, '%')}"
+            f"   attributed {_fmt_cell(attrib.get('attributed_fraction'), ',.1f', 100.0, '%')}"
+            f"   dispatches {_fmt_cell(attrib.get('dispatches'), ',.0f')}"
+        )
+        gap_text = "   ".join(
+            f"{cat} {_fmt_cell(sec, ',.2f', 1, 's')}"
+            for cat, sec in (attrib.get("gaps") or {}).items() if isinstance(sec, (int, float))
+        )
+        if gap_text:
+            print(f"  gaps         {gap_text}")
+    else:
+        print("  attribution  — (no flight timeline)")
+    programs = summary.get("programs") or []
+    if programs:
+        width = max(max(len(p["program"]) for p in programs), 7)
+        print(
+            f"  {'program':<{width}}  {'count':>6}  {'p50':>9}  {'total':>9}"
+            f"  {'gflops':>9}  {'intensity':>10}  {'bound':>7}  {'roofline':>8}"
+        )
+        for p in programs:
+            print(
+                f"  {p['program']:<{width}}"
+                f"  {_fmt_cell(p.get('count'), ',.0f'):>6}"
+                f"  {_fmt_cell(p.get('wall_s_p50'), ',.1f', 1e3, 'ms'):>9}"
+                f"  {_fmt_cell(p.get('wall_s_total'), ',.1f', 1, 's'):>9}"
+                f"  {_fmt_cell(p.get('flops'), ',.2f', 1e-9):>9}"
+                f"  {_fmt_cell(p.get('intensity'), ',.1f'):>10}"
+                f"  {p.get('bound') or '—':>7}"
+                f"  {_fmt_cell(p.get('roofline_fraction'), ',.2f', 100.0, '%'):>8}"
+            )
     return 0
 
 
@@ -1565,7 +2021,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Simulated sessions to serve end to end.")
     serve.add_argument("--max-moves", type=int, default=200)
     serve.add_argument("--seed", type=int, default=0)
-    serve.add_argument("--device", default="cuda",
+    serve.add_argument("--device", default=None,
                        help="Torch device (default cuda; 'cpu' runs the plain versions).")
     serve.add_argument("--state-dict", default=None, metavar="PATH",
                        help="Weights from nn/convert.py saved with torch.save "
@@ -1585,6 +2041,22 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--duration", type=float, default=None, metavar="SECONDS",
                        help="Serve waves of --sessions sessions until this wall budget "
                        "elapses (default: one wave).")
+    serve.add_argument("--serve-run-name", default=None,
+                       help="Run directory of the service's own telemetry (default: "
+                       "serve_<run-name>, or 'serve').")
+    serve.add_argument("--smoke", action="store_true",
+                       help="Bounded mode: one wave of --sessions sessions, exit 1 unless every "
+                       "session was served and the ledger landed.")
+    serve.add_argument("--tick-every", type=int, default=8, metavar="DISPATCHES",
+                       help="Ledger and heartbeat tick cadence in dispatches (default 8).")
+    serve.add_argument("--limit-gb", type=float, default=None, metavar="GIB",
+                       help="Pre-flight device byte limit (also: ALPHATRIANGLE_DEVICE_BYTES_LIMIT); "
+                       "default: the card's memory.")
+    serve.add_argument("--no-warm", action="store_true",
+                       help="Skip the warm start (a search at every rung before the load).")
+    serve.add_argument("--no-preflight", action="store_true",
+                       help="Skip the memory pre-flight (every rung's dispatch measured against "
+                       "the limit; exit 1 over it).")
     serve.set_defaults(fn=cmd_serve)
 
     train = sub.add_parser(
@@ -1959,6 +2431,64 @@ def build_parser() -> argparse.ArgumentParser:
                      help="Evaluate at this epoch time instead of the newest record's.")
     slo.add_argument("--prom", action="store_true", help="Also rewrite the fleet.prom textfile.")
     slo.set_defaults(fn=cmd_slo)
+
+    warm = sub.add_parser(
+        "warm",
+        help="Build every kernel and run each hot program of a plan once at its shapes "
+        "(exit 0 when every program ran).",
+    )
+    warm.add_argument("target", nargs="?", default="auto",
+                      help="'auto' = the scale of the device (honours BENCH_CONFIG, BENCH_TUNED_PRESET and "
+                      "BENCH_SMOKE), "
+                      "'smoke' / 'cpu' = the reduced scales, 1..5 = a BASELINE preset, or a "
+                      "tuned_preset.json path.")
+    warm.add_argument("--programs", default=None, metavar="SUBSTR[,SUBSTR...]",
+                      help="Only the programs whose name holds one of these substrings.")
+    warm.add_argument("--device", default=None,
+                      help="Torch device (default cuda; the CPU for the 'cpu' target).")
+    warm.set_defaults(fn=cmd_warm)
+
+    fit = sub.add_parser(
+        "fit",
+        help="Memory pre-flight of a plan (learner state + ring + each hot program's measured "
+        "peak) against the card's memory; exit 0 fits / 1 over / 2 no limit known.",
+    )
+    fit.add_argument("target", nargs="?", default="auto",
+                     help="As `warm`'s: auto, smoke, cpu, 1..5, or a tuned_preset.json path.")
+    fit.add_argument("--limit-gb", type=float, default=None, metavar="GIB",
+                     help="Per-device limit in GiB (also: ALPHATRIANGLE_DEVICE_BYTES_LIMIT, "
+                     "bytes); default: the card's memory.")
+    fit.add_argument("--device", default=None,
+                     help="Torch device (default cuda; the CPU for the 'cpu' target).")
+    fit.add_argument("--json", action="store_true", help="Emit the report as JSON.")
+    fit.add_argument("--serve", action="store_true",
+                     help="Also measure a serve dispatch at the plan's slot count.")
+    fit.add_argument("--programs", default=None, metavar="SUBSTR[,SUBSTR...]",
+                     help="Only measure the programs whose name holds one of these substrings "
+                     "(the learner state and the ring are always counted).")
+    fit.set_defaults(fn=cmd_fit)
+
+    mem = sub.add_parser(
+        "mem",
+        help="A run's memory-attribution table from its metrics.jsonl alone (no torch).",
+    )
+    mem.add_argument("run", nargs="?", default=None,
+                     help="Run name, run directory or metrics.jsonl path (default: the newest run).")
+    mem.add_argument("--root-dir", default=None)
+    mem.add_argument("--json", action="store_true", help="Emit records + budget as JSON.")
+    mem.set_defaults(fn=cmd_mem)
+
+    roofline = sub.add_parser(
+        "roofline",
+        help="A run's roofline report: each program's intensity against the card's balance, and "
+        "the gaps between dispatches, from its files alone (no torch).",
+    )
+    roofline.add_argument("run", nargs="?", default=None,
+                          help="Run name, run directory or metrics.jsonl path (default: the "
+                          "newest run).")
+    roofline.add_argument("--root-dir", default=None)
+    roofline.add_argument("--json", action="store_true", help="Emit the summary as one JSON line.")
+    roofline.set_defaults(fn=cmd_roofline)
 
     devices = sub.add_parser("devices", help="The CUDA devices torch sees; exit 1 without one.")
     devices.set_defaults(fn=cmd_devices)

@@ -12,7 +12,10 @@ its main path went through the kernel. Producer threads launch
 concurrently: the count and the first load are under a lock.
 `CudaKernel.builds` counts the `nvcc` runs of this process and `loaded`
 says whether its library is loaded: a serve replica reports both, and a
-weight reload must change neither.
+weight reload must change neither. Each build (a miss of the build
+cache, with its `nvcc` seconds) and each load of a library built before
+(a hit) is reported to the process's `compile_cache.BuildCache`, whose
+counts the util records carry.
 """
 
 import ctypes
@@ -22,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from ..compile_cache import get_build_cache
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -81,8 +86,9 @@ class CudaKernel:
         tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
         log = open(self.log, "w")
+        began = time.time_ns(), time.perf_counter()
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-        proc.tmp, proc.logfile = tmp, log
+        proc.tmp, proc.logfile, proc.began = tmp, log, began
         return proc
 
     def finish(self, proc: "subprocess.Popen | None") -> None:
@@ -96,6 +102,7 @@ class CudaKernel:
             )
         os.replace(proc.tmp, self.library)
         self.builds += 1
+        get_build_cache().note("miss", self.name, time.perf_counter() - proc.began[1], proc.began[0])
 
     @property
     def loaded(self) -> bool:
@@ -109,8 +116,11 @@ class CudaKernel:
         return self._fn
 
     def _load(self) -> None:
+        began = time.time_ns(), time.perf_counter()
         self.finish(self.start_build())
         self._lib = ctypes.CDLL(str(self.library))
+        if self.builds == 0:
+            get_build_cache().note("hit", self.name, time.perf_counter() - began[1], began[0])
         fn = getattr(self._lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

@@ -148,6 +148,19 @@ class DeviceReplayBuffer(ExperienceBuffer):
         count = int(count_dev)  # the one blocking scalar fetch
         return count, self.record_ingest(count)
 
+    def storage_nbytes(self) -> int:
+        """Bytes of the ring's storage on the card, as allocated; equal to
+        `telemetry.memory.replay_ring_bytes` of its geometry."""
+        from ..telemetry.memory import tree_bytes
+
+        return tree_bytes(self.storage)
+
+    def memory_record(self) -> dict:
+        """The ring's `kind: "memory"` ledger record (on the card)."""
+        from ..telemetry.memory import replay_ring_record
+
+        return replay_ring_record(self.storage_nbytes(), self.capacity, shards=1, location="device")
+
     def ingest_payload(self, payload: dict) -> int:
         """Fold one rollout chunk's device-resident experience blocks
         (`SelfPlayEngine.play_moves_device`) into the ring. Returns the

@@ -79,6 +79,7 @@ from ..telemetry.device_stats import (
     unpack_search_stats,
 )
 from ..telemetry.flight import flight_span
+from ..telemetry.roofline import megastep_cost, note_program_cost
 from ..utils.transfer import fetch
 from .device_buffer import DeviceReplayBuffer, ring_scatter
 
@@ -289,6 +290,8 @@ class MegastepRunner:
         max_p = self._max_priority_watermark()
         start_step = trainer.state.step
         name = f"megastep/dp{self.dp}_t{t}_k{k}" if self.sharded else f"megastep/t{t}_k{k}"
+        note_program_cost(name, lambda: megastep_cost(self, t, k, self.batch_size // self.dp),
+                          f"B{self.batch_size}xT{t}xK{k}", self.device.type)
         with flight_span(self.flight, "megastep", name, avals=f"B{self.batch_size}xT{t}xK{k}"):
             note_dispatch(name)
             out = self._impl(t, k, max_p)

@@ -103,6 +103,7 @@ from ..telemetry.device_stats import (
     unpack_search_stats,
 )
 from ..telemetry.flight import flight_span
+from ..telemetry.roofline import chunk_cost, note_program_cost
 from ..utils.transfer import fetch, receive
 from .types import SelfPlayResult
 
@@ -461,7 +462,9 @@ class SelfPlayEngine:
         `DeviceReplayBuffer.ingest_payload`; only the episode stats and
         the trace are fetched (one copy). Returns that payload, or None."""
         t = int(num_moves or self.config.ROLLOUT_CHUNK_MOVES)
-        with flight_span(self.flight, "rollout", f"self_play_chunk/t{t}", avals=f"B{self.batch_size}xT{t}"):
+        avals = f"B{self.batch_size}xT{t}"
+        note_program_cost(f"self_play_chunk/t{t}", lambda: chunk_cost(self, t), avals, self.device.type)
+        with flight_span(self.flight, "rollout", f"self_play_chunk/t{t}", avals=avals):
             note_dispatch(f"self_play_chunk/t{t}")
             weights = self._inference_variables(self.net.live)
             self.note_weights_version(weights.version)

@@ -79,6 +79,19 @@ class ShardedDeviceReplayBuffer(DeviceReplayBuffer):
         """This shard's local slots in the JAX package's global encoding."""
         return self.rank * self.stride + np.asarray(slots, dtype=np.int64)
 
+    def storage_nbytes(self) -> int:
+        """Bytes of every shard's storage (the JAX ring's global array):
+        this rank's allocation times the dp shards, all alike;
+        `storage_nbytes() // dp` is one card's."""
+        return super().storage_nbytes() * self.dp
+
+    def memory_record(self) -> dict:
+        """The ring's `kind: "memory"` ledger record (dp-sharded)."""
+        from ..telemetry.memory import replay_ring_record
+
+        return replay_ring_record(self.storage_nbytes(), self.global_capacity, shards=self.dp,
+                                  location="device")
+
     def shard_sizes(self) -> list:
         """Every shard's row count, in rank order (a collective)."""
         return [s[0] for s in all_gather_ints([self._size], self.mesh)]

@@ -104,6 +104,7 @@ from ..parallel.sharding import (
     synced_batch_stats,
 )
 from ..telemetry.device_stats import emit_beacon
+from ..telemetry.roofline import learner_cost, note_program_cost
 from ..utils.transfer import fetch, upload
 from ..utils.types import DenseBatch
 
@@ -503,6 +504,11 @@ class Trainer:
             program, avals = "learner_step", f"B{n}"
         else:
             program, avals = "learner_fused_steps", f"K{k}xB{n}"
+        note_program_cost(
+            program,
+            lambda: learner_cost(self, k, n, sum(int(np.asarray(v[0]).nbytes) for v in batches[0].values())),
+            avals, self.device.type,
+        )
         return self._begin(lambda: self._train_steps_impl(stacked), k, program, avals)
 
     def train_steps_from(self, buffer, samples: list) -> list:
@@ -519,9 +525,16 @@ class Trainer:
             "idx": np.stack([np.asarray(s["indices"], dtype=np.int64) for s in samples]),
             "weights": np.stack([np.asarray(s["weights"], dtype=np.float32) for s in samples]),
         })
+        k, n = len(samples), len(samples[0]["indices"])
+        # A row gathered from the ring: its stored bytes (the grid int8).
+        note_program_cost(
+            "learner_fused_from_ring",
+            lambda: learner_cost(self, k, n, sum(int(t[0].nbytes) for t in buffer.storage.values())),
+            f"K{k}xB{n}", self.device.type,
+        )
         return self._begin(
             lambda: self._train_steps_from_impl(buffer.storage, dev["idx"], dev["weights"]),
-            len(samples), "learner_fused_from_ring", f"K{len(samples)}",
+            k, "learner_fused_from_ring", f"K{k}",
         )
 
     def train_steps_finish(self, handle: dict) -> list:

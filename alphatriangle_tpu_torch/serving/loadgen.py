@@ -28,12 +28,17 @@ def run_simulated_load(
     progress=None,
     progress_every: int = 8,
     clock=time.monotonic,
+    tick_every: "int | None" = None,
 ) -> dict:
     """Serve `total_sessions` games end to end, keeping up to
     `concurrency` live at once (default: every slot).
 
     `reload_hook(service, dispatch_count)` runs between dispatches;
     `max_dispatches` bounds the run (live sessions are then closed).
+    `tick_every` (`cli serve --tick-every`) ticks the service's telemetry
+    every that many dispatches, as the JAX load generator does (`cli
+    serve` ticks once more at the end); None, the default here, never
+    ticks, so a caller that reads the service's whole window keeps it.
     Returns the run's summary stats.
     """
     # Bounded by the most sessions the service can ever hold (its ladder's
@@ -75,6 +80,8 @@ def run_simulated_load(
             else:
                 service.request_move(r["sid"])
         admit_up_to_target()
+        if tick_every and dispatches % tick_every == 0:
+            service.tick()
         if reload_hook is not None:
             reload_hook(service, dispatches)
         if progress is not None and dispatches % progress_every == 0:

@@ -89,6 +89,7 @@ from ..telemetry.device_stats import (
     unpack_search_stats,
 )
 from ..telemetry.flight import flight_span
+from ..telemetry.roofline import note_program_cost, serve_cost
 from ..utils.transfer import fetch
 from .buckets import BucketLadder
 from .session import SessionSlots
@@ -426,6 +427,9 @@ class PolicyService:
             ))
             # The seal follows the one host fetch: the bracket's wall is
             # the kernels', not their launches'.
+            slots = self.sessions.slots
+            note_program_cost(serve_program_name(slots), lambda: serve_cost(self, slots), f"b{slots}",
+                              self.env.device.type)
             with flight_span(
                 self.flight, "serve", serve_program_name(self.sessions.slots),
                 avals=f"b{len(served)}",

@@ -22,14 +22,20 @@ parts a training run, a league run, a serve run and the serve fleet use.
 - `device_stats`: the stat-pack legs each iteration or serve tick folds
   (`record_device_stats`, one `kind: "device_stats"` ledger record,
   screened by `AnomalyDetector.observe_search`) and the progress
-  beacons, whose rows go to the run's `beacons.jsonl`.
+  beacons, whose rows go to the run's `beacons.jsonl`;
+- `memory` and `roofline`: the static memory records setup ledgers
+  (`record_memory`: the learner state, the replay ring) and the program
+  records the process's kernel build cache holds (`compile_cache.py`:
+  measured memory records, analytic `kind: "cost"` records), drained
+  into the ledger once each at every util tick and at close; the util
+  record's `compile_hits` / `compile_misses` are the build cache's.
 
 With `TelemetryConfig.ENABLED` false every hook is a no-op and no file
 is written. Every module of the package is stdlib only, apart from the
-lazy torch import of `health.device_memory_stats`: `cli health`,
-`cli perf` and the fleet parent read ledgers, heartbeats and flight
-rings without loading torch. The memory and compile records are not
-ported yet.
+lazy torch imports of `health.device_memory_stats` and of the memory
+and cost writers: `cli health`, `cli perf`, `cli mem`, `cli roofline`
+and the fleet parent read ledgers, heartbeats and flight rings without
+loading torch.
 """
 
 import logging
@@ -144,6 +150,9 @@ class RunTelemetry:
         self._last_written_step: int | None = None
         self._clock = clock
         self._closed = False
+        # (program, key) of the build cache's records this run ledgered.
+        self._memory_seen: set = set()
+        self._cost_seen: set = set()
 
     @property
     def enabled(self) -> bool:
@@ -172,6 +181,7 @@ class RunTelemetry:
             return
         drain_beacons()
         detach_beacon_run_dir(self.run_dir)
+        self._ledger_program_records()
         if step is not None:
             self._step = step
         self.health.write()
@@ -234,13 +244,45 @@ class RunTelemetry:
             self._escalate(self.anomaly.observe_search(search_leg, step), step)
         return record
 
+    def record_memory(self, record: "dict | None") -> None:
+        """Ledger one static memory-attribution record (the learner
+        state's or a replay ring's bytes, a measured program;
+        telemetry/memory.py; `cli mem` renders them)."""
+        if self.ledger is not None and record:
+            self.ledger.append(record)
+
+    def _ledger_program_records(self) -> None:
+        """Append the program memory and cost records the process's build
+        cache holds that this run has not ledgered yet (components
+        register a cost record at a program's first dispatch, so this runs
+        every util tick and at close; the seen-sets are this run's)."""
+        if self.ledger is None:
+            return
+        from ..compile_cache import get_build_cache
+
+        cache = get_build_cache()
+        for records, seen in ((cache.memory_summary(), self._memory_seen),
+                              (cache.cost_summary(), self._cost_seen)):
+            for record in records:
+                rid = (record.get("program"), record.get("key"))
+                if rid not in seen:
+                    seen.add(rid)
+                    self.ledger.append(record)
+
     def on_util_tick(self, step: int, **counters) -> "dict | None":
         """Derive and ledger one utilization record from the caller's
-        cumulative counters (`UtilizationMeter.tick`'s keys); the card's
-        memory is read here and screened for monotonic growth. Returns
-        the record."""
+        cumulative counters (`UtilizationMeter.tick`'s keys) and the
+        build cache's hits and misses; the card's memory is read here and
+        screened for monotonic growth. Returns the record."""
         if not self.enabled or self.perf is None:
             return None
+        if "compile_hits" not in counters:
+            from ..compile_cache import get_build_cache
+
+            cc = get_build_cache().stats()
+            counters["compile_hits"] = cc["hits"]
+            counters["compile_misses"] = cc["misses"]
+        self._ledger_program_records()
         if "device_memory" not in counters:
             counters["device_memory"] = device_memory_stats()
         self._tick_memory = counters["device_memory"]

@@ -18,9 +18,9 @@
 - `load_comparable` reads one side of `cli compare` (a `cli perf --json`
   snapshot, a bench JSON line, a ledger, a run directory or a run name)
   into a summary with the league and fleet folds; `compare_summaries`
-  aligns two of them metric by metric against a threshold. The JAX
-  version's memory-budget fold (`kind:"memory"` records) is not ported:
-  the port writes no such records yet.
+  aligns two of them metric by metric against a threshold. Both carry
+  the static memory budget of the run's `kind:"memory"` records
+  (`fold_memory_budget`).
 
 Stdlib only: `cli perf`, `cli compare`, `cli health` and the fleet
 parent import this without torch.
@@ -32,6 +32,7 @@ import time
 from pathlib import Path
 
 from ..utils.flops import peak_bf16_tflops_info
+from .memory import summarize_device_memory
 
 logger = logging.getLogger(__name__)
 
@@ -174,8 +175,9 @@ class UtilizationMeter:
         the card idle most of its wall and still reads near 0 under load.
         Records of callers that never pass it carry no such field.
 
-        `compile_hits` / `compile_misses` are the JAX package's compile
-        cache counts; the port has no compile cache and leaves them 0."""
+        `compile_hits` / `compile_misses` are the kernel build cache's
+        counts (`compile_cache.BuildCache.stats`): libraries loaded from
+        the build directory and libraries `nvcc` built in this process."""
         now = self._clock()
         # Memory accounting folds on EVERY tick (including the baseline
         # tick that yields no rate record) so the high-water mark never
@@ -333,35 +335,6 @@ class UtilizationMeter:
             ],
         }
         return out
-
-
-def summarize_device_memory(device_memory) -> "dict | None":
-    """Fold `health.device_memory_stats()` rows into run totals:
-    summed in-use/peak, summed limit (None when no device reports one).
-    """
-    if not device_memory:
-        return None
-    in_use = 0
-    peak = 0
-    limits = []
-    for d in device_memory:
-        if not isinstance(d, dict):
-            continue
-        u = d.get("bytes_in_use")
-        if isinstance(u, (int, float)):
-            in_use += int(u)
-        p = d.get("peak_bytes_in_use")
-        peak += int(p) if isinstance(p, (int, float)) else (
-            int(u) if isinstance(u, (int, float)) else 0
-        )
-        lim = d.get("bytes_limit")
-        if isinstance(lim, (int, float)) and lim > 0:
-            limits.append(int(lim))
-    return {
-        "bytes_in_use": in_use,
-        "peak_bytes_in_use": peak,
-        "bytes_limit": sum(limits) if limits else None,
-    }
 
 
 def _percentile(values: list, q: float) -> "float | None":
@@ -737,9 +710,28 @@ def load_comparable(
     summary = summarize_utilization(records)
     if summary is None:
         return None, f"{ledger}: no utilization records"
+    fold_memory_budget(summary, records)
     fold_league_and_fleet(summary, records, ledger)
     summary["source"] = str(ledger)
     return summary, str(ledger)
+
+
+def fold_memory_budget(summary: dict, records: list) -> "int | None":
+    """Fold the static memory budget of the run's `kind:"memory"`
+    records (`memory.compose_budget`) into `summary` as
+    `memory_budget_bytes` (in place), so `cli compare` gates its growth
+    beside the observed peak. Returns it; None without records or when
+    it is 0."""
+    from .memory import compose_budget
+
+    mem_records = [r for r in records if r.get("kind") == "memory"]
+    if not mem_records:
+        return None
+    total = compose_budget(mem_records)["total_bytes"]
+    if total <= 0:
+        return None
+    summary["memory_budget_bytes"] = total
+    return total
 
 
 def fold_league_and_fleet(

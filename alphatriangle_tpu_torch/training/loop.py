@@ -1,5 +1,5 @@
 """The training loop: counterpart of `alphatriangle_tpu/training/loop.py`
-in its three modes, on one device.
+in its three modes, on one device or as one rank of a process group.
 
 - **Synchronous** (the default): each iteration plays a rollout chunk of
   every lane, folds the harvest into the replay ring (the host ring's
@@ -96,13 +96,23 @@ under a `torch.profiler` window exported into `profile_data/`
 not its warm-up chunks, so the window holds megasteps 1-2.
 
 A run over a process group (`components.mesh`; the synchronous loop on
-any mesh, the megastep on a dp-only one) keeps its ranks in lockstep:
-the stop test (a stop, or a preemption, on any rank stops every rank at
-the same beat), a rank's own host ring drawing None, the megastep's
-warm-up gate ("every shard can fill") and the synchronous loop's step
-count (from the iteration's global rows) are reduced over the ranks; the
-step clock, the checkpoint cadences and the stop at MAX_TRAINING_STEPS
-follow the learner step, which is the same everywhere. A rank's own host ring
+any mesh, the megastep and the overlapped loop on a dp-only one) keeps
+its ranks in lockstep: the stop test (a stop, or a preemption, on any
+rank stops every rank at the same beat), a rank's own host ring drawing
+None, the megastep's warm-up gate ("every shard can fill") and the
+synchronous loop's step count (from the iteration's global rows) are
+reduced over the ranks; the step clock, the checkpoint cadences and the
+stop at MAX_TRAINING_STEPS follow the learner step, which is the same
+everywhere. The overlapped loop's beats are lockstep too, though its
+producer threads run at each rank's own pace: a beat tests the stop
+state its ranks agreed at its start (a stream that used up its restarts
+sets the rank's stop event mid-beat, and every rank stops at the next
+beat), the replay-ratio gate counts the global rows (the rows each beat
+folded, reduced over the row owners), the chunk auto-tune takes the
+slowest rank's timed chunk, so every rank's producers play one length,
+and each rank's extra streams play its share of their lanes. What is
+left to a rank's own timing (how many harvests a beat folds, how long it
+waits for one) starts no collective. A rank's own host ring
 draws B / dp rows (JAX `training/loop.py:464`), a sharded ring each
 rank's stratum of B. Rank 0 alone writes the preemption report. A
 rank's counters are its own lanes' (rank 0's also hold a restored run's
@@ -188,6 +198,9 @@ class TrainingLoop:
         # Root visits inherited through subtree reuse (0 without it).
         self.total_reused_visits = 0
         self.lane_moves = 0  # moves played, summed over lanes and streams
+        # Moves of every rollout chunk this rank played (any stream, folded
+        # or not; the megasteps' excluded): each a search of its lanes.
+        self._chunk_moves: list = []
         self.weight_updates = 0
         self.experiences_added = 0
         self._steps_this_run = 0
@@ -213,6 +226,10 @@ class TrainingLoop:
         self._tuned_chunk_moves: "int | None" = None
         self.harvests_by_stream: dict[int, int] = {}
         self.queue_depths: list[int] = []
+        # The replay-ratio gate's rows (`_count_gate_rows`) and the
+        # rank's own rows it has counted so far.
+        self._gate_rows = 0
+        self._gate_rows_folded = 0
         # Per learner step: its metrics, with its "step".
         self.metrics: list[dict] = []
         self.episode_scores: list[float] = []
@@ -304,6 +321,7 @@ class TrainingLoop:
 
     def _play_rollout(self, engine: SelfPlayEngine, moves: int) -> tuple:
         """One rollout chunk on `engine`: (harvest, device payload or None)."""
+        self._chunk_moves.append(moves)  # any thread: list.append is atomic
         if self._device_replay:
             return engine.play_moves_device(moves)
         return engine.play_moves(moves), None
@@ -328,6 +346,7 @@ class TrainingLoop:
         played = None
         if self.mesh.mdl_index == 0:
             engine = self.c.self_play
+            self._chunk_moves.append(self.cfg.ROLLOUT_CHUNK_MOVES)
             played = (engine.play_moves(self.cfg.ROLLOUT_CHUNK_MOVES), engine.last_trace)
         result, trace = line_broadcast_object(played, self.mesh, MDL)
         parts = line_gather_object(result, self.mesh, SP)
@@ -976,6 +995,7 @@ class TrainingLoop:
             primary.config,
             batch_size=primary.batch_size,
             seed=self.cfg.RANDOM_SEED + 2000 + stream * 100 + attempt,
+            lanes=primary.lanes,
         )
         engine.flight = primary.flight
         return engine
@@ -1018,10 +1038,30 @@ class TrainingLoop:
 
     def _learner_steps_allowed(self) -> int:
         """Replay-ratio gate: steps the learner may take now, REPLAY_RATIO
-        samples per row produced in this run, groups in flight counted as
-        taken."""
-        target = self.experiences_added * self.cfg.REPLAY_RATIO / self.cfg.BATCH_SIZE
+        samples per row produced in this run (the global rows of a
+        multi-rank run, `_count_gate_rows`), groups in flight counted as
+        taken. The same on every rank of a lockstep beat."""
+        target = self._gate_rows * self.cfg.REPLAY_RATIO / self.cfg.BATCH_SIZE
         return max(0, int(target) - self._steps_this_run - self._inflight_steps())
+
+    def _count_gate_rows(self) -> None:
+        """Add the rows folded since the last call to the gate's count:
+        the run's own in one process; in a multi-rank run the global rows
+        (each dp row's once, one reduction, so every rank calls it at the
+        same beat), the rows the JAX loop's one program counts."""
+        new = self.experiences_added - self._gate_rows_folded
+        self._gate_rows_folded = self.experiences_added
+        if self._grouped:
+            new = int(all_reduce_scalar(new if self.mesh.row_owner else 0, self.mesh))
+        self._gate_rows += new
+
+    def _stop_seen(self) -> bool:
+        """The live stop event, for the overlapped beat's local choices. A
+        multi-rank beat keeps the stop state its ranks agreed at its start
+        (`_should_stop`): a stream that used up its restarts sets this
+        rank's event mid-beat, and a test of it between two collectives
+        would leave its peers waiting in the next one."""
+        return not self._grouped and self.stop_event.is_set()
 
     # --- pipelined learner (overlapped mode) ------------------------------
 
@@ -1033,7 +1073,7 @@ class TrainingLoop:
         True when a group went out."""
         k = max(1, self.cfg.FUSED_LEARNER_STEPS)
         group = min(k, self._learner_budget(allowed))
-        if group <= 0 or self.stop_event.is_set():
+        if group <= 0 or self._stop_seen():
             return False
         samples = self._sample_group(group)
         if not samples:
@@ -1081,9 +1121,10 @@ class TrainingLoop:
 
     def _make_rollout_streams(self) -> list:
         """The primary engine plus NUM_SELF_PLAY_WORKERS - 1 more (own
-        carry and seed; the primary's env, extractor, net and flight
-        recorder, so every stream's chunks are bracketed), clamped to the
-        device's budget."""
+        carry and seed; the primary's env, extractor, net, flight recorder,
+        so every stream's chunks are bracketed, and lanes: a dp rank's
+        share of each stream's global lanes, as the JAX streams share the
+        primary's mesh), clamped to the device's budget."""
         primary = self.c.self_play
         streams = [primary]
         for i in range(1, clamp_self_play_workers(self.cfg.NUM_SELF_PLAY_WORKERS, self.c.device)):
@@ -1094,6 +1135,7 @@ class TrainingLoop:
                 primary.mcts_config,
                 primary.config,
                 seed=self.cfg.RANDOM_SEED + 1000 + i,
+                lanes=primary.lanes,
             )
             engine.flight = primary.flight
             streams.append(engine)
@@ -1112,6 +1154,10 @@ class TrainingLoop:
             result, payload = self._play_rollout(self.c.self_play, cfg.ROLLOUT_CHUNK_MOVES)
             dt = time.perf_counter() - t0
             self._fold_result(result, payload=payload)
+            if self._grouped:
+                # One length for every rank's producers, as the JAX mesh
+                # runs one program: the slowest rank's measurement.
+                dt = all_reduce_scalar(dt, self.mesh, op="max")
             self._maybe_tune_chunk(cfg.ROLLOUT_CHUNK_MOVES, dt, warmed=True)
         cuda = self.c.device.type == "cuda"
         for i, engine in enumerate(self._make_rollout_streams()):
@@ -1120,9 +1166,10 @@ class TrainingLoop:
                 rec["cuda_stream"] = torch.cuda.Stream(self.c.device)
             rec["engine"] = engine
             rec["thread"] = self._spawn_producer_thread(engine, harvests, i)
+        self._count_gate_rows()  # the auto-tune's chunks
         iteration = 0
         try:
-            while not self.stop_event.is_set():
+            while not self._should_stop():
                 if self._max_steps_reached():
                     logger.info("Reached MAX_TRAINING_STEPS=%d.", cfg.MAX_TRAINING_STEPS)
                     break
@@ -1142,7 +1189,7 @@ class TrainingLoop:
                             break
                     if (
                         folded == 0
-                        and not self.stop_event.is_set()
+                        and not self._stop_seen()
                         and (self._learner_steps_allowed() == 0 or not self.c.buffer.is_ready())
                     ):
                         try:
@@ -1150,20 +1197,23 @@ class TrainingLoop:
                             folded += 1
                         except queue.Empty:
                             pass
+                self._count_gate_rows()
                 if cfg.PIPELINE_LEARNER:
                     steps_ran = self._pump_learner(self._learner_steps_allowed())
                 else:
                     steps_ran = self._run_training_steps(self._learner_steps_allowed())
+                if steps_ran:
+                    self._note_replicas()
                 if folded == 0 and steps_ran == 0:
                     # Gate open but no batch yet: do not spin.
                     time.sleep(0.05)
                 self.queue_depths.append(harvests.qsize())
                 stats = self.c.stats
                 stats.log_scalar("System/Rollout_Queue_Depth", self.queue_depths[-1], self.global_step)
-                if self.experiences_added:
+                if self._gate_rows:
                     stats.log_scalar(
                         "System/Replay_Ratio_Actual",
-                        self._steps_this_run * cfg.BATCH_SIZE / self.experiences_added,
+                        self._steps_this_run * cfg.BATCH_SIZE / self._gate_rows,
                         self.global_step,
                     )
                 self.timings["iteration_s"].append(time.perf_counter() - t0)
@@ -1241,6 +1291,7 @@ class TrainingLoop:
             "simulations": self.total_simulations,
             "reused_visits": self.total_reused_visits,
             "lane_moves": self.lane_moves,
+            "chunk_moves": sum(self._chunk_moves),
             "weight_updates": self.weight_updates,
             "weights_version": self.c.net.weights_version,
             # Samples consumed per row produced.

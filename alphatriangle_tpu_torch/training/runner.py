@@ -219,11 +219,6 @@ def run_training(
     train_config = _apply_supervise_overrides(train_config or TrainConfig())
     joined = distributed_config is not None and distributed_config.ENABLED
     if joined:
-        if train_config.ASYNC_ROLLOUTS:
-            raise ValueError(
-                "--distributed with --async-rollouts: the overlapped loop across ranks waits for "
-                "ROADMAP.md item 6c"
-            )
         initialize_distributed(distributed_config, device or "cuda")
         from ..parallel.distributed import process_info
 

@@ -18,13 +18,18 @@ Before any engine exists it publishes the device stat-pack flag
 when they are built. The device is resolved before anything touches
 the disk, so a CUDA request without a card makes no directory. The
 learner shares the net's module only in megastep mode (rl/trainer.py).
-The compile-cache tracer and the memory records of the JAX setup wait
-for a later slice.
+As the JAX setup does, it ledgers the run's static memory records
+(`telemetry/memory.py`: the learner state's bytes, the replay ring's)
+and attaches the run's tracer to the kernel build cache
+(`compile_cache.py`), whose builds and loads become `compile/<kernel>`
+spans.
 
 In a process group (`parallel/distributed.py`) the mesh is
 `MeshConfig.build_mesh` over the ranks, one device each, with its axes'
-process groups (`attach_groups`); the overlapped loop across ranks
-raises (ROADMAP.md item 6c). The mesh's axes are reached through
+process groups (`attach_groups`); the overlapped loop runs on a dp-only
+mesh, and raises on a mesh with mdl or sp wider than one (ROADMAP.md
+item 6e: the mdl line's harvest broadcast would run on a producer
+thread, at each rank's own beat). The mesh's axes are reached through
 `mesh_config`, as in JAX: no flag of `cli train` sets MDL_SIZE or
 SP_SIZE. Self-play lanes ride (dp, sp) (`rollout_lane_axes`): each rank
 steps lanes shard `dp_i * SP + sp_i` of the dp x sp shards (`rng.Lanes`;
@@ -72,8 +77,10 @@ from ..rl.self_play import SelfPlayEngine
 from ..rl.trainer import Trainer
 from ..stats.collector import StatsCollector
 from ..stats.persistence import CheckpointManager
+from ..compile_cache import get_build_cache
 from ..telemetry import RunTelemetry
 from ..telemetry.device_stats import set_device_stats
+from ..telemetry.memory import replay_ring_bytes, replay_ring_record, train_state_record
 from ..telemetry.perf import UtilizationMeter
 from ..utils.flops import forward_flops, train_step_flops
 from .components import TrainingComponents
@@ -178,6 +185,12 @@ def build_mesh(mesh_config: "MeshConfig | None", train_config: TrainConfig) -> M
     with a warning, as the JAX setup does (an mdl or sp axis the world
     cannot hold raises)."""
     mesh_config = mesh_config or MeshConfig()
+    if train_config.ASYNC_ROLLOUTS and (mesh_config.MDL_SIZE > 1 or mesh_config.SP_SIZE > 1):
+        raise ValueError(
+            f"ASYNC_ROLLOUTS on a mesh with MDL_SIZE={mesh_config.MDL_SIZE}, "
+            f"SP_SIZE={mesh_config.SP_SIZE}: the overlapped loop runs on a dp-only mesh; over "
+            "mdl or sp it waits for ROADMAP.md item 6e"
+        )
     rank, world = process_info()
     backend = backend_name()
     try:
@@ -187,11 +200,6 @@ def build_mesh(mesh_config: "MeshConfig | None", train_config: TrainConfig) -> M
             raise
         logger.warning("Mesh build failed (%s); single-device fallback.", exc)
         mesh = MeshConfig.single_device_mesh()
-    if backend is not None and train_config.ASYNC_ROLLOUTS:
-        raise ValueError(
-            "ASYNC_ROLLOUTS under torch.distributed: the overlapped loop across ranks "
-            "waits for ROADMAP.md item 6c"
-        )
     shards = lane_shard_count(mesh, rollout_lane_axes(mesh, *mesh.axis_names[::2]))
     if train_config.SELF_PLAY_BATCH_SIZE % shards != 0:
         raise ValueError(
@@ -321,9 +329,26 @@ def setup_training_components(
     # Every processed metric batch lands in the ledger, the final flushes
     # included; every dispatch family writes its intent and seal records.
     stats.set_tick_sink(telemetry.record_metrics)
+    # Kernel builds and loads become compile/<kernel> spans in trace.json.
+    get_build_cache().set_tracer(telemetry.tracer)
     self_play.flight = trainer.flight = telemetry.flight
     if megastep is not None:
         megastep.flight = telemetry.flight
+    # Static memory attribution (telemetry/memory.py): the learner state's
+    # bytes, and the ring's (the device rings' own storage; the host ring's
+    # from its geometry, as the JAX setup counts it).
+    telemetry.record_memory(train_state_record(trainer))
+    if buffer.is_device:
+        telemetry.record_memory(buffer.memory_record())
+    else:
+        telemetry.record_memory(replay_ring_record(
+            replay_ring_bytes(
+                train_config.BUFFER_CAPACITY,
+                (model_config.GRID_INPUT_CHANNELS, env_config.ROWS, env_config.COLS),
+                extractor.other_dim, env_config.action_dim,
+            ),
+            train_config.BUFFER_CAPACITY, location="host",
+        ))
     return TrainingComponents(
         env=env,
         extractor=extractor,

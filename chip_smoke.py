@@ -406,8 +406,31 @@ the share of the traced training iteration under `tp.all_reduce` /
 iteration (from the pair's spawn for tp2, from the start of its group
 for sp2).
 
-Depth cut for slice fifteen (widths unchanged): the league to step 1
-(was 2). Earlier, for the two
+Slice sixteen: train-dp2-shared-async, the overlapped loop over two
+gloo ranks sharing the card (`cli train --distributed --async-rollouts
+--device-replay on`, each rank 256 lanes in 2 producer streams, a batch
+of 256 over the ranks, a 125,000-slot shard; cut to 4-move chunks, a
+replay ratio of 0.25 and 4 learner steps, `--profile`), on a thread
+of its own beside train-dp1, train-dp2-shared and the drills. Both ranks must report the same steps, beats and tuned
+chunk and the same parameter digest after every beat that trained, and
+launch the search kernels 16 + 2 times a move of every chunk they
+played (`chunk_moves`) and no PER count; it prints per rank the learner
+steps/s, the queue depth, the producer chunk p50 and the `dp.all_reduce`
+share of the traced beats. The memory plane, after the async pair on
+its thread: `cli warm` at the card's default plan (`bench_config.py`'s
+flagship scale; exit 0, seconds per program, the build cache's hits and
+misses), `cli fit` at that plan (exit 0; its budget beside the train
+phase's `max_memory_allocated` and their ratio), `cli fit --limit-gb 1
+--programs search` (exit 1); after the async pair, `cli mem` and `cli
+roofline` (torch-free) on its run directory (rows for the self-play and
+learner programs) and `cli roofline` on the serve-run phase's own run
+(the search's `serve/b64` row), both at the H100 table's balance.
+
+Depth cut for slice sixteen (widths unchanged): supervise-torn to step 6
+(was 8); the new phases run beside the drills and the dp phases, and
+the mesh pair beside the resume, the doctor, the readers and the
+reference phases (it ran after them). For
+slice fifteen: the league to step 1 (was 2). Earlier, for the two
 meshes: train-sync to step 10 (was 12),
 train-async to step 10 (was 12; 16 before slice fourteen), both still
 past their weight sync at step 10, and train-async's profiled and armed
@@ -3839,12 +3862,23 @@ def serve_run_phase(torch, run: str) -> dict:
     want = {"gather_rows": 16 * n, "backup_update": 2 * n, "per_sample": 0, "subtree_promote": 0}
     if report["kernel_launches"] != want:
         fail(f"{label}: launches {report['kernel_launches']} in {n} dispatches, want {want}")
+    # The report's window fields are the last tick window's (`--tick-every`);
+    # the dispatch p50 of the whole run is its flight ring's.
+    from alphatriangle_tpu_torch.telemetry.flight import read_flight, summarize_flight
+
+    serve_dir = Path(report["ledger"]).parent
+    [row] = [r for r in summarize_flight(read_flight(serve_dir / "flight.jsonl"))
+             if r["program"] == "serve/b64"]
+    if row["count"] != n:
+        fail(f"{label}: {row['count']} sealed serve/b64 dispatches in the flight ring, {n} served")
     return {
         "launches": report["kernel_launches"], "dispatches": n,
         "inference_precision": report["inference_precision"], "norm_type": report["norm_type"],
         "served_step": first, "reloaded_steps": report["reloaded_steps"],
-        "dispatch_ms_p50": report["serve_batch_ms_p50"], "moves_per_s": report["moves_per_sec"],
+        "dispatch_ms_p50": row["wall_s_p50"] * 1e3, "moves_per_s": report["moves_per_sec"],
         "sessions_served": report["sessions_served"],
+        # The service's own telemetry (`--serve-run-name`'s default).
+        "serve_run_dir": str(serve_dir),
     }
 
 
@@ -5621,7 +5655,7 @@ def profile_phase(torch) -> dict:
 # the wedge at the 3rd megastep's dispatch (past the first committed
 # checkpoint), whose deadline is max(15 s, 10 x the megastep's expected
 # wall) under a watchdog polled every 0.5 s; the torn save at step 4.
-SUPERVISE_FREQ, SUPERVISE_STEPS, SUPERVISE_TORN_STEPS = 2, 12, 8
+SUPERVISE_FREQ, SUPERVISE_STEPS, SUPERVISE_TORN_STEPS = 2, 12, 6
 SUPERVISE_HANG_MEGASTEP, SUPERVISE_MIN_DEADLINE = 3, 15.0
 SUPERVISE_TORN_STEP = 4
 
@@ -6138,7 +6172,7 @@ def train_dp2_shared_phase(torch) -> tuple:
         check_report_losses(res, "train-dp2-resume")
         report["resume"] = {"resumed_step": res["resumed_step"], "restored_rows": res["restored_rows"],
                             "restore_s": res["restore_s"], "megastep_ms": res["timings"]["megastep_s"][0] * 1e3,
-                            "beside": "doctor, readers and reference phases"}
+                            "beside": "doctor, readers and reference phases and the mesh pair"}
 
     return report, resume
 
@@ -6176,6 +6210,217 @@ def say_dp(label: str, r: dict, card: str) -> None:
             f"{rk['peak_gb']:.2f} GiB; spawn to first megastep {rk['spawn_to_first_megastep_s']:.1f} s; "
             f"launches {rk['launches']} [{card}]"
         )
+
+
+# Slice sixteen: the overlapped loop over dp ranks, and the memory,
+# roofline and build-cache plane. train-dp2-shared-async: the dp2 pair's
+# widths (512 lanes over two gloo ranks on the card, 256 a rank, a batch
+# of 256 over the ranks, a 125,000-slot shard each) in `cli train
+# --distributed --async-rollouts --device-replay on`, two producer
+# streams a rank, cut in depth: 4-move chunks (the auto-tune's two timed
+# chunks then hold the 5-step returns' first rows, so the learner starts
+# in the traced beats 1-2), a replay ratio of 0.25 (the learner then
+# waits for the producers' rows past its first steps) and 4 learner
+# steps.
+ASYNC_DP_CHUNK_MOVES, ASYNC_DP_STREAMS, ASYNC_DP_RATIO, ASYNC_DP_STEPS = 4, 2, 0.25, 4
+
+
+def async_dp_argv(rank: int, port: int) -> list:
+    return [
+        "train", "--async-rollouts", "--device-replay", "on", "--device", "cuda", "--seed", "0",
+        "--workers", str(ASYNC_DP_STREAMS), "--rollout-chunk", str(ASYNC_DP_CHUNK_MOVES),
+        "--min-buffer", str(TRAIN_MIN_BUFFER), "--replay-ratio", str(ASYNC_DP_RATIO),
+        # A root of its own: train-dp2-shared's resume auto-resumes the newest
+        # run under its root.
+        "--max-steps", str(ASYNC_DP_STEPS), "--root-dir", str(RUN_ROOT / "dp-async"), "--run-name", "dp2-async",
+        "--no-tensorboard", "--log-level", "WARNING", "--no-auto-resume", "--profile",
+        *dp_flags(2, rank, port, "gloo"),
+    ]
+
+
+def beats_trace_share(run: Path, pid: int) -> dict:
+    """Rank `pid`'s traced beats (the `--profile` window, beats 1-2 of the
+    overlapped loop: from their first phase span to the trace's last
+    event) and the `dp.all_reduce` label's host time inside them."""
+    traces = list((run / "profile_data").glob(f"*_{pid}.*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"train-dp2-shared-async: {len(traces)} traces of rank pid {pid} in {run / 'profile_data'}")
+    events = [e for e in json.loads(traces[0].read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in events
+                if str(e.get("name", "")).startswith("phase/") and e.get("cat") == "user_annotation")
+    wall = max(e["ts"] + e["dur"] for e in events) - start
+    host = [e["dur"] for e in events if e.get("name") == "dp.all_reduce"
+            and e.get("cat") == "user_annotation" and e["ts"] >= start]
+    return {"traced_ms": wall / 1e3, "all_reduce_host_ms": sum(host) / 1e3,
+            "all_reduce_share": sum(host) / wall, "calls": len(host)}
+
+
+def train_dp2_shared_async_phase(torch) -> dict:
+    """Two gloo ranks sharing the card run the overlapped loop to
+    ASYNC_DP_STEPS learner steps. Both must report the same steps, beats
+    and tuned chunk, the same parameter digest after every beat that
+    trained, the search kernels 16 + 2 times a move of every chunk they
+    played (no PER count: each shard samples on its host tree), and end
+    within the phase's limit."""
+    port = free_port()
+    results = launch_all(
+        [(f"train-dp2-async-rank{r}", async_dp_argv(r, port), {}) for r in range(2)], timeout=420,
+    )
+    (r0, pid0, _), (r1, _, _) = results
+    agreed = [(r["steps"], r["iterations"], r["tuned_chunk_moves"]) for r in (r0, r1)]
+    if agreed[0] != agreed[1] or r0["steps"] != ASYNC_DP_STEPS:
+        fail(f"train-dp2-shared-async: (steps, beats, tuned chunk) per rank {agreed}, want equal at "
+             f"{ASYNC_DP_STEPS} steps")
+    digests = r0["dp"]["param_checksums"]
+    if not digests or digests != r1["dp"]["param_checksums"]:
+        fail(f"train-dp2-shared-async: parameter digests differ or are missing: {r0['dp']} / {r1['dp']}")
+    run = RUN_ROOT / "dp-async" / "AlphaTriangleTPUTorch" / "runs" / "dp2-async"
+    ranks = []
+    for i, (r, pid, t_spawn) in enumerate(results):
+        label = f"train-dp2-async-rank{i}"
+        check_report_losses(r, label)
+        moves = r["chunk_moves"]
+        want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample": 0, "subtree_promote": 0}
+        if r["kernel_launches"] != want or r["mode"] != "async" or r["replay_ring"] != "device":
+            fail(f"{label}: launches {r['kernel_launches']} over {moves} searched moves (want {want}), "
+                 f"mode {r['mode']}, ring {r['replay_ring']}")
+        if r["lane_moves"] % DP2_LANES or set(r["harvests_by_stream"]) != {"0", "1"}:
+            fail(f"{label}: {r['lane_moves']} lane moves (not a multiple of {DP2_LANES} lanes) or harvests "
+                 f"by stream {r['harvests_by_stream']}")
+        t = r["timings"]
+        ranks.append({
+            "rank": r["dp"]["rank"], "steps_per_s": t["learner_steps_per_s"], "run_s": t["run_s"],
+            "queue_depth_max": r["queue_depth_max"], "producer_chunk_ms_p50":
+                None if t["producer_chunk_s_p50"] is None else t["producer_chunk_s_p50"] * 1e3,
+            "tuned_chunk_moves": r["tuned_chunk_moves"], "beats": r["iterations"],
+            "harvests_by_stream": r["harvests_by_stream"], "replay_ratio": r["replay_ratio"],
+            "searched_moves": moves, "launches": r["kernel_launches"], "lane_moves": r["lane_moves"],
+            "peak_gb": r["peak_device_bytes"] / 2**30, "spawn_to_end_s": time.time() - t_spawn,
+            "trace": beats_trace_share(run, pid),
+        })
+    utils = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    utils = [u for u in utils if u.get("kind") == "util"]
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] for k in ranks[0]["launches"]}
+    return {
+        "backend": "gloo", "world": 2, "ranks": ranks, "launches": launches,
+        "searched_moves": sum(r["searched_moves"] for r in ranks), "param_checksums": digests,
+        "digests_compared": len(digests), "run_dir": str(run),
+        "compile_cache": {k: utils[-1].get(f"compile_cache_{k}") for k in ("hits", "misses")} if utils else None,
+    }
+
+
+def say_dp_async(r: dict, card: str) -> None:
+    for rk in r["ranks"]:
+        tr = rk["trace"]
+        p50 = "n/a" if rk["producer_chunk_ms_p50"] is None else f"{rk['producer_chunk_ms_p50']:.1f} ms"
+        say(
+            f"train-dp2-shared-async rank {rk['rank']} (gloo, world 2, {DP2_LANES} lanes, "
+            f"{ASYNC_DP_STREAMS} streams): {rk['steps_per_s']:.3f} learner steps/s over {rk['run_s']:.1f} s; "
+            f"queue depth max {rk['queue_depth_max']}; producer chunk p50 {p50} (tuned to "
+            f"{rk['tuned_chunk_moves']} moves); {rk['beats']} beats; harvests {rk['harvests_by_stream']}; "
+            f"replay ratio {rk['replay_ratio']}; dp.all_reduce {tr['all_reduce_host_ms']:.2f} ms in "
+            f"{tr['calls']} calls, {tr['all_reduce_share']:.2%} of the traced beats ({tr['traced_ms']:.1f} ms); "
+            f"peak {rk['peak_gb']:.2f} GiB; launches {rk['launches']} [{card}]"
+        )
+    say(
+        f"train-dp2-shared-async: parameter digests equal on both ranks after each of the "
+        f"{r['digests_compared']} beats that trained; rank 0's util records count the build cache's "
+        f"{r['compile_cache']} [{card}]"
+    )
+
+
+# The memory plane: `cli warm` and `cli fit` at the default plan (the
+# card's flagship scale, `bench_config.py`: 512 lanes, 16-move chunks,
+# Gumbel roots with playout caps, batch 256, K = 16, a 10,000-slot ring),
+# `cli fit --limit-gb 1` (over; its measured programs cut to the search),
+# and `cli mem` / `cli roofline` on the train-dp2-shared-async run and on
+# the serve-run phase's service run.
+H100_BALANCE = round(989.4e12 / 3350e9, 4)
+
+
+def memory_plane_phase(torch) -> dict:
+    """`cli warm` and `cli fit`, then `cli fit --limit-gb 1`; each in a
+    process of its own. Returns their figures; `memory_readers` checks
+    the run readers once the runs they read exist."""
+    t0 = time.perf_counter()
+    rc, warm = run_cli(["warm", "--device", "cuda"], "memplane-warm", 600)
+    warm_s = time.perf_counter() - t0
+    bad = [row for row in warm["programs"] if row["status"] != "ran"]
+    if rc != 0 or bad:
+        fail(f"memory-plane: cli warm exit {rc}, programs not run: {bad}")
+    t0 = time.perf_counter()
+    rc, fit = run_cli(["fit", "--device", "cuda", "--json"], "memplane-fit", 600)
+    fit_s = time.perf_counter() - t0
+    programs = [r for r in fit["records"] if r.get("category") == "program"]
+    if rc != 0 or fit["exit"] != 0 or fit["limit_source"] != "device" or len(programs) < 5:
+        fail(f"memory-plane: cli fit exit {rc} ({fit['reason']}), {len(programs)} measured programs")
+    t0 = time.perf_counter()
+    rc1, fit1 = run_cli(["fit", "--device", "cuda", "--json", "--limit-gb", "1", "--programs", "search"],
+                        "memplane-fit-1gb", 600)
+    fit1_s = time.perf_counter() - t0
+    if rc1 != 1 or fit1["exit"] != 1 or fit1["bytes_limit"] != 2**30:
+        fail(f"memory-plane: cli fit --limit-gb 1 exit {rc1} ({fit1['reason']}), want 1")
+    return {
+        "warm": {"seconds": warm_s, "programs": {r["program"]: r["seconds"] for r in warm["programs"]},
+                 "hits": warm["stats"]["hits"], "misses": warm["stats"]["misses"]},
+        "fit": {"seconds": fit_s, "budget": fit["budget"], "limit": fit["bytes_limit"],
+                "reason": fit["reason"],
+                "programs": {r["program"]: {"peak": r["peak"], "argument": r["bytes"]["argument"]}
+                             for r in programs}},
+        "fit_1gb": {"seconds": fit1_s, "exit": rc1, "reason": fit1["reason"],
+                    "budget": fit1["budget"]["total_bytes"]},
+    }
+
+
+def memory_readers(train_run: str, serve_run: str) -> dict:
+    """`cli mem` and `cli roofline` (torch-free) on the overlapped dp run
+    and on the served run: exit 0; the train run's roofline has rows for
+    its self-play and learner programs, the served run's for its search
+    (`serve/b<B>`), both at the H100 table's machine balance."""
+    out = {}
+    rc, text = run_reader(["mem", train_run, "--json"], "memory-plane mem")
+    mem = json.loads(text) if rc == 0 else None
+    if rc != 0 or not mem["records"] or mem["budget"]["train_state_bytes"] <= 0:
+        fail(f"memory-plane: cli mem exit {rc} on {train_run}")
+    out["mem"] = {"budget": mem["budget"], "components": sorted({r["component"] for r in mem["records"]})}
+    for name, run, families in (("train", train_run, ("rollout", "learner")), ("serve", serve_run, ("serve",))):
+        rc, text = run_reader(["roofline", run, "--json"], f"memory-plane roofline {name}")
+        roof = json.loads(text) if rc == 0 else None
+        have = {p["family"] for p in (roof or {}).get("programs") or [] if p.get("flops")}
+        if rc != 0 or not set(families) <= have or roof["machine_balance_flops_per_byte"] != H100_BALANCE \
+                or roof["peak_hbm_source"] != "table":
+            fail(f"memory-plane: cli roofline exit {rc} on {run}: families with costs {sorted(have)} (want "
+                 f"{families}), balance {None if roof is None else roof['machine_balance_flops_per_byte']}")
+        out[f"roofline_{name}"] = {
+            "balance": roof["machine_balance_flops_per_byte"], "peak_hbm_gbps": roof["peak_hbm_gbps"],
+            "attribution": roof["attribution"],
+            "programs": {p["program"]: {k: p.get(k) for k in ("count", "wall_s_p50", "intensity", "bound",
+                                                               "roofline_fraction")}
+                         for p in roof["programs"]},
+        }
+    return out
+
+
+def say_memory_plane(r: dict, train_peak_gb: float, card: str) -> None:
+    w, f, f1 = r["warm"], r["fit"], r["fit_1gb"]
+    say(f"memory-plane: cli warm exit 0 in {w['seconds']:.1f} s; seconds by program "
+        f"{json.dumps(w['programs'])}; build cache hits {w['hits']}, misses {w['misses']} [{card}]")
+    budget = f["budget"]["total_bytes"]
+    say(f"memory-plane: cli fit exit 0 in {f['seconds']:.1f} s: budget {budget / 2**30:.3f} GiB ("
+        + ", ".join(f"{k} {v / 2**30:.3f}" for k, v in f["budget"].items() if k.endswith("_bytes") and
+                    k != "total_bytes")
+        + f" GiB) of {f['limit'] / 2**30:.1f} GiB; the train phase's max_memory_allocated "
+        f"{train_peak_gb:.3f} GiB, budget / peak {budget / 2**30 / train_peak_gb:.3f}; measured peaks "
+        + json.dumps({k: round(v["peak"] / 2**30, 3) for k, v in f["programs"].items()}) + f" GiB [{card}]")
+    say(f"memory-plane: cli fit --limit-gb 1 exit 1 in {f1['seconds']:.1f} s ({f1['reason']}) [{card}]")
+    m = r["readers"]
+    say(f"memory-plane: cli mem exit 0: {m['mem']['components']}, budget {json.dumps(m['mem']['budget'])}")
+    for name in ("train", "serve"):
+        roof = m[f"roofline_{name}"]
+        say(f"memory-plane: cli roofline ({name} run) exit 0: balance {roof['balance']} FLOP/B at "
+            f"{roof['peak_hbm_gbps']} GB/s; {json.dumps(roof['programs'])}; attribution "
+            f"{json.dumps(roof['attribution'])} [{card}]")
 
 
 # Slice fifteen: tensor and sequence parallelism in the synchronous loop.
@@ -6922,6 +7167,19 @@ def run_phases(torch) -> int:
         drills["torn_s"] = time.perf_counter() - t0
 
     join_drills = in_background(supervise_drills)
+    # The overlapped dp pair, then the memory plane's commands (their own
+    # processes, which read the pair's run), run beside them too.
+    memplane: dict = {}
+
+    def async_then_memory_plane() -> None:
+        t0 = time.perf_counter()
+        memplane["async"] = train_dp2_shared_async_phase(torch)
+        memplane["async_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        memplane.update(memory_plane_phase(torch))
+        memplane["seconds"] = time.perf_counter() - t0
+
+    join_memplane = in_background(async_then_memory_plane)
     t0 = time.perf_counter()
     d1report = train_dp1_phase(torch)
     say_dp("train-dp1", d1report, card)
@@ -6937,6 +7195,14 @@ def run_phases(torch) -> int:
     d2report, d2resume = train_dp2_shared_phase(torch)
     say_dp("train-dp2-shared", d2report, card)
     say(f"train-dp2-shared phase (the ranks): {time.perf_counter() - t0:.1f} s")
+    join_memplane()
+    d2areport = memplane.pop("async")
+    say_dp_async(d2areport, card)
+    say(f"train-dp2-shared-async phase (the ranks, beside the dp phases): {memplane.pop('async_s'):.1f} s")
+    memplane["readers"] = memory_readers(d2areport["run_dir"], srreport_run["serve_run_dir"])
+    say_memory_plane(memplane, treport["peak_mem_gb"], card)
+    say(f"memory-plane phase (cli warm, fit and fit --limit-gb 1 beside the dp phases): "
+        f"{memplane['seconds']:.1f} s")
     join_drills()
     swreport, streport = drills["wedge"], drills["torn"]
     say_supervise("supervise-wedge", swreport, card)
@@ -6955,6 +7221,14 @@ def run_phases(torch) -> int:
     say(f"supervise drills and dp phases: {time.perf_counter() - t_drills:.1f} s")
     t_resume = time.perf_counter()
     join_resume = in_background(d2resume)
+    # The mesh pair's rank processes run beside the resume, the doctor,
+    # the readers and the reference phases.
+    mesh_out: dict = {}
+
+    def mesh_pair() -> None:
+        mesh_out["reports"], mesh_out["seconds"] = mesh_phases(torch)
+
+    join_mesh = in_background(mesh_pair)
 
     t0 = time.perf_counter()
     dcreport = doctor_phase(prreport, flreport, swreport)
@@ -7032,13 +7306,16 @@ def run_phases(torch) -> int:
         f"(restore {rs['restore_s'] * 1e3:.1f} ms, first megastep {rs['megastep_ms']:.1f} ms, beside "
         f"{rs['beside']}) [{card}]"
     )
-    say(f"train-dp2-shared resume, beside the doctor, readers and reference phases: "
+    say(f"train-dp2-shared resume, beside the doctor, readers and reference phases and the mesh pair: "
         f"{time.perf_counter() - t_resume:.1f} s")
 
-    mesh_reports, mesh_s = mesh_phases(torch)
+    join_mesh()
+    mesh_reports = mesh_out["reports"]
     for label, r in mesh_reports.items():
         say_mesh(label, r, card)
-    say(f"{' and '.join(MESH_PHASES)} phases (one pair of ranks): {mesh_s:.1f} s")
+    say(f"{' and '.join(MESH_PHASES)} phases (one pair of ranks, beside the resume, doctor, readers and "
+        f"reference phases): {mesh_out['seconds']:.1f} s")
+    say(f"from the drills to the mesh pair: {time.perf_counter() - t_drills:.1f} s")
 
     paths = {
         "serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport,
@@ -7053,7 +7330,7 @@ def run_phases(torch) -> int:
         "serve_ladder": slreport, "serve_ladder_reuse": slrreport, "league": lgreport,
         "fleet": flreport,
         "supervise_wedge": supervised_path(swreport), "supervise_torn": supervised_path(streport),
-        "train_dp1": d1report, "train_dp2_shared": d2report,
+        "train_dp1": d1report, "train_dp2_shared": d2report, "train_dp2_shared_async": d2areport,
         "train_tp2_shared": mesh_reports["train-tp2-shared"],
         "train_sp2_shared": mesh_reports["train-sp2-shared"],
     }
@@ -7097,7 +7374,7 @@ def run_phases(torch) -> int:
         "kernels": kernels_line, **paths, "ring_round_trip": rtreport, "reference": rreport,
         "attention_memory": amreport, "empty_kernel_ms": empty_ms,
         "serve_stats": ssreport, "beacons": bnreport, "profile": pfreport,
-        "doctor": dcreport, "readers": rdreport,
+        "doctor": dcreport, "readers": rdreport, "memory_plane": memplane,
         "card": card,
     }))
     say(card)

@@ -100,22 +100,39 @@ def test_entry_points_need_a_card_unless_told_cpu(no_card, capsys):
         make(device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["serve", "--sessions", "1"])
+    # A smoke asks for one bounded wave, not for the CPU.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["serve", "--smoke", "--sessions", "1"])
 
 
-def test_cli_serve_on_the_cpu(capsys):
+def test_cli_serve_on_the_cpu(capsys, tmp_path):
     """The serve subcommand end to end on the default board and net, at a
-    small load."""
+    small load (its telemetry under `tmp_path`)."""
     import json
 
     rc = cli.main([
         "serve", "--device", "cpu", "--slots", "2", "--sims", "4", "--sessions", "3",
-        "--max-moves", "2", "--seed", "1",
+        "--max-moves", "2", "--seed", "1", "--root-dir", str(tmp_path),
     ])
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0
     assert report["sessions_served"] == 3 and report["device"] == "cpu"
     assert 3 <= report["moves_served"] <= 6
     assert report["serve_dispatches"] == report["dispatches"] >= 2
+
+
+def test_cli_serve_smoke_on_the_cpu(capsys, tmp_path):
+    """`serve --smoke --device cpu`: one wave, exit 0 once every session
+    was served and the service's ledger landed."""
+    import json
+
+    rc = cli.main([
+        "serve", "--smoke", "--device", "cpu", "--slots", "2", "--sims", "4", "--sessions", "2",
+        "--max-moves", "2", "--root-dir", str(tmp_path),
+    ])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and report["device"] == "cpu" and report["sessions_served"] == 2
+    assert (tmp_path / "AlphaTriangleTPUTorch" / "runs" / "serve" / "metrics.jsonl").exists()
 
 
 def test_training_needs_a_card_unless_told_cpu(no_card, capsys, tmp_path):

@@ -32,6 +32,7 @@ from alphatriangle_tpu_torch.mcts import BatchedMCTS  # noqa: E402
 from alphatriangle_tpu_torch.nn import NeuralNetwork  # noqa: E402
 from alphatriangle_tpu_torch.serving import PolicyService, run_simulated_load  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
+from torch_parity import default_device_stats  # noqa: E402
 from torch_parity import CPU, JaxExactStub, TorchExactStub, inject_jax_noise, torch_cfg  # noqa: E402
 
 
@@ -48,6 +49,7 @@ def _small_search():
 def stub_worlds(tiny_env_config, tiny_model_config):
     """The JAX and the port (env, extractor, net, search) under the exact
     stub nets, one per module: the JAX search compiles once per width."""
+    default_device_stats()  # a search reads the stat-pack flag when built
     mcts_cfg = _small_search()
     jenv = JaxEnv(tiny_env_config)
     jfe = get_feature_extractor(jenv, tiny_model_config)

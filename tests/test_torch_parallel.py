@@ -46,7 +46,6 @@ from alphatriangle_tpu.rl.self_play import SelfPlayEngine as JaxEngine  # noqa: 
 from alphatriangle_tpu.rl.sharded_device_buffer import (  # noqa: E402
     ShardedDeviceReplayBuffer as JaxShardedRing,
 )
-from alphatriangle_tpu_torch import cli  # noqa: E402
 from alphatriangle_tpu_torch.config import MeshConfig  # noqa: E402
 from alphatriangle_tpu_torch.config.mesh_config import Mesh, lane_shard_count, rollout_lane_axes  # noqa: E402
 from alphatriangle_tpu_torch.env import TriangleEnv  # noqa: E402
@@ -85,7 +84,7 @@ from torch_parity import (  # noqa: E402
 )
 
 DP = 2
-ITEM_6C = "ROADMAP.md item 6c"
+ITEM_6E = "ROADMAP.md item 6e"
 
 
 # --- membership, meshes and refusals -------------------------------------
@@ -170,10 +169,19 @@ class TestMesh:
             )
         assert not (tmp_path / "AlphaTriangleTPUTorch").exists()
 
-    def test_distributed_async_rollouts_refused(self, tmp_path):
-        with pytest.raises(SystemExit, match=ITEM_6C):
-            cli.main(["train", "--device", "cpu", "--distributed", "--async-rollouts",
-                      "--root-dir", str(tmp_path), "--no-auto-resume"])
+    def test_distributed_async_rollouts_refused(self, tmp_path, tiny_env_config):
+        """The overlapped loop runs on a dp-only mesh (`cli train
+        --distributed --async-rollouts`, tests/test_torch_async_dp.py);
+        on a mesh with an mdl or sp axis it raises, naming its ROADMAP.md
+        item, before the mesh is built or a directory made."""
+        for axis in ("MDL_SIZE", "SP_SIZE"):
+            with pytest.raises(ValueError, match=ITEM_6E):
+                setup_training_components(
+                    torch_cfg(JaxTrainConfig(ASYNC_ROLLOUTS=True, RUN_NAME="refused")),
+                    env_config=torch_cfg(tiny_env_config), persistence_config=run_root(tmp_path),
+                    device=CPU, mesh_config=MeshConfig(**{axis: 2}),
+                )
+        assert not (tmp_path / "AlphaTriangleTPUTorch").exists()
 
     def test_batch_rows_and_state_shardings(self):
         mesh = Mesh(dp=2, dp_index=1)

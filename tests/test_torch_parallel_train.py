@@ -31,6 +31,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from alphatriangle_tpu_torch import cli  # noqa: E402
+from torch_parity import reset_device_stats  # noqa: E402, F401 (autouse: `cli train` runs in-process)
 from torch_parity import tiny_preset  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent

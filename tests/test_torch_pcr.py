@@ -38,6 +38,7 @@ from alphatriangle_tpu_torch.nn.network import LiveWeights  # noqa: E402
 from alphatriangle_tpu_torch.serving import PolicyService  # noqa: E402
 from test_torch_self_play import _assert_tree, _engines  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
+from torch_parity import default_device_stats  # noqa: E402
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,
@@ -73,6 +74,7 @@ CASES = [(root, record) for root in ("puct", "gumbel") for record in (False, Tru
 def pcr_engines(tiny_env_config) -> dict:
     """(root, record) -> (JAX engine, port engine); the JAX chunk
     programs compile together in threads before the first case."""
+    default_device_stats()  # a search reads the stat-pack flag when built
     compiled: dict = {}
     pairs = {
         case: _engines(tiny_env_config, TRAIN, 5, _mcts_kw(*case), compiled, stats=True)

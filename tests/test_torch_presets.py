@@ -31,6 +31,7 @@ from alphatriangle_tpu_torch.config import (  # noqa: E402
     geometry_preset,
     load_tuned_preset,
 )
+from torch_parity import reset_device_stats  # noqa: E402, F401 (autouse: `cli train` runs in-process)
 
 KEYS = ("env", "model", "train", "mcts", "mesh")
 CUTS = ["--max-steps", "2", "--self-play-batch", "2", "--batch-size", "4", "--min-buffer", "4",

@@ -48,6 +48,7 @@ from alphatriangle_tpu_torch.serving import replica as treplica  # noqa: E402
 from alphatriangle_tpu_torch.telemetry.flight import read_flight  # noqa: E402
 from alphatriangle_tpu_torch.telemetry.ledger import read_ledger  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
+from torch_parity import default_device_stats  # noqa: E402
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,
@@ -92,6 +93,7 @@ class _Clock:
 
 @pytest.fixture(scope="module")
 def stub_worlds(tiny_env_config, tiny_model_config):
+    default_device_stats()  # a search reads the stat-pack flag when built
     mcts_cfg = JaxMCTSConfig(max_simulations=4, max_depth=3, mcts_batch_size=4)
     jenv = JaxEnv(tiny_env_config)
     jfe = get_feature_extractor(jenv, tiny_model_config)
@@ -204,6 +206,7 @@ def test_service_telemetry_tick_flight_and_traces(stub_worlds, tmp_path, tiny_en
 def replica_worlds(tiny_env_config):
     """The JAX and the port (env, extractor, net, search) over the same
     small net, the port's weights converted from the JAX ones."""
+    default_device_stats()  # a search reads the stat-pack flag when built
     model_cfg = small_model_config(tiny_env_config)
     mcts_cfg = JaxMCTSConfig(max_simulations=6, max_depth=4, mcts_batch_size=3)
     jenv = JaxEnv(tiny_env_config)

@@ -47,6 +47,7 @@ from alphatriangle_tpu_torch.serving import PolicyService  # noqa: E402
 from alphatriangle_tpu_torch.training import TrainingLoop, setup_training_components  # noqa: E402
 from test_torch_megastep import make_cfg  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
+from torch_parity import default_device_stats  # noqa: E402
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,
@@ -161,6 +162,7 @@ def reuse_world(tiny_env_config):
     programs' outputs, and the JAX env. The service's jitted program
     (carried search, root argmax, promotion) is also the carried-search
     reference, so it compiles once."""
+    default_device_stats()  # a search reads the stat-pack flag when built
     mcts_cfg = AlphaTriangleMCTSConfig(**REUSE)
     model_cfg = small_model_config(tiny_env_config)
     jenv = JaxEnv(tiny_env_config)
@@ -256,6 +258,7 @@ class TestCarriedSearch:
 @pytest.fixture(scope="module")
 def reuse_engines(tiny_env_config):
     """(JAX engine, port engine) with reuse on, over the exact stub."""
+    default_device_stats()  # a search reads the stat-pack flag when built
     model_cfg = small_model_config(tiny_env_config)
     mcts_cfg = AlphaTriangleMCTSConfig(**REUSE)
     jcfg = JaxTrainConfig(

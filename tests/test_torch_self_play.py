@@ -42,6 +42,7 @@ from alphatriangle_tpu_torch.ops import KERNELS  # noqa: E402
 from alphatriangle_tpu_torch.rl import SelfPlayEngine  # noqa: E402
 from alphatriangle_tpu_torch.telemetry.device_stats import SEARCH_PACK_SIZE  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
+from torch_parity import default_device_stats  # noqa: E402
 from torch_parity import (  # noqa: E402
     CPU,
     JaxExactStub,
@@ -157,6 +158,7 @@ def chunk_engines(tiny_env_config, compiled) -> dict:
     """Each chunk case's (JAX engine, port engine). The JAX chunk
     programs compile together, in threads (XLA compiles outside the GIL),
     before the first case runs."""
+    default_device_stats()  # a search reads the stat-pack flag when built
     from alphatriangle_tpu.config import EnvConfig
 
     pairs = {}

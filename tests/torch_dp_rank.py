@@ -33,6 +33,13 @@ Scenarios:
 - `train`: `run_training` over the group with the spec's mesh (on
   `device`, default the CPU, over `backend`); the report, the rows
   of the ring's first add and the kernels' launch counts.
+- `cli_train`: `cli train --distributed` in this process with the spec's
+  `argv`, the rank's coordinator flags added; its exit code and the
+  JSON report it prints. With `crash: {"rank": R, "after": N}` every
+  producer thread of rank R raises in its chunk after the rank's
+  producers played N chunks (a stream that cannot recover). With
+  `slow: {"rank": R, "seconds": S}` rank R's loop thread sleeps S
+  seconds in its second chunk, the chunk the auto-tune times.
 """
 
 import json
@@ -231,12 +238,57 @@ def train(spec, rank: int, world: int) -> dict:
             "launches": {name: kern.launches for name, kern in KERNELS.items()}}
 
 
+def cli_train(spec, rank: int, world: int) -> dict:
+    import contextlib
+    import io
+    import threading
+    import time
+
+    from alphatriangle_tpu_torch import cli
+    from alphatriangle_tpu_torch.rl.self_play import SelfPlayEngine
+
+    crash = spec.get("crash")
+    if crash is not None and crash["rank"] == rank:
+        played = []
+        play_chunk = SelfPlayEngine.play_chunk
+
+        def failing(self, *args, **kwargs):
+            if threading.current_thread().name.startswith("self-play-producer"):
+                played.append(1)
+                if len(played) > crash["after"]:
+                    raise RuntimeError("injected producer fault")
+            return play_chunk(self, *args, **kwargs)
+
+        SelfPlayEngine.play_chunk = failing
+    slow = spec.get("slow")
+    if slow is not None and slow["rank"] == rank:
+        timed = []
+        play_chunk = SelfPlayEngine.play_chunk
+
+        def slowed(self, *args, **kwargs):
+            if threading.current_thread() is threading.main_thread():
+                timed.append(1)
+                if len(timed) == 2:
+                    time.sleep(slow["seconds"])
+            return play_chunk(self, *args, **kwargs)
+
+        SelfPlayEngine.play_chunk = slowed
+    argv = [*spec["argv"], "--distributed", "--coordinator", f"file://{spec['store']}",
+            "--num-processes", str(world), "--process-id", str(rank)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    return {"rc": rc, "report": json.loads(out.getvalue().strip().splitlines()[-1])}
+
+
 def main() -> None:
     spec = json.loads(open(sys.argv[1]).read())
     rank = int(sys.argv[2])
     world = int(spec["world"])
     if spec["scenario"] == "train":
         out = train(spec, rank, world)
+    elif spec["scenario"] == "cli_train":
+        out = cli_train(spec, rank, world)
     else:
         initialize_distributed(
             DistributedConfig(

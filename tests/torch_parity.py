@@ -48,25 +48,55 @@ def plain_jax_programs(monkeypatch):
     earlier test in its worker process (`tests/test_torch_stats.py`,
     for one) had compiled a program of the same configs, and passed
     when it ran first. Imported into a test module, this autouse
-    fixture applies to each of its tests.
+    fixture applies to each of its tests. The port's kernel build cache
+    gets fresh accounts with its record capture off, as the JAX cache's
+    is, so a port run's ledger holds the program records the JAX run's
+    does (none).
 
     It also gives each test both packages' device-stats state at its
     defaults (stat-packs off, beacons unarmed, no beacon ledger), and
-    puts back what was there after it: training setup publishes the
-    stat-pack flag for the rest of its process, so otherwise a test
-    would see whatever an earlier test in its worker left."""
+    leaves the port's at its defaults after it (`default_device_stats`):
+    training setup publishes the stat-pack flag for the rest of its
+    process, and a search reads it when it is built, so otherwise a
+    test, or a module-scoped fixture built before the next test, would
+    see whatever an earlier test in its worker left."""
     monkeypatch.setattr(compile_cache, "_global_cache", compile_cache.CompileCache(enabled=False))
-    from alphatriangle_tpu.telemetry import device_stats as jds
-    from alphatriangle_tpu_torch.telemetry import device_stats as tds
+    from alphatriangle_tpu_torch import compile_cache as port_cache
 
-    for mod in (jds, tds):
-        for name in ("_device_stats", "_beacons_armed", "_beacon_every", "_beacon_ledger",
-                     "_current_program"):
-            monkeypatch.setattr(mod, name, None)
+    monkeypatch.setattr(port_cache, "_global_cache", port_cache.BuildCache(enabled=False))
+    from alphatriangle_tpu.telemetry import device_stats as jds
+
+    for name in ("_device_stats", "_beacons_armed", "_beacon_every", "_beacon_ledger",
+                 "_current_program"):
+        monkeypatch.setattr(jds, name, None)
+    default_device_stats()
     yield
     from alphatriangle_tpu_torch.ops import beacon
 
     beacon.stop_all()
+    default_device_stats()
+
+
+def default_device_stats() -> None:
+    """The port's device-stats state back at its import-time defaults
+    (stat-packs as the environment says, beacons unarmed, no beacon
+    ledger). Module-scoped fixtures that build a port search call it
+    first; a test module that runs training setup in its own process and
+    does not import `plain_jax_programs` calls it after each test
+    (`reset_device_stats`)."""
+    from alphatriangle_tpu_torch.telemetry.device_stats import reset_device_stats_state
+
+    reset_device_stats_state()
+
+
+@pytest.fixture(autouse=True)
+def reset_device_stats():
+    """Autouse where imported: into a test module that runs training setup in-process
+    (which publishes the stat-pack flag for the process) without
+    importing `plain_jax_programs`: each test leaves the flag at its
+    default."""
+    yield
+    default_device_stats()
 
 
 def torch_cfg(jax_cfg):
