@@ -1,8 +1,8 @@
 """Command line of the PyTorch port: counterpart of
 `alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval`, `league`, `fleet`,
 `health`, `perf`, `analyze`, `supervise`, `doctor`, `trace`, `watch`,
-`compare`, `slo`, `warm`, `fit`, `mem`, `roofline`, `devices`, `tb` and `ml`
-subcommands.
+`compare`, `slo`, `warm`, `fit`, `mem`, `roofline`, `tune`, `play`, `devices`, `tb`
+and `ml` subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--buckets CSV] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
@@ -234,7 +234,35 @@ prints a run's memory-attribution table, `roofline` each dispatched
 program's analytic intensity against the card's balance and the gaps
 between dispatches; exit 2 without records.
 
-Every command but `serve`, `train`, `eval`, `league`, `warm`, `fit` and
+    python -m alphatriangle_tpu_torch.cli tune [TARGET] [--limit-gb GIB] [--smoke] [--json]
+        [--out PATH] [--run-name NAME] [--root-dir DIR] [--batches CSV] [--capacities CSV]
+        [--chunks CSV] [--fused-k CSV] [--dp CSV] [--geometries CSV] [--kernel-backends CSV]
+        [--precisions CSV] [--serve-buckets RUNGS ...] [--tree-reuse CSV]
+        [--calibrate RUN_OR_JSON ...] [--mode {auto,sync,megastep}] [--device {auto,cuda,cpu}]
+
+`tune` searches the (lanes, capacity, chunk, K, dp, geometry) space
+around a plan (TARGET as `warm`'s) for the candidate of highest
+predicted games/h that fits the byte limit (`autotune/`): gates and ring
+arithmetic first, then B descending within each group, each candidate
+left measured by `estimate_fit`, which runs its chunk, learner group and
+(megastep mode) megastep once on the device and reads the allocator's
+peak; the JAX oracle only compiles them. `--calibrate` folds earlier
+runs' MFU, flight rings, cost records and `tune_outcome` records into
+the model. It writes `runs/<run>/tuned_preset.json` for `train
+--preset`. Exit 0 a winner, 1 none fits, 2 no byte limit known. The
+device is `--device` (auto = the card), else the CPU for the `cpu`
+target, else CUDA; asked for CUDA without a card it fails.
+
+    python -m alphatriangle_tpu_torch.cli play [--seed 0] [--engine {auto,native,jax}]
+        [--script "SLOT ROW COL;..."] [--device cuda]
+
+`play` is interactive text play on the default board: the native host
+engine (`env/native/`, built with g++ at first use), or with `--engine
+jax` the port's `GameState` engine on `--device` (default the card; the
+name is the JAX command line's). `--script` plays the given moves, then
+exits.
+
+Every command but `serve`, `train`, `eval`, `league`, `warm`, `fit`, `tune`, `play` and
 `devices` imports neither torch nor numpy: they read files, and the
 supervisor's and the fleet's parents outlive a wedged card.
 """
@@ -1415,6 +1443,324 @@ def cmd_fit(args: argparse.Namespace) -> int:
     return code
 
 
+def _tune_axes(scale: str, plan, smoke: bool, device_count: int) -> tuple:
+    """Default (batches, capacities, chunks, fused_ks, dps) of a scale, as
+    the JAX command brackets the plan: each axis reaches above the plan's
+    value; smoke keeps the lattice to two candidates."""
+    b0, cap0, t0, k0 = plan.sp_batch, plan.train.BUFFER_CAPACITY, plan.chunk, plan.fused_k
+    if smoke:
+        batches, capacities, chunks, fused_ks = [max(4, b0 // 2), b0], [cap0], [t0], [k0]
+    elif scale == "cpu":
+        batches, capacities, chunks, fused_ks = [b0 // 2, b0, b0 * 2], [cap0, cap0 * 2], [t0, t0 * 2], [k0]
+    else:
+        batches = [b0 // 2, b0, b0 * 2, b0 * 4]
+        capacities = [cap0, cap0 * 5, cap0 * 10]
+        chunks = [t0, t0 * 2]
+        fused_ks = [k0, k0 * 2]
+    dps = [1]
+    if device_count > 1 and not smoke:
+        dps.append(device_count)
+    return batches, capacities, chunks, fused_ks, dps
+
+
+def cmd_tune(args: argparse.Namespace) -> int:
+    """The measured-fit autotuner (`autotune/`): the feasible candidate of
+    highest predicted games/h around a plan, written as a
+    `tuned_preset.json`. Exit 0 a winner, 1 (FIT_OVER) none fits, 2
+    (FIT_UNKNOWN) no byte limit known."""
+    import os
+
+    import torch
+
+    from .autotune import (
+        SearchSpace,
+        build_tuned_preset,
+        calibration_from_targets,
+        default_artifact_path,
+        run_search,
+        write_tuned_preset,
+    )
+    from .autotune import search as search_mod
+    from .autotune.search import candidate_mcts, materialize_candidate
+    from .bench_config import resolve_bench_plan
+    from .device import resolve_device
+    from .telemetry.memory import FIT_OVER, FIT_UNKNOWN, fmt_bytes, resolve_bytes_limit
+    from .utils.flops import peak_bf16_tflops_info
+
+    wanted = args.device or ("cpu" if args.target == "cpu" else "cuda")
+    device = resolve_device("cuda" if wanted == "auto" else wanted)
+    backend = device.type
+    environ = dict(os.environ)
+    smoke = args.target == "smoke" or args.smoke or environ.get("BENCH_SMOKE") == "1"
+    _apply_bench_target(args.target, environ)
+    plan = resolve_bench_plan(smoke, backend, environ=environ)
+
+    limit, limit_source = resolve_bytes_limit(args.limit_gb, environ, device=device)
+    if limit is None:
+        print(
+            "tune: no per-device byte limit known; pass --limit-gb or set "
+            "ALPHATRIANGLE_DEVICE_BYTES_LIMIT (a search without a memory budget has no "
+            "feasibility oracle).",
+            file=sys.stderr,
+        )
+        return FIT_UNKNOWN
+
+    device_kind = torch.cuda.get_device_name(device) if backend == "cuda" else "cpu"
+    peak, peak_source = peak_bf16_tflops_info(device_kind)
+    device_count = torch.cuda.device_count() if backend == "cuda" else 1
+
+    # The loop being tuned: the megastep where the plan keeps its ring on
+    # the device (the card), else the synchronous loop.
+    mode = args.mode
+    if mode == "auto":
+        mode = "megastep" if plan.device_replay else "sync"
+
+    batches, capacities, chunks, fused_ks, dps = _tune_axes(plan.scale, plan, smoke, device_count)
+    if args.batches:
+        batches = [int(v) for v in args.batches.split(",")]
+    if args.capacities:
+        capacities = [int(v) for v in args.capacities.split(",")]
+    if args.chunks:
+        chunks = [int(v) for v in args.chunks.split(",")]
+    if args.fused_k:
+        fused_ks = [int(v) for v in args.fused_k.split(",")]
+    if args.dp:
+        dps = [int(v) for v in args.dp.split(",")]
+    kernel_backends = args.kernel_backends.split(",") if args.kernel_backends else ["xla"]
+    space = SearchSpace(
+        geometries=args.geometries.split(",") if args.geometries else ["plan"],
+        batches=batches,
+        capacities=capacities,
+        chunks=chunks,
+        fused_ks=fused_ks,
+        dps=dps,
+        backup_updates=kernel_backends,
+        per_samples=kernel_backends,
+        precisions=args.precisions.split(",") if args.precisions else ["float32"],
+        serve_bucket_ladders=(
+            ["" if v.strip() in ("off", "") else v.strip() for v in args.serve_buckets]
+            if args.serve_buckets else [""]
+        ),
+        tree_reuses=(
+            [v.strip() == "on" for v in args.tree_reuse.split(",")] if args.tree_reuse else [False]
+        ),
+    )
+    calibration = calibration_from_targets(args.calibrate or [], root_dir=args.root_dir)
+
+    def say(msg: str) -> None:
+        print(msg, file=sys.stderr, flush=True)
+
+    say(
+        f"tune: backend={backend} device={device} scale={plan.scale} mode={mode} "
+        f"space={space.size()} candidates limit={fmt_bytes(limit)} [{limit_source}] "
+        f"peak={peak or 'unknown'} TFLOP/s [{peak_source}] "
+        f"calibration={','.join(calibration.sources)}"
+    )
+    oracle = search_mod.default_oracle(
+        plan.mcts, mode, device_replay=plan.device_replay or mode == "megastep", progress=say,
+        device=device,
+    )
+    result = run_search(
+        space, plan.env, plan.model, plan.mcts, plan.train, limit, calibration=calibration,
+        peak_tflops=peak, mode=mode, oracle=oracle, progress=say,
+    )
+
+    run_name = args.run_name or f"tune_{plan.scale}"
+    payload = None
+    out_path = None
+    if result.best is not None:
+        env_cfg, model_cfg, train_cfg = materialize_candidate(
+            result.best, plan.env, plan.model, plan.train, mode
+        )
+        train_cfg = train_cfg.model_copy(update={"RUN_NAME": run_name})
+        payload = build_tuned_preset(
+            result, env_cfg, model_cfg, candidate_mcts(plan.mcts, result.best), train_cfg,
+            scale=plan.scale, mode=mode, backend=backend, device_kind=device_kind,
+            limit_bytes=limit, limit_source=limit_source, calibration=calibration,
+            run_name=run_name,
+        )
+        out_path = Path(args.out or default_artifact_path(run_name, root_dir=args.root_dir))
+        write_tuned_preset(payload, out_path)
+
+    if args.json:
+        print(json.dumps({
+            "schema": "alphatriangle.tune_report.v1",
+            "scale": plan.scale,
+            "backend": backend,
+            "mode": mode,
+            "bytes_limit": limit,
+            "limit_source": limit_source,
+            "rows": result.rows,
+            "oracle_calls": result.oracle_calls,
+            "best": payload,
+            "artifact": str(out_path) if out_path else None,
+            "exit": 0 if result.best is not None else FIT_OVER,
+            # The port's own: each oracle call's seconds and allocated bytes
+            # around it, and the kernels the oracle's programs launched.
+            "device": str(device),
+            "device_kind": device_kind,
+            "oracle": list(getattr(oracle, "calls", [])),
+            "kernel_launches": _kernel_launches(),
+        }, default=str))
+    else:
+        print(f"tune {plan.scale} on {backend} (mode {mode})")
+        print(
+            f"{'geometry':<9} {'B':>6} {'cap':>8} {'T':>4} {'K':>4} "
+            f"{'dp':>3} {'pred games/h':>13} {'budget':>10}  status"
+        )
+        for row in result.rows:
+            gph = (row["predicted"] or {}).get("games_per_hour")
+            gph_s = f"{gph:.1f}" if isinstance(gph, (int, float)) else "n/a"
+            budget = row["budget_total_bytes"]
+            budget_s = fmt_bytes(budget) if budget else "n/a"
+            detail = f" ({row['detail']})" if row["detail"] else ""
+            print(
+                f"{row['geometry']:<9} {row['sp_batch']:>6} {row['capacity']:>8} {row['chunk']:>4} "
+                f"{row['fused_k']:>4} {row['dp']:>3} {gph_s:>13} {budget_s:>10}  "
+                f"{row['status']}{detail}"
+            )
+        if result.best is not None:
+            pred = result.best_prediction or {}
+            print(
+                f"tune: best {result.best.label()} — predicted "
+                f"{pred.get('games_per_hour', 0.0):.1f} games/h, "
+                f"budget {fmt_bytes(result.best_budget['total_bytes'])} of {fmt_bytes(limit)} "
+                f"({result.oracle_calls} oracle call(s))"
+            )
+            print(f"tune: wrote {out_path}")
+            print(f"tune: consume with `cli train --preset {out_path}`, `cli warm {out_path}` or "
+                  f"`cli fit {out_path}`")
+        else:
+            print(
+                f"tune: no feasible candidate under {fmt_bytes(limit)} "
+                f"({result.oracle_calls} oracle call(s), {len(result.rows)} candidates examined)"
+            )
+    return 0 if result.best is not None else FIT_OVER
+
+
+def cmd_play(args: argparse.Namespace) -> int:
+    """Interactive text play (the reference's `trianglengin play`): the
+    native host engine, or with `--engine jax` the port's `GameState`
+    engine on `--device` (default the card). `auto` takes the native
+    engine where it builds. The transcript is the JAX command's, but for
+    the engine's name ("torch" for the GameState engine)."""
+    import numpy as np
+
+    from .config import EnvConfig
+    from .env.native import native_available, native_build_error
+    from .env.render import render_grid, render_shape
+    from .env.shapes import bank_shape_triangles
+
+    env_cfg = EnvConfig()
+    use_native = args.engine == "native" or (args.engine == "auto" and native_available())
+    if args.engine == "native" and not native_available():
+        print(f"native engine unavailable: {native_build_error()}")
+        return 1
+
+    if use_native:
+        from .env import TriangleEnv
+        from .env.native import NativeTriangleEnv
+
+        # The host engine reads the tables; nothing of it runs on a device.
+        env = TriangleEnv(env_cfg, device="cpu")
+        native = NativeTriangleEnv(env)
+        batch = native.new_batch(1, seed=args.seed)
+
+        def state_view():
+            return (env.unpack_grid_np(batch.occupied[0]), batch.shape_idx[0],
+                    float(batch.score[0]), bool(batch.done[0]))
+
+        def do_step(action):
+            rewards, _ = native.step(batch, np.asarray([action], np.int32))
+            return float(rewards[0])
+
+        def valid_mask():
+            return native.valid_mask(batch)[0]
+
+    else:
+        from .env.game_state import GameState
+
+        game = GameState(env_cfg, initial_seed=args.seed, device=args.device)
+        env = game._env
+
+        def state_view():
+            return (
+                game.get_grid_data_np()["occupied"],
+                np.asarray([-1 if s is None else i for i, s in enumerate(game.get_shapes())]),
+                game.game_score(),
+                game.is_over(),
+            )
+
+        def do_step(action):
+            reward, _ = game.step(action)
+            return reward
+
+        def valid_mask():
+            return game.valid_action_mask()
+
+    death = env.geometry.death
+    cells = env_cfg.ROWS * env_cfg.COLS
+    moves = 0
+    script = list(args.script.split(";")) if args.script else None
+    print(
+        f"Board {env_cfg.ROWS}x{env_cfg.COLS}, {env_cfg.NUM_SHAPE_SLOTS} shape slots, engine="
+        f"{'native' if use_native else 'torch'}."
+    )
+    print("Moves: 'SLOT ROW COL' | 'v' valid count | 'q' quit.")
+    while True:
+        occ, hand, score, done = state_view()
+        print()
+        print(render_grid(occ, death))
+        print(f"score={score:.1f}  moves={moves}")
+        shapes = None if use_native else game.get_shapes()
+        for slot in range(env_cfg.NUM_SHAPE_SLOTS):
+            if use_native:
+                sidx = int(hand[slot])
+                tris = None if sidx < 0 else bank_shape_triangles(env.bank, sidx)
+            else:
+                tris = None if shapes[slot] is None else shapes[slot].triangles
+            label = (
+                "(consumed)"
+                if tris is None
+                else "\n".join("    " + line for line in render_shape(tris).splitlines())
+            )
+            print(f"  slot {slot}:")
+            print(label)
+        if done:
+            print("GAME OVER.")
+            return 0
+        if script is not None:
+            if not script:
+                return 0
+            line = script.pop(0).strip()
+            print(f"> {line}")
+        else:
+            try:
+                line = input("> ").strip()
+            except EOFError:
+                return 0
+        if line in ("q", "quit", "exit"):
+            return 0
+        if line == "v":
+            print(f"valid placements: {int(valid_mask().sum())}")
+            continue
+        try:
+            slot, r, c = (int(x) for x in line.split())
+            action = slot * cells + r * env_cfg.COLS + c
+        except ValueError:
+            print("Expected: SLOT ROW COL")
+            continue
+        if not 0 <= action < env_cfg.action_dim:
+            print("Out of range.")
+            continue
+        if not valid_mask()[action]:
+            print("Invalid placement (would forfeit); pick another.")
+            continue
+        reward = do_step(action)
+        moves += 1
+        print(f"reward {reward:+.1f}")
+
+
 def _run_ledger(args: argparse.Namespace):
     """The metrics ledger a reader command names (a run name, a run
     directory or a metrics.jsonl path; the newest run by default), or
@@ -2489,6 +2835,77 @@ def build_parser() -> argparse.ArgumentParser:
     roofline.add_argument("--root-dir", default=None)
     roofline.add_argument("--json", action="store_true", help="Emit the summary as one JSON line.")
     roofline.set_defaults(fn=cmd_roofline)
+
+    tune = sub.add_parser(
+        "tune",
+        help="Measured-fit autotuner: search batch/capacity/chunk/K/dp/geometry for the feasible "
+        "config of highest predicted games/h (each candidate's programs run once on the device, "
+        "their allocator peaks the oracle) and write a tuned_preset.json; exit 0 a winner / 1 none "
+        "fits / 2 no limit known.",
+    )
+    tune.add_argument("target", nargs="?", default="auto",
+                      help="Base scale to search around, as `warm`'s: auto, smoke, cpu, 1..5, or a "
+                      "tuned_preset.json path.")
+    tune.add_argument("--limit-gb", type=float, default=None, metavar="GIB",
+                      help="Per-device byte limit (GiB) to fit under (default: the card's memory; "
+                      "also ALPHATRIANGLE_DEVICE_BYTES_LIMIT, bytes).")
+    tune.add_argument("--smoke", action="store_true",
+                      help="A two-candidate lattice: one or two oracle runs, not a sweep.")
+    tune.add_argument("--json", action="store_true",
+                      help="Emit the search report (rows, winner, oracle calls) as JSON.")
+    tune.add_argument("--out", default=None, metavar="PATH",
+                      help="Write tuned_preset.json here (default: runs/<run-name>/tuned_preset.json).")
+    tune.add_argument("--run-name", default=None)
+    tune.add_argument("--root-dir", default=None)
+    tune.add_argument("--batches", default=None,
+                      help="Override the SELF_PLAY_BATCH_SIZE axis (comma-separated).")
+    tune.add_argument("--capacities", default=None,
+                      help="Override the BUFFER_CAPACITY axis (comma-separated).")
+    tune.add_argument("--chunks", default=None,
+                      help="Override the rollout chunk T axis (comma-separated).")
+    tune.add_argument("--fused-k", default=None,
+                      help="Override the fused learner K axis (comma-separated).")
+    tune.add_argument("--dp", default=None,
+                      help="Override the data-parallel axis (comma-separated).")
+    tune.add_argument("--geometries", default=None,
+                      help="Board geometries to search (comma-separated names of "
+                      "config.presets.GEOMETRY_PRESETS, or 'plan' = the scale's board).")
+    tune.add_argument("--kernel-backends", default=None, metavar="BACKENDS",
+                      help="Mode strings to search for backup_update and PER_SAMPLE_BACKEND "
+                      "(comma-separated from xla,pallas). On the card every mode launches the same "
+                      "hand-written kernel; the axis shares oracle answers. Default: xla only.")
+    tune.add_argument("--precisions", default=None, metavar="DTYPES",
+                      help="INFERENCE_PRECISION values to search (comma-separated from "
+                      "float32,bfloat16,int8). Default: float32 only.")
+    tune.add_argument("--serve-buckets", action="append", default=None, metavar="RUNGS",
+                      help="Serve-shape ladders to search (repeatable; a CSV rung list like "
+                      "64,256,1024, or 'off'). Shares oracle answers. Default: off only.")
+    tune.add_argument("--tree-reuse", default=None, metavar="VALUES",
+                      help="Subtree-reuse settings to search (comma-separated from off,on); 'on' "
+                      "widens the tree planes, so it gets oracle answers of its own. Default: off.")
+    tune.add_argument("--calibrate", action="append", default=None, metavar="RUN_OR_JSON",
+                      help="Calibrate the throughput model against these runs or perf summaries "
+                      "(repeatable; anything `cli compare` reads). Default: the model's constants.")
+    tune.add_argument("--mode", default="auto", choices=["auto", "sync", "megastep"],
+                      help="Loop being tuned (auto = the megastep where the plan keeps its ring on "
+                      "the device).")
+    tune.add_argument("--device", default=None, choices=["auto", "cuda", "cpu"],
+                      help="Device the oracle runs on (auto = the card; default: the CPU for the "
+                      "'cpu' target, else the card).")
+    tune.set_defaults(fn=cmd_tune)
+
+    play = sub.add_parser("play", help="Interactive text play on the default board.")
+    play.add_argument("--seed", type=int, default=0)
+    play.add_argument("--engine", choices=["auto", "native", "jax"], default="auto",
+                      help="native = the host engine (env/native/, built with g++); jax = the "
+                      "port's GameState engine on --device (the JAX command line's name); auto = "
+                      "native where it builds.")
+    play.add_argument("--script", default=None,
+                      help="Semicolon-separated scripted moves ('0 0 0;1 2 3'); plays them, then "
+                      "exits.")
+    play.add_argument("--device", default=None,
+                      help="Torch device of the GameState engine (default cuda).")
+    play.set_defaults(fn=cmd_play)
 
     devices = sub.add_parser("devices", help="The CUDA devices torch sees; exit 1 without one.")
     devices.set_defaults(fn=cmd_devices)

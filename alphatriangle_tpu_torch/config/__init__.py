@@ -1,5 +1,6 @@
 """Config package: dataclass counterparts of the JAX package's configs."""
 
+from .app_config import APP_NAME
 from .env_config import EnvConfig
 from .league_config import LeagueConfig
 from .mcts_config import AlphaTriangleMCTSConfig, MCTSConfig
@@ -21,6 +22,7 @@ from .validation import (
 )
 
 __all__ = [
+    "APP_NAME",
     "AlphaTriangleMCTSConfig",
     "EXPLICIT_FEATURES_DIM",
     "EnvConfig",

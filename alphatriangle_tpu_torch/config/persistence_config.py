@@ -19,8 +19,7 @@ from dataclasses import dataclass
 from pathlib import Path
 
 from ._base import ConfigBase, check_range
-
-APP_NAME = "AlphaTriangleTPUTorch"
+from .app_config import APP_NAME
 
 
 @dataclass

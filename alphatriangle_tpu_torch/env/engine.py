@@ -184,6 +184,8 @@ class TriangleEnv:
         self.num_words = (self.cells + 31) // 32
 
         tables = _build_bit_tables(cfg, self.bank, self.geometry)
+        # The host's copy: the native engine (env/native/) plays on these.
+        self._tables_np = tables
 
         def dev(a, dtype=torch.int64):
             return torch.as_tensor(np.asarray(a).astype(np.int64), device=self.device).to(dtype)
@@ -203,6 +205,12 @@ class TriangleEnv:
         """(..., NW) words -> (..., R, C) bool occupancy grid."""
         bits = (words[..., self._cell_word] >> self._cell_bit) & 1
         return (bits > 0).reshape(words.shape[:-1] + (self.rows, self.cols))
+
+    def unpack_grid_np(self, words: np.ndarray) -> np.ndarray:
+        """Host twin of `unpack_grid` for one game's (NW,) uint32 words."""
+        t = self._tables_np
+        bits = (np.asarray(words, dtype=np.uint32)[t.cell_word] >> t.cell_bit) & np.uint32(1)
+        return (bits > 0).reshape(self.rows, self.cols)
 
     def _ones_word(self, lead: torch.Size) -> torch.Tensor:
         return torch.full(tuple(lead) + (1,), _M32, dtype=torch.int64, device=self.device)

@@ -17,6 +17,13 @@ same either way. Training setup builds self-play's net dense and gives
 the learner's copy the sequence-parallel core (`rl/trainer.py`), whose
 `sync_to_network` installs whole tensors in a dense module.
 
+`evaluate_state` / `evaluate_batch` are the reference's single-state
+surface (a policy dict and an expected value a `GameState`, with the
+finiteness guards and the renormalization that falls back to uniform
+over the valid actions). They run the installed module on the net's
+device at the batch's own size: the JAX package pads a batch to a power
+of two for XLA's shape cache, which changes none of its rows.
+
 Callers that hold the module itself (a `BatchedMCTS` built on
 `net.model`) pick up new weights by reading `net.model` again:
 `PolicyService.reload_weights` does.
@@ -31,9 +38,11 @@ after waiting for its `ready` event.
 """
 
 import copy
+import logging
 import threading
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..config.env_config import EnvConfig
@@ -47,6 +56,8 @@ from .model import (
     init_parameters,
     value_support,
 )
+
+logger = logging.getLogger(__name__)
 
 
 class NetworkEvaluationError(Exception):
@@ -136,6 +147,55 @@ class NeuralNetwork:
         if not (bool(torch.isfinite(probs).all()) and bool(torch.isfinite(values).all())):
             raise NetworkEvaluationError("Non-finite policy probs or values.")
         return probs, values
+
+    # --- the single-state surface ----------------------------------------
+
+    def _normalize_policy(self, probs: np.ndarray, state, label: str) -> np.ndarray:
+        probs = np.maximum(probs, 0.0)
+        total = float(probs.sum())
+        if abs(total - 1.0) <= 1e-5:
+            return probs
+        if total > 1e-9:
+            return probs / total
+        valid = state.valid_actions()
+        if not valid:
+            raise NetworkEvaluationError(f"{label}: policy sum near zero with no valid actions.")
+        logger.warning("%s: policy sum near zero; uniform over valid.", label)
+        out = np.zeros_like(probs)
+        out[np.asarray(valid)] = 1.0 / len(valid)
+        return out
+
+    def evaluate_state(self, state) -> tuple:
+        """One `GameState` -> (the full {action: prob} mapping, expected value)."""
+        from ..features.extractor import extract_state_features
+
+        feats = extract_state_features(state, self.model_config)
+        probs, values = self.evaluate_features(
+            torch.from_numpy(feats["grid"][None]), torch.from_numpy(feats["other_features"][None])
+        )
+        p = self._normalize_policy(probs[0].cpu().numpy(), state, "evaluate_state")
+        return {i: float(x) for i, x in enumerate(p)}, float(values[0])
+
+    def evaluate_batch(self, states: list) -> list:
+        """`GameState`s of one engine -> a (policy dict, value) each, from
+        one forward over the stacked states."""
+        if not states:
+            return []
+        from ..env.engine import EnvState
+        from ..features.core import FeatureExtractor
+
+        stacked = EnvState(**{
+            name: torch.cat([getattr(s._state, name) for s in states])
+            for name in EnvState.__dataclass_fields__
+        })
+        grids, others = FeatureExtractor(states[0]._env, self.model_config).extract(stacked)
+        probs, values = self.evaluate_features(grids, others)
+        probs, values = probs.cpu().numpy(), values.cpu().numpy()
+        out = []
+        for i, state in enumerate(states):
+            p = self._normalize_policy(probs[i], state, f"evaluate_batch[{i}]")
+            out.append(({a: float(x) for a, x in enumerate(p)}, float(values[i])))
+        return out
 
     def get_weights(self) -> dict[str, torch.Tensor]:
         """The weights as a CPU state dict."""

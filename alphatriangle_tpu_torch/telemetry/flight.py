@@ -653,6 +653,24 @@ def summarize_flight(records: list) -> list[dict]:
     return rows
 
 
+def family_seconds(records: list) -> dict:
+    """p50 measured dispatch seconds per family, from the sealed ok
+    records: the term the autotuner's `--calibrate` folds in
+    (autotune/model.py). The families are the dispatch sites' own
+    ("rollout", "learner", "megastep", "serve"), the names
+    `program_family` gives the cost records' programs."""
+    from .perf import _percentile
+
+    by_family: dict[str, list[float]] = {}
+    for r in records:
+        if r.get("phase") != "seal" or not r.get("ok", True):
+            continue
+        wall = r.get("wall_s")
+        if isinstance(wall, (int, float)):
+            by_family.setdefault(str(r.get("family")), []).append(float(wall))
+    return {fam: _percentile(walls, 0.50) for fam, walls in by_family.items()}
+
+
 def _memory_pressure(health: "dict | None", utils: list) -> "float | None":
     """Device memory utilization from the freshest evidence available:
     the last util record's gauge, else the heartbeat's device table."""

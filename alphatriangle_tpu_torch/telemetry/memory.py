@@ -407,13 +407,15 @@ def measure_program(name: str, fn, device, argument_bytes: int = 0, key: str = "
 
 
 def estimate_fit(plan, device, serve: bool = False, programs: "set[str] | None" = None,
-                 progress=None) -> dict:
+                 progress=None, megastep: bool = True) -> dict:
     """Compose the memory budget of a plan's hot programs on `device`:
     the learner state and the ring (static records), then each program
     run once at the plan's shapes with its allocator peak measured
     (`measure_program`; the programs of `warm.plan_programs`, the serve
     rungs with `serve`, the megastep included, as the JAX `cli fit`
-    analyses it). `programs` filters the labels by substring.
+    analyses it). `programs` filters the labels by substring;
+    `megastep=False` leaves the megastep, its trainer and its ring
+    unbuilt (a synchronous loop's budget, `cli tune --mode sync`).
 
     Returns {"records", "budget", "oom"}: `oom` names the program whose
     run ran out of the card's memory and the error (the budget then
@@ -431,9 +433,10 @@ def estimate_fit(plan, device, serve: bool = False, programs: "set[str] | None" 
 
     records: list = []
     oom = None
+    label = "setup"
     try:
         build_kernels(device)
-        static, targets = plan_programs(plan, device, serve=serve)
+        static, targets = plan_programs(plan, device, serve=serve, megastep=megastep)
         records.extend(static)
         if programs:
             targets = [t for t in targets if any(p in t[0] for p in programs)]
@@ -450,6 +453,6 @@ def estimate_fit(plan, device, serve: bool = False, programs: "set[str] | None" 
             say(f"fit: {label}: args {fmt_bytes(rec['bytes']['argument'])} peak {fmt_bytes(rec['peak'])}"
                 f" ({time.perf_counter() - t0:.1f}s)")
     except torch.cuda.OutOfMemoryError as exc:
-        oom = f"{type(exc).__name__}: {str(exc).splitlines()[0] if str(exc) else ''}"
+        oom = f"{label}: {type(exc).__name__}: {str(exc).splitlines()[0] if str(exc) else ''}"
         say(f"fit: out of memory ({oom})")
     return {"records": records, "budget": compose_budget(records), "oom": oom}

@@ -426,6 +426,33 @@ roofline` (torch-free) on its run directory (rows for the self-play and
 learner programs) and `cli roofline` on the serve-run phase's own run
 (the search's `serve/b64` row), both at the H100 table's balance.
 
+Slice seventeen, on two threads of their own beside the dp2 resume, the
+mesh pair, the doctor, the readers and the reference phases (beside the
+dp phases, the drills and the memory plane, a trial run of this script
+saw the tuned run exit 1 and an async rank's last chunk outlast its 30 s
+join, its launches short of its chunk moves): the tune phase runs `cli
+tune --device cuda` at the flagship plan over a pinned space (B = 512
+and 256, the plan's 16-move chunk and K = 16, capacities 10,000 and
+100,000,000): exit 0, the limit the card's memory, 1 oracle call, the B
+row `fit`, the B/2 row `dominated`, both rows of the large capacity
+`ring-over` (its ring alone is over the card); the oracle's programs
+launch `gather_rows`, `backup_update` and `per_sample` (the child's
+counts) and each call leaves `memory_allocated` as it found it. Then
+`cli train --preset` of the tuned preset, two megasteps, whose report's
+`tune_outcome` holds the observed moves/s and the observed / predicted
+ratio; then `cli tune --calibrate <that run>` under three quarters of
+the first tune's budget at B: `tune_outcome x1` among the calibration's
+sources, B `over`, B/2 `fit`, 2 oracle calls. It prints each oracle
+call's seconds and budget. The play phase: `cli play --engine jax` on
+the card prints the CPU's transcript line for line; `cli play --engine
+native` plays its legal moves (the two engines draw their hands from
+different streams, as in the JAX package, so their transcripts differ
+from the first hand on); the native engine's refill-free transitions
+equal the card engine's; `NeuralNetwork.evaluate_batch` of six
+`GameState`s on the card at the flagship net equals `evaluate_state` of
+each within the bf16 forward's tolerance (0.05 on the policy, 0.2 + 0.1
+relative on the value).
+
 Depth cut for slice sixteen (widths unchanged): supervise-torn to step 6
 (was 8); the new phases run beside the drills and the dp phases, and
 the mesh pair beside the resume, the doctor, the readers and the
@@ -6423,6 +6450,286 @@ def say_memory_plane(r: dict, train_peak_gb: float, card: str) -> None:
             f"{json.dumps(roof['attribution'])} [{card}]")
 
 
+# Slice seventeen: the autotuner and the single-state API. `cli tune` at
+# the flagship plan (`bench_config.py`: 512 lanes, 16-move chunks, K = 16,
+# a 10,000-row ring, megastep mode on the card) over a pinned space: B and
+# B/2, the plan's chunk and K, the plan's capacity and TUNE_CAP_OVER, whose
+# ring alone (~1,700 B a row) exceeds any card's memory. Then the tuned
+# preset trains TUNE_TRAIN_STEPS learner steps (two megasteps of K), and
+# `tune --calibrate` that run re-tunes under a limit of
+# TUNE_LIMIT_FRACTION of the first tune's measured budget at B: the search's
+# and the chunk's peaks grow with the lanes while the learner state and
+# the small ring do not, so the budget at B/2 is a little over half of B's,
+# and three quarters lies between the two.
+TUNE_B, TUNE_CHUNK, TUNE_K, TUNE_CAP = 512, 16, 16, 10_000
+TUNE_CAP_OVER = 100_000_000
+TUNE_TRAIN_STEPS = 2 * TUNE_K
+TUNE_LIMIT_FRACTION = 0.75
+TUNE_SEARCH_KERNELS = ("gather_rows", "backup_update", "per_sample")
+PLAY_SEED, PLAY_MOVES = 7, 6
+PLAY_STATES = 6
+
+
+def tune_argv(run: str, extra: list) -> list:
+    return [
+        "tune", "--device", "cuda", "--json", "--batches", f"{TUNE_B},{TUNE_B // 2}",
+        "--chunks", str(TUNE_CHUNK), "--fused-k", str(TUNE_K),
+        "--capacities", f"{TUNE_CAP},{TUNE_CAP_OVER}", "--run-name", run,
+        "--root-dir", str(RUN_ROOT / "tune"), *extra,
+    ]
+
+
+def tune_rows(report: dict) -> dict:
+    return {(r["sp_batch"], r["capacity"]): r for r in report["rows"]}
+
+
+def check_tune(report: dict, rc: int, label: str, want: dict, calls: int) -> dict:
+    """A tune report's exit, rows, oracle calls and release; returns its figures."""
+    rows = tune_rows(report)
+    got = {key: rows[key]["status"] for key in want if key in rows}
+    if rc != 0 or report["exit"] != 0 or got != want or report["oracle_calls"] != calls \
+            or len(report["oracle"]) != calls or report["limit_source"] not in ("device", "flag"):
+        fail(f"{label}: exit {rc}, rows {got} (want {want}), {report['oracle_calls']} oracle calls (want "
+             f"{calls}), limit from {report['limit_source']}; stderr: "
+             f"{(RUN_ROOT / f'{label}.err').read_text()[-3000:]}")
+    for call in report["oracle"]:
+        if call["allocated_after"] != call["allocated_before"] or call["oom"] is not None:
+            fail(f"{label}: oracle call {call['candidate']} left {call['allocated_after']} B allocated "
+                 f"against {call['allocated_before']} before it (oom {call['oom']})")
+    return {
+        "rows": {f"B{b}/cap{c}": {"status": r["status"], "budget": r["budget_total_bytes"],
+                                  "detail": r["detail"],
+                                  "games_per_hour": (r["predicted"] or {}).get("games_per_hour")}
+                 for (b, c), r in rows.items()},
+        "oracle": [{k: c[k] for k in ("candidate", "seconds", "budget_total_bytes", "allocated_before",
+                                      "allocated_after")} for c in report["oracle"]],
+        "launches": report["kernel_launches"], "limit": report["bytes_limit"],
+        "limit_source": report["limit_source"], "calibration": (report["best"] or {}).get("calibration"),
+    }
+
+
+def tune_phase(torch) -> dict:
+    """`cli tune` at the flagship plan, `cli train --preset` of its
+    winner, and `cli tune --calibrate` of that run; each in a process of
+    its own. The oracle's programs launch the search kernels and, in
+    megastep mode, the PER count; every oracle call leaves the card's
+    allocated bytes where it found them."""
+    b, half = TUNE_B, TUNE_B // 2
+    t0 = time.perf_counter()
+    rc, rep = run_cli(tune_argv("tuned", []), "tune", 600)
+    tune_s = time.perf_counter() - t0
+    want = {(b, TUNE_CAP): "fit", (half, TUNE_CAP): "dominated",
+            (b, TUNE_CAP_OVER): "ring-over", (half, TUNE_CAP_OVER): "ring-over"}
+    first = check_tune(rep, rc, "tune", want, 1)
+    if rep["limit_source"] != "device" or rep["mode"] != "megastep":
+        fail(f"tune: limit from {rep['limit_source']} in mode {rep['mode']}, want the device's, megastep")
+    if not all(rep["kernel_launches"][k] > 0 for k in TUNE_SEARCH_KERNELS):
+        fail(f"tune: the oracle's programs launched {rep['kernel_launches']}")
+    budget_b = tune_rows(rep)[(b, TUNE_CAP)]["budget_total_bytes"]
+    artifact = rep["artifact"]
+
+    t0 = time.perf_counter()
+    rc, tr = run_cli([
+        "train", "--preset", artifact, "--device", "cuda", "--max-steps", str(TUNE_TRAIN_STEPS),
+        "--root-dir", str(RUN_ROOT / "tune"), "--run-name", "tuned", "--no-auto-resume",
+        "--no-tensorboard", "--log-level", "WARNING",
+    ], "train-tuned", 600)
+    train_s = time.perf_counter() - t0
+    check_report_losses(tr, "train-tuned")
+    outcome = tr.get("tune_outcome")
+    if rc != 0 or not outcome or not isinstance(outcome.get("observed_moves_per_sec"), (int, float)) \
+            or "observed_over_predicted" not in outcome:
+        fail(f"train-tuned: exit {rc}, tune_outcome {outcome}; stderr: "
+             f"{(RUN_ROOT / 'train-tuned.err').read_text()[-3000:]}")
+    launches = tr["kernel_launches"]
+    if launches["per_sample"] != tr["megasteps"] or not all(launches[k] > 0 for k in TUNE_SEARCH_KERNELS):
+        fail(f"train-tuned: launches {launches} over {tr['megasteps']} megasteps")
+    run_dir = RUN_ROOT / "tune" / "AlphaTriangleTPUTorch" / "runs" / "tuned"
+
+    limit = TUNE_LIMIT_FRACTION * budget_b
+    t0 = time.perf_counter()
+    rc, cal = run_cli(tune_argv("tuned-cal", ["--calibrate", str(run_dir), "--limit-gb", repr(limit / 2**30)]),
+                      "tune-calibrate", 600)
+    cal_s = time.perf_counter() - t0
+    want = {(b, TUNE_CAP): "over", (half, TUNE_CAP): "fit",
+            (b, TUNE_CAP_OVER): "ring-over", (half, TUNE_CAP_OVER): "ring-over"}
+    second = check_tune(cal, rc, "tune-calibrate", want, 2)
+    sources = second["calibration"]["sources"]
+    if "tune_outcome x1" not in sources:
+        fail(f"tune-calibrate: calibration sources {sources}, want tune_outcome x1")
+    moves = (tr["warmup_chunks"] + tr["megasteps"]) * TUNE_CHUNK
+    return {
+        "tune": {**first, "seconds": tune_s}, "calibrate": {**second, "seconds": cal_s},
+        "train": {"seconds": train_s, "tune_outcome": outcome, "megasteps": tr["megasteps"],
+                  "warmup_chunks": tr["warmup_chunks"], "launches": launches, "searched_moves": moves,
+                  "megastep_ms": [t * 1e3 for t in tr["timings"]["megastep_s"]],
+                  "peak_gb": tr["peak_device_bytes"] / 2**30},
+        "budget_b": budget_b, "limit_fraction": TUNE_LIMIT_FRACTION,
+        # The oracle's programs: a T-move chunk and a megastep of T moves
+        # each call (its learner group searches nothing).
+        "launches": {k: rep["kernel_launches"][k] + cal["kernel_launches"][k] for k in rep["kernel_launches"]},
+        "searched_moves": 2 * TUNE_CHUNK * (rep["oracle_calls"] + cal["oracle_calls"]),
+        "megasteps": rep["oracle_calls"] + cal["oracle_calls"],
+    }
+
+
+def play_transcript(args: list, label: str) -> list:
+    """`cli play <args>` in a process of its own: its transcript's lines."""
+    proc = subprocess.run([sys.executable, "-m", "alphatriangle_tpu_torch.cli", "play", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    (RUN_ROOT / f"{label}.out").write_text(proc.stdout)
+    if proc.returncode != 0:
+        fail(f"{label}: exit {proc.returncode}; stderr: {proc.stderr[-2000:]}")
+    return proc.stdout.splitlines()
+
+
+def script_of(actions: list, cfg) -> str:
+    cells = cfg.ROWS * cfg.COLS
+    return ";".join(f"{a // cells} {(a % cells) // cfg.COLS} {a % cfg.COLS}" for a in actions)
+
+
+def play_phase(torch) -> dict:
+    """`cli play` with either engine, the native engine against the tensor
+    engine on the card, and `evaluate_batch` against `evaluate_state` at
+    the flagship net on the card.
+
+    The two engines draw their hands from different streams (threefry and
+    xorshift), as in the JAX package, so their transcripts differ from the
+    first hand on. So: the GameState engine's transcript on the card
+    equals its transcript on the CPU line for line (a script of PLAY_MOVES
+    legal moves, a 'v' and an illegal one between them); the native
+    engine's plays its own PLAY_MOVES legal moves to exit 0; and native
+    transitions without a refill equal the tensor engine's on the card."""
+    import numpy as np
+
+    from alphatriangle_tpu_torch import rng
+    from alphatriangle_tpu_torch.bench_config import resolve_bench_plan
+    from alphatriangle_tpu_torch.config import EnvConfig
+    from alphatriangle_tpu_torch.env import GameState, TriangleEnv
+    from alphatriangle_tpu_torch.env.native import NativeTriangleEnv, native_build_error
+    from alphatriangle_tpu_torch.nn import NeuralNetwork
+
+    t0 = time.perf_counter()
+    cfg = EnvConfig()
+    game = GameState(cfg, initial_seed=PLAY_SEED, device="cpu")
+    actions = []
+    for _ in range(PLAY_MOVES):
+        valid = game.valid_actions()
+        actions.append(valid[len(valid) // 2])
+        game.step(actions[-1])
+    script = script_of(actions[:2], cfg) + ";v;0 0 0;" + script_of(actions[2:], cfg)
+    card = play_transcript(["--engine", "jax", "--device", "cuda", "--seed", str(PLAY_SEED),
+                            "--script", script], "play-torch-cuda")
+    host = play_transcript(["--engine", "jax", "--device", "cpu", "--seed", str(PLAY_SEED),
+                            "--script", script], "play-torch-cpu")
+    rewards = sum(line.startswith("reward ") for line in card)
+    if card != host or rewards != PLAY_MOVES or "engine=torch" not in card[0]:
+        fail(f"play: the card's transcript ({len(card)} lines, {rewards} moves) differs from the CPU's "
+             f"({len(host)} lines)")
+
+    env = TriangleEnv(cfg, device="cpu")
+    try:
+        native = NativeTriangleEnv(env)
+    except RuntimeError:
+        fail(f"play: the native engine does not build: {native_build_error()}")
+    batch = native.new_batch(1, seed=PLAY_SEED)
+    nactions = []
+    for _ in range(PLAY_MOVES):
+        valid = np.flatnonzero(native.valid_mask(batch)[0])
+        nactions.append(int(valid[len(valid) // 2]))
+        native.step(batch, np.asarray(nactions[-1:], np.int32))
+    ntext = play_transcript(["--engine", "native", "--seed", str(PLAY_SEED), "--script",
+                             script_of(nactions, cfg)], "play-native")
+    if "engine=native" not in ntext[0] or sum(line.startswith("reward ") for line in ntext) != PLAY_MOVES \
+            or ntext[1:11] != card[1:11]:
+        fail(f"play: the native transcript has {len(ntext)} lines, its header or board differs")
+
+    # Native transitions against the tensor engine on the card, refill-free.
+    dev = torch.device("cuda")
+    tenv = TriangleEnv(cfg, device=dev)
+    n = 64
+    gen = np.random.default_rng(PLAY_SEED)
+    states = tenv.reset(rng.split(rng.PRNGKey(PLAY_SEED), n))
+    compared = 0
+    for _ in range(12):
+        masks = tenv.valid_action_mask(states).cpu().numpy()
+        nb = native.new_batch(n)
+        nb.occupied[:] = states.occupied.cpu().numpy().astype(np.uint32)
+        nb.color[:] = states.color.cpu().numpy().reshape(n, -1)
+        nb.shape_idx[:] = states.shape_idx.cpu().numpy()
+        nb.shape_color[:] = states.shape_color.cpu().numpy()
+        nb.score[:] = states.score.cpu().numpy()
+        nb.step_count[:] = states.step_count.cpu().numpy()
+        nb.done[:] = states.done.cpu().numpy().astype(np.uint8)
+        nb.last_cleared[:] = states.last_cleared.cpu().numpy()
+        if not np.array_equal(native.valid_mask(nb), masks):
+            fail("play: the native engine's valid masks differ from the card engine's")
+        picks = np.array([int(np.flatnonzero(m)[gen.integers(m.sum())]) if m.any() else 0 for m in masks],
+                         np.int32)
+        keep = ((states.shape_idx.cpu().numpy() >= 0).sum(axis=1) > 1) | states.done.cpu().numpy()
+        nrew, ndone = native.step(nb, picks, refill=False)
+        states, trew, tdone = tenv.step(states, torch.from_numpy(picks).to(dev))
+        same = (np.array_equal(nb.occupied, states.occupied.cpu().numpy().astype(np.uint32))
+                and np.array_equal(nb.score, states.score.cpu().numpy())
+                and np.array_equal(nrew[keep], trew.cpu().numpy()[keep])
+                and np.array_equal(ndone[keep].astype(bool), tdone.cpu().numpy()[keep]))
+        if not same:
+            fail("play: a native transition differs from the card engine's")
+        compared += int(keep.sum())
+        if bool(states.done.all()):
+            break
+
+    # evaluate_batch of a few GameStates on the card at the flagship net
+    # (bf16) against evaluate_state of each: within the bf16 forward's
+    # tolerance (the parity tests' BF16_PROB_ATOL, BF16_VALUE_ATOL / RTOL).
+    plan = resolve_bench_plan(False, "cuda", environ={})
+    net = NeuralNetwork(plan.model, plan.env, seed=0, device=dev)
+    games = []
+    for seed in range(PLAY_STATES):
+        g = GameState(plan.env, initial_seed=seed, device=dev)
+        for _ in range(seed):
+            valid = g.valid_actions()
+            g.step(valid[len(valid) // 3])
+        games.append(g)
+    batched = net.evaluate_batch(games)
+    prob_err = value_err = 0.0
+    for g, (bp, bv) in zip(games, batched):
+        sp, sv = net.evaluate_state(g)
+        pb, ps = np.array([bp[a] for a in sorted(bp)]), np.array([sp[a] for a in sorted(sp)])
+        if not (np.isfinite(pb).all() and abs(pb.sum() - 1.0) < 1e-3 and len(pb) == plan.env.action_dim):
+            fail(f"play: evaluate_batch's policy is not a distribution over {plan.env.action_dim} actions")
+        prob_err = max(prob_err, float(np.abs(pb - ps).max()))
+        value_err = max(value_err, abs(bv - sv))
+        if prob_err > 0.05 or abs(bv - sv) > 0.2 + 0.1 * abs(sv):
+            fail(f"play: evaluate_batch differs from evaluate_state (policy {prob_err:.3g}, value "
+                 f"{abs(bv - sv):.3g})")
+    return {
+        "transcript_lines": len(card), "moves": rewards, "native_moves": PLAY_MOVES,
+        "native_transitions_compared": compared, "evaluate_states": PLAY_STATES,
+        "evaluate_prob_max_abs_err": prob_err, "evaluate_value_max_abs_err": value_err,
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def say_tune(r: dict, card: str) -> None:
+    for label, part in (("tune", r["tune"]), ("tune --calibrate", r["calibrate"])):
+        say(f"{label}: exit 0 in {part['seconds']:.1f} s, limit {part['limit'] / 2**30:.3f} GiB "
+            f"[{part['limit_source']}]; rows {json.dumps(part['rows'])} [{card}]")
+        for call in part["oracle"]:
+            say(f"{label}: oracle {call['candidate']}: {call['seconds']:.2f} s, budget "
+                f"{call['budget_total_bytes'] / 2**30:.3f} GiB, allocated {call['allocated_before']} B before, "
+                f"{call['allocated_after']} B after [{card}]")
+    t = r["train"]
+    o = t["tune_outcome"]
+    say(f"train-tuned: cli train --preset exit 0 in {t['seconds']:.1f} s, {t['warmup_chunks']} warm-up "
+        f"chunks, {t['megasteps']} megasteps {[round(x, 1) for x in t['megastep_ms']]} ms, peak "
+        f"{t['peak_gb']:.3f} GiB; predicted {o.get('predicted_moves_per_sec')} moves/s, observed "
+        f"{o.get('observed_moves_per_sec')}, observed / predicted {o.get('observed_over_predicted')} "
+        f"[{card}]")
+    say(f"tune: the limit of the calibrated tune is {r['limit_fraction']} of the budget at B "
+        f"({r['budget_b'] / 2**30:.3f} GiB); calibration {json.dumps(r['calibrate']['calibration'])}")
+
+
 # Slice fifteen: tensor and sequence parallelism in the synchronous loop.
 # One pair of rank processes shares the card over gloo (`python3
 # chip_smoke.py --mesh-rank SPEC RANK`, this file run as a child) and runs
@@ -7229,6 +7536,18 @@ def run_phases(torch) -> int:
         mesh_out["reports"], mesh_out["seconds"] = mesh_phases(torch)
 
     join_mesh = in_background(mesh_pair)
+    # The tuner's commands (processes of their own) and the play phase (its
+    # processes, and card work in this process that launches no kernel),
+    # each on a thread of its own, beside them too.
+    tuneplay: dict = {}
+
+    def timed(name: str, phase) -> None:
+        t0 = time.perf_counter()
+        tuneplay[name] = phase(torch)
+        tuneplay[f"{name}_s"] = time.perf_counter() - t0
+
+    join_tune = in_background(lambda: timed("tune", tune_phase))
+    join_play = in_background(lambda: timed("play", play_phase))
 
     t0 = time.perf_counter()
     dcreport = doctor_phase(prreport, flreport, swreport)
@@ -7315,7 +7634,20 @@ def run_phases(torch) -> int:
         say_mesh(label, r, card)
     say(f"{' and '.join(MESH_PHASES)} phases (one pair of ranks, beside the resume, doctor, readers and "
         f"reference phases): {mesh_out['seconds']:.1f} s")
-    say(f"from the drills to the mesh pair: {time.perf_counter() - t_drills:.1f} s")
+    join_tune()
+    join_play()
+    tnreport, plreport = tuneplay["tune"], tuneplay["play"]
+    say_tune(tnreport, card)
+    say(f"tune phase (cli tune, train --preset, tune --calibrate beside the resume and the mesh pair): "
+        f"{tuneplay['tune_s']:.1f} s")
+    say(f"play: the GameState engine's transcript on the card equals the CPU's ({plreport['transcript_lines']} "
+        f"lines, {plreport['moves']} moves); the native engine played {plreport['native_moves']} moves; "
+        f"{plreport['native_transitions_compared']} native transitions equal the card engine's; "
+        f"evaluate_batch of {plreport['evaluate_states']} states within {plreport['evaluate_prob_max_abs_err']:.3g} "
+        f"(policy) / {plreport['evaluate_value_max_abs_err']:.3g} (value) of evaluate_state at the flagship "
+        f"net [{card}]")
+    say(f"play phase (beside the tune phase): {tuneplay['play_s']:.1f} s")
+    say(f"from the drills to the mesh pair, the tune and play phases: {time.perf_counter() - t_drills:.1f} s")
 
     paths = {
         "serve": sreport, "train": treport, "serve_reuse": srreport, "train_reuse": trreport,
@@ -7333,6 +7665,7 @@ def run_phases(torch) -> int:
         "train_dp1": d1report, "train_dp2_shared": d2report, "train_dp2_shared_async": d2areport,
         "train_tp2_shared": mesh_reports["train-tp2-shared"],
         "train_sp2_shared": mesh_reports["train-sp2-shared"],
+        "tune": tnreport, "train_tuned": tnreport["train"],
     }
     kernels_line = []
     for kname, kr in kreport.items():
@@ -7374,7 +7707,7 @@ def run_phases(torch) -> int:
         "kernels": kernels_line, **paths, "ring_round_trip": rtreport, "reference": rreport,
         "attention_memory": amreport, "empty_kernel_ms": empty_ms,
         "serve_stats": ssreport, "beacons": bnreport, "profile": pfreport,
-        "doctor": dcreport, "readers": rdreport, "memory_plane": memplane,
+        "doctor": dcreport, "readers": rdreport, "memory_plane": memplane, "play": plreport,
         "card": card,
     }))
     say(card)

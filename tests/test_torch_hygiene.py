@@ -48,6 +48,10 @@ for slice_eleven in ("telemetry.anomaly", "utils.helpers", "logging_config", "au
 for slice_fourteen in ("parallel", "parallel.distributed", "parallel.sharding",
                        "rl.sharded_device_buffer"):
     assert "alphatriangle_tpu_torch." + slice_fourteen in names, slice_fourteen
+for slice_seventeen in ("autotune.space", "autotune.model", "autotune.search", "env.game_state",
+                        "env.render", "env.native", "features.extractor", "utils.geometry",
+                        "config.app_config"):
+    assert "alphatriangle_tpu_torch." + slice_seventeen in names, slice_seventeen
 leaked = sorted(
     m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic", "tensorboard", "tensorflow")
 )
