@@ -1,8 +1,8 @@
 """Command line of the PyTorch port: counterpart of
 `alphatriangle_tpu/cli.py`'s `serve`, `train`, `eval`, `league`, `fleet`,
 `health`, `perf`, `analyze`, `supervise`, `doctor`, `trace`, `watch`,
-`compare`, `slo`, `warm`, `fit`, `mem`, `roofline`, `tune`, `play`, `devices`, `tb`
-and `ml` subcommands.
+`compare`, `slo`, `warm`, `fit`, `mem`, `roofline`, `tune`, `play`, `devices`, `tb`,
+`ml` and `lint` subcommands.
 
     python -m alphatriangle_tpu_torch.cli serve [--slots 64] [--buckets CSV] [--sims 64]
         [--sessions 96] [--max-moves 200] [--seed 0] [--device cuda]
@@ -216,13 +216,14 @@ budgets and burn rates, exit 0 within budget, 1 burning, 2 no data.
 launch TensorBoard or the MLflow UI over the runs root, exit 1 when it
 is not installed.
 
-    python -m alphatriangle_tpu_torch.cli warm [TARGET] [--programs S,...] [--device cuda]
+    python -m alphatriangle_tpu_torch.cli warm [TARGET] [--jobs N] [--programs S,...] [--device cuda]
     python -m alphatriangle_tpu_torch.cli fit [TARGET] [--limit-gb GIB] [--serve]
         [--programs S,...] [--json] [--device cuda]
     python -m alphatriangle_tpu_torch.cli mem|roofline [RUN|DIR|metrics.jsonl]
         [--root-dir DIR] [--json]
 
-`warm` builds every kernel (or loads it from the build cache) and runs
+`warm` builds every kernel (or loads it from the build cache; `--jobs`
+nvcc builds at a time, default 4) and runs
 each hot program of a plan once at its shapes (`warm.py`; TARGET: auto,
 the device's scale, smoke, cpu, 1..5 or a tuned_preset.json,
 `bench_config.py`); exit 0 when every program ran. `fit` composes the
@@ -262,6 +263,18 @@ jax` the port's `GameState` engine on `--device` (default the card; the
 name is the JAX command line's). `--script` plays the given moves, then
 exits.
 
+    python -m alphatriangle_tpu_torch.cli lint [PATH] [--rule NAME]... [--baseline PATH]
+        [--write-baseline] [--json]
+
+`lint` runs graftlint (`analysis/`) over the port's package (or PATH):
+the JAX package's seven rules, under their names and pragma (`#
+graftlint: allow(rule) reason`), each restated for eager PyTorch. Its
+baseline is the port's own `lint_baseline.json` inside the linted tree
+(the repository root's holds the JAX package's keys). `--json` prints a
+one-line verdict that leads with `"schema": "alphatriangle.lint.v1"`
+and carries `baseline_path`. Exit 0 clean, 1 findings or a stale
+baseline entry, 2 a parse error or an unknown rule.
+
 Every command but `serve`, `train`, `eval`, `league`, `warm`, `fit`, `tune`, `play` and
 `devices` imports neither torch nor numpy: they read files, and the
 supervisor's and the fleet's parents outlive a wedged card.
@@ -272,6 +285,9 @@ import json
 import sys
 import time
 from pathlib import Path
+
+# The port's graftlint baseline, inside the linted tree.
+LINT_BASELINE = "lint_baseline.json"
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
@@ -1386,6 +1402,7 @@ def cmd_warm(args: argparse.Namespace) -> int:
     programs = set(args.programs.split(",")) if args.programs else None
     report = warm_bench_programs(
         plan, device, programs=programs, progress=lambda msg: print(msg, file=sys.stderr, flush=True),
+        jobs=args.jobs,
     )
     print(json.dumps(report))
     rows = report["programs"]
@@ -2341,6 +2358,46 @@ def cmd_tb(args: argparse.Namespace) -> int:
     return _launch_ui("tensorboard", ["--logdir", root, "--port", str(args.port)], module="tensorboard.main")
 
 
+def cmd_lint(args: argparse.Namespace) -> int:
+    """graftlint for the port (`analysis/`): the JAX package's seven rules,
+    each restated for eager PyTorch, over the port's package or `path`.
+    Imports neither torch nor JAX. The default baseline is the port's own
+    `lint_baseline.json` inside the linted tree (never the repository
+    root's, which holds the JAX package's keys).
+
+    Exit 0 clean / 1 findings or stale baseline entries / 2 parse
+    error (or unknown --rule)."""
+    from .analysis import run_lint, write_baseline
+
+    root = Path(args.path) if args.path else Path(__file__).resolve().parent
+    if not root.exists():
+        print(f"lint root {root} does not exist", file=sys.stderr)
+        return 2
+    if args.baseline is not None:
+        baseline = Path(args.baseline)
+    else:
+        candidate = root / LINT_BASELINE
+        baseline = candidate if candidate.exists() else None
+    try:
+        report = run_lint(root, rule_names=args.rule or None, baseline_path=baseline)
+    except ValueError as e:  # unknown rule / corrupt baseline
+        print(f"lint: {e}", file=sys.stderr)
+        return 2
+    if args.write_baseline:
+        target = baseline or root / LINT_BASELINE
+        write_baseline(target, report.findings)
+        n = len(report.findings)
+        print(f"baseline written: {target} ({n} entr{'y' if n == 1 else 'ies'})")
+        return 0
+    if args.json:
+        payload = report.as_dict()
+        payload["baseline_path"] = str(baseline) if baseline else None
+        print(json.dumps(payload))
+    else:
+        print(report.render())
+    return report.exit_code
+
+
 def cmd_ml(args: argparse.Namespace) -> int:
     from .config import PersistenceConfig
 
@@ -2788,6 +2845,9 @@ def build_parser() -> argparse.ArgumentParser:
                       "BENCH_SMOKE), "
                       "'smoke' / 'cpu' = the reduced scales, 1..5 = a BASELINE preset, or a "
                       "tuned_preset.json path.")
+    warm.add_argument("--jobs", type=int, default=4, metavar="N",
+                      help="Kernel builds (nvcc) in parallel threads; the programs then run one "
+                      "after another on the card.")
     warm.add_argument("--programs", default=None, metavar="SUBSTR[,SUBSTR...]",
                       help="Only the programs whose name holds one of these substrings.")
     warm.add_argument("--device", default=None,
@@ -2919,6 +2979,25 @@ def build_parser() -> argparse.ArgumentParser:
     ml.add_argument("--root-dir", default=None)
     ml.add_argument("--port", type=int, default=5000)
     ml.set_defaults(fn=cmd_ml)
+
+    lint = sub.add_parser(
+        "lint",
+        help="graftlint: AST-based analyzer of the port's eager-PyTorch hazards (in-place reads, host "
+        "syncs, placement, flight coverage, debug artifacts, RNG, exits); no torch import; exit 0 "
+        "clean / 1 findings / 2 parse error.",
+    )
+    lint.add_argument("path", nargs="?", default=None,
+                      help="Tree to lint (default: the alphatriangle_tpu_torch package).")
+    lint.add_argument("--rule", action="append", default=None, metavar="NAME",
+                      help="Run only this rule (repeatable).")
+    lint.add_argument("--baseline", default=None, metavar="PATH",
+                      help=f"Baseline file of grandfathered finding keys (default: {LINT_BASELINE} inside "
+                      "the linted tree). Stale entries fail the lint.")
+    lint.add_argument("--write-baseline", action="store_true",
+                      help="Grandfather every current finding into the baseline file and exit 0.")
+    lint.add_argument("--json", action="store_true",
+                      help='One-line JSON verdict (leads with "schema": "alphatriangle.lint.v1").')
+    lint.set_defaults(fn=cmd_lint)
     return parser
 
 

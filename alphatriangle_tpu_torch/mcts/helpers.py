@@ -36,6 +36,7 @@ def root_actions(output, use_gumbel: bool = False) -> torch.Tensor:
 
 def select_root_actions(output, use_gumbel: bool = False) -> np.ndarray:
     """`root_actions` as NumPy (one host fetch)."""
+    # graftlint: allow(host-sync-in-hot-path) the caller's one fetch of the chosen actions
     return root_actions(output, use_gumbel).cpu().numpy()
 
 

@@ -18,6 +18,7 @@ cache, with its `nvcc` seconds) and each load of a library built before
 counts the util records carry.
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -148,13 +149,15 @@ class CudaKernel:
             self.launches += 1
 
 
-def build_all(kernels) -> float:
-    """Build every kernel's library at once (one `nvcc` each, all
-    started together); returns the wall seconds it took."""
+def build_all(kernels, jobs: "int | None" = None) -> float:
+    """Build every kernel's library (one `nvcc` each): all started
+    together, or at most `jobs` at a time; returns the wall seconds it
+    took."""
     t0 = time.perf_counter()
-    procs = [(k, k.start_build()) for k in kernels]
-    for k, proc in procs:
-        k.finish(proc)
+    kernels = list(kernels)
+    workers = max(1, min(len(kernels), jobs or len(kernels)))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(lambda k: k.finish(k.start_build()), kernels))
     for k in kernels:
         k.load()
     return time.perf_counter() - t0

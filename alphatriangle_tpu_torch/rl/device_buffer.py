@@ -224,6 +224,7 @@ class DeviceReplayBuffer(ExperienceBuffer):
             "priorities": None,
         }
         if self._size > 0:
+            # graftlint: allow(host-sync-in-hot-path) a spill's one fetch of the ring
             state["storage"] = fetch({k: v[: self._size] for k, v in self.storage.items()})
         if self.tree is not None and self._size > 0:
             leaves = np.arange(self._size) + self.tree._cap2

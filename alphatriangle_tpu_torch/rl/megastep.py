@@ -232,6 +232,7 @@ class MegastepRunner:
             idx, weights = self._sample_indices(self._priorities, size, k)
             ds_per = self._per_stat_pack(self._priorities, weights) if self.device_stats else None
         with record_function("learner.steps"):
+            # graftlint: allow(use-after-donation) the learner reads the rows this ingest wrote
             metrics_k, td_k = trainer._train_steps_from_impl(buf.storage, idx, weights)
         if self.use_per:
             with record_function("per.update"):
@@ -298,6 +299,7 @@ class MegastepRunner:
             self.dispatch_count += 1
             engine.net.forget_inference_model()  # the module moved in place
             t0 = time.perf_counter()
+            # graftlint: allow(host-sync-in-hot-path) the megastep's one fetch
             host = fetch(out)  # the one transfer of the megastep
             self.transfer_d2h_seconds += time.perf_counter() - t0
 

@@ -473,6 +473,7 @@ class SelfPlayEngine:
             if not fetch_experiences:
                 payload = {"mat": outputs.pop("mat"), "flush": outputs.pop("flush")}
             t0 = time.perf_counter()
+            # graftlint: allow(host-sync-in-hot-path) the chunk's one fetch
             host = fetch(outputs)  # the chunk's one transfer: the seal waits for it
             dt = time.perf_counter() - t0
         with self._transfer_lock:

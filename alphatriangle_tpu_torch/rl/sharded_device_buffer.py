@@ -167,7 +167,7 @@ class ShardedDeviceReplayBuffer(DeviceReplayBuffer):
     def add_dense(self, grid, other_features, policy_target, value_target, policy_weight=None) -> np.ndarray:
         """Host rows in the global order; this rank ingests its stripe
         (`_stripe`) into its shard. Returns its local slots."""
-        k = np.asarray(grid).shape[0]
+        k = len(grid)
         rows = self._stripe(k)
         pw = None if policy_weight is None else np.asarray(policy_weight)[rows]
         return super().add_dense(
@@ -188,6 +188,7 @@ class ShardedDeviceReplayBuffer(DeviceReplayBuffer):
             order = np.roll(order, -self._pos)
         rows = torch.from_numpy(order).to(self.device)
         return {
+            # graftlint: allow(host-sync-in-hot-path) a spill's fetch of the shard, once per cadence
             "storage": {k: v[rows].cpu().numpy() for k, v in self.storage.items()},
             "priorities": self.tree.tree[order + self.tree._cap2].copy() if self.tree is not None else None,
         }

@@ -188,5 +188,6 @@ class SessionSlots:
     def host_results(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(scores, step_counts, done) for the whole array as NumPy."""
         st = self.states
+        # graftlint: allow(host-sync-in-hot-path) one fetch of the whole slot array
         packed = torch.stack([st.score, st.step_count.float(), st.done.float()]).cpu().numpy()
         return packed[0], packed[1].astype(np.int32), packed[2].astype(bool)

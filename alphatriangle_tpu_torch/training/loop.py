@@ -95,8 +95,8 @@ under a `torch.profiler` window exported into `profile_data/`
 (`cli analyze` reads both). A megastep run counts its megasteps there,
 not its warm-up chunks, so the window holds megasteps 1-2.
 
-A run over a process group (`components.mesh`; the synchronous loop on
-any mesh, the megastep and the overlapped loop on a dp-only one) keeps
+A run over a process group (`components.mesh`; the synchronous and the
+overlapped loop on any mesh, the megastep on a dp-only one) keeps
 its ranks in lockstep: the stop test (a stop, or a preemption, on any
 rank stops every rank at the same beat), a rank's own host ring drawing
 None, the megastep's warm-up gate ("every shard can fill") and the
@@ -112,7 +112,16 @@ folded, reduced over the row owners), the chunk auto-tune takes the
 slowest rank's timed chunk, so every rank's producers play one length,
 and each rank's extra streams play its share of their lanes. What is
 left to a rank's own timing (how many harvests a beat folds, how long it
-waits for one) starts no collective. A rank's own host ring
+waits for one) starts no collective. On a mesh with mdl or sp wider
+than one (`setup.row_plays`) the first rank of each (mdl, sp) block
+plays its dp row's whole lanes in its streams, and the others run no
+producer: at each beat its main thread drains what is ready and
+broadcasts that batch of harvests, possibly empty, over the block
+(`_row_batch`), so every rank of the row folds the same harvests in the
+same order and each harvest read one weights version over its lanes,
+as a JAX chunk over the dp row does. A harvest still queued at the end
+was never broadcast and is dropped on every rank, the counterpart of a
+JAX chunk that never finished. A rank's own host ring
 draws B / dp rows (JAX `training/loop.py:464`), a sharded ring each
 rank's stratum of B. Rank 0 alone writes the preemption report. A
 rank's counters are its own lanes' (rank 0's also hold a restored run's
@@ -120,7 +129,8 @@ totals); the checkpoint and the utilization record take their sum over
 the ranks (`_lane_totals`, one gather at those lockstep beats), as the
 JAX mesh counts every lane once: the lanes of an mdl line's first rank
 (it plays them and broadcasts each harvest to its replicas,
-`_shared_rollout`) and the replay rows of a dp row's first rank (every
+`_shared_rollout`; in the overlapped loop on such a mesh, the lanes of
+the block's first rank) and the replay rows of a dp row's first rank (every
 (mdl, sp) rank of the row holds them); the
 iteration's global rows count the same way. After every iteration or
 megastep of a multi-rank run the ranks' digests of the whole parameters
@@ -159,7 +169,7 @@ from ..telemetry.flight import PREEMPT_EXIT_CODE, PREEMPT_REPORT_FILENAME, write
 from ..utils.helpers import format_eta
 from ..utils.transfer import hand_off, receive
 from .components import TrainingComponents
-from .setup import clamp_self_play_workers
+from .setup import clamp_self_play_workers, row_plays
 
 logger = logging.getLogger(__name__)
 
@@ -189,6 +199,11 @@ class TrainingLoop:
         self.mesh = components.mesh
         self._grouped = self.mesh is not None and self.mesh.backend is not None
         self._sharded = bool(getattr(components.buffer, "is_sharded", False))
+        # The overlapped loop on an mdl or sp mesh: the first rank of each
+        # (mdl, sp) block plays its dp row's lanes (`_row_batch`), the
+        # others play nothing.
+        self._row_plays = self._grouped and row_plays(self.mesh, self.cfg)
+        self._plays = not self._row_plays or self.mesh.row_owner
         # Per megastep or iteration of a dp run: the parameters' digest
         # (`Trainer.param_checksum`), equal on every rank.
         self.param_checksums: list = []
@@ -329,6 +344,8 @@ class TrainingLoop:
     def _process_rollout(self) -> int:
         """One rollout chunk of the primary engine into the ring; returns
         the rows added."""
+        if self._row_plays:
+            return sum(self._row_chunk()[0])
         if self.mesh is not None and (self.mesh.mdl > 1 or self.mesh.sp > 1):
             return self._fold_result(*self._shared_rollout())
         result, payload = self._play_rollout(self.c.self_play, self.cfg.ROLLOUT_CHUNK_MOVES)
@@ -351,6 +368,71 @@ class TrainingLoop:
         result, trace = line_broadcast_object(played, self.mesh, MDL)
         parts = line_gather_object(result, self.mesh, SP)
         return merge_lane_shards(parts, self.mesh.sp_index), trace
+
+    def _row_batch(self, items: "list | None") -> list:
+        """The (harvest, trace, stream) batch that the first rank of this
+        rank's (mdl, sp) block played, on every rank of the block: one
+        broadcast over mdl, then one over sp (every rank of the block calls
+        it at the same beat; the others' `items` are ignored)."""
+        items = line_broadcast_object(items, self.mesh, MDL)
+        return line_broadcast_object(items, self.mesh, SP)
+
+    def _fold_row(self, items: "list | None") -> list:
+        """Fold the block's batch (`_row_batch`) in its order; the rows
+        each harvest added. Its streams count on the rank that played them."""
+        return [
+            self._fold_result(result, trace, stream=stream if self._plays else None)
+            for result, trace, stream in self._row_batch(items)
+        ]
+
+    def _row_chunk(self) -> tuple:
+        """One chunk of the primary engine on a row-playing mesh, played
+        by the block's first rank and folded by the whole block: (the rows
+        added, the play's seconds on the rank that played, 0 elsewhere)."""
+        played, dt = None, 0.0
+        if self._plays:
+            t0 = time.perf_counter()
+            result, _ = self._play_rollout(self.c.self_play, self.cfg.ROLLOUT_CHUNK_MOVES)
+            dt = time.perf_counter() - t0
+            played = [(result, self.c.self_play.last_trace, None)]
+        return self._fold_row(played), dt
+
+    def _drain(self, harvests: "queue.Queue", take) -> int:
+        """Hand everything queued to `take`; when that was nothing and the
+        learner has no work either, one harvest if it comes within 0.5 s.
+        Returns how many it handed over."""
+        n = 0
+        while True:
+            try:
+                take(harvests.get_nowait())
+            except queue.Empty:
+                break
+            n += 1
+        if (
+            n == 0
+            and not self._stop_seen()
+            and (self._learner_steps_allowed() == 0 or not self.c.buffer.is_ready())
+        ):
+            try:
+                take(harvests.get(timeout=0.5))
+                n += 1
+            except queue.Empty:
+                pass
+        return n
+
+    def _fold_beat(self, harvests: "queue.Queue") -> int:
+        """A beat's fold; returns the harvests folded. On a row-playing
+        mesh the block's first rank drains its queue and the whole block
+        folds that batch (`_row_batch`), so the count is the same on every
+        rank of the block."""
+        if not self._row_plays:
+            return self._drain(harvests, lambda item: self._fold_result(*item))
+        items = None
+        if self._plays:
+            items = []
+            # (harvest, trace, stream): the host ring has no payload to hand off.
+            self._drain(harvests, lambda item: items.append(item[:2] + item[4:]))
+        return len(self._fold_row(items))
 
     def _fold_result(
         self, result, trace=None, payload=None, ready=None, stream=None, added=None
@@ -741,7 +823,8 @@ class TrainingLoop:
                self.total_reused_visits)
         if not self._grouped:
             return own
-        lanes, rows = int(self.mesh.lane_owner), int(self.mesh.row_owner)
+        rows = int(self.mesh.row_owner)
+        lanes = rows if self._row_plays else int(self.mesh.lane_owner)
         own = tuple(v * w for v, w in zip(own, (lanes, lanes, rows, lanes)))
         return tuple(sum(col) for col in zip(*all_gather_ints(own, self.mesh)))
 
@@ -1150,17 +1233,20 @@ class TrainingLoop:
             # first-use costs, chunk 2 is timed (the play only; its fold
             # comes after). Both harvests feed the ring.
             self._process_rollout()
-            t0 = time.perf_counter()
-            result, payload = self._play_rollout(self.c.self_play, cfg.ROLLOUT_CHUNK_MOVES)
-            dt = time.perf_counter() - t0
-            self._fold_result(result, payload=payload)
+            if self._row_plays:
+                _, dt = self._row_chunk()
+            else:
+                t0 = time.perf_counter()
+                result, payload = self._play_rollout(self.c.self_play, cfg.ROLLOUT_CHUNK_MOVES)
+                dt = time.perf_counter() - t0
+                self._fold_result(result, payload=payload)
             if self._grouped:
                 # One length for every rank's producers, as the JAX mesh
                 # runs one program: the slowest rank's measurement.
                 dt = all_reduce_scalar(dt, self.mesh, op="max")
             self._maybe_tune_chunk(cfg.ROLLOUT_CHUNK_MOVES, dt, warmed=True)
         cuda = self.c.device.type == "cuda"
-        for i, engine in enumerate(self._make_rollout_streams()):
+        for i, engine in enumerate(self._make_rollout_streams() if self._plays else []):
             rec = self._streams.setdefault(i, {"restarts": 0, "retry_at": None})
             if cuda and "cuda_stream" not in rec:
                 rec["cuda_stream"] = torch.cuda.Stream(self.c.device)
@@ -1177,26 +1263,8 @@ class TrainingLoop:
                 iteration += 1
                 t0 = time.perf_counter()
                 self._supervise_producers(harvests)
-                # Drain everything available; block briefly only when
-                # there is no learner work either.
-                folded = 0
                 with self.profile.phase("fold"):
-                    while True:
-                        try:
-                            self._fold_result(*harvests.get_nowait())
-                            folded += 1
-                        except queue.Empty:
-                            break
-                    if (
-                        folded == 0
-                        and not self._stop_seen()
-                        and (self._learner_steps_allowed() == 0 or not self.c.buffer.is_ready())
-                    ):
-                        try:
-                            self._fold_result(*harvests.get(timeout=0.5))
-                            folded += 1
-                        except queue.Empty:
-                            pass
+                    folded = self._fold_beat(harvests)
                 self._count_gate_rows()
                 if cfg.PIPELINE_LEARNER:
                     steps_ran = self._pump_learner(self._learner_steps_allowed())
@@ -1229,12 +1297,14 @@ class TrainingLoop:
                 rec["thread"].join(timeout=30.0)
                 if rec["thread"].is_alive():
                     logger.warning("%s did not join within 30s.", rec["thread"].name)
-            # Fold what is still queued: it was played.
-            while True:
-                try:
-                    self._fold_result(*harvests.get_nowait())
-                except queue.Empty:
-                    break
+            # Fold what is still queued: it was played. On a row-playing
+            # mesh the block never received it: every rank drops it.
+            if not self._row_plays:
+                while True:
+                    try:
+                        self._fold_result(*harvests.get_nowait())
+                    except queue.Empty:
+                        break
             if self._producer_error is not None:
                 raise self._producer_error
 

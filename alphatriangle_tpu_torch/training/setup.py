@@ -26,10 +26,7 @@ spans.
 
 In a process group (`parallel/distributed.py`) the mesh is
 `MeshConfig.build_mesh` over the ranks, one device each, with its axes'
-process groups (`attach_groups`); the overlapped loop runs on a dp-only
-mesh, and raises on a mesh with mdl or sp wider than one (ROADMAP.md
-item 6e: the mdl line's harvest broadcast would run on a producer
-thread, at each rank's own beat). The mesh's axes are reached through
+process groups (`attach_groups`). The mesh's axes are reached through
 `mesh_config`, as in JAX: no flag of `cli train` sets MDL_SIZE or
 SP_SIZE. Self-play lanes ride (dp, sp) (`rollout_lane_axes`): each rank
 steps lanes shard `dp_i * SP + sp_i` of the dp x sp shards (`rng.Lanes`;
@@ -43,7 +40,11 @@ than one takes the host ring, as JAX's `sharded_ok` asks for a dp-only
 mesh, and each ingest's rows are shared over the dp row's replicas
 (`training/loop.py` `_shared_rollout`: the mdl line's first rank plays,
 the sp line merges its rows in lane order), so the mdl and sp ranks of
-a dp row hold and draw bit-equal rows. Rank 0's learner state is broadcast to every
+a dp row hold and draw bit-equal rows. The overlapped loop on such a mesh
+(`row_plays`) gives the dp row's whole lanes to the first rank of its
+(mdl, sp) block, whose producer streams play them; the loop's main
+thread broadcasts each beat's harvests over the block, so every harvest
+reads one weights version over all its lanes, as a JAX chunk does. Rank 0's learner state is broadcast to every
 rank. Ranks but the first open no TensorBoard writer and no live file
 and run with telemetry off; every rank publishes the same stat-pack
 flag, which shapes its work. The utilization meter counts the world's
@@ -185,12 +186,6 @@ def build_mesh(mesh_config: "MeshConfig | None", train_config: TrainConfig) -> M
     with a warning, as the JAX setup does (an mdl or sp axis the world
     cannot hold raises)."""
     mesh_config = mesh_config or MeshConfig()
-    if train_config.ASYNC_ROLLOUTS and (mesh_config.MDL_SIZE > 1 or mesh_config.SP_SIZE > 1):
-        raise ValueError(
-            f"ASYNC_ROLLOUTS on a mesh with MDL_SIZE={mesh_config.MDL_SIZE}, "
-            f"SP_SIZE={mesh_config.SP_SIZE}: the overlapped loop runs on a dp-only mesh; over "
-            "mdl or sp it waits for ROADMAP.md item 6e"
-        )
     rank, world = process_info()
     backend = backend_name()
     try:
@@ -209,15 +204,28 @@ def build_mesh(mesh_config: "MeshConfig | None", train_config: TrainConfig) -> M
     return attach_groups(mesh)
 
 
-def rank_lanes(mesh: Mesh, total: int) -> "Lanes | None":
+def row_plays(mesh: Mesh, train_config: TrainConfig) -> bool:
+    """Does the first rank of each (mdl, sp) block play its dp row's whole
+    lanes? The overlapped loop on a mesh with mdl or sp wider than one:
+    its producer threads cannot join the line's collectives, so one rank
+    plays and the loop's main thread shares each beat's harvests."""
+    return (
+        train_config.ASYNC_ROLLOUTS
+        and not train_config.FUSED_MEGASTEP
+        and (mesh.mdl > 1 or mesh.sp > 1)
+    )
+
+
+def rank_lanes(mesh: Mesh, total: int, whole_row: bool = False) -> "Lanes | None":
     """This rank's lanes: shard `dp_i * SP + sp_i` of the dp x sp lane
-    shards (the lanes of the mdl line, which its first rank plays); None on a
-    mesh of one lane shard."""
-    shards = mesh.dp * mesh.sp
+    shards (the lanes of the mdl line, which its first rank plays), or
+    with `whole_row` shard `dp_i` of the dp shards (`row_plays`); None on
+    a mesh of one lane shard."""
+    shards = mesh.dp if whole_row else mesh.dp * mesh.sp
     if shards == 1:
         return None
     per = total // shards
-    shard = mesh.dp_index * mesh.sp + mesh.sp_index
+    shard = mesh.dp_index if whole_row else mesh.dp_index * mesh.sp + mesh.sp_index
     return Lanes(shard * per, (shard + 1) * per, total)
 
 
@@ -271,7 +279,7 @@ def setup_training_components(
     if mesh.mdl > 1:
         logger.info("Tensor parallelism: transformer shards over mdl=%d (Megatron layout).", mesh.mdl)
     trainer.broadcast_state()
-    lanes = rank_lanes(mesh, train_config.SELF_PLAY_BATCH_SIZE)
+    lanes = rank_lanes(mesh, train_config.SELF_PLAY_BATCH_SIZE, row_plays(mesh, train_config))
     if lanes is not None:
         logger.info("Self-play lanes [%d, %d) of %d on rank %d.", lanes.lo, lanes.hi, lanes.total, mesh.rank)
     self_play = SelfPlayEngine(

@@ -8,9 +8,10 @@ building the `csrc/` kernels with `nvcc` (`ops/_cuda.py`'s build cache,
 kept across processes in its build directory), and on the card the
 first run at a shape (cuBLAS / cuDNN algorithm choices, the caching
 allocator's blocks). So `warm_bench_programs` builds every kernel from
-the repository's sources (one `nvcc` each, all started together), then
-runs each hot program of the plan once at its shapes, its outputs
-dropped:
+the repository's sources (one `nvcc` each, up to `jobs` at a time, as
+the JAX package compiles up to `jobs` programs at a time), then runs
+each hot program of the plan once at its shapes, one after another on
+the card, its outputs dropped:
 
 - `search/b<B>`: one search over the plan's B lanes (the waves'
   `gather_rows` and `backup_update` kernels);
@@ -166,10 +167,11 @@ def plan_programs(plan, device, serve: bool = True, megastep: bool = True) -> tu
     return static, programs
 
 
-def build_kernels(device) -> dict:
+def build_kernels(device, jobs: "int | None" = None) -> dict:
     """Build (or load from the build cache) every kernel of the package
-    on the card, one `nvcc` per source, all started together; returns the
-    row of the report (nothing to build off the card)."""
+    on the card, one `nvcc` per source, up to `jobs` at a time (all
+    together without); returns the row of the report (nothing to build
+    off the card)."""
     import torch
 
     if torch.device(device).type != "cuda":
@@ -178,16 +180,19 @@ def build_kernels(device) -> dict:
     from .ops import beacon
     from .ops._cuda import build_all
 
-    seconds = build_all([*KERNELS.values(), beacon.KERNEL])
+    seconds = build_all([*KERNELS.values(), beacon.KERNEL], jobs=jobs)
     return {"program": "kernels", "status": "ran", "seconds": round(seconds, 1)}
 
 
-def warm_bench_programs(plan, device, programs: "set[str] | None" = None, progress=None) -> dict:
+def warm_bench_programs(
+    plan, device, programs: "set[str] | None" = None, progress=None, jobs: int = 4
+) -> dict:
     """Build the kernels, then run each of the plan's hot programs once.
 
     `programs`: optional substring filter on the labels (`cli warm
     --programs`). `progress`: optional callable(str) for a line a
-    program. Returns {"programs": [rows], "stats": the build cache's
+    program. `jobs`: the kernels' `nvcc` builds at a time (`cli warm
+    --jobs`). Returns {"programs": [rows], "stats": the build cache's
     stats, "seconds": total wall}."""
     from .compile_cache import get_build_cache
 
@@ -200,7 +205,7 @@ def warm_bench_programs(plan, device, programs: "set[str] | None" = None, progre
     cache = get_build_cache()
     say(f"warm: device={device} scale={plan.scale} batch={plan.sp_batch} chunk={plan.chunk} "
         f"sims={plan.sims} cache={cache.cache_dir}")
-    rows = [build_kernels(device)]
+    rows = [build_kernels(device, jobs)]
     say(f"warm: kernels: {rows[0]['status']} ({rows[0]['seconds']:.1f}s)")
     _, targets = plan_programs(plan, device)
     if programs:

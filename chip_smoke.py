@@ -7,7 +7,8 @@ Needs one CUDA card and the repository checkout around this file; exits
 non-zero, printing no result, without either. Phases, any failure of
 which exits non-zero:
 
-1. Prints the card (`nvidia-smi` name and power limit), the torch and
+1. Runs the lint preflight (`cli lint --json`, slice eighteen), prints
+   the card (`nvidia-smi` name and power limit), the torch and
    CUDA versions, and builds every kernel from `alphatriangle_tpu_torch/
    csrc/` (one `nvcc` per source, all started together).
 2. Kernels: at the flagship shapes of their paths each kernel must be
@@ -452,6 +453,23 @@ equal the card engine's; `NeuralNetwork.evaluate_batch` of six
 `GameState`s on the card at the flagship net equals `evaluate_state` of
 each within the bf16 forward's tolerance (0.05 on the policy, 0.2 + 0.1
 relative on the value).
+
+Slice eighteen. Before anything else, the lint preflight: `python -m
+alphatriangle_tpu_torch.cli lint --json` (torch-free, about a second)
+prints its verdict row, which must be clean (exit 0, no finding, no
+stale baseline entry). Then, in the mesh pair's rank processes after
+their two synchronous runs, each over a process group of its own,
+train-tp2-shared-async (MDL_SIZE=2) and train-sp2-shared-async
+(SP_SIZE=2, ring attention): the overlapped loop through `run_training`
+at the train default's widths, the block's first rank playing the 512
+lanes in 2 producer streams and its peer none, 3-move chunks of the
+configured length (no auto-tune), a replay ratio of 0.25, 2 learner
+steps. Both ranks must report the same steps, beats, losses and ring
+rows, the same gathered-parameter digest after every beat that trained,
+the search kernels 16 + 2 times a move of every chunk they played (none
+on the peer), no PER count (the host ring), and a checkpoint counting
+the playing rank's episodes; each rank prints its learner steps/s,
+queue depth, producer chunk p50 and beats.
 
 Depth cut for slice sixteen (widths unchanged): supervise-torn to step 6
 (was 8); the new phases run beside the drills and the dp phases, and
@@ -6752,6 +6770,18 @@ MESH_PHASES = {
 # head_dim); ring and Ulysses against dense at `tests/test_ring_attention.py`'s
 # tolerances (float32 inputs, float32 accumulation).
 ATTN_SHAPE = (256, 120, 4, 32)
+# Slice eighteen: the overlapped loop on the same two meshes, after the
+# synchronous runs, in the same rank processes, each over a group of its
+# own. The first rank of the (mdl, sp) block plays the dp row's 512 lanes
+# in 2 producer streams; the loop's main thread broadcasts each beat's
+# harvests to its peer, which plays nothing. The train default's widths,
+# cut in depth: 3-move chunks of the configured length (no auto-tune), a
+# replay ratio of 0.25 and 2 learner steps.
+ASYNC_MESH_PHASES = {
+    "train-tp2-shared-async": {"MDL_SIZE": 2},
+    "train-sp2-shared-async": {"SP_SIZE": 2, "SP_ATTENTION": "ring"},
+}
+ASYNC_MESH_STREAMS, ASYNC_MESH_RATIO, ASYNC_MESH_STEPS = 2, 0.25, 2
 ATTN_FWD_TOL, ATTN_GRAD_TOL = 2e-5, 5e-5
 ATTN_TIMED = 5
 
@@ -6898,6 +6928,36 @@ def mesh_rank_child(spec_path: str, rank: int) -> int:
         Path(spec["out"].format(label=label, rank=rank)).write_text(json.dumps(out))
         del loop
         torch.cuda.empty_cache()
+    for label, mesh_fields in ASYNC_MESH_PHASES.items():
+        dist_config = DistributedConfig(
+            ENABLED=True, COORDINATOR_ADDRESS=f"localhost:{spec['ports'][label]}", NUM_PROCESSES=2,
+            PROCESS_ID=rank, BACKEND="gloo",
+        )
+        cfg = loop_config(ASYNC_ROLLOUTS=True, NUM_SELF_PLAY_WORKERS=ASYNC_MESH_STREAMS,
+                          ROLLOUT_CHUNK_MOVES=MESH_CHUNK_MOVES, ASYNC_CHUNK_SECONDS=None,
+                          REPLAY_RATIO=ASYNC_MESH_RATIO, MAX_TRAINING_STEPS=ASYNC_MESH_STEPS, RUN_NAME=label)
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.time()
+        for kern in KERNELS.values():
+            kern.launches = 0
+        loop = run_training(cfg, persistence_config=run_dir(label), device="cuda",
+                            distributed_config=dist_config, mesh_config=MeshConfig(**mesh_fields),
+                            log_level="WARNING")
+        launches = {name: kern.launches for name, kern in KERNELS.items()}
+        if loop.status is not LoopStatus.COMPLETED or loop.global_step != ASYNC_MESH_STEPS:
+            fail(f"{label} rank {rank}: ended {loop.status.value} at step {loop.global_step} ({loop.error!r})")
+        check_losses(loop, f"{label} rank {rank}")
+        report = loop.report()
+        out = {
+            "rank": rank, "start_unix": t_start, "launches": launches,
+            "report": {k: report[k] for k in (
+                "dp", "iterations", "steps", "episodes", "lane_moves", "rows_ingested", "buffer_size",
+                "replay_ring", "chunk_moves", "harvests_by_stream", "queue_depth_max", "replay_ratio",
+                "peak_device_bytes", "losses", "timings")},
+        }
+        Path(spec["out"].format(label=label, rank=rank)).write_text(json.dumps(out))
+        del loop
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -6910,7 +6970,7 @@ def mesh_phases(torch) -> tuple:
     the mesh takes the host ring; the checkpoint's lane totals counting
     each lane once) and figures. Returns (reports by label, the pair's
     wall)."""
-    spec = {"ports": {label: free_port() for label in MESH_PHASES}, "root": str(RUN_ROOT),
+    spec = {"ports": {label: free_port() for label in [*MESH_PHASES, *ASYNC_MESH_PHASES]}, "root": str(RUN_ROOT),
             "out": str(RUN_ROOT / "{label}-rank{rank}.json")}
     spec_path = RUN_ROOT / "mesh.spec.json"
     spec_path.write_text(json.dumps(spec))
@@ -6925,7 +6985,7 @@ def mesh_phases(torch) -> tuple:
             procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
                                             str(spec_path), str(r)], cwd=ROOT, stdout=out, stderr=err,
                                            text=True), t_spawn))
-        deadline = time.monotonic() + 600
+        deadline = time.monotonic() + 900
         for proc, _ in procs:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
@@ -6992,7 +7052,79 @@ def mesh_phases(torch) -> tuple:
             "searched_moves": sum(rk["searched_moves"] for rk in ranks), "digests": ranks[0]["digests"],
             "checkpoint_episodes": meta["episodes_played"],
         }
+    for label, mesh_fields in ASYNC_MESH_PHASES.items():
+        reports[label] = async_mesh_report(label, mesh_fields, spec)
     return reports, wall_s
+
+
+def async_mesh_report(label: str, mesh_fields: dict, spec: dict) -> dict:
+    """One overlapped mesh run's checks over its two ranks: both at
+    ASYNC_MESH_STEPS in the same beats with the same losses, the
+    gathered-parameter digests equal after every beat that trained, the
+    same rows in both rings; the block's first rank played 512 lanes in
+    both streams and launched the search kernels 16 + 2 times a move of
+    every chunk it played, its peer none; no PER count (the host ring);
+    the checkpoint counts the player's episodes, each lane once."""
+    ranks = [json.loads(Path(spec["out"].format(label=label, rank=r)).read_text()) for r in range(2)]
+    reps = [rk["report"] for rk in ranks]
+    agreed = [(rep["steps"], rep["iterations"], rep["losses"], rep["rows_ingested"], rep["buffer_size"])
+              for rep in reps]
+    if agreed[0] != agreed[1] or reps[0]["steps"] != ASYNC_MESH_STEPS:
+        fail(f"{label}: (steps, beats, losses, rows, ring size) per rank differ or miss "
+             f"{ASYNC_MESH_STEPS} steps: {[a[:2] + a[3:] for a in agreed]}")
+    digests = reps[0]["dp"]["param_checksums"]
+    if not digests or digests != reps[1]["dp"]["param_checksums"]:
+        fail(f"{label}: digests differ or are missing: {digests} / {reps[1]['dp']['param_checksums']}")
+    out = []
+    for r, (rk, rep) in enumerate(zip(ranks, reps)):
+        plays = rep["dp"]["index"]["mdl"] == 0 and rep["dp"]["index"]["sp"] == 0
+        moves = rep["chunk_moves"]
+        want = {"gather_rows": 16 * moves, "backup_update": 2 * moves, "per_sample": 0, "subtree_promote": 0}
+        streams = {str(i) for i in range(ASYNC_MESH_STREAMS)} if plays else set()
+        if (rk["launches"] != want or bool(moves) != plays or set(rep["harvests_by_stream"]) != streams
+                or rep["replay_ring"] != "host" or rep["lane_moves"] % 512 or not rep["lane_moves"]):
+            fail(f"{label} rank {r}: launches {rk['launches']} over {moves} searched moves (want {want}), "
+                 f"harvests by stream {rep['harvests_by_stream']}, {rep['replay_ring']} ring, "
+                 f"{rep['lane_moves']} lane moves (512 lanes)")
+        t = rep["timings"]
+        out.append({
+            "rank": r, "index": rep["dp"]["index"], "plays": plays, "searched_moves": moves,
+            "launches": rk["launches"], "steps_per_s": t["learner_steps_per_s"], "run_s": t["run_s"],
+            "queue_depth_max": rep["queue_depth_max"], "beats": rep["iterations"],
+            "producer_chunk_ms_p50": None if t["producer_chunk_s_p50"] is None else t["producer_chunk_s_p50"] * 1e3,
+            "harvests_by_stream": rep["harvests_by_stream"], "replay_ratio": rep["replay_ratio"],
+            "rows": rep["rows_ingested"], "episodes": rep["episodes"],
+            "peak_gb": rep["peak_device_bytes"] / 2**30,
+        })
+    meta = json.loads((RUN_ROOT / label / "AlphaTriangleTPUTorch" / "runs" / label / "checkpoints"
+                       / f"step_{ASYNC_MESH_STEPS:08d}.meta.json").read_text())
+    player = next(rk for rk in out if rk["plays"])
+    if meta["episodes_played"] != player["episodes"]:
+        fail(f"{label}: the checkpoint counts {meta['episodes_played']} episodes, the playing rank "
+             f"{player['episodes']}")
+    return {
+        "backend": "gloo", "world": 2, "mesh": mesh_fields, "ranks": out, "digests": digests,
+        "launches": {k: out[0]["launches"][k] + out[1]["launches"][k] for k in out[0]["launches"]},
+        "searched_moves": sum(rk["searched_moves"] for rk in out),
+        "checkpoint_episodes": meta["episodes_played"],
+    }
+
+
+def say_async_mesh(label: str, r: dict, card: str) -> None:
+    for rk in r["ranks"]:
+        idx = rk["index"]
+        p50 = "n/a" if rk["producer_chunk_ms_p50"] is None else f"{rk['producer_chunk_ms_p50']:.1f} ms"
+        say(
+            f"{label} rank {rk['rank']} (gloo, mesh {r['mesh']}, index dp {idx['dp']} mdl {idx['mdl']} sp "
+            f"{idx['sp']}, {'plays 512 lanes in ' + str(ASYNC_MESH_STREAMS) + ' streams' if rk['plays'] else 'plays nothing'}, "
+            f"{rk['searched_moves']} searched moves): {rk['steps_per_s']:.3f} learner steps/s over "
+            f"{rk['run_s']:.1f} s; queue depth max {rk['queue_depth_max']}; producer chunk p50 {p50}; "
+            f"{rk['beats']} beats; harvests {rk['harvests_by_stream']}; {rk['rows']} rows; replay ratio "
+            f"{rk['replay_ratio']}; peak {rk['peak_gb']:.2f} GiB; launches {rk['launches']} [{card}]"
+        )
+    say(f"{label}: gathered-parameter digests equal on both ranks after each of the {len(r['digests'])} "
+        f"beats that trained {r['digests']}; the checkpoint counts {r['checkpoint_episodes']} episodes, the "
+        f"playing rank's")
 
 
 def say_mesh(label: str, r: dict, card: str) -> None:
@@ -7041,9 +7173,34 @@ def main() -> int:
         shutil.rmtree(RUN_ROOT, ignore_errors=True)
 
 
+def lint_preflight() -> dict:
+    """`cli lint --json` on the port's package, in a process of its own
+    (torch-free): its verdict row on a line of its own; fails unless the
+    verdict is clean (exit 0, no finding, no stale baseline entry, no
+    parse error)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "alphatriangle_tpu_torch.cli", "lint", "--json"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if not lines:
+        fail(f"lint preflight: exit {proc.returncode} and no verdict: {proc.stderr[-2000:]}")
+    say(lines[-1])
+    verdict = json.loads(lines[-1])
+    if (proc.returncode != 0 or verdict.get("schema") != "alphatriangle.lint.v1" or verdict["exit_code"] != 0
+            or verdict["findings"] or verdict["stale_baseline"] or verdict["parse_errors"]):
+        fail(f"lint preflight: exit {proc.returncode}, verdict not clean")
+    return {"seconds": seconds, **{k: verdict[k] for k in ("files_scanned", "suppressed", "baseline_path",
+                                                            "exit_code")}}
+
+
 def run_phases(torch) -> int:
     from alphatriangle_tpu_torch.ops import KERNELS
     from alphatriangle_tpu_torch.ops._cuda import build_all
+
+    lint = lint_preflight()
+    say(f"lint preflight: clean in {lint['seconds']:.2f} s ({lint['files_scanned']} files, "
+        f"{lint['suppressed']['pragma']} pragma-allowed, {lint['suppressed']['baseline']} baselined)")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7631,8 +7788,8 @@ def run_phases(torch) -> int:
     join_mesh()
     mesh_reports = mesh_out["reports"]
     for label, r in mesh_reports.items():
-        say_mesh(label, r, card)
-    say(f"{' and '.join(MESH_PHASES)} phases (one pair of ranks, beside the resume, doctor, readers and "
+        (say_async_mesh if label in ASYNC_MESH_PHASES else say_mesh)(label, r, card)
+    say(f"{' and '.join([*MESH_PHASES, *ASYNC_MESH_PHASES])} phases (one pair of ranks, beside the resume, doctor, readers and "
         f"reference phases): {mesh_out['seconds']:.1f} s")
     join_tune()
     join_play()
@@ -7665,6 +7822,8 @@ def run_phases(torch) -> int:
         "train_dp1": d1report, "train_dp2_shared": d2report, "train_dp2_shared_async": d2areport,
         "train_tp2_shared": mesh_reports["train-tp2-shared"],
         "train_sp2_shared": mesh_reports["train-sp2-shared"],
+        "train_tp2_shared_async": mesh_reports["train-tp2-shared-async"],
+        "train_sp2_shared_async": mesh_reports["train-sp2-shared-async"],
         "tune": tnreport, "train_tuned": tnreport["train"],
     }
     kernels_line = []
@@ -7708,7 +7867,7 @@ def run_phases(torch) -> int:
         "attention_memory": amreport, "empty_kernel_ms": empty_ms,
         "serve_stats": ssreport, "beacons": bnreport, "profile": pfreport,
         "doctor": dcreport, "readers": rdreport, "memory_plane": memplane, "play": plreport,
-        "card": card,
+        "lint": lint, "card": card,
     }))
     say(card)
     say("kernels: " + ", ".join(KERNELS) + ", beacon")

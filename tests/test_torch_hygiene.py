@@ -52,6 +52,9 @@ for slice_seventeen in ("autotune.space", "autotune.model", "autotune.search", "
                         "env.render", "env.native", "features.extractor", "utils.geometry",
                         "config.app_config"):
     assert "alphatriangle_tpu_torch." + slice_seventeen in names, slice_seventeen
+for slice_eighteen in ("analysis", "analysis.model", "analysis.dataflow", "analysis.baseline",
+                       "analysis.rules", "analysis.engine"):
+    assert "alphatriangle_tpu_torch." + slice_eighteen in names, slice_eighteen
 leaked = sorted(
     m for m in sys.modules if m.split(".")[0] in ("optax", "pydantic", "tensorboard", "tensorflow")
 )

@@ -6,9 +6,10 @@ counterpart.
 
 - `DistributedConfig` and `initialize_distributed` outside a group, as
   JAX `tests/test_distributed.py:30-46` holds its own; the backend rule
-  and the refusals: MDL_SIZE > 1, SP_SIZE > 1, `--distributed
-  --async-rollouts` (all naming ROADMAP.md item 6b), NCCL on the CPU and
-  ranks that share a card without naming gloo.
+  and the refusals: an mdl or sp axis the world cannot hold, NCCL on the
+  CPU and ranks that share a card without naming gloo. The overlapped
+  loop on an mdl or sp mesh takes the host ring and the dp row's lanes,
+  and plays on the first rank of each (mdl, sp) block alone.
 - The sharded ring's cases of JAX `tests/test_sharded_device_buffer.py`
   at dp = 2: the port's two shards (built side by side; without a
   process group a shard's collectives are the identity) against the JAX
@@ -68,7 +69,8 @@ from alphatriangle_tpu_torch.rl.device_buffer import DeviceReplayBuffer  # noqa:
 from alphatriangle_tpu_torch.rl.sharded_device_buffer import ShardedDeviceReplayBuffer  # noqa: E402
 from alphatriangle_tpu_torch import rng  # noqa: E402
 from alphatriangle_tpu_torch.rng import Lanes  # noqa: E402
-from alphatriangle_tpu_torch.training import setup_training_components  # noqa: E402
+from alphatriangle_tpu_torch.training import TrainingLoop, setup_training_components  # noqa: E402
+from alphatriangle_tpu_torch.training.setup import make_buffer, rank_lanes, row_plays  # noqa: E402
 from torch_parity import plain_jax_programs  # noqa: E402, F401 (autouse)
 from torch_parity import (  # noqa: E402
     CPU,
@@ -84,7 +86,6 @@ from torch_parity import (  # noqa: E402
 )
 
 DP = 2
-ITEM_6E = "ROADMAP.md item 6e"
 
 
 # --- membership, meshes and refusals -------------------------------------
@@ -169,19 +170,54 @@ class TestMesh:
             )
         assert not (tmp_path / "AlphaTriangleTPUTorch").exists()
 
-    def test_distributed_async_rollouts_refused(self, tmp_path, tiny_env_config):
-        """The overlapped loop runs on a dp-only mesh (`cli train
-        --distributed --async-rollouts`, tests/test_torch_async_dp.py);
-        on a mesh with an mdl or sp axis it raises, naming its ROADMAP.md
-        item, before the mesh is built or a directory made."""
+    def test_distributed_async_rollouts_take_the_host_ring(self, tmp_path, tiny_env_config):
+        """The overlapped loop on a mesh with an mdl or sp axis (two ranks in
+        tests/test_torch_async_mesh.py): setup takes the host ring where a
+        card would take the device ring and gives the dp row's whole lanes
+        to the first rank of each (mdl, sp) block, and the loop plays on that
+        rank alone. In one process the axis still asks for its 2 ranks,
+        before a directory is made."""
+        train = torch_cfg(JaxTrainConfig(
+            ASYNC_ROLLOUTS=True, RUN_NAME="async_mesh", SELF_PLAY_BATCH_SIZE=8, BATCH_SIZE=8,
+            BUFFER_CAPACITY=64, MIN_BUFFER_SIZE_TO_TRAIN=8,
+        ))
+        env_cfg = torch_cfg(tiny_env_config)
+        model_cfg = torch_cfg(small_model_config(tiny_env_config))
         for axis in ("MDL_SIZE", "SP_SIZE"):
-            with pytest.raises(ValueError, match=ITEM_6E):
+            with pytest.raises(ValueError, match="needs 2 ranks"):
                 setup_training_components(
-                    torch_cfg(JaxTrainConfig(ASYNC_ROLLOUTS=True, RUN_NAME="refused")),
-                    env_config=torch_cfg(tiny_env_config), persistence_config=run_root(tmp_path),
-                    device=CPU, mesh_config=MeshConfig(**{axis: 2}),
+                    train, env_config=env_cfg, persistence_config=run_root(tmp_path), device=CPU,
+                    mesh_config=MeshConfig(**{axis: 2}),
                 )
         assert not (tmp_path / "AlphaTriangleTPUTorch").exists()
+        extractor = SimpleNamespace(other_dim=model_cfg.OTHER_NN_INPUT_FEATURES_DIM)
+        for mesh in (Mesh(mdl=2, backend="gloo"), Mesh(dp=2, sp=2, backend="gloo")):
+            assert row_plays(mesh, train) and not row_plays(mesh, train.model_copy(update={"ASYNC_ROLLOUTS": False}))
+            ring = make_buffer(train, env_cfg, model_cfg, extractor, torch.device("cuda"), mesh)
+            assert type(ring) is ExperienceBuffer
+        # Lanes: the dp row's, on every rank of its block.
+        for sp_index in (0, 1):
+            mine = rank_lanes(Mesh(dp=2, dp_index=1, sp=2, sp_index=sp_index), 8, whole_row=True)
+            assert (mine.lo, mine.hi, mine.total) == (4, 8, 8)
+            shard = rank_lanes(Mesh(dp=2, dp_index=1, sp=2, sp_index=sp_index), 8)
+            assert (shard.lo, shard.hi) == (4 + 2 * sp_index, 6 + 2 * sp_index)
+        assert rank_lanes(Mesh(mdl=2, mdl_index=1), 8, whole_row=True) is None
+        c = setup_training_components(
+            train, env_config=env_cfg, model_config=model_cfg, persistence_config=run_root(tmp_path),
+            device=CPU,
+        )
+        try:
+            plays = {}
+            for index in ({"mdl_index": 0}, {"mdl_index": 1}, {"sp_index": 1}):
+                c.mesh = Mesh(mdl=2, sp=2, backend="gloo", **index)
+                loop = TrainingLoop(c)
+                assert loop._row_plays
+                plays[tuple(index.items())] = loop._plays
+            assert list(plays.values()) == [True, False, False]
+            c.mesh = Mesh(dp=2, backend="gloo", dp_index=1)
+            assert not TrainingLoop(c)._row_plays and TrainingLoop(c)._plays
+        finally:
+            c.stats.close()
 
     def test_batch_rows_and_state_shardings(self):
         mesh = Mesh(dp=2, dp_index=1)

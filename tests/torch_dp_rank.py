@@ -33,6 +33,11 @@ Scenarios:
 - `train`: `run_training` over the group with the spec's mesh (on
   `device`, default the CPU, over `backend`); the report, the rows
   of the ring's first add and the kernels' launch counts.
+- `async_mesh`: `train` of the overlapped loop on an mdl or sp mesh,
+  every fold recorded: the harvest's stream where this rank played it
+  (None on a rank that plays nothing), the learner step it was folded at
+  and its rows and episodes; with `state_dict`, every net the setup
+  builds loads it first.
 - `cli_train`: `cli train --distributed` in this process with the spec's
   `argv`, the rank's coordinator flags added; its exit code and the
   JSON report it prints. With `crash: {"rank": R, "after": N}` every
@@ -238,6 +243,39 @@ def train(spec, rank: int, world: int) -> dict:
             "launches": {name: kern.launches for name, kern in KERNELS.items()}}
 
 
+def async_mesh(spec, rank: int, world: int) -> dict:
+    from alphatriangle_tpu_torch.training import setup
+    from alphatriangle_tpu_torch.training.loop import TrainingLoop
+
+    if spec.get("state_dict"):
+        state = torch.load(spec["state_dict"], weights_only=True)
+        build = setup.NeuralNetwork
+
+        def loaded(*args, **kwargs):
+            net = build(*args, **kwargs)
+            net.model.load_state_dict(state)
+            return net
+
+        setup.NeuralNetwork = loaded
+    folds = []
+    fold = TrainingLoop._fold_result
+
+    def recording(self, result, trace=None, payload=None, ready=None, stream=None, added=None):
+        folds.append({"stream": stream, "step": self.global_step, **harvest_rows(result)})
+        return fold(self, result, trace, payload, ready, stream, added)
+
+    TrainingLoop._fold_result = recording
+    return {**train(spec, rank, world), "folds": folds}
+
+
+def harvest_rows(result) -> dict:
+    """A harvest's rows and episodes as numpy, for comparison."""
+    out = {name: np.array(getattr(result, name)) for name in (
+        "grid", "other_features", "policy_target", "value_target", "policy_weight")}
+    return {**out, "num_episodes": result.num_episodes, "episode_lengths": list(result.episode_lengths),
+            "episode_scores": [float(v) for v in result.episode_scores]}
+
+
 def cli_train(spec, rank: int, world: int) -> dict:
     import contextlib
     import io
@@ -287,6 +325,8 @@ def main() -> None:
     world = int(spec["world"])
     if spec["scenario"] == "train":
         out = train(spec, rank, world)
+    elif spec["scenario"] == "async_mesh":
+        out = async_mesh(spec, rank, world)
     elif spec["scenario"] == "cli_train":
         out = cli_train(spec, rank, world)
     else:
